@@ -9,19 +9,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 2. builds the CUDA kernels from ``lsqfitgp_torch/csrc`` and prints the
    build time;
 3. holds each kernel (A ``schur_update``, B ``syrk_t_full``, C ``gram``
-   with its backward) against its plain PyTorch version on the card, at
-   the main path's shapes, in float32 and float64, and times both with
-   CUDA events (median of 7 runs after one warm-up); the record keeps
-   the main path's dtype (float64 for B, float32 for A and C);
-4. fits ``amp * ExpQuad(scale)`` plus noise to n = 16384 points with
-   ``empbayes_fit`` in float32 (the main path), predicts at 64 points,
+   with its backward, D ``schur_update_gram``, E ``gram_sym`` with its
+   backward) against its plain PyTorch version on the card, at its
+   path's shapes, in float32 and float64, and times both with CUDA
+   events (median of a few runs after one warm-up), beside the bound
+   (the least time the card could take for the same work) and, where one
+   PyTorch call computes a superset of the work, that call's time; the
+   record keeps the path's dtype (float64 for B, float32 for the rest);
+4. the dense path: fits ``amp * ExpQuad(scale)`` plus noise to n = 16384
+   points with ``empbayes_fit`` in float32, predicts at 64 points,
    checks that kernels A, B and C were launched by that run, and holds
    the NLL and its gradient at the start point, at the fitted
    hyperparameters and at a worse-conditioned point, and the posterior
    mean at the fitted hyperparameters, against a plain float64
    computation with ``torch.linalg.cholesky`` (at the fit, through the
    shift of the optimum that the gradient's error implies);
-5. prints a JSON line of kernel records and, last, the device line.
+5. the streaming path: ``GP(solver='chol-stream')`` fitted by
+   ``empbayes_fit`` (3 BFGS iterations from the dense fit's MAP) to
+   n = 65536 points from numpy, a size whose dense Gram does not fit the
+   card, then
+   ``predfromdata``; checks that kernel D was launched and prints the
+   peak memory; then at n = 32768 holds the streaming NLL, gradient and
+   posterior mean against the float64 computation, as in 4;
+6. the halfmatrix path: one dense value+gradient at n = 16384 with
+   ``halfmatrix=True, gram='tiled'`` (kernel E) against the same with
+   ``halfmatrix=False``;
+7. prints a JSON line of kernel records and, last, the device line.
 
 Any failed check exits non-zero before the last line.
 """
@@ -35,9 +48,18 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-N = 16384          # the slice's size (see PERF.md, Cells)
+N = 16384          # the dense slice's size (see PERF.md, Cells)
+N_STREAM = 65536   # the streaming slice's size
+N_CHECK = 32768    # the streaming slice's float64 check
 NPRED = 64
 NOISE_VAR = 0.09   # 0.3**2, the data's noise
+SEED = 20261016
+
+# the card's peak rates (NVIDIA's H100 SXM data sheet, at 700 W): HBM
+# bandwidth, and FP32 (outside the tensor cores) and FP64 (tensor core)
+# operations
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {'float32': 67e12, 'float64': 67e12}
 
 
 def fail(msg):
@@ -51,7 +73,7 @@ def log(msg):
 
 def median_ms(fn, reps=7):
     """Median device time of ``fn()`` in ms, CUDA events, after one
-    warm-up."""
+    warm-up.  Each run's result is dropped before the next."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -70,6 +92,26 @@ def median_ms(fn, reps=7):
 def unit_roundoff(dtype):
     import torch
     return torch.finfo(dtype).eps / 2
+
+
+def bound(nbytes, ops, dtype):
+    """(ms, 'bytes' | 'operations'): the least time the card could take
+    to move ``nbytes`` and do ``ops`` operations of ``dtype``."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_OPS[str(dtype).split('.')[-1]] * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def record(err, ms, plain_ms, bound_ms_by, library_ms=None):
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1],
+                library_ms=library_ms)
+
+
+def lower_fraction(size, tile):
+    """Share of a (size, size) square in its i >= j tiles of edge tile."""
+    nt = size // tile
+    return nt * (nt + 1) / 2 / nt ** 2
 
 
 def check_close(what, got, ref, tol):
@@ -146,10 +188,23 @@ def kernel_schur(dtype, gen):
     mask = _syrk._tile_mask(size, tile, A.device)
     err = check_close(f'A schur_update {dtype}', got[mask], ref[mask],
                       tol[mask])
+    del got, ref, tol, Aa, Bv
     ms = median_ms(lambda: _syrk.schur_update(B, A, **args))
     plain_ms = median_ms(lambda: _syrk.schur_update_plain(B, A, **args))
-    log(f'  A {dtype}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms')
-    return err, ms, plain_ms
+    # the library call: one addmm on the full square of the scaled view
+    Bs = (B[offset:, offset:] * s[offset:, None] * s[None, offset:]
+          ).contiguous()
+    library_ms = median_ms(lambda: torch.addmm(Bs, A, A.T, alpha=-1))
+    del Bs
+    # useful work: the lower 512-tiles, 2h flops per entry; A read once,
+    # the view of B and the output's lower tiles once each
+    f = lower_fraction(size, tile)
+    isz = A.element_size()
+    bd = bound(isz * (size * h + 2 * f * size * size), 2 * f * size ** 2 * h,
+               dtype)
+    log(f'  A {dtype}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
+        f'addmm {library_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})')
+    return record(err, ms, plain_ms, bd, library_ms)
 
 
 def kernel_syrk(dtype, gen):
@@ -171,8 +226,14 @@ def kernel_syrk(dtype, gen):
     del got, ref, tol
     ms = median_ms(lambda: _syrk.syrk_t_full(W))
     plain_ms = median_ms(lambda: _syrk.syrk_t_full_plain(W))
-    log(f'  B {dtype}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms')
-    return err, ms, plain_ms
+    library_ms = median_ms(lambda: W.mT @ W)
+    # n³/3 flops (the lower output tiles over the nonzero rows of W); W's
+    # lower triangle read once, the full square written once
+    isz = W.element_size()
+    bd = bound(isz * (N * N / 2 + N * N), N ** 3 / 3, dtype)
+    log(f'  B {dtype}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
+        f'W.mT @ W {library_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})')
+    return record(err, ms, plain_ms, bd, library_ms)
 
 
 def kernel_gram(dtype, gen):
@@ -198,7 +259,11 @@ def kernel_gram(dtype, gen):
     ms = median_ms(lambda: gram('expquad', x, post=post, noise=noise))
     plain_ms = median_ms(
         lambda: gram_plain('expquad', x, post=post, noise=noise))
-    log(f'  C {dtype}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms')
+    # the output written once; per entry a difference, a square, the
+    # exp's argument, the exp and the amp: 5 operations
+    bd = bound(x.element_size() * (N * N + 2 * N), 5 * N * N, dtype)
+    log(f'  C {dtype}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
+        f'{bd[0]:.3f} ms ({bd[1]})')
 
     X8 = torch.randn(N // 2, 8, **kw)
     K = gram('expquad', X8, post=post)
@@ -244,15 +309,128 @@ def kernel_gram(dtype, gen):
                 math.ceil(math.log2(N * N)) * 4 * u * ta)
     check_close(f'C gram backward dnoise {dtype}', got[2], ref[2],
                 8 * math.sqrt(N) * u * G.diagonal().abs().sum())
-    return err, ms, plain_ms
+    return record(err, ms, plain_ms, bd)
+
+
+def kernel_schur_gram(dtype, gen):
+    """Kernel D at the top trailing update of the streaming factorization
+    (size = h = offset = n/2, float32 at n = 65536 as on the streaming
+    path; float64 at n = 32768, the size whose plain version's
+    temporaries fit the card): points on the path's scale, the smoke's
+    post chain, eps, and a ragged nreal (the last 300 rows are pad)."""
+    import torch
+    from lsqfitgp_torch.ops import _syrk
+    n = N_STREAM if dtype == torch.float32 else N_CHECK
+    size = h = offset = n // 2
+    tile = 512
+    nreal = n - 300
+    kw = dict(device='cuda', dtype=dtype, generator=gen)
+    X = (torch.rand(n, 1, **kw) - 0.5) * (400 * n / N_STREAM)
+    A = torch.randn(size, h, **kw) / math.sqrt(h)
+    amp = torch.tensor(1.3, device='cuda', dtype=dtype)
+    eps = torch.tensor(NOISE_VAR, device='cuda', dtype=dtype)
+    args = dict(post=(('mul', amp),), eps=eps, nreal=nreal, size=size,
+                offset=offset, tile=tile)
+    got = _syrk.schur_update_gram('expquad', X, A, **args)
+    ref = _syrk.schur_update_gram_plain('expquad', X, A, **args)
+    # tolerance: the kernel sums the h products into an accumulator that
+    # starts at the Gram entry, so each rounding is relative to a partial
+    # sum bounded by |K_ij + eps| + (|A||A|ᵀ)_ij: 4 sqrt(h) u times that
+    # (a probabilistic bound for sums taken in another order), plus
+    # 16 u (amp + eps) for the Gram entry itself (exp differs by a few
+    # ulps between the two implementations; r² is computed identically)
+    u = unit_roundoff(dtype)
+    Aa = A.abs()
+    tol = torch.mm(Aa, Aa.T).add_(1.3 + NOISE_VAR).mul_(
+        4 * math.sqrt(h) * u).add_(16 * u * (1.3 + NOISE_VAR))
+    del Aa
+    mask = _syrk._tile_mask(size, tile, A.device)
+    got.masked_fill_(~mask, 0)
+    del mask
+    err = check_close(f'D schur_update_gram n={n} {dtype}', got, ref, tol)
+    del got, ref, tol
+    reps = 3
+    ms = median_ms(lambda: _syrk.schur_update_gram('expquad', X, A, **args),
+                   reps)
+    plain_ms = median_ms(
+        lambda: _syrk.schur_update_gram_plain('expquad', X, A, **args), reps)
+    # useful work: the lower 512-tiles, 2h flops per entry (the in-tile
+    # Gram, ~5 operations per entry, is negligible beside it); A read
+    # once, the lower tiles written once
+    f = lower_fraction(size, tile)
+    bd = bound(A.element_size() * (size * h + f * size * size),
+               f * size * size * (2 * h + 5), dtype)
+    log(f'  D {dtype}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
+        f'{bd[0]:.3f} ms ({bd[1]}), '
+        f'{2 * f * size * size * h / ms / 1e9:.1f} TFLOP/s')
+    return record(err, ms, plain_ms, bd)
+
+
+def kernel_gram_sym(dtype, gen):
+    """Kernel E: the halfmatrix path's point block (n = 16384, p = 1, the
+    amp post chain) and a p = 8 block, each against the plain version,
+    and the backward against autograd of the plain version."""
+    import torch
+    from lsqfitgp_torch.ops import gram_sym, gram_sym_plain
+    u = unit_roundoff(dtype)
+    kw = dict(device='cuda', dtype=dtype, generator=gen)
+    x = (torch.rand(N, **kw) - 0.5) * 100
+    amp = torch.tensor(1.3, device='cuda', dtype=dtype)
+    post = (('mul', amp),)
+    K = gram_sym('expquad', x, post=post)
+    if not torch.equal(K, K.T):
+        fail(f'E gram_sym {dtype}: result not exactly symmetric')
+    Kp = gram_sym_plain('expquad', x, post=post)
+    # tolerance as for C
+    err = check_close(f'E gram_sym p=1 {dtype}', K, Kp,
+                      16 * u * float(Kp.abs().max()))
+    del K, Kp
+    ms = median_ms(lambda: gram_sym('expquad', x, post=post))
+    plain_ms = median_ms(lambda: gram_sym_plain('expquad', x, post=post))
+    # the full output written once (the mirror included), the operations
+    # of the upper half only
+    bd = bound(x.element_size() * (N * N + N), 5 * N * (N + 1) / 2, dtype)
+    log(f'  E {dtype}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
+        f'{bd[0]:.3f} ms ({bd[1]})')
+
+    X8 = torch.randn(N, 8, **kw)
+    K = gram_sym('expquad', X8, post=post)
+    Kp = gram_sym_plain('expquad', X8, post=post)
+    check_close(f'E gram_sym p=8 {dtype}', K, Kp,
+                16 * 9 * u * float(Kp.abs().max()))
+    del K, Kp, X8
+
+    # backward, with the tolerances of C's (x enters as both arguments)
+    G = torch.randn(N, N, **kw)
+    leaves = [x, amp]
+
+    def grads(fn):
+        xl, al = [t.detach().clone().requires_grad_() for t in leaves]
+        out = fn('expquad', xl, post=(('mul', al),))
+        return torch.autograd.grad(out, (xl, al), G)
+
+    got = grads(gram_sym)
+    ref = grads(gram_sym_plain)
+    with torch.no_grad():
+        D = x[:, None] - x[None, :]
+        g = torch.exp(-0.5 * D * D)
+        M = G.abs() * (0.5 * amp * g) * D.abs()
+        tx = 2 * (M.sum(1) + M.sum(0))
+        ta = (G.abs() * g).sum()
+        del D, g, M
+    check_close(f'E gram_sym backward dx {dtype}', got[0], ref[0],
+                8 * math.sqrt(N) * u * tx)
+    check_close(f'E gram_sym backward damp {dtype}', got[1], ref[1],
+                math.ceil(math.log2(N * N)) * 4 * u * ta)
+    return record(err, ms, plain_ms, bd)
 
 
 def kernel_phase():
     import torch
     records = []
-    gen = torch.Generator(device='cuda').manual_seed(20261016)
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
     f32, f64 = torch.float32, torch.float64
-    # each kernel's variants, the main path's first: its numbers go into
+    # each kernel's variants, its path's dtype first: its numbers go into
     # the record
     specs = [
         ('schur_update', kernel_schur, 'lsqfitgp_torch/csrc/syrk.cu',
@@ -261,33 +439,54 @@ def kernel_phase():
          'lsqfitgp_tpu/ops/_syrk.py:250', [f64, f32]),
         ('gram', kernel_gram, 'lsqfitgp_torch/csrc/gram.cu',
          'lsqfitgp_tpu/ops/_gram.py:68', [f32, f64]),
+        ('schur_update_gram', kernel_schur_gram,
+         'lsqfitgp_torch/csrc/syrk.cu', 'lsqfitgp_tpu/ops/_syrk.py:334',
+         [f32, f64]),
+        ('gram_sym', kernel_gram_sym, 'lsqfitgp_torch/csrc/gram.cu',
+         'lsqfitgp_tpu/ops/_gram.py:157', [f32, f64]),
     ]
     for name, fn, source, replaces, variants in specs:
         log(f'kernel {name}:')
-        err, ms, plain_ms = fn(variants[0], gen)
+        rec = fn(variants[0], gen)
         for v in variants[1:]:
+            torch.cuda.empty_cache()
             fn(v, gen)
         torch.cuda.empty_cache()
         records.append(dict(name=name, route='cuda', source=source,
-                            replaces=replaces, max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms))
+                            replaces=replaces, **rec))
     return records
 
 
 # -- slice phase ----------------------------------------------------------------
 
 def plain_nll64(x, y, log_scale, log_amp):
-    """Independent float64 reference of the objective's likelihood part:
-    dense K, ``torch.linalg.cholesky`` and autograd, no port code."""
+    """Independent float64 reference of the objective's likelihood part
+    and its gradient in (log scale, log amp): dense K,
+    ``torch.linalg.cholesky`` and the textbook gradient
+    ½ <K⁻¹ − α αᵀ, ∂K>, α = K⁻¹ y, with ∂K/∂log amp = amp E and
+    ∂K/∂log scale = amp E ∘ Δ²/scale², E = exp(−Δ²/(2 scale²)); no port
+    code.  Four float64 n × n buffers at the peak (autograd through the
+    same computation keeps about eight, too many at n = 32768)."""
     import torch
-    scale, amp = log_scale.exp(), log_amp.exp()
-    d = (x[:, None] - x[None, :]) / scale
-    K = amp * torch.exp(-0.5 * d * d)
+    scale, amp = math.exp(log_scale), math.exp(log_amp)
+    d2 = x[:, None] - x[None, :]
+    d2.mul_(d2).div_(scale * scale)
+    E = torch.exp(d2 * -0.5)
+    K = E * amp
     K.diagonal().add_(NOISE_VAR)
     L = torch.linalg.cholesky(K)
-    z = torch.linalg.solve_triangular(L, y[:, None], upper=False)[:, 0]
-    return 0.5 * (z @ z) + torch.log(L.diagonal()).sum() \
+    del K
+    z = torch.linalg.solve_triangular(L, y[:, None], upper=False)
+    nll = 0.5 * float(z.T @ z) + float(torch.log(L.diagonal()).sum()) \
         + 0.5 * len(x) * math.log(2 * math.pi)
+    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+    G = torch.cholesky_inverse(L)
+    del L
+    G.addr_(alpha, alpha, alpha=-1).mul_(E).mul_(0.5 * amp)
+    del E
+    g_amp = G.sum()
+    g_scale = (G * d2).sum()
+    return nll, torch.stack([g_scale, g_amp])
 
 
 def plain_mean64(x, y, xs, scale, amp):
@@ -301,11 +500,98 @@ def plain_mean64(x, y, xs, scale, amp):
     return k(x, xs).T @ torch.cholesky_solve(y[:, None], L)[:, 0]
 
 
+KERNELS = ['schur_update', 'syrk_t_full', 'gram', 'schur_update_gram',
+           'gram_sym']
+
+
+def reset_counts():
+    from lsqfitgp_torch import ops
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+
+
+def read_counts():
+    from lsqfitgp_torch import ops
+    return {name: getattr(ops, name).launches for name in KERNELS}
+
+
+def require_launched(counts, names, what):
+    for name in names:
+        if counts[name] == 0:
+            fail(f'kernel {name} was not launched during {what}')
+
+
+def check_points(n, value_grad32, cond_at, x64, y64, points):
+    """The port's float32 NLL and its gradient against the float64
+    reference (`plain_nll64`) at each (label, [log scale, log amp],
+    near_optimum) point; ``value_grad32(lp)`` is the port's NLL at the
+    float32 tensor lp, ``cond_at(ls, la)`` the float32 condition
+    estimate there."""
+    import torch
+    eps32 = torch.finfo(torch.float32).eps
+
+    def grad64(lp):
+        return plain_nll64(x64, y64, *lp)
+
+    for label, lpv, near_optimum in points:
+        lp = torch.tensor(lpv, dtype=torch.float32, device=x64.device,
+                          requires_grad=True)
+        nll32 = value_grad32(lp)
+        g32, = torch.autograd.grad(nll32, lp)
+        ls, la = lp.detach().tolist()
+        cond0 = cond_at(ls, la)
+        nll64, g64 = grad64([ls, la])
+        nll32 = float(nll32.detach())
+        dnll = abs(nll32 - nll64)
+        dg = g32.double() - g64
+        log(f'  {label} (log scale {ls:.6g}, log amp {la:.6g}): '
+            f'cond_estimate {cond0:.4g}; NLL port float32 {nll32:.8g}, '
+            f'plain float64 {nll64:.8g}, |diff| {dnll:.3e}')
+        log(f'    gradient: port float32 {g32.tolist()}, plain float64 '
+            f'{g64.tolist()}')
+        # tolerances.  NLL: the float32 path adds its eps = 4 eps32 dmax
+        # diagonal anchor (dmax the largest scaled diagonal), which
+        # shifts the NLL by eps tr(K_s⁻¹)/2 <= 2 eps32 n (amp + σ²)/σ²
+        # (since λmin(K) >= σ²), doubled for rounding.
+        if dnll > 4 * eps32 * n * (math.exp(la) + NOISE_VAR) / NOISE_VAR:
+            fail(f'{label}: NLL disagrees with the float64 reference')
+        if not near_optimum:
+            # gradient: forward error of float32 solves, ~cond eps32
+            # relative, with a factor 10 of margin
+            rel = float(dg.norm() / g64.norm())
+            log(f'    relative diff {rel:.3e} (limit '
+                f'{10 * cond0 * eps32:.3e})')
+            if rel > 10 * cond0 * eps32:
+                fail(f'{label}: gradient disagrees with the float64 '
+                     f'reference')
+            continue
+        # near an optimum the likelihood's gradient only balances the
+        # prior's and is small, so its relative error means little; what
+        # a fit shows is where its optimum lands.  The gradient error
+        # moves it by H⁻¹ dg, H the float64 posterior Hessian in the log
+        # parameters (central differences of the float64 gradient plus
+        # the N(0, 1) prior's identity): that must stay under a tenth of
+        # the posterior standard deviation.
+        h = 1e-3
+        H = torch.stack([
+            (grad64([ls + h * (k == 0), la + h * (k == 1)])[1]
+             - grad64([ls - h * (k == 0), la - h * (k == 1)])[1]) / (2 * h)
+            for k in range(2)], 1)
+        Hinv = torch.linalg.inv(0.5 * (H + H.T)
+                                + torch.eye(2, dtype=H.dtype,
+                                            device=H.device))
+        shift = (Hinv @ dg).abs() / Hinv.diagonal().sqrt()
+        log(f'    optimum shift from the gradient error: {shift.tolist()} '
+            f'posterior sdev (limit 0.1); float64 posterior sdev '
+            f'{Hinv.diagonal().sqrt().tolist()}')
+        if not bool((shift <= 0.1).all()):
+            fail(f'{label}: the gradient error moves the optimum too far')
+
+
 def slice_phase(dev='cuda'):
     import numpy as np
     import torch
     import lsqfitgp_torch as lgp
-    from lsqfitgp_torch import ops
 
     def sync():
         if dev == 'cuda':
@@ -329,34 +615,30 @@ def slice_phase(dev='cuda'):
         return gp.addlintransf(lambda f, e: f + e, ['f', 'e'], 'y')
 
     hyperprior = {'log(scale)': (0., 1.), 'log(amp)': (0., 1.)}
-    counters = [ops.schur_update, ops.syrk_t_full, ops.gram]
 
-    log(f'slice: n = {N}, float32, amp * ExpQuad(scale) + '
+    log(f'dense slice: n = {N}, float32, amp * ExpQuad(scale) + '
         f'{NOISE_VAR} I, gram=tiled')
-    for c in counters:
-        c.launches = 0
     sync()
+    reset_counts()
     t0 = time.perf_counter()
     fit = lgp.empbayes_fit(hyperprior, gpfactory, {'y': yt},
                            minkw={'maxiter': 50}, raises=True)
     sync()
     wall = time.perf_counter() - t0
-    fit_launches = [c.launches for c in counters]
+    fit_launches = read_counts()
     gp = fit.gp().addx(xst, 'pred')
     post = gp.predfromdata({'y': yt}, 'pred')
     mean = post.mean
     sync()
-    launches = [c.launches for c in counters]
+    launches = read_counts()
     log(f'  fit: {wall:.2f} s wall, {fit.minresult.nit} BFGS iterations, '
         f'{len(fit.evaltimes)} evaluations, median '
         f'{statistics.median(fit.evaltimes) * 1e3:.1f} ms per evaluation '
         f'(value + gradient)')
-    log(f'  launches during the fit (A, B, C): {fit_launches}; fit + '
+    log(f'  launches during the fit: {fit_launches}; fit + '
         f'predfromdata: {launches}')
-    for name, k in zip(['schur_update', 'syrk_t_full', 'gram'],
-                       fit_launches):
-        if k == 0:
-            fail(f'kernel {name} was not launched during the fit')
+    require_launched(fit_launches, ['schur_update', 'syrk_t_full', 'gram'],
+                     'the dense fit')
     scale = float(fit.pmean['scale'])
     amp = float(fit.pmean['amp'])
     log(f'  fitted scale {scale:.6g}, amp {amp:.6g}; pmean '
@@ -379,71 +661,22 @@ def slice_phase(dev='cuda'):
     y64 = yt.double()
     eps32 = torch.finfo(f32).eps
 
-    def grad64(lp):
-        lp64 = torch.tensor(lp, dtype=torch.float64, device=dev,
-                            requires_grad=True)
-        nll64 = plain_nll64(x64, y64, lp64[0], lp64[1])
-        g64, = torch.autograd.grad(nll64, lp64)
-        return float(nll64.detach()), g64
+    def value_grad32(lp):
+        gp0 = gpfactory({'scale': lp[0].exp(), 'amp': lp[1].exp()})
+        return -gp0.marginal_likelihood({'y': yt})
+
+    def cond_at(ls, la):
+        with torch.no_grad():
+            gp0 = gpfactory({'scale': torch.tensor(math.exp(ls)),
+                             'amp': torch.tensor(math.exp(la))})
+            return float(lgp.linalg.Chol(gp0.prior('y', raw=True))
+                         .cond_estimate)
 
     fitted = [math.log(scale), math.log(amp)]
-    points = [('start point', [0., 0.]), ('fitted point', fitted),
-              ('ill-conditioned point', [1.05, 2.44])]
-    for label, lpv in points:
-        lp = torch.tensor(lpv, dtype=f32, device=dev, requires_grad=True)
-        gp0 = gpfactory({'scale': lp[0].exp(), 'amp': lp[1].exp()})
-        nll32 = -gp0.marginal_likelihood({'y': yt})
-        g32, = torch.autograd.grad(nll32, lp)
-        with torch.no_grad():
-            cond0 = float(lgp.linalg.Chol(gp0.prior('y', raw=True))
-                          .cond_estimate)
-        del gp0
-        ls, la = lp.detach().tolist()
-        nll64, g64 = grad64([ls, la])
-        nll32 = float(nll32.detach())
-        dnll = abs(nll32 - nll64)
-        dg = g32.double() - g64
-        log(f'  {label} (log scale {ls:.6g}, log amp {la:.6g}): '
-            f'cond_estimate {cond0:.4g}; NLL port float32 {nll32:.8g}, '
-            f'plain float64 {nll64:.8g}, |diff| {dnll:.3e}')
-        log(f'    gradient: port float32 {g32.tolist()}, plain float64 '
-            f'{g64.tolist()}')
-        # tolerances.  NLL: the float32 path adds its eps = 4 eps32 dmax
-        # diagonal anchor (dmax the largest scaled diagonal), which
-        # shifts the NLL by eps tr(K_s⁻¹)/2 <= 2 eps32 n (amp + σ²)/σ²
-        # (since λmin(K) >= σ²), doubled for rounding.
-        if dnll > 4 * eps32 * N * (math.exp(la) + NOISE_VAR) / NOISE_VAR:
-            fail(f'{label}: NLL disagrees with the float64 reference')
-        if label != 'fitted point':
-            # gradient: forward error of float32 solves, ~cond eps32
-            # relative, with a factor 10 of margin
-            rel = float(dg.norm() / g64.norm())
-            log(f'    relative diff {rel:.3e} (limit '
-                f'{10 * cond0 * eps32:.3e})')
-            if rel > 10 * cond0 * eps32:
-                fail(f'{label}: gradient disagrees with the float64 '
-                     f'reference')
-            continue
-        # at the fit the likelihood's gradient only balances the prior's
-        # and is small, so its relative error means little; what a fit
-        # shows is where its optimum lands.  The gradient error moves it
-        # by H⁻¹ dg, H the float64 posterior Hessian in the log
-        # parameters (central differences of the float64 gradient plus
-        # the N(0, 1) prior's identity): that must stay under a tenth of
-        # the posterior standard deviation.
-        h = 1e-3
-        H = torch.stack([
-            (grad64([ls + h * (k == 0), la + h * (k == 1)])[1]
-             - grad64([ls - h * (k == 0), la - h * (k == 1)])[1]) / (2 * h)
-            for k in range(2)], 1)
-        Hinv = torch.linalg.inv(0.5 * (H + H.T)
-                                + torch.eye(2, dtype=H.dtype, device=dev))
-        shift = (Hinv @ dg).abs() / Hinv.diagonal().sqrt()
-        log(f'    optimum shift from the gradient error: {shift.tolist()} '
-            f'posterior sdev (limit 0.1); float64 posterior sdev '
-            f'{Hinv.diagonal().sqrt().tolist()}')
-        if not bool((shift <= 0.1).all()):
-            fail(f'{label}: the gradient error moves the optimum too far')
+    check_points(N, value_grad32, cond_at, x64, y64,
+                 [('start point', [0., 0.], False),
+                  ('fitted point', fitted, True),
+                  ('ill-conditioned point', [1.05, 2.44], False)])
 
     # posterior mean at the fitted hyperparameters
     with torch.no_grad():
@@ -455,7 +688,268 @@ def slice_phase(dev='cuda'):
         fail('posterior mean not finite or of the wrong shape')
     if dmean > 10 * cond * eps32 * float(ref.abs().max()):
         fail('posterior mean disagrees with the float64 reference')
-    return launches
+    return launches, fitted
+
+
+# -- streaming and halfmatrix phases ------------------------------------------
+
+def stream_data(n):
+    """The streaming slice's data: x uniform with the point density of
+    the dense slice (n = 65536 on [-200, 200]), y = sin(x) + noise."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    half = 200 * n / N_STREAM
+    x = rng.uniform(-half, half, n)
+    y = np.sin(x) + math.sqrt(NOISE_VAR) * rng.standard_normal(n)
+    return x, y, np.linspace(-1.05 * half, 1.05 * half, NPRED)
+
+
+def stream_gp(hp):
+    import lsqfitgp_torch as lgp
+    k = hp['amp'] * lgp.ExpQuad(scale=hp['scale']) \
+        + NOISE_VAR * lgp.White()
+    return lgp.GP(k, solver='chol-stream', block=512, b1=128)
+
+
+def stream_phase(start, dev='cuda'):
+    """The streaming slice at n = 65536 from numpy inputs: a 3-iteration
+    fit and predfromdata; returns the launch counts and the end point.
+
+    The fit starts from ``start``, the dense slice's MAP on a quarter of
+    the span at the same point density, as a user warm-starts a large
+    fit from a subset's.  From the prior mean, 3 BFGS iterations took 61
+    evaluations (9 s each) and ended at an ill-conditioned point
+    (PERF.md, Findings)."""
+    import torch
+    import lsqfitgp_torch as lgp
+    cuda = dev == 'cuda'
+    torch.set_default_dtype(torch.float32)
+    x, y, xs = stream_data(N_STREAM)
+    hyperprior = {'log(scale)': (0., 1.), 'log(amp)': (0., 1.)}
+    log(f'streaming slice: n = {N_STREAM}, float32, amp * ExpQuad(scale) + '
+        f'{NOISE_VAR} * White(), solver=chol-stream, block=512, b1=128, '
+        f'from log scale {start[0]:.6g}, log amp {start[1]:.6g}')
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    fit = lgp.empbayes_fit(hyperprior, lambda hp: stream_gp(hp).addx(x, 'f'),
+                           {'f': y}, initial=start, minkw={'maxiter': 3},
+                           raises=False)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fit_counts = read_counts()
+    peak_fit = torch.cuda.max_memory_allocated() if cuda else 0
+    gp = fit.gp().addx(xs, 'pred')
+    devices = {gp._elements['f'].x.device.type, fit.pmean.buf.device.type}
+    if devices != {dev}:
+        fail(f'the streaming model is not on the {dev}: {devices}')
+    t1 = time.perf_counter()
+    mean = gp.predfromdata({'f': y}, 'pred').mean
+    if cuda:
+        torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t1
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    total = torch.cuda.get_device_properties(0).total_memory if cuda else 0
+    ev = fit.evaltimes
+    log(f'  fit: {wall:.2f} s wall, {fit.minresult.nit} BFGS iterations, '
+        f'{len(ev)} evaluations, {statistics.median(ev):.3f} s median per '
+        f'value + gradient (each: {[round(t, 3) for t in ev]})')
+    log(f'  predfromdata at {NPRED} points: {pred_s:.3f} s')
+    log(f'  peak memory: fit {peak_fit / 2**30:.2f} GiB '
+        f'({peak_fit / N_STREAM**2:.2f} B/n²), fit + predfromdata '
+        f'{peak / 2**30:.2f} GiB, of {total / 2**30:.2f} GiB')
+    log(f'  launches during the fit: {fit_counts}; fit + predfromdata: '
+        f'{counts}')
+    require_launched(fit_counts, ['schur_update_gram', 'schur_update',
+                                  'gram'], 'the streaming fit')
+    if not bool(torch.isfinite(mean).all()) or mean.shape != (NPRED,):
+        fail('streaming posterior mean not finite or of the wrong shape')
+    end = [math.log(float(fit.pmean['scale'])),
+           math.log(float(fit.pmean['amp']))]
+    log(f'  end point: log scale {end[0]:.6g}, log amp {end[1]:.6g}; '
+        f'pcov {fit.pcov.tolist()}')
+
+    # where one value+gradient's time goes at the end point, as in the
+    # fit (checks off): forward and backward on the host clock, then the
+    # device time by kernel under torch.profiler
+    def value_grad():
+        lp = torch.tensor(end, device=dev, requires_grad=True)
+        with lgp.disable_checks():
+            gp = stream_gp({'scale': lp[0].exp(), 'amp': lp[1].exp()})
+            nll = -gp.addx(x, 'f').marginal_likelihood({'f': y})
+        if cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        torch.autograd.grad(nll, lp)
+        if cuda:
+            torch.cuda.synchronize()
+        return t
+
+    t0 = time.perf_counter()
+    t1 = value_grad()
+    t2 = time.perf_counter()
+    log(f'  one value+gradient at the end point: forward {t1 - t0:.3f} s, '
+        f'backward {t2 - t1:.3f} s')
+    if cuda:
+        profile_phase(value_grad)
+    return counts, end
+
+
+def profile_phase(fn, top=12):
+    """Device time by kernel of one ``fn()`` under torch.profiler, and the
+    device's busy share of the host wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        # the kernels themselves (device events), not the host operators
+        # that launched them, whose device time is the same time again
+        if 'CUDA' not in str(getattr(e, 'device_type', '')):
+            continue
+        dev_us = getattr(e, 'self_device_time_total',
+                         getattr(e, 'self_cuda_time_total', 0))
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f'  profile: host {wall * 1e3:.1f} ms (under the profiler), device '
+        f'busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f} %)')
+    for ms, count, name in rows[:top]:
+        log(f'    {ms:10.1f} ms {100 * ms / max(busy, 1e-9):5.1f} % '
+            f'x{count:<6d} {name[:90]}')
+
+
+def stream_check_phase(end, dev='cuda'):
+    """The streaming NLL, gradient and posterior mean at n = 32768 against
+    the independent float64 computation, at the start point, at the
+    streaming fit's end point and at the worse-conditioned point."""
+    import torch
+    import lsqfitgp_torch as lgp
+    f32 = torch.float32
+    x, y, xs = stream_data(N_CHECK)
+    # the reference sees the data as the float32 model does (rounded to
+    # float32), as the dense slice's checks do, so that the comparison
+    # measures the computation and not the rounding of the coordinates
+    x64 = torch.as_tensor(x, dtype=f32, device=dev).double()
+    y64 = torch.as_tensor(y, dtype=f32, device=dev).double()
+    log(f'streaming check: n = {N_CHECK} against float64')
+
+    def hp(lp):
+        return {'scale': lp[0].exp(), 'amp': lp[1].exp()}
+
+    def value_grad32(lp):
+        return -stream_gp(hp(lp)).addx(x, 'f').marginal_likelihood({'f': y})
+
+    def cond_at(ls, la):
+        # the dense float32 matrix's condition estimate (lsqfitgp_torch's
+        # Chol), as the dense slice's checks use
+        with torch.no_grad():
+            xt = torch.as_tensor(x, dtype=f32, device=dev)
+            d = (xt[:, None] - xt[None, :]) / math.exp(ls)
+            K = math.exp(la) * torch.exp(-0.5 * d * d)
+            del d
+            K.diagonal().add_(NOISE_VAR)
+            return float(lgp.linalg.Chol(K).cond_estimate)
+
+    check_points(N_CHECK, value_grad32, cond_at, x64, y64,
+                 [('start point', [0., 0.], False),
+                  ('end point of the n = 65536 fit', end, True),
+                  ('ill-conditioned point', [1.05, 2.44], False)])
+
+    # the dense float32 path on the same data at the ill-conditioned
+    # point, for comparison (no limit: it shows how much of the
+    # streaming gradient's error the float32 model has on either path)
+    lp = torch.tensor([1.05, 2.44], dtype=f32, device=dev,
+                      requires_grad=True)
+    noise = NOISE_VAR * torch.eye(N_CHECK, dtype=f32, device=dev)
+    gp = lgp.GP(lp[1].exp() * lgp.ExpQuad(scale=lp[0].exp()), gram='tiled')
+    gp = gp.addx(x, 'f').addcov(noise, 'e')
+    gp = gp.addlintransf(lambda f, e: f + e, ['f', 'e'], 'y')
+    g32, = torch.autograd.grad(-gp.marginal_likelihood({'y': y}), lp)
+    del gp, noise
+    g64 = plain_nll64(x64, y64, 1.05, 2.44)[1]
+    log(f'  dense float32 path at the ill-conditioned point: gradient '
+        f'{g32.tolist()}, relative diff '
+        f'{float((g32.double() - g64).norm() / g64.norm()):.3e}')
+    lp = torch.tensor(end, dtype=f32, device=dev)
+    gp = stream_gp(hp(lp)).addx(x, 'f').addx(xs, 'pred')
+    mean = gp.predfromdata({'f': y}, 'pred').mean
+    cond = cond_at(*end)
+    eps32 = torch.finfo(f32).eps
+    with torch.no_grad():
+        xs64 = torch.as_tensor(xs, dtype=f32, device=dev).double()
+        ref = plain_mean64(x64, y64, xs64, math.exp(end[0]),
+                           math.exp(end[1]))
+    dmean = float((mean.double() - ref).abs().max())
+    log(f'  posterior mean at {NPRED} points: max |port - float64| '
+        f'{dmean:.3e}, max |mean| {float(ref.abs().max()):.4g}, limit '
+        f'{10 * cond * eps32 * float(ref.abs().max()):.3e}')
+    if not bool(torch.isfinite(mean).all()) or mean.shape != (NPRED,):
+        fail('streaming posterior mean not finite or of the wrong shape')
+    if dmean > 10 * cond * eps32 * float(ref.abs().max()):
+        fail('streaming posterior mean disagrees with the float64 '
+             'reference')
+
+
+def halfmatrix_phase(dev='cuda'):
+    """One dense value+gradient at n = 16384 with halfmatrix=True and
+    gram='tiled' (kernel E) against the same with halfmatrix=False."""
+    import numpy as np
+    import torch
+    import lsqfitgp_torch as lgp
+    f32 = torch.float32
+    torch.set_default_dtype(f32)
+    rng = np.random.default_rng(SEED)
+    x = rng.uniform(-50, 50, N)
+    y = np.sin(x) + math.sqrt(NOISE_VAR) * rng.standard_normal(N)
+    noise = NOISE_VAR * torch.eye(N, dtype=f32, device=dev)
+    log(f'halfmatrix: n = {N}, float32, the dense slice\'s model at log '
+        f'scale 0, log amp 0')
+    out = {}
+    for hm in (False, True):
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        lp = torch.zeros(2, dtype=f32, device=dev, requires_grad=True)
+        gp = lgp.GP(lp[1].exp() * lgp.ExpQuad(scale=lp[0].exp()),
+                    gram='tiled', halfmatrix=hm)
+        gp = gp.addx(x, 'f').addcov(noise, 'e')
+        gp = gp.addlintransf(lambda f, e: f + e, ['f', 'e'], 'y')
+        nll = -gp.marginal_likelihood({'y': y})
+        g, = torch.autograd.grad(nll, lp)
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+        out[hm] = (float(nll.detach()), g.double(),
+                   time.perf_counter() - t0, read_counts())
+        del gp, nll
+        log(f'  halfmatrix={hm}: NLL {out[hm][0]:.8g}, gradient '
+            f'{g.tolist()}, {out[hm][2]:.3f} s, launches {out[hm][3]}')
+    require_launched(out[True][3], ['gram_sym'], 'the halfmatrix run')
+    if out[False][3]['gram_sym']:
+        fail('kernel E launched with halfmatrix=False')
+    # kernel E writes the same entries as kernel C (r² is symmetric in
+    # its arguments), so the NLL is identical; the gradients differ by
+    # the order of the backward's sums of n² float32 terms: a relative
+    # 1e-3 is ~15 times the depth-28 reduction tree's 4 u per level
+    if out[True][0] != out[False][0]:
+        fail('halfmatrix NLL differs from the full evaluation')
+    rel = float((out[True][1] - out[False][1]).norm() / out[False][1].norm())
+    log(f'  gradient relative difference {rel:.3e} (limit 1e-3)')
+    if rel > 1e-3:
+        fail('halfmatrix gradient differs from the full evaluation')
+    return out[True][3]
 
 
 def main():
@@ -470,12 +964,28 @@ def main():
     build()
     records = kernel_phase()
     torch.cuda.empty_cache()
-    launches = slice_phase()
-    for rec, k in zip(records, launches):
-        rec['launches'] = k
+    paths = {}
+    paths['dense'], fitted = slice_phase()
+    log(f'elapsed {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    paths['stream'], end = stream_phase(fitted)
+    log(f'elapsed {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    stream_check_phase(end)
+    log(f'elapsed {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    paths['halfmatrix'] = halfmatrix_phase()
+    # each kernel's launches are those of its own path's run
+    own = {'schur_update': 'dense', 'syrk_t_full': 'dense', 'gram': 'dense',
+           'schur_update_gram': 'stream', 'gram_sym': 'halfmatrix'}
+    for rec in records:
+        rec['launches'] = paths[own[rec['name']]][rec['name']]
+        rec['launches_by_path'] = {p: c[rec['name']]
+                                   for p, c in paths.items()}
     log(f'total {time.perf_counter() - t0:.1f} s')
     keys = ['name', 'route', 'source', 'replaces', 'launches',
-            'max_abs_err', 'ms', 'plain_ms']
+            'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+            'library_ms', 'launches_by_path']
     print(json.dumps({'kernels': [{k: r[k] for k in keys}
                                   for r in records]}))
     print(json.dumps({'ok': True, 'device': {

@@ -7,18 +7,24 @@ This version carries the hyperparameter-fit path: ``GP(amp *
 ExpQuad(scale=...))`` with points, explicit noise covariance and linear
 transformations, the regularized blocked Cholesky with the fused
 marginal likelihood and its hand-derived gradient, ``empbayes_fit``
-with scipy BFGS, and ``predfromdata``.  Three kernels are hand-written
-CUDA for ``sm_90a`` (``ops``): the Schur update of the factorization,
-the gradient's WᵀW and the tiled Gram.  On CPU tensors each runs its
+with scipy BFGS, and ``predfromdata``; the streaming solver
+(``GP(solver='chol-stream')``), which never forms the Gram matrix; and
+``GP(halfmatrix=True)``.  Five kernels are hand-written CUDA for
+``sm_90a`` (``ops``): the Schur update of the factorization, the same
+with the Gram computed in the tile, the gradient's WᵀW, and the tiled
+Gram in full and on the upper triangle.  On CPU tensors each runs its
 plain PyTorch version.
+
+Array-likes go to the CUDA card unless the caller asks for another
+device (`set_default_device`, `using_device`).
 
 The package imports ``torch`` and never ``jax``.
 """
 
 __version__ = '0.1.0'
 
-from ._config import (default_float, default_device, disable_checks,
-                      set_checks)
+from ._config import (default_float, default_device, set_default_device,
+                      using_device, disable_checks, set_checks)
 from ._deriv import Deriv
 
 from . import linalg

@@ -6,6 +6,11 @@ PyTorch's default dtype (float32 unless the caller sets float64 with
 array-likes entering the package become tensors of that dtype, while
 tensors keep their own dtype and device.
 
+Array-likes are placed on the CUDA card unless the caller asks for
+another device with `set_default_device` or `using_device` (the tests
+ask for the CPU).  Without a card and without such a request the first
+placement raises: the package never computes on the CPU unasked.
+
 Matrix products in float32 on CUDA are set to IEEE fp32 here
 (``torch.backends.cuda.matmul.allow_tf32 = False``, and the same for
 cuDNN): the blocked Cholesky's panel products and the plain reference
@@ -19,8 +24,8 @@ import threading
 
 import torch
 
-__all__ = ['default_float', 'default_device', 'checks_enabled',
-           'disable_checks', 'set_checks']
+__all__ = ['default_float', 'default_device', 'set_default_device',
+           'using_device', 'checks_enabled', 'disable_checks', 'set_checks']
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -31,9 +36,41 @@ def default_float():
     return torch.get_default_dtype()
 
 
+# the device asked for with set_default_device / using_device, or None
+_device = None
+
+
 def default_device():
-    """Where array-likes that are not tensors are placed."""
-    return torch.get_default_device()
+    """Where array-likes that are not tensors are placed: the device the
+    caller asked for, else the CUDA card.  Raises when there is neither
+    a request nor a card."""
+    if _device is not None:
+        return _device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            'lsqfitgp_torch runs on the CUDA card, and torch sees none; '
+            "to compute on the CPU, ask for it with "
+            "lsqfitgp_torch.set_default_device('cpu') (or the "
+            "lsqfitgp_torch.using_device('cpu') context manager)")
+    return torch.device('cuda')
+
+
+def set_default_device(device):
+    """Place array-likes on ``device`` from now on (None: back to the
+    CUDA card).  Tensors keep their own device."""
+    global _device
+    _device = None if device is None else torch.device(device)
+
+
+@contextlib.contextmanager
+def using_device(device):
+    """`set_default_device` for the duration of a ``with`` block."""
+    old = _device
+    set_default_device(device)
+    try:
+        yield
+    finally:
+        set_default_device(old)
 
 
 class _State(threading.local):

@@ -6,25 +6,45 @@
 // row-major matrix, never copied.  It replaces the TPU kernel
 // lsqfitgp_tpu/ops/_syrk.py::_schur_kernel.
 //
+// Kernel D, schur_update_gram: the lower tiles of
+//     S = K[off:off+size, off:off+size] + eps I - A A^T
+// where K[i, j] = post(g(|X_i - X_j|^2)) is computed in the tile from
+// the points, so the Gram block never exists in device memory.  The
+// virtual matrix is exactly blockdiag(K, I): by GLOBAL index, entries
+// with a row or column >= nreal are 0 off the diagonal and 1 on it, and
+// eps lands only on the real diagonal.  It replaces both TPU call sites
+// lsqfitgp_tpu/ops/_syrk.py::_schur_gram_kernel and _schur_gram_kernel2
+// (the second exists only because the TPU's 1 MB scalar memory cannot
+// hold the flat work table at n = 65536; here each block finds its own
+// tile from blockIdx, so one kernel serves both).  r^2 is the direct sum
+// of squared differences (profiles.cuh), not the TPU kernels'
+// per-tile-pair centered norm expansion: exact at p = 1, relative error
+// ~p u at p > 1 whatever the coordinates' offset.
+//
 // Kernel B, syrk_t_full: the full symmetric W^T W of a lower-triangular
 // W, computed on the lower output tiles only, skipping the rows of W
 // that are zero above its diagonal, and mirrored into the upper tiles by
 // the kernel itself.  It replaces lsqfitgp_tpu/ops/_syrk.py::_syrk_t_kernel.
 //
-// Bound on the H100: both are matrix products with a deep k-loop, so the
-// fp32 (or fp64) FMA rate bounds them, not memory.  The design is the
-// classic register-blocked shared-memory product: a 128 x 128 output
-// tile per block of 256 threads, each thread owning an 8 x 8 micro-tile
-// strided by 16 (so shared-memory reads and global writes of a warp are
-// contiguous), the k-loop inside the block in slabs of 8.  Accumulation
-// is IEEE fp32 (or fp64) FMA: no tensor cores, no TF32.  Blocks that
-// would compute a tile above the diagonal exit at once; the grid is the
-// full square of tiles and every block computes its own (i, j) from
-// blockIdx.  No library routine is called and nothing is allocated.
+// Bound on the H100: all three are matrix products with a deep k-loop,
+// so the fp32 (or fp64) FMA rate bounds them, not memory (D's tile
+// initialization, one exp per entry, is negligible beside a k-loop of
+// depth >= 512).  The design is the classic register-blocked
+// shared-memory product: a 128 x 128 output tile per block of 256
+// threads, each thread owning an 8 x 8 micro-tile strided by 16 (so
+// shared-memory reads and global writes of a warp are contiguous), the
+// k-loop inside the block in slabs of 8.  A and D are one kernel
+// templated on the tile's initializer.  Accumulation is IEEE fp32 (or
+// fp64) FMA: no tensor cores, no TF32.  Blocks that would compute a tile
+// above the diagonal exit at once; the grid is the full square of tiles
+// and every block computes its own (i, j) from blockIdx.  No library
+// routine is called and nothing is allocated.
 
-#include <cuda_runtime.h>
+#include "profiles.cuh"
 
 namespace {
+
+using namespace lsq;
 
 constexpr int BM = 128;             // output tile edge
 constexpr int BK = 8;               // k-slab depth
@@ -54,17 +74,86 @@ __device__ __forceinline__ void slab_update(
     }
 }
 
-// Kernel A.  A is (size, h) row-major; B is row-major with leading
-// dimension ldb and holds the view at (offset, offset); s has the
-// global length of B's rows.  B, s and eps may be null.  Tiles are
-// computed when their row is at or below their column at the
-// granularity `tile` (a multiple of BM), so every i >= j tile of that
-// granularity is written in full and no strict-upper one is touched.
+// Kernel A's tile initializer: the scaled view of B plus eps.  B is
+// row-major with leading dimension ldb and holds the view at (offset,
+// offset); s has the global length of B's rows.  B, s and eps may be
+// null.
 template <typename T>
+struct InitScaled {
+    const T* B;
+    long long ldb, offset;
+    const T* s;
+    const T* eps;
+    long long nreal;
+
+    __device__ __forceinline__ void operator()(T (&acc)[TM][TM], long long r0,
+                                               long long c0, int tx,
+                                               int ty) const
+    {
+        const T e = eps ? eps[0] : T(0);
+#pragma unroll
+        for (int p = 0; p < TM; ++p) {
+            const long long r = r0 + ty + 16 * p;
+#pragma unroll
+            for (int q = 0; q < TM; ++q) {
+                const long long c = c0 + tx + 16 * q;
+                T v = T(0);
+                if (B) {
+                    v = B[(offset + r) * ldb + offset + c];
+                    if (s) v = v * s[offset + r] * s[offset + c];
+                }
+                if (eps && r == c && offset + r < nreal) v += e;
+                acc[p][q] = v;
+            }
+        }
+    }
+};
+
+// Kernel D's tile initializer: the virtual matrix blockdiag(K, I) + eps
+// on the real diagonal, computed from the points X (npad x dim,
+// row-major, global rows) with the post chain and eps in params.
+template <typename T>
+struct InitGram {
+    const T* X;
+    int dim;
+    const T* params;
+    int npost;
+    unsigned postadd;
+    int with_eps, profile;
+    long long nreal, offset;
+
+    __device__ __forceinline__ void operator()(T (&acc)[TM][TM], long long r0,
+                                               long long c0, int tx,
+                                               int ty) const
+    {
+        T pv[MAXPOST + 1];
+        for (int k = 0; k <= npost; ++k) pv[k] = params[k];
+#pragma unroll
+        for (int p = 0; p < TM; ++p) {
+            const long long gr = offset + r0 + ty + 16 * p;
+#pragma unroll
+            for (int q = 0; q < TM; ++q) {
+                const long long gc = offset + c0 + tx + 16 * q;
+                T v = gr == gc ? T(1) : T(0);
+                if (gr < nreal && gc < nreal) {
+                    v = entry(profile, MODE_VALUE,
+                              sqdist(X + gr * dim, X + gc * dim, dim), pv,
+                              npost, postadd);
+                    if (with_eps && gr == gc) v += pv[npost];
+                }
+                acc[p][q] = v;
+            }
+        }
+    }
+};
+
+// Kernels A and D.  A is (size, h) row-major.  Tiles are computed when
+// their row is at or below their column at the granularity `tile` (a
+// multiple of BM), so every i >= j tile of that granularity is written
+// in full and no strict-upper one is touched.
+template <typename T, typename Init>
 __global__ void __launch_bounds__(NTHREADS)
-schur_kernel(const T* __restrict__ B, long long ldb, long long offset,
-             const T* __restrict__ s, const T* __restrict__ eps,
-             long long nreal, const T* __restrict__ A, long long h,
+schur_kernel(Init init, const T* __restrict__ A, long long h,
              T* __restrict__ out, long long size, long long tile)
 {
     const long long r0 = (long long)blockIdx.y * BM;
@@ -76,24 +165,8 @@ schur_kernel(const T* __restrict__ B, long long ldb, long long offset,
     const int t = threadIdx.x;
     const int tx = t % 16, ty = t / 16;
 
-    // tile initialization: scale and eps fused into the accumulator
     T acc[TM][TM];
-    const T e = eps ? eps[0] : T(0);
-#pragma unroll
-    for (int p = 0; p < TM; ++p) {
-        const long long r = r0 + ty + 16 * p;
-#pragma unroll
-        for (int q = 0; q < TM; ++q) {
-            const long long c = c0 + tx + 16 * q;
-            T v = T(0);
-            if (B) {
-                v = B[(offset + r) * ldb + offset + c];
-                if (s) v = v * s[offset + r] * s[offset + c];
-            }
-            if (eps && r == c && offset + r < nreal) v += e;
-            acc[p][q] = v;
-        }
-    }
+    init(acc, r0, c0, tx, ty);
 
     for (long long k0 = 0; k0 < h; k0 += BK) {
 #pragma unroll
@@ -170,17 +243,39 @@ syrk_t_kernel(const T* __restrict__ W, long long h, long long m,
     }
 }
 
-template <typename T>
-int launch_schur(const T* B, long long ldb, long long offset, const T* s,
-                 const T* eps, long long nreal, const T* A, long long h,
-                 T* out, long long size, long long tile, void* stream)
+template <typename T, typename Init>
+int launch_schur(Init init, const T* A, long long h, T* out, long long size,
+                 long long tile, void* stream)
 {
     if (size == 0) return 0;
     const unsigned nt = (unsigned)(size / BM);
     dim3 grid(nt, nt);
-    schur_kernel<T><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-        B, ldb, offset, s, eps, nreal, A, h, out, size, tile);
+    schur_kernel<T, Init><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+        init, A, h, out, size, tile);
     return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_schur_scaled(const T* B, long long ldb, long long offset,
+                        const T* s, const T* eps, long long nreal,
+                        const T* A, long long h, T* out, long long size,
+                        long long tile, void* stream)
+{
+    return launch_schur(InitScaled<T>{B, ldb, offset, s, eps, nreal}, A, h,
+                        out, size, tile, stream);
+}
+
+template <typename T>
+int launch_schur_gram(const T* X, int dim, const T* params, int npost,
+                      unsigned postadd, int with_eps, int profile,
+                      long long nreal, long long offset, const T* A,
+                      long long h, T* out, long long size, long long tile,
+                      void* stream)
+{
+    if (npost > MAXPOST) return (int)cudaErrorInvalidValue;
+    return launch_schur(InitGram<T>{X, dim, params, npost, postadd,
+                                    with_eps, profile, nreal, offset},
+                        A, h, out, size, tile, stream);
 }
 
 template <typename T>
@@ -203,8 +298,8 @@ int lsq_schur_update_f32(const float* B, long long ldb, long long offset,
                          const float* A, long long h, float* out,
                          long long size, long long tile, void* stream)
 {
-    return launch_schur(B, ldb, offset, s, eps, nreal, A, h, out, size,
-                        tile, stream);
+    return launch_schur_scaled(B, ldb, offset, s, eps, nreal, A, h, out,
+                               size, tile, stream);
 }
 
 int lsq_schur_update_f64(const double* B, long long ldb, long long offset,
@@ -213,8 +308,30 @@ int lsq_schur_update_f64(const double* B, long long ldb, long long offset,
                          double* out, long long size, long long tile,
                          void* stream)
 {
-    return launch_schur(B, ldb, offset, s, eps, nreal, A, h, out, size,
-                        tile, stream);
+    return launch_schur_scaled(B, ldb, offset, s, eps, nreal, A, h, out,
+                               size, tile, stream);
+}
+
+int lsq_schur_gram_f32(const float* X, int dim, const float* params,
+                       int npost, unsigned postadd, int with_eps,
+                       int profile, long long nreal, long long offset,
+                       const float* A, long long h, float* out,
+                       long long size, long long tile, void* stream)
+{
+    return launch_schur_gram(X, dim, params, npost, postadd, with_eps,
+                             profile, nreal, offset, A, h, out, size, tile,
+                             stream);
+}
+
+int lsq_schur_gram_f64(const double* X, int dim, const double* params,
+                       int npost, unsigned postadd, int with_eps,
+                       int profile, long long nreal, long long offset,
+                       const double* A, long long h, double* out,
+                       long long size, long long tile, void* stream)
+{
+    return launch_schur_gram(X, dim, params, npost, postadd, with_eps,
+                             profile, nreal, offset, A, h, out, size, tile,
+                             stream);
 }
 
 int lsq_syrk_t_f32(const float* W, long long h, long long m, float* out,

@@ -5,19 +5,21 @@ optimizer:
 
 1. flatten and whiten the hyperprior, so the optimizer works on iid
    standard-normal coordinates;
-2. the objective is the GP marginal likelihood (the fused
-   `linalg.chol_nll`, whose gradient is the hand-derived rule) plus the
-   standard-normal prior on the whitened parameters (+ an optional
-   additional loss), evaluated on the data's device with the model's
-   eager checks off;
+2. the objective is the GP marginal likelihood (``GP._prior_nll``: the
+   fused `linalg.chol_nll` on the dense solver, the streaming
+   `linalg.chol_nll_stream_grad` on ``solver='chol-stream'``, both with
+   hand-derived gradients) plus the standard-normal prior on the
+   whitened parameters (+ an optional additional loss), evaluated on the
+   data's device with the model's eager checks off;
 3. minimize with scipy (BFGS on the torch value and gradient, or
    Nelder-Mead without gradient);
 4. return the hyperparameters as correlated `uncert.UArray`, with the
    BFGS inverse-Hessian ('minhess') as Laplace covariance.
 
 Not in this version: ``method='fisher'``, ``optimizer='jax'|'optax'``,
-``covariance='hess'|'fisher'``, ``custom_nll``, ``forward``, phase
-timing and profiler traces.
+``covariance='hess'|'fisher'`` (for a streaming GP the JAX package's
+'fisher' is the streamed Fisher information), ``custom_nll``,
+``forward``, phase timing and profiler traces.
 """
 
 from __future__ import annotations
@@ -162,6 +164,13 @@ class empbayes_fit:
                            "'scipy' is in lsqfitgp_torch yet")
         if method not in ('gradient', 'nograd'):
             raise KeyError(f'unknown method {method!r}')
+        if covariance in ('hess', 'fisher'):
+            raise NotImplementedError(
+                f'covariance={covariance!r} is not in lsqfitgp_torch yet: '
+                "use 'minhess' (BFGS's inverse Hessian, also on "
+                "solver='chol-stream'), 'none' or 'prior'")
+        if covariance not in ('auto', 'minhess', 'none', 'prior'):
+            raise KeyError(f'unknown covariance {covariance!r}')
         given, givencov, data_callable = _parse_data(data)
         device = _data_device(given)
         prior, pmean_prior, pdec = _parse_hyperprior(hyperprior, device)
@@ -315,10 +324,8 @@ class empbayes_fit:
             cov_w = numpy.asarray(hess_inv, float)
         elif covariance == 'none':
             cov_w = numpy.zeros((nparam, nparam))
-        elif covariance == 'prior':
-            cov_w = numpy.eye(nparam)
         else:
-            raise KeyError(f'unknown covariance {covariance!r}')
+            cov_w = numpy.eye(nparam)
         cov_w = numpy.where(fixmask[:, None] | fixmask[None, :], 0.0, cov_w)
         cov_w = torch.as_tensor(cov_w, dtype=dtype, device=device)
 

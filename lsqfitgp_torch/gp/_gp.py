@@ -1,16 +1,17 @@
 """The GP object: processes, elements, covariance assembly, inference.
 
-Counterpart of ``lsqfitgp_tpu/gp/_gp.py`` with the dense 'chol' solver:
-immutable construction (``addx``, ``addcov``, ``addlintransf`` return
-new GPs), covariance-block assembly with point blocks evaluated by kernel C
-(``gram='tiled'``) or by broadcasting the kernel core, and inference
-(``prior``, ``pred``/``predfromdata``, ``marginal_likelihood``) whose
-posteriors are `uncert.UArray`.
+Counterpart of ``lsqfitgp_tpu/gp/_gp.py`` with the dense 'chol' and the
+streaming 'chol-stream' solvers: immutable construction (``addx``,
+``addcov``, ``addlintransf`` return new GPs), covariance-block
+assembly with point blocks evaluated by kernel C (``gram='tiled'``), by
+kernel E on the upper triangle (``halfmatrix=True``) or by broadcasting
+the kernel core, and inference (``prior``, ``pred``/``predfromdata``,
+``marginal_likelihood``) whose posteriors are `uncert.UArray`.
 
 Not in this version: derived processes (``defproc``, ``deftransf``,
-...), derivative elements, user decompositions in ``addcov``,
-``halfmatrix`` (kernel E), the streaming and distributed solvers, and
-the double-float Gram of the conditioning rescue.
+...), derivative elements, user decompositions in ``addcov``, the
+distributed solver and the streaming solver's mesh options, and the
+double-float Gram of the conditioning rescue.
 """
 
 from __future__ import annotations
@@ -59,12 +60,25 @@ class GP:
         Kernel of the default process.
     solver : str
         Decomposition used for posteriors: 'chol' (the blocked
-        regularized Cholesky, `linalg.Chol`), the only one in this
-        version.  Extra keywords go to `Chol`.
+        regularized Cholesky, `linalg.Chol`; extra keywords go to it) or
+        'chol-stream' (the streaming pipeline, which never forms the
+        Gram matrix: `marginal_likelihood` carries the exact gradient of
+        `linalg.chol_nll_stream_grad`, `predfromdata` returns means and
+        small dense output covariances).  The streaming model must be
+        one isotropic process whose kernel C knows the profile,
+        optionally inside scalar ``amp * k + c`` chains and plus
+        ``sigma2 * White()``, observed by a single ``addx`` element,
+        with a ``givencov`` that is a scalar or a per-point variance
+        vector; anything else raises with a diagnostic.  Extra keywords:
+        ``block``, ``b1``, ``gradblock``, ``precision``.
     checkpos, checksym, checkfinite, checklin : bool
         Eager sanity checks (skipped inside `empbayes_fit`'s objective).
     posepsfac : float
         Tolerance factor for the positivity check.
+    halfmatrix : bool
+        Evaluate symmetric point blocks on the upper triangle only and
+        mirror them: kernel E (`ops.gram_sym`) on the tiled path, the
+        kernel core on the packed upper triangle otherwise.
     gram : {'auto', 'tiled', 'broadcast'}
         Point-block assembly.  'tiled' evaluates isotropic kernels whose
         profile kernel C knows (`ops.gram`); 'broadcast' evaluates the
@@ -72,11 +86,11 @@ class GP:
         the JAX package does off the TPU, until a measured cutover.
     """
 
-    _SOLVERS = ('chol',)
+    _SOLVERS = ('chol', 'chol-stream')
 
     def __init__(self, covfun=None, *, solver='chol', checkpos=True,
                  checksym=True, checkfinite=True, checklin=True,
-                 posepsfac=1, gram='auto', **kw):
+                 posepsfac=1, halfmatrix=False, gram='auto', **kw):
         self._procs = {}
         self._elements = {}
         self._kernel_cache = {}
@@ -90,6 +104,7 @@ class GP:
         if gram not in ('auto', 'tiled', 'broadcast'):
             raise KeyError(f'unknown gram mode {gram!r}')
         self._gram_mode = gram
+        self._halfmatrix = bool(halfmatrix)
         self._checks = dict(pos=checkpos, sym=checksym, finite=checkfinite,
                             lin=checklin, posepsfac=posepsfac)
         # device of the model's tensors, set by the first tensor added;
@@ -115,6 +130,7 @@ class GP:
         new._solver = self._solver
         new._checks = self._checks
         new._gram_mode = self._gram_mode
+        new._halfmatrix = self._halfmatrix
         new._device = self._device
         return new
 
@@ -313,14 +329,27 @@ class GP:
         kernel = self._crosskernel(ea.proc, eb.proc)
         if isinstance(kernel, Zero):
             return self._zeros(_size(ea.shape), _size(eb.shape))
-        blk = self._block_points_tiled(kernel, ea, eb)
+        sym = ea is eb or (eb.x is ea.x and eb.proc == ea.proc)
+        blk = self._block_points_tiled(kernel, ea, eb, sym)
         if blk is not None:
             return blk
         xa = ea.x.reshape(-1)
+        if sym and self._halfmatrix:
+            return self._block_points_half(kernel, xa)
         xb = eb.x.reshape(-1)
         return kernel(xa[:, None], xb[None, :])
 
-    def _block_points_tiled(self, kernel, ea, eb):
+    @staticmethod
+    def _block_points_half(kernel, x):
+        """Symmetric point block with the kernel core evaluated on the
+        n(n+1)/2 packed upper-triangle pairs only, then mirrored."""
+        n = x.shape[0]
+        iu, ju = torch.triu_indices(n, n, device=x.device)
+        ka = kernel(x[iu], x[ju])
+        K = ka.new_zeros((n, n)).index_put((iu, ju), ka)
+        return K + K.T - torch.diag(torch.diagonal(K))
+
+    def _block_points_tiled(self, kernel, ea, eb, sym):
         """Kernel-C assembly of an isotropic point block, or None when
         the kernel or the inputs fall outside the fast path (the caller
         then broadcasts the core).  Decided before any launch."""
@@ -344,7 +373,8 @@ class GP:
             return None
         profile, post = prof
         X = fg.transform_points(spec, cols_a)
-        sym = ea is eb or (eb.x is ea.x and eb.proc == ea.proc)
+        if sym and self._halfmatrix:
+            return ops.gram_sym(profile, X, post=post)
         Y = None if sym else fg.transform_points(spec, cols_b)
         return ops.gram(profile, X, Y, post=post)
 
@@ -409,7 +439,162 @@ class GP:
         return dec
 
     def _make_decomp(self, K, **decompkw):
+        if self._solver == 'chol-stream':
+            raise RuntimeError(
+                "solver='chol-stream' never materializes the Gram matrix, "
+                "so there is no dense decomposition; use "
+                "marginal_likelihood/predfromdata (which stream), or "
+                "solver='chol'")
         return linalg.Chol(K, **{**self._solverkw, **decompkw})
+
+    # -- streaming solver (never-materialized Gram) --------------------------
+
+    def _stream_kw(self):
+        kw = self._solverkw
+        out = dict(block=kw.get('block', 512), b1=kw.get('b1', 128))
+        if 'precision' in kw:
+            out['precision'] = kw['precision']
+        return out
+
+    def _stream_model(self, inkeys, givencov):
+        """Reduce the model to (profile, post, X, lenscale, noise_kernel,
+        noise_total) for the streaming pipeline, or raise a ValueError
+        naming the constraint that failed."""
+
+        def bail(msg):
+            raise ValueError(
+                "solver='chol-stream' needs a model of the form 'one "
+                "isotropic-kernel process + diagonal noise' (a single addx "
+                "element, kernel = an isotropic constructor whose profile "
+                "kernel C knows, optionally inside scalar amp*k + c chains "
+                "and + sigma2*White() sums, givencov a scalar or a "
+                f"per-point variance vector): {msg}")
+
+        if len(inkeys) != 1:
+            bail(f'got {len(inkeys)} data elements, need exactly 1')
+        el = self._elements[inkeys[0]]
+        if not isinstance(el, _Points):
+            bail('the data element must come from addx')
+        spec = getattr(self._procs[el.proc].kernel, '_fastgram', None)
+        if spec is None:
+            bail('the kernel carries no fast-Gram spec (use an isotropic '
+                 'constructor kernel; transformations other than scalar '
+                 'mul/add and White sums drop it)')
+        if spec.core is None:
+            bail('the kernel has no isotropic profile (pure noise)')
+        cols = fg.leaf_columns(el.x)
+        if cols is None:
+            bail('inputs outside the fast path (non-numeric points)')
+        if spec.maxdim is not None and len(cols) > spec.maxdim:
+            bail(f'{len(cols)} input dims exceed the kernel maxdim '
+                 f'{spec.maxdim}')
+        prof = fg.build_profile(spec)
+        if prof is None:
+            bail('the kernel profile is not one kernel C evaluates')
+        profile, post = prof
+        X = fg.transform_points(spec._replace(scale=None), cols)
+        noise_kernel = spec.noise
+        noise_total = noise_kernel
+        if givencov is not None:
+            gcov = self._asarray(givencov)
+            if gcov.dim() == 1 and gcov.shape[0] != _size(el.shape):
+                bail(f'givencov vector length {gcov.shape[0]} != '
+                     f'{_size(el.shape)} data points')
+            if gcov.dim() > 1:
+                bail('givencov must be a scalar iid variance or a per-point '
+                     'variance vector on the streaming solver (a full '
+                     "matrix would materialize n²); or use solver='chol'")
+            noise_total = gcov if noise_total is None \
+                else noise_total.to(gcov.device) + gcov
+        return profile, post, X, spec.scale, noise_kernel, noise_total
+
+    def _stream_flat(self, given):
+        if not isinstance(given, dict):
+            raise TypeError('given must be a dict')
+        inkeys = list(given)
+        vals = []
+        for k in inkeys:
+            self._checkelkey(k, new=False)
+            v = given[k]
+            if isinstance(v, uncert.UArray):
+                raise ValueError(
+                    "solver='chol-stream' takes plain-array data and a "
+                    "scalar or vector givencov noise variance (UArray data "
+                    "would materialize its n² covariance)")
+            vals.append(self._asarray(v).reshape(-1))
+        return inkeys, torch.cat(vals)
+
+    def _stream_nll(self, given, givencov):
+        """-log marginal likelihood through the streaming pipeline, with
+        the exact gradient: the fit objective at sizes whose dense Gram
+        cannot exist."""
+        inkeys, y = self._stream_flat(given)
+        profile, post, X, lenscale, _, noise = \
+            self._stream_model(inkeys, givencov)
+        if self._checks['finite']:
+            def check():
+                if not bool(torch.isfinite(y).all()):
+                    raise ValueError('non-finite data')
+            _torchutil.check(check)
+        return linalg.chol_nll_stream_grad(
+            profile, X, y, post=post, lenscale=lenscale,
+            epsabs=0.0 if noise is None else noise,
+            gradblock=self._solverkw.get('gradblock'), **self._stream_kw())
+
+    def _stream_pred(self, given, key, givencov, *, fromdata, raw,
+                     keepcorr):
+        if fromdata is not True:
+            raise ValueError(
+                "solver='chol-stream' supports predfromdata only (fromfit's "
+                "A' ycov A correction needs the dense posterior operator)")
+        if keepcorr:
+            raise ValueError(
+                'keepcorr=True joint priors would materialize n²; use '
+                'keepcorr=False on the streaming solver')
+        single = key is not None and not isinstance(key, (list, tuple))
+        if key is None:
+            outkeys = [k for k in self._elements if k not in given]
+        elif single:
+            outkeys = [key]
+        else:
+            outkeys = list(key)
+        inkeys, y = self._stream_flat(given)
+        profile, post, X, lenscale, noise_kernel, noise = \
+            self._stream_model(inkeys, givencov)
+        proc = self._elements[inkeys[0]].proc
+        spec = self._procs[proc].kernel._fastgram
+        xs = []
+        for k in outkeys:
+            self._checkelkey(k, new=False)
+            el = self._elements[k]
+            if not isinstance(el, _Points) or el.proc != proc:
+                raise ValueError('streaming pred outputs must be plain addx '
+                                 'points of the same process as the data')
+            ck = fg.leaf_columns(el.x)
+            if ck is None:
+                raise ValueError('output inputs outside the fast path')
+            xs.append(fg.transform_points(spec._replace(scale=None), ck))
+        Xs = torch.cat(xs)
+        if lenscale is not None:
+            X = X / lenscale
+            Xs = Xs / lenscale
+        mean, cov = linalg.chol_pred_stream(
+            profile, X, y, Xs, post=post,
+            epsabs=0.0 if noise is None else noise, return_cov=True,
+            **self._stream_kw())
+        if noise_kernel is not None:
+            # the process kernel's White component is in the outputs'
+            # prior variance too, as on the dense solver
+            cov = cov + torch.as_tensor(noise_kernel, dtype=cov.dtype,
+                                        device=cov.device) * torch.eye(
+                cov.shape[0], dtype=cov.dtype, device=cov.device)
+        if raw:
+            if single:
+                return mean.reshape(self._elements[key].shape), cov
+            return self._split(mean, outkeys), \
+                self._unflatten_cov(cov, outkeys)
+        out = self._split(uncert.from_cov(mean, cov), outkeys)
+        return out[outkeys[0]] if single else out
 
     # -- data ------------------------------------------------------------------
 
@@ -525,6 +710,9 @@ class GP:
         if fromdata is None:
             raise ValueError('specify fromdata=True/False, or use '
                              'predfromdata/predfromfit')
+        if self._solver == 'chol-stream':
+            return self._stream_pred(given, key, givencov, fromdata=fromdata,
+                                     raw=raw, keepcorr=keepcorr)
         single = key is not None and not isinstance(key, (list, tuple))
         if key is None:
             outkeys = [k for k in self._elements if k not in given]
@@ -608,6 +796,10 @@ class GP:
         return K, ymean, {**self._solverkw, **decompkw}
 
     def _prior_nll(self, given, givencov=None, **decompkw):
-        """-log marginal density of the data; the fit objective."""
+        """-log marginal density of the data; the fit objective.  Through
+        `linalg.chol_nll` on 'chol', through the streaming pipeline with
+        its exact gradient on 'chol-stream'."""
+        if self._solver == 'chol-stream':
+            return self._stream_nll(given, givencov)
         K, ymean, kw = self._prior_nll_parts(given, givencov, **decompkw)
         return linalg.chol_nll(K, ymean, **kw)

@@ -1,5 +1,6 @@
-"""PSD decompositions and the blocked Cholesky."""
+"""PSD decompositions, the blocked Cholesky and the streaming solver."""
 
 from ._decomp import (Decomposition, Chol, chol_nll, diag_scale_pow2,
-                      eigval_bound)
+                      eigval_bound, chol_nll_stream, chol_nll_stream_grad,
+                      chol_pred_stream)
 from . import _blocked

@@ -8,23 +8,35 @@ plain version on the CPU), and recurses.  The factor comes back as a
 tree of diagonal factors and panels, densified once; the inverses of
 the diagonal blocks come with it, so the solves are matrix products.
 
+The streaming (matrix-free) factorization `_chol_rec_tree_gram` runs the
+same recursion on the virtual matrix ``blockdiag(K, I) + eps I`` whose
+Gram K is computed from the points on first touch: leaves and panels by
+kernel C (`ops.gram`), the trailing updates by kernel D
+(`ops.schur_update_gram`), so the dense Gram never exists.  Its factor
+stays a tree; the tree solves, products and log-diagonal below work on
+it directly.
+
 Differences from the JAX package:
 
 - the precision ladder's rungs are Python branches on
   ``torch.isfinite(...).all()`` (one host sync per factorization);
-- kernel A runs at every internal node of the tree on CUDA (there is no
-  small-trailing-block cutover);
+- kernel A (and kernel D in the streaming factorization) runs at every
+  internal node of the tree on CUDA (there is no small-trailing-block
+  cutover);
 - the strip and square schemes (``_chol_strips``, ``_chol_square``,
   ``_pick_scheme``) are not ported: they worked around an XLA compile
   wall that eager PyTorch does not have;
 - no memory-policy size switch: eager code keeps one factorization
-  alive, not both branches of a ``lax.cond``.
+  alive, not both branches of a ``lax.cond``;
+- the left-looking streaming factorization (``_chol_gram_leftlook``) and
+  the mesh-sharded branches are not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import ops
 from ..ops import _syrk
 
 __all__ = ['chol_factor_scaled', 'chol_factor_scaled_ladder',
@@ -376,3 +388,163 @@ def solve_lower_t(L, B, *, block=512, Dinv=None, precision=None):
         blocks.insert(0, Dinv[k].T @ rhs)
     X = torch.cat(blocks)[:n]
     return X[:, 0] if vec else X
+
+
+# -- streaming (matrix-free) factorization -------------------------------------
+
+def _gram_block(X, profile, post, r0, c0, h, w, nreal):
+    """The (h, w) block at global (r0, c0) of the virtual matrix
+    ``blockdiag(K, I)`` with ``K[i, j] = post(g(‖X_i − X_j‖²))``: the
+    real part by kernel C (its plain version on the CPU), the identity
+    pad tail placed after."""
+    hr = max(0, min(h, nreal - r0))
+    wr = max(0, min(w, nreal - c0))
+    if hr == h and wr == w:
+        return ops.gram(profile, X[r0:r0 + h], X[c0:c0 + w], post=post)
+    out = torch.zeros((h, w), dtype=X.dtype, device=X.device)
+    if hr and wr:
+        out[:hr, :wr] = ops.gram(profile, X[r0:r0 + hr], X[c0:c0 + wr],
+                                 post=post)
+    lo, hi = max(r0, c0, nreal), min(r0 + h, c0 + w)
+    if lo < hi:
+        i = torch.arange(lo, hi, device=X.device)
+        out[i - r0, i - c0] = 1
+    return out
+
+
+def _eps_diag(eps, o, w, nreal):
+    """The length-w diagonal of the regularization at global offset o:
+    ``eps`` (a scalar or a padded vector) on the real rows, 0 on the
+    pad rows, whose pivots stay exactly 1."""
+    gi = o + torch.arange(w, device=eps.device)
+    e = eps[o:o + w] if eps.dim() else eps
+    return torch.where(gi < nreal, e, torch.zeros((), dtype=eps.dtype,
+                                                  device=eps.device))
+
+
+def _chol_rec_tree_gram(X, profile, post, eps, o, kb, block, b1, precision,
+                        bump, nreal):
+    """Streaming recursive Cholesky of ``blockdiag(K, I) + eps I`` over a
+    kb x kb block grid at global offset o, ``K`` computed from the
+    padded points X (npad x p) and never materialized: leaves and panels
+    by kernel C, the trailing update of every internal node by kernel D
+    with eps fused.  A per-row ``eps`` vector (heteroskedastic noise,
+    padded with zeros) runs kernel D eps-free and lands on the diagonal
+    of its output.  The trailing subtree goes to `_chol_rec_tree_kernel`.
+
+    Same tree contract as `_chol_rec_tree_kernel`."""
+    if kb == 1:
+        D = _gram_block(X, profile, post, o, o, block, block, nreal)
+        D.diagonal().add_(_eps_diag(eps, o, block, nreal))
+        L, Linv = _factor_diag(D, b1, bump)
+        return L, [Linv]
+    hb = (kb + 1) // 2
+    h = hb * block
+    w = (kb - hb) * block
+    t11, d1 = _chol_rec_tree_gram(X, profile, post, eps, o, hb, block, b1,
+                                  precision, bump, nreal)
+    A21 = _gram_block(X, profile, post, o + h, o, w, h, nreal)
+    P = _tree_solve_right_t(A21, t11, d1, block).contiguous()
+    del A21
+    hetero = eps.dim() == 1
+    S = ops.schur_update_gram(
+        profile, X, P, post=post, eps=None if hetero else eps, nreal=nreal,
+        size=w, offset=o + h, tile=block, precision=precision)
+    if hetero:
+        S.diagonal().add_(_eps_diag(eps, o + h, w, nreal))
+    t22, d2 = _chol_rec_tree_kernel(S, None, None, o + h, o + h, kb - hb,
+                                    block, b1, precision, bump)
+    return (P, t11, t22), d1 + d2
+
+
+def _tree_map(tree, fn):
+    """The tree with ``fn`` applied to each leaf factor and panel."""
+    if not isinstance(tree, tuple):
+        return fn(tree)
+    P, t11, t22 = tree
+    return fn(P), _tree_map(t11, fn), _tree_map(t22, fn)
+
+
+def _tree_solve_right(B, tree, dinvs, block):
+    """X = B L⁻¹ with L the factor tree and B (m, k): X2 = B2 L22⁻¹,
+    X1 = (B1 − X2 P) L11⁻¹."""
+    if not isinstance(tree, tuple):
+        return B @ dinvs[0]
+    P, t11, t22 = tree
+    h = P.shape[1]
+    hb = h // block
+    X2 = _tree_solve_right(B[:, h:], t22, dinvs[hb:], block)
+    X1 = _tree_solve_right(B[:, :h] - X2 @ P, t11, dinvs[:hb], block)
+    return torch.cat([X1, X2], 1)
+
+
+def _tree_solve_right_t_skip(B, tree, dinvs, block, o, c0):
+    """X = B L⁻ᵀ for B whose columns < ``c0`` (global; the tree spans
+    columns from ``o``) are zero.  L⁻ᵀ is upper triangular, so X's
+    columns < c0 are exactly zero too and every subtree left of c0 is
+    skipped (zeros emitted, no product)."""
+    if not isinstance(tree, tuple):
+        if o + block <= c0:
+            return torch.zeros_like(B)
+        return B @ dinvs[0].T
+    P, t11, t22 = tree
+    h = P.shape[1]
+    hb = h // block
+    if o + h <= c0:
+        X1 = torch.zeros_like(B[:, :h])
+        B2 = B[:, h:]
+    else:
+        X1 = _tree_solve_right_t_skip(B[:, :h], t11, dinvs[:hb], block, o,
+                                      c0)
+        B2 = B[:, h:] - X1 @ P.T
+    X2 = _tree_solve_right_t_skip(B2, t22, dinvs[hb:], block, o + h, c0)
+    return torch.cat([X1, X2], 1)
+
+
+def _tree_solve_right_skip(B, tree, dinvs, block, o, c0):
+    """X = B L⁻¹ for B whose columns < ``c0`` are zero, with the output
+    columns < c0 not computed (emitted as zeros; unlike the transposed
+    case they are not mathematically zero, and the caller does not read
+    them)."""
+    if not isinstance(tree, tuple):
+        if o + block <= c0:
+            return torch.zeros_like(B)
+        return B @ dinvs[0]
+    P, t11, t22 = tree
+    h = P.shape[1]
+    hb = h // block
+    X2 = _tree_solve_right_skip(B[:, h:], t22, dinvs[hb:], block, o + h,
+                                c0)
+    if o + h <= c0:
+        X1 = torch.zeros_like(B[:, :h])
+    else:
+        X1 = _tree_solve_right_skip(B[:, :h] - X2 @ P, t11, dinvs[:hb],
+                                    block, o, c0)
+    return torch.cat([X1, X2], 1)
+
+
+def _tree_mv(tree, v):
+    """y = L v with L the factor tree and v (k,) or (k, m)."""
+    if not isinstance(tree, tuple):
+        return tree @ v
+    P, t11, t22 = tree
+    h = P.shape[1]
+    return torch.cat([_tree_mv(t11, v[:h]), P @ v[:h] + _tree_mv(t22, v[h:])])
+
+
+def _tree_mv_t(tree, v):
+    """y = Lᵀ v with L the factor tree."""
+    if not isinstance(tree, tuple):
+        return tree.T @ v
+    P, t11, t22 = tree
+    h = P.shape[1]
+    return torch.cat([_tree_mv_t(t11, v[:h]) + P.T @ v[h:],
+                      _tree_mv_t(t22, v[h:])])
+
+
+def _tree_leaf_logdiag(tree):
+    """log of the factor's diagonal, leaf by leaf, in order."""
+    if not isinstance(tree, tuple):
+        return [torch.log(torch.diagonal(tree))]
+    _, t11, t22 = tree
+    return _tree_leaf_logdiag(t11) + _tree_leaf_logdiag(t22)

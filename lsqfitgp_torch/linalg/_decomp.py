@@ -2,14 +2,17 @@
 
 Counterpart of ``lsqfitgp_tpu/linalg/_decomp.py``: the `Decomposition`
 contract, the regularized Cholesky `Chol` (pow2 diagonal scaling,
-Gershgorin-bound eps, the float32 eps ladder, degradation probes) and
-the fused marginal likelihood `chol_nll` with its hand-derived
-gradient, as a `torch.autograd.Function`.
+Gershgorin-bound eps, the float32 eps ladder, degradation probes), the
+fused marginal likelihood `chol_nll` with its hand-derived gradient, as
+a `torch.autograd.Function`, and the streaming likelihood and posterior
+(`chol_nll_stream`, `chol_nll_stream_grad`, `chol_pred_stream`), which
+never form the Gram matrix.
 
 Not in this version: the double-float rescue (``df`` must be False or
-'auto', which here means off), ``Chol.fisher``, the streaming
-likelihoods and a backward through `Chol` itself (differentiate the
-log-density through `chol_nll`).
+'auto', which here means off), ``Chol.fisher``, a backward through
+`Chol` itself (differentiate the log-density through `chol_nll`), the
+streaming gradient's Hutchinson estimate (``exact=False``), the streamed
+Fisher information and the left-looking streaming factorization.
 """
 
 from __future__ import annotations
@@ -22,9 +25,11 @@ import torch
 
 from . import _blocked
 from .. import _torchutil
+from .. import ops
 from ..ops import syrk_t_full
 
-__all__ = ['Decomposition', 'Chol', 'chol_nll']
+__all__ = ['Decomposition', 'Chol', 'chol_nll', 'chol_nll_stream',
+           'chol_nll_stream_grad', 'chol_pred_stream']
 
 
 def _float_eps(dtype):
@@ -425,3 +430,352 @@ def chol_nll(K, r, **choleskykw):
     two factorizations' worth of products."""
     return _CholNLL.apply(K, torch.as_tensor(r),
                           tuple(sorted(choleskykw.items())))
+
+
+# -- streaming (never-materialized Gram) ---------------------------------------
+
+def _pad_eps(eps, n, npad):
+    """A per-row noise vector padded with zeros to the block-padded
+    length (the pad pivots are the exact identity); scalars pass."""
+    if eps.dim() == 0:
+        return eps
+    return torch.cat([eps.expand(n), eps.new_zeros(npad - n)])
+
+
+def _stream_points(x, block):
+    """(X, Xp, center): the points as an (n, p) float tensor, centered
+    globally, and padded to a block multiple by repeating the last real
+    point (so mixed real/pad tiles stay geometrically tight; the masks
+    make them exact anyway)."""
+    X = ops._gram._prep(_torchutil.asarray(x)).detach()
+    center = X.mean(0, keepdim=True)
+    X = X - center
+    n = X.shape[0]
+    npad = -(-n // block) * block
+    Xp = torch.cat([X, X[n - 1:].expand(npad - n, -1)])
+    return X, Xp, center
+
+
+def _on(post, like):
+    """The post chain with its scalars as 0-d tensors of ``like``'s
+    dtype and device (still differentiable)."""
+    return tuple((op, torch.as_tensor(v, dtype=like.dtype,
+                                      device=like.device).reshape(()))
+                 for op, v in post)
+
+
+def _k0(profile, post, like):
+    """The kernel's value at zero distance, post(g(0))."""
+    v = ops._gram._profile(profile).value(like.new_zeros(()))
+    for op, c in post:
+        v = v * c if op == 'mul' else v + c
+    return v
+
+
+def _stream_probe_resid(tree, profile, post, Xp, n, eps, block):
+    """Closure computing the matvec-probe backward error of the streaming
+    factor, ``max|K̃v − L(Lᵀv)|`` for a fixed ±1 vector over the real
+    rows, with K̃ the virtual regularized matrix streamed in row strips
+    (kernel C on CUDA).  O(n²): evaluated only inside the eager
+    degradation check."""
+
+    def resid():
+        npad = Xp.shape[0]
+        idx = torch.arange(npad, device=Xp.device)
+        v = torch.where(idx % 2 == 0, 1.0, -1.0).to(Xp.dtype)
+        v = v * (idx < n).to(Xp.dtype)
+        kv = torch.cat([
+            _blocked._gram_block(Xp, profile, post, r0, 0, block, npad, n)
+            @ v for r0 in range(0, npad, block)])
+        kv = kv + _blocked._eps_diag(eps, 0, npad, n) * v
+        llv = _blocked._tree_mv(tree, _blocked._tree_mv_t(tree, v))
+        return (kv - llv).abs().max()
+
+    return resid
+
+
+def _stream_warn_if_degraded(dinvs, eps, k0, n, what, bump=None,
+                             resid=None):
+    """Eager degradation warning of the streaming factorization, the
+    same contract as ``Chol._warn_if_degraded``: non-finite leaf
+    inverses (the factorization failed at this dtype and eps); a probe
+    residual at the scale of the self-healing lift's bump (the lift
+    engaged and distorts the model); a pivot-based condition estimate
+    beyond ~0.3/eps.  Skipped while checks are off."""
+
+    def check():
+        D = torch.stack(dinvs)
+        mach = _float_eps(D.dtype)
+        epsmin = float(eps[:n].min() if eps.dim() else eps)
+        if not bool(torch.isfinite(D).all()):
+            warnings.warn(
+                f'{what}: the streaming factorization produced non-finite '
+                f'values: the model is numerically singular at {D.dtype} '
+                f'with eps={epsmin:.2e}.  Results are NaN; raise epsabs '
+                f'(it should be at least the model noise floor), reduce '
+                f'the correlation length, or use float64.')
+            return
+        pivmin2 = float(1 / torch.diagonal(D, dim1=1, dim2=2).max() ** 2)
+        if resid is not None:
+            r = float(resid())
+            if bump is not None and r > 0.25 * float(bump):
+                warnings.warn(
+                    f'{what}: the self-healing diagonal lift engaged '
+                    f'(matvec probe residual {r:.2e} ~ the lift bump '
+                    f'{float(bump):.2e}): the model is numerically '
+                    f'singular at {D.dtype} and the result is distorted by '
+                    f'the lift.  Raise epsabs (it should be at least the '
+                    f'model noise floor) or use float64.')
+                return
+        if n * float(k0) > 0.3 / mach * pivmin2:
+            warnings.warn(
+                f'{what}: condition number ~{n * float(k0) / pivmin2:.1e} '
+                f'approaches the {D.dtype} resolution 1/eps={1 / mach:.1e}; '
+                f'solve and gradient accuracy degrades as eps*cond.  Raise '
+                f'epsabs or use float64.')
+
+    _torchutil.check(check)
+
+
+def _stream_factor(Xp, n, profile, post, epsabs, block, b1, precision,
+                   what):
+    """(tree, dinvs, eps, k0) of the streaming factorization of the
+    virtual ``K + (epsabs + 4 mach k0) I`` over the padded points, with
+    the eager degradation check."""
+    npad = Xp.shape[0]
+    k0 = _k0(profile, post, Xp)
+    mach = _float_eps(Xp.dtype)
+    eps = _pad_eps(torch.as_tensor(epsabs, dtype=Xp.dtype, device=Xp.device)
+                   + 4 * mach * k0, n, npad)
+    # trace bound on the largest eigenvalue (PSD, constant diagonal):
+    # sizes the self-healing lift without a |K| matvec
+    bump = _blocked._LIFT * mach * n * k0
+    prec = _blocked._precision(precision)
+    tree, dinvs = _blocked._chol_rec_tree_gram(
+        Xp, profile, post, eps, 0, npad // block, block, b1, prec, bump, n)
+    _stream_warn_if_degraded(
+        dinvs, eps, k0, n, what, bump=bump,
+        resid=_stream_probe_resid(tree, profile, post, Xp, n, eps, block))
+    return tree, dinvs, eps, k0
+
+
+def _stream_nll_value(tree, dinvs, y, npad, block):
+    """(NLL, zt = L⁻¹y) from the streaming factor tree."""
+    n = y.shape[0]
+    ypad = torch.cat([y, y.new_zeros(npad - n)])
+    zt = _blocked._tree_solve_right_t(ypad[None, :], tree, dinvs, block)
+    logdiag = torch.cat(_blocked._tree_leaf_logdiag(tree))[:n]
+    nll = 0.5 * ((zt * zt).sum() + 2 * logdiag.sum()
+                 + n * math.log(2 * math.pi))
+    return nll, zt
+
+
+def chol_nll_stream(profile, x, y, *, post=(), epsabs=None, block=512,
+                    b1=128, precision='high'):
+    """-log N(y | 0, K + eps I) for an isotropic kernel without ever
+    forming the Gram matrix: ``K[i, j] = post(g(‖x_i − x_j‖²))`` is
+    computed on first touch inside the streaming factorization (kernels
+    C and D on CUDA), whose factor stays a lower-trapezoid tree (n²/2
+    floats); the solve runs on the tree and the log-determinant comes
+    from its leaves.  Value only: the gradient is `chol_nll_stream_grad`.
+
+    ``profile`` is a registered profile (`ops.PROFILES`) and ``post`` its
+    chain of ('mul' | 'add', scalar) steps.  ``epsabs`` (default 0) is
+    added to the 'auto' diagonal anchor ``4 eps k(0)``; it may be a
+    per-point noise-variance vector.  There is no eps ladder: an
+    infeasible model warns (eagerly) instead of failing silently.
+    """
+    with torch.no_grad():
+        X, Xp, _ = _stream_points(x, block)
+        n = X.shape[0]
+        y = _torchutil.asarray(y, dtype=X.dtype, device=X.device)
+        post = _on(post, Xp)
+        tree, dinvs, _, _ = _stream_factor(
+            Xp, n, profile, post, 0.0 if epsabs is None else epsabs, block,
+            b1, precision, 'chol_nll_stream')
+        return _stream_nll_value(tree, dinvs, y, Xp.shape[0], block)[0]
+
+
+def chol_pred_stream(profile, x, y, xstar, *, post=(), epsabs=None,
+                     block=512, b1=128, precision='high', return_nll=False,
+                     return_var=False, return_cov=False):
+    """Streaming GP posterior mean at ``xstar``,
+    ``K(x*, x) (K(x, x) + eps I)⁻¹ y``, with the factorization of
+    `chol_nll_stream`: ``alpha = K⁻¹ y`` by two tree solves, then one
+    (n*, n) cross Gram (kernel C).  ``return_var`` adds the posterior
+    variances, ``return_cov`` the full (n*, n*) posterior covariance
+    instead (one tree solve with the cross Gram as right-hand side,
+    O(n n*) memory), ``return_nll`` the training NLL.  Value only."""
+    with torch.no_grad():
+        X, Xp, center = _stream_points(x, block)
+        Xs = ops._gram._prep(_torchutil.asarray(
+            xstar, dtype=X.dtype, device=X.device)) - center
+        n = X.shape[0]
+        npad = Xp.shape[0]
+        y = _torchutil.asarray(y, dtype=X.dtype, device=X.device)
+        post = _on(post, Xp)
+        tree, dinvs, _, k0 = _stream_factor(
+            Xp, n, profile, post, 0.0 if epsabs is None else epsabs, block,
+            b1, precision, 'chol_pred_stream')
+        nll, zt = _stream_nll_value(tree, dinvs, y, npad, block)
+        alpha = _blocked._tree_solve_right(zt, tree, dinvs, block)[0]
+        Kst = Xp.new_zeros((Xs.shape[0], npad))
+        Kst[:, :n] = ops.gram(profile, Xs, X, post=post)
+        out = (Kst @ alpha,)
+        if return_var or return_cov:
+            W = _blocked._tree_solve_right_t(Kst, tree, dinvs, block)
+            if return_cov:
+                cov = ops.gram(profile, Xs, post=post) - W @ W.T
+                out += (0.5 * (cov + cov.T),)
+            else:
+                out += (torch.clamp(k0 - (W * W).sum(1), min=0),)
+        if return_nll:
+            out += (nll,)
+        return out[0] if len(out) == 1 else out
+
+
+class _StreamNLL(torch.autograd.Function):
+    """The streaming NLL with the exact reverse rule
+
+        dV = <½ (K̃⁻¹ − α αᵀ), dK̃> + αᵀ dy,   α = K̃⁻¹ y,
+
+    K̃ the regularized virtual matrix.  The K̃⁻¹ contraction runs over row
+    strips [c0, c0 + w): two skip-aware tree solves give the strip
+    ``C = K̃⁻¹[c0:c0+w, :]`` on the columns >= c0, and symmetry covers
+    the others through the weight (1 on the strip's own columns, 2
+    beyond).  The strip's dK̃ contraction is kernel C's backward with the
+    weighted carrier as its output gradient (pad rows and columns cut
+    off), and the eps diagonal is added analytically.  Nothing n × n is
+    formed.
+
+    Deviation from the JAX rule: the strips are formed in float64 from
+    a float64 copy of the float32 factor tree, as `chol_nll`'s carrier
+    is, because a float32 K⁻¹ flipped the sign of the amplitude
+    gradient of the dense path at cond ~1e5 (PERF.md)."""
+
+    @staticmethod
+    def forward(ctx, meta, Xp, y, eps, lenscale, *pvec):
+        profile, ops_, block, b1, precision, gradblock = meta
+        n = y.shape[0]
+        post = tuple(zip(ops_, pvec))
+        tree, dinvs, _, _ = _stream_factor(
+            Xp / lenscale, n, profile, post, eps, block, b1, precision,
+            'chol_nll_stream_grad')
+        nll, _ = _stream_nll_value(tree, dinvs, y, Xp.shape[0], block)
+        ctx.meta = meta
+        ctx.tree = tree, dinvs
+        ctx.save_for_backward(Xp, y, eps, lenscale, *pvec)
+        return nll
+
+    @staticmethod
+    def backward(ctx, ct):
+        if ctx.tree is None:
+            raise RuntimeError('chol_nll_stream_grad: the backward consumes '
+                               'the factor, so it runs once per forward')
+        profile, ops_, block, b1, precision, gradblock = ctx.meta
+        Xp, y, eps, lenscale, *pvec = ctx.saved_tensors
+        need_y, need_eps, need_ls, *need_p = ctx.needs_input_grad[2:]
+        n = y.shape[0]
+        npad = Xp.shape[0]
+        wide = torch.promote_types(y.dtype, torch.float64)
+        # the float64 copy of the tree replaces the float32 one, which is
+        # dropped here (its last reference)
+        tree, dinvs = ctx.tree
+        ctx.tree = None
+        tree = _blocked._tree_map(tree, lambda t: t.to(wide))
+        dinvs = [d.to(wide) for d in dinvs]
+        _, zt = _stream_nll_value(tree, dinvs, y.to(wide), npad, block)
+        alpha = _blocked._tree_solve_right(zt, tree, dinvs, block)[0]
+        del zt
+
+        ls = lenscale.detach().to(wide).requires_grad_(need_ls)
+        pv = [p.detach().to(wide).requires_grad_(q)
+              for p, q in zip(pvec, need_p)]
+        post = tuple(zip(ops_, pv))
+        leaves = [t for t in (ls, *pv) if t.requires_grad]
+        grads = [torch.zeros((), dtype=wide, device=y.device) for _ in leaves]
+        cdiag = torch.zeros(n, dtype=wide, device=y.device)
+        X64 = Xp[:n].to(wide)
+        wk = min(int(gradblock), npad)
+        for c0 in range(0, n, wk) if leaves or need_eps else ():
+            w = min(wk, npad - c0)
+            nr = min(w, n - c0)
+            E = torch.zeros((w, npad), dtype=wide, device=y.device)
+            E[:, c0:c0 + w] = torch.eye(w, dtype=wide, device=y.device)
+            Zt = _blocked._tree_solve_right_t_skip(E, tree, dinvs, block, 0,
+                                                   c0)
+            del E
+            C = _blocked._tree_solve_right_skip(Zt, tree, dinvs, block, 0, c0)
+            del Zt
+            # the carrier on the strip's real rows and the real columns
+            # >= c0 (the weight is 0 on the columns below)
+            car = C[:nr, c0:n] - alpha[c0:c0 + nr, None] * alpha[None, c0:n]
+            del C
+            car[:, nr:] *= 2
+            car *= 0.5
+            cdiag[c0:c0 + nr] = car.diagonal()
+            if leaves:
+                with torch.enable_grad():
+                    K = ops.gram(profile, X64[c0:c0 + nr] / ls, X64[c0:] / ls,
+                                 post=post)
+                for g, d in zip(grads, torch.autograd.grad(
+                        K, leaves, car, allow_unused=True)):
+                    if d is not None:
+                        g += d
+                del K
+            del car
+        # the regularized diagonal eps + 4 mach k(0) on the real rows
+        e = eps.detach().to(wide).requires_grad_(need_eps)
+        wrt = [t for t in (e, *leaves) if t.requires_grad]
+        dd = {}
+        if wrt:
+            with torch.enable_grad():
+                k0 = _k0(profile, post, e)
+                diag = (cdiag * (e + 4 * _float_eps(y.dtype) * k0)).sum()
+            dd = dict(zip(map(id, wrt), torch.autograd.grad(
+                diag, wrt, allow_unused=True)))
+            for t, g in zip(leaves, grads):
+                if dd.get(id(t)) is not None:
+                    g += dd[id(t)]
+        gmap = dict(zip(map(id, leaves), grads))
+
+        def out(g, like):
+            return None if g is None else (ct * g).to(like.dtype)
+
+        return (None, None, out(alpha[:n], y) if need_y else None,
+                out(dd.get(id(e)), eps) if need_eps else None,
+                out(gmap.get(id(ls)), lenscale),
+                *(out(gmap.get(id(t)), p) for t, p in zip(pv, pvec)))
+
+
+def chol_nll_stream_grad(profile, x, y, *, post=(), lenscale=None,
+                         epsabs=1e-4, exact=True, block=512, b1=128,
+                         gradblock=None, precision='high'):
+    """The streaming NLL of `chol_nll_stream`, differentiable: the exact
+    hand-derived gradient (`_StreamNLL`) with respect to the post-chain
+    scalars ``post``, the isotropic input length scale ``lenscale``
+    (applied as x / lenscale; the coordinates themselves carry no
+    gradient), the nugget ``epsabs`` (a scalar, or a per-point variance
+    vector with per-element gradients) and ``y``.  K⁻¹ is produced in
+    row strips of width ``gradblock`` (default ``4 * block``) by two
+    skip-aware tree solves per strip, about n³/3 extra multiply-adds;
+    nothing n × n is formed.
+
+    ``exact=False`` (the JAX package's Hutchinson estimate) is not in
+    lsqfitgp_torch yet (ROADMAP.md, queue 1, item 8).
+    """
+    if not exact:
+        raise NotImplementedError(
+            'chol_nll_stream_grad(exact=False), the Hutchinson estimate, '
+            'is not in lsqfitgp_torch yet (ROADMAP.md, queue 1, item 8)')
+    _, Xp, _ = _stream_points(x, block)
+    y = _torchutil.asarray(y, dtype=Xp.dtype, device=Xp.device)
+    post = _on(post, Xp)
+    ls = torch.as_tensor(1.0 if lenscale is None else lenscale,
+                         dtype=Xp.dtype, device=Xp.device).reshape(())
+    ep = torch.as_tensor(epsabs, dtype=Xp.dtype, device=Xp.device)
+    if gradblock is None:
+        gradblock = 4 * int(block)
+    meta = (ops._gram._profile(profile), tuple(op for op, _ in post),
+            int(block), int(b1), precision, int(gradblock))
+    return _StreamNLL.apply(meta, Xp, y, ep, ls, *(v for _, v in post))

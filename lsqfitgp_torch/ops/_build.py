@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``lsqfitgp_torch/csrc/*.cu`` have a plain C interface.
-At first use they are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library under ``build/lsqfitgp_torch/`` at the root of the
-checkout, named by a hash of the sources and flags, and loaded with
-``ctypes``.  A later process with the same sources loads the library
-already built.  Nothing is downloaded and no library of finished
+The sources in ``lsqfitgp_torch/csrc/*.cu`` have a plain C interface
+(``*.cuh`` are headers they share).  At first use each source is
+compiled by its own ``nvcc`` process for ``sm_90a``, all started
+together, and the objects are linked into one shared library under
+``build/lsqfitgp_torch/`` at the root of the checkout, named by a hash
+of the sources and flags, and loaded with ``ctypes``.  A later process
+with the same sources loads the library already built.  Nothing is downloaded and no library of finished
 kernels is linked.
 """
 
@@ -27,7 +28,7 @@ _SRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'lsqfitgp_torch'
 
 _FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-          '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+          '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -38,9 +39,13 @@ _U32 = ctypes.c_uint
 _SIGNATURES = {
     'lsq_schur_update': [_P, _I64, _I64, _P, _P, _I64, _P, _I64, _P, _I64,
                          _I64, _P],
+    'lsq_schur_gram': [_P, _I32, _P, _I32, _U32, _I32, _I32, _I64, _I64, _P,
+                       _I64, _P, _I64, _I64, _P],
     'lsq_syrk_t': [_P, _I64, _I64, _P, _P],
     'lsq_gram': [_P, _P, _I64, _I64, _I32, _P, _I32, _U32, _I32, _I32, _I32,
                  _P, _P],
+    'lsq_gram_sym': [_P, _I64, _I32, _P, _I32, _U32, _I32, _I32, _I32, _P,
+                     _P],
 }
 
 _state = {}
@@ -59,10 +64,33 @@ def _sources():
     return sorted(_SRC.glob('*.cu'))
 
 
+def _compile(srcs, out):
+    """Compile each source with its own nvcc, all at once, and link the
+    objects into the shared library ``out``; returns nvcc's messages."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f.stem + '.o') for f in srcs]
+        procs = [subprocess.Popen([nvcc, *_FLAGS, '-c', str(f), '-o', o],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for f, o in zip(srcs, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        for f, proc, text in zip(srcs, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f'nvcc failed on {f.name} ({proc.returncode}):\n{text}')
+        link = subprocess.run([nvcc, *_FLAGS[:2], '-shared', '-o', out, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(
+                f'nvcc link failed ({link.returncode}):\n{link.stderr}')
+    return ''.join(logs) + link.stderr
+
+
 def _build():
     srcs = _sources()
     digest = hashlib.sha256(' '.join(_FLAGS).encode())
-    for f in srcs:
+    for f in sorted([*srcs, *_SRC.glob('*.cuh')]):
         digest.update(f.name.encode())
         digest.update(f.read_bytes())
     path = BUILD_DIR / f'liblsqfitgp_torch-{digest.hexdigest()[:16]}.so'
@@ -75,19 +103,13 @@ def _build():
         fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
         os.close(fd)
         try:
-            proc = subprocess.run(
-                [_nvcc(), *_FLAGS, '-o', tmp, *map(str, srcs)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f'nvcc failed ({proc.returncode}):\n{proc.stderr}')
+            info['log'] = _compile(srcs, tmp)
             os.replace(tmp, path)
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
         info['seconds'] = time.perf_counter() - t0
-        info['log'] = proc.stderr
-        path.with_suffix('.log').write_text(proc.stderr)
+        path.with_suffix('.log').write_text(info['log'])
     library = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         for suffix in ('_f32', '_f64'):

@@ -1,31 +1,38 @@
-"""Tiled Gram-matrix evaluator for isotropic kernels (kernel C).
+"""Tiled Gram-matrix evaluators for isotropic kernels (kernels C and E).
 
-Counterpart of ``lsqfitgp_tpu/ops/_gram.py`` (``gram``).  The Gram
+Counterpart of ``lsqfitgp_tpu/ops/_gram.py`` (``gram``, ``gram_sym``).
+The Gram
 
     K[i, j] = post(g(‖x_i − y_j‖²)) (+ noise if i == j)
 
-is evaluated by the hand-written CUDA kernel ``csrc/gram.cu`` for CUDA
-tensors and by its plain PyTorch version, `gram_plain`, for CPU
-tensors.  It replaces ``lsqfitgp_tpu/ops/_gram.py::_gram_kernel``.  On
-the H100 the kernel is bound by writing the n·m output (one exp per
-entry); it writes each entry once, coalesced, straight from registers,
-and masks the ragged edge instead of padding the points.
+is evaluated by the hand-written CUDA kernels of ``csrc/gram.cu`` for
+CUDA tensors and by their plain PyTorch versions, `gram_plain` and
+`gram_sym_plain`, for CPU tensors.  Kernel C (`gram`) replaces
+``lsqfitgp_tpu/ops/_gram.py::_gram_kernel``; kernel E (`gram_sym`, y =
+x) replaces ``_gram_sym_kernel``: it evaluates the upper-triangle tile
+pairs only and writes each tile and its mirror, half the profile
+evaluations of C.  On the H100 both are bound by writing the output (one
+exp per entry); they write each entry once, coalesced, and mask the
+ragged edge instead of padding the points.
 
 A Pallas kernel traces any profile callable; a CUDA kernel cannot, so
 the profile ``g`` is chosen from a registry, `PROFILES`, whose ids match
-the device code.  ``post`` is the spec's chain of scalar ``('mul', a)``
-/ ``('add', c)`` steps (``amp * k``, ``k + c``), applied in the
-kernel's epilogue from a parameter vector that stays on the device.
+the device code (``csrc/profiles.cuh``).  ``post`` is the spec's chain
+of scalar ``('mul', a)`` / ``('add', c)`` steps (``amp * k``,
+``k + c``), applied in the kernel's epilogue from a parameter vector
+that stays on the device.
 
-Differentiation mirrors the JAX ``_gram_d`` / ``_gram_d_jvp`` rule as
-a `torch.autograd.Function`: the backward launches the kernel for the
+Differentiation mirrors the JAX ``_gram_d`` / ``_gram_d_jvp`` (and
+``_gram_sym_d`` / ``_gram_sym_d_jvp``) rules as
+`torch.autograd.Function`s: the backward launches the kernel for the
 r²-derivative weights ``Wr = post'(g'(r²))`` (zero at r² = 0) and, when
 a 'mul' step needs it, for the bare core ``g``, then contracts with the
 output gradient ``G`` in plain torch: with ``C = G ∘ Wr``,
 ``dX = 2 Σ_j C_ij (x_i − y_j)``, exactly as an outer difference at
 p = 1 (the JAX rule's exact branch) and as ``2 (rowsum(C) X − C Y)``
 at p > 1; the same for Y; and scalar sums for the post chain and the
-nugget.
+nugget.  The symmetric version contracts ``G + Gᵀ`` (both of K's
+arguments are x) with kernel E's weights.
 """
 
 from __future__ import annotations
@@ -37,12 +44,13 @@ import torch
 from . import _build
 from ._syrk import _device_kind, _ptr, _stream, _suffix
 
-__all__ = ['gram', 'gram_plain', 'Profile', 'PROFILES']
+__all__ = ['gram', 'gram_plain', 'gram_sym', 'gram_sym_plain', 'Profile',
+           'PROFILES']
 
 Profile = collections.namedtuple('Profile', ['name', 'id', 'value',
                                              'deriv'])
 Profile.__doc__ = """A registered isotropic profile: ``id`` is its
-number in ``csrc/gram.cu`` (PROFILE_*), ``value`` and ``deriv`` are the
+number in ``csrc/profiles.cuh`` (PROFILE_*), ``value`` and ``deriv`` are the
 plain torch ``g(r²)`` and ``g'(r²)``."""
 
 PROFILES = {
@@ -50,7 +58,7 @@ PROFILES = {
                        lambda r2: -0.5 * torch.exp(-0.5 * r2)),
 }
 
-# evaluation modes (csrc/gram.cu MODE_*)
+# evaluation modes (csrc/profiles.cuh MODE_*)
 _VALUE, _DERIV, _BARE = 0, 1, 2
 
 
@@ -99,6 +107,10 @@ def _eval_plain(profile, ops, x, y, pvec, with_noise, mode):
     return v
 
 
+def _postadd(ops):
+    return sum(1 << k for k, op in enumerate(ops) if op == 'add')
+
+
 def _eval_cuda(profile, ops, x, y, pvec, with_noise, mode):
     suffix = _suffix(x.dtype)
     if y.dtype != x.dtype or pvec.dtype != x.dtype:
@@ -108,7 +120,7 @@ def _eval_cuda(profile, ops, x, y, pvec, with_noise, mode):
     if py != p:
         raise ValueError(f'x has {p} coordinates, y has {py}')
     pvec = pvec.contiguous()
-    postadd = sum(1 << k for k, op in enumerate(ops) if op == 'add')
+    postadd = _postadd(ops)
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
     err = getattr(_build.lib(), 'lsq_gram' + suffix)(
         _ptr(x), _ptr(y), n, m, p, _ptr(pvec), len(ops), postadd,
@@ -122,6 +134,30 @@ def _eval(profile, ops, x, y, pvec, with_noise, mode):
     if _device_kind(x, y, pvec) == 'cpu':
         return _eval_plain(profile, ops, x, y, pvec, with_noise, mode)
     return _eval_cuda(profile, ops, x, y, pvec, with_noise, mode)
+
+
+def _eval_sym_cuda(profile, ops, x, pvec, with_noise, mode):
+    suffix = _suffix(x.dtype)
+    if pvec.dtype != x.dtype:
+        raise ValueError('x and the parameters must share one dtype')
+    n, p = x.shape
+    pvec = pvec.contiguous()
+    out = torch.empty((n, n), dtype=x.dtype, device=x.device)
+    err = getattr(_build.lib(), 'lsq_gram_sym' + suffix)(
+        _ptr(x), n, p, _ptr(pvec), len(ops), _postadd(ops), int(with_noise),
+        profile.id, mode, _ptr(out), _stream(x.device))
+    _build.check(err, 'gram_sym')
+    gram_sym.launches += 1
+    return out
+
+
+def _eval_sym(profile, ops, x, pvec, with_noise, mode):
+    """K(x, x) in ``mode``: kernel E for CUDA tensors; for CPU ones the
+    plain full evaluation, which equals the mirrored upper triangle
+    exactly (r² is computed symmetrically)."""
+    if _device_kind(x, pvec) == 'cpu':
+        return _eval_plain(profile, ops, x, x, pvec, with_noise, mode)
+    return _eval_sym_cuda(profile, ops, x, pvec, with_noise, mode)
 
 
 def _param_grads(G, bare, ops, pvec, with_noise):
@@ -183,6 +219,37 @@ class _Gram(torch.autograd.Function):
         return gx, gy, gp, None, None, None
 
 
+class _GramSym(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, pvec, profile, ops, with_noise):
+        ctx.save_for_backward(x, pvec)
+        ctx.meta = profile, ops, with_noise
+        return _eval_sym(profile, ops, x, pvec, with_noise, _VALUE)
+
+    @staticmethod
+    def backward(ctx, G):
+        x, pvec = ctx.saved_tensors
+        profile, ops, with_noise = ctx.meta
+        gx = gp = None
+        if ctx.needs_input_grad[0]:
+            # both arguments of K are x: the y-gradient of `_Gram`
+            # transposed lands on x too, so G enters symmetrized
+            C = G + G.T
+            C.mul_(_eval_sym(profile, ops, x, pvec, False, _DERIV))
+            if x.shape[1] == 1:
+                C.mul_(x - x.T)
+                gx = 2 * C.sum(1, keepdim=True)
+            else:
+                gx = 2 * (C.sum(1, keepdim=True) * x - C @ x)
+            del C
+        if ctx.needs_input_grad[1]:
+            gp = _param_grads(
+                G, lambda: _eval_sym(profile, ops, x, pvec, False, _BARE),
+                ops, pvec, with_noise)
+        return gx, gp, None, None, None
+
+
 def _args(profile, x, y, post, noise):
     profile = _profile(profile)
     x = _prep(x)
@@ -221,3 +288,21 @@ def gram_plain(profile, x, y=None, *, post=(), noise=None):
     autograd; the reference the kernel is held against."""
     profile, x, y, ops, pvec = _args(profile, x, y, post, noise)
     return _eval_plain(profile, ops, x, y, pvec, noise is not None, _VALUE)
+
+
+def gram_sym(profile, x, *, post=(), noise=None):
+    """Symmetric Gram matrix ``K(x, x)`` (+ noise·I) evaluated on the
+    upper-triangle tiles only and mirrored (kernel E on CUDA): half the
+    profile evaluations of `gram`.  Arguments as for `gram`."""
+    profile, x, _, ops, pvec = _args(profile, x, None, post, noise)
+    return _GramSym.apply(x, pvec, profile, ops, noise is not None)
+
+
+gram_sym.launches = 0
+
+
+def gram_sym_plain(profile, x, *, post=(), noise=None):
+    """Plain PyTorch version of `gram_sym` on any device, differentiable
+    by autograd."""
+    profile, x, _, ops, pvec = _args(profile, x, None, post, noise)
+    return _eval_plain(profile, ops, x, x, pvec, noise is not None, _VALUE)

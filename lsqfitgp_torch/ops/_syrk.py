@@ -1,6 +1,7 @@
 """Lower-trapezoid symmetric updates: the blocked Cholesky's Schur
-complement (kernel A) and the marginal-likelihood gradient's ``WᵀW``
-(kernel B).
+complement (kernel A), the same with the Gram computed in the tile
+(kernel D, the streaming factorization's) and the marginal-likelihood
+gradient's ``WᵀW`` (kernel B).
 
 Counterpart of ``lsqfitgp_tpu/ops/_syrk.py``.  Each wrapper runs its
 plain PyTorch version for a CPU tensor and launches its hand-written
@@ -16,6 +17,13 @@ across the whole k-loop, fuses the diagonal scaling and eps into the
 tile's initial value, reads B through its offset and leading dimension,
 and skips the strict-upper tiles entirely.
 
+Kernel D replaces ``lsqfitgp_tpu/ops/_syrk.py::_schur_gram_kernel`` and
+its 2-D-grid twin ``_schur_gram_kernel2`` (one CUDA kernel serves both).
+It is kernel A with another tile initialization: the virtual matrix
+``blockdiag(K, I) + eps I`` (eps on the real diagonal only) computed
+from the points, so the Gram block never exists in device memory.  Same
+bound, same design.
+
 Kernel B replaces ``lsqfitgp_tpu/ops/_syrk.py::_syrk_t_kernel``.  Also
 FMA-bound; it computes the lower output tiles only, starts each tile's
 k-loop at its row tile (the rows of a lower-triangular W above are
@@ -29,7 +37,8 @@ import torch
 
 from . import _build
 
-__all__ = ['schur_update', 'syrk_t_full', 'schur_update_plain',
+__all__ = ['schur_update', 'schur_update_gram', 'syrk_t_full',
+           'schur_update_plain', 'schur_update_gram_plain',
            'syrk_t_full_plain']
 
 # the kernels' output tile edge (csrc/syrk.cu: BM)
@@ -164,6 +173,95 @@ def _schur_update_cuda(B, A, s, eps, size, offset, tile, nreal):
 
 
 schur_update.launches = 0
+
+
+def _gram_view_mask(S, gi, nreal):
+    """The virtual matrix ``blockdiag(K, I)`` from the Gram S of the rows
+    with global indices ``gi``, in place: entries with a row or column
+    >= nreal are 0, and 1 on the diagonal."""
+    pad = gi >= nreal
+    S[pad] = 0
+    S[:, pad] = 0
+    S.diagonal()[pad] = 1
+    return S
+
+
+def schur_update_gram_plain(profile, X, A, *, post=(), eps=None, nreal=None,
+                            size, offset=0, tile=512):
+    """Plain version of `schur_update_gram` (the JAX package's interpret
+    branch): the full square of the virtual matrix minus ``A Aᵀ``, with
+    the strict-upper tiles zeroed."""
+    from . import _gram
+    if nreal is None:
+        nreal = X.shape[0]
+    S = _gram.gram_plain(profile, X[offset:offset + size], post=post)
+    gi = offset + torch.arange(size, device=A.device)
+    S = _gram_view_mask(S, gi, nreal)
+    if eps is not None:
+        e = torch.as_tensor(eps, dtype=A.dtype, device=A.device)
+        S.diagonal().add_(torch.where(gi < nreal, e, torch.zeros_like(e)))
+    # in place: at the streaming factorization's top update the square
+    # is gigabytes
+    S.addmm_(A, A.T, alpha=-1)
+    return S.masked_fill_(~_tile_mask(size, tile, A.device), 0)
+
+
+def schur_update_gram(profile, X, A, *, post=(), eps=None, nreal=None,
+                      size=None, offset=0, tile=512, precision=None):
+    """Lower-trapezoid tiles of ``S = K[off:off+size, off:off+size] + eps I
+    − A Aᵀ`` where ``K[i, j] = post(g(‖X_i − X_j‖²))`` is computed inside
+    the kernel from the points: the Gram block never exists in memory.
+
+    profile : str or Profile, a registered profile (`ops.PROFILES`)
+    X : (npad, p) points of the whole virtual matrix, global rows
+    A : (size, h); size and offset multiples of ``tile``
+    post : the profile's post chain of ('mul' | 'add', scalar) steps
+    eps : scalar or None, added on the diagonal entries with global
+        index < nreal
+    nreal : global bound of the real rows (default all of X); the
+        virtual matrix is exactly ``blockdiag(K, I)`` past it
+
+    Same uninitialized-upper-tiles contract as `schur_update`.
+    """
+    _check_precision(precision)
+    m, h = A.shape
+    if size is None:
+        size = m
+    if nreal is None:
+        nreal = X.shape[0]
+    if size != m:
+        raise ValueError(f'size {size} != A.shape[0] {m}')
+    if size % tile or offset % tile:
+        raise ValueError(f'size {size} and offset {offset} must be '
+                         f'multiples of tile {tile}')
+    if X.shape[0] < offset + size:
+        raise ValueError('X has fewer rows than offset + size')
+    if _device_kind(X, A) == 'cpu':
+        return schur_update_gram_plain(profile, X, A, post=post, eps=eps,
+                                       nreal=nreal, size=size, offset=offset,
+                                       tile=tile)
+    from . import _gram
+    profile, X, _, ops, pvec = _gram._args(profile, X, None, post, eps)
+    suffix = _suffix(A.dtype)
+    if tile % KERNEL_TILE:
+        raise ValueError(f'tile {tile} must be a multiple of {KERNEL_TILE} '
+                         f'on CUDA')
+    if X.dtype != A.dtype or pvec.dtype != A.dtype:
+        raise ValueError('X, A and the parameters must share one dtype')
+    if not A.is_contiguous():
+        raise ValueError('A must be contiguous')
+    out = torch.empty((size, size), dtype=A.dtype, device=A.device)
+    postadd = sum(1 << k for k, op in enumerate(ops) if op == 'add')
+    err = getattr(_build.lib(), 'lsq_schur_gram' + suffix)(
+        _ptr(X), X.shape[1], _ptr(pvec), len(ops), postadd,
+        int(eps is not None), profile.id, nreal, offset, _ptr(A), h,
+        _ptr(out), size, tile, _stream(A.device))
+    _build.check(err, 'schur_update_gram')
+    schur_update_gram.launches += 1
+    return out
+
+
+schur_update_gram.launches = 0
 
 
 def syrk_t_full_plain(W):

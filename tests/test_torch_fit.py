@@ -21,6 +21,13 @@ N = 200
 HYPERPRIOR = {'log(scale)': (0., 1.), 'log(amp)': (0., 1.)}
 
 
+@pytest.fixture(scope='module', autouse=True)
+def cpu_device():
+    """The package computes on the CUDA card unless asked for the CPU."""
+    with lt.using_device('cpu'):
+        yield
+
+
 @pytest.fixture(autouse=True)
 def torch_f64():
     old = torch.get_default_dtype()

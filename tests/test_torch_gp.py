@@ -22,6 +22,13 @@ pytestmark = pytest.mark.x64only
 N = 200
 
 
+@pytest.fixture(scope='module', autouse=True)
+def cpu_device():
+    """The package computes on the CUDA card unless asked for the CPU."""
+    with lt.using_device('cpu'):
+        yield
+
+
 @pytest.fixture(autouse=True)
 def torch_f64():
     old = torch.get_default_dtype()
@@ -135,12 +142,15 @@ def test_pred_uarray_data(data):
                                rtol=1e-8, atol=1e-11)
 
 
-def test_objective_leaves_no_cycles(rng):
-    """One value+gradient of the fit objective frees its n × n blocks by
+@pytest.mark.parametrize('solver', ['chol', 'chol-stream'])
+def test_objective_leaves_no_cycles(rng, solver):
+    """One value+gradient of the fit objective frees its large blocks by
     reference counting alone: nothing waits in a reference cycle for
     the garbage collector (at n in the tens of thousands each such
     block is gigabytes on the card).  n = 1100 takes the blocked
-    factorization and trtri_blocked."""
+    factorization and trtri_blocked on the dense solver; the streaming
+    solver's largest blocks are its factor tree's panels and Schur
+    complements, so there the bound is a quarter of n²."""
     import gc
     n = 1100
     x = torch.as_tensor(rng.uniform(-20, 20, n))
@@ -150,18 +160,23 @@ def test_objective_leaves_no_cycles(rng):
     def value_grad():
         p = torch.tensor([0.2, -0.1], requires_grad=True)
         with lt.disable_checks():
-            gp = lt.GP(p[0].exp() * lt.ExpQuad(scale=p[1].exp()),
-                       gram='tiled').addx(x, 'f').addcov(noise, 'e')
-            gp = gp.addlintransf(lambda f, e: f + e, ['f', 'e'], 'y')
-            v = -gp.marginal_likelihood({'y': y})
+            k = p[0].exp() * lt.ExpQuad(scale=p[1].exp())
+            if solver == 'chol':
+                gp = lt.GP(k, gram='tiled').addx(x, 'f').addcov(noise, 'e')
+                gp = gp.addlintransf(lambda f, e: f + e, ['f', 'e'], 'y')
+                v = -gp.marginal_likelihood({'y': y})
+            else:
+                gp = lt.GP(k + 0.09 * lt.White(), solver=solver, block=128)
+                v = -gp.addx(x, 'y').marginal_likelihood({'y': y})
         torch.autograd.grad(v, p)
 
+    size = n * n if solver == 'chol' else n * n // 4
     gc.collect()
     gc.disable()
     try:
         value_grad()
         left = [tuple(o.shape) for o in gc.get_objects()
-                if isinstance(o, torch.Tensor) and o.numel() >= n * n
+                if isinstance(o, torch.Tensor) and o.numel() >= size
                 and o is not noise]
     finally:
         gc.enable()

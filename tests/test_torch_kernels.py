@@ -30,6 +30,13 @@ TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.float64: dict(rtol=1e-12, atol=1e-12)}
 
 
+@pytest.fixture(scope='module', autouse=True)
+def cpu_device():
+    """The package computes on the CUDA card unless asked for the CPU."""
+    with lt.using_device('cpu'):
+        yield
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -55,8 +62,10 @@ def test_cpu_tensors_take_the_plain_version(gen):
     A = torch.as_tensor(gen.standard_normal((256, 128)))
     W = torch.as_tensor(np.tril(gen.standard_normal((256, 256))))
     x = torch.as_tensor(gen.standard_normal(50))
-    before = [ops.schur_update.launches, ops.syrk_t_full.launches,
-              ops.gram.launches]
+    X = torch.as_tensor(gen.standard_normal((256, 2)))
+    counters = [ops.schur_update, ops.schur_update_gram, ops.syrk_t_full,
+                ops.gram, ops.gram_sym]
+    before = [c.launches for c in counters]
     S = ops.schur_update(None, A, eps=0.5, tile=128)
     torch.testing.assert_close(
         S, _syrk.schur_update_plain(None, A, eps=0.5, size=256, tile=128))
@@ -64,8 +73,14 @@ def test_cpu_tensors_take_the_plain_version(gen):
                                _syrk.syrk_t_full_plain(W))
     torch.testing.assert_close(ops.gram('expquad', x),
                                ops.gram_plain('expquad', x))
-    assert [ops.schur_update.launches, ops.syrk_t_full.launches,
-            ops.gram.launches] == before
+    torch.testing.assert_close(ops.gram_sym('expquad', x),
+                               ops.gram_sym_plain('expquad', x))
+    torch.testing.assert_close(
+        ops.schur_update_gram('expquad', X, A[:, :64], eps=0.5, tile=128,
+                              nreal=200),
+        _syrk.schur_update_gram_plain('expquad', X, A[:, :64], eps=0.5,
+                                      size=256, tile=128, nreal=200))
+    assert [c.launches for c in counters] == before
 
 
 def test_unsupported_device_raises():
@@ -155,5 +170,92 @@ def test_gp_on_cuda_matches_cpu(cuda, gen):
         np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-10)
         torch.testing.assert_close(out[1][1], out[0][1], rtol=1e-8,
                                    atol=1e-8)
+    finally:
+        torch.set_default_dtype(old)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('p', [1, 3])
+def test_schur_update_gram_cuda(cuda, gen, dtype, p):
+    """Kernel D at an offset, with a ragged nreal (pad tail inside the
+    square), a post chain, and with and without eps."""
+    size, h, tile, offset = 512, 384, 256, 256
+    npad = offset + size
+    nreal = npad - 70
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    X = t(gen.standard_normal((npad, p)) * 2)
+    A = t(gen.standard_normal((size, h)) / h ** 0.5)
+    post = (('mul', t(1.7)), ('add', t(0.1)))
+    keep = _syrk._tile_mask(size, tile, cuda)
+    for eps in (None, t(0.25)):
+        kw = dict(post=post, eps=eps, nreal=nreal, size=size, offset=offset,
+                  tile=tile)
+        n0 = ops.schur_update_gram.launches
+        got = ops.schur_update_gram('expquad', X, A, **kw)
+        assert ops.schur_update_gram.launches == n0 + 1
+        ref = _syrk.schur_update_gram_plain('expquad', X, A, **kw)
+        torch.testing.assert_close(got[keep], ref[keep], **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('p', [1, 3])
+def test_gram_sym_cuda(cuda, gen, dtype, p):
+    """Kernel E (ragged edge, post chain, nugget) and its backward."""
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    x = t(gen.standard_normal((300, p)) * 2).requires_grad_()
+    a = t(1.3).requires_grad_()
+    c = t(0.2).requires_grad_()
+    noise = t(0.1).requires_grad_()
+    post = (('mul', a), ('add', c))
+    G = t(gen.standard_normal((300, 300)))
+    n0 = ops.gram_sym.launches
+    got = ops.gram_sym('expquad', x, post=post, noise=noise)
+    assert ops.gram_sym.launches == n0 + 1
+    assert torch.equal(got, got.T)
+    ref = ops.gram_sym_plain('expquad', x, post=post, noise=noise)
+    torch.testing.assert_close(got, ref, **TOL[dtype])
+    leaves = (x, a, c, noise)
+    for g, r in zip(torch.autograd.grad((got * G).sum(), leaves),
+                    torch.autograd.grad((ref * G).sum(), leaves)):
+        torch.testing.assert_close(g, r, **TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_stream_and_halfmatrix_on_cuda_match_cpu(cuda, gen):
+    """The streaming GP (kernels C and D in the factorization, C in the
+    gradient strips) and the halfmatrix GP (kernel E) on the card
+    against the same models on the CPU, in float64."""
+    n = 1400
+    x = gen.uniform(-20, 20, n)
+    y = np.sin(x) + 0.3 * gen.standard_normal(n)
+    xs = np.linspace(-21, 21, 16)
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        out = []
+        launches = [ops.schur_update_gram.launches, ops.gram_sym.launches]
+        for dev in ('cpu', cuda):
+            with lt.using_device(dev):
+                res = []
+                for kw, cov in ((dict(solver='chol-stream', block=256),
+                                 0.09),
+                                (dict(halfmatrix=True, gram='tiled'),
+                                 {('f', 'f'): 0.09 * np.eye(n)})):
+                    lp = torch.tensor([0.1, -0.2], device=dev,
+                                      requires_grad=True)
+                    k = lp[1].exp() * lt.ExpQuad(scale=lp[0].exp())
+                    gp = lt.GP(k, **kw).addx(x, 'f').addx(xs, 's')
+                    ml = gp.marginal_likelihood({'f': y}, cov)
+                    g, = torch.autograd.grad(ml, lp)
+                    with torch.no_grad():
+                        mean = gp.predfromdata({'f': y}, 's', cov).mean
+                    res += [ml.detach().cpu(), g.cpu(), mean.cpu()]
+                out.append(res)
+        assert ops.schur_update_gram.launches > launches[0]
+        assert ops.gram_sym.launches > launches[1]
+        for got, ref in zip(out[1], out[0]):
+            torch.testing.assert_close(got, ref, rtol=1e-8, atol=1e-8)
     finally:
         torch.set_default_dtype(old)

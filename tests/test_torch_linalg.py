@@ -13,9 +13,17 @@ import jax
 from jax import numpy as jnp
 
 import lsqfitgp_tpu as ltpu
+import lsqfitgp_torch as lt
 from lsqfitgp_torch import linalg
 
 pytestmark = pytest.mark.x64only
+
+
+@pytest.fixture(scope='module', autouse=True)
+def cpu_device():
+    """The package computes on the CUDA card unless asked for the CPU."""
+    with lt.using_device('cpu'):
+        yield
 
 
 @pytest.fixture(autouse=True)

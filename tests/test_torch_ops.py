@@ -13,9 +13,17 @@ from jax import numpy as jnp
 import jax
 
 from lsqfitgp_tpu import ops as jops
+import lsqfitgp_torch as lt
 from lsqfitgp_torch import ops
 
 pytestmark = pytest.mark.x64only
+
+
+@pytest.fixture(scope='module', autouse=True)
+def cpu_device():
+    """The package computes on the CUDA card unless asked for the CPU."""
+    with lt.using_device('cpu'):
+        yield
 
 
 @pytest.fixture(autouse=True)

@@ -14,21 +14,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    path's shapes, in float32 and float64, and times both with CUDA
    events (median of a few runs after one warm-up), beside the bound
    (the least time the card could take for the same work) and, where one
-   PyTorch call computes a superset of the work, that call's time; the
-   record keeps the path's dtype (float64 for B, float32 for the rest);
+   PyTorch call computes a superset of the work, that call's time.  A
+   and D run in float32 at each precision, each its own record: 'high'
+   (the tensor-core kernel in 3xTF32, the path's), 'default' (1xTF32)
+   and 'highest' (the SIMT kernel), and in float64 (SIMT); B's record is
+   float64, the path's dtype, and C's and E's float32;
 4. the dense path: fits ``amp * ExpQuad(scale)`` plus noise to n = 16384
    points with ``empbayes_fit`` in float32, predicts at 64 points,
-   checks that kernels A, B and C were launched by that run, and holds
-   the NLL and its gradient at the start point, at the fitted
-   hyperparameters and at a worse-conditioned point, and the posterior
-   mean at the fitted hyperparameters, against a plain float64
-   computation with ``torch.linalg.cholesky`` (at the fit, through the
-   shift of the optimum that the gradient's error implies);
+   checks that kernels A (on the tensor cores), B and C were launched by
+   that run, prints the peak memory of one value+gradient in bytes per
+   n² and a profile of one, and holds the NLL and its gradient at the
+   start point, at the fitted hyperparameters and at a worse-conditioned
+   point (where it also prints the error at precision 'highest'), and
+   the posterior mean at the fitted hyperparameters, against a plain
+   float64 computation with ``torch.linalg.cholesky`` (at the fit,
+   through the shift of the optimum that the gradient's error implies);
 5. the streaming path: ``GP(solver='chol-stream')`` fitted by
    ``empbayes_fit`` (3 BFGS iterations from the dense fit's MAP) to
    n = 65536 points from numpy, a size whose dense Gram does not fit the
    card, then
-   ``predfromdata``; checks that kernel D was launched and prints the
+   ``predfromdata``; checks that kernels D and A were launched on the
+   tensor cores and prints the
    peak memory; then at n = 32768 holds the streaming NLL, gradient and
    posterior mean against the float64 computation, as in 4;
 6. the halfmatrix path: one dense value+gradient at n = 16384 with
@@ -37,6 +43,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 7. prints a JSON line of kernel records and, last, the device line.
 
 Any failed check exits non-zero before the last line.
+
+``python3 chip_smoke.py --dense-at N`` runs only one dense float32
+value+gradient of the dense slice's model at n = N and prints its peak
+memory (it needs nothing of this version beyond the package's public
+API); ``--memory-probe`` runs that at each of a list of sizes, each in
+its own process, to find the largest n that fits the card;
+``--compare-fits`` runs the dense and the streaming fits at precision
+'high' and 'highest' in turns.
 """
 
 import json
@@ -56,10 +70,11 @@ NOISE_VAR = 0.09   # 0.3**2, the data's noise
 SEED = 20261016
 
 # the card's peak rates (NVIDIA's H100 SXM data sheet, at 700 W): HBM
-# bandwidth, and FP32 (outside the tensor cores) and FP64 (tensor core)
-# operations
+# bandwidth, and FP32 (outside the tensor cores), FP64 (tensor core) and
+# TF32 (tensor core, dense) operations; a 3xTF32 product costs three
+# TF32 passes, so its useful rate is the TF32 peak over 3
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {'float32': 67e12, 'float64': 67e12}
+PEAK_OPS = {'float32': 67e12, 'float64': 67e12, 'tf32': 495e12}
 
 
 def fail(msg):
@@ -94,18 +109,37 @@ def unit_roundoff(dtype):
     return torch.finfo(dtype).eps / 2
 
 
-def bound(nbytes, ops, dtype):
+def bound(nbytes, ops, dtype, passes=0):
     """(ms, 'bytes' | 'operations'): the least time the card could take
-    to move ``nbytes`` and do ``ops`` operations of ``dtype``."""
+    to move ``nbytes`` and do ``ops`` operations of ``dtype``, or, with
+    ``passes``, ``ops`` useful operations as that many TF32 passes."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_OPS[str(dtype).split('.')[-1]] * 1e3
+    if passes:
+        t_ops = passes * ops / PEAK_OPS['tf32'] * 1e3
+    else:
+        t_ops = ops / PEAK_OPS[str(dtype).split('.')[-1]] * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
-def record(err, ms, plain_ms, bound_ms_by, library_ms=None):
+def record(err, ms, plain_ms, bound_ms_by, library_ms=None, **extra):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1],
-                library_ms=library_ms)
+                library_ms=library_ms, **extra)
+
+
+# kernels A and D: the float32 variants, each a record of its own, with
+# the CUDA kernel and the launch counter each runs (the SIMT kernel's
+# counter also counts the float64 launches)
+PRECISIONS = [('high', 'schur_tc.cu', 3, 'launches_tc'),
+              ('default', 'schur_tc.cu', 1, 'launches_tc1'),
+              ('highest', 'syrk.cu', 0, 'launches')]
+
+
+def tc_extra(passes):
+    """The per-product rounding of the TF32 passes beyond fp32's, in
+    units of (|A||A|ᵀ)ᵢⱼ: 3xTF32 drops lo·lo and rounds lo, each below
+    2⁻²² |a b|; 1xTF32 rounds both factors to 2⁻¹¹."""
+    return {3: 4 * 2.0 ** -22, 1: 2 * 2.0 ** -11, 0: 0.0}[passes]
 
 
 def lower_fraction(size, tile):
@@ -161,7 +195,8 @@ def build():
 def kernel_schur(dtype, gen):
     """Kernel A at the largest trailing update of the n = 16384
     factorization (w = h = 8192), with B read at a nonzero offset,
-    scaling s, eps, and a ragged nreal."""
+    scaling s, eps, and a ragged nreal; in float32 at each precision, a
+    record each, and in float64."""
     import torch
     from lsqfitgp_torch.ops import _syrk
     size = h = N // 2
@@ -175,36 +210,65 @@ def kernel_schur(dtype, gen):
     eps = torch.tensor(0.5, device='cuda', dtype=dtype)
     args = dict(s=s, eps=eps, size=size, offset=offset, tile=tile,
                 nreal=nreal)
-    got = _syrk.schur_update(B, A, **args)
     ref = _syrk.schur_update_plain(B, A, **args)
-    # tolerance: the two sum h products in another order, so each entry
-    # may differ by the probabilistic rounding bound of a length-h dot
-    # product, 4 sqrt(h) u sum_k |A_ik A_jk|, plus one rounding of the
-    # scaled B entry and of eps
-    u = unit_roundoff(dtype)
-    Aa = A.abs()
-    Bv = B[offset:, offset:] * s[offset:, None] * s[None, offset:]
-    tol = 4 * math.sqrt(h) * u * (Aa @ Aa.T) + 4 * u * (Bv.abs() + 0.5)
-    mask = _syrk._tile_mask(size, tile, A.device)
-    err = check_close(f'A schur_update {dtype}', got[mask], ref[mask],
-                      tol[mask])
-    del got, ref, tol, Aa, Bv
-    ms = median_ms(lambda: _syrk.schur_update(B, A, **args))
     plain_ms = median_ms(lambda: _syrk.schur_update_plain(B, A, **args))
     # the library call: one addmm on the full square of the scaled view
     Bs = (B[offset:, offset:] * s[offset:, None] * s[None, offset:]
           ).contiguous()
     library_ms = median_ms(lambda: torch.addmm(Bs, A, A.T, alpha=-1))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    library_tf32_ms = median_ms(lambda: torch.addmm(Bs, A, A.T, alpha=-1))
+    torch.backends.cuda.matmul.allow_tf32 = False
     del Bs
+    # tolerance: the two sum h products in another order, so each entry
+    # may differ by the probabilistic rounding bound of a length-h dot
+    # product, 4 sqrt(h) u sum_k |A_ik A_jk|, plus one rounding of the
+    # scaled B entry and of eps; the TF32 passes add their per-product
+    # rounding (tc_extra) times the same sum
+    u = unit_roundoff(dtype)
+    Aa = A.abs()
+    S = Aa @ Aa.T
+    del Aa
+    Bv = B[offset:, offset:] * s[offset:, None] * s[None, offset:]
+    init_tol = 4 * u * (Bv.abs() + 0.5)
+    del Bv
+    mask = _syrk._tile_mask(size, tile, A.device)
     # useful work: the lower 512-tiles, 2h flops per entry; A read once,
     # the view of B and the output's lower tiles once each
     f = lower_fraction(size, tile)
     isz = A.element_size()
-    bd = bound(isz * (size * h + 2 * f * size * size), 2 * f * size ** 2 * h,
-               dtype)
-    log(f'  A {dtype}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
-        f'addmm {library_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})')
-    return record(err, ms, plain_ms, bd, library_ms)
+    nbytes = isz * (size * h + 2 * f * size * size)
+    flops = 2 * f * size ** 2 * h
+    variants = PRECISIONS if dtype == torch.float32 else \
+        [('float64', 'syrk.cu', 0, 'launches')]
+    records = []
+    for precision, source, passes, counter in variants:
+        prec = None if precision == 'float64' else precision
+        got = _syrk.schur_update(B, A, precision=prec, **args)
+        tol = (4 * math.sqrt(h) * u + tc_extra(passes)) * S + init_tol
+        err = check_close(f'A schur_update {dtype} {precision}', got[mask],
+                          ref[mask], tol[mask])
+        # the sums' rounding bias: on the diagonal all the products are
+        # positive, so a rounding toward zero shows as a mean offset
+        bias = float(((got - ref).diagonal() / S.diagonal()).mean())
+        log(f'    mean (got - plain) / (|A||A|ᵀ) on the diagonal: '
+            f'{bias:.3e}')
+        del got, tol
+        ms = median_ms(lambda: _syrk.schur_update(B, A, precision=prec,
+                                                  **args))
+        bd = bound(nbytes, flops, dtype, passes)
+        lib = library_tf32_ms if passes == 1 else library_ms
+        libname = 'torch.addmm, full square, cuBLAS ' + (
+            'TF32' if passes == 1 else 'IEEE ' + str(dtype).split('.')[-1])
+        log(f'  A {dtype} {precision}: kernel {ms:.3f} ms '
+            f'({flops / ms / 1e9:.1f} TFLOP/s useful), plain '
+            f'{plain_ms:.3f} ms, {libname} {lib:.3f} ms, bound '
+            f'{bd[0]:.3f} ms ({bd[1]})')
+        records.append(record(err, ms, plain_ms, bd, lib,
+                              precision=precision, dtype=str(dtype),
+                              source='lsqfitgp_torch/csrc/' + source,
+                              counter=counter, library=libname))
+    return records
 
 
 def kernel_syrk(dtype, gen):
@@ -315,9 +379,10 @@ def kernel_gram(dtype, gen):
 def kernel_schur_gram(dtype, gen):
     """Kernel D at the top trailing update of the streaming factorization
     (size = h = offset = n/2, float32 at n = 65536 as on the streaming
-    path; float64 at n = 32768, the size whose plain version's
-    temporaries fit the card): points on the path's scale, the smoke's
-    post chain, eps, and a ragged nreal (the last 300 rows are pad)."""
+    path, at each precision, a record each; float64 at n = 32768, the
+    size whose plain version's temporaries fit the card): points on the
+    path's scale, the smoke's post chain, eps, and a ragged nreal (the
+    last 300 rows are pad)."""
     import torch
     from lsqfitgp_torch.ops import _syrk
     n = N_STREAM if dtype == torch.float32 else N_CHECK
@@ -331,39 +396,53 @@ def kernel_schur_gram(dtype, gen):
     eps = torch.tensor(NOISE_VAR, device='cuda', dtype=dtype)
     args = dict(post=(('mul', amp),), eps=eps, nreal=nreal, size=size,
                 offset=offset, tile=tile)
-    got = _syrk.schur_update_gram('expquad', X, A, **args)
     ref = _syrk.schur_update_gram_plain('expquad', X, A, **args)
+    reps = 3
+    plain_ms = median_ms(
+        lambda: _syrk.schur_update_gram_plain('expquad', X, A, **args), reps)
     # tolerance: the kernel sums the h products into an accumulator that
     # starts at the Gram entry, so each rounding is relative to a partial
     # sum bounded by |K_ij + eps| + (|A||A|ᵀ)_ij: 4 sqrt(h) u times that
     # (a probabilistic bound for sums taken in another order), plus
     # 16 u (amp + eps) for the Gram entry itself (exp differs by a few
-    # ulps between the two implementations; r² is computed identically)
+    # ulps between the two implementations; r² is computed identically);
+    # the TF32 passes add their per-product rounding (tc_extra) times
+    # (|A||A|ᵀ)_ij
     u = unit_roundoff(dtype)
     Aa = A.abs()
-    tol = torch.mm(Aa, Aa.T).add_(1.3 + NOISE_VAR).mul_(
-        4 * math.sqrt(h) * u).add_(16 * u * (1.3 + NOISE_VAR))
+    S = torch.mm(Aa, Aa.T)
     del Aa
     mask = _syrk._tile_mask(size, tile, A.device)
-    got.masked_fill_(~mask, 0)
-    del mask
-    err = check_close(f'D schur_update_gram n={n} {dtype}', got, ref, tol)
-    del got, ref, tol
-    reps = 3
-    ms = median_ms(lambda: _syrk.schur_update_gram('expquad', X, A, **args),
-                   reps)
-    plain_ms = median_ms(
-        lambda: _syrk.schur_update_gram_plain('expquad', X, A, **args), reps)
     # useful work: the lower 512-tiles, 2h flops per entry (the in-tile
     # Gram, ~5 operations per entry, is negligible beside it); A read
     # once, the lower tiles written once
     f = lower_fraction(size, tile)
-    bd = bound(A.element_size() * (size * h + f * size * size),
-               f * size * size * (2 * h + 5), dtype)
-    log(f'  D {dtype}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
-        f'{bd[0]:.3f} ms ({bd[1]}), '
-        f'{2 * f * size * size * h / ms / 1e9:.1f} TFLOP/s')
-    return record(err, ms, plain_ms, bd)
+    nbytes = A.element_size() * (size * h + f * size * size)
+    flops = f * size * size * (2 * h + 5)
+    variants = PRECISIONS if dtype == torch.float32 else \
+        [('float64', 'syrk.cu', 0, 'launches')]
+    records = []
+    for precision, source, passes, counter in variants:
+        prec = None if precision == 'float64' else precision
+        got = _syrk.schur_update_gram('expquad', X, A, precision=prec,
+                                      **args)
+        got.masked_fill_(~mask, 0)
+        tol = (S + (1.3 + NOISE_VAR)).mul_(4 * math.sqrt(h) * u) \
+            .add_(S, alpha=tc_extra(passes)).add_(16 * u * (1.3 + NOISE_VAR))
+        err = check_close(f'D schur_update_gram n={n} {dtype} {precision}',
+                          got, ref, tol)
+        del got, tol
+        ms = median_ms(lambda: _syrk.schur_update_gram(
+            'expquad', X, A, precision=prec, **args), reps)
+        bd = bound(nbytes, flops, dtype, passes)
+        log(f'  D {dtype} {precision}: kernel {ms:.3f} ms, plain '
+            f'{plain_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]}), '
+            f'{2 * f * size * size * h / ms / 1e9:.1f} TFLOP/s useful')
+        records.append(record(err, ms, plain_ms, bd, precision=precision,
+                              dtype=str(dtype),
+                              source='lsqfitgp_torch/csrc/' + source,
+                              counter=counter))
+    return records
 
 
 def kernel_gram_sym(dtype, gen):
@@ -447,13 +526,19 @@ def kernel_phase():
     ]
     for name, fn, source, replaces, variants in specs:
         log(f'kernel {name}:')
-        rec = fn(variants[0], gen)
-        for v in variants[1:]:
+        for i, v in enumerate(variants):
             torch.cuda.empty_cache()
-            fn(v, gen)
+            out = fn(v, gen)
+            if isinstance(out, list):
+                # A and D: a record for each precision and dtype
+                records += [dict(name=f'{name}/{r["precision"]}',
+                                 route='cuda', replaces=replaces, **r)
+                            for r in out]
+            elif i == 0:
+                records.append(dict(name=name, route='cuda', source=source,
+                                    replaces=replaces, counter='launches',
+                                    **out))
         torch.cuda.empty_cache()
-        records.append(dict(name=name, route='cuda', source=source,
-                            replaces=replaces, **rec))
     return records
 
 
@@ -503,16 +588,29 @@ def plain_mean64(x, y, xs, scale, amp):
 KERNELS = ['schur_update', 'syrk_t_full', 'gram', 'schur_update_gram',
            'gram_sym']
 
+# each wrapper's launch counters and the suffix of their key in the
+# counts: A and D count their SIMT kernel ('launches') and their
+# tensor-core kernel in 3xTF32 ('launches_tc') and 1xTF32
+# ('launches_tc1') apart
+COUNTERS = {'launches': '', 'launches_tc': '_tc', 'launches_tc1': '_tc1'}
 
-def reset_counts():
+
+def _counters():
     from lsqfitgp_torch import ops
     for name in KERNELS:
-        getattr(ops, name).launches = 0
+        fn = getattr(ops, name)
+        for attr, suffix in COUNTERS.items():
+            if hasattr(fn, attr):
+                yield name + suffix, fn, attr
+
+
+def reset_counts():
+    for _, fn, attr in _counters():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    from lsqfitgp_torch import ops
-    return {name: getattr(ops, name).launches for name in KERNELS}
+    return {key: getattr(fn, attr) for key, fn, attr in _counters()}
 
 
 def require_launched(counts, names, what):
@@ -524,9 +622,11 @@ def require_launched(counts, names, what):
 def check_points(n, value_grad32, cond_at, x64, y64, points):
     """The port's float32 NLL and its gradient against the float64
     reference (`plain_nll64`) at each (label, [log scale, log amp],
-    near_optimum) point; ``value_grad32(lp)`` is the port's NLL at the
-    float32 tensor lp, ``cond_at(ls, la)`` the float32 condition
-    estimate there."""
+    near_optimum) point; ``value_grad32(lp, precision=None)`` is the
+    port's NLL at the float32 tensor lp, ``cond_at(ls, la)`` the float32
+    condition estimate there.  Away from the optimum the gradient's error
+    at precision 'highest' is printed beside the default's ('high'); the
+    limits hold the default."""
     import torch
     eps32 = torch.finfo(torch.float32).eps
 
@@ -559,8 +659,14 @@ def check_points(n, value_grad32, cond_at, x64, y64, points):
             # gradient: forward error of float32 solves, ~cond eps32
             # relative, with a factor 10 of margin
             rel = float(dg.norm() / g64.norm())
+            lph = lp.detach().clone().requires_grad_()
+            nllh = value_grad32(lph, 'highest')
+            gh, = torch.autograd.grad(nllh, lph)
+            relh = float((gh.double() - g64).norm() / g64.norm())
             log(f'    relative diff {rel:.3e} (limit '
-                f'{10 * cond0 * eps32:.3e})')
+                f'{10 * cond0 * eps32:.3e}); at precision \'highest\' '
+                f'{relh:.3e}, gradient {gh.tolist()}, NLL |diff| '
+                f'{abs(float(nllh.detach()) - nll64):.3e}')
             if rel > 10 * cond0 * eps32:
                 fail(f'{label}: gradient disagrees with the float64 '
                      f'reference')
@@ -608,9 +714,10 @@ def slice_phase(dev='cuda'):
     xst = torch.as_tensor(xs, dtype=f32, device=dev)
     noise = NOISE_VAR * torch.eye(N, dtype=f32, device=dev)
 
-    def gpfactory(hp):
+    def gpfactory(hp, precision=None):
+        kw = {} if precision is None else dict(precision=precision)
         gp = lgp.GP(hp['amp'] * lgp.ExpQuad(scale=hp['scale']),
-                    gram='tiled')
+                    gram='tiled', **kw)
         gp = gp.addx(xt, 'f').addcov(noise, 'e')
         return gp.addlintransf(lambda f, e: f + e, ['f', 'e'], 'y')
 
@@ -637,12 +744,26 @@ def slice_phase(dev='cuda'):
         f'(value + gradient)')
     log(f'  launches during the fit: {fit_launches}; fit + '
         f'predfromdata: {launches}')
-    require_launched(fit_launches, ['schur_update', 'syrk_t_full', 'gram'],
-                     'the dense fit')
+    require_launched(fit_launches, ['schur_update_tc', 'syrk_t_full',
+                                    'gram'], 'the dense fit')
     scale = float(fit.pmean['scale'])
     amp = float(fit.pmean['amp'])
     log(f'  fitted scale {scale:.6g}, amp {amp:.6g}; pmean '
         f'{fit.pmean.buf.tolist()}, pcov {fit.pcov.tolist()}')
+    fitted = [math.log(scale), math.log(amp)]
+
+    # where one value+gradient's time goes at the fit, as the fit
+    # evaluates it (checks off), and its peak memory
+    def value_grad():
+        lp = torch.tensor(fitted, device=dev, requires_grad=True)
+        with lgp.disable_checks():
+            nll = -gpfactory({'scale': lp[0].exp(), 'amp': lp[1].exp()}
+                             ).marginal_likelihood({'y': yt})
+        torch.autograd.grad(nll, lp)
+
+    if dev == 'cuda':
+        profile_phase(value_grad)
+        dense_memory(N)
 
     # conditioning at the fitted hyperparameters
     K = gp.prior('y', raw=True)
@@ -661,8 +782,9 @@ def slice_phase(dev='cuda'):
     y64 = yt.double()
     eps32 = torch.finfo(f32).eps
 
-    def value_grad32(lp):
-        gp0 = gpfactory({'scale': lp[0].exp(), 'amp': lp[1].exp()})
+    def value_grad32(lp, precision=None):
+        gp0 = gpfactory({'scale': lp[0].exp(), 'amp': lp[1].exp()},
+                        precision)
         return -gp0.marginal_likelihood({'y': yt})
 
     def cond_at(ls, la):
@@ -672,7 +794,6 @@ def slice_phase(dev='cuda'):
             return float(lgp.linalg.Chol(gp0.prior('y', raw=True))
                          .cond_estimate)
 
-    fitted = [math.log(scale), math.log(amp)]
     check_points(N, value_grad32, cond_at, x64, y64,
                  [('start point', [0., 0.], False),
                   ('fitted point', fitted, True),
@@ -691,6 +812,140 @@ def slice_phase(dev='cuda'):
     return launches, fitted
 
 
+def dense_memory(n):
+    """Peak device memory of one dense float32 value+gradient of the dense
+    slice's model at n points (the dense slice's point density, log scale
+    0, log amp 0), evaluated as the fit evaluates it (checks off): the
+    forward's and the backward's peaks above what is allocated before
+    (the inputs: the points, the data and the caller's n × n noise
+    matrix).  Prints them in bytes per n² and returns the value+gradient's
+    peak above the inputs, in bytes."""
+    import numpy as np
+    import torch
+    import lsqfitgp_torch as lgp
+    f32 = torch.float32
+    rng = np.random.default_rng(SEED)
+    half = 50 * n / N
+    xn = rng.uniform(-half, half, n)
+    x = torch.as_tensor(xn, dtype=f32, device='cuda')
+    y = torch.as_tensor(np.sin(xn) + math.sqrt(NOISE_VAR)
+                        * rng.standard_normal(n), dtype=f32, device='cuda')
+    noise = NOISE_VAR * torch.eye(n, dtype=f32, device='cuda')
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lp = torch.zeros(2, dtype=f32, device='cuda', requires_grad=True)
+    with lgp.disable_checks():
+        gp = lgp.GP(lp[1].exp() * lgp.ExpQuad(scale=lp[0].exp()),
+                    gram='tiled')
+        gp = gp.addx(x, 'f').addcov(noise, 'e')
+        gp = gp.addlintransf(lambda f, e: f + e, ['f', 'e'], 'y')
+        nll = -gp.marginal_likelihood({'y': y})
+        del gp
+    torch.cuda.synchronize()
+    fwd = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    torch.autograd.grad(nll, lp)
+    torch.cuda.synchronize()
+    bwd = torch.cuda.max_memory_allocated() - base
+    wall = time.perf_counter() - t0
+    n2 = n * n
+    peak = max(fwd, bwd)
+    log(f'  dense value+gradient at n = {n}: {wall:.3f} s; peak memory '
+        f'above its inputs: forward {fwd / n2:.2f} B/n², backward '
+        f'{bwd / n2:.2f} B/n² ({peak / 2**30:.2f} GiB); the inputs hold '
+        f'{base / n2:.2f} B/n² (the noise matrix 4), so the peak in all is '
+        f'{(peak + base) / n2:.2f} B/n² ({(peak + base) / 2**30:.2f} GiB) '
+        f'of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} '
+        f'GiB')
+    return peak
+
+
+def compare_fits():
+    """The dense fit (n = 16384 from the prior mean, as in the dense
+    slice) at precision 'high', 'highest', 'highest', 'high', then the
+    streaming fit (n = 65536, 3 BFGS iterations from the last dense
+    fit's MAP, as in the streaming slice) at 'high' and 'highest', in
+    one process on one card: BFGS iterations, evaluations, wall time,
+    BFGS's message and the end point of each."""
+    import numpy as np
+    import torch
+    import lsqfitgp_torch as lgp
+    f32 = torch.float32
+    torch.set_default_dtype(f32)
+    rng = np.random.default_rng(20261016)
+    x = rng.uniform(-50, 50, N)
+    y = np.sin(x) + math.sqrt(NOISE_VAR) * rng.standard_normal(N)
+    xt = torch.as_tensor(x, dtype=f32, device='cuda')
+    yt = torch.as_tensor(y, dtype=f32, device='cuda')
+    noise = NOISE_VAR * torch.eye(N, dtype=f32, device='cuda')
+    hyperprior = {'log(scale)': (0., 1.), 'log(amp)': (0., 1.)}
+
+    def report(what, fit, wall):
+        ev = fit.evaltimes
+        end = [math.log(float(fit.pmean['scale'])),
+               math.log(float(fit.pmean['amp']))]
+        log(f'{what}: {wall:.2f} s wall, {fit.minresult.nit} iterations, '
+            f'{len(ev)} evaluations, median {statistics.median(ev):.4f} s, '
+            f'{fit.minresult.message!r}, end point {end}')
+        return end
+
+    for prec in ('high', 'highest', 'highest', 'high'):
+        def gpfactory(hp, prec=prec):
+            gp = lgp.GP(hp['amp'] * lgp.ExpQuad(scale=hp['scale']),
+                        gram='tiled', precision=prec)
+            gp = gp.addx(xt, 'f').addcov(noise, 'e')
+            return gp.addlintransf(lambda f, e: f + e, ['f', 'e'], 'y')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit = lgp.empbayes_fit(hyperprior, gpfactory, {'y': yt},
+                               minkw={'maxiter': 50}, raises=False)
+        torch.cuda.synchronize()
+        start = report(f'dense n = {N} at {prec!r}', fit,
+                       time.perf_counter() - t0)
+    del noise, fit
+    torch.cuda.empty_cache()
+    xs, ys, _ = stream_data(N_STREAM)
+    for prec in ('high', 'highest'):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit = lgp.empbayes_fit(
+            hyperprior, lambda hp: stream_gp(hp, prec).addx(xs, 'f'),
+            {'f': ys}, initial=start, minkw={'maxiter': 3}, raises=False)
+        torch.cuda.synchronize()
+        report(f'streaming n = {N_STREAM} at {prec!r}', fit,
+               time.perf_counter() - t0)
+
+
+def memory_probe(sizes=(45056, 53248, 57344, 61440, 63488, 65536)):
+    """The largest n at which one dense value+gradient (`dense_memory`)
+    fits the card: each n in a process of its own, so that running out
+    of memory ends that process only; an n that does not fit with the
+    default allocator is tried again with
+    ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``.  Prints one
+    line per run."""
+    for n in sizes:
+        for conf in (None, 'expandable_segments:True'):
+            env = dict(os.environ)
+            if conf:
+                env['PYTORCH_CUDA_ALLOC_CONF'] = conf
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                   '--dense-at', str(n)], env=env,
+                                  capture_output=True, text=True,
+                                  timeout=900)
+            lines = [l for l in proc.stdout.splitlines()
+                     if 'peak memory' in l]
+            why = lines[-1].strip() if lines else \
+                (proc.stderr.strip().splitlines() or ['no output'])[-1]
+            log(f'n = {n}, allocator {conf or "default"}: exit '
+                f'{proc.returncode} after {time.perf_counter() - t0:.1f} s: '
+                f'{why[:300]}')
+            if proc.returncode == 0:
+                break
+
+
 # -- streaming and halfmatrix phases ------------------------------------------
 
 def stream_data(n):
@@ -704,11 +959,12 @@ def stream_data(n):
     return x, y, np.linspace(-1.05 * half, 1.05 * half, NPRED)
 
 
-def stream_gp(hp):
+def stream_gp(hp, precision=None):
     import lsqfitgp_torch as lgp
     k = hp['amp'] * lgp.ExpQuad(scale=hp['scale']) \
         + NOISE_VAR * lgp.White()
-    return lgp.GP(k, solver='chol-stream', block=512, b1=128)
+    kw = {} if precision is None else dict(precision=precision)
+    return lgp.GP(k, solver='chol-stream', block=512, b1=128, **kw)
 
 
 def stream_phase(start, dev='cuda'):
@@ -765,7 +1021,7 @@ def stream_phase(start, dev='cuda'):
         f'{peak / 2**30:.2f} GiB, of {total / 2**30:.2f} GiB')
     log(f'  launches during the fit: {fit_counts}; fit + predfromdata: '
         f'{counts}')
-    require_launched(fit_counts, ['schur_update_gram', 'schur_update',
+    require_launched(fit_counts, ['schur_update_gram_tc', 'schur_update_tc',
                                   'gram'], 'the streaming fit')
     if not bool(torch.isfinite(mean).all()) or mean.shape != (NPRED,):
         fail('streaming posterior mean not finite or of the wrong shape')
@@ -848,8 +1104,9 @@ def stream_check_phase(end, dev='cuda'):
     def hp(lp):
         return {'scale': lp[0].exp(), 'amp': lp[1].exp()}
 
-    def value_grad32(lp):
-        return -stream_gp(hp(lp)).addx(x, 'f').marginal_likelihood({'f': y})
+    def value_grad32(lp, precision=None):
+        return -stream_gp(hp(lp), precision).addx(x, 'f') \
+            .marginal_likelihood({'f': y})
 
     def cond_at(ls, la):
         # the dense float32 matrix's condition estimate (lsqfitgp_torch's
@@ -952,7 +1209,7 @@ def halfmatrix_phase(dev='cuda'):
     return out[True][3]
 
 
-def main():
+def main(argv):
     sys.path.insert(0, ROOT)
     header()
     try:
@@ -960,6 +1217,18 @@ def main():
     except ImportError as exc:
         fail(f'lsqfitgp_torch not found beside chip_smoke.py: {exc}')
     import torch
+    if argv[:1] == ['--dense-at']:
+        torch.set_default_dtype(torch.float32)
+        dense_memory(int(argv[1]))
+        return 0
+    if argv == ['--memory-probe']:
+        memory_probe()
+        return 0
+    if argv == ['--compare-fits']:
+        compare_fits()
+        return 0
+    if argv:
+        fail(f'unknown arguments {argv}')
     t0 = time.perf_counter()
     build()
     records = kernel_phase()
@@ -979,14 +1248,16 @@ def main():
     own = {'schur_update': 'dense', 'syrk_t_full': 'dense', 'gram': 'dense',
            'schur_update_gram': 'stream', 'gram_sym': 'halfmatrix'}
     for rec in records:
-        rec['launches'] = paths[own[rec['name']]][rec['name']]
-        rec['launches_by_path'] = {p: c[rec['name']]
-                                   for p, c in paths.items()}
+        base = rec['name'].split('/')[0]
+        key = base + COUNTERS[rec['counter']]
+        rec['launches'] = paths[own[base]][key]
+        rec['launches_by_path'] = {p: c[key] for p, c in paths.items()}
     log(f'total {time.perf_counter() - t0:.1f} s')
     keys = ['name', 'route', 'source', 'replaces', 'launches',
             'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
-            'library_ms', 'launches_by_path']
-    print(json.dumps({'kernels': [{k: r[k] for k in keys}
+            'library_ms', 'precision', 'dtype', 'library',
+            'launches_by_path']
+    print(json.dumps({'kernels': [{k: r.get(k) for k in keys}
                                   for r in records]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -995,4 +1266,4 @@ def main():
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -14,7 +14,11 @@ placement raises: the package never computes on the CPU unasked.
 Matrix products in float32 on CUDA are set to IEEE fp32 here
 (``torch.backends.cuda.matmul.allow_tf32 = False``, and the same for
 cuDNN): the blocked Cholesky's panel products and the plain reference
-versions of the kernels must not drop to TF32's ~3 decimal digits.
+versions of the kernels must not drop to TF32's ~3 decimal digits.  The
+TF32 of kernels A and D at precision 'high' (3xTF32, about fp32's
+accuracy) and 'default' (one TF32 pass) is those kernels' own explicit
+choice, made by the ``precision`` keyword (``ops._syrk``), not this
+switch.
 """
 
 from __future__ import annotations

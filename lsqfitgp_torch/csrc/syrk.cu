@@ -1,4 +1,5 @@
-// Lower-trapezoid symmetric updates for the blocked Cholesky (sm_90a).
+// Lower-trapezoid symmetric updates for the blocked Cholesky (sm_90a),
+// the SIMT kernels: IEEE FMA on the CUDA cores.
 //
 // Kernel A, schur_update: the lower tiles of
 //     S = diag(s) B diag(s) + eps I - A A^T
@@ -21,6 +22,11 @@
 // per-tile-pair centered norm expansion: exact at p = 1, relative error
 // ~p u at p > 1 whatever the coordinates' offset.
 //
+// A and D run here in float64, and in float32 at precision='highest';
+// float32 at 'high' (3xTF32) and 'default' (1xTF32) runs the
+// tensor-core kernel of schur_tc.cu, from the same initializers
+// (schur_init.cuh).
+//
 // Kernel B, syrk_t_full: the full symmetric W^T W of a lower-triangular
 // W, computed on the lower output tiles only, skipping the rows of W
 // that are zero above its diagonal, and mirrored into the upper tiles by
@@ -35,12 +41,12 @@
 // shared-memory reads and global writes of a warp are contiguous), the
 // k-loop inside the block in slabs of 8.  A and D are one kernel
 // templated on the tile's initializer.  Accumulation is IEEE fp32 (or
-// fp64) FMA: no tensor cores, no TF32.  Blocks that would compute a tile
-// above the diagonal exit at once; the grid is the full square of tiles
-// and every block computes its own (i, j) from blockIdx.  No library
-// routine is called and nothing is allocated.
+// fp64) FMA: no tensor cores, no TF32.  A and D launch only the lower
+// tiles, numbered by a 1-D work list (schur_init.cuh); B's grid is the
+// full square, and its blocks above the diagonal exit at once.  No
+// library routine is called and nothing is allocated.
 
-#include "profiles.cuh"
+#include "schur_init.cuh"
 
 namespace {
 
@@ -74,91 +80,16 @@ __device__ __forceinline__ void slab_update(
     }
 }
 
-// Kernel A's tile initializer: the scaled view of B plus eps.  B is
-// row-major with leading dimension ldb and holds the view at (offset,
-// offset); s has the global length of B's rows.  B, s and eps may be
-// null.
-template <typename T>
-struct InitScaled {
-    const T* B;
-    long long ldb, offset;
-    const T* s;
-    const T* eps;
-    long long nreal;
-
-    __device__ __forceinline__ void operator()(T (&acc)[TM][TM], long long r0,
-                                               long long c0, int tx,
-                                               int ty) const
-    {
-        const T e = eps ? eps[0] : T(0);
-#pragma unroll
-        for (int p = 0; p < TM; ++p) {
-            const long long r = r0 + ty + 16 * p;
-#pragma unroll
-            for (int q = 0; q < TM; ++q) {
-                const long long c = c0 + tx + 16 * q;
-                T v = T(0);
-                if (B) {
-                    v = B[(offset + r) * ldb + offset + c];
-                    if (s) v = v * s[offset + r] * s[offset + c];
-                }
-                if (eps && r == c && offset + r < nreal) v += e;
-                acc[p][q] = v;
-            }
-        }
-    }
-};
-
-// Kernel D's tile initializer: the virtual matrix blockdiag(K, I) + eps
-// on the real diagonal, computed from the points X (npad x dim,
-// row-major, global rows) with the post chain and eps in params.
-template <typename T>
-struct InitGram {
-    const T* X;
-    int dim;
-    const T* params;
-    int npost;
-    unsigned postadd;
-    int with_eps, profile;
-    long long nreal, offset;
-
-    __device__ __forceinline__ void operator()(T (&acc)[TM][TM], long long r0,
-                                               long long c0, int tx,
-                                               int ty) const
-    {
-        T pv[MAXPOST + 1];
-        for (int k = 0; k <= npost; ++k) pv[k] = params[k];
-#pragma unroll
-        for (int p = 0; p < TM; ++p) {
-            const long long gr = offset + r0 + ty + 16 * p;
-#pragma unroll
-            for (int q = 0; q < TM; ++q) {
-                const long long gc = offset + c0 + tx + 16 * q;
-                T v = gr == gc ? T(1) : T(0);
-                if (gr < nreal && gc < nreal) {
-                    v = entry(profile, MODE_VALUE,
-                              sqdist(X + gr * dim, X + gc * dim, dim), pv,
-                              npost, postadd);
-                    if (with_eps && gr == gc) v += pv[npost];
-                }
-                acc[p][q] = v;
-            }
-        }
-    }
-};
-
-// Kernels A and D.  A is (size, h) row-major.  Tiles are computed when
-// their row is at or below their column at the granularity `tile` (a
-// multiple of BM), so every i >= j tile of that granularity is written
-// in full and no strict-upper one is touched.
+// Kernels A and D.  A is (size, h) row-major.  Block b computes the
+// b-th tile of the lower work list at the granularity `tile` (a
+// multiple of BM).
 template <typename T, typename Init>
 __global__ void __launch_bounds__(NTHREADS)
 schur_kernel(Init init, const T* __restrict__ A, long long h,
              T* __restrict__ out, long long size, long long tile)
 {
-    const long long r0 = (long long)blockIdx.y * BM;
-    const long long c0 = (long long)blockIdx.x * BM;
-    if (r0 / tile < c0 / tile) return;
+    long long r0, c0;
+    lower_tile(blockIdx.x, tile, BM, r0, c0);
 
     __shared__ T As[BK][BM + PAD];
     __shared__ T Bs[BK][BM + PAD];
@@ -166,7 +97,11 @@ schur_kernel(Init init, const T* __restrict__ A, long long h,
     const int tx = t % 16, ty = t / 16;
 
     T acc[TM][TM];
-    init(acc, r0, c0, tx, ty);
+#pragma unroll
+    for (int p = 0; p < TM; ++p)
+#pragma unroll
+        for (int q = 0; q < TM; ++q)
+            acc[p][q] = init(r0 + ty + 16 * p, c0 + tx + 16 * q);
 
     for (long long k0 = 0; k0 < h; k0 += BK) {
 #pragma unroll
@@ -248,9 +183,9 @@ int launch_schur(Init init, const T* A, long long h, T* out, long long size,
                  long long tile, void* stream)
 {
     if (size == 0) return 0;
-    const unsigned nt = (unsigned)(size / BM);
-    dim3 grid(nt, nt);
-    schur_kernel<T, Init><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+    if (tile % BM) return (int)cudaErrorInvalidValue;
+    const unsigned nb = (unsigned)lower_tiles(size, tile, BM);
+    schur_kernel<T, Init><<<nb, NTHREADS, 0, (cudaStream_t)stream>>>(
         init, A, h, out, size, tile);
     return (int)cudaGetLastError();
 }

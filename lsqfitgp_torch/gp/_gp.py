@@ -147,6 +147,12 @@ class GP:
         return torch.zeros((n1, n2), dtype=_config.default_float(),
                            device=self._device)
 
+    def _zero_block(self, n1, n2):
+        """A covariance block known to be zero: one zero broadcast to
+        (n1, n2), never materialized."""
+        return torch.zeros((), dtype=_config.default_float(),
+                           device=self._device).expand(n1, n2)
+
     def _checkprockey(self, key):
         if key not in self._procs:
             raise KeyError(f'process {key!r} not defined')
@@ -298,37 +304,41 @@ class GP:
                 elif (k2, k1) in pairs:
                     blk = pairs[k2, k1].reshape(n2, n1).T
                 else:
-                    blk = new._zeros(n1, n2)
+                    blk = new._zero_block(n1, n2)
                 new._covblock_cache[k1, k2] = blk
         return new
 
     # -- covariance assembly -------------------------------------------------
 
-    def _covblock(self, a, b):
-        cache = self._covblock_cache
-        if (a, b) in cache:
-            return cache[a, b]
-        if (b, a) in cache:
-            blk = cache[b, a].T
-            cache[a, b] = blk
+    def _covblock(self, a, b, cache=True):
+        """Covariance block (a, b): from the GP's cache, or computed and,
+        with ``cache``, cached; without, the blocks computed on the way
+        live only as long as their reader holds them."""
+        known = self._covblock_cache
+        if (a, b) in known:
+            return known[a, b]
+        if (b, a) in known:
+            blk = known[b, a].T
+            known[a, b] = blk
             return blk
         ea, eb = self._elements[a], self._elements[b]
         if isinstance(ea, _Points) and isinstance(eb, _Points):
             blk = self._block_points(ea, eb)
         elif isinstance(ea, _LinTransfEl):
-            blk = self._block_lintransf_left(ea, b)
+            blk = self._block_lintransf_left(ea, b, cache)
         elif isinstance(eb, _LinTransfEl):
-            blk = self._block_lintransf_left(eb, a).T
+            blk = self._block_lintransf_left(eb, a, cache).T
         else:
             # independent of everything not specified in addcov
-            blk = self._zeros(_size(ea.shape), _size(eb.shape))
-        cache[a, b] = blk
+            blk = self._zero_block(_size(ea.shape), _size(eb.shape))
+        if cache:
+            self._covblock_cache[a, b] = blk
         return blk
 
     def _block_points(self, ea, eb):
         kernel = self._crosskernel(ea.proc, eb.proc)
         if isinstance(kernel, Zero):
-            return self._zeros(_size(ea.shape), _size(eb.shape))
+            return self._zero_block(_size(ea.shape), _size(eb.shape))
         sym = ea is eb or (eb.x is ea.x and eb.proc == ea.proc)
         blk = self._block_points_tiled(kernel, ea, eb, sym)
         if blk is not None:
@@ -378,10 +388,10 @@ class GP:
         Y = None if sym else fg.transform_points(spec, cols_b)
         return ops.gram(profile, X, Y, post=post)
 
-    def _block_lintransf_left(self, ea, b):
+    def _block_lintransf_left(self, ea, b, cache=True):
         nb = _size(self._elements[b].shape)
-        cols = [self._covblock(k, b).reshape(self._elements[k].shape
-                                              + (nb,))
+        cols = [self._covblock(k, b, cache).reshape(self._elements[k].shape
+                                                     + (nb,))
                 for k in ea.keys]
         vm = torch.func.vmap(ea.transf, in_dims=(-1,) * len(cols),
                              out_dims=-1)
@@ -391,6 +401,21 @@ class GP:
         rows = [torch.cat([self._covblock(a, b) for b in colkeys], 1)
                 for a in rowkeys]
         return torch.cat(rows, 0) if len(rows) > 1 else rows[0]
+
+    def _assemble_once(self, keys):
+        """The (keys, keys) covariance for one use, the fit objective's:
+        the blocks computed on the way (the points blocks, the
+        `addlintransf` intermediates) are dropped as soon as their reader
+        has them and never enter the GP's cache (a block read twice is
+        computed twice), and a single block is taken as it is, not
+        copied.  Returns a contiguous matrix that may be a block of the
+        GP's cache: the caller must not write into it."""
+        if len(keys) == 1:
+            K = self._covblock(keys[0], keys[0], cache=False)
+        else:
+            K = torch.cat([torch.cat([self._covblock(a, b, cache=False)
+                                      for b in keys], 1) for a in keys], 0)
+        return K.contiguous()
 
     def _checkpos(self, K):
         if not self._checks['pos']:
@@ -409,8 +434,8 @@ class GP:
                 mx = Kd.abs().sum(1).max()
                 ar = torch.arange(n, dtype=Kd.dtype, device=Kd.device)
                 X = torch.sin(ar[:, None] * (1.0 + ar[None, :8]))
-                shifted = mx * torch.eye(n, dtype=Kd.dtype,
-                                         device=Kd.device) - Kd
+                shifted = -Kd
+                shifted.diagonal().add_(mx)
                 w, _ = torch.lobpcg(shifted, X=X, niter=32, largest=True)
                 mineig = mx - w.max()
             bound = -n * eps * mx * self._checks['posepsfac'] * 64
@@ -786,9 +811,11 @@ class GP:
         return -self._prior_nll(given, givencov)
 
     def _prior_nll_parts(self, given, givencov=None, **decompkw):
-        """(K, residuals, choleskykw) for the fused NLL."""
+        """(K, residuals, choleskykw) for the fused NLL.  K is assembled
+        for this one use (`_assemble_once`): at the factorization only K
+        itself is alive of the assembly."""
         inkeys, ymean, ycov, _ = self._flatgiven(given, givencov)
-        K = self._assemble(inkeys, inkeys)
+        K = self._assemble_once(inkeys)
         if ycov is not None:
             K = K + ycov
         else:

@@ -19,7 +19,8 @@ it directly.
 Differences from the JAX package:
 
 - the precision ladder's rungs are Python branches on
-  ``torch.isfinite(...).all()`` (one host sync per factorization);
+  ``torch.isfinite(...).all()`` (one host sync per factorization), and a
+  failed rung's tree is freed before the next rung is built;
 - kernel A (and kernel D in the streaming factorization) runs at every
   internal node of the tree on CUDA (there is no small-trailing-block
   cutover);
@@ -47,9 +48,13 @@ _LIFT = 1024  # self-healing diagonal lift, in units of eps * matrix scale
 
 
 def _precision(precision):
-    """Validate a precision name.  Every name gives IEEE fp32 (or fp64)
-    products in this version: TF32 is off (see ``_config``) and the
-    kernels accumulate with plain FMA."""
+    """Validate a precision name; None means 'high'.  The name reaches
+    kernels A and D, whose float32 CUDA kernel it picks: 3xTF32 on the
+    tensor cores at 'high', 1xTF32 at 'default', the IEEE fp32 SIMT
+    kernel at 'highest' (float64 is IEEE at every name).  Everything
+    else here, the panel solves and the plain versions on the CPU
+    included, runs IEEE products whatever the name (cuBLAS's TF32 stays
+    off, see ``_config``)."""
     _syrk._check_precision(precision)
     return 'high' if precision is None else precision
 
@@ -197,6 +202,7 @@ def _chol_rec_tree_kernel(M, s, eps, base, o, kb, block, b1, precision,
                                     precision, bump, nreal)
     A21 = _view_block(M, s, None, base, o + h, o, w, h)
     P = _tree_solve_right_t(A21, t11, d1, block).contiguous()
+    del A21
     S = _syrk.schur_update(
         M, P, s=s, eps=eps, size=w, offset=o + h - base, tile=block,
         precision=precision, nreal=None if nreal is None else nreal - base)
@@ -250,6 +256,7 @@ def chol_factor_scaled(K, s, eps, block=512, b1=128, precision=None,
         tree, dinvs = _chol_tree_impl(K, s, eps, block, b1, 'high', False)
         Dinv = torch.stack(dinvs)
         if not _finite(Dinv):
+            del tree, dinvs, Dinv
             tree, dinvs = _chol_tree_impl(K, s, eps, block, b1, 'highest',
                                           heal)
             Dinv = torch.stack(dinvs)
@@ -257,28 +264,30 @@ def chol_factor_scaled(K, s, eps, block=512, b1=128, precision=None,
 
 
 def chol_factor_scaled_ladder(K, s, eps, eps2, block=512, b1=128):
-    """The float32 'auto' factorization of ``diag(s) K diag(s) + eps I``:
+    """The float32 'auto' factorization of ``diag(s) K diag(s) + eps I``,
+    the JAX package's three rungs:
 
-    1. the small ``eps`` without the self-healing lift;
-    2. on a non-finite factor: the bound-scaled ``eps2`` with the lift.
+    1. precision 'high' (3xTF32 on CUDA), the small ``eps``, no
+       self-healing lift;
+    2. on a non-finite factor: 'highest' (IEEE fp32), the same ``eps``,
+       no lift;
+    3. on a non-finite factor again: 'highest', the bound-scaled
+       ``eps2``, with the lift.
 
-    (The JAX ladder has a middle rung that retries rung 1 at HIGHEST
-    matmul precision; here every precision is already IEEE fp32, so
-    that rung would repeat rung 1 exactly.)
-
-    Returns ``(L, Dinv, eps_used, escalated)``.  Forward only: the
-    gradient of the log-density comes from `chol_nll`'s rule.
+    Returns ``(L, Dinv, eps_used, escalated)``, ``escalated`` true on
+    rung 3 only.  Forward only: the gradient of the log-density comes
+    from `chol_nll`'s rule.
     """
     n = K.shape[0]
-    tree, dinvs = _chol_tree_impl(K, s, eps, block, b1, 'high', False)
-    Dinv = torch.stack(dinvs)
-    escalated = not _finite(Dinv)
-    if escalated:
-        eps = eps2
-        tree, dinvs = _chol_tree_impl(K, s, eps2, block, b1, 'highest',
-                                      True)
+    for prec, e, lift in (('high', eps, False), ('highest', eps, False),
+                          ('highest', eps2, True)):
+        tree, dinvs = _chol_tree_impl(K, s, e, block, b1, prec, lift)
         Dinv = torch.stack(dinvs)
-    return _tree_assemble(tree, n), Dinv, eps, escalated
+        if lift or _finite(Dinv):
+            break
+        # a failed rung's tree is dropped before the next rung is built
+        del tree, dinvs, Dinv
+    return _tree_assemble(tree, n), Dinv, e, lift
 
 
 def diag_block_inverses(L, block):

@@ -407,6 +407,7 @@ class _CholNLL(torch.autograd.Function):
         del dec
         if Dinv is not None:
             W = _blocked.trtri_blocked(W, Dinv.to(wide), block, ctx.precision)
+            del Dinv
             Kbar = syrk_t_full(W, precision=ctx.precision)
         else:
             eye = torch.eye(W.shape[0], dtype=wide, device=r.device)

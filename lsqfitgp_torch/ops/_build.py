@@ -1,7 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``lsqfitgp_torch/csrc/*.cu`` have a plain C interface
-(``*.cuh`` are headers they share).  At first use each source is
+(``*.cuh`` are headers they share).  The tensor-core kernels' TMA
+descriptors come from the driver's ``cuTensorMapEncodeTiled``, which the
+library finds at run time (``cudaGetDriverEntryPoint``), so it links
+only the CUDA runtime.  At first use each source is
 compiled by its own ``nvcc`` process for ``sm_90a``, all started
 together, and the objects are linked into one shared library under
 ``build/lsqfitgp_torch/`` at the root of the checkout, named by a hash
@@ -35,17 +38,24 @@ _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _U32 = ctypes.c_uint
 
-# C signatures, one per dtype suffix (_f32, _f64)
+_BOTH = ('_f32', '_f64')
+
+# C signatures and the dtype suffixes each entry point has (the
+# tensor-core kernels compute in TF32, which has no float64 twin)
 _SIGNATURES = {
-    'lsq_schur_update': [_P, _I64, _I64, _P, _P, _I64, _P, _I64, _P, _I64,
-                         _I64, _P],
-    'lsq_schur_gram': [_P, _I32, _P, _I32, _U32, _I32, _I32, _I64, _I64, _P,
-                       _I64, _P, _I64, _I64, _P],
-    'lsq_syrk_t': [_P, _I64, _I64, _P, _P],
-    'lsq_gram': [_P, _P, _I64, _I64, _I32, _P, _I32, _U32, _I32, _I32, _I32,
-                 _P, _P],
-    'lsq_gram_sym': [_P, _I64, _I32, _P, _I32, _U32, _I32, _I32, _I32, _P,
-                     _P],
+    'lsq_schur_update': ([_P, _I64, _I64, _P, _P, _I64, _P, _I64, _P, _I64,
+                          _I64, _P], _BOTH),
+    'lsq_schur_update_tc': ([_P, _I64, _I64, _P, _P, _I64, _P, _I64, _P,
+                             _I64, _I64, _I32, _P], ('_f32',)),
+    'lsq_schur_gram': ([_P, _I32, _P, _I32, _U32, _I32, _I32, _I64, _I64, _P,
+                        _I64, _P, _I64, _I64, _P], _BOTH),
+    'lsq_schur_gram_tc': ([_P, _I32, _P, _I32, _U32, _I32, _I32, _I64, _I64,
+                           _P, _I64, _P, _I64, _I64, _I32, _P], ('_f32',)),
+    'lsq_syrk_t': ([_P, _I64, _I64, _P, _P], _BOTH),
+    'lsq_gram': ([_P, _P, _I64, _I64, _I32, _P, _I32, _U32, _I32, _I32, _I32,
+                  _P, _P], _BOTH),
+    'lsq_gram_sym': ([_P, _I64, _I32, _P, _I32, _U32, _I32, _I32, _I32, _P,
+                      _P], _BOTH),
 }
 
 _state = {}
@@ -111,8 +121,8 @@ def _build():
         info['seconds'] = time.perf_counter() - t0
         path.with_suffix('.log').write_text(info['log'])
     library = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        for suffix in ('_f32', '_f64'):
+    for name, (argtypes, suffixes) in _SIGNATURES.items():
+        for suffix in suffixes:
             fn = getattr(library, name + suffix)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -4,25 +4,41 @@ complement (kernel A), the same with the Gram computed in the tile
 gradient's ``WᵀW`` (kernel B).
 
 Counterpart of ``lsqfitgp_tpu/ops/_syrk.py``.  Each wrapper runs its
-plain PyTorch version for a CPU tensor and launches its hand-written
-CUDA kernel (``csrc/syrk.cu``) for a CUDA tensor; there is no other
-route.  Both kernels accumulate in IEEE fp32 (or fp64): the
-``precision`` keyword is accepted for parity with the JAX package, and
-every value gives that grade in this version.
+plain PyTorch version for a CPU tensor and launches a hand-written CUDA
+kernel for a CUDA tensor; there is no other route.  On the CPU every
+precision is IEEE arithmetic, as XLA's on the CPU ignores ``precision``.
 
-Kernel A replaces ``lsqfitgp_tpu/ops/_syrk.py::_schur_kernel``.  On the
-H100 it is bound by the FMA rate (the k-loop is as deep as the
-factorization's panel); it keeps a 128 x 128 output tile in registers
-across the whole k-loop, fuses the diagonal scaling and eps into the
-tile's initial value, reads B through its offset and leading dimension,
-and skips the strict-upper tiles entirely.
+Kernels A and D pick their CUDA kernel by ``(dtype, precision)``, with
+``None`` meaning ``'high'`` as in the JAX package:
+
+- float32 at ``'high'``: the tensor-core kernel (``csrc/schur_tc.cu``)
+  in 3xTF32, each operand split into a TF32 ``hi`` and ``lo`` and the
+  products ``hi·hi + hi·lo + lo·hi`` summed in fp32, the counterpart of
+  the JAX package's bf16_3x (about 2⁻²¹ relative per product against
+  bf16_3x's 2⁻¹⁶); counted by ``launches_tc``;
+- float32 at ``'default'``: the same kernel with one TF32 pass, the
+  counterpart of JAX's single bf16 pass; counted by ``launches_tc1``;
+- float32 at ``'highest'``, and float64 at every precision: the SIMT
+  kernel (``csrc/syrk.cu``), IEEE fp32 or fp64 FMA; counted by
+  ``launches``.
+
+The tensor-core kernel takes A with 16-byte aligned rows (``h % 4 ==
+0``) and raises otherwise.  Kernel B is IEEE at every precision.
+
+Kernel A replaces ``lsqfitgp_tpu/ops/_syrk.py::_schur_kernel``.  The
+SIMT kernel is bound by the FMA rate, the tensor-core kernel by the TF32
+rate over its pass count (the k-loop is as deep as the factorization's
+panel).  Both keep a 128 x 128 output tile in registers across the whole
+k-loop, fuse the diagonal scaling and eps into the tile's initial value,
+read B through its offset and leading dimension, and launch only the
+lower tiles.
 
 Kernel D replaces ``lsqfitgp_tpu/ops/_syrk.py::_schur_gram_kernel`` and
 its 2-D-grid twin ``_schur_gram_kernel2`` (one CUDA kernel serves both).
 It is kernel A with another tile initialization: the virtual matrix
 ``blockdiag(K, I) + eps I`` (eps on the real diagonal only) computed
 from the points, so the Gram block never exists in device memory.  Same
-bound, same design.
+bounds, same designs.
 
 Kernel B replaces ``lsqfitgp_tpu/ops/_syrk.py::_syrk_t_kernel``.  Also
 FMA-bound; it computes the lower output tiles only, starts each tile's
@@ -50,6 +66,29 @@ _PRECISIONS = (None, 'default', 'high', 'highest')
 def _check_precision(precision):
     if precision not in _PRECISIONS:
         raise ValueError(f'unknown precision {precision!r}')
+
+
+def _passes(dtype, precision):
+    """The tensor-core kernel's TF32 pass count for kernels A and D at
+    ``(dtype, precision)``, or 0 for the SIMT kernel."""
+    if dtype != torch.float32:
+        return 0
+    return {None: 3, 'high': 3, 'default': 1}.get(precision, 0)
+
+
+def _count(wrapper, passes):
+    """Count one launch of ``wrapper``'s kernel for ``passes``."""
+    name = {0: 'launches', 3: 'launches_tc', 1: 'launches_tc1'}[passes]
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
+def _check_tc(A):
+    if A.shape[1] % 4 or A.data_ptr() % 16:
+        raise ValueError(
+            'the tensor-core kernel (float32 at precision \'high\' or '
+            '\'default\') needs A\'s rows 16-byte aligned: h % 4 == 0 and '
+            'an aligned base; pass precision=\'highest\' for the SIMT '
+            'kernel')
 
 
 def _suffix(dtype):
@@ -140,12 +179,14 @@ def schur_update(B, A, *, s=None, eps=None, size=None, offset=0, tile=512,
     if _device_kind(B, A, s) == 'cpu':
         return schur_update_plain(B, A, s=s, eps=eps, size=size,
                                   offset=offset, tile=tile, nreal=nreal)
-    return _schur_update_cuda(B, A, s, eps, size, offset, tile, nreal)
+    return _schur_update_cuda(B, A, s, eps, size, offset, tile, nreal,
+                              precision)
 
 
-def _schur_update_cuda(B, A, s, eps, size, offset, tile, nreal):
+def _schur_update_cuda(B, A, s, eps, size, offset, tile, nreal, precision):
     dtype = A.dtype
     suffix = _suffix(dtype)
+    passes = _passes(dtype, precision)
     h = A.shape[1]
     if tile % KERNEL_TILE:
         raise ValueError(f'tile {tile} must be a multiple of {KERNEL_TILE} '
@@ -162,17 +203,23 @@ def _schur_update_cuda(B, A, s, eps, size, offset, tile, nreal):
     if eps is not None:
         e = torch.as_tensor(eps, dtype=dtype, device=A.device).reshape(1)
     out = torch.empty((size, size), dtype=dtype, device=A.device)
+    args = (_ptr(B), 0 if B is None else B.shape[1], offset, _ptr(s), _ptr(e),
+            offset + size if nreal is None else nreal, _ptr(A), h, _ptr(out),
+            size, tile)
     lib = _build.lib()
-    err = getattr(lib, 'lsq_schur_update' + suffix)(
-        _ptr(B), 0 if B is None else B.shape[1], offset, _ptr(s), _ptr(e),
-        offset + size if nreal is None else nreal, _ptr(A), h, _ptr(out),
-        size, tile, _stream(A.device))
+    if passes:
+        _check_tc(A)
+        err = lib.lsq_schur_update_tc_f32(*args, passes, _stream(A.device))
+    else:
+        err = getattr(lib, 'lsq_schur_update' + suffix)(*args,
+                                                        _stream(A.device))
     _build.check(err, 'schur_update')
-    schur_update.launches += 1
+    _count(schur_update, passes)
     return out
 
 
-schur_update.launches = 0
+schur_update.launches = schur_update.launches_tc = 0
+schur_update.launches_tc1 = 0
 
 
 def _gram_view_mask(S, gi, nreal):
@@ -250,18 +297,26 @@ def schur_update_gram(profile, X, A, *, post=(), eps=None, nreal=None,
         raise ValueError('X, A and the parameters must share one dtype')
     if not A.is_contiguous():
         raise ValueError('A must be contiguous')
+    passes = _passes(A.dtype, precision)
     out = torch.empty((size, size), dtype=A.dtype, device=A.device)
     postadd = sum(1 << k for k, op in enumerate(ops) if op == 'add')
-    err = getattr(_build.lib(), 'lsq_schur_gram' + suffix)(
-        _ptr(X), X.shape[1], _ptr(pvec), len(ops), postadd,
-        int(eps is not None), profile.id, nreal, offset, _ptr(A), h,
-        _ptr(out), size, tile, _stream(A.device))
+    args = (_ptr(X), X.shape[1], _ptr(pvec), len(ops), postadd,
+            int(eps is not None), profile.id, nreal, offset, _ptr(A), h,
+            _ptr(out), size, tile)
+    lib = _build.lib()
+    if passes:
+        _check_tc(A)
+        err = lib.lsq_schur_gram_tc_f32(*args, passes, _stream(A.device))
+    else:
+        err = getattr(lib, 'lsq_schur_gram' + suffix)(*args,
+                                                      _stream(A.device))
     _build.check(err, 'schur_update_gram')
-    schur_update_gram.launches += 1
+    _count(schur_update_gram, passes)
     return out
 
 
-schur_update_gram.launches = 0
+schur_update_gram.launches = schur_update_gram.launches_tc = 0
+schur_update_gram.launches_tc1 = 0
 
 
 def syrk_t_full_plain(W):

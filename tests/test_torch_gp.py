@@ -181,3 +181,53 @@ def test_objective_leaves_no_cycles(rng, solver):
     finally:
         gc.enable()
     assert left == []
+
+
+def test_objective_forward_keeps_no_intermediates(rng, monkeypatch):
+    """At the dense objective's memory peak in its forward pass (the
+    dense factor just assembled from its tree), the only n × n tensors
+    alive are the caller's noise matrix, K_yy, the factor and what the
+    backward saves: the assembly's K_ff, `addlintransf` columns and zero
+    blocks are gone (zero blocks are never materialized), and none of
+    them entered the GP's cache."""
+    import gc
+    n = 1100
+    x = torch.as_tensor(rng.uniform(-20, 20, n))
+    y = torch.sin(x)
+    noise = 0.09 * torch.eye(n)
+    itemsize = noise.element_size()
+
+    def big_storages(objs):
+        return {o.untyped_storage().data_ptr() for o in objs
+                if isinstance(o, torch.Tensor)
+                and o.untyped_storage().nbytes() >= n * n * itemsize}
+
+    seen = []
+    orig = lt.linalg._blocked._tree_assemble
+
+    def spy(tree, m):
+        L = orig(tree, m)
+        seen.append(big_storages(gc.get_objects()))
+        return L
+
+    monkeypatch.setattr(lt.linalg._blocked, '_tree_assemble', spy)
+    saved = []
+
+    def pack(t):
+        saved.append(t)
+        return t
+
+    p = torch.tensor([0.2, -0.1], requires_grad=True)
+    with lt.disable_checks(), \
+            torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        k = p[0].exp() * lt.ExpQuad(scale=p[1].exp())
+        gp = lt.GP(k, gram='tiled').addx(x, 'f').addcov(noise, 'e')
+        gp = gp.addlintransf(lambda f, e: f + e, ['f', 'e'], 'y')
+        v = -gp.marginal_likelihood({'y': y})
+    live, = seen
+    others = live - big_storages([noise]) - big_storages(saved)
+    # K_yy and the factor
+    assert len(others) == 2
+    assert big_storages(gp._covblock_cache.values()) == \
+        big_storages([noise])
+    torch.autograd.grad(v, p)

@@ -9,7 +9,12 @@ for CPU tensors only and that the package imports no JAX.
 Tolerances on the card: the kernels sum the same products in another
 order, so a length-k dot product may differ by ~sqrt(k) u Σ|terms|
 (u the unit roundoff); with k <= 512 and unit-scale inputs, rtol/atol
-of 1e-4 (float32) and 1e-12 (float64) hold with a wide margin.
+of 1e-4 (float32) and 1e-12 (float64) hold with a wide margin.  Kernels
+A and D in float32 at precision 'high' and 'default' run on the tensor
+cores in TF32 and are held to the bound `chip_smoke.py` states: 4 sqrt(h)
+u (|A||A|ᵀ)ᵢⱼ for the order of the sums, plus 4·2⁻²² (|A||A|ᵀ)ᵢⱼ for
+3xTF32's split or 2·2⁻¹¹ (|A||A|ᵀ)ᵢⱼ for one TF32 pass, plus 16 u times
+the tile's initial value.
 """
 
 import os
@@ -91,11 +96,64 @@ def test_unsupported_device_raises():
         ops.schur_update(None, torch.zeros(100, 8), tile=128)
 
 
+@pytest.mark.parametrize('precision', ['medium', 'HIGH', 'fastest', 0])
+def test_unknown_precision_raises(precision):
+    """Only the JAX package's names (and None) are precisions."""
+    A = torch.zeros((128, 8))
+    X = torch.zeros((128, 1))
+    with pytest.raises(ValueError, match='unknown precision'):
+        ops.schur_update(None, A, tile=128, precision=precision)
+    with pytest.raises(ValueError, match='unknown precision'):
+        ops.schur_update_gram('expquad', X, A, tile=128, precision=precision)
+    with pytest.raises(ValueError, match='unknown precision'):
+        ops.syrk_t_full(torch.zeros((8, 8)), precision=precision)
+
+
+def test_kernel_routes():
+    """Which CUDA kernel each (dtype, precision) takes: 3xTF32 for
+    float32 at 'high' (and None), 1xTF32 at 'default', the SIMT kernel
+    at 'highest' and for float64."""
+    f32, f64 = torch.float32, torch.float64
+    assert [_syrk._passes(f32, p) for p in (None, 'high', 'default',
+                                            'highest')] == [3, 3, 1, 0]
+    assert [_syrk._passes(f64, p) for p in (None, 'high', 'default',
+                                            'highest')] == [0, 0, 0, 0]
+
+
+PRECISIONS = ['high', 'default', 'highest']
+
+
+def _tc_tol(A, init, dtype, precision):
+    """The elementwise bound of the module docstring, for the entries of
+    init − A Aᵀ."""
+    u = torch.finfo(dtype).eps / 2
+    extra = {3: 4 * 2.0 ** -22, 1: 2 * 2.0 ** -11, 0: 0.0}[
+        _syrk._passes(dtype, precision)]
+    Aa = A.abs()
+    return (4 * A.shape[1] ** 0.5 * u + extra) * (Aa @ Aa.T) \
+        + 16 * u * (init.abs() + 1)
+
+
+def _launches(wrapper):
+    return (wrapper.launches, wrapper.launches_tc, wrapper.launches_tc1)
+
+
+def _expect(before, dtype, precision):
+    passes = _syrk._passes(dtype, precision)
+    k = {0: 0, 3: 1, 1: 2}[passes]
+    return tuple(c + (i == k) for i, c in enumerate(before))
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize('precision', PRECISIONS)
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-@pytest.mark.parametrize('offset,nreal', [(0, None), (256, 700)])
-def test_schur_update_cuda(cuda, gen, dtype, offset, nreal):
-    size, h, tile = 512, 384, 256
+@pytest.mark.parametrize('offset,nreal,h', [(0, None, 384), (256, 700, 384),
+                                            (256, 650, 100)])
+def test_schur_update_cuda(cuda, gen, dtype, offset, nreal, h, precision):
+    """Kernel A at each precision: a nonzero offset into B, a ragged
+    nreal and a k-depth that is not a multiple of the tensor-core
+    kernel's 32-column stage (its tail is zero-filled)."""
+    size, tile = 512, 256
     mb = offset + size
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
     A = t(gen.standard_normal((size, h)))
@@ -103,12 +161,25 @@ def test_schur_update_cuda(cuda, gen, dtype, offset, nreal):
     s = t(gen.uniform(0.5, 2, mb))
     kw = dict(s=s, eps=0.5, size=size, offset=offset, tile=tile,
               nreal=nreal)
-    n0 = ops.schur_update.launches
-    got = ops.schur_update(B, A, **kw)
-    assert ops.schur_update.launches == n0 + 1
+    n0 = _launches(ops.schur_update)
+    got = ops.schur_update(B, A, precision=precision, **kw)
+    assert _launches(ops.schur_update) == _expect(n0, dtype, precision)
     ref = _syrk.schur_update_plain(B, A, **kw)
     keep = _syrk._tile_mask(size, tile, cuda)
-    torch.testing.assert_close(got[keep], ref[keep], **TOL[dtype])
+    init = _syrk.schur_update_plain(B, torch.zeros_like(A), **kw)
+    err = (got - ref).abs()[keep]
+    assert bool((err <= _tc_tol(A, init, dtype, precision)[keep]).all()), \
+        float(err.max())
+
+
+@pytest.mark.gpu
+def test_tensor_core_kernel_raises_on_unaligned_rows(cuda):
+    A = torch.zeros((256, 30), device=cuda)
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        ops.schur_update(None, A, tile=128)
+    with pytest.raises(ValueError, match='multiple of 128'):
+        ops.schur_update(None, torch.zeros((192, 32), device=cuda), tile=64)
+    ops.schur_update(None, A, tile=128, precision='highest')
 
 
 @pytest.mark.gpu
@@ -175,12 +246,14 @@ def test_gp_on_cuda_matches_cpu(cuda, gen):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('precision', PRECISIONS)
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-@pytest.mark.parametrize('p', [1, 3])
-def test_schur_update_gram_cuda(cuda, gen, dtype, p):
-    """Kernel D at an offset, with a ragged nreal (pad tail inside the
-    square), a post chain, and with and without eps."""
-    size, h, tile, offset = 512, 384, 256, 256
+@pytest.mark.parametrize('p,h', [(1, 384), (3, 384), (1, 100)])
+def test_schur_update_gram_cuda(cuda, gen, dtype, p, h, precision):
+    """Kernel D at each precision, at an offset, with a ragged nreal (pad
+    tail inside the square), a post chain, with and without eps, and a
+    k-depth that is not a multiple of the tensor-core kernel's stage."""
+    size, tile, offset = 512, 256, 256
     npad = offset + size
     nreal = npad - 70
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
@@ -191,11 +264,17 @@ def test_schur_update_gram_cuda(cuda, gen, dtype, p):
     for eps in (None, t(0.25)):
         kw = dict(post=post, eps=eps, nreal=nreal, size=size, offset=offset,
                   tile=tile)
-        n0 = ops.schur_update_gram.launches
-        got = ops.schur_update_gram('expquad', X, A, **kw)
-        assert ops.schur_update_gram.launches == n0 + 1
+        n0 = _launches(ops.schur_update_gram)
+        got = ops.schur_update_gram('expquad', X, A, precision=precision,
+                                    **kw)
+        assert _launches(ops.schur_update_gram) == _expect(n0, dtype,
+                                                           precision)
         ref = _syrk.schur_update_gram_plain('expquad', X, A, **kw)
-        torch.testing.assert_close(got[keep], ref[keep], **TOL[dtype])
+        init = _syrk.schur_update_gram_plain('expquad', X,
+                                             torch.zeros_like(A), **kw)
+        err = (got - ref).abs()[keep]
+        tol = _tc_tol(A, init, dtype, precision)[keep]
+        assert bool((err <= tol).all()), float(err.max())
 
 
 @pytest.mark.gpu

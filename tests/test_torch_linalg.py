@@ -163,3 +163,42 @@ def test_trtri_reuses_l(rng, n):
     assert (W.data_ptr() == L2.data_ptr()) == (n % 128 == 0)
     if n % 128:
         torch.testing.assert_close(L2, L, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('case', ['well-posed', 'rung 1 fails',
+                                  'rungs 1 and 2 fail'])
+def test_ladder_rungs_in_jax_order(rng, monkeypatch, case):
+    """The float32 'auto' factorization climbs the JAX package's rungs
+    (lsqfitgp_tpu/linalg/_blocked.py, chol_factor_scaled_ladder):
+    'high' with eps and no lift; on a non-finite factor 'highest' with
+    the same eps and no lift; on a non-finite factor again 'highest'
+    with eps2 and the lift, the only rung that counts as escalated.  On
+    the CPU 'high' is IEEE like 'highest', so the failure of rung 1 that
+    rung 2 repairs (a TF32 rounding on the card) is made by poisoning
+    rung 1's factor; a noiseless smooth Gram fails rungs 1 and 2 by
+    itself."""
+    calls = []
+    orig = linalg._blocked._chol_tree_impl
+
+    def spy(K, s, eps, block, b1, prec, lift):
+        calls.append((prec, float(eps), lift))
+        tree, dinvs = orig(K, s, eps, block, b1, prec, lift)
+        if case == 'rung 1 fails' and prec == 'high':
+            dinvs = [d * float('nan') for d in dinvs]
+        return tree, dinvs
+
+    monkeypatch.setattr(linalg._blocked, '_chol_tree_impl', spy)
+    if case == 'rungs 1 and 2 fail':
+        x = np.linspace(0, 10, 1100)
+        K = np.exp(-0.5 * (x[:, None] - x[None, :]) ** 2)
+    else:
+        K, _ = _problem(rng, 1100)
+    dt = linalg.Chol(torch.as_tensor(K, dtype=torch.float32))
+    eps1 = calls[0][1]
+    rungs = [('high', eps1, False), ('highest', eps1, False),
+             ('highest', float(dt.eps), True)]
+    nrungs = {'well-posed': 1, 'rung 1 fails': 2, 'rungs 1 and 2 fail': 3}
+    assert calls == rungs[:nrungs[case]]
+    assert dt._escalated == (case == 'rungs 1 and 2 fail')
+    assert (float(dt.eps) == eps1) == (case != 'rungs 1 and 2 fail')
+    assert bool(torch.isfinite(dt._L).all())

@@ -8,27 +8,34 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    device or the package is not beside the script;
 2. builds the CUDA kernels from ``lsqfitgp_torch/csrc`` and prints the
    build time;
-3. holds each kernel (A ``schur_update``, B ``syrk_t_full``, C ``gram``
-   with its backward, D ``schur_update_gram``, E ``gram_sym`` with its
-   backward) against its plain PyTorch version on the card, at its
-   path's shapes, in float32 and float64, and times both with CUDA
-   events (median of a few runs after one warm-up), beside the bound
-   (the least time the card could take for the same work) and, where one
-   PyTorch call computes a superset of the work, that call's time.  A
-   and D run in float32 at each precision, each its own record: 'high'
-   (the tensor-core kernel in 3xTF32, the path's), 'default' (1xTF32)
-   and 'highest' (the SIMT kernel), and in float64 (SIMT); B's record is
-   float64, the path's dtype, and C's and E's float32;
+3. holds each kernel (A ``schur_update``, B ``syrk_t_full`` and its
+   in-place form ``syrk_t_full_``, C ``gram`` with its backward, D
+   ``schur_update_gram``, E ``gram_sym`` with its backward) against its
+   plain PyTorch version on the card, at its path's shapes, in float32
+   and float64, and times both with CUDA events (median of a few runs
+   after one warm-up), beside the bound (the least time the card could
+   take for the same work) and, where one PyTorch call computes a
+   superset of the work, that call's time.  A and D run in float32 at
+   each precision, each its own record: 'high' (the tensor-core kernel
+   in 3xTF32, the path's), 'default' (1xTF32) and 'highest' (the SIMT
+   kernel), and in float64 (the FP64 tensor-core kernel, DMMA); B has a
+   record for float64 out of place and in place (DMMA; the path's) and
+   for float32 (SIMT), C and E for float32;
 4. the dense path: fits ``amp * ExpQuad(scale)`` plus noise to n = 16384
    points with ``empbayes_fit`` in float32, predicts at 64 points,
-   checks that kernels A (on the tensor cores), B and C were launched by
-   that run, prints the peak memory of one value+gradient in bytes per
+   checks that kernels A (on the tensor cores), B (in place) and C were
+   launched by that run, prints the peak memory of one value+gradient in
+   bytes per
    n² and a profile of one, and holds the NLL and its gradient at the
    start point, at the fitted hyperparameters and at a worse-conditioned
    point (where it also prints the error at precision 'highest'), and
    the posterior mean at the fitted hyperparameters, against a plain
    float64 computation with ``torch.linalg.cholesky`` (at the fit,
    through the shift of the optimum that the gradient's error implies);
+   then the same model in float64 (the lane of the JAX package's users
+   under x64): a few value+gradients at the fit, their median time, that
+   kernels A and B (both DMMA) and C ran, and the NLL and gradient
+   against the float64 computation;
 5. the streaming path: ``GP(solver='chol-stream')`` fitted by
    ``empbayes_fit`` (3 BFGS iterations from the dense fit's MAP) to
    n = 65536 points from numpy, a size whose dense Gram does not fit the
@@ -50,7 +57,8 @@ memory (it needs nothing of this version beyond the package's public
 API); ``--memory-probe`` runs that at each of a list of sizes, each in
 its own process, to find the largest n that fits the card;
 ``--compare-fits`` runs the dense and the streaming fits at precision
-'high' and 'highest' in turns.
+'high' and 'highest' in turns; ``--dense64`` runs only the float64 dense
+evaluation, at the dense fit's optimum.
 """
 
 import json
@@ -68,6 +76,9 @@ N_CHECK = 32768    # the streaming slice's float64 check
 NPRED = 64
 NOISE_VAR = 0.09   # 0.3**2, the data's noise
 SEED = 20261016
+# the dense slice's optimum (log scale, log amp) as its fits find it
+# (PERF.md): where --dense64 evaluates
+OPTIMUM = [0.9016, 1.067]
 
 # the card's peak rates (NVIDIA's H100 SXM data sheet, at 700 W): HBM
 # bandwidth, and FP32 (outside the tensor cores), FP64 (tensor core) and
@@ -86,14 +97,19 @@ def log(msg):
     print(msg, flush=True)
 
 
-def median_ms(fn, reps=7):
+def median_ms(fn, reps=7, setup=None):
     """Median device time of ``fn()`` in ms, CUDA events, after one
-    warm-up.  Each run's result is dropped before the next."""
+    warm-up.  Each run's result is dropped before the next; ``setup()``,
+    if given, runs before each, outside the timed span."""
     import torch
+    if setup:
+        setup()
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if setup:
+            setup()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -128,11 +144,11 @@ def record(err, ms, plain_ms, bound_ms_by, library_ms=None, **extra):
 
 
 # kernels A and D: the float32 variants, each a record of its own, with
-# the CUDA kernel and the launch counter each runs (the SIMT kernel's
-# counter also counts the float64 launches)
+# the CUDA kernel and the launch counter each runs, and the float64 one
 PRECISIONS = [('high', 'schur_tc.cu', 3, 'launches_tc'),
               ('default', 'schur_tc.cu', 1, 'launches_tc1'),
               ('highest', 'syrk.cu', 0, 'launches')]
+FLOAT64 = [('float64', 'dmma.cu', 0, 'launches_dmma')]
 
 
 def tc_extra(passes):
@@ -239,8 +255,7 @@ def kernel_schur(dtype, gen):
     isz = A.element_size()
     nbytes = isz * (size * h + 2 * f * size * size)
     flops = 2 * f * size ** 2 * h
-    variants = PRECISIONS if dtype == torch.float32 else \
-        [('float64', 'syrk.cu', 0, 'launches')]
+    variants = PRECISIONS if dtype == torch.float32 else FLOAT64
     records = []
     for precision, source, passes, counter in variants:
         prec = None if precision == 'float64' else precision
@@ -272,32 +287,59 @@ def kernel_schur(dtype, gen):
 
 
 def kernel_syrk(dtype, gen):
-    """Kernel B at the gradient's shape: W = L⁻¹ of n x n (float64 on
-    the main path, whose gradient carrier is float64)."""
+    """Kernel B at the gradient's shape: W = L⁻¹ of n x n.  In float64,
+    the main path's dtype (its gradient carrier is float64), out of place
+    and in place (`syrk_t_full_`, the path's call: the result must be
+    exactly symmetric and live in W's own buffer), both on the DMMA
+    kernel; in float32 out of place on the SIMT kernel.  A record each."""
     import torch
+    from lsqfitgp_torch import ops
     from lsqfitgp_torch.ops import _syrk
     W = torch.randn(N, N, device='cuda', dtype=dtype, generator=gen).tril_()
-    got = _syrk.syrk_t_full(W)
     ref = _syrk.syrk_t_full_plain(W)
-    if not torch.equal(got, got.T):
-        fail(f'B syrk_t_full {dtype}: result not exactly symmetric')
     # tolerance: as for A, 4 sqrt(n) u (|W|ᵀ|W|)_ij for sums of up to n
     # products taken in another order
     Wa = W.abs()
     tol = 4 * math.sqrt(N) * unit_roundoff(dtype) * _syrk.syrk_t_full_plain(Wa)
     del Wa
-    err = check_close(f'B syrk_t_full {dtype}', got, ref, tol)
-    del got, ref, tol
-    ms = median_ms(lambda: _syrk.syrk_t_full(W))
     plain_ms = median_ms(lambda: _syrk.syrk_t_full_plain(W))
     library_ms = median_ms(lambda: W.mT @ W)
     # n³/3 flops (the lower output tiles over the nonzero rows of W); W's
     # lower triangle read once, the full square written once
     isz = W.element_size()
     bd = bound(isz * (N * N / 2 + N * N), N ** 3 / 3, dtype)
-    log(f'  B {dtype}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
-        f'W.mT @ W {library_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})')
-    return record(err, ms, plain_ms, bd, library_ms)
+    f64 = dtype == torch.float64
+    variants = [('syrk_t_full', False)] + ([('syrk_t_full_', True)]
+                                           if f64 else [])
+    records = []
+    for name, inplace in variants:
+        what = f'B {name} {dtype}'
+        Wc = W.clone()
+        got = (ops.syrk_t_full_ if inplace else ops.syrk_t_full)(Wc)
+        if inplace and got.data_ptr() != Wc.data_ptr():
+            fail(f'{what}: the result is not in W\'s buffer')
+        if not torch.equal(got, got.T):
+            fail(f'{what}: result not exactly symmetric')
+        err = check_close(what, got, ref, tol)
+        del got
+        if inplace:
+            # each run overwrites W: a fresh copy before each, untimed
+            ms = median_ms(lambda: ops.syrk_t_full_(Wc),
+                           setup=lambda: Wc.copy_(W))
+        else:
+            ms = median_ms(lambda: ops.syrk_t_full(W))
+        del Wc
+        log(f'  {what}: kernel {ms:.3f} ms ({N ** 3 / 3 / ms / 1e9:.1f} '
+            f'TFLOP/s useful), plain {plain_ms:.3f} ms, W.mT @ W '
+            f'{library_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})')
+        label = str(dtype).split('.')[-1]
+        records.append(record(
+            err, ms, plain_ms, bd, library_ms, name=f'{name}/{label}',
+            precision=label, dtype=str(dtype),
+            source='lsqfitgp_torch/csrc/' + ('dmma.cu' if f64 else 'syrk.cu'),
+            counter='launches_dmma' if f64 else 'launches',
+            library='W.mT @ W, full square, cuBLAS IEEE ' + label))
+    return records
 
 
 def kernel_gram(dtype, gen):
@@ -419,8 +461,7 @@ def kernel_schur_gram(dtype, gen):
     f = lower_fraction(size, tile)
     nbytes = A.element_size() * (size * h + f * size * size)
     flops = f * size * size * (2 * h + 5)
-    variants = PRECISIONS if dtype == torch.float32 else \
-        [('float64', 'syrk.cu', 0, 'launches')]
+    variants = PRECISIONS if dtype == torch.float32 else FLOAT64
     records = []
     for precision, source, passes, counter in variants:
         prec = None if precision == 'float64' else precision
@@ -514,7 +555,7 @@ def kernel_phase():
     specs = [
         ('schur_update', kernel_schur, 'lsqfitgp_torch/csrc/syrk.cu',
          'lsqfitgp_tpu/ops/_syrk.py:63', [f32, f64]),
-        ('syrk_t_full', kernel_syrk, 'lsqfitgp_torch/csrc/syrk.cu',
+        ('syrk_t_full', kernel_syrk, 'lsqfitgp_torch/csrc/dmma.cu',
          'lsqfitgp_tpu/ops/_syrk.py:250', [f64, f32]),
         ('gram', kernel_gram, 'lsqfitgp_torch/csrc/gram.cu',
          'lsqfitgp_tpu/ops/_gram.py:68', [f32, f64]),
@@ -530,9 +571,10 @@ def kernel_phase():
             torch.cuda.empty_cache()
             out = fn(v, gen)
             if isinstance(out, list):
-                # A and D: a record for each precision and dtype
-                records += [dict(name=f'{name}/{r["precision"]}',
-                                 route='cuda', replaces=replaces, **r)
+                # A, B and D: a record for each precision and dtype (and
+                # B's in-place form)
+                records += [{'name': f'{name}/{r["precision"]}',
+                             'route': 'cuda', 'replaces': replaces, **r}
                             for r in out]
             elif i == 0:
                 records.append(dict(name=name, route='cuda', source=source,
@@ -544,10 +586,11 @@ def kernel_phase():
 
 # -- slice phase ----------------------------------------------------------------
 
-def plain_nll64(x, y, log_scale, log_amp):
+def plain_nll64(x, y, log_scale, log_amp, jitter=0.0):
     """Independent float64 reference of the objective's likelihood part
-    and its gradient in (log scale, log amp): dense K,
-    ``torch.linalg.cholesky`` and the textbook gradient
+    and its gradient in (log scale, log amp), with ``jitter`` more on K's
+    diagonal beside the noise: dense K, ``torch.linalg.cholesky`` and
+    the textbook gradient
     ½ <K⁻¹ − α αᵀ, ∂K>, α = K⁻¹ y, with ∂K/∂log amp = amp E and
     ∂K/∂log scale = amp E ∘ Δ²/scale², E = exp(−Δ²/(2 scale²)); no port
     code.  Four float64 n × n buffers at the peak (autograd through the
@@ -558,7 +601,7 @@ def plain_nll64(x, y, log_scale, log_amp):
     d2.mul_(d2).div_(scale * scale)
     E = torch.exp(d2 * -0.5)
     K = E * amp
-    K.diagonal().add_(NOISE_VAR)
+    K.diagonal().add_(NOISE_VAR + jitter)
     L = torch.linalg.cholesky(K)
     del K
     z = torch.linalg.solve_triangular(L, y[:, None], upper=False)
@@ -585,14 +628,17 @@ def plain_mean64(x, y, xs, scale, amp):
     return k(x, xs).T @ torch.cholesky_solve(y[:, None], L)[:, 0]
 
 
-KERNELS = ['schur_update', 'syrk_t_full', 'gram', 'schur_update_gram',
-           'gram_sym']
+KERNELS = ['schur_update', 'syrk_t_full', 'syrk_t_full_', 'gram',
+           'schur_update_gram', 'gram_sym']
 
 # each wrapper's launch counters and the suffix of their key in the
-# counts: A and D count their SIMT kernel ('launches') and their
+# counts: A and D count their SIMT kernel ('launches'), their TF32
 # tensor-core kernel in 3xTF32 ('launches_tc') and 1xTF32
-# ('launches_tc1') apart
-COUNTERS = {'launches': '', 'launches_tc': '_tc', 'launches_tc1': '_tc1'}
+# ('launches_tc1') and their FP64 tensor-core kernel ('launches_dmma')
+# apart; B its SIMT (float32) and DMMA (float64) kernels, and its
+# in-place form, `syrk_t_full_`, its DMMA kernel
+COUNTERS = {'launches': '', 'launches_tc': '_tc', 'launches_tc1': '_tc1',
+            'launches_dmma': '_dmma'}
 
 
 def _counters():
@@ -744,7 +790,7 @@ def slice_phase(dev='cuda'):
         f'(value + gradient)')
     log(f'  launches during the fit: {fit_launches}; fit + '
         f'predfromdata: {launches}')
-    require_launched(fit_launches, ['schur_update_tc', 'syrk_t_full',
+    require_launched(fit_launches, ['schur_update_tc', 'syrk_t_full__dmma',
                                     'gram'], 'the dense fit')
     scale = float(fit.pmean['scale'])
     amp = float(fit.pmean['amp'])
@@ -810,6 +856,88 @@ def slice_phase(dev='cuda'):
     if dmean > 10 * cond * eps32 * float(ref.abs().max()):
         fail('posterior mean disagrees with the float64 reference')
     return launches, fitted
+
+
+def dense64_phase(point, dev='cuda', evals=5):
+    """The dense slice's model in float64, the lane of the JAX package's
+    users under x64: ``evals`` value+gradients at n = N at ``point`` (log
+    scale, log amp), each timed on the host clock up to the read of its
+    result, as the fit times its evaluations (checks off); checks that
+    kernels A, B and C ran, and holds the NLL and gradient against
+    `plain_nll64`.  Returns the launch counts."""
+    import numpy as np
+    import torch
+    import lsqfitgp_torch as lgp
+    f64 = torch.float64
+    torch.set_default_dtype(f64)
+    rng = np.random.default_rng(20261016)
+    x = rng.uniform(-50, 50, N)
+    y = np.sin(x) + math.sqrt(NOISE_VAR) * rng.standard_normal(N)
+    xt = torch.as_tensor(x, dtype=f64, device=dev)
+    yt = torch.as_tensor(y, dtype=f64, device=dev)
+    noise = NOISE_VAR * torch.eye(N, dtype=f64, device=dev)
+    ls, la = point
+    log(f'dense float64: n = {N}, the dense slice\'s model at log scale '
+        f'{ls:.6g}, log amp {la:.6g}, {evals} value+gradients')
+    reset_counts()
+    times = []
+    for _ in range(evals):
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp = torch.tensor(point, dtype=f64, device=dev, requires_grad=True)
+        with lgp.disable_checks():
+            gp = lgp.GP(lp[1].exp() * lgp.ExpQuad(scale=lp[0].exp()),
+                        gram='tiled')
+            gp = gp.addx(xt, 'f').addcov(noise, 'e')
+            gp = gp.addlintransf(lambda f, e: f + e, ['f', 'e'], 'y')
+            nll = -gp.marginal_likelihood({'y': yt})
+            del gp
+        g, = torch.autograd.grad(nll, lp)
+        nll = float(nll.detach())
+        g = g.tolist()
+        times.append(time.perf_counter() - t0)
+    counts = read_counts()
+    log(f'  {statistics.median(times) * 1e3:.1f} ms median per value + '
+        f'gradient (each: {[round(t * 1e3, 1) for t in times]} ms); '
+        f'launches {counts}')
+    require_launched(counts, ['schur_update_dmma', 'syrk_t_full__dmma',
+                              'gram'], 'the float64 dense evaluation')
+    del noise
+    # the port's float64 factorization adds eps = n eps64 times the
+    # Gershgorin bound of the scaled matrix on its diagonal: in K's
+    # units δ = n eps64 max_i Σ_j |K_ij|, since K's diagonal is constant
+    # and its power-of-2 scaling cancels.  The reference adds the same δ,
+    # so the two differ by float64 rounding alone: 10 cond eps64 of the
+    # NLL's terms (|NLL| + n), and of the gradient's two terms, each at
+    # most about n/2 here (½ tr(K⁻¹ ∂K) <= n/2 for log amp), so
+    # 10 cond eps64 n absolute
+    eps64 = torch.finfo(f64).eps
+    with torch.no_grad():
+        d = (xt[:, None] - xt[None, :]) / math.exp(ls)
+        K = math.exp(la) * torch.exp(-0.5 * d * d)
+        del d
+        K.diagonal().add_(NOISE_VAR)
+        rowsum = float(K.sum(1).max())
+        cond = float(lgp.linalg.Chol(K).cond_estimate)
+        del K
+    delta = N * eps64 * rowsum
+    nll64, g64 = plain_nll64(xt, yt, ls, la, jitter=delta)
+    g = torch.tensor(g, dtype=f64, device=dev)
+    dnll = abs(nll - nll64)
+    dg = float((g - g64).abs().max())
+    tol_nll = 10 * cond * eps64 * (abs(nll64) + N)
+    tol_g = 10 * cond * eps64 * N
+    log(f'  cond_estimate {cond:.4g}, δ {delta:.4g}; NLL port {nll:.12g}, '
+        f'plain float64 {nll64:.12g}, |diff| {dnll:.3e} (limit '
+        f'{tol_nll:.3e}); gradient port {g.tolist()}, plain '
+        f'{g64.tolist()}, max |diff| {dg:.3e} (limit {tol_g:.3e})')
+    if dnll > tol_nll:
+        fail('float64 dense NLL disagrees with the float64 reference')
+    if dg > tol_g:
+        fail('float64 dense gradient disagrees with the float64 reference')
+    torch.set_default_dtype(torch.float32)
+    return counts
 
 
 def dense_memory(n):
@@ -1227,6 +1355,10 @@ def main(argv):
     if argv == ['--compare-fits']:
         compare_fits()
         return 0
+    if argv == ['--dense64']:
+        build()
+        dense64_phase(OPTIMUM)
+        return 0
     if argv:
         fail(f'unknown arguments {argv}')
     t0 = time.perf_counter()
@@ -1237,6 +1369,9 @@ def main(argv):
     paths['dense'], fitted = slice_phase()
     log(f'elapsed {time.perf_counter() - t0:.1f} s')
     torch.cuda.empty_cache()
+    paths['dense64'] = dense64_phase(fitted)
+    log(f'elapsed {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
     paths['stream'], end = stream_phase(fitted)
     log(f'elapsed {time.perf_counter() - t0:.1f} s')
     torch.cuda.empty_cache()
@@ -1244,13 +1379,17 @@ def main(argv):
     log(f'elapsed {time.perf_counter() - t0:.1f} s')
     torch.cuda.empty_cache()
     paths['halfmatrix'] = halfmatrix_phase()
-    # each kernel's launches are those of its own path's run
-    own = {'schur_update': 'dense', 'syrk_t_full': 'dense', 'gram': 'dense',
+    # each kernel's launches are those of its own path's run: the dense
+    # fit's, but for A in float64 the float64 dense evaluation's
+    own = {'schur_update': 'dense', 'syrk_t_full': 'dense',
+           'syrk_t_full_': 'dense', 'gram': 'dense',
            'schur_update_gram': 'stream', 'gram_sym': 'halfmatrix'}
     for rec in records:
         base = rec['name'].split('/')[0]
         key = base + COUNTERS[rec['counter']]
-        rec['launches'] = paths[own[base]][key]
+        path = 'dense64' if rec['name'] == 'schur_update/float64' \
+            else own[base]
+        rec['launches'] = paths[path][key]
         rec['launches_by_path'] = {p: c[key] for p, c in paths.items()}
     log(f'total {time.perf_counter() - t0:.1f} s')
     keys = ['name', 'route', 'source', 'replaces', 'launches',

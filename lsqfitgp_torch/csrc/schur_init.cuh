@@ -1,10 +1,10 @@
-// What the Schur updates' two kernels share (kernels A and D): the tile
+// What the Schur updates' kernels share (kernels A and D): the tile
 // initializers and the work list of lower tiles.  The SIMT kernel
-// (syrk.cu, float64 and precision='highest') calls an initializer over
-// its 8 x 8 micro-tile, the tensor-core kernel (schur_tc.cu, float32 at
-// 'high' and 'default') over its accumulator fragment's coordinates:
-// both call the same function of one (r, c), so both start from the same
-// values.
+// (syrk.cu, float32 at precision='highest') calls an initializer over
+// its 8 x 8 micro-tile, the tensor-core kernels (schur_tc.cu, float32 at
+// 'high' and 'default'; dmma.cu, float64) over their accumulator
+// fragments' coordinates: all call the same function of one (r, c), so
+// all start from the same values.
 
 #pragma once
 

@@ -22,26 +22,27 @@
 // per-tile-pair centered norm expansion: exact at p = 1, relative error
 // ~p u at p > 1 whatever the coordinates' offset.
 //
-// A and D run here in float64, and in float32 at precision='highest';
-// float32 at 'high' (3xTF32) and 'default' (1xTF32) runs the
-// tensor-core kernel of schur_tc.cu, from the same initializers
-// (schur_init.cuh).
+// A and D run here in float32 at precision='highest'; float32 at 'high'
+// (3xTF32) and 'default' (1xTF32) runs the tensor-core kernel of
+// schur_tc.cu, float64 the FP64 tensor-core kernel of dmma.cu, all from
+// the same initializers (schur_init.cuh).
 //
 // Kernel B, syrk_t_full: the full symmetric W^T W of a lower-triangular
 // W, computed on the lower output tiles only, skipping the rows of W
 // that are zero above its diagonal, and mirrored into the upper tiles by
-// the kernel itself.  It replaces lsqfitgp_tpu/ops/_syrk.py::_syrk_t_kernel.
+// the kernel itself.  It replaces lsqfitgp_tpu/ops/_syrk.py::_syrk_t_kernel
+// in float32; float64 runs dmma.cu.
 //
 // Bound on the H100: all three are matrix products with a deep k-loop,
-// so the fp32 (or fp64) FMA rate bounds them, not memory (D's tile
+// so the fp32 FMA rate bounds them, not memory (D's tile
 // initialization, one exp per entry, is negligible beside a k-loop of
 // depth >= 512).  The design is the classic register-blocked
 // shared-memory product: a 128 x 128 output tile per block of 256
 // threads, each thread owning an 8 x 8 micro-tile strided by 16 (so
 // shared-memory reads and global writes of a warp are contiguous), the
 // k-loop inside the block in slabs of 8.  A and D are one kernel
-// templated on the tile's initializer.  Accumulation is IEEE fp32 (or
-// fp64) FMA: no tensor cores, no TF32.  A and D launch only the lower
+// templated on the tile's initializer.  Accumulation is IEEE fp32 FMA:
+// no tensor cores, no TF32.  A and D launch only the lower
 // tiles, numbered by a 1-D work list (schur_init.cuh); B's grid is the
 // full square, and its blocks above the diagonal exit at once.  No
 // library routine is called and nothing is allocated.
@@ -237,16 +238,6 @@ int lsq_schur_update_f32(const float* B, long long ldb, long long offset,
                                size, tile, stream);
 }
 
-int lsq_schur_update_f64(const double* B, long long ldb, long long offset,
-                         const double* s, const double* eps,
-                         long long nreal, const double* A, long long h,
-                         double* out, long long size, long long tile,
-                         void* stream)
-{
-    return launch_schur_scaled(B, ldb, offset, s, eps, nreal, A, h, out,
-                               size, tile, stream);
-}
-
 int lsq_schur_gram_f32(const float* X, int dim, const float* params,
                        int npost, unsigned postadd, int with_eps,
                        int profile, long long nreal, long long offset,
@@ -258,24 +249,7 @@ int lsq_schur_gram_f32(const float* X, int dim, const float* params,
                              stream);
 }
 
-int lsq_schur_gram_f64(const double* X, int dim, const double* params,
-                       int npost, unsigned postadd, int with_eps,
-                       int profile, long long nreal, long long offset,
-                       const double* A, long long h, double* out,
-                       long long size, long long tile, void* stream)
-{
-    return launch_schur_gram(X, dim, params, npost, postadd, with_eps,
-                             profile, nreal, offset, A, h, out, size, tile,
-                             stream);
-}
-
 int lsq_syrk_t_f32(const float* W, long long h, long long m, float* out,
-                   void* stream)
-{
-    return launch_syrk_t(W, h, m, out, stream);
-}
-
-int lsq_syrk_t_f64(const double* W, long long h, long long m, double* out,
                    void* stream)
 {
     return launch_syrk_t(W, h, m, out, stream);

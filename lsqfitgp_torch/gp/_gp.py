@@ -668,7 +668,15 @@ class GP:
                         ycov[offs[j]:offs[j + 1], offs[i]:offs[i + 1]] = \
                             blk.T
             else:
-                ycov = self._asarray(givencov).reshape(n, n)
+                # a scalar is σ² I and a length-n vector diag(v), the
+                # forms the streaming solver takes; else an (n, n) matrix
+                ycov = self._asarray(givencov)
+                if ycov.dim() == 0:
+                    ycov = torch.diag(ycov.expand(n))
+                elif ycov.dim() == 1 and ycov.shape[0] == n:
+                    ycov = torch.diag(ycov)
+                else:
+                    ycov = ycov.reshape(n, n)
         elif any(u is not None for u in uarrs):
             yu = uncert.uconcatenate([
                 u if u is not None else uncert.UArray(m)

@@ -26,7 +26,7 @@ import torch
 from . import _blocked
 from .. import _torchutil
 from .. import ops
-from ..ops import syrk_t_full
+from ..ops import syrk_t_full_
 
 __all__ = ['Decomposition', 'Chol', 'chol_nll', 'chol_nll_stream',
            'chol_nll_stream_grad', 'chol_pred_stream']
@@ -371,7 +371,7 @@ class _CholNLL(torch.autograd.Function):
     with ``K_s = S K S + eps·I = L Lᵀ`` (S and eps held constant: S is
     pow2-quantized and the eps sensitivity is O(eps)).  ``K_s⁻¹`` is
     one blocked triangular inverse (`trtri_blocked`) and one
-    triangular-skip WᵀW (kernel B on CUDA)."""
+    triangular-skip WᵀW (kernel B on CUDA), both in one buffer."""
 
     @staticmethod
     def forward(ctx, K, r, opts):
@@ -400,15 +400,18 @@ class _CholNLL(torch.autograd.Function):
         # 1.6e5) the float32 carrier gave ∂NLL/∂log(amp) = −3.6 where
         # float64 gives +8.3, and BFGS stalled; inverting the same
         # float32 factor in float64 gives +8.30 (see PERF.md).  Memory:
-        # the float64 copy of L becomes L⁻¹ in place, so the carrier
-        # holds two float64 n × n buffers at its peak (W and K-bar).
+        # the float64 copy of L becomes L⁻¹ in place and then K_s⁻¹ =
+        # WᵀW in place (kernel B), so the carrier is one float64 n × n
+        # buffer: the peaks are the float32 L beside its float64 copy
+        # and the float64 K-bar beside its float32 result, 12 bytes per
+        # n² from a float32 factor.
         wide = torch.promote_types(r.dtype, torch.float64)
         W = dec._L.to(wide)
         del dec
         if Dinv is not None:
             W = _blocked.trtri_blocked(W, Dinv.to(wide), block, ctx.precision)
             del Dinv
-            Kbar = syrk_t_full(W, precision=ctx.precision)
+            Kbar = syrk_t_full_(W, precision=ctx.precision)
         else:
             eye = torch.eye(W.shape[0], dtype=wide, device=r.device)
             W = torch.linalg.solve_triangular(W, eye, upper=False)

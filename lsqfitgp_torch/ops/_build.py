@@ -39,19 +39,25 @@ _I32 = ctypes.c_int
 _U32 = ctypes.c_uint
 
 _BOTH = ('_f32', '_f64')
+_F32, _F64 = ('_f32',), ('_f64',)
 
-# C signatures and the dtype suffixes each entry point has (the
-# tensor-core kernels compute in TF32, which has no float64 twin)
+_SCHUR = [_P, _I64, _I64, _P, _P, _I64, _P, _I64, _P, _I64, _I64]
+_SCHUR_GRAM = [_P, _I32, _P, _I32, _U32, _I32, _I32, _I64, _I64, _P, _I64,
+               _P, _I64, _I64]
+
+# C signatures and the dtype suffixes each entry point has: the SIMT
+# kernels of syrk.cu (float32), the TF32 tensor-core kernels of
+# schur_tc.cu (float32, with a pass count) and the FP64 tensor-core
+# kernels of dmma.cu (float64)
 _SIGNATURES = {
-    'lsq_schur_update': ([_P, _I64, _I64, _P, _P, _I64, _P, _I64, _P, _I64,
-                          _I64, _P], _BOTH),
-    'lsq_schur_update_tc': ([_P, _I64, _I64, _P, _P, _I64, _P, _I64, _P,
-                             _I64, _I64, _I32, _P], ('_f32',)),
-    'lsq_schur_gram': ([_P, _I32, _P, _I32, _U32, _I32, _I32, _I64, _I64, _P,
-                        _I64, _P, _I64, _I64, _P], _BOTH),
-    'lsq_schur_gram_tc': ([_P, _I32, _P, _I32, _U32, _I32, _I32, _I64, _I64,
-                           _P, _I64, _P, _I64, _I64, _I32, _P], ('_f32',)),
-    'lsq_syrk_t': ([_P, _I64, _I64, _P, _P], _BOTH),
+    'lsq_schur_update': ([*_SCHUR, _P], _F32),
+    'lsq_schur_update_tc': ([*_SCHUR, _I32, _P], _F32),
+    'lsq_schur_update_dmma': ([*_SCHUR, _P], _F64),
+    'lsq_schur_gram': ([*_SCHUR_GRAM, _P], _F32),
+    'lsq_schur_gram_tc': ([*_SCHUR_GRAM, _I32, _P], _F32),
+    'lsq_schur_gram_dmma': ([*_SCHUR_GRAM, _P], _F64),
+    'lsq_syrk_t': ([_P, _I64, _I64, _P, _P], _F32),
+    'lsq_syrk_t_dmma': ([_P, _I64, _I64, _P, _P, _P], _F64),
     'lsq_gram': ([_P, _P, _I64, _I64, _I32, _P, _I32, _U32, _I32, _I32, _I32,
                   _P, _P], _BOTH),
     'lsq_gram_sym': ([_P, _I64, _I32, _P, _I32, _U32, _I32, _I32, _I32, _P,

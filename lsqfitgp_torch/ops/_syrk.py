@@ -18,20 +18,24 @@ Kernels A and D pick their CUDA kernel by ``(dtype, precision)``, with
   bf16_3x's 2⁻¹⁶); counted by ``launches_tc``;
 - float32 at ``'default'``: the same kernel with one TF32 pass, the
   counterpart of JAX's single bf16 pass; counted by ``launches_tc1``;
-- float32 at ``'highest'``, and float64 at every precision: the SIMT
-  kernel (``csrc/syrk.cu``), IEEE fp32 or fp64 FMA; counted by
-  ``launches``.
+- float32 at ``'highest'``: the SIMT kernel (``csrc/syrk.cu``), IEEE
+  fp32 FMA; counted by ``launches``;
+- float64 at every precision: the FP64 tensor-core kernel
+  (``csrc/dmma.cu``, DMMA ``mma.sync``), IEEE fp64; counted by
+  ``launches_dmma``.
 
-The tensor-core kernel takes A with 16-byte aligned rows (``h % 4 ==
-0``) and raises otherwise.  Kernel B is IEEE at every precision.
+The TF32 tensor-core kernel takes A with 16-byte aligned rows (``h % 4
+== 0``) and raises otherwise; the DMMA kernel takes any h.  Kernel B is
+IEEE at every precision: the SIMT kernel in float32, the DMMA kernel in
+float64.
 
 Kernel A replaces ``lsqfitgp_tpu/ops/_syrk.py::_schur_kernel``.  The
-SIMT kernel is bound by the FMA rate, the tensor-core kernel by the TF32
-rate over its pass count (the k-loop is as deep as the factorization's
-panel).  Both keep a 128 x 128 output tile in registers across the whole
-k-loop, fuse the diagonal scaling and eps into the tile's initial value,
-read B through its offset and leading dimension, and launch only the
-lower tiles.
+SIMT kernel is bound by the FMA rate, the tensor-core kernels by the
+TF32 rate over the pass count or the FP64 tensor-core rate (the k-loop
+is as deep as the factorization's panel).  All keep a 128 x 128 output
+tile in registers across the whole k-loop, fuse the diagonal scaling
+and eps into the tile's initial value, read B through its offset and
+leading dimension, and launch only the lower tiles.
 
 Kernel D replaces ``lsqfitgp_tpu/ops/_syrk.py::_schur_gram_kernel`` and
 its 2-D-grid twin ``_schur_gram_kernel2`` (one CUDA kernel serves both).
@@ -41,10 +45,13 @@ from the points, so the Gram block never exists in device memory.  Same
 bounds, same designs.
 
 Kernel B replaces ``lsqfitgp_tpu/ops/_syrk.py::_syrk_t_kernel``.  Also
-FMA-bound; it computes the lower output tiles only, starts each tile's
-k-loop at its row tile (the rows of a lower-triangular W above are
-zero: about n³/6 multiply-adds instead of n³/2 or n³), and writes the
-mirror of each tile from the same registers.
+bound by the products; it computes the lower output tiles only, starts
+each tile's k-loop at its row tile (the rows of a lower-triangular W
+above are zero: about n³/6 multiply-adds instead of n³/2 or n³), and
+writes the mirror of each tile from the same registers.  In float64 it
+also runs in place (`syrk_t_full_`): WᵀW's strict upper triangle goes
+into W's, which is zero, and a second launch mirrors it, so the
+gradient's K⁻¹ costs no n × n buffer beside W.
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ import torch
 from . import _build
 
 __all__ = ['schur_update', 'schur_update_gram', 'syrk_t_full',
-           'schur_update_plain', 'schur_update_gram_plain',
+           'syrk_t_full_', 'schur_update_plain', 'schur_update_gram_plain',
            'syrk_t_full_plain']
 
 # the kernels' output tile edge (csrc/syrk.cu: BM)
@@ -70,16 +77,23 @@ def _check_precision(precision):
 
 def _passes(dtype, precision):
     """The tensor-core kernel's TF32 pass count for kernels A and D at
-    ``(dtype, precision)``, or 0 for the SIMT kernel."""
+    ``(dtype, precision)``, or 0 for another kernel."""
     if dtype != torch.float32:
         return 0
     return {None: 3, 'high': 3, 'default': 1}.get(precision, 0)
 
 
-def _count(wrapper, passes):
-    """Count one launch of ``wrapper``'s kernel for ``passes``."""
-    name = {0: 'launches', 3: 'launches_tc', 1: 'launches_tc1'}[passes]
-    setattr(wrapper, name, getattr(wrapper, name) + 1)
+def _counter(dtype, precision):
+    """The launch counter of the CUDA kernel that kernels A and D run at
+    ``(dtype, precision)``."""
+    if dtype == torch.float64:
+        return 'launches_dmma'
+    return {0: 'launches', 3: 'launches_tc',
+            1: 'launches_tc1'}[_passes(dtype, precision)]
+
+
+def _count(wrapper, counter):
+    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 def _check_tc(A):
@@ -185,8 +199,9 @@ def schur_update(B, A, *, s=None, eps=None, size=None, offset=0, tile=512,
 
 def _schur_update_cuda(B, A, s, eps, size, offset, tile, nreal, precision):
     dtype = A.dtype
-    suffix = _suffix(dtype)
+    _suffix(dtype)
     passes = _passes(dtype, precision)
+    counter = _counter(dtype, precision)
     h = A.shape[1]
     if tile % KERNEL_TILE:
         raise ValueError(f'tile {tile} must be a multiple of {KERNEL_TILE} '
@@ -207,19 +222,20 @@ def _schur_update_cuda(B, A, s, eps, size, offset, tile, nreal, precision):
             offset + size if nreal is None else nreal, _ptr(A), h, _ptr(out),
             size, tile)
     lib = _build.lib()
-    if passes:
+    if counter == 'launches_dmma':
+        err = lib.lsq_schur_update_dmma_f64(*args, _stream(A.device))
+    elif passes:
         _check_tc(A)
         err = lib.lsq_schur_update_tc_f32(*args, passes, _stream(A.device))
     else:
-        err = getattr(lib, 'lsq_schur_update' + suffix)(*args,
-                                                        _stream(A.device))
+        err = lib.lsq_schur_update_f32(*args, _stream(A.device))
     _build.check(err, 'schur_update')
-    _count(schur_update, passes)
+    _count(schur_update, counter)
     return out
 
 
 schur_update.launches = schur_update.launches_tc = 0
-schur_update.launches_tc1 = 0
+schur_update.launches_tc1 = schur_update.launches_dmma = 0
 
 
 def _gram_view_mask(S, gi, nreal):
@@ -289,7 +305,7 @@ def schur_update_gram(profile, X, A, *, post=(), eps=None, nreal=None,
                                        tile=tile)
     from . import _gram
     profile, X, _, ops, pvec = _gram._args(profile, X, None, post, eps)
-    suffix = _suffix(A.dtype)
+    _suffix(A.dtype)
     if tile % KERNEL_TILE:
         raise ValueError(f'tile {tile} must be a multiple of {KERNEL_TILE} '
                          f'on CUDA')
@@ -298,25 +314,27 @@ def schur_update_gram(profile, X, A, *, post=(), eps=None, nreal=None,
     if not A.is_contiguous():
         raise ValueError('A must be contiguous')
     passes = _passes(A.dtype, precision)
+    counter = _counter(A.dtype, precision)
     out = torch.empty((size, size), dtype=A.dtype, device=A.device)
     postadd = sum(1 << k for k, op in enumerate(ops) if op == 'add')
     args = (_ptr(X), X.shape[1], _ptr(pvec), len(ops), postadd,
             int(eps is not None), profile.id, nreal, offset, _ptr(A), h,
             _ptr(out), size, tile)
     lib = _build.lib()
-    if passes:
+    if counter == 'launches_dmma':
+        err = lib.lsq_schur_gram_dmma_f64(*args, _stream(A.device))
+    elif passes:
         _check_tc(A)
         err = lib.lsq_schur_gram_tc_f32(*args, passes, _stream(A.device))
     else:
-        err = getattr(lib, 'lsq_schur_gram' + suffix)(*args,
-                                                      _stream(A.device))
+        err = lib.lsq_schur_gram_f32(*args, _stream(A.device))
     _build.check(err, 'schur_update_gram')
-    _count(schur_update_gram, passes)
+    _count(schur_update_gram, counter)
     return out
 
 
 schur_update_gram.launches = schur_update_gram.launches_tc = 0
-schur_update_gram.launches_tc1 = 0
+schur_update_gram.launches_tc1 = schur_update_gram.launches_dmma = 0
 
 
 def syrk_t_full_plain(W):
@@ -331,21 +349,59 @@ def syrk_t_full(W, *, precision=None):
     """Full symmetric ``Wᵀ W`` for a lower-triangular W of shape (h, m).
 
     The kernel skips the rows of W that are zero above its diagonal, so
-    W must be lower triangular.  The result is exactly symmetric.
+    W must be lower triangular.  The result is exactly symmetric.  On
+    CUDA, float32 runs the SIMT kernel (counted by ``launches``), float64
+    the DMMA kernel (``launches_dmma``).
     """
     _check_precision(precision)
     if _device_kind(W) == 'cpu':
         return syrk_t_full_plain(W)
-    suffix = _suffix(W.dtype)
+    _suffix(W.dtype)
     if not W.is_contiguous():
         raise ValueError('W must be contiguous')
     h, m = W.shape
     out = torch.empty((m, m), dtype=W.dtype, device=W.device)
-    err = getattr(_build.lib(), 'lsq_syrk_t' + suffix)(
-        _ptr(W), h, m, _ptr(out), _stream(W.device))
+    lib = _build.lib()
+    if W.dtype == torch.float64:
+        err = lib.lsq_syrk_t_dmma_f64(_ptr(W), h, m, _ptr(out), None,
+                                      _stream(W.device))
+        counter = 'launches_dmma'
+    else:
+        err = lib.lsq_syrk_t_f32(_ptr(W), h, m, _ptr(out), _stream(W.device))
+        counter = 'launches'
     _build.check(err, 'syrk_t_full')
-    syrk_t_full.launches += 1
+    _count(syrk_t_full, counter)
     return out
 
 
-syrk_t_full.launches = 0
+syrk_t_full.launches = syrk_t_full.launches_dmma = 0
+
+
+def syrk_t_full_(W, *, precision=None):
+    """`syrk_t_full` in place: leaves the full, exactly symmetric ``Wᵀ
+    W`` of a square lower-triangular W in W's own buffer and returns W.
+
+    On CUDA the DMMA kernel (float64 only) writes WᵀW's strict upper
+    triangle into W's, which is zero, reading W's upper triangle as zero
+    by index, then mirrors it; its only scratch is n doubles.  Counted
+    by ``launches_dmma``.  On the CPU the plain version, then a copy.
+    """
+    _check_precision(precision)
+    if W.dim() != 2 or W.shape[0] != W.shape[1]:
+        raise ValueError(f'W must be square, not {tuple(W.shape)}')
+    if _device_kind(W) == 'cpu':
+        return W.copy_(syrk_t_full_plain(W))
+    if W.dtype != torch.float64:
+        raise TypeError(f'the in-place kernel takes float64, not {W.dtype}')
+    if not W.is_contiguous():
+        raise ValueError('W must be contiguous')
+    n = W.shape[0]
+    diag = torch.empty(n, dtype=W.dtype, device=W.device)
+    err = _build.lib().lsq_syrk_t_dmma_f64(_ptr(W), n, n, _ptr(W),
+                                           _ptr(diag), _stream(W.device))
+    _build.check(err, 'syrk_t_full_')
+    syrk_t_full_.launches_dmma += 1
+    return W
+
+
+syrk_t_full_.launches_dmma = 0

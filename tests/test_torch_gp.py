@@ -142,6 +142,51 @@ def test_pred_uarray_data(data):
                                rtol=1e-8, atol=1e-11)
 
 
+@pytest.mark.parametrize('form', ['scalar', 'vector'])
+def test_dense_givencov_forms(data, form):
+    """The dense solver takes ``givencov`` as a scalar (σ² I) or a
+    length-n vector (diag(v)), as the streaming solver does: the NLL, its
+    gradient and the posteriors equal those with the explicit matrix, and
+    agree with the JAX package's dense GP given that matrix (but for
+    ``predfromfit``, whose noise-free prior Gram is singular here)."""
+    x, y, xs = data
+    v = 0.09 if form == 'scalar' else np.linspace(0.05, 0.15, N)
+    M = np.diag(np.broadcast_to(v, (N,)))
+    p0 = np.array([0.2, -0.1])
+
+    def port(cov):
+        p = torch.as_tensor(p0).requires_grad_()
+        gp = lt.GP(p[0].exp() * lt.ExpQuad(scale=p[1].exp()), gram='tiled')
+        gp = gp.addx(x, 'f').addx(xs, 'pred')
+        ml = gp.marginal_likelihood({'f': y}, cov)
+        g, = torch.autograd.grad(ml, p)
+        with torch.no_grad():
+            u = gp.predfromdata({'f': y}, 'pred', cov)
+            fit = gp.predfromfit({'f': y}, 'pred', cov)
+        return [float(ml.detach()), g.numpy(), u.mean.numpy(),
+                u.cov().numpy(), fit.cov().numpy()]
+
+    def jax_dense(p):
+        gp = ltpu.GP(jnp.exp(p[0]) * ltpu.ExpQuad(scale=jnp.exp(p[1])),
+                     gram='tiled')
+        return gp.addx(x, 'f').addx(xs, 'pred')
+
+    short, full = port(v), port(M)
+    for a, b in zip(short, full):
+        np.testing.assert_allclose(a, b, rtol=1e-14, atol=1e-15)
+    vj, gj = jax.value_and_grad(
+        lambda p: jax_dense(p).marginal_likelihood({'f': y}, M))(
+        jnp.asarray(p0))
+    gpj = jax_dense(jnp.asarray(p0))
+    uj = gpj.predfromdata({'f': y}, 'pred', M)
+    np.testing.assert_allclose(short[0], float(vj), rtol=1e-9)
+    np.testing.assert_allclose(short[1], np.asarray(gj), rtol=1e-8)
+    np.testing.assert_allclose(short[2], np.asarray(uj.mean), rtol=1e-9,
+                               atol=1e-11)
+    np.testing.assert_allclose(short[3], np.asarray(uj.cov()), rtol=1e-8,
+                               atol=1e-11)
+
+
 @pytest.mark.parametrize('solver', ['chol', 'chol-stream'])
 def test_objective_leaves_no_cycles(rng, solver):
     """One value+gradient of the fit objective frees its large blocks by

@@ -8,7 +8,7 @@ for CPU tensors only and that the package imports no JAX.
 
 Tolerances on the card: the kernels sum the same products in another
 order, so a length-k dot product may differ by ~sqrt(k) u Σ|terms|
-(u the unit roundoff); with k <= 512 and unit-scale inputs, rtol/atol
+(u the unit roundoff); with k <= 1000 and unit-scale inputs, rtol/atol
 of 1e-4 (float32) and 1e-12 (float64) hold with a wide margin.  Kernels
 A and D in float32 at precision 'high' and 'default' run on the tensor
 cores in TF32 and are held to the bound `chip_smoke.py` states: 4 sqrt(h)
@@ -69,12 +69,14 @@ def test_cpu_tensors_take_the_plain_version(gen):
     x = torch.as_tensor(gen.standard_normal(50))
     X = torch.as_tensor(gen.standard_normal((256, 2)))
     counters = [ops.schur_update, ops.schur_update_gram, ops.syrk_t_full,
-                ops.gram, ops.gram_sym]
-    before = [c.launches for c in counters]
+                ops.syrk_t_full_, ops.gram, ops.gram_sym]
+    before = [vars(c).copy() for c in counters]
     S = ops.schur_update(None, A, eps=0.5, tile=128)
     torch.testing.assert_close(
         S, _syrk.schur_update_plain(None, A, eps=0.5, size=256, tile=128))
     torch.testing.assert_close(ops.syrk_t_full(W),
+                               _syrk.syrk_t_full_plain(W))
+    torch.testing.assert_close(ops.syrk_t_full_(W.clone()),
                                _syrk.syrk_t_full_plain(W))
     torch.testing.assert_close(ops.gram('expquad', x),
                                ops.gram_plain('expquad', x))
@@ -85,7 +87,12 @@ def test_cpu_tensors_take_the_plain_version(gen):
                               nreal=200),
         _syrk.schur_update_gram_plain('expquad', X, A[:, :64], eps=0.5,
                                       size=256, tile=128, nreal=200))
-    assert [c.launches for c in counters] == before
+    assert [vars(c) for c in counters] == before
+
+
+def test_in_place_syrk_takes_square_w():
+    with pytest.raises(ValueError, match='square'):
+        ops.syrk_t_full_(torch.zeros((8, 6)))
 
 
 def test_unsupported_device_raises():
@@ -110,14 +117,17 @@ def test_unknown_precision_raises(precision):
 
 
 def test_kernel_routes():
-    """Which CUDA kernel each (dtype, precision) takes: 3xTF32 for
-    float32 at 'high' (and None), 1xTF32 at 'default', the SIMT kernel
-    at 'highest' and for float64."""
+    """Which CUDA kernel each (dtype, precision) takes, by its launch
+    counter: 3xTF32 for float32 at 'high' (and None), 1xTF32 at
+    'default', the SIMT kernel at 'highest', and the DMMA kernel for
+    float64 at every precision."""
     f32, f64 = torch.float32, torch.float64
-    assert [_syrk._passes(f32, p) for p in (None, 'high', 'default',
-                                            'highest')] == [3, 3, 1, 0]
-    assert [_syrk._passes(f64, p) for p in (None, 'high', 'default',
-                                            'highest')] == [0, 0, 0, 0]
+    names = (None, 'high', 'default', 'highest')
+    assert [_syrk._passes(f32, p) for p in names] == [3, 3, 1, 0]
+    assert [_syrk._passes(f64, p) for p in names] == [0, 0, 0, 0]
+    assert [_syrk._counter(f32, p) for p in names] == [
+        'launches_tc', 'launches_tc', 'launches_tc1', 'launches']
+    assert [_syrk._counter(f64, p) for p in names] == ['launches_dmma'] * 4
 
 
 PRECISIONS = ['high', 'default', 'highest']
@@ -134,13 +144,15 @@ def _tc_tol(A, init, dtype, precision):
         + 16 * u * (init.abs() + 1)
 
 
+COUNTERS = ('launches', 'launches_tc', 'launches_tc1', 'launches_dmma')
+
+
 def _launches(wrapper):
-    return (wrapper.launches, wrapper.launches_tc, wrapper.launches_tc1)
+    return tuple(getattr(wrapper, c) for c in COUNTERS)
 
 
 def _expect(before, dtype, precision):
-    passes = _syrk._passes(dtype, precision)
-    k = {0: 0, 3: 1, 1: 2}[passes]
+    k = COUNTERS.index(_syrk._counter(dtype, precision))
     return tuple(c + (i == k) for i, c in enumerate(before))
 
 
@@ -148,11 +160,13 @@ def _expect(before, dtype, precision):
 @pytest.mark.parametrize('precision', PRECISIONS)
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('offset,nreal,h', [(0, None, 384), (256, 700, 384),
-                                            (256, 650, 100)])
+                                            (256, 650, 100), (256, 650, 101)])
 def test_schur_update_cuda(cuda, gen, dtype, offset, nreal, h, precision):
     """Kernel A at each precision: a nonzero offset into B, a ragged
     nreal and a k-depth that is not a multiple of the tensor-core
-    kernel's 32-column stage (its tail is zero-filled)."""
+    kernels' 32- and 16-column stages (its tail is zero-filled); with
+    odd h (rows not 16-byte aligned) the DMMA and SIMT kernels run and
+    the TF32 kernel raises."""
     size, tile = 512, 256
     mb = offset + size
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
@@ -162,6 +176,11 @@ def test_schur_update_cuda(cuda, gen, dtype, offset, nreal, h, precision):
     kw = dict(s=s, eps=0.5, size=size, offset=offset, tile=tile,
               nreal=nreal)
     n0 = _launches(ops.schur_update)
+    if h % 4 and _syrk._passes(dtype, precision):
+        with pytest.raises(ValueError, match='16-byte aligned'):
+            ops.schur_update(B, A, precision=precision, **kw)
+        assert _launches(ops.schur_update) == n0
+        return
     got = ops.schur_update(B, A, precision=precision, **kw)
     assert _launches(ops.schur_update) == _expect(n0, dtype, precision)
     ref = _syrk.schur_update_plain(B, A, **kw)
@@ -183,15 +202,33 @@ def test_tensor_core_kernel_raises_on_unaligned_rows(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-@pytest.mark.parametrize('m', [512, 300])
-def test_syrk_t_full_cuda(cuda, gen, dtype, m):
+@pytest.mark.parametrize('dtype,inplace', [(torch.float32, False),
+                                           (torch.float64, False),
+                                           (torch.float64, True)])
+@pytest.mark.parametrize('m', [512, 300, 1000, 301])
+def test_syrk_t_full_cuda(cuda, gen, dtype, inplace, m):
+    """Kernel B out of place (SIMT in float32, DMMA in float64) and in
+    place (DMMA): exactly symmetric, in W's own storage when in place,
+    with ragged edges (m not a multiple of the 128 tile; odd m, rows not
+    16-byte aligned)."""
     W = torch.as_tensor(np.tril(gen.standard_normal((m, m))) / m ** 0.5,
                         dtype=dtype, device=cuda)
-    got = ops.syrk_t_full(W)
+    ref = _syrk.syrk_t_full_plain(W)
+    wrapper = ops.syrk_t_full_ if inplace else ops.syrk_t_full
+    counter = 'launches_dmma' if dtype == torch.float64 else 'launches'
+    n0 = getattr(wrapper, counter)
+    got = wrapper(W)
+    torch.cuda.synchronize()
+    assert getattr(wrapper, counter) == n0 + 1
+    assert (got is W) == inplace
     assert torch.equal(got, got.T)
-    torch.testing.assert_close(got, _syrk.syrk_t_full_plain(W),
-                               **TOL[dtype])
+    torch.testing.assert_close(got, ref, **TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_in_place_syrk_takes_float64(cuda):
+    with pytest.raises(TypeError, match='float64'):
+        ops.syrk_t_full_(torch.zeros((8, 8), device=cuda))
 
 
 @pytest.mark.gpu
@@ -225,6 +262,7 @@ def test_gp_on_cuda_matches_cpu(cuda, gen):
     y = np.sin(x) + 0.3 * gen.standard_normal(n)
     old = torch.get_default_dtype()
     torch.set_default_dtype(torch.float64)
+    n0 = (ops.schur_update.launches_dmma, ops.syrk_t_full_.launches_dmma)
     try:
         out = []
         for dev in ('cpu', cuda):
@@ -238,6 +276,9 @@ def test_gp_on_cuda_matches_cpu(cuda, gen):
                                                               device=dev)})
             g, = torch.autograd.grad(ml, lp)
             out.append((float(ml.detach()), g.cpu()))
+        # the factorization and the gradient ran the DMMA kernels
+        assert ops.schur_update.launches_dmma > n0[0]
+        assert ops.syrk_t_full_.launches_dmma == n0[1] + 1
         np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-10)
         torch.testing.assert_close(out[1][1], out[0][1], rtol=1e-8,
                                    atol=1e-8)
@@ -314,7 +355,8 @@ def test_stream_and_halfmatrix_on_cuda_match_cpu(cuda, gen):
     torch.set_default_dtype(torch.float64)
     try:
         out = []
-        launches = [ops.schur_update_gram.launches, ops.gram_sym.launches]
+        launches = [ops.schur_update_gram.launches_dmma,
+                    ops.gram_sym.launches]
         for dev in ('cpu', cuda):
             with lt.using_device(dev):
                 res = []
@@ -332,7 +374,8 @@ def test_stream_and_halfmatrix_on_cuda_match_cpu(cuda, gen):
                         mean = gp.predfromdata({'f': y}, 's', cov).mean
                     res += [ml.detach().cpu(), g.cpu(), mean.cpu()]
                 out.append(res)
-        assert ops.schur_update_gram.launches > launches[0]
+        # float64: kernel D on the DMMA kernel
+        assert ops.schur_update_gram.launches_dmma > launches[0]
         assert ops.gram_sym.launches > launches[1]
         for got, ref in zip(out[1], out[0]):
             torch.testing.assert_close(got, ref, rtol=1e-8, atol=1e-8)

@@ -70,12 +70,19 @@ def test_schur_update(rng, with_b, with_s, with_eps, offset, nreal):
     assert np.all(got.numpy()[~keep] == 0)
 
 
-@pytest.mark.parametrize('n', [384, 300])
-def test_syrk_t_full(rng, n):
+@pytest.mark.parametrize('n,inplace', [
+    pytest.param(384, False, id='384'), pytest.param(300, False, id='300'),
+    pytest.param(384, True, id='384-inplace'),
+    pytest.param(300, True, id='300-inplace')])
+def test_syrk_t_full(rng, n, inplace):
+    """`syrk_t_full`, and `syrk_t_full_`, which leaves the result in
+    W's own storage and returns W."""
     W = np.tril(rng.standard_normal((n, n)))
     ref = jops.syrk_t_full(jnp.asarray(W), tile=128, kchunk=128,
                            precision='highest', interpret='pallas')
-    got = ops.syrk_t_full(torch.as_tensor(W))
+    Wt = torch.tensor(W)
+    got = (ops.syrk_t_full_ if inplace else ops.syrk_t_full)(Wt)
+    assert (got is Wt) == inplace
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-11,
                                atol=1e-11 * n)
     assert torch.equal(got, got.T)

@@ -9,24 +9,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
 2. builds the CUDA kernels from ``lsqfitgp_torch/csrc`` and prints the
    build time;
 3. holds each kernel (A ``schur_update``, B ``syrk_t_full`` and its
-   in-place form ``syrk_t_full_``, C ``gram`` with its backward, D
-   ``schur_update_gram``, E ``gram_sym`` with its backward) against its
-   plain PyTorch version on the card, at its path's shapes, in float32
-   and float64, and times both with CUDA events (median of a few runs
-   after one warm-up), beside the bound (the least time the card could
-   take for the same work) and, where one PyTorch call computes a
-   superset of the work, that call's time.  A and D run in float32 at
-   each precision, each its own record: 'high' (the tensor-core kernel
-   in 3xTF32, the path's), 'default' (1xTF32) and 'highest' (the SIMT
+   in-place form ``syrk_t_full_``, C ``gram`` and its fused backward
+   ``gram_backward``, D ``schur_update_gram``, E ``gram_sym`` and its
+   fused backward ``gram_sym_backward``) against its plain PyTorch
+   version on the card, at its path's shapes, in float32 and float64,
+   and times both with CUDA events (median of a few runs after one
+   warm-up; C's and E's, sub-millisecond, by their device time under
+   the profiler), beside the bound (the least time the card could take
+   for the same work) and, where one PyTorch call computes a superset of
+   the work, that call's time.  A and D run in float32 at each
+   precision, each its own record: 'high' (the tensor-core kernel in
+   3xTF32, the path's), 'default' (1xTF32) and 'highest' (the SIMT
    kernel), and in float64 (the FP64 tensor-core kernel, DMMA); B has a
    record for float64 out of place and in place (DMMA; the path's) and
-   for float32 (SIMT), C and E for float32;
+   for float32 (SIMT); C, E and their backward for float32 and float64
+   (E's and its backward's with '/float64' off every path); the fused
+   backward must give the same bits in two calls, and E the same
+   entries as C;
 4. the dense path: fits ``amp * ExpQuad(scale)`` plus noise to n = 16384
    points with ``empbayes_fit`` in float32, predicts at 64 points,
    checks that kernels A (on the tensor cores), B (in place) and C were
-   launched by that run, prints the peak memory of one value+gradient in
-   bytes per
-   n² and a profile of one, and holds the NLL and its gradient at the
+   launched by that run, C's forward and fused backward once for each
+   evaluation (so no other Gram evaluation ran), prints the peak memory
+   of one value+gradient in bytes per n² (before the Gram's backward and
+   from it on) and a profile of one, and holds the NLL and its gradient
+   at the
    start point, at the fitted hyperparameters and at a worse-conditioned
    point (where it also prints the error at precision 'highest'), and
    the posterior mean at the fitted hyperparameters, against a plain
@@ -34,19 +41,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    through the shift of the optimum that the gradient's error implies);
    then the same model in float64 (the lane of the JAX package's users
    under x64): a few value+gradients at the fit, their median time, that
-   kernels A and B (both DMMA) and C ran, and the NLL and gradient
-   against the float64 computation;
+   kernels A and B (both DMMA) and C (forward and fused backward once for
+   each evaluation) ran, and the NLL and gradient against the float64
+   computation;
 5. the streaming path: ``GP(solver='chol-stream')`` fitted by
    ``empbayes_fit`` (3 BFGS iterations from the dense fit's MAP) to
    n = 65536 points from numpy, a size whose dense Gram does not fit the
    card, then
    ``predfromdata``; checks that kernels D and A were launched on the
-   tensor cores and prints the
-   peak memory; then at n = 32768 holds the streaming NLL, gradient and
+   tensor cores and C's fused backward once for each gradient strip,
+   and prints the peak memory; then at n = 32768 holds the streaming NLL, gradient and
    posterior mean against the float64 computation, as in 4;
 6. the halfmatrix path: one dense value+gradient at n = 16384 with
-   ``halfmatrix=True, gram='tiled'`` (kernel E) against the same with
-   ``halfmatrix=False``;
+   ``halfmatrix=True, gram='tiled'`` (kernel E and its fused backward,
+   once each) against the same with ``halfmatrix=False`` (C's, once
+   each);
 7. prints a JSON line of kernel records and, last, the device line.
 
 Any failed check exits non-zero before the last line.
@@ -58,7 +67,11 @@ API); ``--memory-probe`` runs that at each of a list of sizes, each in
 its own process, to find the largest n that fits the card;
 ``--compare-fits`` runs the dense and the streaming fits at precision
 'high' and 'highest' in turns; ``--dense64`` runs only the float64 dense
-evaluation, at the dense fit's optimum.
+evaluation, at the dense fit's optimum; ``--gram-route`` times kernels C
+and E with their backward through the public API, and dense float32
+value+gradients at the optimum with a profile (``--dense64`` and
+``--gram-route`` run from an older checkout too, to time its route in
+the same call).
 """
 
 import json
@@ -74,6 +87,7 @@ N = 16384          # the dense slice's size (see PERF.md, Cells)
 N_STREAM = 65536   # the streaming slice's size
 N_CHECK = 32768    # the streaming slice's float64 check
 NPRED = 64
+STREAM_BLOCK = 512  # the streaming solver's block
 NOISE_VAR = 0.09   # 0.3**2, the data's noise
 SEED = 20261016
 # the dense slice's optimum (log scale, log amp) as its fits find it
@@ -97,10 +111,13 @@ def log(msg):
     print(msg, flush=True)
 
 
-def median_ms(fn, reps=7, setup=None):
+def median_ms(fn, reps=7, setup=None, batch=1):
     """Median device time of ``fn()`` in ms, CUDA events, after one
     warm-up.  Each run's result is dropped before the next; ``setup()``,
-    if given, runs before each, outside the timed span."""
+    if given, runs before each, outside the timed span.  With ``batch``,
+    each run is that many calls back to back, and its time is their
+    mean: the wrapper's host time then overlaps the card's work, as on
+    the main path, instead of adding to a sub-millisecond kernel's."""
     import torch
     if setup:
         setup()
@@ -113,11 +130,50 @@ def median_ms(fn, reps=7, setup=None):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
+
+
+# kernels C and E and their backward take a few tenths of a millisecond:
+# timed over this many calls back to back (median_ms, device_ms), as
+# their plain versions are
+GRAM_BATCH = 20
+
+
+def device_ms(fn, calls=GRAM_BATCH):
+    """Device time of one ``fn()`` in ms: the sum of the durations of all
+    the kernels it launches (torch.profiler, CUPTI), over ``calls`` calls
+    after one warm-up, divided by ``calls``.  Unlike CUDA events around
+    the calls it leaves out the time the card waits for the host, which
+    a wrapper of a few small torch operations around a sub-millisecond
+    kernel can take up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if 'CUDA' in str(getattr(e, 'device_type', '')):
+            total += getattr(e, 'self_device_time_total',
+                             getattr(e, 'self_cuda_time_total', 0))
+    if total <= 0:
+        fail('the profiler saw no device time')
+    return total / 1e3 / calls
+
+
+def gram_times(fn, plain):
+    """(ms, plain_ms, wrapper_ms) of kernel C's or E's wrapper ``fn`` and
+    its plain version: device time per call (`device_ms`), and the
+    wrapper's mean over GRAM_BATCH calls back to back on CUDA events."""
+    return device_ms(fn), device_ms(plain), median_ms(fn, batch=GRAM_BATCH)
 
 
 def unit_roundoff(dtype):
@@ -342,13 +398,79 @@ def kernel_syrk(dtype, gen):
     return records
 
 
+def bwd_bounds(G, x, amp, u):
+    """The smoke's tolerances of the Gram backward's sums at p = 1 (x
+    both arguments, the amp chain): sums of n terms (the x gradient, the
+    nugget) in another order, 8 sqrt(n) u sum|terms|; the amp gradient
+    sums n² terms, whose error grows with the depth of the reduction:
+    ceil(log2(n²)) 4 u sum|terms| (~1e-2 of the value here, so a zero or
+    wrong core fails in float32 too).  Returns (x, amp, nugget)."""
+    import torch
+    n = G.shape[0]
+    with torch.no_grad():
+        D = x[:, None] - x[None, :]
+        g = torch.exp(-0.5 * D * D)
+        M = G.abs() * (0.5 * amp * g) * D.abs()
+        tx = 2 * (M.sum(1) + M.sum(0))
+        ta = (G.abs() * g).sum()
+        del D, g, M
+    return (8 * math.sqrt(n) * u * tx,
+            math.ceil(math.log2(n * n)) * 4 * u * ta,
+            8 * math.sqrt(n) * u * G.diagonal().abs().sum())
+
+
+def check_bwd(what, fused, plain, G, x, amp, u):
+    """The fused backward of kernel C or E (``fused()``, returning the x
+    gradient and the parameter vector's) against its plain version on
+    the card, and against itself: two calls must agree to the bit."""
+    import torch
+    got, again = fused(), fused()
+    for a, b in zip(got, again):
+        if not torch.equal(a, b):
+            fail(f'{what}: two calls differ')
+    ref = plain()
+    tx, ta, tn = bwd_bounds(G, x, amp, u)
+    err = check_close(f'{what} dx', got[0][:, 0], ref[0][:, 0], tx)
+    err = max(err, check_close(f'{what} damp', got[1][0], ref[1][0], ta))
+    if len(got[1]) > 1 and G.shape[0] == G.shape[1]:
+        err = max(err, check_close(f'{what} dnoise', got[1][1], ref[1][1],
+                                   tn))
+    log(f'    {what}: two calls agree to the bit')
+    return err
+
+
+# the JVP rules of the TPU kernels C and E, which the fused backward
+# kernels replace
+BWD_REPLACES = {'gram': 'lsqfitgp_tpu/ops/_gram.py:278',
+                'gram_sym': 'lsqfitgp_tpu/ops/_gram.py:320'}
+
+
+def gram_records(name, dtype, fwd, bwd):
+    """The records of kernel C or E (``name``) and of its fused backward
+    in ``dtype``: named ``name`` and ``name_bwd``, with '/float64'
+    appended in float64, each with the key of its launch count."""
+    label = str(dtype).split('.')[-1]
+    suffix = '' if label == 'float32' else '/' + label
+    fwd.update(name=name + suffix, key=name, counter='launches',
+               dtype=label)
+    bwd.update(name=name + '_bwd' + suffix, key=name + '_bwd',
+               counter='launches_bwd', dtype=label,
+               replaces=BWD_REPLACES[name])
+    return [fwd, bwd]
+
+
 def kernel_gram(dtype, gen):
     """Kernel C: the slice's point block (n = m = 16384, p = 1, post
     chain amp, nugget), a p = 8 block, the prediction cross block
-    (n x 64), and the backward against autograd of the plain version."""
+    (n x 64), and the backward: the fused kernel against the plain
+    version on the card, at p = 1 and p = 8 (two launches), and against
+    autograd of the plain version.  A record each for the forward and
+    the fused backward."""
     import torch
-    from lsqfitgp_torch.ops import gram, gram_plain
+    from lsqfitgp_torch.ops import (gram, gram_plain, gram_backward,
+                                    gram_backward_plain)
     u = unit_roundoff(dtype)
+    isz = torch.finfo(dtype).bits // 8
     kw = dict(device='cuda', dtype=dtype, generator=gen)
     x = (torch.rand(N, **kw) - 0.5) * 100
     amp = torch.tensor(1.3, device='cuda', dtype=dtype)
@@ -362,21 +484,21 @@ def kernel_gram(dtype, gen):
     err = check_close(f'C gram p=1 {dtype}', K, Kp,
                       16 * u * float(Kp.abs().max()))
     del K, Kp
-    ms = median_ms(lambda: gram('expquad', x, post=post, noise=noise))
-    plain_ms = median_ms(
+    ms, plain_ms, wrap = gram_times(
+        lambda: gram('expquad', x, post=post, noise=noise),
         lambda: gram_plain('expquad', x, post=post, noise=noise))
     # the output written once; per entry a difference, a square, the
     # exp's argument, the exp and the amp: 5 operations
-    bd = bound(x.element_size() * (N * N + 2 * N), 5 * N * N, dtype)
-    log(f'  C {dtype}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
-        f'{bd[0]:.3f} ms ({bd[1]})')
+    bd = bound(isz * (N * N + 2 * N), 5 * N * N, dtype)
+    log(f'  C {dtype}: kernel {ms:.3f} ms (the wrapper {wrap:.3f} ms), '
+        f'plain {plain_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})')
 
     X8 = torch.randn(N // 2, 8, **kw)
     K = gram('expquad', X8, post=post)
     Kp = gram_plain('expquad', X8, post=post)
     check_close(f'C gram p=8 {dtype}', K, Kp,
                 16 * 9 * u * float(Kp.abs().max()))
-    del K, Kp, X8
+    del K, Kp
 
     xs = (torch.rand(NPRED, **kw) - 0.5) * 120
     K = gram('expquad', x, xs, post=post, noise=noise)
@@ -385,13 +507,56 @@ def kernel_gram(dtype, gen):
                 16 * u * float(Kp.abs().max()))
     del K, Kp
 
-    # backward: gradients of <G, K> with respect to x (both sides),
-    # amp and the nugget.  Tolerance: sums of n terms (x, the nugget)
-    # in another order, 8 sqrt(n) u sum|terms|; the amp gradient sums
-    # n² terms by torch's reduction tree, whose error grows with its
-    # depth: ceil(log2(n²)) 4 u sum|terms| (~1e-2 of the value here, so
-    # a zero or wrong core fails in float32 too).
+    # the fused backward: gradients of <G, K> with respect to x (both of
+    # K's arguments: gx + gy), amp and the nugget
     G = torch.randn(N, N, **kw)
+    args = ('expquad', x)
+    akw = dict(post=post, noise=noise)
+
+    def fused():
+        gx, gy, gp = gram_backward(G, *args, **akw)
+        return gx + gy, gp
+
+    def plain():
+        gx, gy, gp = gram_backward_plain(G, *args, **akw)
+        return gx + gy, gp
+
+    err_b = check_bwd(f'C gram backward {dtype}', fused, plain, G, x, amp,
+                      u)
+    ms_b, plain_b, wrap_b = gram_times(
+        lambda: gram_backward(G, *args, **akw),
+        lambda: gram_backward_plain(G, *args, **akw))
+    # G read once, the points read and the gradients written once; per
+    # entry about 12 operations (r², the exp, the weight, three sums)
+    bd_b = bound(isz * (N * N + 3 * N), 12 * N * N, dtype)
+    log(f'  C backward {dtype}: fused kernel {ms_b:.3f} ms (the wrapper '
+        f'{wrap_b:.3f} ms), plain {plain_b:.3f} ms, bound {bd_b[0]:.3f} ms '
+        f'({bd_b[1]})')
+
+    # p = 8: two launches of 4 coordinates each.  Tolerance: the sums'
+    # order as at p = 1, plus the p-term r² rounding of the forward's
+    # tolerance, 16 (p + 1) u, on each term
+    n8 = N // 2
+    G8 = torch.randn(n8, n8, **kw)
+    got = gram_backward(G8, 'expquad', X8, post=post)
+    ref = gram_backward_plain(G8, 'expquad', X8, post=post)
+    with torch.no_grad():
+        # |C| + |C|ᵀ with C = G ∘ Wr: x is both of K's arguments
+        Kb = gram_plain('expquad', X8)
+        A = G8.abs() * (0.5 * amp) * Kb
+        A = A + A.T
+        tx = torch.stack([2 * (A * (X8[:, d, None] - X8[None, :, d]).abs())
+                          .sum(1) for d in range(8)], 1)
+        ta = (G8.abs() * Kb).sum()
+        del A, Kb
+    rel = 16 * 9 * u
+    check_close(f'C gram backward p=8 dx {dtype}', got[0] + got[1],
+                ref[0] + ref[1], (8 * math.sqrt(n8) * u + rel) * tx)
+    check_close(f'C gram backward p=8 damp {dtype}', got[2][0], ref[2][0],
+                (math.ceil(math.log2(n8 * n8)) * 4 * u + rel) * ta)
+    del G8, X8, got, ref, tx
+
+    # autograd through gram against autograd through the plain version
     leaves = [x.clone().requires_grad_(), amp.clone().requires_grad_(),
               noise.clone().requires_grad_()]
 
@@ -402,20 +567,13 @@ def kernel_gram(dtype, gen):
 
     got = grads(gram)
     ref = grads(gram_plain)
-    with torch.no_grad():
-        D = x[:, None] - x[None, :]
-        g = torch.exp(-0.5 * D * D)
-        M = G.abs() * (0.5 * amp * g) * D.abs()
-        tx = 2 * (M.sum(1) + M.sum(0))
-        ta = (G.abs() * g).sum()
-        del D, g, M
-    check_close(f'C gram backward dx {dtype}', got[0], ref[0],
-                8 * math.sqrt(N) * u * tx)
-    check_close(f'C gram backward damp {dtype}', got[1], ref[1],
-                math.ceil(math.log2(N * N)) * 4 * u * ta)
-    check_close(f'C gram backward dnoise {dtype}', got[2], ref[2],
-                8 * math.sqrt(N) * u * G.diagonal().abs().sum())
-    return record(err, ms, plain_ms, bd)
+    tx, ta, tn = bwd_bounds(G, x, amp, u)
+    check_close(f'C gram autograd dx {dtype}', got[0], ref[0], tx)
+    check_close(f'C gram autograd damp {dtype}', got[1], ref[1], ta)
+    check_close(f'C gram autograd dnoise {dtype}', got[2], ref[2], tn)
+    return gram_records('gram', dtype,
+                        record(err, ms, plain_ms, bd, wrapper_ms=wrap),
+                        record(err_b, ms_b, plain_b, bd_b, wrapper_ms=wrap_b))
 
 
 def kernel_schur_gram(dtype, gen):
@@ -488,40 +646,72 @@ def kernel_schur_gram(dtype, gen):
 
 def kernel_gram_sym(dtype, gen):
     """Kernel E: the halfmatrix path's point block (n = 16384, p = 1, the
-    amp post chain) and a p = 8 block, each against the plain version,
-    and the backward against autograd of the plain version."""
+    amp post chain) and a p = 8 block, each against the plain version
+    and, to the bit (and with a nugget), against kernel C; the fused
+    backward against the plain version on the card and against autograd
+    of the plain version.  A record each for the forward and the fused
+    backward."""
     import torch
-    from lsqfitgp_torch.ops import gram_sym, gram_sym_plain
+    from lsqfitgp_torch.ops import (gram, gram_sym, gram_sym_plain,
+                                    gram_sym_backward,
+                                    gram_sym_backward_plain)
     u = unit_roundoff(dtype)
+    isz = torch.finfo(dtype).bits // 8
     kw = dict(device='cuda', dtype=dtype, generator=gen)
     x = (torch.rand(N, **kw) - 0.5) * 100
     amp = torch.tensor(1.3, device='cuda', dtype=dtype)
+    noise = torch.tensor(NOISE_VAR, device='cuda', dtype=dtype)
     post = (('mul', amp),)
-    K = gram_sym('expquad', x, post=post)
+    # the halfmatrix path holds its NLL equal to the full path's: E must
+    # write C's entries to the bit
+    for nz in (noise, None):
+        K = gram_sym('expquad', x, post=post, noise=nz)
+        if not torch.equal(K, gram('expquad', x, post=post, noise=nz)):
+            fail(f'E gram_sym {dtype}: differs from kernel C')
     if not torch.equal(K, K.T):
         fail(f'E gram_sym {dtype}: result not exactly symmetric')
     Kp = gram_sym_plain('expquad', x, post=post)
     # tolerance as for C
     err = check_close(f'E gram_sym p=1 {dtype}', K, Kp,
                       16 * u * float(Kp.abs().max()))
+    log(f'    E gram_sym {dtype}: equal to kernel C to the bit')
     del K, Kp
-    ms = median_ms(lambda: gram_sym('expquad', x, post=post))
-    plain_ms = median_ms(lambda: gram_sym_plain('expquad', x, post=post))
+    ms, plain_ms, wrap = gram_times(
+        lambda: gram_sym('expquad', x, post=post),
+        lambda: gram_sym_plain('expquad', x, post=post))
     # the full output written once (the mirror included), the operations
     # of the upper half only
-    bd = bound(x.element_size() * (N * N + N), 5 * N * (N + 1) / 2, dtype)
-    log(f'  E {dtype}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
-        f'{bd[0]:.3f} ms ({bd[1]})')
+    bd = bound(isz * (N * N + N), 5 * N * (N + 1) / 2, dtype)
+    log(f'  E {dtype}: kernel {ms:.3f} ms (the wrapper {wrap:.3f} ms), '
+        f'plain {plain_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})')
 
     X8 = torch.randn(N, 8, **kw)
     K = gram_sym('expquad', X8, post=post)
+    if not torch.equal(K, gram('expquad', X8, post=post)):
+        fail(f'E gram_sym p=8 {dtype}: differs from kernel C')
     Kp = gram_sym_plain('expquad', X8, post=post)
     check_close(f'E gram_sym p=8 {dtype}', K, Kp,
                 16 * 9 * u * float(Kp.abs().max()))
     del K, Kp, X8
 
-    # backward, with the tolerances of C's (x enters as both arguments)
+    # the fused backward, with the tolerances of C's (x enters as both
+    # arguments)
     G = torch.randn(N, N, **kw)
+    akw = dict(post=post)
+    err_b = check_bwd(
+        f'E gram_sym backward {dtype}',
+        lambda: gram_sym_backward(G, 'expquad', x, **akw),
+        lambda: gram_sym_backward_plain(G, 'expquad', x, **akw), G, x, amp,
+        u)
+    ms_b, plain_b, wrap_b = gram_times(
+        lambda: gram_sym_backward(G, 'expquad', x, **akw),
+        lambda: gram_sym_backward_plain(G, 'expquad', x, **akw))
+    # all of G read once; the operations of the upper half
+    bd_b = bound(isz * (N * N + 2 * N), 12 * N * (N + 1) / 2, dtype)
+    log(f'  E backward {dtype}: fused kernel {ms_b:.3f} ms (the wrapper '
+        f'{wrap_b:.3f} ms), plain {plain_b:.3f} ms, bound {bd_b[0]:.3f} ms '
+        f'({bd_b[1]})')
+
     leaves = [x, amp]
 
     def grads(fn):
@@ -531,18 +721,12 @@ def kernel_gram_sym(dtype, gen):
 
     got = grads(gram_sym)
     ref = grads(gram_sym_plain)
-    with torch.no_grad():
-        D = x[:, None] - x[None, :]
-        g = torch.exp(-0.5 * D * D)
-        M = G.abs() * (0.5 * amp * g) * D.abs()
-        tx = 2 * (M.sum(1) + M.sum(0))
-        ta = (G.abs() * g).sum()
-        del D, g, M
-    check_close(f'E gram_sym backward dx {dtype}', got[0], ref[0],
-                8 * math.sqrt(N) * u * tx)
-    check_close(f'E gram_sym backward damp {dtype}', got[1], ref[1],
-                math.ceil(math.log2(N * N)) * 4 * u * ta)
-    return record(err, ms, plain_ms, bd)
+    tx, ta, _ = bwd_bounds(G, x, amp, u)
+    check_close(f'E gram_sym autograd dx {dtype}', got[0], ref[0], tx)
+    check_close(f'E gram_sym autograd damp {dtype}', got[1], ref[1], ta)
+    return gram_records('gram_sym', dtype,
+                        record(err, ms, plain_ms, bd, wrapper_ms=wrap),
+                        record(err_b, ms_b, plain_b, bd_b, wrapper_ms=wrap_b))
 
 
 def kernel_phase():
@@ -567,19 +751,14 @@ def kernel_phase():
     ]
     for name, fn, source, replaces, variants in specs:
         log(f'kernel {name}:')
-        for i, v in enumerate(variants):
+        for v in variants:
             torch.cuda.empty_cache()
-            out = fn(v, gen)
-            if isinstance(out, list):
-                # A, B and D: a record for each precision and dtype (and
-                # B's in-place form)
-                records += [{'name': f'{name}/{r["precision"]}',
-                             'route': 'cuda', 'replaces': replaces, **r}
-                            for r in out]
-            elif i == 0:
-                records.append(dict(name=name, route='cuda', source=source,
-                                    replaces=replaces, counter='launches',
-                                    **out))
+            # a record for each precision and dtype (and B's in-place
+            # form, C's and E's backward); A's, B's and D's are named by
+            # their precision
+            records += [{'name': f'{name}/{r.get("precision")}',
+                         'route': 'cuda', 'source': source,
+                         'replaces': replaces, **r} for r in fn(v, gen)]
         torch.cuda.empty_cache()
     return records
 
@@ -636,9 +815,10 @@ KERNELS = ['schur_update', 'syrk_t_full', 'syrk_t_full_', 'gram',
 # tensor-core kernel in 3xTF32 ('launches_tc') and 1xTF32
 # ('launches_tc1') and their FP64 tensor-core kernel ('launches_dmma')
 # apart; B its SIMT (float32) and DMMA (float64) kernels, and its
-# in-place form, `syrk_t_full_`, its DMMA kernel
+# in-place form, `syrk_t_full_`, its DMMA kernel; C and E their forward
+# ('launches') and their fused backward ('launches_bwd') apart
 COUNTERS = {'launches': '', 'launches_tc': '_tc', 'launches_tc1': '_tc1',
-            'launches_dmma': '_dmma'}
+            'launches_dmma': '_dmma', 'launches_bwd': '_bwd'}
 
 
 def _counters():
@@ -663,6 +843,16 @@ def require_launched(counts, names, what):
     for name in names:
         if counts[name] == 0:
             fail(f'kernel {name} was not launched during {what}')
+
+
+def require_counts(counts, expected, what):
+    """Launch counts that must be exact: kernel C's and E's forward and
+    fused backward, one of each per evaluation they serve, so that no
+    other Gram evaluation (such as the derivative weights of an unfused
+    backward) ran on the card."""
+    for name, n in expected.items():
+        if counts[name] != n:
+            fail(f'{what}: {counts[name]} launches of {name}, expected {n}')
 
 
 def check_points(n, value_grad32, cond_at, x64, y64, points):
@@ -791,7 +981,10 @@ def slice_phase(dev='cuda'):
     log(f'  launches during the fit: {fit_launches}; fit + '
         f'predfromdata: {launches}')
     require_launched(fit_launches, ['schur_update_tc', 'syrk_t_full__dmma',
-                                    'gram'], 'the dense fit')
+                                    'gram', 'gram_bwd'], 'the dense fit')
+    evals = len(fit.evaltimes)
+    require_counts(fit_launches, {'gram': evals, 'gram_bwd': evals},
+                   'the dense fit')
     scale = float(fit.pmean['scale'])
     amp = float(fit.pmean['amp'])
     log(f'  fitted scale {scale:.6g}, amp {amp:.6g}; pmean '
@@ -902,7 +1095,10 @@ def dense64_phase(point, dev='cuda', evals=5):
         f'gradient (each: {[round(t * 1e3, 1) for t in times]} ms); '
         f'launches {counts}')
     require_launched(counts, ['schur_update_dmma', 'syrk_t_full__dmma',
-                              'gram'], 'the float64 dense evaluation')
+                              'gram', 'gram_bwd'],
+                     'the float64 dense evaluation')
+    require_counts(counts, {'gram': evals, 'gram_bwd': evals},
+                   'the float64 dense evaluation')
     del noise
     # the port's float64 factorization adds eps = n eps64 times the
     # Gershgorin bound of the scaled matrix on its diagonal: in K's
@@ -974,15 +1170,34 @@ def dense_memory(n):
     torch.cuda.synchronize()
     fwd = torch.cuda.max_memory_allocated() - base
     torch.cuda.reset_peak_memory_stats()
-    torch.autograd.grad(nll, lp)
+    # the backward's peak before the Gram's backward (chol_nll's stage)
+    # and from it on, apart
+    from lsqfitgp_torch.ops import _gram
+    inner = _gram._Gram.backward
+    stages = []
+
+    def traced(ctx, G):
+        torch.cuda.synchronize()
+        stages.append(torch.cuda.max_memory_allocated() - base)
+        torch.cuda.reset_peak_memory_stats()
+        return inner(ctx, G)
+
+    _gram._Gram.backward = staticmethod(traced)
+    try:
+        torch.autograd.grad(nll, lp)
+    finally:
+        _gram._Gram.backward = staticmethod(inner)
     torch.cuda.synchronize()
-    bwd = torch.cuda.max_memory_allocated() - base
+    stages.append(torch.cuda.max_memory_allocated() - base)
+    bwd = max(stages)
     wall = time.perf_counter() - t0
     n2 = n * n
     peak = max(fwd, bwd)
     log(f'  dense value+gradient at n = {n}: {wall:.3f} s; peak memory '
         f'above its inputs: forward {fwd / n2:.2f} B/n², backward '
-        f'{bwd / n2:.2f} B/n² ({peak / 2**30:.2f} GiB); the inputs hold '
+        f'{bwd / n2:.2f} B/n² ({peak / 2**30:.2f} GiB; before the Gram\'s '
+        f'backward {stages[0] / n2:.2f}, from it on '
+        f'{stages[-1] / n2:.2f}); the inputs hold '
         f'{base / n2:.2f} B/n² (the noise matrix 4), so the peak in all is '
         f'{(peak + base) / n2:.2f} B/n² ({(peak + base) / 2**30:.2f} GiB) '
         f'of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} '
@@ -1046,6 +1261,76 @@ def compare_fits():
                time.perf_counter() - t0)
 
 
+def gram_route(evals=7):
+    """Kernels C and E as the main path calls them, through the public API
+    only (`ops.gram`, `ops.gram_sym` and autograd), so that the same
+    script times the parent's route from the parent's checkout: at the
+    dense slice's shape (n = 16384, p = 1, the amp chain; C with the
+    nugget), in float32 and float64, the forward alone and forward +
+    backward, each a mean over GRAM_BATCH calls back to back (median of
+    7), their difference the backward's time; then ``evals`` dense
+    float32 value+gradients at the dense fit's optimum (host clock up to
+    the read of the result, checks off), their median, and the profile
+    of one."""
+    import numpy as np
+    import torch
+    import lsqfitgp_torch as lgp
+    from lsqfitgp_torch import ops
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    for dtype in (torch.float32, torch.float64):
+        kw = dict(device='cuda', dtype=dtype, generator=gen)
+        x = ((torch.rand(N, **kw) - 0.5) * 100).requires_grad_()
+        G = torch.randn(N, N, **kw)
+        amp = torch.tensor(1.3, device='cuda', dtype=dtype,
+                           requires_grad=True)
+        noise = torch.tensor(NOISE_VAR, device='cuda', dtype=dtype,
+                             requires_grad=True)
+        post = (('mul', amp),)
+        for name, fn, leaves in (
+                ('C gram', lambda: ops.gram('expquad', x, post=post,
+                                            noise=noise), (x, amp, noise)),
+                ('E gram_sym', lambda: ops.gram_sym('expquad', x, post=post),
+                 (x, amp))):
+            with torch.no_grad():
+                fwd = median_ms(fn, batch=GRAM_BATCH)
+            both = median_ms(lambda: torch.autograd.grad(fn(), leaves, G),
+                             batch=GRAM_BATCH)
+            log(f'  {name} {dtype}: forward {fwd:.3f} ms, forward + '
+                f'backward {both:.3f} ms, the backward {both - fwd:.3f} ms')
+        del G
+        torch.cuda.empty_cache()
+    f32 = torch.float32
+    torch.set_default_dtype(f32)
+    rng = np.random.default_rng(20261016)
+    xd = rng.uniform(-50, 50, N)
+    yd = np.sin(xd) + math.sqrt(NOISE_VAR) * rng.standard_normal(N)
+    xt = torch.as_tensor(xd, dtype=f32, device='cuda')
+    yt = torch.as_tensor(yd, dtype=f32, device='cuda')
+    noise = NOISE_VAR * torch.eye(N, dtype=f32, device='cuda')
+
+    def value_grad():
+        lp = torch.tensor(OPTIMUM, device='cuda', requires_grad=True)
+        with lgp.disable_checks():
+            gp = lgp.GP(lp[1].exp() * lgp.ExpQuad(scale=lp[0].exp()),
+                        gram='tiled')
+            gp = gp.addx(xt, 'f').addcov(noise, 'e')
+            gp = gp.addlintransf(lambda f, e: f + e, ['f', 'e'], 'y')
+            nll = -gp.marginal_likelihood({'y': yt})
+        g, = torch.autograd.grad(nll, lp)
+        return float(nll.detach()), g.tolist()
+
+    times = []
+    for _ in range(evals):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value_grad()
+        times.append(time.perf_counter() - t0)
+    log(f'  dense float32 value+gradient at n = {N}, log scale, log amp '
+        f'{OPTIMUM}: {statistics.median(times) * 1e3:.1f} ms median (each: '
+        f'{[round(t * 1e3, 1) for t in times]} ms)')
+    profile_phase(value_grad, top=16)
+
+
 def memory_probe(sizes=(45056, 53248, 57344, 61440, 63488, 65536)):
     """The largest n at which one dense value+gradient (`dense_memory`)
     fits the card: each n in a process of its own, so that running out
@@ -1092,7 +1377,8 @@ def stream_gp(hp, precision=None):
     k = hp['amp'] * lgp.ExpQuad(scale=hp['scale']) \
         + NOISE_VAR * lgp.White()
     kw = {} if precision is None else dict(precision=precision)
-    return lgp.GP(k, solver='chol-stream', block=512, b1=128, **kw)
+    return lgp.GP(k, solver='chol-stream', block=STREAM_BLOCK, b1=128,
+                  **kw)
 
 
 def stream_phase(start, dev='cuda'):
@@ -1150,7 +1436,12 @@ def stream_phase(start, dev='cuda'):
     log(f'  launches during the fit: {fit_counts}; fit + predfromdata: '
         f'{counts}')
     require_launched(fit_counts, ['schur_update_gram_tc', 'schur_update_tc',
-                                  'gram'], 'the streaming fit')
+                                  'gram', 'gram_bwd'], 'the streaming fit')
+    # one fused backward per gradient strip (width 4 block, the default
+    # gradblock) of each evaluation
+    strips = -(-N_STREAM // (4 * STREAM_BLOCK))
+    require_counts(fit_counts, {'gram_bwd': strips * len(ev)},
+                   'the streaming fit')
     if not bool(torch.isfinite(mean).all()) or mean.shape != (NPRED,):
         fail('streaming posterior mean not finite or of the wrong shape')
     end = [math.log(float(fit.pmean['scale'])),
@@ -1207,8 +1498,13 @@ def profile_phase(fn, top=12):
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    # torch's own elementwise kernels (the plain passes around the
+    # kernels), apart
+    elem = [r for r in rows if 'elementwise' in r[2]]
     log(f'  profile: host {wall * 1e3:.1f} ms (under the profiler), device '
-        f'busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f} %)')
+        f'busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f} %), of which '
+        f'torch\'s elementwise kernels {sum(r[0] for r in elem):.1f} ms '
+        f'({sum(r[1] for r in elem)} launches)')
     for ms, count, name in rows[:top]:
         log(f'    {ms:10.1f} ms {100 * ms / max(busy, 1e-9):5.1f} % '
             f'x{count:<6d} {name[:90]}')
@@ -1321,9 +1617,13 @@ def halfmatrix_phase(dev='cuda'):
         del gp, nll
         log(f'  halfmatrix={hm}: NLL {out[hm][0]:.8g}, gradient '
             f'{g.tolist()}, {out[hm][2]:.3f} s, launches {out[hm][3]}')
-    require_launched(out[True][3], ['gram_sym'], 'the halfmatrix run')
-    if out[False][3]['gram_sym']:
-        fail('kernel E launched with halfmatrix=False')
+    # one forward and one fused backward of E with halfmatrix, of C
+    # without
+    require_counts(out[True][3], {'gram_sym': 1, 'gram_sym_bwd': 1,
+                                  'gram': 0, 'gram_bwd': 0},
+                   'the halfmatrix run')
+    require_counts(out[False][3], {'gram': 1, 'gram_bwd': 1, 'gram_sym': 0,
+                                   'gram_sym_bwd': 0}, 'the full run')
     # kernel E writes the same entries as kernel C (r² is symmetric in
     # its arguments), so the NLL is identical; the gradients differ by
     # the order of the backward's sums of n² float32 terms: a relative
@@ -1355,6 +1655,10 @@ def main(argv):
     if argv == ['--compare-fits']:
         compare_fits()
         return 0
+    if argv == ['--gram-route']:
+        build()
+        gram_route()
+        return 0
     if argv == ['--dense64']:
         build()
         dense64_phase(OPTIMUM)
@@ -1380,22 +1684,35 @@ def main(argv):
     torch.cuda.empty_cache()
     paths['halfmatrix'] = halfmatrix_phase()
     # each kernel's launches are those of its own path's run: the dense
-    # fit's, but for A in float64 the float64 dense evaluation's
+    # fit's, but for A, C and C's backward in float64 the float64 dense
+    # evaluation's.  C's and E's counters do not tell the dtypes apart:
+    # their records count the paths of their dtype only (no path runs E
+    # in float64)
     own = {'schur_update': 'dense', 'syrk_t_full': 'dense',
-           'syrk_t_full_': 'dense', 'gram': 'dense',
-           'schur_update_gram': 'stream', 'gram_sym': 'halfmatrix'}
+           'syrk_t_full_': 'dense', 'gram': 'dense', 'gram_bwd': 'dense',
+           'schur_update_gram': 'stream', 'gram_sym': 'halfmatrix',
+           'gram_sym_bwd': 'halfmatrix'}
+    own64 = {'schur_update': 'dense64', 'gram': 'dense64',
+             'gram_bwd': 'dense64'}
+    dtype_paths = {'float32': ['dense', 'stream', 'halfmatrix'],
+                   'float64': ['dense64']}
     for rec in records:
         base = rec['name'].split('/')[0]
-        key = base + COUNTERS[rec['counter']]
-        path = 'dense64' if rec['name'] == 'schur_update/float64' \
-            else own[base]
-        rec['launches'] = paths[path][key]
-        rec['launches_by_path'] = {p: c[key] for p, c in paths.items()}
+        is_gram = 'key' in rec
+        key = rec.pop('key', None) or base + COUNTERS[rec['counter']]
+        if rec['name'].endswith('/float64') and (
+                is_gram or base == 'schur_update'):
+            path = own64.get(base)
+        else:
+            path = own[base]
+        names = dtype_paths[rec['dtype']] if is_gram else list(paths)
+        rec['launches'] = paths[path][key] if path else 0
+        rec['launches_by_path'] = {p: paths[p][key] for p in names}
     log(f'total {time.perf_counter() - t0:.1f} s')
     keys = ['name', 'route', 'source', 'replaces', 'launches',
             'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'library_ms', 'precision', 'dtype', 'library',
-            'launches_by_path']
+            'launches_by_path', 'wrapper_ms']
     print(json.dumps({'kernels': [{k: r.get(k) for k in keys}
                                   for r in records]}))
     print(json.dumps({'ok': True, 'device': {

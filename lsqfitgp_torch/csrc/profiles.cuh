@@ -3,7 +3,10 @@
 //
 // A TPU kernel traces any profile callable; a CUDA kernel cannot, so a
 // profile is an integer id into this registry (PROFILE_*), matching
-// ops/_gram.py PROFILES, with its value g(r^2) and its r^2-derivative.
+// ops/_gram.py PROFILES.  Each profile is a struct (Profile<id>) with
+// its value g(r^2) and, from the same exponential, its r^2-derivative;
+// kernels C and E take it as a template parameter, kernel D dispatches
+// on the id (`profile_value`).
 //
 // The post chain is the kernel spec's ordered list of scalar 'mul' and
 // 'add' steps (amp * k, k + c), read from a parameter vector in device
@@ -20,25 +23,33 @@ namespace lsq {
 constexpr int MAXPOST = 16;
 
 enum { PROFILE_EXPQUAD = 0 };
-enum { MODE_VALUE = 0, MODE_DERIV = 1, MODE_BARE = 2 };
 
 __device__ __forceinline__ float dexp(float v) { return expf(v); }
 __device__ __forceinline__ double dexp(double v) { return exp(v); }
+
+template <int ID> struct Profile;
+
+template <> struct Profile<PROFILE_EXPQUAD> {
+    template <typename T>
+    static __device__ __forceinline__ T value(T r2)
+    {
+        return dexp(T(-0.5) * r2);
+    }
+    // g and g'(r^2) from one exponential
+    template <typename T>
+    static __device__ __forceinline__ T both(T r2, T& deriv)
+    {
+        const T g = value(r2);
+        deriv = T(-0.5) * g;
+        return g;
+    }
+};
 
 template <typename T>
 __device__ __forceinline__ T profile_value(int id, T r2)
 {
     switch (id) {
-    case PROFILE_EXPQUAD: return dexp(T(-0.5) * r2);
-    }
-    return T(0);
-}
-
-template <typename T>
-__device__ __forceinline__ T profile_deriv(int id, T r2)
-{
-    switch (id) {
-    case PROFILE_EXPQUAD: return T(-0.5) * dexp(T(-0.5) * r2);
+    case PROFILE_EXPQUAD: return Profile<PROFILE_EXPQUAD>::value(r2);
     }
     return T(0);
 }
@@ -46,7 +57,7 @@ __device__ __forceinline__ T profile_deriv(int id, T r2)
 // Squared distance of points x and y (p coordinates each), summed
 // directly: at p = 1 the exact squared difference, at p > 1 a sum of
 // p such terms (relative error ~p u whatever the coordinates' offset,
-// so no centering is needed).
+// so no centering is needed).  Symmetric in x and y to the bit.
 template <typename T>
 __device__ __forceinline__ T sqdist(const T* __restrict__ x,
                                     const T* __restrict__ y, int p)
@@ -59,26 +70,41 @@ __device__ __forceinline__ T sqdist(const T* __restrict__ x,
     return r2;
 }
 
-// One entry in `mode` without the diagonal term: the post chain applied
-// to g (VALUE); its r^2-derivative with the 'mul' steps, zeroed at
-// r^2 <= 0 where the true tangent vanishes (DERIV); or bare g (BARE).
+// One entry without the diagonal term: the post chain applied to g step
+// by step (kernel D's tile initializer).
 template <typename T>
-__device__ __forceinline__ T entry(int profile, int mode, T r2, const T* pv,
+__device__ __forceinline__ T entry(int profile, T r2, const T* pv,
                                    int npost, unsigned postadd)
 {
-    T v;
-    if (mode == MODE_DERIV) {
-        v = profile_deriv(profile, r2);
-        for (int k = 0; k < npost; ++k)
-            if (!((postadd >> k) & 1u)) v *= pv[k];
-        if (r2 <= T(0)) v = T(0);
-    } else {
-        v = profile_value(profile, r2);
-        if (mode == MODE_VALUE)
-            for (int k = 0; k < npost; ++k)
-                v = ((postadd >> k) & 1u) ? v + pv[k] : v * pv[k];
-    }
+    T v = profile_value(profile, r2);
+    for (int k = 0; k < npost; ++k)
+        v = ((postadd >> k) & 1u) ? v + pv[k] : v * pv[k];
     return v;
+}
+
+// The post chain is affine in g: folded once per thread into
+// post(g) = alpha g + beta, where alpha, the product of the 'mul'
+// steps, is also the factor of the chain's derivative in g.
+template <typename T>
+struct Chain {
+    T alpha, beta;
+};
+
+template <typename T>
+__device__ __forceinline__ Chain<T> fold_chain(const T* __restrict__ pv,
+                                               int npost, unsigned postadd)
+{
+    Chain<T> c{T(1), T(0)};
+    for (int k = 0; k < npost; ++k) {
+        const T v = pv[k];
+        if ((postadd >> k) & 1u) {
+            c.beta += v;
+        } else {
+            c.alpha *= v;
+            c.beta *= v;
+        }
+    }
+    return c;
 }
 
 }  // namespace lsq

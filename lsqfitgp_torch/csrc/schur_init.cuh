@@ -56,9 +56,8 @@ struct InitGram {
     {
         const long long gr = offset + r, gc = offset + c;
         if (gr >= nreal || gc >= nreal) return gr == gc ? T(1) : T(0);
-        T v = entry(profile, MODE_VALUE,
-                    sqdist(X + gr * dim, X + gc * dim, dim), params, npost,
-                    postadd);
+        T v = entry(profile, sqdist(X + gr * dim, X + gc * dim, dim),
+                    params, npost, postadd);
         if (with_eps && gr == gc) v += params[npost];
         return v;
     }

@@ -58,10 +58,14 @@ _SIGNATURES = {
     'lsq_schur_gram_dmma': ([*_SCHUR_GRAM, _P], _F64),
     'lsq_syrk_t': ([_P, _I64, _I64, _P, _P], _F32),
     'lsq_syrk_t_dmma': ([_P, _I64, _I64, _P, _P, _P], _F64),
-    'lsq_gram': ([_P, _P, _I64, _I64, _I32, _P, _I32, _U32, _I32, _I32, _I32,
-                  _P, _P], _BOTH),
-    'lsq_gram_sym': ([_P, _I64, _I32, _P, _I32, _U32, _I32, _I32, _I32, _P,
-                      _P], _BOTH),
+    'lsq_gram': ([_P, _P, _I64, _I64, _I32, _P, _I32, _U32, _I32, _I32, _P,
+                  _P], _BOTH),
+    'lsq_gram_sym': ([_P, _I64, _I32, _P, _I32, _U32, _I32, _I32, _P, _P],
+                     _BOTH),
+    'lsq_gram_bwd': ([_P, _P, _P, _I64, _I64, _I32, _I32, _P, _I32, _U32,
+                      _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P], _BOTH),
+    'lsq_gram_sym_bwd': ([_P, _P, _I64, _I32, _I32, _P, _I32, _U32, _I32,
+                          _I32, _I32, _I32, _I32, _P, _P, _P], _BOTH),
 }
 
 _state = {}

@@ -82,6 +82,13 @@ def test_cpu_tensors_take_the_plain_version(gen):
                                ops.gram_plain('expquad', x))
     torch.testing.assert_close(ops.gram_sym('expquad', x),
                                ops.gram_sym_plain('expquad', x))
+    G = torch.as_tensor(gen.standard_normal((50, 50)))
+    for got, ref in ((ops.gram_backward(G, 'expquad', x),
+                      ops.gram_backward_plain(G, 'expquad', x)),
+                     (ops.gram_sym_backward(G, 'expquad', x),
+                      ops.gram_sym_backward_plain(G, 'expquad', x))):
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b)
     torch.testing.assert_close(
         ops.schur_update_gram('expquad', X, A[:, :64], eps=0.5, tile=128,
                               nreal=200),
@@ -250,6 +257,140 @@ def test_gram_cuda(cuda, gen, dtype, p):
     for g, r in zip(torch.autograd.grad((got * G).sum(), leaves),
                     torch.autograd.grad((ref * G).sum(), leaves)):
         torch.testing.assert_close(g, r, **TOL[dtype])
+
+
+def _bwd_tol(G, Wr, x, y, dtype, sym):
+    """Bounds of the backward's sums taken in another order: 8 sqrt(k) u
+    times the sum of |terms| over the k terms of each, plus the p-term
+    r² rounding of the forward, 16 (p + 1) u per term.  A term's
+    coordinate factor is taken as |x_i| + |y_j|, not |x_i - y_j|: at
+    p > 1 the plain version sums the two apart (rowsum(C) x - C y).
+    ``sym``: x is both of K's arguments (G enters as G + Gᵀ)."""
+    u = torch.finfo(dtype).eps / 2
+    n, p = x.shape
+    m = y.shape[0]
+    A = G.abs() * Wr.abs()
+    if sym:
+        A = A + A.T
+    rel = 16 * (p + 1) * u
+    D = x[:, None, :].abs() + y[None, :, :].abs()
+    tx = 2 * (A[:, :, None] * D).sum(1) * (8 * m ** 0.5 * u + rel)
+    ty = 2 * (A[:, :, None] * D).sum(0) * (8 * n ** 0.5 * u + rel)
+    return tx, ty, (8 * (n * m) ** 0.5 * u + rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n,m,p', [(300, 128, 1), (301, 70, 1), (64, 64, 1),
+                                   (257, 131, 3), (130, 67, 6)])
+def test_gram_forward_cuda(cuda, gen, dtype, n, m, p):
+    """Kernels C and E against their plain versions with a ragged n and
+    m and unaligned m (rows not 16-byte aligned), and C and E equal to
+    the bit on the same points."""
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    x = t(gen.standard_normal((n, p)) * 2)
+    y = t(gen.standard_normal((m, p)) * 2)
+    post = (('mul', t(1.3)), ('add', t(0.2)), ('mul', t(0.7)))
+    for noise in (None, t(0.1)):
+        n0 = ops.gram.launches
+        got = ops.gram('expquad', x, y, post=post, noise=noise)
+        assert ops.gram.launches == n0 + 1
+        torch.testing.assert_close(
+            got, ops.gram_plain('expquad', x, y, post=post, noise=noise),
+            **TOL[dtype])
+        full = ops.gram('expquad', x, post=post, noise=noise)
+        half = ops.gram_sym('expquad', x, post=post, noise=noise)
+        assert torch.equal(full, half)
+        torch.testing.assert_close(
+            half, ops.gram_sym_plain('expquad', x, post=post, noise=noise),
+            **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n,m,p', [(300, 128, 1), (301, 70, 1), (64, 64, 1),
+                                   (257, 131, 3), (130, 67, 6)])
+def test_gram_backward_cuda(cuda, gen, dtype, n, m, p):
+    """Kernel C's fused backward against its plain version: ragged n
+    and m, unaligned m, p = 3 (one launch) and p = 6 (two); each subset
+    of the outputs; y given and y = x; two calls equal to the bit."""
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    x = t(gen.standard_normal((n, p)) * 2)
+    y = t(gen.standard_normal((m, p)) * 2)
+    x[3] = x[5]   # coincident points: the weight is zero at r² = 0
+    post = (('mul', t(1.3)), ('add', t(0.2)), ('mul', t(0.7)))
+    noise = t(0.1)
+    for yy in (y, None):
+        G = t(gen.standard_normal((n, m if yy is not None else n)))
+        core = ops.gram_plain('expquad', x, yy)
+        Wr = 0.5 * 1.3 * 0.7 * core
+        tx, ty, ts = _bwd_tol(G, Wr, x, x if yy is None else yy, dtype,
+                              False)
+        # the parameters' gradients: sums of n m terms times the chain's
+        # scalars (< 4)
+        tp = ts * 4 * (G.abs().sum() + (G.abs() * core).sum())
+        kw = dict(post=post, noise=noise)
+        ref = ops.gram_backward_plain(G, 'expquad', x, yy, **kw)
+        for need_xy, need_p in ((True, True), (True, False), (False, True)):
+            n0 = ops.gram.launches_bwd
+            got = ops.gram_backward(G, 'expquad', x, yy, need_xy=need_xy,
+                                    need_p=need_p, **kw)
+            runs = -(-p // 4) if need_xy and p > 1 else 1
+            assert ops.gram.launches_bwd == n0 + runs
+            again = ops.gram_backward(G, 'expquad', x, yy, need_xy=need_xy,
+                                      need_p=need_p, **kw)
+            for a, b in zip(got, again):
+                assert (a is None) == (b is None)
+                assert a is None or torch.equal(a, b)
+            assert (got[0] is None) != need_xy
+            assert (got[2] is None) != need_p
+            if need_xy:
+                assert bool(((got[0] - ref[0]).abs() <= tx).all())
+                assert bool(((got[1] - ref[1]).abs() <= ty).all())
+            if need_p:
+                assert bool(((got[2] - ref[2]).abs() <= tp).all()), \
+                    (got[2], ref[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n,p', [(300, 1), (301, 1), (64, 1), (257, 3),
+                                 (130, 6)])
+def test_gram_sym_backward_cuda(cuda, gen, dtype, n, p):
+    """Kernel E's fused backward against its plain version: ragged and
+    unaligned n, p = 3 and p = 6; each subset of the outputs; two calls
+    equal to the bit."""
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    x = t(gen.standard_normal((n, p)) * 2)
+    x[3] = x[5]
+    post = (('mul', t(1.3)), ('add', t(0.2)), ('mul', t(0.7)))
+    kw = dict(post=post, noise=t(0.1))
+    G = t(gen.standard_normal((n, n)))
+    core = ops.gram_plain('expquad', x)
+    Wr = 0.5 * 1.3 * 0.7 * core
+    tx, _, ts = _bwd_tol(G, Wr, x, x, dtype, True)
+    tp = ts * 4 * (G.abs().sum() + (G.abs() * core).sum())
+    ref = ops.gram_sym_backward_plain(G, 'expquad', x, **kw)
+    for need_x, need_p in ((True, True), (True, False), (False, True)):
+        n0 = ops.gram_sym.launches_bwd
+        got = ops.gram_sym_backward(G, 'expquad', x, need_x=need_x,
+                                    need_p=need_p, **kw)
+        runs = -(-p // 4) if need_x and p > 1 else 1
+        assert ops.gram_sym.launches_bwd == n0 + runs
+        again = ops.gram_sym_backward(G, 'expquad', x, need_x=need_x,
+                                      need_p=need_p, **kw)
+        for a, b in zip(got, again):
+            assert (a is None) == (b is None)
+            assert a is None or torch.equal(a, b)
+        if need_x:
+            assert bool(((got[0] - ref[0]).abs() <= tx).all())
+        else:
+            assert got[0] is None
+        if need_p:
+            assert bool(((got[1] - ref[1]).abs() <= tp).all()), \
+                (got[1], ref[1])
+        else:
+            assert got[1] is None
 
 
 @pytest.mark.gpu

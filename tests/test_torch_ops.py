@@ -6,6 +6,8 @@ Tolerances: both sides compute the same float64 sums in another order,
 so entries agree to a few units of roundoff of their magnitude
 (rtol 1e-11, atol 1e-11 times the entries' scale)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -151,3 +153,92 @@ def test_gram_post_chain_gradient(rng):
         (ops.gram_plain('expquad', x, post=post) * G).sum(), (x, a, c))
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=1e-12, atol=1e-12)
+
+
+def _jchain(r2, a, c, b):
+    """The JAX side of the post chain (('mul', a), ('add', c), ('mul', b))
+    on the ExpQuad core."""
+    return (a * jnp.exp(-0.5 * r2) + c) * b
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_gram_grads(p, given_y, noise):
+    """Inputs made from a seed and jax.grad of <G, K> through the JAX
+    gram's custom_jvp rule (Pallas in interpret mode) with respect to x,
+    y (when given), the chain's scalars and the nugget (when given)."""
+    rng = np.random.default_rng(10 * p + given_y)
+    x = rng.standard_normal((90, p)) * 2
+    x[7] = x[3]   # coincident points: the weight is zero at r² = 0
+    y = rng.standard_normal((50, p)) * 2 if given_y else None
+    G = rng.standard_normal((90, 50 if given_y else 90))
+    params = (1.3, 0.4, 0.7)
+
+    def jfun(x, y, params, noise):
+        K = jops.gram(_jchain, x, y, params=params, noise=noise, tile=128,
+                      interpret=True)
+        return jnp.sum(K * G)
+
+    argnums = (0, 2) + ((1,) if given_y else ()) + \
+        ((3,) if noise is not None else ())
+    grads = jax.grad(jfun, argnums=argnums)(
+        jnp.asarray(x), None if y is None else jnp.asarray(y),
+        tuple(map(jnp.asarray, params)), noise)
+    ref = dict(zip(argnums, grads))
+    return x, y, G, params, ref
+
+
+@pytest.mark.parametrize('need_xy,need_p', [(True, True), (True, False),
+                                            (False, True)])
+@pytest.mark.parametrize('noise', [None, 0.2])
+@pytest.mark.parametrize('given_y', [True, False])
+@pytest.mark.parametrize('p', [1, 3])
+def test_gram_backward_plain(p, given_y, noise, need_xy, need_p):
+    """Kernel C's plain backward, `gram_backward_plain`, against jax.grad
+    through the JAX gram: y given and y = x (the two arguments' gradients
+    add), a chain mixing 'mul' and 'add' steps, with and without the
+    nugget, and only some outputs asked for."""
+    x, y, G, params, ref = _jax_gram_grads(p, given_y, noise)
+    a, c, b = params
+    gx, gy, gp = ops.gram_backward_plain(
+        torch.as_tensor(G), 'expquad', torch.as_tensor(x),
+        None if y is None else torch.as_tensor(y),
+        post=(('mul', a), ('add', c), ('mul', b)), noise=noise,
+        need_xy=need_xy, need_p=need_p)
+    close = dict(rtol=1e-10, atol=1e-10)
+    if need_xy:
+        if given_y:
+            np.testing.assert_allclose(gx.numpy(), np.asarray(ref[0]),
+                                       **close)
+            np.testing.assert_allclose(gy.numpy(), np.asarray(ref[1]),
+                                       **close)
+        else:
+            np.testing.assert_allclose((gx + gy).numpy(),
+                                       np.asarray(ref[0]), **close)
+    else:
+        assert gx is None and gy is None
+    if need_p:
+        np.testing.assert_allclose(gp[:3].numpy(),
+                                   np.asarray(ref[2]), **close)
+        np.testing.assert_allclose(
+            float(gp[3]), 0.0 if noise is None else float(ref[3]), **close)
+    else:
+        assert gp is None
+
+
+@pytest.mark.parametrize('wrt', ['x', 'post'])
+def test_gram_gradient_some_inputs(wrt):
+    """Autograd through `gram` with only the points or only the chain's
+    scalars requiring grad (the backward computes only what autograd
+    asks for) against jax.grad through the JAX gram."""
+    x, y, G, params, ref = _jax_gram_grads(1, True, 0.2)
+    xt = torch.as_tensor(x).requires_grad_(wrt == 'x')
+    pt = [torch.tensor(v, requires_grad=wrt == 'post') for v in params]
+    K = ops.gram('expquad', xt, torch.as_tensor(y),
+                 post=(('mul', pt[0]), ('add', pt[1]), ('mul', pt[2])),
+                 noise=0.2)
+    leaves = [xt] if wrt == 'x' else pt
+    got = torch.autograd.grad((K * torch.as_tensor(G)).sum(), leaves)
+    want = ref[0] if wrt == 'x' else ref[2]
+    np.testing.assert_allclose(
+        got[0].numpy() if wrt == 'x' else torch.stack(got).numpy(),
+        np.asarray(want), rtol=1e-10, atol=1e-10)

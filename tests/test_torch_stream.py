@@ -16,6 +16,8 @@ direct sum, which differ by a few roundings of the coordinates' scale);
 the Grams here have condition numbers up to ~1e5, so rtol 1e-9 leaves a
 wide margin unless a test says otherwise."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -129,6 +131,81 @@ def test_gram_sym(p):
     torch.testing.assert_close(
         K, ops.gram_sym_plain('expquad', leaves[0],
                               post=(('mul', leaves[1]),), noise=leaves[2]))
+
+
+def _jchain(r2, a, c, b):
+    """The JAX side of the post chain (('mul', a), ('add', c), ('mul', b))
+    on the ExpQuad core."""
+    return (a * jnp.exp(-0.5 * r2) + c) * b
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_gram_sym_grads(p, noise):
+    """Inputs made from a seed and jax.grad of <G, K(x, x)> through the
+    JAX gram_sym's custom_jvp rule (Pallas in interpret mode) with
+    respect to x, the chain's scalars and the nugget (when given)."""
+    rng = np.random.default_rng(20 + p)
+    x = rng.standard_normal((150, p)) * 2
+    x[7] = x[3]   # coincident points: the weight is zero at r² = 0
+    G = rng.standard_normal((150, 150))
+    params = (1.3, 0.4, 0.7)
+
+    def jfun(x, params, noise):
+        K = jops.gram_sym(_jchain, x, params=params, noise=noise, tile=128,
+                          interpret=True)
+        return jnp.sum(K * G)
+
+    argnums = (0, 1) + ((2,) if noise is not None else ())
+    grads = jax.grad(jfun, argnums=argnums)(
+        jnp.asarray(x), tuple(map(jnp.asarray, params)), noise)
+    return x, G, params, dict(zip(argnums, grads))
+
+
+@pytest.mark.parametrize('need_x,need_p', [(True, True), (True, False),
+                                           (False, True)])
+@pytest.mark.parametrize('noise', [None, 0.2])
+@pytest.mark.parametrize('p', [1, 3])
+def test_gram_sym_backward_plain(p, noise, need_x, need_p):
+    """Kernel E's plain backward, `gram_sym_backward_plain`, against
+    jax.grad through the JAX gram_sym: a chain mixing 'mul' and 'add'
+    steps, with and without the nugget, only some outputs asked for."""
+    x, G, params, ref = _jax_gram_sym_grads(p, noise)
+    a, c, b = params
+    gx, gp = ops.gram_sym_backward_plain(
+        torch.as_tensor(G), 'expquad', torch.as_tensor(x),
+        post=(('mul', a), ('add', c), ('mul', b)), noise=noise,
+        need_x=need_x, need_p=need_p)
+    close = dict(rtol=1e-10, atol=1e-10)
+    if need_x:
+        np.testing.assert_allclose(gx.numpy(), np.asarray(ref[0]), **close)
+    else:
+        assert gx is None
+    if need_p:
+        np.testing.assert_allclose(gp[:3].numpy(), np.asarray(ref[1]),
+                                   **close)
+        np.testing.assert_allclose(
+            float(gp[3]), 0.0 if noise is None else float(ref[2]), **close)
+    else:
+        assert gp is None
+
+
+@pytest.mark.parametrize('wrt', ['x', 'post'])
+def test_gram_sym_gradient_some_inputs(wrt):
+    """Autograd through `gram_sym` with only the points or only the
+    chain's scalars requiring grad against jax.grad through the JAX
+    gram_sym."""
+    x, G, params, ref = _jax_gram_sym_grads(1, 0.2)
+    xt = torch.as_tensor(x).requires_grad_(wrt == 'x')
+    pt = [torch.tensor(v, requires_grad=wrt == 'post') for v in params]
+    K = ops.gram_sym('expquad', xt,
+                     post=(('mul', pt[0]), ('add', pt[1]), ('mul', pt[2])),
+                     noise=0.2)
+    leaves = [xt] if wrt == 'x' else pt
+    got = torch.autograd.grad((K * torch.as_tensor(G)).sum(), leaves)
+    want = ref[0] if wrt == 'x' else ref[1]
+    np.testing.assert_allclose(
+        got[0].numpy() if wrt == 'x' else torch.stack(got).numpy(),
+        np.asarray(want), rtol=1e-10, atol=1e-10)
 
 
 # -- streaming linalg ----------------------------------------------------------

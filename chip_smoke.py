@@ -25,8 +25,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    for float32 (SIMT); C, E and their backward for float32 and float64
    (E's and its backward's with '/float64' off every path); the fused
    backward must give the same bits in two calls, and E the same
-   entries as C;
-4. the dense path: fits ``amp * ExpQuad(scale)`` plus noise to n = 16384
+   entries as C; each record has its share of the bound;
+4. the float32 rescue: ``Chol`` and ``chol_nll`` of a float32 ExpQuad
+   Gram with a small nugget at n = 4096 (the largest size the rescue
+   takes by default), on which the 'high' rung fails: prints the rung
+   the ladder ended on and whether the rescue fired, checks that kernel
+   A ran at 'highest' (the SIMT kernel) and in float64 (DMMA) and that
+   the rescue fired, and holds the NLL, logdet, solve and the gradient
+   in K and y against float64 ``torch.linalg.cholesky`` of the same
+   float32 matrix plus the primary eps;
+5. the dense path: fits ``amp * ExpQuad(scale)`` plus noise to n = 16384
    points with ``empbayes_fit`` in float32, predicts at 64 points,
    checks that kernels A (on the tensor cores), B (in place) and C were
    launched by that run, C's forward and fused backward once for each
@@ -44,19 +52,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    kernels A and B (both DMMA) and C (forward and fused backward once for
    each evaluation) ran, and the NLL and gradient against the float64
    computation;
-5. the streaming path: ``GP(solver='chol-stream')`` fitted by
+6. the streaming path: ``GP(solver='chol-stream')`` fitted by
    ``empbayes_fit`` (3 BFGS iterations from the dense fit's MAP) to
    n = 65536 points from numpy, a size whose dense Gram does not fit the
    card, then
    ``predfromdata``; checks that kernels D and A were launched on the
    tensor cores and C's fused backward once for each gradient strip,
    and prints the peak memory; then at n = 32768 holds the streaming NLL, gradient and
-   posterior mean against the float64 computation, as in 4;
-6. the halfmatrix path: one dense value+gradient at n = 16384 with
+   posterior mean against the float64 computation, as in 5;
+7. the halfmatrix path: one dense value+gradient at n = 16384 with
    ``halfmatrix=True, gram='tiled'`` (kernel E and its fused backward,
    once each) against the same with ``halfmatrix=False`` (C's, once
    each);
-7. prints a JSON line of kernel records and, last, the device line.
+8. prints a JSON line of kernel records and, last, the device line.
 
 Any failed check exits non-zero before the last line.
 
@@ -66,8 +74,10 @@ memory (it needs nothing of this version beyond the package's public
 API); ``--memory-probe`` runs that at each of a list of sizes, each in
 its own process, to find the largest n that fits the card;
 ``--compare-fits`` runs the dense and the streaming fits at precision
-'high' and 'highest' in turns; ``--dense64`` runs only the float64 dense
-evaluation, at the dense fit's optimum; ``--gram-route`` times kernels C
+'high' and 'highest' in turns; ``--compare-highest`` the dense fit at
+'high' and 'highest' and streaming evaluations at 'highest', each with
+its time per evaluation and a profile; ``--dense64`` runs only the
+float64 dense evaluation, at the dense fit's optimum; ``--gram-route`` times kernels C
 and E with their backward through the public API, and dense float32
 value+gradients at the optimum with a profile (``--dense64`` and
 ``--gram-route`` run from an older checkout too, to time its route in
@@ -89,6 +99,11 @@ N_CHECK = 32768    # the streaming slice's float64 check
 NPRED = 64
 STREAM_BLOCK = 512  # the streaming solver's block
 NOISE_VAR = 0.09   # 0.3**2, the data's noise
+# the rescue phase: a float32 Gram at the largest size the float32 rescue
+# takes by default (DF_MAX), smooth enough (ExpQuad of scale 2 over 4096
+# points on [0, 100]) that its small nugget makes the 'high' rung fail
+N_RESCUE = 4096
+RESCUE_SPAN, RESCUE_SCALE, RESCUE_NOISE = 100.0, 2.0, 1e-5
 SEED = 20261016
 # the dense slice's optimum (log scale, log amp) as its fits find it
 # (PERF.md): where --dense64 evaluates
@@ -196,7 +211,8 @@ def bound(nbytes, ops, dtype, passes=0):
 def record(err, ms, plain_ms, bound_ms_by, library_ms=None, **extra):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1],
-                library_ms=library_ms, **extra)
+                share_of_bound=bound_ms_by[0] / ms, library_ms=library_ms,
+                **extra)
 
 
 # kernels A and D: the float32 variants, each a record of its own, with
@@ -257,9 +273,13 @@ def build():
     from lsqfitgp_torch import ops
     info = ops.build_info()
     log(f'build: {info["seconds"]:.1f} s -> {info["path"]}')
+    # ptxas reports each kernel's spills, then its registers, after the
+    # line that names it (mangled)
     for line in info['log'].splitlines():
-        if 'registers' in line or 'spill' in line:
-            log(f'  ptxas: {line.strip()}')
+        if 'Compiling entry function' in line:
+            log(f'  ptxas: {line.split(chr(39))[1][:100]}')
+        elif 'registers' in line or 'spill' in line:
+            log(f'    {line.strip()}')
 
 
 # -- kernel phase -------------------------------------------------------------
@@ -839,6 +859,10 @@ def read_counts():
     return {key: getattr(fn, attr) for key, fn, attr in _counters()}
 
 
+def nonzero(counts):
+    return {k: c for k, c in counts.items() if c}
+
+
 def require_launched(counts, names, what):
     for name in names:
         if counts[name] == 0:
@@ -1051,6 +1075,114 @@ def slice_phase(dev='cuda'):
     return launches, fitted
 
 
+def rescue_phase(dev='cuda'):
+    """The float32 rescue: `Chol` and `chol_nll` of a float32 ExpQuad Gram
+    with a small nugget at n = N_RESCUE, the largest size the rescue
+    takes by default.  The 'high' rung fails on it, so the ladder runs
+    kernel A at 'highest' (the SIMT kernel), and the rescue refactors in
+    float64 (A on DMMA); checks both ran and the rescue fired, and holds
+    the NLL, logdet, solve and the fused NLL's gradient in K and y
+    against a float64 ``torch.linalg.cholesky`` of the same float32
+    matrix plus the primary eps (with the same float32 data) at the JAX
+    package's tolerances for its rescue (``tests/linalg/test_df.py``):
+    NLL 1e-4 relative, logdet 1e-2, solve and gradient 1e-4 relative to
+    their largest entry.  Returns the launch counts."""
+    import warnings
+    import numpy as np
+    import torch
+    from lsqfitgp_torch import linalg
+
+    def sync():
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+
+    f32, f64 = torch.float32, torch.float64
+    n = N_RESCUE
+    rng = np.random.default_rng(SEED)
+    x = torch.as_tensor(np.sort(rng.uniform(0, RESCUE_SPAN, n)), dtype=f64,
+                        device=dev)
+    d2 = (x[:, None] - x[None, :]) ** 2
+    K64 = torch.exp(-0.5 * d2 / RESCUE_SCALE ** 2)
+    K64.diagonal().add_(RESCUE_NOISE)
+    z = torch.as_tensor(rng.standard_normal(n), dtype=f64, device=dev)
+    K32 = K64.to(f32)
+    y32 = (torch.linalg.cholesky(K64) @ z).to(f32)
+    del K64, d2, x
+    log(f'rescue: n = {n}, float32, ExpQuad(scale={RESCUE_SCALE}) on '
+        f'[0, {RESCUE_SPAN}] + {RESCUE_NOISE} I')
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        dec = linalg.Chol(K32)
+        nll = dec.minus_log_normal_density(y32)
+        ld = dec.logdet()
+        sol = dec.ginv_linear(y32)
+        sync()
+        counts_chol = read_counts()
+        K = K32.clone().requires_grad_(True)
+        y = y32.clone().requires_grad_(True)
+        v = linalg.chol_nll(K, y)
+        gK, gy = torch.autograd.grad(v, (K, y))
+        sync()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    del K, y
+    simt = counts_chol['schur_update']
+    rung = 3 if dec._escalated else 2 if simt else 1
+    log(f'  Chol: the ladder ended on rung {rung} (1 high, 2 highest, 3 '
+        f'highest with eps2 and the lift), cond_estimate '
+        f'{float(dec.cond_estimate):.4g}; rescue fired: '
+        f'{dec._df_rescued}, failed: {dec._df_failed}, eps '
+        f'{float(dec.eps):.4g}')
+    log(f'  launches of Chol: {nonzero(counts_chol)}; with chol_nll and its '
+        f'gradient: {nonzero(counts)}; {secs:.2f} s')
+    for w in {str(w.message) for w in caught}:
+        log(f'  warning: {w}')
+    if not dec._df_rescued:
+        fail('the float32 rescue did not fire, or found the matrix '
+             'indefinite in float64')
+    require_launched(counts_chol, ['schur_update', 'schur_update_dmma'],
+                     'the rescue phase\'s Chol')
+    require_launched(counts, ['syrk_t_full__dmma'], 'the rescue phase')
+    if nll.dtype != f32 or sol.dtype != f32 or gK.dtype != f32:
+        fail('the rescue returns another dtype than its input\'s')
+
+    # the float64 truth of the matrix the rescue factors
+    s = dec._s.to(f64)
+    Kreg = K32.to(f64)
+    Kreg.diagonal().add_(float(dec.eps) / s ** 2)
+    L = torch.linalg.cholesky(Kreg)
+    del Kreg
+    y64 = y32.to(f64)
+    zt = torch.linalg.solve_triangular(L, y64[:, None], upper=False)[:, 0]
+    nll64 = 0.5 * float(zt @ zt) + float(torch.log(L.diagonal()).sum()) \
+        + 0.5 * n * math.log(2 * math.pi)
+    ld64 = 2 * float(torch.log(L.diagonal()).sum())
+    alpha = torch.cholesky_solve(y64[:, None], L)[:, 0]
+    Kbar = torch.cholesky_inverse(L)
+    del L
+    Kbar.addr_(alpha, alpha, alpha=-1).mul_(0.5)
+
+    def rel(got, ref):
+        return float((got.to(f64) - ref).abs().max() / ref.abs().max())
+
+    errs = {'nll': abs(float(nll) - nll64) / abs(nll64),
+            'logdet': abs(float(ld) - ld64) / max(1.0, abs(ld64)),
+            'solve': rel(sol, alpha),
+            'chol_nll': abs(float(v.detach()) - nll64) / abs(nll64),
+            'grad K': rel(gK, Kbar), 'grad y': rel(gy, alpha)}
+    tols = {'nll': 1e-4, 'logdet': 1e-2, 'solve': 1e-4, 'chol_nll': 1e-4,
+            'grad K': 1e-4, 'grad y': 1e-4}
+    log('  against float64: ' + ', '.join(
+        f'{k} {e:.3e} (tolerance {tols[k]:g})' for k, e in errs.items()))
+    bad = [k for k in errs if not errs[k] < tols[k]]
+    if bad:
+        fail(f'the rescue disagrees with float64 in {bad}')
+    return counts
+
+
 def dense64_phase(point, dev='cuda', evals=5):
     """The dense slice's model in float64, the lane of the JAX package's
     users under x64: ``evals`` value+gradients at n = N at ``point`` (log
@@ -1259,6 +1391,72 @@ def compare_fits():
         torch.cuda.synchronize()
         report(f'streaming n = {N_STREAM} at {prec!r}', fit,
                time.perf_counter() - t0)
+
+
+def compare_highest(evals=5):
+    """Precision 'highest' per evaluation, to compare two checkouts in one
+    call (this script runs from the root of either, as ``--dense64``
+    does): the dense fit of the dense slice at 'high' and at 'highest'
+    (where kernel A runs its SIMT kernel), then ``evals`` streaming
+    value+gradients at n = N_STREAM at 'highest' (kernels D and A on the
+    SIMT kernel) at the dense optimum.  Each prints its median time per
+    evaluation on the host clock, and one value+gradient at 'highest'
+    under the profiler (device time by kernel)."""
+    import numpy as np
+    import torch
+    import lsqfitgp_torch as lgp
+    f32 = torch.float32
+    torch.set_default_dtype(f32)
+    rng = np.random.default_rng(20261016)
+    x = rng.uniform(-50, 50, N)
+    y = np.sin(x) + math.sqrt(NOISE_VAR) * rng.standard_normal(N)
+    xt = torch.as_tensor(x, dtype=f32, device='cuda')
+    yt = torch.as_tensor(y, dtype=f32, device='cuda')
+    noise = NOISE_VAR * torch.eye(N, dtype=f32, device='cuda')
+    hyperprior = {'log(scale)': (0., 1.), 'log(amp)': (0., 1.)}
+
+    def dense_gp(hp, prec):
+        gp = lgp.GP(hp['amp'] * lgp.ExpQuad(scale=hp['scale']),
+                    gram='tiled', precision=prec)
+        gp = gp.addx(xt, 'f').addcov(noise, 'e')
+        return gp.addlintransf(lambda f, e: f + e, ['f', 'e'], 'y')
+
+    def value_grad(make, data):
+        lp = torch.tensor(OPTIMUM, device='cuda', requires_grad=True)
+        with lgp.disable_checks():
+            nll = -make({'scale': lp[0].exp(), 'amp': lp[1].exp()}
+                        ).marginal_likelihood(data)
+        g, = torch.autograd.grad(nll, lp)
+        return float(nll), g.tolist()
+
+    for prec in ('high', 'highest'):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit = lgp.empbayes_fit(hyperprior, lambda hp: dense_gp(hp, prec),
+                               {'y': yt}, minkw={'maxiter': 50},
+                               raises=False)
+        torch.cuda.synchronize()
+        ev = fit.evaltimes
+        log(f'dense n = {N} at {prec!r}: {time.perf_counter() - t0:.2f} s '
+            f'wall, {len(ev)} evaluations, median '
+            f'{statistics.median(ev) * 1e3:.1f} ms per evaluation')
+    profile_phase(lambda: value_grad(lambda hp: dense_gp(hp, 'highest'),
+                                     {'y': yt}))
+    del noise, fit
+    torch.cuda.empty_cache()
+    xs, ys, _ = stream_data(N_STREAM)
+    xs = torch.as_tensor(xs, dtype=f32, device='cuda')
+    ys = torch.as_tensor(ys, dtype=f32, device='cuda')
+    make = lambda hp: stream_gp(hp, 'highest').addx(xs, 'f')
+    times = []
+    for _ in range(evals):
+        t0 = time.perf_counter()
+        value_grad(make, {'f': ys})
+        times.append(time.perf_counter() - t0)
+    log(f'streaming n = {N_STREAM} at \'highest\': {evals} value+gradients '
+        f'at {OPTIMUM}, median {statistics.median(times):.4f} s '
+        f'(each: {[round(t, 3) for t in times]})')
+    profile_phase(lambda: value_grad(make, {'f': ys}))
 
 
 def gram_route(evals=7):
@@ -1655,6 +1853,10 @@ def main(argv):
     if argv == ['--compare-fits']:
         compare_fits()
         return 0
+    if argv == ['--compare-highest']:
+        build()
+        compare_highest()
+        return 0
     if argv == ['--gram-route']:
         build()
         gram_route()
@@ -1670,6 +1872,9 @@ def main(argv):
     records = kernel_phase()
     torch.cuda.empty_cache()
     paths = {}
+    paths['rescue'] = rescue_phase()
+    log(f'elapsed {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
     paths['dense'], fitted = slice_phase()
     log(f'elapsed {time.perf_counter() - t0:.1f} s')
     torch.cuda.empty_cache()
@@ -1694,7 +1899,9 @@ def main(argv):
            'gram_sym_bwd': 'halfmatrix'}
     own64 = {'schur_update': 'dense64', 'gram': 'dense64',
              'gram_bwd': 'dense64'}
-    dtype_paths = {'float32': ['dense', 'stream', 'halfmatrix'],
+    # A's SIMT kernel ('highest') runs on the rescue phase's ladder
+    own_key = {'schur_update': 'rescue'}
+    dtype_paths = {'float32': ['rescue', 'dense', 'stream', 'halfmatrix'],
                    'float64': ['dense64']}
     for rec in records:
         base = rec['name'].split('/')[0]
@@ -1703,6 +1910,8 @@ def main(argv):
         if rec['name'].endswith('/float64') and (
                 is_gram or base == 'schur_update'):
             path = own64.get(base)
+        elif not is_gram and key in own_key:
+            path = own_key[key]
         else:
             path = own[base]
         names = dtype_paths[rec['dtype']] if is_gram else list(paths)
@@ -1711,7 +1920,7 @@ def main(argv):
     log(f'total {time.perf_counter() - t0:.1f} s')
     keys = ['name', 'route', 'source', 'replaces', 'launches',
             'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
-            'library_ms', 'precision', 'dtype', 'library',
+            'share_of_bound', 'library_ms', 'precision', 'dtype', 'library',
             'launches_by_path', 'wrapper_ms']
     print(json.dumps({'kernels': [{k: r.get(k) for k in keys}
                                   for r in records]}))

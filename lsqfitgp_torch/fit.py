@@ -16,10 +16,17 @@ optimizer:
 4. return the hyperparameters as correlated `uncert.UArray`, with the
    BFGS inverse-Hessian ('minhess') as Laplace covariance.
 
+``covariance='auto'`` follows the JAX package's rule: 'minhess' where
+the minimizer gives an inverse-Hessian estimate; otherwise 'hess' for a
+dense objective, which this version does not have, so it raises
+`NotImplementedError` (at the first evaluation with ``method='nograd'``)
+instead of returning the prior; and, with a warning, 'prior' for a
+streaming one.
+
 Not in this version: ``method='fisher'``, ``optimizer='jax'|'optax'``,
 ``covariance='hess'|'fisher'`` (for a streaming GP the JAX package's
-'fisher' is the streamed Fisher information), ``custom_nll``,
-``forward``, phase timing and profiler traces.
+'fisher' is the streamed Fisher information; ROADMAP.md, queue 1, item
+2), ``custom_nll``, ``forward``, phase timing and profiler traces.
 """
 
 from __future__ import annotations
@@ -96,6 +103,30 @@ def _parse_data(data):
     return data, None, False
 
 
+def _auto_covariance(method, hess_inv, stream):
+    """The covariance that ``covariance='auto'`` stands for, by the JAX
+    package's rule: the minimizer's inverse-Hessian estimate where there
+    is one; else the prior, with a warning, for a streaming objective,
+    and 'hess' for a dense one, which raises here."""
+    if hess_inv is not None:
+        return 'minhess'
+    if stream:
+        warnings.warn(
+            "the objective is the streaming solver's likelihood and the "
+            "minimizer provides no hessian estimate: posterior covariance "
+            "set to the prior's (covariance='prior').  Use "
+            "method='gradient' (BFGS) for a Laplace estimate "
+            "('minhess').")
+        return 'prior'
+    raise NotImplementedError(
+        f"covariance='auto' means covariance='hess' (the Hessian of the "
+        f"objective) for a dense objective whose minimizer gives no "
+        f"inverse-Hessian estimate (method={method!r}); 'hess' is not in "
+        f"lsqfitgp_torch yet (ROADMAP.md, queue 1, item 2).  Pass "
+        f"covariance='prior' or 'none', or use method='gradient' (BFGS) "
+        f"for 'minhess'")
+
+
 def _data_device(given):
     if isinstance(given, dict):
         for v in given.values():
@@ -129,7 +160,10 @@ class empbayes_fit:
         Posterior covariance: the minimizer's inverse-Hessian estimate
         ('minhess', what 'auto' picks when BFGS provides one), zero
         ('none'), or the unchanged hyperprior covariance ('prior', what
-        'auto' falls back to otherwise).
+        'auto' falls back to, with a warning, for a streaming GP whose
+        minimizer gives no estimate).  For a dense GP without an
+        estimate (``method='nograd'``) 'auto' means the JAX package's
+        'hess', which is not in this version: it raises.
     fix : dict, optional
         Map key -> bool (or array of bool) freezing hyperparameters at
         their prior means.
@@ -186,6 +220,9 @@ class empbayes_fit:
         self.fix = fixmask
         fixmask_t = torch.as_tensor(fixmask, device=device)
 
+        # whether the objective is the streaming solver's, set by nll
+        stream = [False]
+
         def make_hp(w):
             # p = mean + L w ; frozen coordinates stay at the prior mean
             w = torch.where(fixmask_t, torch.zeros((), dtype=dtype,
@@ -201,6 +238,7 @@ class empbayes_fit:
                 else:
                     g, gcov = given, givencov
                 gp = gpfactory(hp, **gpfactorykw)
+                stream[0] = gp._solver == 'chol-stream'
                 out = gp._prior_nll(g, gcov, **mlkw)
                 wfree = w[~fixmask_t]
                 out = out + 0.5 * torch.dot(wfree, wfree)
@@ -282,8 +320,13 @@ class empbayes_fit:
             def f(w):
                 counts['fun'] += 1
                 with torch.no_grad():
-                    return finite(timer.time(
-                        lambda w: float(nll(totensor(w))), w))
+                    v = finite(timer.time(lambda w: float(nll(totensor(w))),
+                                          w))
+                if covariance == 'auto' and not stream[0]:
+                    # Nelder-Mead gives no hessian estimate: raise now
+                    # rather than after the minimization
+                    _auto_covariance(method, None, False)
+                return v
             res = scipy.optimize.minimize(f, w0, method='Nelder-Mead',
                                           callback=callback, **kw)
         else:
@@ -317,7 +360,7 @@ class empbayes_fit:
 
         # posterior covariance in whitened space
         if covariance == 'auto':
-            covariance = 'minhess' if hess_inv is not None else 'prior'
+            covariance = _auto_covariance(method, hess_inv, stream[0])
         if covariance == 'minhess':
             if hess_inv is None:
                 raise ValueError('minimizer provides no hessian estimate')

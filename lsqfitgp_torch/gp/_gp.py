@@ -458,10 +458,58 @@ class GP:
             Kxx = Kxx + extracov
         else:
             self._checkpos(Kxx)
+        dfg = self._df_gram_maker(inkeys, extracov)
+        if dfg is not None:
+            decompkw = {**decompkw, 'df_gram': dfg}
         dec = self._make_decomp(Kxx, **decompkw)
         if cacheable:
             self._decomp_cache[cachekey] = dec
         return dec
+
+    def _df_gram_maker(self, inkeys, extracov):
+        """A callable returning the data block's Gram (plus ``extracov``)
+        assembled in float64 from float64 copies of the points, by kernel
+        C in float64 on CUDA (`ops.gram`), or None when the model is not
+        one kernel C evaluates (the JAX package's ``_df_gram_maker``,
+        which assembles in emulated double precision).  `linalg.Chol`
+        calls it only when its float32 rescue fires, and factors it in
+        place of the float32 Gram, whose rounding can make a Gram of
+        condition ≳ 1e6 indefinite before any factorization sees it."""
+        if self._solver != 'chol' or len(inkeys) != 1:
+            return None
+        el = self._elements[inkeys[0]]
+        if not isinstance(el, _Points):
+            return None
+        spec = getattr(self._crosskernel(el.proc, el.proc), '_fastgram',
+                       None)
+        if spec is None or spec.core is None:
+            return None
+        prof = fg.build_profile(spec)
+        cols = fg.leaf_columns(el.x)
+        if prof is None or cols is None or (
+                spec.maxdim is not None and len(cols) > spec.maxdim):
+            return None
+        profile, post = prof
+
+        def wide(v):
+            return torch.as_tensor(v).detach().to(device=el.x.device,
+                                                  dtype=torch.float64)
+
+        def df_gram():
+            # the raw points: distances do not see loc, and the scale is
+            # divided out in float64
+            X = torch.stack([wide(c) for c in cols], -1)
+            if spec.scale is not None:
+                X = X / wide(spec.scale)
+            K = ops.gram(profile, X, post=tuple((op, wide(v))
+                                                for op, v in post))
+            if spec.noise is not None:
+                K.diagonal().add_(wide(spec.noise))
+            if extracov is not None:
+                K += wide(extracov)
+            return K
+
+        return df_gram
 
     def _make_decomp(self, K, **decompkw):
         if self._solver == 'chol-stream':
@@ -828,7 +876,11 @@ class GP:
             K = K + ycov
         else:
             self._checkpos(K)
-        return K, ymean, {**self._solverkw, **decompkw}
+        kw = {**self._solverkw, **decompkw}
+        dfg = self._df_gram_maker(inkeys, ycov)
+        if dfg is not None:
+            kw['df_gram'] = dfg
+        return K, ymean, kw
 
     def _prior_nll(self, given, givencov=None, **decompkw):
         """-log marginal density of the data; the fit objective.  Through

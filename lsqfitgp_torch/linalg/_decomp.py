@@ -8,11 +8,13 @@ a `torch.autograd.Function`, and the streaming likelihood and posterior
 (`chol_nll_stream`, `chol_nll_stream_grad`, `chol_pred_stream`), which
 never form the Gram matrix.
 
-Not in this version: the double-float rescue (``df`` must be False or
-'auto', which here means off), ``Chol.fisher``, a backward through
-`Chol` itself (differentiate the log-density through `chol_nll`), the
-streaming gradient's Hutchinson estimate (``exact=False``), the streamed
-Fisher information and the left-looking streaming factorization.
+The float32 rescue (``Chol(df=...)``) refactors in native float64
+where the JAX package refactors in emulated double precision (its
+``linalg/_df.py`` is not ported).  Not in this version:
+``Chol.fisher``, a backward through `Chol` itself (differentiate the
+log-density through `chol_nll`), the streaming gradient's Hutchinson
+estimate (``exact=False``), the streamed Fisher information and the
+left-looking streaming factorization.
 """
 
 from __future__ import annotations
@@ -30,6 +32,11 @@ from ..ops import syrk_t_full_
 
 __all__ = ['Decomposition', 'Chol', 'chol_nll', 'chol_nll_stream',
            'chol_nll_stream_grad', 'chol_pred_stream']
+
+
+# the largest n the float32 rescue takes at df='auto' (the JAX package's
+# DF_MAX, lsqfitgp_tpu/linalg/_df.py)
+DF_MAX = 4096
 
 
 def _float_eps(dtype):
@@ -154,9 +161,23 @@ class Chol(Decomposition):
     non-finite.
 
     ``blocked='auto'`` uses the blocked recursive factorization (kernel
-    A on CUDA) and blocked solves for ``n >= 1024``.  ``df`` is accepted
-    for parity with the JAX package: the double-float rescue is not in
-    this version, so only False and 'auto' (meaning off) are allowed.
+    A on CUDA) and blocked solves for ``n >= 1024``.
+
+    ``df`` is the float32 rescue, on the JAX package's triggers: in
+    float32 'auto' (``epsrel='auto'``), with ``df=True`` or ``df='auto'``
+    and ``n <= DF_MAX``, when the ladder escalated or the condition
+    estimate passes ``0.1 / eps32``, ``diag(s) K diag(s) + eps I`` is
+    factored again in float64 at the primary (small) eps, through the
+    same blocked path (kernel A on the FP64 tensor cores on CUDA).  The
+    solves, ``logdet`` and the log-density then run in float64 on that
+    factor and return the input's dtype; `correlate` keeps the float32
+    factor.  ``df_gram``, a callable returning the model's Gram in
+    float64, is refactored in its place at ``eps = n 2⁻⁴⁹ max(diag(s K
+    s))`` (the GP passes it for a model kernel C can assemble).  The
+    JAX package refactors in emulated double precision instead.  A
+    matrix still indefinite in float64 keeps the float32 result, and
+    the warnings tell the three outcomes apart.  ``df=False`` disables
+    the rescue; well-posed inputs get the same bits either way.
 
     The factor has no backward: differentiate the log-density through
     `chol_nll` (or ``GP.marginal_likelihood``).
@@ -165,10 +186,9 @@ class Chol(Decomposition):
     _BLOCK = 512
 
     def __init__(self, K, *, epsrel='auto', epsabs=0, blocked='auto',
-                 precision=None, block=None, df='auto'):
-        if df not in (False, 'auto'):
-            raise NotImplementedError(
-                'the double-float rescue (df) is not in lsqfitgp_torch yet')
+                 precision=None, block=None, df='auto', df_gram=None):
+        if df not in (False, True, 'auto'):
+            raise ValueError(f"df must be True, False or 'auto', not {df!r}")
         K = torch.as_tensor(K)
         if K.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
@@ -176,6 +196,8 @@ class Chol(Decomposition):
                 'log-density through linalg.chol_nll')
         n = K.shape[0]
         epsrel, epsabs, escalate = _parse_eps(epsrel, epsabs, n, K.dtype)
+        rescuable = escalate and df is not False \
+            and (df is True or n <= DF_MAX)
         mach = _float_eps(K.dtype)
         s = diag_scale_pow2(K)
         # Gershgorin bound of the scaled matrix as a scaled |K| matvec
@@ -189,6 +211,7 @@ class Chol(Decomposition):
             eps2 = eps
         eps = torch.as_tensor(eps, dtype=K.dtype, device=K.device)
         eps2 = torch.as_tensor(eps2, dtype=K.dtype, device=K.device)
+        eps_primary = eps
         if block is not None:
             self._BLOCK = int(block)
         if blocked == 'auto':
@@ -228,6 +251,50 @@ class Chol(Decomposition):
         # pivot-based condition estimate: bound over the smallest pivot²
         self._cond_est = bound / torch.clamp(
             torch.diagonal(L).min() ** 2, min=tiny)
+        # the float32 rescue: (L, Dinv) of the float64 refactor that
+        # rescued, which the solves and the density then use
+        self._wide = None
+        self._df_rescued = self._df_failed = False
+        self._df_gram_used = df_gram is not None
+        # two triggers, the JAX package's: the ladder escalated (the
+        # result is biased by eps2), or the condition estimate is past
+        # 0.1/eps32, where the fused gradient's error crosses ~1 %
+        if rescuable and (escalated
+                          or float(self._cond_est) > 0.1 / mach):
+            self._rescue(K, s, eps_primary, df_gram, blocked)
+
+    def _rescue(self, K, s, epsp, df_gram, blocked):
+        """Factor ``diag(s) K diag(s) + epsp I`` again in float64, or the
+        float64 Gram ``df_gram()`` in K's place at ``n 2⁻⁴⁹ max(diag(s K
+        s))``; keep the factor if it is finite."""
+        n = K.shape[0]
+        wide = torch.float64
+        with torch.no_grad():
+            if df_gram is not None:
+                # the Gram is the model's own: regularize at the float64
+                # scale, not at the float32 anchor (which would bias the
+                # NLL by more than the float32 result's error)
+                dmax = (torch.diagonal(K) * s * s).max()
+                epsp = torch.as_tensor(n * 2.0 ** -49, dtype=K.dtype,
+                                       device=K.device) * dmax
+                Kw = df_gram().to(wide)
+            else:
+                Kw = K.detach().to(wide)
+            sw, ew = s.to(wide), epsp.to(wide)
+            if blocked:
+                L, Dinv = _blocked.chol_factor_scaled(
+                    Kw, sw, ew, self._BLOCK, 128, 'highest', heal=False)
+                ok = _blocked._finite(Dinv)
+            else:
+                Kw.mul_(sw[:, None]).mul_(sw[None, :])
+                Kw.diagonal().add_(ew)
+                L, Dinv = _blocked._chol_lifted(Kw, None), None
+                ok = bool(torch.isfinite(torch.diagonal(L)).all())
+            del Kw
+        if ok:
+            self._wide = (L, Dinv)
+            self._eps = epsp.detach()
+        self._df_rescued, self._df_failed = ok, not ok
 
     @property
     def n(self):
@@ -260,7 +327,32 @@ class Chol(Decomposition):
 
         def check():
             n = self.n
-            if self._escalated:
+            dtype = self._L.dtype
+            if self._df_rescued:
+                # accuracy recovered: only the cost is worth a word
+                warnings.warn(
+                    f'Chol.{what}: conditioning exceeded the {dtype} '
+                    f'factorization limit; rescued by a float64 '
+                    f'refactorization (accurate, but the solves and the '
+                    f'density run in float64).  Add noise or pass epsabs '
+                    f'to stay on the {dtype} path.')
+            elif self._df_failed:
+                if self._df_gram_used:
+                    why = ('the Gram was assembled in float64, so the MODEL '
+                           'itself is singular at this eps; the result '
+                           f'keeps the {dtype} fallback regularization')
+                else:
+                    why = (f'the {dtype}-assembled Gram carries rounding '
+                           'error that can fake indefiniteness at cond '
+                           '≳ 1e6; a profile-expressible model (plain '
+                           'isotropic kernel + noise) would get a float64 '
+                           'Gram assembly and may still be rescuable')
+                warnings.warn(
+                    f'Chol.{what}: the float64 rescue was attempted but '
+                    f'the factorization found the matrix indefinite '
+                    f'({why}).  Results use eps={float(self._eps):.2e}; '
+                    f'add noise, raise epsabs, or use float64.')
+            elif self._escalated:
                 warnings.warn(
                     f'Chol.{what}: the matrix was numerically singular '
                     f'at {self._L.dtype}; the factorization used the '
@@ -291,8 +383,23 @@ class Chol(Decomposition):
 
     # -- solves ----------------------------------------------------------
 
+    def _wide_solve(self, x, trans):
+        """L⁻¹ x, or L'⁻¹ x with ``trans``, on the float64 factor of the
+        rescue, in float64."""
+        L, Dinv = self._wide
+        x = x.to(L.dtype)
+        if Dinv is not None:
+            solve = _blocked.solve_lower_t if trans else _blocked.solve_lower
+            return solve(L, x, block=self._BLOCK, Dinv=Dinv)
+        X = x[:, None] if x.dim() == 1 else x
+        out = torch.linalg.solve_triangular(L.T if trans else L, X,
+                                            upper=trans)
+        return out[:, 0] if x.dim() == 1 else out
+
     def _solve_L(self, x):
         """L⁻¹ x"""
+        if self._wide is not None:
+            return self._wide_solve(x, False).to(x.dtype)
         if self._Dinv is not None:
             return _blocked.solve_lower(self._L, x, block=self._BLOCK,
                                         Dinv=self._Dinv)
@@ -302,6 +409,8 @@ class Chol(Decomposition):
 
     def _solve_Lt(self, x):
         """L'⁻¹ x"""
+        if self._wide is not None:
+            return self._wide_solve(x, True).to(x.dtype)
         if self._Dinv is not None:
             return _blocked.solve_lower_t(self._L, x, block=self._BLOCK,
                                           Dinv=self._Dinv)
@@ -314,6 +423,11 @@ class Chol(Decomposition):
 
     def ginv_linear(self, X):
         self._warn_if_degraded('ginv_linear')
+        if self._wide is not None:
+            s = self._s.to(self._wide[0].dtype)
+            s = s[:, None] if X.dim() > 1 else s
+            Z = self._wide_solve(self._wide_solve(X * s, False), True)
+            return (Z * s).to(X.dtype)
         return self._scale(self._solve_Lt(self._solve_L(self._scale(X))))
 
     def pinv_bilinear(self, A, r):
@@ -346,7 +460,15 @@ class Chol(Decomposition):
 
     # -- density ---------------------------------------------------------
 
+    def _logdet_wide(self):
+        """log det K from the rescue's float64 factor, in float64."""
+        L, _ = self._wide
+        return 2 * torch.log(torch.diagonal(L)).sum() \
+            - 2 * torch.log(self._s.to(L.dtype)).sum()
+
     def logdet(self):
+        if self._wide is not None:
+            return self._logdet_wide().to(self._L.dtype)
         if self._Dinv is not None:
             # diag(L) = 1/diag(Dinv blocks); identity-padded tail blocks
             # contribute log 1 = 0
@@ -358,6 +480,11 @@ class Chol(Decomposition):
 
     def minus_log_normal_density(self, r):
         self._warn_if_degraded('minus_log_normal_density')
+        if self._wide is not None:
+            z = self._wide_solve(r * self._s.to(torch.float64), False)
+            v = 0.5 * (torch.dot(z, z) + self._logdet_wide()
+                       + self.n * math.log(2 * math.pi))
+            return v.to(r.dtype)
         z = self.pinv_correlate(r)
         return 0.5 * (torch.dot(z, z) + self.logdet()
                       + self.n * math.log(2 * math.pi))
@@ -391,8 +518,17 @@ class _CholNLL(torch.autograd.Function):
         # drop the factor once read, so that it and its float64 copy are
         # never alive together with the carrier
         ctx.dec = None
-        zt = dec._s * dec._solve_Lt(dec.pinv_correlate(r))  # S K_s⁻¹ S r
-        s, Dinv, block = dec._s, dec._Dinv, dec._BLOCK
+        wide = torch.promote_types(r.dtype, torch.float64)
+        if dec._wide is not None:
+            # rescued: the carrier and z̃ from the float64 factor, whose
+            # buffer then becomes the carrier's
+            sw = dec._s.to(wide)
+            zt = sw * dec._wide_solve(dec._wide_solve(r * sw, False), True)
+            W, Dinv = dec._wide
+        else:
+            zt = dec._s * dec._solve_Lt(dec.pinv_correlate(r))  # S K_s⁻¹ S r
+            W, Dinv = dec._L.to(wide), dec._Dinv
+        s, block = dec._s, dec._BLOCK
         # K_s⁻¹ is formed in float64 even from a float32 factor.  The
         # contraction <K⁻¹, ∂K> needs K⁻¹ accurate on the smooth,
         # large-eigenvalue subspace, where its entries are ~1/λmax, and
@@ -405,8 +541,6 @@ class _CholNLL(torch.autograd.Function):
         # buffer: the peaks are the float32 L beside its float64 copy
         # and the float64 K-bar beside its float32 result, 12 bytes per
         # n² from a float32 factor.
-        wide = torch.promote_types(r.dtype, torch.float64)
-        W = dec._L.to(wide)
         del dec
         if Dinv is not None:
             W = _blocked.trtri_blocked(W, Dinv.to(wide), block, ctx.precision)
@@ -423,7 +557,7 @@ class _CholNLL(torch.autograd.Function):
         ztw = zt.to(wide)
         Kbar.mul_(s[:, None]).mul_(s[None, :])
         Kbar.addr_(ztw, ztw, alpha=-1).mul_(0.5 * g.to(wide))
-        gr = g * zt if ctx.needs_input_grad[1] else None
+        gr = (g * zt).to(r.dtype) if ctx.needs_input_grad[1] else None
         return Kbar.to(r.dtype), gr, None
 
 

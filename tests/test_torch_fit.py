@@ -153,3 +153,44 @@ def test_uncert_transformed_keys():
         np.testing.assert_allclose(bt[key].sdev.numpy(),
                                    np.asarray(bj[key].sdev), rtol=1e-15)
     np.testing.assert_allclose(bt.buf.cov().numpy(), np.asarray(bj.buf.cov()))
+
+
+def test_auto_covariance_dense_without_hessian_raises(data):
+    """covariance='auto' on a dense objective whose minimizer gives no
+    inverse Hessian (Nelder-Mead) is the JAX package's 'hess', which the
+    port does not have: it raises, at the first evaluation, and never
+    returns the prior in its place."""
+    x, y = data
+    with pytest.raises(NotImplementedError, match="covariance='hess'"):
+        lt.empbayes_fit(HYPERPRIOR, _factory(lt, x), {'y': y},
+                        method='nograd')
+
+
+def test_auto_covariance_stream_without_hessian_warns(data):
+    """covariance='auto' on a streaming objective without an inverse
+    Hessian: a warning, as in the JAX package, then the prior."""
+    x, y = data
+    x, y = x[:150], y[:150]
+
+    def gpfactory(hp):
+        k = hp['amp'] * lt.ExpQuad(scale=hp['scale']) + 0.09 * lt.White()
+        return lt.GP(k, solver='chol-stream', block=64, b1=64).addx(x, 'y')
+
+    with pytest.warns(UserWarning, match="covariance='prior'"):
+        fit = lt.empbayes_fit(HYPERPRIOR, gpfactory, {'y': y},
+                              method='nograd', minkw={'maxiter': 8},
+                              raises=False)
+    # the hyperprior's covariance, the identity, through its whitening
+    np.testing.assert_allclose(fit.pcov.numpy(), np.eye(2), rtol=1e-12,
+                               atol=1e-15)
+
+
+def test_auto_covariance_is_minhess_with_bfgs(fits, data):
+    """With BFGS, 'auto' is 'minhess' on the port as on the JAX
+    package."""
+    x, y = data
+    _, ft = fits
+    fm = lt.empbayes_fit(HYPERPRIOR, _factory(lt, x), {'y': y},
+                         covariance='minhess')
+    np.testing.assert_allclose(fm.pcov.numpy(), ft.pcov.numpy(),
+                               rtol=1e-10)

@@ -522,3 +522,95 @@ def test_stream_and_halfmatrix_on_cuda_match_cpu(cuda, gen):
             torch.testing.assert_close(got, ref, rtol=1e-8, atol=1e-8)
     finally:
         torch.set_default_dtype(old)
+
+
+def _misaligned(a):
+    """A copy of ``a`` whose storage starts 4 bytes past a 16-byte
+    boundary, so that its rows are never 16-byte aligned."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    out = buf[1:].view(a.shape)
+    out.copy_(a)
+    assert out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('h,misaligned', [
+    (0, False), (5, False), (16, False), (16, True), (17, False),
+    (102, False), (128, True), (131, False), (300, False), (300, True)])
+def test_simt_schur_update_ragged(cuda, gen, h, misaligned):
+    """Kernel A's SIMT kernel (float32, 'highest') at depths below, at and
+    off its 16-deep k-slab, with rows that are not 16-byte aligned (h % 4
+    != 0, or a base 4 bytes off), and an nreal inside the last 128-tile;
+    held to the plain version with the bound of the module docstring."""
+    size, tile, offset = 384, 128, 128
+    mb = offset + size
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    A = t(gen.standard_normal((size, h)))
+    if misaligned:
+        A = _misaligned(A)
+    B = t(gen.standard_normal((mb, mb)))
+    s = t(gen.uniform(0.5, 2, mb))
+    kw = dict(s=s, eps=0.5, size=size, offset=offset, tile=tile,
+              nreal=mb - 37)
+    n0 = ops.schur_update.launches
+    got = ops.schur_update(B, A, precision='highest', **kw)
+    torch.cuda.synchronize()
+    assert ops.schur_update.launches == n0 + 1
+    ref = _syrk.schur_update_plain(B, A, **kw)
+    init = _syrk.schur_update_plain(B, torch.zeros_like(A), **kw)
+    keep = _syrk._tile_mask(size, tile, cuda)
+    err = (got - ref).abs()[keep]
+    tol = _tc_tol(A, init, torch.float32, 'highest')[keep]
+    assert bool((err <= tol).all()), float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('p,h', [(1, 7), (2, 33), (3, 130), (5, 256)])
+def test_simt_schur_update_gram_ragged(cuda, gen, p, h):
+    """Kernel D's SIMT kernel at p > 1 and ragged depths, with the pad
+    tail starting inside the last 128-tile."""
+    size, tile, offset = 384, 128, 256
+    npad = offset + size
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    X = t(gen.standard_normal((npad, p)))
+    A = t(gen.standard_normal((size, h)) / h ** 0.5)
+    kw = dict(post=(('mul', t(1.3)),), eps=t(0.09), nreal=npad - 45,
+              size=size, offset=offset, tile=tile)
+    n0 = ops.schur_update_gram.launches
+    got = ops.schur_update_gram('expquad', X, A, precision='highest', **kw)
+    torch.cuda.synchronize()
+    assert ops.schur_update_gram.launches == n0 + 1
+    ref = _syrk.schur_update_gram_plain('expquad', X, A, **kw)
+    init = _syrk.schur_update_gram_plain('expquad', X, torch.zeros_like(A),
+                                         **kw)
+    keep = _syrk._tile_mask(size, tile, cuda)
+    err = (got - ref).abs()[keep]
+    tol = _tc_tol(A, init, torch.float32, 'highest')[keep]
+    assert bool((err <= tol).all()), float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('h,m', [(128, 128), (200, 130), (257, 257),
+                                 (300, 383), (700, 644), (5, 20)])
+@pytest.mark.parametrize('misaligned', [False, True])
+def test_simt_syrk_t_full_ragged(cuda, gen, h, m, misaligned):
+    """Kernel B's SIMT kernel (float32) on its lower-tile work list: m
+    off the 128-tile (the last row and column of tiles partial), m % 4
+    != 0 and a misaligned base (4-byte loads and stores), and h != m
+    (W tall or short); exactly symmetric, and held to the plain version
+    with 4 sqrt(h) u (|W|ᵀ|W|)ᵢⱼ."""
+    W = torch.as_tensor(np.tril(gen.standard_normal((h, m))) / h ** 0.5,
+                        dtype=torch.float32, device=cuda)
+    if misaligned:
+        W = _misaligned(W)
+    n0 = ops.syrk_t_full.launches
+    got = ops.syrk_t_full(W)
+    torch.cuda.synchronize()
+    assert ops.syrk_t_full.launches == n0 + 1
+    assert torch.equal(got, got.T)
+    ref = _syrk.syrk_t_full_plain(W)
+    u = torch.finfo(torch.float32).eps / 2
+    tol = 4 * h ** 0.5 * u * _syrk.syrk_t_full_plain(W.abs()) + 1e-30
+    assert bool(((got - ref).abs() <= tol).all()), \
+        float((got - ref).abs().max())

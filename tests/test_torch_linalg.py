@@ -122,15 +122,24 @@ def test_chol_nll_backward_runs_once(rng):
 
 def test_singular_escalates_float32(rng):
     """A noiseless smooth Gram is singular at float32: the ladder
-    refactors with the bound-scaled eps, as the JAX package's does."""
+    refactors with the bound-scaled eps, as the JAX package's does.
+    With the float32 rescue off (df=False) that is the result, and it
+    warns; by default the rescue then tries float64 at the primary eps,
+    and this Gram, rounded to float32, is indefinite even there, so the
+    ladder's result stays and the warning says so."""
     x = np.linspace(0, 10, 1100)
-    K = np.exp(-0.5 * (x[:, None] - x[None, :]) ** 2)
-    dt = linalg.Chol(torch.as_tensor(K, dtype=torch.float32))
+    K = torch.as_tensor(np.exp(-0.5 * (x[:, None] - x[None, :]) ** 2),
+                        dtype=torch.float32)
+    y = torch.ones(1100, dtype=torch.float32)
+    dt = linalg.Chol(K, df=False)
     assert dt._escalated
     assert bool(torch.isfinite(dt._L).all())
     with pytest.warns(UserWarning, match='numerically singular'):
-        dt.logdet(), dt.minus_log_normal_density(
-            torch.ones(1100, dtype=torch.float32))
+        dt.logdet(), dt.minus_log_normal_density(y)
+    dr = linalg.Chol(K)
+    assert dr._escalated and dr._df_failed and float(dr.eps) == float(dt.eps)
+    with pytest.warns(UserWarning, match='float64 rescue was attempted'):
+        dr.minus_log_normal_density(y)
 
 
 def test_trtri_and_solves(rng):
@@ -195,10 +204,16 @@ def test_ladder_rungs_in_jax_order(rng, monkeypatch, case):
         K, _ = _problem(rng, 1100)
     dt = linalg.Chol(torch.as_tensor(K, dtype=torch.float32))
     eps1 = calls[0][1]
+    escalates = case == 'rungs 1 and 2 fail'
     rungs = [('high', eps1, False), ('highest', eps1, False),
              ('highest', float(dt.eps), True)]
     nrungs = {'well-posed': 1, 'rung 1 fails': 2, 'rungs 1 and 2 fail': 3}
-    assert calls == rungs[:nrungs[case]]
-    assert dt._escalated == (case == 'rungs 1 and 2 fail')
+    # an escalated ladder is followed by the float32 rescue's float64
+    # refactor at the first rung's eps, without the lift (which fails on
+    # this Gram, so the ladder's eps2 stays)
+    rescue = [('highest', eps1, False)] if escalates else []
+    assert calls == rungs[:nrungs[case]] + rescue
+    assert dt._escalated == escalates
+    assert dt._df_failed == escalates
     assert (float(dt.eps) == eps1) == (case != 'rungs 1 and 2 fail')
     assert bool(torch.isfinite(dt._L).all())

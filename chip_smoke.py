@@ -64,7 +64,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    ``halfmatrix=True, gram='tiled'`` (kernel E and its fused backward,
    once each) against the same with ``halfmatrix=False`` (C's, once
    each);
-8. prints a JSON line of kernel records and, last, the device line.
+8. the second-order path of the dense model at n = 16384, float32: from
+   the BFGS fit's MAP, ``empbayes_fit`` with ``covariance='hess'`` (the
+   Hessian by double backward: kernels C′ and C″ once per
+   hyperparameter) and ``covariance='fisher'`` (C′ once per
+   hyperparameter), each matrix held to a float64 oracle (closed-form
+   Hessian and Fisher information from ``torch.linalg.cholesky``)
+   within a bound from the conditioning; a ``method='fisher'`` fit
+   (trust-ncg on the Hessian) from the start point, which must land
+   within one posterior standard deviation of the BFGS fit's MAP; the
+   launch counts of each, and that the BFGS fit launched neither
+   tangent kernel; then the P > 20 path (the noise in 24 groups, P = 26,
+   at n = 8192: trust-ncg on Fisher-vector products for a few
+   iterations, and the Fisher covariance from their columns, positive
+   definite), and ``covariance='hess'`` on the halfmatrix model (E′ and
+   E″) against the full one, both held to the oracle; the tangent
+   kernels C′ (``gram_jvp``), C″ (``gram_backward_jvp``), E′ and E″ are
+   held in step 3 against their plain versions at 16384², C″ and E″ to
+   the bit in two calls, E′ to C′'s entries;
+9. prints a JSON line of kernel records and, last, the device line.
 
 Any failed check exits non-zero before the last line.
 
@@ -91,6 +109,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N = 16384          # the dense slice's size (see PERF.md, Cells)
@@ -749,6 +768,232 @@ def kernel_gram_sym(dtype, gen):
                         record(err_b, ms_b, plain_b, bd_b, wrapper_ms=wrap_b))
 
 
+# the TPU code the tangent kernels replace: C′ the forward direction of
+# C's JVP rule, C″ (and E″) JAX's second differentiation of its
+# derivative-weight Pallas calls under jacfwd(grad), E′ that of E's rule
+TANGENT_REPLACES = {'gram_jvp': 'lsqfitgp_tpu/ops/_gram.py:278',
+                    'gram_bwd_jvp': 'lsqfitgp_tpu/ops/_gram.py:244',
+                    'gram_sym_jvp': 'lsqfitgp_tpu/ops/_gram.py:320',
+                    'gram_sym_bwd_jvp': 'lsqfitgp_tpu/ops/_gram.py:244'}
+
+
+def tangent_record(name, dtype, rec):
+    """A record of a tangent kernel, named ``name`` ('/float64' appended
+    in float64), with the key of its launch count."""
+    label = str(dtype).split('.')[-1]
+    suffix = '' if label == 'float32' else '/' + label
+    rec.update(name=name + suffix, key=name, dtype=label,
+               counter='launches_jvp' if name.endswith('_jvp') and
+               'bwd' not in name else 'launches_bwd_jvp',
+               replaces=TANGENT_REPLACES[name])
+    return rec
+
+
+def tangent_inputs(dtype, gen):
+    """The slice's points (p = 1), their tangent, G, and the amp chain
+    with its tangent, at n = N."""
+    import torch
+    kw = dict(device='cuda', dtype=dtype, generator=gen)
+    x = (torch.rand(N, **kw) - 0.5) * 100
+    dx = torch.randn(N, **kw)
+    amp = torch.tensor(1.3, device='cuda', dtype=dtype)
+    noise = torch.tensor(NOISE_VAR, device='cuda', dtype=dtype)
+    return x, dx, amp, noise
+
+
+def tangent_path_args(x, dx, amp, damp, dnoise):
+    """(X, dX, profile, coef): the points and their tangent as (n, 1)
+    and the coefficients [α, dα, dβ, dnoise] of the amp chain, as the
+    autograd Functions hand them to the tangent kernels."""
+    import torch
+    from lsqfitgp_torch.ops import _gram
+    coef = torch.stack([amp, amp.new_tensor(damp), amp.new_zeros(()),
+                        amp.new_tensor(dnoise)])
+    return x[:, None], dx[:, None], _gram.PROFILES['expquad'], coef
+
+
+def tangent_tol(x, dx, amp, damp, dnoise, u):
+    """C′'s per-entry rounding: 16 (p + 1) u times the sum of its terms'
+    magnitudes, |α g' dr²| + |dα| g + |dnoise| (p = 1)."""
+    import torch
+    with torch.no_grad():
+        D = x[:, None] - x[None, :]
+        g = torch.exp(-0.5 * D * D)
+        terms = (0.5 * amp) * g * 2 * (D * (dx[:, None] - dx[None, :])).abs()
+        terms += abs(damp) * g + abs(dnoise)
+        del D, g
+    return 32 * u * terms
+
+
+def bwd_jvp_bounds(G, x, dx, amp, damp, u, sym):
+    """The tolerances of C″'s and E″'s sums at p = 1 (x both arguments),
+    as `bwd_bounds`: the x sums, n terms in another order, 8 sqrt(n) u
+    sum|terms| with the terms' weights |G| (|dα| |g'| + α |g'' dr²|) on
+    |Δ| and |G| α |g'| on |dΔ| (both of K's arguments: the weights and
+    their transposes); the amp tangent's sum of n² terms, ceil(log2(n²))
+    4 u sum|G g' dr²|.  Returns (x, amp)."""
+    import torch
+    n = G.shape[0]
+    with torch.no_grad():
+        D = x[:, None] - x[None, :]
+        dD = dx[:, None] - dx[None, :]
+        g = torch.exp(-0.5 * D * D)
+        adr2 = 2 * (D * dD).abs()
+        Ga = G.abs() + G.abs().T if sym else G.abs()
+        A1 = Ga * g * (0.5 * abs(damp) + 0.25 * amp * adr2)
+        A2 = Ga * g * (0.5 * amp)
+        T = A1 * D.abs() + A2 * dD.abs()
+        tx = 2 * (T.sum(1) + T.sum(0))
+        del T, A1, A2
+        ta = (G.abs() * g * adr2).sum()
+        del D, dD, g
+    return (8 * math.sqrt(n) * u * tx + 32 * u * tx,
+            math.ceil(math.log2(n * n)) * 4 * u * ta)
+
+
+def kernel_gram_tangent(dtype, gen):
+    """Kernels C′ and C″ at the slice's point block (n = m = 16384,
+    p = 1, the amp chain with the nugget): C′ (`gram_jvp`, along the
+    points', amp's and the nugget's tangents) and C″ (`gram_backward_jvp`,
+    at a fixed G) against their plain versions on the card, C″ also
+    against itself to the bit.  A record each."""
+    import torch
+    from lsqfitgp_torch.ops import (gram_jvp, gram_jvp_plain,
+                                    gram_backward_jvp,
+                                    gram_backward_jvp_plain, _gram)
+    u = unit_roundoff(dtype)
+    isz = torch.finfo(dtype).bits // 8
+    x, dx, amp, noise = tangent_inputs(dtype, gen)
+    damp, dnoise = 0.3, 0.5
+    kw = dict(post=(('mul', amp),), noise=noise, dpost=(damp,),
+              dnoise=dnoise)
+    got = gram_jvp('expquad', x, None, dx, **kw)
+    ref = gram_jvp_plain('expquad', x, None, dx, **kw)
+    err = check_close(f'C\' gram_jvp {dtype}', got, ref,
+                      tangent_tol(x, dx, float(amp), damp, dnoise, u))
+    del got, ref
+    # timed as the autograd path calls it (`_Gram.jvp`, the double
+    # backward's G-cotangent): the folded chain's coefficients formed
+    # once; the public wrapper, which folds them per call, on the host
+    # clock beside it
+    X, dX, prof, coef = tangent_path_args(x, dx, amp, damp, dnoise)
+    ms = device_ms(lambda: _gram._tangent(prof, X, X, dX, dX, coef, True))
+    plain_ms = device_ms(
+        lambda: _gram._tangent_plain(prof, X, X, dX, dX, coef, True))
+    wrap = median_ms(lambda: gram_jvp('expquad', x, None, dx, **kw),
+                     batch=GRAM_BATCH)
+    # the output written once; the points and their tangents read once
+    bd = bound(isz * (N * N + 2 * N), 10 * N * N, dtype)
+    log(f'  C\' {dtype}: kernel {ms:.3f} ms (the wrapper {wrap:.3f} ms), '
+        f'plain {plain_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})')
+
+    G = torch.randn(N, N, device='cuda', dtype=dtype, generator=gen)
+    bkw = dict(post=(('mul', amp),), noise=noise, dpost=(damp,))
+
+    def fused():
+        gx, gy, gp = gram_backward_jvp(G, 'expquad', x, None, dx, **bkw)
+        return gx + gy, gp
+
+    got, again = fused(), fused()
+    for a, b in zip(got, again):
+        if not torch.equal(a, b):
+            fail(f'C\'\' gram_backward_jvp {dtype}: two calls differ')
+    gx, gy, gp = gram_backward_jvp_plain(G, 'expquad', x, None, dx, **bkw)
+    tx, ta = bwd_jvp_bounds(G, x, dx, float(amp), damp, u, False)
+    err_b = check_close(f'C\'\' gram_backward_jvp dx {dtype}', got[0][:, 0],
+                        (gx + gy)[:, 0], tx)
+    err_b = max(err_b, check_close(f'C\'\' gram_backward_jvp damp {dtype}',
+                                   got[1][0], gp[0], ta))
+    log(f'    C\'\' gram_backward_jvp {dtype}: two calls agree to the bit')
+    del got, again, gx, gy, gp
+    # as `_GramBackward.backward` calls it: the points' half and the
+    # chain's sums (the public wrapper adds the chain's tangent by
+    # torch.func.jvp, a few dozen small kernels)
+    ms_b = device_ms(lambda: _gram._bwd_tangent(G, prof, X, X, dX, dX,
+                                                coef[:2], True, True))
+    plain_b = device_ms(lambda: _gram._bwd_tangent_plain(
+        G, prof, X, X, dX, dX, coef[:2], True, True))
+    wrap_b = median_ms(
+        lambda: gram_backward_jvp(G, 'expquad', x, None, dx, **bkw),
+        batch=GRAM_BATCH)
+    # G read once; the points, their tangents and the sums' slots
+    bd_b = bound(isz * (N * N + 4 * N), 20 * N * N, dtype)
+    log(f'  C\'\' {dtype}: kernel {ms_b:.3f} ms (the wrapper {wrap_b:.3f} '
+        f'ms), plain {plain_b:.3f} ms, bound {bd_b[0]:.3f} ms ({bd_b[1]})')
+    return [tangent_record('gram_jvp', dtype,
+                           record(err, ms, plain_ms, bd, wrapper_ms=wrap)),
+            tangent_record('gram_bwd_jvp', dtype,
+                           record(err_b, ms_b, plain_b, bd_b,
+                                  wrapper_ms=wrap_b))]
+
+
+def kernel_gram_sym_tangent(dtype, gen):
+    """Kernels E′ and E″ as C′ and C″ on E's upper tile pairs: E′'s
+    entries equal C′'s to the bit; E″ against its plain version and
+    against itself to the bit.  A record each."""
+    import torch
+    from lsqfitgp_torch.ops import (gram_jvp, gram_sym_jvp,
+                                    gram_sym_jvp_plain,
+                                    gram_sym_backward_jvp,
+                                    gram_sym_backward_jvp_plain, _gram)
+    u = unit_roundoff(dtype)
+    isz = torch.finfo(dtype).bits // 8
+    x, dx, amp, noise = tangent_inputs(dtype, gen)
+    damp, dnoise = 0.3, 0.5
+    kw = dict(post=(('mul', amp),), noise=noise, dpost=(damp,),
+              dnoise=dnoise)
+    got = gram_sym_jvp('expquad', x, dx, **kw)
+    if not torch.equal(got, gram_jvp('expquad', x, None, dx, **kw)):
+        fail(f'E\' gram_sym_jvp {dtype}: differs from kernel C\'')
+    ref = gram_sym_jvp_plain('expquad', x, dx, **kw)
+    err = check_close(f'E\' gram_sym_jvp {dtype}', got, ref,
+                      tangent_tol(x, dx, float(amp), damp, dnoise, u))
+    log(f'    E\' gram_sym_jvp {dtype}: equal to kernel C\' to the bit')
+    del got, ref
+    X, dX, prof, coef = tangent_path_args(x, dx, amp, damp, dnoise)
+    ms = device_ms(lambda: _gram._sym_tangent(prof, X, dX, coef, True))
+    plain_ms = device_ms(
+        lambda: _gram._tangent_plain(prof, X, X, dX, dX, coef, True))
+    wrap = median_ms(lambda: gram_sym_jvp('expquad', x, dx, **kw),
+                     batch=GRAM_BATCH)
+    bd = bound(isz * (N * N + 2 * N), 10 * N * (N + 1) / 2, dtype)
+    log(f'  E\' {dtype}: kernel {ms:.3f} ms (the wrapper {wrap:.3f} ms), '
+        f'plain {plain_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})')
+
+    G = torch.randn(N, N, device='cuda', dtype=dtype, generator=gen)
+    bkw = dict(post=(('mul', amp),), noise=noise, dpost=(damp,))
+    got = gram_sym_backward_jvp(G, 'expquad', x, dx, **bkw)
+    again = gram_sym_backward_jvp(G, 'expquad', x, dx, **bkw)
+    for a, b in zip(got, again):
+        if not torch.equal(a, b):
+            fail(f'E\'\' gram_sym_backward_jvp {dtype}: two calls differ')
+    ref = gram_sym_backward_jvp_plain(G, 'expquad', x, dx, **bkw)
+    tx, ta = bwd_jvp_bounds(G, x, dx, float(amp), damp, u, True)
+    err_b = check_close(f'E\'\' gram_sym_backward_jvp dx {dtype}',
+                        got[0][:, 0], ref[0][:, 0], tx)
+    err_b = max(err_b, check_close(
+        f'E\'\' gram_sym_backward_jvp damp {dtype}', got[1][0], ref[1][0],
+        ta))
+    log(f'    E\'\' gram_sym_backward_jvp {dtype}: two calls agree to the '
+        f'bit')
+    del got, again, ref
+    ms_b = device_ms(lambda: _gram._sym_bwd_tangent(G, prof, X, dX,
+                                                    coef[:2], True, True))
+    plain_b = device_ms(lambda: _gram._sym_bwd_tangent_plain(
+        G, prof, X, dX, coef[:2], True, True))
+    wrap_b = median_ms(
+        lambda: gram_sym_backward_jvp(G, 'expquad', x, dx, **bkw),
+        batch=GRAM_BATCH)
+    bd_b = bound(isz * (N * N + 3 * N), 20 * N * (N + 1) / 2, dtype)
+    log(f'  E\'\' {dtype}: kernel {ms_b:.3f} ms (the wrapper {wrap_b:.3f} '
+        f'ms), plain {plain_b:.3f} ms, bound {bd_b[0]:.3f} ms ({bd_b[1]})')
+    return [tangent_record('gram_sym_jvp', dtype,
+                           record(err, ms, plain_ms, bd, wrapper_ms=wrap)),
+            tangent_record('gram_sym_bwd_jvp', dtype,
+                           record(err_b, ms_b, plain_b, bd_b,
+                                  wrapper_ms=wrap_b))]
+
+
 def kernel_phase():
     import torch
     records = []
@@ -768,6 +1013,10 @@ def kernel_phase():
          [f32, f64]),
         ('gram_sym', kernel_gram_sym, 'lsqfitgp_torch/csrc/gram.cu',
          'lsqfitgp_tpu/ops/_gram.py:157', [f32, f64]),
+        ('gram tangents', kernel_gram_tangent, 'lsqfitgp_torch/csrc/gram.cu',
+         None, [f32, f64]),
+        ('gram_sym tangents', kernel_gram_sym_tangent,
+         'lsqfitgp_torch/csrc/gram.cu', None, [f32, f64]),
     ]
     for name, fn, source, replaces, variants in specs:
         log(f'kernel {name}:')
@@ -836,9 +1085,12 @@ KERNELS = ['schur_update', 'syrk_t_full', 'syrk_t_full_', 'gram',
 # ('launches_tc1') and their FP64 tensor-core kernel ('launches_dmma')
 # apart; B its SIMT (float32) and DMMA (float64) kernels, and its
 # in-place form, `syrk_t_full_`, its DMMA kernel; C and E their forward
-# ('launches') and their fused backward ('launches_bwd') apart
+# ('launches'), their fused backward ('launches_bwd'), their tangent
+# kernels C′ and E′ ('launches_jvp') and the tangent of their backward,
+# C″ and E″ ('launches_bwd_jvp') apart
 COUNTERS = {'launches': '', 'launches_tc': '_tc', 'launches_tc1': '_tc1',
-            'launches_dmma': '_dmma', 'launches_bwd': '_bwd'}
+            'launches_dmma': '_dmma', 'launches_bwd': '_bwd',
+            'launches_jvp': '_jvp', 'launches_bwd_jvp': '_bwd_jvp'}
 
 
 def _counters():
@@ -1007,7 +1259,8 @@ def slice_phase(dev='cuda'):
     require_launched(fit_launches, ['schur_update_tc', 'syrk_t_full__dmma',
                                     'gram', 'gram_bwd'], 'the dense fit')
     evals = len(fit.evaltimes)
-    require_counts(fit_launches, {'gram': evals, 'gram_bwd': evals},
+    require_counts(fit_launches, {'gram': evals, 'gram_bwd': evals,
+                                  'gram_jvp': 0, 'gram_bwd_jvp': 0},
                    'the dense fit')
     scale = float(fit.pmean['scale'])
     amp = float(fit.pmean['amp'])
@@ -1835,6 +2088,322 @@ def halfmatrix_phase(dev='cuda'):
     return out[True][3]
 
 
+# -- second-order phases ---------------------------------------------------------
+
+N_FISHVEC = 8192    # the P > 20 model's size
+FISHVEC_GROUPS = 24  # its noise groups: P = 26
+FISHVEC_ITERS = 3    # its trust-ncg iterations (the smoke's time)
+FISHER_ITERS = 30    # the cap of the method='fisher' fit at n = N
+
+
+def dense_model(dev, n=None, groups=0, halfmatrix=False):
+    """The dense slice's model and data at n points (its point density):
+    ``(gpfactory, hyperprior, x, y)`` in float32 on ``dev``; with
+    ``groups``, the noise variance is a hyperparameter per contiguous
+    group of points (``log(noise)``, N(log 0.09, 0.5²) each)."""
+    import numpy as np
+    import torch
+    import lsqfitgp_torch as lgp
+    f32 = torch.float32
+    n = N if n is None else n
+    rng = np.random.default_rng(SEED)
+    half = 50 * n / N
+    x = rng.uniform(-half, half, n)
+    y = np.sin(x) + math.sqrt(NOISE_VAR) * rng.standard_normal(n)
+    xt = torch.as_tensor(x, dtype=f32, device=dev)
+    yt = torch.as_tensor(y, dtype=f32, device=dev)
+    hyperprior = {'log(scale)': (0., 1.), 'log(amp)': (0., 1.)}
+    if groups:
+        which = torch.arange(n, device=dev) * groups // n
+        hyperprior['log(noise)'] = (np.full(groups, math.log(NOISE_VAR)),
+                                    np.full(groups, 0.5))
+    else:
+        noise = NOISE_VAR * torch.eye(n, dtype=f32, device=dev)
+
+    def gpfactory(hp):
+        gp = lgp.GP(hp['amp'] * lgp.ExpQuad(scale=hp['scale']),
+                    gram='tiled', halfmatrix=halfmatrix)
+        cov = torch.diag(hp['noise'][which]) if groups else noise
+        gp = gp.addx(xt, 'f').addcov(cov, 'e')
+        return gp.addlintransf(lambda f, e: f + e, ['f', 'e'], 'y')
+
+    return gpfactory, hyperprior, xt, yt
+
+
+def plain_curvature64(x, y, log_scale, log_amp):
+    """Independent float64 reference of the objective's Hessian and of
+    its expected Fisher information in (log scale, log amp), each with
+    the N(0, 1) prior's identity: dense K, ``torch.linalg.cholesky`` and
+    the textbook forms
+
+        H_ab = ½ tr(K⁻¹K_ab) − ½ tr(K⁻¹K_a K⁻¹K_b)
+               + (K_a α)ᵀ K⁻¹ (K_b α) − ½ αᵀ K_ab α,
+        F_ab = ½ tr(K⁻¹K_a K⁻¹K_b),   α = K⁻¹ y,
+
+    with K_amp = K_amp,amp = amp E, K_scale = K_scale,amp = amp E ∘ D and
+    K_scale,scale = amp E ∘ (D² − 2D), D = Δ²/scale², E = exp(−D/2); no
+    port code.  Returns (H, F, S) as 2 × 2 float64, S the sum of the
+    magnitudes of H's terms (its first and last pairs cancel, as the
+    gradient's do: a float32 error scales with them, not with H)."""
+    import torch
+    scale, amp = math.exp(log_scale), math.exp(log_amp)
+    D = x[:, None] - x[None, :]
+    D.mul_(D).div_(scale * scale)
+    K1 = torch.exp(D * -0.5).mul_(amp)
+    K = K1.clone()
+    K.diagonal().add_(NOISE_VAR)
+    L = torch.linalg.cholesky(K)
+    del K
+    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+    Kinv = torch.cholesky_inverse(L)
+    del L
+    K0 = K1 * D
+    K00 = K0 * (D - 2)
+    del D
+    Ks = [K0, K1]
+    M = [Kinv @ K0, Kinv @ K1]
+    u = [K0 @ alpha, K1 @ alpha]
+    Kab = [[K00, K0], [K0, K1]]
+    H = torch.empty(2, 2, dtype=x.dtype, device=x.device)
+    F = torch.empty_like(H)
+    S = torch.empty_like(H)
+    for a in range(2):
+        for b in range(2):
+            trMM = (M[a] * M[b].T).sum()
+            terms = torch.stack([0.5 * (Kinv * Kab[a][b]).sum(), -0.5 * trMM,
+                                 u[a] @ (Kinv @ u[b]),
+                                 -0.5 * alpha @ (Kab[a][b] @ alpha)])
+            F[a, b] = 0.5 * trMM + (a == b)
+            H[a, b] = terms.sum() + (a == b)
+            S[a, b] = terms.abs().sum() + (a == b)
+    del Ks, M, Kab, Kinv, K0, K1, K00
+    return H, F, S
+
+
+def counts_since(before):
+    now = read_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def second_order_phase(fitted, dev='cuda'):
+    """The dense model's second-order path at n = N in float32: from the
+    BFGS fit's MAP, empbayes_fit with covariance='hess' (the Hessian by
+    double backward: C′ and C″ once per hyperparameter) and 'fisher'
+    (Chol.fisher of the forward-mode (K, r) tangents: C′ once per
+    hyperparameter), each 2 × 2 covariance against the inverse of its
+    float64 oracle (`plain_curvature64`) within 10 cond eps32 relative;
+    then a method='fisher' fit (trust-ncg on the Hessian) from the start
+    point, which must land within one posterior standard deviation of
+    the BFGS fit's MAP.  Returns the phase's launch counts."""
+    import torch
+    import lsqfitgp_torch as lgp
+
+    def sync():
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+
+    f32 = torch.float32
+    torch.set_default_dtype(f32)
+    eps32 = torch.finfo(f32).eps
+    gpfactory, hyperprior, xt, yt = dense_model(dev)
+    x64, y64 = xt.double(), yt.double()
+    P = 2
+    log(f'second order: n = {N}, float32, the dense slice\'s model, from '
+        f'the BFGS fit\'s MAP {fitted}')
+    reset_counts()
+    for cov in ('hess', 'fisher'):
+        before = read_counts()
+        sync()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            # a few BFGS iterations from the MAP, where float32's line
+            # searches end on 'precision loss' or the cap
+            warnings.simplefilter('ignore')
+            fit = lgp.empbayes_fit(hyperprior, gpfactory, {'y': yt},
+                                   initial=fitted, covariance=cov,
+                                   minkw={'maxiter': 3}, raises=False)
+        sync()
+        wall = time.perf_counter() - t0
+        c = counts_since(before)
+        evals = len(fit.evaltimes)
+        ls, la = fit.pmean.buf.tolist()
+        with torch.no_grad():
+            H64, F64, S64 = plain_curvature64(x64, y64, ls, la)
+            K = gpfactory({'scale': torch.tensor(math.exp(ls)),
+                           'amp': torch.tensor(math.exp(la))}).prior(
+                               'y', raw=True)
+            cond = float(lgp.linalg.Chol(K).cond_estimate)
+            del K
+        # the matrix the fit inverted (the prior is N(0, I), so the
+        # whitened and stored parameters coincide): against the oracle,
+        # entry by entry, within 10 cond eps32 of its terms' magnitudes
+        # (the gradient's bound, `check_points`)
+        ref, scale = (H64, S64) if cov == 'hess' else (F64, F64)
+        pcov = fit.pcov.double()
+        got = torch.linalg.inv(pcov)
+        limit = 10 * cond * eps32 * scale
+        excess = float(((got - ref).abs() / limit).max())
+        log(f'  covariance={cov!r}: {wall:.2f} s wall ({evals} BFGS '
+            f'evaluations, then the covariance in {fit.covtime:.3f} s) at '
+            f'log scale {ls:.6g}, log amp {la:.6g}; pcov {pcov.tolist()}; '
+            f'its inverse {got.tolist()}, float64 oracle {ref.tolist()}, '
+            f'relative error {float((got - ref).norm() / ref.norm()):.3e}, '
+            f'max error over its limit {excess:.3f} (limit 10 cond eps32 '
+            f'times {scale.tolist()}, cond_estimate {cond:.4g}); launches '
+            f'{nonzero(c)}')
+        if not bool(torch.isfinite(pcov).all()):
+            fail(f'covariance={cov!r}: non-finite')
+        if excess > 1:
+            fail(f'covariance={cov!r} disagrees with the float64 oracle')
+        if cov == 'hess':
+            # one create_graph gradient (C's backward as a Function) and
+            # P passes, each C′, C″ and C's backward once
+            require_counts(c, {'gram_jvp': P, 'gram_bwd_jvp': P,
+                               'gram': evals + 1,
+                               'gram_bwd': evals + 1 + P},
+                           'the Hessian')
+            # the posterior standard deviations at the MAP, float64
+            sdev = torch.linalg.inv(H64).diagonal().sqrt().cpu()
+        else:
+            # the primal (K, r) and P forward-mode passes, each C and C′
+            require_counts(c, {'gram_jvp': P, 'gram_bwd_jvp': 0,
+                               'gram': evals + 1 + P, 'gram_bwd': evals},
+                           'the Fisher information')
+        if dev == 'cuda':
+            torch.cuda.empty_cache()
+
+    # the method='fisher' fit from the start point
+    before = read_counts()
+    sync()
+    t0 = time.perf_counter()
+    fit = lgp.empbayes_fit(hyperprior, gpfactory, {'y': yt},
+                           method='fisher', minkw={'maxiter': FISHER_ITERS},
+                           raises=False)
+    sync()
+    wall = time.perf_counter() - t0
+    c = counts_since(before)
+    res = fit.minresult
+    got = torch.tensor(fit.pmean.buf.tolist(), dtype=torch.float64)
+    shift = ((got - torch.tensor(fitted, dtype=torch.float64)).abs()
+             / sdev)
+    log(f'  method=\'fisher\' (trust-ncg): {wall:.2f} s wall, {res.nit} '
+        f'iterations, {fit.counts["fun"]} evaluations, '
+        f'{fit.counts["hess"]} Hessians, median '
+        f'{statistics.median(fit.evaltimes) * 1e3:.1f} ms per evaluation, '
+        f'covariance={fit.covariance!r} in {fit.covtime:.3f} s; exit '
+        f'{res.message!r}; MAP {got.tolist()} against BFGS {fitted}: '
+        f'{shift.tolist()} posterior sdev (limit 1); launches {nonzero(c)}')
+    if not bool((shift <= 1).all()):
+        fail('method=\'fisher\' lands away from the BFGS fit\'s MAP')
+    hessians = fit.counts['hess'] + (fit.covariance == 'hess')
+    require_counts(c, {'gram_jvp': P * hessians,
+                       'gram_bwd_jvp': P * hessians},
+                   'the method=\'fisher\' fit')
+    return read_counts()
+
+
+def fishvec_phase(dev='cuda'):
+    """The P > 20 path: the dense model with the noise in FISHVEC_GROUPS
+    contiguous groups (P = 26) at n = N_FISHVEC, method='fisher' (trust-ncg
+    on Fisher-vector products, FISHVEC_ITERS iterations) and
+    covariance='fisher' (its columns from Fisher-vector products): C′
+    once per product, no C″; the covariance finite and positive
+    definite.  Returns the phase's launch counts."""
+    import torch
+    import lsqfitgp_torch as lgp
+    torch.set_default_dtype(torch.float32)
+    gpfactory, hyperprior, _, yt = dense_model(dev, N_FISHVEC,
+                                               FISHVEC_GROUPS)
+    P = 2 + FISHVEC_GROUPS
+    log(f'fisher-vector products: n = {N_FISHVEC}, float32, P = {P}')
+    if dev == 'cuda':
+        torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')
+        fit = lgp.empbayes_fit(hyperprior, gpfactory, {'y': yt},
+                               method='fisher', covariance='fisher',
+                               minkw={'maxiter': FISHVEC_ITERS},
+                               raises=False)
+    if dev == 'cuda':
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = read_counts()
+    eig = torch.linalg.eigvalsh(fit.pcov.double())
+    log(f'  {wall:.2f} s wall, {fit.minresult.nit} iterations, '
+        f'{fit.counts["fun"]} evaluations, {fit.counts["hess"]} '
+        f'Fisher-vector products, the covariance in {fit.covtime:.3f} s; '
+        f'pcov eigenvalues {eig.min().item():.4g} to {eig.max().item():.4g};'
+        f' launches {nonzero(c)}')
+    if fit.counts['hess'] == 0:
+        fail('the P > 20 fit took no Fisher-vector product')
+    require_counts(c, {'gram_jvp': fit.counts['hess'] + P,
+                       'gram_bwd_jvp': 0}, 'the P > 20 fit')
+    if not bool(torch.isfinite(eig).all()) or float(eig.min()) <= 0:
+        fail('the P > 20 Fisher covariance is not positive definite')
+    return c
+
+
+def halfmatrix_hess_phase(fitted, dev='cuda'):
+    """covariance='hess' at the dense fit's MAP on the halfmatrix model
+    (E′ and E″ twice each) and with halfmatrix=False (C′ and C″), each
+    held to the float64 oracle as in `second_order_phase` (the two sum
+    in other orders, so they differ by float32 rounding of the same
+    size).  Returns the halfmatrix run's launch counts."""
+    import torch
+    import lsqfitgp_torch as lgp
+    f32 = torch.float32
+    torch.set_default_dtype(f32)
+    eps32 = torch.finfo(f32).eps
+    log('halfmatrix second order: covariance=\'hess\' at the MAP, '
+        'halfmatrix=True against False')
+    out = {}
+    for hm in (False, True):
+        gpfactory, hyperprior, xt, yt = dense_model(dev, halfmatrix=hm)
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore')
+            fit = lgp.empbayes_fit(hyperprior, gpfactory, {'y': yt},
+                                   initial=fitted, covariance='hess',
+                                   minkw={'maxiter': 0}, raises=False)
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+        out[hm] = (torch.linalg.inv(fit.pcov.double()),
+                   time.perf_counter() - t0, read_counts())
+        log(f'  halfmatrix={hm}: the Hessian {out[hm][0].tolist()}, '
+            f'{out[hm][1]:.2f} s, launches {nonzero(out[hm][2])}')
+    require_counts(out[True][2], {'gram_sym_jvp': 2, 'gram_sym_bwd_jvp': 2,
+                                  'gram_jvp': 0, 'gram_bwd_jvp': 0},
+                   'the halfmatrix Hessian')
+    require_counts(out[False][2], {'gram_jvp': 2, 'gram_bwd_jvp': 2,
+                                   'gram_sym_jvp': 0,
+                                   'gram_sym_bwd_jvp': 0},
+                   'the full Hessian')
+    ls, la = fit.pmean.buf.tolist()
+    with torch.no_grad():
+        H64, _, S64 = plain_curvature64(xt.double(), yt.double(), ls, la)
+        K = gpfactory({'scale': torch.tensor(math.exp(ls)),
+                       'amp': torch.tensor(math.exp(la))}).prior(
+                           'y', raw=True)
+        cond = float(lgp.linalg.Chol(K).cond_estimate)
+        del K
+    limit = 10 * cond * eps32 * S64
+    rel = float((out[True][0] - out[False][0]).norm() / H64.norm())
+    excess = [float(((out[hm][0] - H64).abs() / limit).max())
+              for hm in (False, True)]
+    log(f'  relative difference {rel:.3e}; max error over the oracle\'s '
+        f'limit (as in the second-order phase): full {excess[0]:.3f}, '
+        f'halfmatrix {excess[1]:.3f}')
+    if max(excess) > 1:
+        fail('a Hessian of the halfmatrix check disagrees with the float64 '
+             'oracle')
+    return out[True][2]
+
+
 def main(argv):
     sys.path.insert(0, ROOT)
     header()
@@ -1888,6 +2457,15 @@ def main(argv):
     log(f'elapsed {time.perf_counter() - t0:.1f} s')
     torch.cuda.empty_cache()
     paths['halfmatrix'] = halfmatrix_phase()
+    log(f'elapsed {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    paths['second'] = second_order_phase(fitted)
+    log(f'elapsed {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    paths['fishvec'] = fishvec_phase()
+    log(f'elapsed {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    paths['halfmatrix_hess'] = halfmatrix_hess_phase(fitted)
     # each kernel's launches are those of its own path's run: the dense
     # fit's, but for A, C and C's backward in float64 the float64 dense
     # evaluation's.  C's and E's counters do not tell the dtypes apart:
@@ -1896,12 +2474,15 @@ def main(argv):
     own = {'schur_update': 'dense', 'syrk_t_full': 'dense',
            'syrk_t_full_': 'dense', 'gram': 'dense', 'gram_bwd': 'dense',
            'schur_update_gram': 'stream', 'gram_sym': 'halfmatrix',
-           'gram_sym_bwd': 'halfmatrix'}
+           'gram_sym_bwd': 'halfmatrix', 'gram_jvp': 'second',
+           'gram_bwd_jvp': 'second', 'gram_sym_jvp': 'halfmatrix_hess',
+           'gram_sym_bwd_jvp': 'halfmatrix_hess'}
     own64 = {'schur_update': 'dense64', 'gram': 'dense64',
              'gram_bwd': 'dense64'}
     # A's SIMT kernel ('highest') runs on the rescue phase's ladder
     own_key = {'schur_update': 'rescue'}
-    dtype_paths = {'float32': ['rescue', 'dense', 'stream', 'halfmatrix'],
+    dtype_paths = {'float32': ['rescue', 'dense', 'stream', 'halfmatrix',
+                               'second', 'fishvec', 'halfmatrix_hess'],
                    'float64': ['dense64']}
     for rec in records:
         base = rec['name'].split('/')[0]

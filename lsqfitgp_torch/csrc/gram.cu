@@ -12,6 +12,14 @@
 // replacing lsqfitgp_tpu/ops/_gram.py::_gram_sym_kernel; its backward,
 // gram_sym_bwd, replaces _gram_sym_d_jvp.
 //
+// Their tangents, for forward-mode and second-order derivatives:
+// kernel C' (gram_jvp), the tangent Gram dK along (dx, dy) and the post
+// chain's and nugget's tangents, the forward direction of _gram_d_jvp;
+// kernel C'' (gram_bwd_jvp), the tangent of C's backward at a fixed
+// output gradient G, which replaces JAX's second differentiation of the
+// _elemgrad_* Pallas calls under jacfwd(grad); E' and E'' the same for
+// y = x on E's upper tile pairs.
+//
 // Bounds on the H100: a forward writes the n x m output once and reuses
 // nothing across tiles, so the write stream bounds it (plus one exp per
 // entry, half of them in E); a backward reads the output gradient G
@@ -58,6 +66,16 @@
 //   J, each into the slot of the other tile, so all of G is read once
 //   and half of C's exponentials are taken.  A diagonal tile (its own
 //   mirror, read once) takes row sums only, over the whole tile.
+// - The tangent kernels are the forwards and the backwards with more
+//   per entry: C' and E' also read the points' tangents (registers at
+//   p = 1) and write dK with the forwards' stores, mirror and ragged
+//   edge; C'' and E'' take g, g' and g'' from one exponential and sum,
+//   with the backwards' slots and no atomics (two calls give the same
+//   bits), G (dalpha g' + alpha g'' dr^2)(x_i - y_j) + G alpha g'
+//   (dx_i - dy_j), and G g' dr^2, G and G g for the chain's.  The weights
+//   are zero at r^2 <= 0, as the first derivative's.  The post chain
+//   enters through coef = [alpha, dalpha, dbeta, dnoise] in device
+//   memory, which the wrapper forms from the chain and its tangent.
 
 #include "profiles.cuh"
 
@@ -530,6 +548,365 @@ gram_sym_bwd_kernel(const T* __restrict__ G, const T* __restrict__ x,
         block_scalars(sg, sgk, tr, scal + 3 * (long long)blockIdx.x);
 }
 
+// -- tangents ----------------------------------------------------------------
+
+// alpha (the chain's 'mul' product), the tangents of the folded chain's
+// alpha and beta, and the nugget's tangent: coef[0..4)
+template <typename T>
+struct Tangent {
+    T alpha, dalpha, dbeta, dnoise;
+};
+
+template <typename T>
+__device__ __forceinline__ Tangent<T> load_tangent(const T* __restrict__ coef)
+{
+    return Tangent<T>{coef[0], coef[1], coef[2], coef[3]};
+}
+
+// r^2 and its tangent dr^2 of entry (r, c): at p = 1 from the
+// coordinates and their tangents in registers
+template <typename T, bool P1>
+__device__ __forceinline__ T dist2_tangent(const T* __restrict__ x,
+                                           const T* __restrict__ y,
+                                           const T* __restrict__ dx,
+                                           const T* __restrict__ dy,
+                                           long long r, long long c, int p,
+                                           T xr, T yc, T dxr, T dyc, T& dr2)
+{
+    if constexpr (P1) {
+        const T dl = xr - yc;
+        dr2 = T(2) * (dl * (dxr - dyc));
+        return dl * dl;
+    } else {
+        return sqdist_tangent(x + r * p, y + c * p, dx + r * p, dy + c * p, p,
+                              dr2);
+    }
+}
+
+// One entry of the tangent Gram: alpha g'(r^2) dr^2 (zero at r^2 <= 0,
+// where the true tangent vanishes) + dalpha g + dbeta, plus dnoise on
+// the global diagonal.  C' and E' share it, so their entries are
+// identical.
+template <typename T, class Prof>
+__device__ __forceinline__ T entry_tangent(T r2, T dr2, const Tangent<T>& tc,
+                                           bool on_diag)
+{
+    T d1;
+    const T g = Prof::both(r2, d1);
+    T v = fma(tc.dalpha, g, tc.dbeta);
+    if (r2 > T(0)) v = fma(tc.alpha * d1, dr2, v);
+    if (on_diag) v += tc.dnoise;
+    return v;
+}
+
+// Kernel C': the tangent Gram, tiled and stored as kernel C.
+template <typename T, class Prof, bool P1>
+__global__ void __launch_bounds__(NT)
+gram_jvp_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                const T* __restrict__ dx, const T* __restrict__ dy,
+                long long n, long long m, int p, const T* __restrict__ coef,
+                int with_noise, T* __restrict__ out)
+{
+    using Gm = Geo<T>;
+    constexpr int V = Gm::V;
+    const int tx = threadIdx.x % Gm::TX, ty = threadIdx.x / Gm::TX;
+    const long long i0 = (long long)blockIdx.y * TILE;
+    const long long j0 = (long long)blockIdx.x * TILE;
+    const long long c0 = j0 + tx * V;
+    const Tangent<T> tc = load_tangent(coef);
+    const bool diag = with_noise && i0 < j0 + TILE && j0 < i0 + TILE;
+    const bool wide = m % V == 0;
+    T yc[V], dyc[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+        const bool cv = P1 && c0 + k < m;
+        yc[k] = cv ? y[c0 + k] : T(0);
+        dyc[k] = cv ? dy[c0 + k] : T(0);
+    }
+#pragma unroll
+    for (int a = 0; a < Gm::RPT; ++a) {
+        const long long r = i0 + ty + a * Gm::TY;
+        if (r >= n) break;
+        const T xr = P1 ? x[r] : T(0), dxr = P1 ? dx[r] : T(0);
+        T v[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+            const long long c = c0 + k < m ? c0 + k : m - 1;
+            T dr2;
+            const T r2 = dist2_tangent<T, P1>(x, y, dx, dy, r, c, p, xr,
+                                              yc[k], dxr, dyc[k], dr2);
+            v[k] = entry_tangent<T, Prof>(r2, dr2, tc, diag && r == c0 + k);
+        }
+        store_row(out + r * m + c0, v, m - c0, wide);
+    }
+}
+
+// Kernel E': C' for y = x on the upper tile pairs, each tile and its
+// mirror written, as kernel E.
+template <typename T, class Prof, bool P1>
+__global__ void __launch_bounds__(NT)
+gram_sym_jvp_kernel(const T* __restrict__ x, const T* __restrict__ dx,
+                    long long n, int p, const T* __restrict__ coef,
+                    int with_noise, T* __restrict__ out)
+{
+    using Gm = Geo<T>;
+    constexpr int V = Gm::V;
+    __shared__ T sh[TILE][TILE + 1];
+    long long i0, j0;
+    upper_pair(blockIdx.x, i0, j0);
+    const int tx = threadIdx.x % Gm::TX, ty = threadIdx.x / Gm::TX;
+    const long long c0 = j0 + tx * V;
+    const Tangent<T> tc = load_tangent(coef);
+    const bool diag = i0 == j0;
+    const bool wide = n % V == 0;
+    T yc[V], dyc[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+        const bool cv = P1 && c0 + k < n;
+        yc[k] = cv ? x[c0 + k] : T(0);
+        dyc[k] = cv ? dx[c0 + k] : T(0);
+    }
+#pragma unroll
+    for (int a = 0; a < Gm::RPT; ++a) {
+        const int rr = ty + a * Gm::TY;
+        const long long r = i0 + rr;
+        if (r >= n) break;
+        const T xr = P1 ? x[r] : T(0), dxr = P1 ? dx[r] : T(0);
+        T v[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+            const long long c = c0 + k < n ? c0 + k : n - 1;
+            T dr2;
+            const T r2 = dist2_tangent<T, P1>(x, x, dx, dx, r, c, p, xr,
+                                              yc[k], dxr, dyc[k], dr2);
+            v[k] = entry_tangent<T, Prof>(r2, dr2, tc,
+                                          diag && with_noise && r == c0 + k);
+            sh[rr][tx * V + k] = v[k];
+        }
+        store_row(out + r * n + c0, v, n - c0, wide);
+    }
+    if (diag) return;
+    __syncthreads();
+    const long long cm = i0 + tx * V;
+#pragma unroll
+    for (int a = 0; a < Gm::RPT; ++a) {
+        const int rr = ty + a * Gm::TY;
+        const long long rm = j0 + rr;
+        if (rm >= n) break;
+        T v[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) v[k] = sh[tx * V + k][rr];
+        store_row(out + rm * n + cm, v, n - cm, wide);
+    }
+}
+
+// The per-entry weights of the backward's tangent: w1 multiplies
+// (x_i - y_j), w2 (dx_i - dy_j); both zero at r^2 <= 0
+template <typename T>
+__device__ __forceinline__ void tangent_weights(T gv, T r2, T dr2, T d1, T d2,
+                                                T alpha, T dalpha, T& w1,
+                                                T& w2)
+{
+    const bool pos = r2 > T(0);
+    w1 = pos ? gv * fma(alpha * d2, dr2, dalpha * d1) : T(0);
+    w2 = pos ? gv * (alpha * d1) : T(0);
+}
+
+// Kernel C'': the tangent of C's backward at fixed G along (dx, dy,
+// dalpha), tiled as C's backward.  Writes (when XY) rowpart[bx][i][d]
+// and colpart[by][j][d], the sums over the block's columns and rows of
+// w1 (x_i - y_j)_d + w2 (dx_i - dy_j)_d, and (when SC)
+// scal[by * gridDim.x + bx][0..3), the block's sums of G g' dr^2 (the
+// tangent of sum G g), G and G g (the post chain's tangent needs them).
+template <typename T, class Prof, bool P1, bool XY, bool SC>
+__global__ void __launch_bounds__(NT)
+gram_bwd_jvp_kernel(const T* __restrict__ G, const T* __restrict__ x,
+                    const T* __restrict__ y, const T* __restrict__ dx,
+                    const T* __restrict__ dy, long long n, long long m, int p,
+                    int d0, const T* __restrict__ coef, int wide,
+                    T* __restrict__ rowpart, T* __restrict__ colpart,
+                    T* __restrict__ scal)
+{
+    using Gm = Geo<T>;
+    constexpr int V = Gm::V, PC = P1 ? 1 : PCHUNK;
+    __shared__ T red[Gm::TY][PC][TILE];
+    const int tx = threadIdx.x % Gm::TX, ty = threadIdx.x / Gm::TX;
+    const long long j0 = (long long)blockIdx.x * TILE;
+    const long long c0 = j0 + tx * V;
+    const long long i0 = (long long)blockIdx.y * (TILE * CROWS);
+    const int pc = P1 ? 1 : min(PC, p - d0);
+    const T alpha = coef[0], dalpha = coef[1];
+    T yc[V][PC], dyc[V][PC], cacc[V][PC];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+        coords<T, PC>(y, c0 + k, c0 + k < m, p, d0, pc, yc[k]);
+        coords<T, PC>(dy, c0 + k, c0 + k < m, p, d0, pc, dyc[k]);
+#pragma unroll
+        for (int q = 0; q < PC; ++q) cacc[k][q] = T(0);
+    }
+    T s1 = T(0), sg = T(0), sgk = T(0);
+    for (int a = 0; a < Gm::RPT * CROWS; ++a) {
+        const long long r = i0 + ty + a * Gm::TY;
+        const bool rv = r < n;
+        T gv[V], xr[PC], dxr[PC], racc[PC];
+        load_row(G + (rv ? r : 0) * m + c0, gv, rv ? m - c0 : 0, wide);
+        coords<T, PC>(x, r, rv, p, d0, pc, xr);
+        coords<T, PC>(dx, r, rv, p, d0, pc, dxr);
+#pragma unroll
+        for (int q = 0; q < PC; ++q) racc[q] = T(0);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+            const long long c = c0 + k;
+            if (!rv || c >= m) continue;
+            T dr2, d1, d2;
+            const T r2 = dist2_tangent<T, P1>(x, y, dx, dy, r, c, p, xr[0],
+                                              yc[k][0], dxr[0], dyc[k][0],
+                                              dr2);
+            const T g = Prof::second(r2, d1, d2);
+            if constexpr (SC) {
+                s1 = fma(gv[k] * d1, dr2, s1);
+                sg += gv[k];
+                sgk = fma(gv[k], g, sgk);
+            }
+            if constexpr (XY) {
+                T w1, w2;
+                tangent_weights(gv[k], r2, dr2, d1, d2, alpha, dalpha, w1,
+                                w2);
+#pragma unroll
+                for (int q = 0; q < PC; ++q) {
+                    const T t = fma(w1, xr[q] - yc[k][q],
+                                    w2 * (dxr[q] - dyc[k][q]));
+                    racc[q] += t;
+                    cacc[k][q] += t;
+                }
+            }
+        }
+        if constexpr (XY) {
+#pragma unroll
+            for (int q = 0; q < PC; ++q) {
+                racc[q] = lane_sum<Gm::TX>(racc[q]);
+                if (tx == 0 && rv && q < pc)
+                    rowpart[((long long)blockIdx.x * n + r) * p + d0 + q] =
+                        racc[q];
+            }
+        }
+    }
+    if constexpr (XY)
+        block_columns<T, PC>(cacc, red, j0, m, p, d0, pc, T(1),
+                             colpart + (long long)blockIdx.y * m * p);
+    if constexpr (SC)
+        block_scalars(s1, sg, sgk,
+                      scal + 3 * ((long long)blockIdx.y * gridDim.x
+                                  + blockIdx.x));
+}
+
+// Kernel E'': C'' for y = x on E's backward's upper tile pairs, with
+// S = G[I, J] + G[J, I]^T; writes part[J][i][d], part[I][j][d] as E's
+// backward and (when SC) scal[b][0..3), the pair's shares of the sums
+// of G g' dr^2, G and G g.
+template <typename T, class Prof, bool P1, bool XY, bool SC>
+__global__ void __launch_bounds__(NT)
+gram_sym_bwd_jvp_kernel(const T* __restrict__ G, const T* __restrict__ x,
+                        const T* __restrict__ dx, long long n, int p, int d0,
+                        const T* __restrict__ coef, int wide,
+                        T* __restrict__ part, T* __restrict__ scal)
+{
+    using Gm = Geo<T>;
+    constexpr int V = Gm::V, PC = P1 ? 1 : PCHUNK;
+    __shared__ SymSmem<T, PC> sm;
+    long long i0, j0;
+    upper_pair(blockIdx.x, i0, j0);
+    const bool dt = i0 == j0;
+    const int tx = threadIdx.x % Gm::TX, ty = threadIdx.x / Gm::TX;
+    const int pc = P1 ? 1 : min(PC, p - d0);
+    const long long cI = i0 + tx * V;
+#pragma unroll
+    for (int a = 0; a < Gm::RPT; ++a) {
+        const int rr = ty + a * Gm::TY;
+        const long long rm = j0 + rr;
+        const bool rv = rm < n;
+        T gv[V];
+        load_row(G + (rv ? rm : 0) * n + cI, gv, rv ? n - cI : 0, wide);
+#pragma unroll
+        for (int k = 0; k < V; ++k) sm.sh[rr][tx * V + k] = gv[k];
+    }
+    __syncthreads();
+    const long long c0 = j0 + tx * V;
+    const T alpha = coef[0], dalpha = coef[1];
+    T yc[V][PC], dyc[V][PC], cacc[V][PC];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+        coords<T, PC>(x, c0 + k, c0 + k < n, p, d0, pc, yc[k]);
+        coords<T, PC>(dx, c0 + k, c0 + k < n, p, d0, pc, dyc[k]);
+#pragma unroll
+        for (int q = 0; q < PC; ++q) cacc[k][q] = T(0);
+    }
+    T s1 = T(0), sg = T(0), sgk = T(0);
+#pragma unroll
+    for (int a = 0; a < Gm::RPT; ++a) {
+        const int rr = ty + a * Gm::TY;
+        const long long r = i0 + rr;
+        const bool rv = r < n;
+        T gv[V], xr[PC], dxr[PC], racc[PC];
+        if (dt) {
+#pragma unroll
+            for (int k = 0; k < V; ++k) gv[k] = sm.sh[rr][tx * V + k];
+        } else {
+            load_row(G + (rv ? r : 0) * n + c0, gv, rv ? n - c0 : 0, wide);
+        }
+        coords<T, PC>(x, r, rv, p, d0, pc, xr);
+        coords<T, PC>(dx, r, rv, p, d0, pc, dxr);
+#pragma unroll
+        for (int q = 0; q < PC; ++q) racc[q] = T(0);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+            const long long c = c0 + k;
+            if (!rv || c >= n) continue;
+            const T s = gv[k] + sm.sh[tx * V + k][rr];
+            T dr2, d1, d2;
+            const T r2 = dist2_tangent<T, P1>(x, x, dx, dx, r, c, p, xr[0],
+                                              yc[k][0], dxr[0], dyc[k][0],
+                                              dr2);
+            const T g = Prof::second(r2, d1, d2);
+            if constexpr (SC) {
+                // the whole of G, as in E's backward
+                const T gs = dt ? gv[k] : s;
+                s1 = fma(gs * d1, dr2, s1);
+                sg += gs;
+                sgk = fma(gs, g, sgk);
+            }
+            if constexpr (XY) {
+                T w1, w2;
+                tangent_weights(s, r2, dr2, d1, d2, alpha, dalpha, w1, w2);
+#pragma unroll
+                for (int q = 0; q < PC; ++q) {
+                    const T t = fma(w1, xr[q] - yc[k][q],
+                                    w2 * (dxr[q] - dyc[k][q]));
+                    racc[q] += t;
+                    cacc[k][q] += t;
+                }
+            }
+        }
+        if constexpr (XY) {
+#pragma unroll
+            for (int q = 0; q < PC; ++q) {
+                racc[q] = lane_sum<Gm::TX>(racc[q]);
+                if (tx == 0 && rv && q < pc)
+                    part[((j0 / TILE) * n + r) * p + d0 + q] = racc[q];
+            }
+        }
+    }
+    if constexpr (XY) {
+        if (!dt) {
+            __syncthreads();   // sm.sh is read no more
+            block_columns<T, PC>(cacc, sm.red, j0, n, p, d0, pc, T(-1),
+                                 part + (i0 / TILE) * n * p);
+        }
+    }
+    if constexpr (SC)
+        block_scalars(s1, sg, sgk, scal + 3 * (long long)blockIdx.x);
+}
+
 // -- launchers ---------------------------------------------------------------
 
 // f(Profile<id>{}) for a registered profile id; false for another id
@@ -645,6 +1022,104 @@ int launch_gram_sym_bwd(const T* G, const T* x, long long n, int p, int d0,
     return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
+template <typename T>
+int launch_gram_jvp(const T* x, const T* y, const T* dx, const T* dy,
+                    long long n, long long m, int p, const T* coef,
+                    int with_noise, int profile, T* out, void* stream)
+{
+    if (n == 0 || m == 0) return 0;
+    const dim3 grid((unsigned)cdiv(m, TILE), (unsigned)cdiv(n, TILE));
+    const auto s = (cudaStream_t)stream;
+    const bool ok = with_profile(profile, [&](auto prof) {
+        using Prof = decltype(prof);
+        auto kern = p == 1 ? gram_jvp_kernel<T, Prof, true>
+                           : gram_jvp_kernel<T, Prof, false>;
+        kern<<<grid, NT, 0, s>>>(x, y, dx, dy, n, m, p, coef, with_noise,
+                                 out);
+    });
+    return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int launch_gram_sym_jvp(const T* x, const T* dx, long long n, int p,
+                        const T* coef, int with_noise, int profile, T* out,
+                        void* stream)
+{
+    if (n == 0) return 0;
+    const long long nt = cdiv(n, TILE);
+    const auto s = (cudaStream_t)stream;
+    const bool ok = with_profile(profile, [&](auto prof) {
+        using Prof = decltype(prof);
+        auto kern = p == 1 ? gram_sym_jvp_kernel<T, Prof, true>
+                           : gram_sym_jvp_kernel<T, Prof, false>;
+        kern<<<(unsigned)(nt * (nt + 1) / 2), NT, 0, s>>>(
+            x, dx, n, p, coef, with_noise, out);
+    });
+    return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
+// the instantiations for (p == 1, need_xy, need_s); need_xy or need_s
+template <typename T, class Prof, bool P1>
+auto bwd_jvp_kernel(bool xy, bool sc)
+{
+    return xy ? (sc ? gram_bwd_jvp_kernel<T, Prof, P1, true, true>
+                    : gram_bwd_jvp_kernel<T, Prof, P1, true, false>)
+              : gram_bwd_jvp_kernel<T, Prof, P1, false, true>;
+}
+
+template <typename T, class Prof, bool P1>
+auto sym_bwd_jvp_kernel(bool xy, bool sc)
+{
+    return xy ? (sc ? gram_sym_bwd_jvp_kernel<T, Prof, P1, true, true>
+                    : gram_sym_bwd_jvp_kernel<T, Prof, P1, true, false>)
+              : gram_sym_bwd_jvp_kernel<T, Prof, P1, false, true>;
+}
+
+template <typename T>
+int launch_gram_bwd_jvp(const T* G, const T* x, const T* y, const T* dx,
+                        const T* dy, long long n, long long m, int p, int d0,
+                        const T* coef, int profile, int need_xy, int need_s,
+                        int wide, T* rowpart, T* colpart, T* scal,
+                        void* stream)
+{
+    if (!(need_xy || need_s) || d0 < 0 || d0 >= p)
+        return (int)cudaErrorInvalidValue;
+    if (n == 0 || m == 0) return 0;
+    const dim3 grid((unsigned)cdiv(m, TILE),
+                    (unsigned)cdiv(n, TILE * CROWS));
+    const auto s = (cudaStream_t)stream;
+    const bool ok = with_profile(profile, [&](auto prof) {
+        using Prof = decltype(prof);
+        auto kern = p == 1 ? bwd_jvp_kernel<T, Prof, true>(need_xy, need_s)
+                           : bwd_jvp_kernel<T, Prof, false>(need_xy, need_s);
+        kern<<<grid, NT, 0, s>>>(G, x, y, dx, dy, n, m, p, d0, coef, wide,
+                                 rowpart, colpart, scal);
+    });
+    return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int launch_gram_sym_bwd_jvp(const T* G, const T* x, const T* dx, long long n,
+                            int p, int d0, const T* coef, int profile,
+                            int need_x, int need_s, int wide, T* part,
+                            T* scal, void* stream)
+{
+    if (!(need_x || need_s) || d0 < 0 || d0 >= p)
+        return (int)cudaErrorInvalidValue;
+    if (n == 0) return 0;
+    const long long nt = cdiv(n, TILE);
+    const auto s = (cudaStream_t)stream;
+    const bool ok = with_profile(profile, [&](auto prof) {
+        using Prof = decltype(prof);
+        auto kern = p == 1
+            ? sym_bwd_jvp_kernel<T, Prof, true>(need_x, need_s)
+            : sym_bwd_jvp_kernel<T, Prof, false>(need_x, need_s);
+        kern<<<(unsigned)(nt * (nt + 1) / 2), NT, 0, s>>>(
+            G, x, dx, n, p, d0, coef, wide, part, scal);
+    });
+    return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -683,6 +1158,39 @@ extern "C" {
         return launch_gram_sym_bwd(G, x, n, p, d0, params, npost, postadd,    \
                                    with_noise, profile, need_x, need_p, wide, \
                                    part, scal, stream);                       \
+    }                                                                         \
+    int lsq_gram_jvp##SUF(const T* x, const T* y, const T* dx, const T* dy,  \
+                          long long n, long long m, int p, const T* coef,    \
+                          int with_noise, int profile, T* out, void* stream) \
+    {                                                                         \
+        return launch_gram_jvp(x, y, dx, dy, n, m, p, coef, with_noise,       \
+                               profile, out, stream);                         \
+    }                                                                         \
+    int lsq_gram_sym_jvp##SUF(const T* x, const T* dx, long long n, int p,    \
+                              const T* coef, int with_noise, int profile,     \
+                              T* out, void* stream)                           \
+    {                                                                         \
+        return launch_gram_sym_jvp(x, dx, n, p, coef, with_noise, profile,    \
+                                   out, stream);                              \
+    }                                                                         \
+    int lsq_gram_bwd_jvp##SUF(const T* G, const T* x, const T* y,             \
+                              const T* dx, const T* dy, long long n,          \
+                              long long m, int p, int d0, const T* coef,      \
+                              int profile, int need_xy, int need_s, int wide, \
+                              T* rowpart, T* colpart, T* scal, void* stream)  \
+    {                                                                         \
+        return launch_gram_bwd_jvp(G, x, y, dx, dy, n, m, p, d0, coef,        \
+                                   profile, need_xy, need_s, wide, rowpart,   \
+                                   colpart, scal, stream);                    \
+    }                                                                         \
+    int lsq_gram_sym_bwd_jvp##SUF(const T* G, const T* x, const T* dx,        \
+                                  long long n, int p, int d0, const T* coef,  \
+                                  int profile, int need_x, int need_s,        \
+                                  int wide, T* part, T* scal, void* stream)   \
+    {                                                                         \
+        return launch_gram_sym_bwd_jvp(G, x, dx, n, p, d0, coef, profile,     \
+                                       need_x, need_s, wide, part, scal,      \
+                                       stream);                               \
     }
 
 LSQ_GRAM(float, _f32)

@@ -4,9 +4,10 @@
 // A TPU kernel traces any profile callable; a CUDA kernel cannot, so a
 // profile is an integer id into this registry (PROFILE_*), matching
 // ops/_gram.py PROFILES.  Each profile is a struct (Profile<id>) with
-// its value g(r^2) and, from the same exponential, its r^2-derivative;
-// kernels C and E take it as a template parameter, kernel D dispatches
-// on the id (`profile_value`).
+// its value g(r^2) and, from the same exponential, its first and second
+// r^2-derivatives; kernels C and E and their tangent and backward
+// kernels take it as a template parameter, kernel D dispatches on the
+// id (`profile_value`).
 //
 // The post chain is the kernel spec's ordered list of scalar 'mul' and
 // 'add' steps (amp * k, k + c), read from a parameter vector in device
@@ -43,7 +44,35 @@ template <> struct Profile<PROFILE_EXPQUAD> {
         deriv = T(-0.5) * g;
         return g;
     }
+    // g, g' and g''(r^2) from one exponential
+    template <typename T>
+    static __device__ __forceinline__ T second(T r2, T& d1, T& d2)
+    {
+        const T g = value(r2);
+        d1 = T(-0.5) * g;
+        d2 = T(0.25) * g;
+        return g;
+    }
 };
+
+// r^2 = |x - y|^2 and its tangent dr^2 = 2 (x - y).(dx - dy), summed
+// as `sqdist` sums r^2: symmetric in the two points to the bit.
+template <typename T>
+__device__ __forceinline__ T sqdist_tangent(const T* __restrict__ x,
+                                            const T* __restrict__ y,
+                                            const T* __restrict__ dx,
+                                            const T* __restrict__ dy, int p,
+                                            T& dr2)
+{
+    T r2 = T(0), t = T(0);
+    for (int d = 0; d < p; ++d) {
+        const T dl = x[d] - y[d];
+        r2 = fma(dl, dl, r2);
+        t = fma(dl, dx[d] - dy[d], t);
+    }
+    dr2 = T(2) * t;
+    return r2;
+}
 
 template <typename T>
 __device__ __forceinline__ T profile_value(int id, T r2)

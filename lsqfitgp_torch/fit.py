@@ -8,25 +8,32 @@ optimizer:
 2. the objective is the GP marginal likelihood (``GP._prior_nll``: the
    fused `linalg.chol_nll` on the dense solver, the streaming
    `linalg.chol_nll_stream_grad` on ``solver='chol-stream'``, both with
-   hand-derived gradients) plus the standard-normal prior on the
-   whitened parameters (+ an optional additional loss), evaluated on the
-   data's device with the model's eager checks off;
-3. minimize with scipy (BFGS on the torch value and gradient, or
-   Nelder-Mead without gradient);
-4. return the hyperparameters as correlated `uncert.UArray`, with the
-   BFGS inverse-Hessian ('minhess') as Laplace covariance.
+   hand-derived gradients; or a user's ``custom_nll``) plus the
+   standard-normal prior on the whitened parameters (+ an optional
+   additional loss), evaluated on the data's device with the model's
+   eager checks off; its gradient by reverse mode, or with
+   ``forward=True`` by P forward-mode passes that share one
+   factorization;
+3. minimize with scipy: BFGS on the value and gradient, Nelder-Mead
+   without gradient, or (``method='fisher'``) trust-ncg with the
+   Hessian of the objective at P <= 20 and Fisher-vector products at
+   P > 20;
+4. return the hyperparameters as correlated `uncert.UArray`, with a
+   Laplace covariance from the BFGS inverse Hessian ('minhess'), the
+   Hessian of the objective ('hess': P double-backward passes over one
+   ``create_graph`` gradient, through `linalg.second_order` and the
+   Gram kernels' second-order kernels) or the expected Fisher
+   information ('fisher': `Chol.fisher` of the forward-mode (K, r)
+   tangents at P <= 20, columns of Fisher-vector products at P > 20).
 
 ``covariance='auto'`` follows the JAX package's rule: 'minhess' where
-the minimizer gives an inverse-Hessian estimate; otherwise 'hess' for a
-dense objective, which this version does not have, so it raises
-`NotImplementedError` (at the first evaluation with ``method='nograd'``)
-instead of returning the prior; and, with a warning, 'prior' for a
-streaming one.
+the minimizer gives an inverse-Hessian estimate, else 'hess', and for a
+streaming or ``custom_nll`` objective (which have no second
+derivative) 'prior', with a warning.
 
-Not in this version: ``method='fisher'``, ``optimizer='jax'|'optax'``,
-``covariance='hess'|'fisher'`` (for a streaming GP the JAX package's
-'fisher' is the streamed Fisher information; ROADMAP.md, queue 1, item
-2), ``custom_nll``, ``forward``, phase timing and profiler traces.
+Not in this version: ``optimizer='jax'|'optax'``, the streaming GP's
+``covariance='fisher'`` (the streamed Fisher information; ROADMAP.md,
+queue 1), phase timing and profiler traces.
 """
 
 from __future__ import annotations
@@ -37,9 +44,11 @@ import warnings
 
 import numpy
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from . import _config, _torchutil, uncert
-from .linalg import Chol
+from .linalg import Chol, second_order
+from .linalg._decomp import _share_factor
 from .uncert import BufferDict, UArray
 
 __all__ = ['empbayes_fit']
@@ -103,28 +112,43 @@ def _parse_data(data):
     return data, None, False
 
 
-def _auto_covariance(method, hess_inv, stream):
+def _auto_covariance(method, hess_inv, custom):
     """The covariance that ``covariance='auto'`` stands for, by the JAX
-    package's rule: the minimizer's inverse-Hessian estimate where there
-    is one; else the prior, with a warning, for a streaming objective,
-    and 'hess' for a dense one, which raises here."""
-    if hess_inv is not None:
-        return 'minhess'
-    if stream:
+    package's rule: for a streaming or ``custom_nll`` objective the
+    minimizer's inverse-Hessian estimate, or else the prior with a
+    warning; for a dense one 'hess' with ``method='fisher'`` or without
+    an estimate, else 'minhess'."""
+    if custom:
+        if hess_inv is not None:
+            return 'minhess'
         warnings.warn(
-            "the objective is the streaming solver's likelihood and the "
-            "minimizer provides no hessian estimate: posterior covariance "
-            "set to the prior's (covariance='prior').  Use "
-            "method='gradient' (BFGS) for a Laplace estimate "
-            "('minhess').")
+            "the objective is the streaming solver's likelihood or a "
+            "custom_nll and the minimizer provides no hessian estimate: "
+            "posterior covariance set to the prior's "
+            "(covariance='prior').  Use method='gradient' (BFGS) for a "
+            "Laplace estimate ('minhess').")
         return 'prior'
-    raise NotImplementedError(
-        f"covariance='auto' means covariance='hess' (the Hessian of the "
-        f"objective) for a dense objective whose minimizer gives no "
-        f"inverse-Hessian estimate (method={method!r}); 'hess' is not in "
-        f"lsqfitgp_torch yet (ROADMAP.md, queue 1, item 2).  Pass "
-        f"covariance='prior' or 'none', or use method='gradient' (BFGS) "
-        f"for 'minhess'")
+    return 'hess' if method == 'fisher' or hess_inv is None else 'minhess'
+
+
+def _check_covariance(covariance, stream, custom):
+    """The covariances a streaming or ``custom_nll`` objective cannot
+    give, raised as soon as the objective is known: 'hess' (no second
+    derivative) with the JAX package's ValueError, and the streaming
+    GP's 'fisher', which this version does not have."""
+    if covariance == 'fisher' and stream:
+        raise NotImplementedError(
+            "covariance='fisher' of a streaming GP (the streamed Fisher "
+            "information) is not in lsqfitgp_torch yet (ROADMAP.md, queue "
+            "1): use 'minhess' (BFGS's inverse Hessian), 'none' or "
+            "'prior'")
+    if covariance in ('hess', 'fisher') and custom:
+        raise ValueError(
+            f"covariance={covariance!r} needs second-order AD or the "
+            "materialized K(p), neither of which exists for a custom-VJP "
+            "likelihood (streaming solver / custom_nll); use "
+            "covariance='minhess' with method='gradient' (BFGS), or "
+            "'none'/'prior'")
 
 
 def _data_device(given):
@@ -151,19 +175,25 @@ class empbayes_fit:
         Observed data per element key; optionally with covariance, or a
         callable of the hyperparameters.  The fit runs on the device of
         the data's tensors (the default device for array-likes).
-    method : {'gradient', 'nograd'}
-        BFGS with the gradient (default) or Nelder-Mead.
+    method : {'gradient', 'nograd', 'fisher'}
+        BFGS with the gradient (default), Nelder-Mead, or trust-ncg with
+        the Hessian of the objective (P <= 20 hyperparameters) or
+        Fisher-vector products (P > 20; ``minkw['fishvec']`` overrides
+        the switch), which leave out ``additional_loss``'s curvature.
     optimizer : {'scipy'}
     initial : 'priormean', 'priorsample' or array
         Starting point.
-    covariance : {'auto', 'minhess', 'none', 'prior'}
-        Posterior covariance: the minimizer's inverse-Hessian estimate
-        ('minhess', what 'auto' picks when BFGS provides one), zero
-        ('none'), or the unchanged hyperprior covariance ('prior', what
-        'auto' falls back to, with a warning, for a streaming GP whose
-        minimizer gives no estimate).  For a dense GP without an
-        estimate (``method='nograd'``) 'auto' means the JAX package's
-        'hess', which is not in this version: it raises.
+    covariance : {'auto', 'hess', 'fisher', 'minhess', 'none', 'prior'}
+        Posterior covariance: the inverse Hessian of the objective
+        ('hess', with the whitened prior and ``additional_loss``), of
+        the expected Fisher information plus the whitened prior
+        ('fisher', dense solver), the minimizer's inverse-Hessian
+        estimate ('minhess'), zero ('none'), or the unchanged
+        hyperprior covariance ('prior').  'auto' is 'minhess' where the
+        minimizer gives an estimate and 'hess' otherwise (and with
+        ``method='fisher'``); for a streaming GP or a ``custom_nll``,
+        which have no second derivative, 'prior' (with a warning) in
+        place of 'hess', which raises.
     fix : dict, optional
         Map key -> bool (or array of bool) freezing hyperparameters at
         their prior means.
@@ -173,6 +203,15 @@ class empbayes_fit:
         Raise on minimizer failure (else warn and keep the last iterate).
     verbosity : int
         0 silent .. 3 per iteration.
+    forward : bool
+        Gradient by forward mode: one pass per hyperparameter, the
+        passes sharing one factorization of K.
+    custom_nll : callable, optional
+        ``custom_nll(hp) -> scalar`` replaces the GP's marginal
+        likelihood (``gpfactory`` and ``data`` may then be omitted); the
+        whitened prior, ``additional_loss``, ``fix`` and the optimizers
+        apply as before.  ``method='fisher'`` and ``covariance='fisher'``
+        need the (K, r) assembly and raise.
 
     Attributes
     ----------
@@ -183,12 +222,16 @@ class empbayes_fit:
     prior : the parsed hyperprior BufferDict.
     minresult : scipy OptimizeResult.
     evaltimes : seconds of each objective evaluation.
+    counts : the minimizer's evaluations of the objective ('fun'), its
+        gradient ('jac') and its curvature ('hess', Hessians or
+        Fisher-vector products).
     """
 
-    def __init__(self, hyperprior, gpfactory, data, *, method='gradient',
-                 optimizer='scipy', initial='priormean', covariance='auto',
-                 fix=None, additional_loss=None, raises=True, verbosity=0,
-                 minkw={}, mlkw={}, gpfactorykw={}, seed=0):
+    def __init__(self, hyperprior, gpfactory=None, data=None, *,
+                 method='gradient', optimizer='scipy', initial='priormean',
+                 covariance='auto', fix=None, additional_loss=None,
+                 raises=True, verbosity=0, minkw={}, mlkw={},
+                 gpfactorykw={}, forward=False, seed=0, custom_nll=None):
         import scipy.optimize
 
         log = Logger(verbosity)
@@ -196,15 +239,22 @@ class empbayes_fit:
         if optimizer != 'scipy':
             raise KeyError(f'unknown optimizer {optimizer!r}: only '
                            "'scipy' is in lsqfitgp_torch yet")
-        if method not in ('gradient', 'nograd'):
+        if method not in ('gradient', 'nograd', 'fisher'):
             raise KeyError(f'unknown method {method!r}')
-        if covariance in ('hess', 'fisher'):
-            raise NotImplementedError(
-                f'covariance={covariance!r} is not in lsqfitgp_torch yet: '
-                "use 'minhess' (BFGS's inverse Hessian, also on "
-                "solver='chol-stream'), 'none' or 'prior'")
-        if covariance not in ('auto', 'minhess', 'none', 'prior'):
+        if covariance not in ('auto', 'hess', 'fisher', 'minhess', 'none',
+                              'prior'):
             raise KeyError(f'unknown covariance {covariance!r}')
+        if custom_nll is None and (gpfactory is None or data is None):
+            raise TypeError('provide gpfactory and data, or custom_nll')
+        if custom_nll is not None:
+            if method == 'fisher' or covariance == 'fisher':
+                raise ValueError(
+                    "method/covariance='fisher' need the (K, r) assembly "
+                    "and are unavailable with custom_nll; use "
+                    "covariance='hess'")
+            # the custom objective owns the data
+            gpfactory = gpfactory or (lambda hp, **kw: None)
+            data = {} if data is None else data
         given, givencov, data_callable = _parse_data(data)
         device = _data_device(given)
         prior, pmean_prior, pdec = _parse_hyperprior(hyperprior, device)
@@ -220,8 +270,12 @@ class empbayes_fit:
         self.fix = fixmask
         fixmask_t = torch.as_tensor(fixmask, device=device)
 
-        # whether the objective is the streaming solver's, set by nll
+        # whether the objective is the streaming solver's, set by nll; a
+        # streaming or custom_nll objective has no second derivative
         stream = [False]
+
+        def custom():
+            return stream[0] or custom_nll is not None
 
         def make_hp(w):
             # p = mean + L w ; frozen coordinates stay at the prior mean
@@ -229,31 +283,155 @@ class empbayes_fit:
                                                    device=device), w)
             return prior.replace_buf(pmean_prior + pdec.correlate(w))
 
+        def model_data(hp):
+            if data_callable:
+                d = given(hp, **gpfactorykw)
+                return d if isinstance(d, tuple) else (d, None)
+            return given, givencov
+
         def nll(w):
             with _config.disable_checks():
                 hp = make_hp(w)
-                if data_callable:
-                    d = given(hp, **gpfactorykw)
-                    g, gcov = d if isinstance(d, tuple) else (d, None)
+                if custom_nll is not None:
+                    out = custom_nll(hp)
                 else:
-                    g, gcov = given, givencov
-                gp = gpfactory(hp, **gpfactorykw)
-                stream[0] = gp._solver == 'chol-stream'
-                out = gp._prior_nll(g, gcov, **mlkw)
+                    g, gcov = model_data(hp)
+                    gp = gpfactory(hp, **gpfactorykw)
+                    stream[0] = gp._solver == 'chol-stream'
+                    out = gp._prior_nll(g, gcov, **mlkw)
                 wfree = w[~fixmask_t]
                 out = out + 0.5 * torch.dot(wfree, wfree)
                 if additional_loss is not None:
                     out = out + additional_loss(hp)
             return out
 
-        def value_and_grad(w):
+        def make_Kr(w):
+            """(K(w), r(w)) without decomposing, the assembly whose
+            tangents and cotangents the Fisher information takes."""
+            with _config.disable_checks():
+                hp = make_hp(w)
+                g, gcov = model_data(hp)
+                return gpfactory(hp, **gpfactorykw)._prior_kr(g, gcov)
+
+        def unit(k):
+            e = torch.zeros(nparam, dtype=dtype, device=device)
+            e[k] = 1
+            return e
+
+        if forward:
+            def value_and_grad(w):
+                # one forward-mode pass per free coordinate; the passes
+                # share the factorization and the gradient carrier
+                w = w.detach()
+                grad = torch.zeros_like(w)
+                v = None
+                with _share_factor():
+                    for k in numpy.flatnonzero(~fixmask):
+                        with fwAD.dual_level():
+                            out = nll(fwAD.make_dual(w, unit(k)))
+                            v, t = fwAD.unpack_dual(out)
+                        if t is not None:
+                            grad[k] = t
+                if v is None:
+                    v = nll(w)
+                return v.detach(), grad
+        else:
+            def value_and_grad(w):
+                w = w.detach().requires_grad_(True)
+                v = nll(w)
+                g, = torch.autograd.grad(v, w)
+                return v.detach(), g
+
+        def hessian(w):
+            """The Hessian of the objective: P double-backward passes over
+            one create_graph gradient, symmetrized; fixed coordinates get
+            a unit diagonal."""
             w = w.detach().requires_grad_(True)
-            v = nll(w)
-            g, = torch.autograd.grad(v, w)
-            return v.detach(), g
+            with second_order():
+                v = nll(w)
+            g, = torch.autograd.grad(v, w, create_graph=True)
+            rows = []
+            for k in range(nparam):
+                h = None
+                if not fixmask[k]:
+                    h, = torch.autograd.grad(g[k], w, retain_graph=True,
+                                             allow_unused=True)
+                rows.append(torch.zeros_like(w) if h is None else h)
+            del g, v
+            H = torch.stack(rows).detach()
+            # symmetric to the rounding of the passes: taken exactly so
+            H = 0.5 * (H + H.T)
+            mask = fixmask_t[:, None] | fixmask_t[None, :]
+            return torch.where(mask, torch.eye(nparam, dtype=H.dtype,
+                                               device=device), H)
+
+        def make_fishvec():
+            """Expected-Fisher-vector products F v: one forward-mode
+            pass of (K, r) along v gives the directional derivatives,
+            `Chol.fishvec_cotangent` turns them into cotangents, one
+            reverse pass pulls them back; plus the whitened prior's
+            identity (``additional_loss``'s curvature is left out).  The
+            factorization and the reverse graph are kept for the last w."""
+            last = {}
+
+            def fishvec(w, v):
+                key = w.detach().cpu().numpy().tobytes()
+                if last.get('key') != key:
+                    last.clear()
+                    wg = w.detach().requires_grad_(True)
+                    K, r = make_Kr(wg)
+                    outs = [t for t in (K, r) if t.requires_grad]
+                    last.update(key=key, wg=wg, K=K, r=r, outs=outs,
+                                dec=Chol(K.detach()))
+                vfree = torch.where(fixmask_t, torch.zeros((), dtype=dtype,
+                                                           device=device), v)
+                with fwAD.dual_level():
+                    Kd, rd = make_Kr(fwAD.make_dual(w.detach(), vfree))
+                    dK = fwAD.unpack_dual(Kd).tangent
+                    dr = fwAD.unpack_dual(rd).tangent
+                K, r = last['K'], last['r']
+                dK = torch.zeros_like(K) if dK is None else dK
+                dr = torch.zeros_like(r) if dr is None else dr
+                CK, cr = last['dec'].fishvec_cotangent(dK, dr)
+                Fv = torch.zeros_like(v)
+                if last['outs']:
+                    cots = [c for t, c in ((K, CK), (r, cr))
+                            if t.requires_grad]
+                    Fv, = torch.autograd.grad(last['outs'], last['wg'],
+                                              cots, retain_graph=True,
+                                              allow_unused=True)
+                    Fv = torch.zeros_like(v) if Fv is None else Fv
+                return torch.where(fixmask_t, v, Fv + v)
+
+            return fishvec
+
+        def fisher_dense(w):
+            """The expected Fisher information plus the whitened prior:
+            `Chol.fisher` of the forward-mode tangents of (K, r), one
+            pass per coordinate; fixed coordinates get a unit diagonal."""
+            w = w.detach()
+            with torch.no_grad():
+                K0, _ = make_Kr(w)
+            dKs, drs = [], []
+            for k in range(nparam):
+                with fwAD.dual_level():
+                    Kd, rd = make_Kr(fwAD.make_dual(w, unit(k)))
+                    dK = fwAD.unpack_dual(Kd).tangent
+                    dr = fwAD.unpack_dual(rd).tangent
+                dKs.append(torch.zeros_like(K0) if dK is None else dK)
+                drs.append(torch.zeros(K0.shape[0], dtype=K0.dtype,
+                                       device=device) if dr is None else dr)
+            F = Chol(K0).fisher(dKs, torch.stack(drs))
+            del dKs
+            F = F.to(dtype) + torch.eye(nparam, dtype=dtype, device=device)
+            mask = fixmask_t[:, None] | fixmask_t[None, :]
+            return torch.where(mask, torch.eye(nparam, dtype=dtype,
+                                               device=device), F)
 
         self._nll = nll
         self._value_and_grad = value_and_grad
+        self._hessian = hessian
+        self._make_Kr = make_Kr
 
         def totensor(w):
             return torch.as_tensor(numpy.asarray(w), dtype=dtype,
@@ -293,6 +471,7 @@ class empbayes_fit:
             """Map non-finite objective values to a large finite value
             with zero gradient, so line searches backtrack; a non-finite
             first evaluation raises (warns with ``raises=False``)."""
+            _check_covariance(covariance, stream[0], custom())
             ok = numpy.isfinite(v) and (g is None or numpy.all(
                 numpy.isfinite(g)))
             if ok:
@@ -314,29 +493,46 @@ class empbayes_fit:
             # the form the JAX package's optax loop reads
             kw['options'] = {**kw.get('options', {}),
                              'maxiter': kw.pop('maxiter')}
-        counts = {'fun': 0, 'jac': 0}
+        counts = {'fun': 0, 'jac': 0, 'hess': 0}
+
+        def f(w):
+            counts['fun'] += 1
+            counts['jac'] += 1
+
+            def host(w):
+                v, g = value_and_grad(totensor(w))
+                return float(v), g.cpu().numpy().astype(float)
+            return finite(*timer.time(host, w))
+
         t0 = time.perf_counter()
         if method == 'nograd':
-            def f(w):
+            def fval(w):
                 counts['fun'] += 1
                 with torch.no_grad():
-                    v = finite(timer.time(lambda w: float(nll(totensor(w))),
-                                          w))
-                if covariance == 'auto' and not stream[0]:
-                    # Nelder-Mead gives no hessian estimate: raise now
-                    # rather than after the minimization
-                    _auto_covariance(method, None, False)
-                return v
-            res = scipy.optimize.minimize(f, w0, method='Nelder-Mead',
+                    return finite(timer.time(
+                        lambda w: float(nll(totensor(w))), w))
+            res = scipy.optimize.minimize(fval, w0, method='Nelder-Mead',
                                           callback=callback, **kw)
+        elif method == 'fisher':
+            use_fishvec = kw.pop('fishvec', nparam > 20)
+            if use_fishvec:
+                fvec = make_fishvec()
+
+                def hessp(w, v):
+                    counts['hess'] += 1
+                    return fvec(totensor(w), totensor(v)).cpu().numpy() \
+                        .astype(float)
+                res = scipy.optimize.minimize(
+                    f, w0, jac=True, method='trust-ncg', hessp=hessp,
+                    callback=callback, **kw)
+            else:
+                def hess(w):
+                    counts['hess'] += 1
+                    return hessian(totensor(w)).cpu().numpy().astype(float)
+                res = scipy.optimize.minimize(
+                    f, w0, jac=True, method='trust-ncg', hess=hess,
+                    callback=callback, **kw)
         else:
-            def f(w):
-                counts['fun'] += 1
-                counts['jac'] += 1
-                def host(w):
-                    v, g = value_and_grad(totensor(w))
-                    return float(v), g.cpu().numpy().astype(float)
-                return finite(*timer.time(host, w))
             res = scipy.optimize.minimize(
                 f, w0, jac=True, method=kw.pop('method', 'BFGS'),
                 callback=callback, **kw)
@@ -360,8 +556,23 @@ class empbayes_fit:
 
         # posterior covariance in whitened space
         if covariance == 'auto':
-            covariance = _auto_covariance(method, hess_inv, stream[0])
-        if covariance == 'minhess':
+            covariance = _auto_covariance(method, hess_inv, custom())
+        _check_covariance(covariance, stream[0], custom())
+        wmin = totensor(numpy.where(fixmask, 0.0, res.x))
+        t1 = time.perf_counter()
+        if covariance == 'hess':
+            cov_w = Chol(hessian(totensor(res.x))).ginv()
+        elif covariance == 'fisher':
+            if nparam > 20:
+                # one Fisher-vector product per column, on one factor
+                fvec = make_fishvec()
+                wx = totensor(res.x)
+                F = torch.stack([fvec(wx, unit(k)) for k in range(nparam)])
+                del fvec
+            else:
+                F = fisher_dense(totensor(res.x))
+            cov_w = Chol(F).ginv()
+        elif covariance == 'minhess':
             if hess_inv is None:
                 raise ValueError('minimizer provides no hessian estimate')
             cov_w = numpy.asarray(hess_inv, float)
@@ -369,11 +580,13 @@ class empbayes_fit:
             cov_w = numpy.zeros((nparam, nparam))
         else:
             cov_w = numpy.eye(nparam)
-        cov_w = numpy.where(fixmask[:, None] | fixmask[None, :], 0.0, cov_w)
+        self.covtime = time.perf_counter() - t1
         cov_w = torch.as_tensor(cov_w, dtype=dtype, device=device)
+        freeze = fixmask_t[:, None] | fixmask_t[None, :]
+        cov_w = torch.where(freeze, torch.zeros((), dtype=dtype,
+                                                device=device), cov_w)
 
         # back to stored-parameter space: p = mean + L w
-        wmin = totensor(numpy.where(fixmask, 0.0, res.x))
         L = pdec.correlate(torch.eye(nparam, dtype=dtype, device=device))
         pmean = pmean_prior + pdec.correlate(wmin)
         pcov = L @ cov_w @ L.T
@@ -381,6 +594,7 @@ class empbayes_fit:
         self.pcov = pcov
         self.p = prior.replace_buf(uncert.from_cov(pmean, pcov))
         self.w = wmin
+        self.covariance = covariance
         self.minargs = dict(method=method, optimizer=optimizer, minkw=minkw)
         self.counts = counts
         self.gpfactory = gpfactory
@@ -414,7 +628,11 @@ class empbayes_fit:
 
     def gp(self):
         """The GP built at the MAP hyperparameters."""
-        return self.gpfactory(self.pmap, **self.gpfactorykw)
+        gp = self.gpfactory(self.pmap, **self.gpfactorykw)
+        if gp is None:
+            raise TypeError('no gpfactory: this fit used custom_nll; build '
+                            'the model from .pmap yourself')
+        return gp
 
     # -- checkpoint / resume ---------------------------------------------------
 

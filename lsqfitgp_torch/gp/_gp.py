@@ -882,6 +882,21 @@ class GP:
             kw['df_gram'] = dfg
         return K, ymean, kw
 
+    def _prior_kr(self, given, givencov=None):
+        """(data covariance matrix, residuals) without decomposing: the
+        assembly whose forward and reverse derivatives the fit's Fisher
+        information and Fisher-vector products take."""
+        if self._solver == 'chol-stream':
+            raise RuntimeError(
+                "method/covariance='fisher' assemble the dense (K, r) "
+                "and are unavailable with solver='chol-stream'; use "
+                "covariance='minhess' or 'hess'")
+        inkeys, ymean, ycov, _ = self._flatgiven(given, givencov)
+        K = self._assemble(inkeys, inkeys)
+        if ycov is not None:
+            K = K + ycov
+        return K, ymean
+
     def _prior_nll(self, given, givencov=None, **decompkw):
         """-log marginal density of the data; the fit objective.  Through
         `linalg.chol_nll` on 'chol', through the streaming pipeline with

@@ -10,8 +10,14 @@ never form the Gram matrix.
 
 The float32 rescue (``Chol(df=...)``) refactors in native float64
 where the JAX package refactors in emulated double precision (its
-``linalg/_df.py`` is not ported).  Not in this version:
-``Chol.fisher``, a backward through `Chol` itself (differentiate the
+``linalg/_df.py`` is not ported).
+
+`chol_nll` has forward mode (its ``jvp``, the JAX rule ``⟨K̄, dK⟩ +
+⟨S z̃, dr⟩``) and, evaluated inside `second_order`, a backward that is
+differentiable once more, by the closed-form second derivative
+(`_CholNLLGrad`); `Chol.fisher` and `Chol.fishvec_cotangent` are the
+Fisher information and the cotangents of a Fisher-vector product.  Not
+in this version: a backward through `Chol` itself (differentiate the
 log-density through `chol_nll`), the streaming gradient's Hutchinson
 estimate (``exact=False``), the streamed Fisher information and the
 left-looking streaming factorization.
@@ -20,6 +26,8 @@ left-looking streaming factorization.
 from __future__ import annotations
 
 import abc
+import contextlib
+import contextvars
 import math
 import warnings
 
@@ -30,8 +38,9 @@ from .. import _torchutil
 from .. import ops
 from ..ops import syrk_t_full_
 
-__all__ = ['Decomposition', 'Chol', 'chol_nll', 'chol_nll_stream',
-           'chol_nll_stream_grad', 'chol_pred_stream']
+__all__ = ['Decomposition', 'Chol', 'chol_nll', 'second_order',
+           'chol_nll_stream', 'chol_nll_stream_grad', 'chol_pred_stream',
+           'solve_batched_triangular', 'solve_batched']
 
 
 # the largest n the float32 rescue takes at df='auto' (the JAX package's
@@ -489,6 +498,191 @@ class Chol(Decomposition):
         return 0.5 * (torch.dot(z, z) + self.logdet()
                       + self.n * math.log(2 * math.pi))
 
+    # -- curvature -----------------------------------------------------------
+
+    def _solve_factor(self, X):
+        """L⁻¹ X on the factor of K's dtype (the rescue's float64 factor
+        is not used, as in the JAX package's Fisher)."""
+        if self._Dinv is not None:
+            return _blocked.solve_lower(self._L, X, block=self._BLOCK,
+                                        Dinv=self._Dinv)
+        return torch.linalg.solve_triangular(self._L, X, upper=False)
+
+    def fisher(self, dK, dr):
+        """Fisher information of the parameters p of (K(p), r(p)),
+
+            F_ij = tr(K⁻¹ dK_i K⁻¹ dK_j)/2 + dr_iᵀ K⁻¹ dr_j,
+
+        ``dK`` of shape (P, n, n) (or a sequence of P matrices), ``dr``
+        (P, n).  B_i = L⁻¹ S dK_i S L⁻ᵀ by two triangular solves with n
+        right-hand sides each, then F^K_ij = ½ Σ B_i ∘ B_jᵀ.  As the JAX
+        package's, on the factor of K's dtype even where the float32
+        rescue fired (a curvature estimate for a Laplace covariance)."""
+        s = self._s
+        B = []
+        for dKi in dK:
+            A = self._solve_factor(dKi * s[:, None] * s[None, :])
+            B.append(self._solve_factor(A.T.contiguous()))
+            del A
+        P = len(B)
+        FK = torch.stack([torch.stack([(B[i] * B[j].T).sum()
+                                       for j in range(P)])
+                          for i in range(P)])
+        zr = self._solve_factor((dr * s).T.contiguous())
+        return 0.5 * FK + zr.T @ zr
+
+    def fishvec_cotangent(self, dKv, drv):
+        """Cotangents ``(C_K, c_r)`` of a Fisher-vector product: given
+        the directional derivatives ``dKv`` (n, n) and ``drv`` (n,) of
+        (K, r) along a parameter direction v, pulling ``(C_K, c_r)`` back
+        through the vjp of p → (K(p), r(p)) gives
+
+            (F v)_i = tr(K⁻¹ ∂K_i K⁻¹ dKv)/2 + ∂r_iᵀ K⁻¹ drv
+
+        in O(n²) memory: ``C_K = K⁻¹ dKv K⁻¹ / 2`` (symmetrized) and
+        ``c_r = K⁻¹ drv``."""
+        M = self.ginv_linear(self.ginv_linear(dKv).T)
+        M = 0.5 * (M + M.T)
+        return 0.5 * M, self.ginv_linear(drv)
+
+
+
+# whether `chol_nll` is evaluated twice differentiable (`second_order`),
+# and the factor shared by the passes of one forward-mode gradient
+# (`_share_factor`)
+_SECOND_ORDER = contextvars.ContextVar('lsqfitgp_torch_second_order',
+                                       default=False)
+_SHARED = contextvars.ContextVar('lsqfitgp_torch_shared_factor',
+                                 default=None)
+
+_THIRD = ('chol_nll is differentiable twice in lsqfitgp_torch: a third '
+          'derivative is not implemented')
+
+
+@contextlib.contextmanager
+def second_order():
+    """Evaluate `chol_nll` twice differentiable.  Inside, it keeps K in
+    the autograd graph until its backward, which under ``create_graph``
+    returns (K̄, r̄) through `_CholNLLGrad`, whose own backward is the
+    closed-form second derivative.  Outside, K is freed after the
+    forward (the first-order path's memory) and a ``create_graph``
+    backward raises rather than contributing zero."""
+    token = _SECOND_ORDER.set(True)
+    try:
+        yield
+    finally:
+        _SECOND_ORDER.reset(token)
+
+
+@contextlib.contextmanager
+def _share_factor():
+    """Within, `chol_nll` evaluations of equal (K, r, options) share one
+    factorization and one gradient carrier: the P forward-mode passes of
+    one gradient factor once."""
+    token = _SHARED.set({})
+    try:
+        yield
+    finally:
+        _SHARED.reset(token)
+
+
+def _factor(K, r, opts):
+    """``Chol(K, **opts)``, or within `_share_factor` the factor of an
+    earlier evaluation of the same K, r and options (the float64 Gram's
+    closure, rebuilt with each evaluation, is the same model's)."""
+    shared = _SHARED.get()
+    key = tuple(kv for kv in opts if kv[0] != 'df_gram')
+    if shared is not None and shared.get('key') == key \
+            and shared['K'].shape == K.shape and torch.equal(shared['K'], K) \
+            and torch.equal(shared['r'], r):
+        return shared['dec']
+    dec = Chol(K, **dict(opts))
+    if shared is not None:
+        shared.update(key=key, K=K, r=r, dec=dec)
+    return dec
+
+
+def _kinv_wide(box, r, precision, keep):
+    """``(K_s⁻¹, zt, s)``: K_s⁻¹ in float64, zt = S K_s⁻¹ S r and the
+    scaling, from the factor in ``box``, a one-element list that this
+    empties so that the factor's last reference goes with it: the
+    float32 factor is then freed once its float64 copy exists, and the
+    copy becomes L⁻¹ in place (`trtri_blocked`) and then K_s⁻¹ = WᵀW in
+    place (kernel B).  With ``keep`` the factor stays usable: a float64
+    factor is copied before it is inverted."""
+    dec = box.pop()
+    wide = torch.promote_types(r.dtype, torch.float64)
+    if dec._wide is not None:
+        # rescued: the carrier and zt from the float64 factor, whose
+        # buffer then becomes the carrier's
+        sw = dec._s.to(wide)
+        zt = sw * dec._wide_solve(dec._wide_solve(r * sw, False), True)
+        W, Dinv = dec._wide
+    else:
+        zt = dec._s * dec._solve_Lt(dec.pinv_correlate(r))  # S K_s⁻¹ S r
+        W, Dinv = dec._L, dec._Dinv
+    if keep and W.dtype == wide:
+        W = W.clone()
+    W = W.to(wide)
+    s, block = dec._s, dec._BLOCK
+    del dec
+    if Dinv is not None:
+        W = _blocked.trtri_blocked(W, Dinv.to(wide), block, precision)
+        del Dinv
+        return syrk_t_full_(W, precision=precision), zt, s
+    eye = torch.eye(W.shape[0], dtype=wide, device=r.device)
+    W = torch.linalg.solve_triangular(W, eye, upper=False)
+    return W.T @ W, zt, s
+
+
+class _Curvature:
+    """What the second derivative of the log-density needs, kept across
+    the passes of one Hessian: K_s⁻¹ in float64, the scaling S, zt =
+    S K_s⁻¹ S r and w = K_s⁻¹ S r (S and eps held constant, as in the
+    JAX rule)."""
+
+    def __init__(self, box, r, precision, keep):
+        self.kinv, zt, s = _kinv_wide(box, r, precision, keep)
+        wide = self.kinv.dtype
+        self.s = s.to(wide)
+        self.zt = zt.to(wide)
+        self.w = self.zt / self.s
+        self.dtype = r.dtype
+
+    def kbar(self):
+        """K̄ = ½ S (K_s⁻¹ − w wᵀ) S, in float64."""
+        s = self.s
+        Kbar = self.kinv * s[:, None] * s[None, :]
+        return Kbar.addr_(self.zt, self.zt, alpha=-1).mul_(0.5)
+
+    def hvp(self, dK, dr):
+        """The tangent of (K̄, r̄) along (dK, dr), in float64:
+
+            dK̄ = ½ S (−K_s⁻¹ dK_s K_s⁻¹ + q wᵀ + w qᵀ) S,
+            dr̄ = S (v − u),
+
+        with dK_s = S sym(dK) S, u = K_s⁻¹ dK_s w, v = K_s⁻¹ S dr and
+        q = u − v.  It is the Hessian of the log-density applied to
+        (dK, dr), so it is also the VJP of (K̄, r̄).  Either tangent may
+        be None (zero)."""
+        Kinv, s, w = self.kinv, self.s, self.w
+        u = v = torch.zeros_like(w)
+        if dK is not None:
+            dKs = dK.to(Kinv.dtype)
+            dKs = (dKs + dKs.T).mul_(0.5 * s[:, None]).mul_(s[None, :])
+            A = Kinv @ dKs
+            del dKs
+            u = A @ w
+            out = torch.matmul(A, Kinv).neg_()   # −K_s⁻¹ dK_s K_s⁻¹
+            del A
+        else:
+            out = torch.zeros_like(Kinv)
+        if dr is not None:
+            v = Kinv @ (s * dr.to(Kinv.dtype))
+        q = u - v
+        out.addr_(q, w).addr_(w, q).mul_(0.5 * s[:, None]).mul_(s[None, :])
+        return out, s * (v - u)
+
 
 class _CholNLL(torch.autograd.Function):
     """The fused log-density with the hand-derived reverse rule
@@ -498,37 +692,69 @@ class _CholNLL(torch.autograd.Function):
     with ``K_s = S K S + eps·I = L Lᵀ`` (S and eps held constant: S is
     pow2-quantized and the eps sensitivity is O(eps)).  ``K_s⁻¹`` is
     one blocked triangular inverse (`trtri_blocked`) and one
-    triangular-skip WᵀW (kernel B on CUDA), both in one buffer."""
+    triangular-skip WᵀW (kernel B on CUDA), both in one buffer.
+
+    Forward mode (``jvp``) is the JAX rule ``⟨K̄, dK⟩ + ⟨S z̃, dr⟩`` with
+    the carrier formed the same way, once per factor.  Evaluated inside
+    `second_order`, the backward under ``create_graph`` returns (K̄, r̄)
+    through `_CholNLLGrad`, keeping K_s⁻¹ for the passes of a Hessian;
+    the ordinary backward keeps its single-use, in-place path."""
 
     @staticmethod
     def forward(ctx, K, r, opts):
-        dec = Chol(K, **dict(opts))
-        ctx.dec = dec
+        ctx.dec = _factor(K, r, opts)
+        ctx.shared = _SHARED.get() is not None
         ctx.precision = dict(opts).get('precision')
-        ctx.save_for_backward(r)
-        return dec.minus_log_normal_density(r)
+        ctx.twice = _SECOND_ORDER.get()
+        ctx.save_for_backward(r, K if ctx.twice else None)
+        ctx.save_for_forward(r)
+        return ctx.dec.minus_log_normal_density(r)
 
     @staticmethod
-    def backward(ctx, g):
+    def jvp(ctx, dK, dr, _):
         r, = ctx.saved_tensors
         dec = ctx.dec
         if dec is None:
+            raise RuntimeError('chol_nll: the factor was consumed by the '
+                               'backward')
+        # the carrier, once per factor (the passes of one forward-mode
+        # gradient share it, `_share_factor`)
+        if getattr(dec, '_carrier', None) is None:
+            cur = _Curvature([dec], r, ctx.precision, keep=True)
+            dec._carrier = (cur.kbar(), cur.zt)
+            del cur
+        Kbar, zt = dec._carrier
+        out = zt.new_zeros(())
+        if dK is not None:
+            out = out + torch.vdot(Kbar.reshape(-1),
+                                   dK.reshape(-1).to(Kbar.dtype))
+        if dr is not None:
+            out = out + torch.dot(zt, dr.to(zt.dtype))
+        return out.to(r.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, K = ctx.saved_tensors
+        if ctx.dec is None:
             raise RuntimeError('chol_nll: the backward consumes the factor, '
                                'so it runs once per forward')
-        # drop the factor once read, so that it and its float64 copy are
-        # never alive together with the carrier
-        ctx.dec = None
-        wide = torch.promote_types(r.dtype, torch.float64)
-        if dec._wide is not None:
-            # rescued: the carrier and z̃ from the float64 factor, whose
-            # buffer then becomes the carrier's
-            sw = dec._s.to(wide)
-            zt = sw * dec._wide_solve(dec._wide_solve(r * sw, False), True)
-            W, Dinv = dec._wide
-        else:
-            zt = dec._s * dec._solve_Lt(dec.pinv_correlate(r))  # S K_s⁻¹ S r
-            W, Dinv = dec._L.to(wide), dec._Dinv
-        s, block = dec._s, dec._BLOCK
+        # the factor goes with the box: it and its float64 copy are never
+        # alive together with the carrier.  Inside `second_order` (and
+        # within `_share_factor`) it stays, so the backward may run again
+        keep = ctx.twice or ctx.shared
+        box = [ctx.dec]
+        if not keep:
+            ctx.dec = None
+        if torch.is_grad_enabled():
+            # create_graph: the gradient as a Function of (K, r, g)
+            if K is None:
+                raise RuntimeError(
+                    'chol_nll was evaluated once differentiable: evaluate '
+                    'it inside lsqfitgp_torch.linalg.second_order() for a '
+                    'backward with create_graph (a Hessian)')
+            state = _Curvature(box, r, ctx.precision, keep=True)
+            Kbar, gr = _CholNLLGrad.apply(K, r, g, state)
+            return Kbar, gr if ctx.needs_input_grad[1] else None, None
         # K_s⁻¹ is formed in float64 even from a float32 factor.  The
         # contraction <K⁻¹, ∂K> needs K⁻¹ accurate on the smooth,
         # large-eigenvalue subspace, where its entries are ~1/λmax, and
@@ -541,16 +767,8 @@ class _CholNLL(torch.autograd.Function):
         # buffer: the peaks are the float32 L beside its float64 copy
         # and the float64 K-bar beside its float32 result, 12 bytes per
         # n² from a float32 factor.
-        del dec
-        if Dinv is not None:
-            W = _blocked.trtri_blocked(W, Dinv.to(wide), block, ctx.precision)
-            del Dinv
-            Kbar = syrk_t_full_(W, precision=ctx.precision)
-        else:
-            eye = torch.eye(W.shape[0], dtype=wide, device=r.device)
-            W = torch.linalg.solve_triangular(W, eye, upper=False)
-            Kbar = W.T @ W
-        del W
+        Kbar, zt, s = _kinv_wide(box, r, ctx.precision, keep)
+        wide = Kbar.dtype
         # Kbar = ½ S (K_s⁻¹ − (zt/s)(zt/s)ᵀ) S, in place (n² buffers are
         # the gradient's peak memory)
         s = s.to(wide)
@@ -561,13 +779,69 @@ class _CholNLL(torch.autograd.Function):
         return Kbar.to(r.dtype), gr, None
 
 
+class _CholNLLGrad(torch.autograd.Function):
+    """The gradient of `chol_nll`, ``(g K̄, g S z̃)``, as a function of
+    (K, r, g): its backward is the closed-form second derivative
+    (`_Curvature.hvp`, which is self-adjoint), what
+    ``jax.jacfwd(jax.grad(chol_nll))`` computes through the factor's
+    tangent, with S and eps held constant."""
+
+    @staticmethod
+    def forward(ctx, K, r, g, state):
+        ctx.state = state
+        ctx.save_for_backward(g)
+        ctx.set_materialize_grads(False)
+        gw = g.to(state.kinv.dtype)
+        return (state.kbar() * gw).to(r.dtype), (state.zt * gw).to(r.dtype)
+
+    @staticmethod
+    def backward(ctx, cK, cr):
+        if torch.is_grad_enabled():
+            raise RuntimeError(_THIRD)
+        g, = ctx.saved_tensors
+        st = ctx.state
+        need_K, need_r, need_g = ctx.needs_input_grad[:3]
+        gK = gr = gg = None
+        if need_K or need_r:
+            dKbar, drbar = st.hvp(cK, cr)
+            gw = g.to(st.kinv.dtype)
+            gK = (dKbar * gw).to(st.dtype) if need_K else None
+            gr = (drbar * gw).to(st.dtype) if need_r else None
+        if need_g:
+            gg = st.zt.new_zeros(())
+            if cK is not None:
+                gg = gg + torch.vdot(st.kbar().reshape(-1),
+                                     cK.reshape(-1).to(gg.dtype))
+            if cr is not None:
+                gg = gg + torch.dot(st.zt, cr.to(gg.dtype))
+            gg = gg.to(g.dtype)
+        return gK, gr, gg, None
+
+
 def chol_nll(K, r, **choleskykw):
     """Fused ``Chol(K, **kw).minus_log_normal_density(r)`` whose
     gradient with respect to K and r is the hand-derived rule instead
     of autograd through the factorization: value+gradient costs about
-    two factorizations' worth of products."""
+    two factorizations' worth of products.  Forward mode works
+    everywhere; a Hessian (a backward with ``create_graph``) needs the
+    evaluation inside `second_order`."""
     return _CholNLL.apply(K, torch.as_tensor(r),
                           tuple(sorted(choleskykw.items())))
+
+
+def solve_batched_triangular(L, B):
+    """X = L⁻¹ B for lower-triangular L, with B of shape (n, m), (P, n)
+    (each row a right-hand side) or (..., n, m)."""
+    if B.dim() == 2 and B.shape[0] == L.shape[0]:
+        return torch.linalg.solve_triangular(L, B, upper=False)
+    if B.dim() == 2:
+        return torch.linalg.solve_triangular(L, B.T, upper=False).T
+    return torch.linalg.solve_triangular(L, B, upper=False)
+
+
+def solve_batched(decomp, B):
+    """K⁺ B through the decomposition."""
+    return decomp.ginv_linear(B)
 
 
 # -- streaming (never-materialized Gram) ---------------------------------------
@@ -810,6 +1084,11 @@ class _StreamNLL(torch.autograd.Function):
         if ctx.tree is None:
             raise RuntimeError('chol_nll_stream_grad: the backward consumes '
                                'the factor, so it runs once per forward')
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                'the streaming likelihood is differentiable once: a '
+                'backward with create_graph (a Hessian) is not implemented; '
+                "use covariance='minhess' or the dense solver")
         profile, ops_, block, b1, precision, gradblock = ctx.meta
         Xp, y, eps, lenscale, *pvec = ctx.saved_tensors
         need_y, need_eps, need_ls, *need_p = ctx.needs_input_grad[2:]

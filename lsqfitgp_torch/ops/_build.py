@@ -66,6 +66,14 @@ _SIGNATURES = {
                       _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P], _BOTH),
     'lsq_gram_sym_bwd': ([_P, _P, _I64, _I32, _I32, _P, _I32, _U32, _I32,
                           _I32, _I32, _I32, _I32, _P, _P, _P], _BOTH),
+    'lsq_gram_jvp': ([_P, _P, _P, _P, _I64, _I64, _I32, _P, _I32, _I32, _P,
+                      _P], _BOTH),
+    'lsq_gram_sym_jvp': ([_P, _P, _I64, _I32, _P, _I32, _I32, _P, _P],
+                         _BOTH),
+    'lsq_gram_bwd_jvp': ([_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P,
+                          _I32, _I32, _I32, _I32, _P, _P, _P, _P], _BOTH),
+    'lsq_gram_sym_bwd_jvp': ([_P, _P, _P, _I64, _I32, _I32, _P, _I32, _I32,
+                              _I32, _I32, _P, _P, _P], _BOTH),
 }
 
 _state = {}

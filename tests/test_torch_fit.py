@@ -157,13 +157,27 @@ def test_uncert_transformed_keys():
 
 def test_auto_covariance_dense_without_hessian_raises(data):
     """covariance='auto' on a dense objective whose minimizer gives no
-    inverse Hessian (Nelder-Mead) is the JAX package's 'hess', which the
-    port does not have: it raises, at the first evaluation, and never
-    returns the prior in its place."""
+    inverse Hessian (Nelder-Mead) is the JAX package's 'hess', the
+    Hessian of the objective: the port no longer raises there but
+    returns it, held to the JAX fit's (whose Gram is its plain route:
+    its Pallas rule is not differentiable twice in interpret mode) at
+    rtol 1e-5; Nelder-Mead walks the same simplex on both sides."""
     x, y = data
-    with pytest.raises(NotImplementedError, match="covariance='hess'"):
-        lt.empbayes_fit(HYPERPRIOR, _factory(lt, x), {'y': y},
-                        method='nograd')
+
+    def jax_factory(hp):
+        gp = ltpu.GP(hp['amp'] * ltpu.ExpQuad(scale=hp['scale']))
+        gp = gp.addx(x, 'f').addcov(0.09 * np.eye(len(x)), 'e')
+        return gp.addlintransf(lambda f, e: f + e, ['f', 'e'], 'y')
+
+    fj = ltpu.empbayes_fit(HYPERPRIOR, jax_factory, {'y': y},
+                           method='nograd')
+    ft = lt.empbayes_fit(HYPERPRIOR, _factory(lt, x), {'y': y},
+                         method='nograd')
+    assert ft.covariance == 'hess'
+    np.testing.assert_allclose(ft.pmean.buf.numpy(),
+                               np.asarray(fj.pmean.buf), rtol=1e-5)
+    np.testing.assert_allclose(ft.pcov.numpy(), np.asarray(fj.pcov),
+                               rtol=1e-5)
 
 
 def test_auto_covariance_stream_without_hessian_warns(data):

@@ -97,6 +97,31 @@ def test_cpu_tensors_take_the_plain_version(gen):
     assert [vars(c) for c in counters] == before
 
 
+def test_cpu_tensors_take_the_plain_tangents(gen):
+    """The tangent kernels' wrappers (C′, C″, E′, E″) run their plain
+    versions for CPU tensors and count no launch."""
+    x = torch.as_tensor(gen.standard_normal(50))
+    dx = torch.as_tensor(gen.standard_normal(50))
+    G = torch.as_tensor(gen.standard_normal((50, 50)))
+    kw = dict(post=(('mul', 1.3),), noise=0.1, dpost=(0.2,))
+    before = [vars(c).copy() for c in (ops.gram, ops.gram_sym)]
+    torch.testing.assert_close(
+        ops.gram_jvp('expquad', x, None, dx, dnoise=0.5, **kw),
+        ops.gram_jvp_plain('expquad', x, None, dx, dnoise=0.5, **kw))
+    torch.testing.assert_close(
+        ops.gram_sym_jvp('expquad', x, dx, dnoise=0.5, **kw),
+        ops.gram_sym_jvp_plain('expquad', x, dx, dnoise=0.5, **kw))
+    for got, ref in ((ops.gram_backward_jvp(G, 'expquad', x, None, dx, **kw),
+                      ops.gram_backward_jvp_plain(G, 'expquad', x, None, dx,
+                                                  **kw)),
+                     (ops.gram_sym_backward_jvp(G, 'expquad', x, dx, **kw),
+                      ops.gram_sym_backward_jvp_plain(G, 'expquad', x, dx,
+                                                      **kw))):
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b)
+    assert [vars(c) for c in (ops.gram, ops.gram_sym)] == before
+
+
 def test_in_place_syrk_takes_square_w():
     with pytest.raises(ValueError, match='square'):
         ops.syrk_t_full_(torch.zeros((8, 6)))
@@ -614,3 +639,190 @@ def test_simt_syrk_t_full_ragged(cuda, gen, h, m, misaligned):
     tol = 4 * h ** 0.5 * u * _syrk.syrk_t_full_plain(W.abs()) + 1e-30
     assert bool(((got - ref).abs() <= tol).all()), \
         float((got - ref).abs().max())
+
+
+def _tangent_inputs(gen, dtype, device, n, m, p):
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    x = t(gen.standard_normal((n, p)) * 2)
+    y = t(gen.standard_normal((m, p)) * 2)
+    x[3] = x[5]   # coincident points: the weights are zero at r² = 0
+    dx = t(gen.standard_normal((n, p)))
+    dy = t(gen.standard_normal((m, p)))
+    post = (('mul', t(1.3)), ('add', t(0.2)), ('mul', t(0.7)))
+    return t, x, y, dx, dy, post, (0.3, -0.4, 0.5)
+
+
+def _tangent_tol(x, y, dx, dy, dtype):
+    """Per-entry bound of the tangent Gram's rounding: 16 (p + 1) u times
+    the sum of its terms' magnitudes (α g' dr² with dr²'s terms summed in
+    magnitude, dα g, dβ, dnoise), with the chain ((1.3 g + 0.2) 0.7)
+    and tangents (0.3, -0.4, 0.5, 0.5)."""
+    u = torch.finfo(dtype).eps / 2
+    p = x.shape[1]
+    core = ops.gram_plain('expquad', x, y)
+    adr2 = 2 * ((x[:, None, :] - y[None, :, :]).abs()
+                * (dx[:, None, :] - dy[None, :, :]).abs()).sum(-1)
+    terms = 0.5 * 1.3 * 0.7 * core * adr2 + 1.0 * core + 1.0
+    return 16 * (p + 1) * u * terms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n,m,p', [(300, 128, 1), (301, 70, 1), (64, 64, 1),
+                                   (257, 131, 3), (130, 67, 6)])
+def test_gram_jvp_cuda(cuda, gen, dtype, n, m, p):
+    """Kernels C′ and E′ (the tangent Gram) against their plain version:
+    ragged and unaligned n and m, p > 1, the chain's and the nugget's
+    tangents; E′ writes C′'s entries to the bit."""
+    t, x, y, dx, dy, post, dpost = _tangent_inputs(gen, dtype, cuda, n, m, p)
+    kw = dict(post=post, noise=t(0.1), dpost=dpost, dnoise=0.5)
+    for yy, dyy in ((y, dy), (None, None)):
+        n0 = ops.gram.launches_jvp
+        got = ops.gram_jvp('expquad', x, yy, dx, dyy, **kw)
+        assert ops.gram.launches_jvp == n0 + 1
+        ref = ops.gram_jvp_plain('expquad', x, yy, dx, dyy, **kw)
+        tol = _tangent_tol(x, x if yy is None else yy, dx,
+                           dx if yy is None else dyy, dtype)
+        assert bool(((got - ref).abs() <= tol).all())
+    n0 = ops.gram_sym.launches_jvp
+    half = ops.gram_sym_jvp('expquad', x, dx, **kw)
+    assert ops.gram_sym.launches_jvp == n0 + 1
+    assert torch.equal(half, got)
+    assert torch.equal(half, half.T)
+
+
+def _bwd_jvp_tol(G, x, y, dx, dy, dtype, sym):
+    """Bounds of the backward tangent's sums taken in another order, as
+    `_bwd_tol`: the terms' weights |G| (|dα g'| + |α g'' dr²|) on the
+    coordinates and |G α g'| on their tangents, with the chain's
+    α = 0.91 and dα = 0.3 0.7 + 1.3 0.5 (the tangents of 1.3 and 0.7)."""
+    u = torch.finfo(dtype).eps / 2
+    n, p = x.shape
+    m = y.shape[0]
+    core = ops.gram_plain('expquad', x, y)
+    alpha, dalpha = 1.3 * 0.7, 0.3 * 0.7 + 1.3 * 0.5
+    adr2 = 2 * ((x[:, None, :] - y[None, :, :]).abs()
+                * (dx[:, None, :] - dy[None, :, :]).abs()).sum(-1)
+    A1 = G.abs() * (0.5 * abs(dalpha) * core + 0.25 * alpha * core * adr2)
+    A2 = G.abs() * (0.5 * alpha * core)
+    if sym:
+        A1, A2 = A1 + A1.T, A2 + A2.T
+    rel = 16 * (p + 1) * u
+    D = x[:, None, :].abs() + y[None, :, :].abs()
+    dD = dx[:, None, :].abs() + dy[None, :, :].abs()
+    T = A1[:, :, None] * D + A2[:, :, None] * dD
+    tx = 2 * T.sum(1) * (8 * m ** 0.5 * u + rel)
+    ty = 2 * T.sum(0) * (8 * n ** 0.5 * u + rel)
+    ts = (8 * (n * m) ** 0.5 * u + rel) * 4 * (
+        G.abs().sum() + (G.abs() * core).sum()
+        + (G.abs() * 0.5 * core * adr2).sum())
+    return tx, ty, ts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n,m,p', [(300, 128, 1), (301, 70, 1), (64, 64, 1),
+                                   (257, 131, 3), (130, 67, 6)])
+def test_gram_backward_jvp_cuda(cuda, gen, dtype, n, m, p):
+    """Kernel C″ (the tangent of C's backward at fixed G) against its
+    plain version: ragged n and m, unaligned m, p = 3 (one launch) and
+    p = 6 (two); each subset of the outputs; y given and y = x; two calls
+    equal to the bit."""
+    t, x, y, dx, dy, post, dpost = _tangent_inputs(gen, dtype, cuda, n, m, p)
+    kw = dict(post=post, noise=t(0.1), dpost=dpost)
+    for yy, dyy in ((y, dy), (None, None)):
+        G = t(gen.standard_normal((n, m if yy is not None else n)))
+        tx, ty, tp = _bwd_jvp_tol(G, x, x if yy is None else yy, dx,
+                                  dx if yy is None else dyy, dtype, False)
+        ref = ops.gram_backward_jvp_plain(G, 'expquad', x, yy, dx, dyy, **kw)
+        for need_xy, need_p in ((True, True), (True, False), (False, True)):
+            n0 = ops.gram.launches_bwd_jvp
+            got = ops.gram_backward_jvp(G, 'expquad', x, yy, dx, dyy,
+                                        need_xy=need_xy, need_p=need_p, **kw)
+            runs = -(-p // 4) if need_xy and p > 1 else 1
+            assert ops.gram.launches_bwd_jvp == n0 + runs
+            again = ops.gram_backward_jvp(G, 'expquad', x, yy, dx, dyy,
+                                          need_xy=need_xy, need_p=need_p,
+                                          **kw)
+            for a, b in zip(got, again):
+                assert (a is None) == (b is None)
+                assert a is None or torch.equal(a, b)
+            if need_xy:
+                assert bool(((got[0] - ref[0]).abs() <= tx).all())
+                assert bool(((got[1] - ref[1]).abs() <= ty).all())
+            else:
+                assert got[0] is None and got[1] is None
+            if need_p:
+                assert bool(((got[2] - ref[2]).abs() <= tp).all()), \
+                    (got[2], ref[2])
+            else:
+                assert got[2] is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n,p', [(300, 1), (301, 1), (64, 1), (257, 3),
+                                 (130, 6)])
+def test_gram_sym_backward_jvp_cuda(cuda, gen, dtype, n, p):
+    """Kernel E″ against its plain version: ragged and unaligned n,
+    p = 3 and p = 6; each subset of the outputs; two calls equal to the
+    bit."""
+    t, x, _, dx, _, post, dpost = _tangent_inputs(gen, dtype, cuda, n, 8, p)
+    kw = dict(post=post, noise=t(0.1), dpost=dpost)
+    G = t(gen.standard_normal((n, n)))
+    tx, _, tp = _bwd_jvp_tol(G, x, x, dx, dx, dtype, True)
+    ref = ops.gram_sym_backward_jvp_plain(G, 'expquad', x, dx, **kw)
+    for need_x, need_p in ((True, True), (True, False), (False, True)):
+        n0 = ops.gram_sym.launches_bwd_jvp
+        got = ops.gram_sym_backward_jvp(G, 'expquad', x, dx, need_x=need_x,
+                                        need_p=need_p, **kw)
+        runs = -(-p // 4) if need_x and p > 1 else 1
+        assert ops.gram_sym.launches_bwd_jvp == n0 + runs
+        again = ops.gram_sym_backward_jvp(G, 'expquad', x, dx, need_x=need_x,
+                                          need_p=need_p, **kw)
+        for a, b in zip(got, again):
+            assert (a is None) == (b is None)
+            assert a is None or torch.equal(a, b)
+        if need_x:
+            assert bool(((got[0] - ref[0]).abs() <= tx).all())
+        else:
+            assert got[0] is None
+        if need_p:
+            assert bool(((got[1] - ref[1]).abs() <= tp).all()), \
+                (got[1], ref[1])
+        else:
+            assert got[1] is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('halfmatrix', [False, True])
+def test_gram_double_backward_cuda(cuda, gen, halfmatrix):
+    """The Hessian of <G, K> + |K|²/2 in the points and the chain's
+    scalar through the Functions' double backward (C″ for the points and
+    the scalar, C′ for the output gradient G + K; or E″ and E′) on the
+    card against the same on the CPU, in float64."""
+    x0 = gen.standard_normal(90) * 2
+    G0 = gen.standard_normal((90, 90))
+
+    def hessian(device):
+        x = torch.as_tensor(x0, device=device).requires_grad_()
+        a = torch.tensor(1.3, dtype=torch.float64, device=device,
+                         requires_grad=True)
+        fn = ops.gram_sym if halfmatrix else ops.gram
+        K = fn('expquad', x, post=(('mul', a),),
+               noise=torch.tensor(0.1, dtype=torch.float64, device=device))
+        v = (K * torch.as_tensor(G0, device=device)).sum() \
+            + 0.5 * (K * K).sum()
+        g = torch.cat([t.reshape(-1) for t in
+                       torch.autograd.grad(v, (x, a), create_graph=True)])
+        return torch.stack([
+            torch.cat([t.reshape(-1) for t in torch.autograd.grad(
+                g[k], (x, a), retain_graph=True)]) for k in (0, 7, 90)])
+
+    counter = ops.gram_sym if halfmatrix else ops.gram
+    n0 = counter.launches_jvp, counter.launches_bwd_jvp
+    got = hessian(cuda)
+    assert (counter.launches_jvp, counter.launches_bwd_jvp) == \
+        (n0[0] + 3, n0[1] + 3)
+    torch.testing.assert_close(got.cpu(), hessian('cpu'), rtol=1e-10,
+                               atol=1e-10)

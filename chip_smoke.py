@@ -23,7 +23,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    kernel), and in float64 (the FP64 tensor-core kernel, DMMA); B has a
    record for float64 out of place and in place (DMMA; the path's) and
    for float32 (SIMT); C, E and their backward for float32 and float64
-   (E's and its backward's with '/float64' off every path); the fused
+   (E's and its backward's with '/float64' off every path), and C and
+   its backward at p = 2 in float32 ('gram/p2' and 'gram_bwd/p2', the
+   derivative path's, checked at that path's shape too); the fused
    backward must give the same bits in two calls, and E the same
    entries as C; each record has its share of the bound;
 4. the float32 rescue: ``Chol`` and ``chol_nll`` of a float32 ExpQuad
@@ -82,7 +84,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    kernels C′ (``gram_jvp``), C″ (``gram_backward_jvp``), E′ and E″ are
    held in step 3 against their plain versions at 16384², C″ and E″ to
    the bit in two calls, E′ to C′'s entries;
-9. prints a JSON line of kernel records and, last, the device line.
+9. the derivative path (BASELINE config #2): ``amp * ExpQuad(scale)`` on
+   points of two fields (x, t), 8192 function values and 4096
+   observations of ∂f/∂x (``addx(..., deriv='x')``), fitted with the
+   default ``gram`` (kernel C at p = 2 for the value block, once
+   forward and once backward per evaluation; the derivative blocks
+   broadcast), then ∂F/∂t predicted; NLL, gradient and both posterior
+   means held to a closed-form float64 oracle, the peak memory, the
+   blocks' times and a profile;
+10. prints a JSON line of kernel records and, last, the device line.
 
 Any failed check exits non-zero before the last line.
 
@@ -95,11 +105,14 @@ its own process, to find the largest n that fits the card;
 'high' and 'highest' in turns; ``--compare-highest`` the dense fit at
 'high' and 'highest' and streaming evaluations at 'highest', each with
 its time per evaluation and a profile; ``--dense64`` runs only the
-float64 dense evaluation, at the dense fit's optimum; ``--gram-route`` times kernels C
-and E with their backward through the public API, and dense float32
-value+gradients at the optimum with a profile (``--dense64`` and
-``--gram-route`` run from an older checkout too, to time its route in
-the same call).
+float64 dense evaluation, at the dense fit's optimum; ``--gram-route``
+times the point block through the GP by kernel C and by the broadcast
+core, square and against 64 prediction points (the table of ``gram='auto'``'s cutover, where the package has
+structured points), kernels C and E with their backward through the
+public API, and dense float32 value+gradients at the optimum with a
+profile (``--dense64`` and ``--gram-route`` run from an older checkout
+too, to time its route in the same call); ``--deriv`` runs only kernel
+C's p = 2 records (step 3) and the derivative path.
 """
 
 import json
@@ -127,6 +140,10 @@ SEED = 20261016
 # the dense slice's optimum (log scale, log amp) as its fits find it
 # (PERF.md): where --dense64 evaluates
 OPTIMUM = [0.9016, 1.067]
+# the derivative phase (BASELINE config #2): function values and
+# observations of ∂f/∂x at points (x, t) on [-25, 25]², and the cap of
+# its BFGS fit
+N_DF, N_DD, DERIV_SPAN, DERIV_ITERS = 8192, 4096, 25.0, 10
 
 # the card's peak rates (NVIDIA's H100 SXM data sheet, at 700 W): HBM
 # bandwidth, and FP32 (outside the tensor cores), FP64 (tensor core) and
@@ -478,6 +495,44 @@ def check_bwd(what, fused, plain, G, x, amp, u):
     return err
 
 
+def check_bwd_cols(what, G, X, amp, u):
+    """Kernel C's fused backward at p = X.shape[1] > 1 (X both of K's
+    arguments, the amp chain) against its plain version on the card, on
+    the x and amp gradients, and against itself: two calls must agree to
+    the bit.  Tolerance: the sums' order as at p = 1 (`bwd_bounds`),
+    plus the p-term r² rounding of the forward's tolerance, 16 (p + 1) u,
+    on each term.  Returns the max abs error."""
+    import torch
+    from lsqfitgp_torch.ops import gram_plain, gram_backward, \
+        gram_backward_plain
+    n, p = X.shape
+    post = (('mul', amp),)
+    got = gram_backward(G, 'expquad', X, post=post)
+    again = gram_backward(G, 'expquad', X, post=post)
+    for a, b in zip(got, again):
+        if not torch.equal(a, b):
+            fail(f'{what}: two calls differ')
+    del again
+    ref = gram_backward_plain(G, 'expquad', X, post=post)
+    with torch.no_grad():
+        # |C| + |C|ᵀ with C = G ∘ Wr: x is both of K's arguments
+        Kb = gram_plain('expquad', X)
+        A = G.abs() * (0.5 * amp) * Kb
+        A = A + A.T
+        tx = torch.stack([2 * (A * (X[:, d, None] - X[None, :, d]).abs())
+                          .sum(1) for d in range(p)], 1)
+        ta = (G.abs() * Kb).sum()
+        del A, Kb
+    rel = 16 * (p + 1) * u
+    err = check_close(f'{what} dx', got[0] + got[1], ref[0] + ref[1],
+                      (8 * math.sqrt(n) * u + rel) * tx)
+    err = max(err, check_close(
+        f'{what} damp', got[2][0], ref[2][0],
+        (math.ceil(math.log2(n * n)) * 4 * u + rel) * ta))
+    log(f'    {what}: two calls agree to the bit')
+    return err
+
+
 # the JVP rules of the TPU kernels C and E, which the fused backward
 # kernels replace
 BWD_REPLACES = {'gram': 'lsqfitgp_tpu/ops/_gram.py:278',
@@ -572,28 +627,10 @@ def kernel_gram(dtype, gen):
         f'{wrap_b:.3f} ms), plain {plain_b:.3f} ms, bound {bd_b[0]:.3f} ms '
         f'({bd_b[1]})')
 
-    # p = 8: two launches of 4 coordinates each.  Tolerance: the sums'
-    # order as at p = 1, plus the p-term r² rounding of the forward's
-    # tolerance, 16 (p + 1) u, on each term
-    n8 = N // 2
-    G8 = torch.randn(n8, n8, **kw)
-    got = gram_backward(G8, 'expquad', X8, post=post)
-    ref = gram_backward_plain(G8, 'expquad', X8, post=post)
-    with torch.no_grad():
-        # |C| + |C|ᵀ with C = G ∘ Wr: x is both of K's arguments
-        Kb = gram_plain('expquad', X8)
-        A = G8.abs() * (0.5 * amp) * Kb
-        A = A + A.T
-        tx = torch.stack([2 * (A * (X8[:, d, None] - X8[None, :, d]).abs())
-                          .sum(1) for d in range(8)], 1)
-        ta = (G8.abs() * Kb).sum()
-        del A, Kb
-    rel = 16 * 9 * u
-    check_close(f'C gram backward p=8 dx {dtype}', got[0] + got[1],
-                ref[0] + ref[1], (8 * math.sqrt(n8) * u + rel) * tx)
-    check_close(f'C gram backward p=8 damp {dtype}', got[2][0], ref[2][0],
-                (math.ceil(math.log2(n8 * n8)) * 4 * u + rel) * ta)
-    del G8, X8, got, ref, tx
+    # p = 8: two launches of 4 coordinates each
+    G8 = torch.randn(N // 2, N // 2, **kw)
+    check_bwd_cols(f'C gram backward p=8 {dtype}', G8, X8, amp, u)
+    del G8, X8
 
     # autograd through gram against autograd through the plain version
     leaves = [x.clone().requires_grad_(), amp.clone().requires_grad_(),
@@ -613,6 +650,68 @@ def kernel_gram(dtype, gen):
     return gram_records('gram', dtype,
                         record(err, ms, plain_ms, bd, wrapper_ms=wrap),
                         record(err_b, ms_b, plain_b, bd_b, wrapper_ms=wrap_b))
+
+
+def kernel_gram_p2(dtype, gen):
+    """Kernel C at p = 2, the derivative phase's value block (points of
+    two fields) with the amp chain, forward and fused backward against
+    their plain versions at the path's shape (N_DF x 2, x both
+    arguments) and at 16384², where each is timed: the records
+    'gram/p2' and 'gram_bwd/p2', whose launches are the derivative
+    phase's."""
+    import torch
+    from lsqfitgp_torch.ops import (gram, gram_plain, gram_backward,
+                                    gram_backward_plain)
+    u = unit_roundoff(dtype)
+    isz = torch.finfo(dtype).bits // 8
+    p = 2
+    amp = torch.tensor(1.3, device='cuda', dtype=dtype)
+    post = (('mul', amp),)
+    errs = []
+    for n in (N_DF, N):
+        X = (torch.rand(n, p, device='cuda', dtype=dtype, generator=gen)
+             - 0.5) * 2 * DERIV_SPAN
+        # tolerance as for C's p = 8 block: 16 (p + 1) u max|K|
+        K = gram('expquad', X, post=post)
+        Kp = gram_plain('expquad', X, post=post)
+        err = check_close(f'C gram p=2 n={n} {dtype}', K, Kp,
+                          16 * (p + 1) * u * float(Kp.abs().max()))
+        del K, Kp
+        G = torch.randn(n, n, device='cuda', dtype=dtype, generator=gen)
+        err_b = check_bwd_cols(f'C gram backward p=2 n={n} {dtype}', G, X,
+                               amp, u)
+        errs.append((err, err_b))
+    err, err_b = errs[-1]
+    ms, plain_ms, wrap = gram_times(lambda: gram('expquad', X, post=post),
+                                    lambda: gram_plain('expquad', X,
+                                                       post=post))
+    # the output written once and the p columns read for the rows and for
+    # the columns; per entry p differences, p squares, p - 1 additions,
+    # the exp's argument, the exp and the amp: 3 p + 2 operations
+    bd = bound(isz * (N * N + 2 * N * p), (3 * p + 2) * N * N, dtype)
+    log(f'  C p=2 {dtype}: kernel {ms:.3f} ms (the wrapper {wrap:.3f} ms), '
+        f'plain {plain_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]}), share '
+        f'{bd[0] / ms:.2f}')
+    ms_b, plain_b, wrap_b = gram_times(
+        lambda: gram_backward(G, 'expquad', X, post=post),
+        lambda: gram_backward_plain(G, 'expquad', X, post=post))
+    # G read once, the p columns read and the two gradients written once;
+    # per entry the forward's 3 p + 2 operations, the weight and the amp
+    # sum, and per coordinate a product and the row and column sums:
+    # 6 p + 4
+    bd_b = bound(isz * (N * N + 3 * N * p), (6 * p + 4) * N * N, dtype)
+    log(f'  C backward p=2 {dtype}: fused kernel {ms_b:.3f} ms (the wrapper '
+        f'{wrap_b:.3f} ms), plain {plain_b:.3f} ms, bound {bd_b[0]:.3f} ms '
+        f'({bd_b[1]}), share {bd_b[0] / ms_b:.2f}')
+    del G, X
+    label = str(dtype).split('.')[-1]
+    rec = record(err, ms, plain_ms, bd, wrapper_ms=wrap)
+    rec.update(name='gram/p2', key='gram', counter='launches', dtype=label,
+               path='deriv')
+    rec_b = record(err_b, ms_b, plain_b, bd_b, wrapper_ms=wrap_b)
+    rec_b.update(name='gram_bwd/p2', key='gram_bwd', counter='launches_bwd',
+                 dtype=label, path='deriv', replaces=BWD_REPLACES['gram'])
+    return [rec, rec_b]
 
 
 def kernel_schur_gram(dtype, gen):
@@ -1008,6 +1107,8 @@ def kernel_phase():
          'lsqfitgp_tpu/ops/_syrk.py:250', [f64, f32]),
         ('gram', kernel_gram, 'lsqfitgp_torch/csrc/gram.cu',
          'lsqfitgp_tpu/ops/_gram.py:68', [f32, f64]),
+        ('gram p=2', kernel_gram_p2, 'lsqfitgp_torch/csrc/gram.cu',
+         'lsqfitgp_tpu/ops/_gram.py:68', [f32]),
         ('schur_update_gram', kernel_schur_gram,
          'lsqfitgp_torch/csrc/syrk.cu', 'lsqfitgp_tpu/ops/_syrk.py:334',
          [f32, f64]),
@@ -1131,19 +1232,25 @@ def require_counts(counts, expected, what):
             fail(f'{what}: {counts[name]} launches of {name}, expected {n}')
 
 
-def check_points(n, value_grad32, cond_at, x64, y64, points):
+def check_points(n, value_grad32, cond_at, x64, y64, points, grad64=None,
+                 dmax=None):
     """The port's float32 NLL and its gradient against the float64
-    reference (`plain_nll64`) at each (label, [log scale, log amp],
-    near_optimum) point; ``value_grad32(lp, precision=None)`` is the
-    port's NLL at the float32 tensor lp, ``cond_at(ls, la)`` the float32
-    condition estimate there.  Away from the optimum the gradient's error
-    at precision 'highest' is printed beside the default's ('high'); the
+    reference (`plain_nll64`, or ``grad64(lp)``) at each (label, [log
+    scale, log amp], near_optimum) point; ``value_grad32(lp,
+    precision=None)`` is the port's NLL at the float32 tensor lp,
+    ``cond_at(ls, la)`` the float32 condition estimate there, ``dmax(ls,
+    la)`` the largest diagonal entry of the model's K (default: amp +
+    the noise).  Away from the optimum the gradient's error at
+    precision 'highest' is printed beside the default's ('high'); the
     limits hold the default."""
     import torch
     eps32 = torch.finfo(torch.float32).eps
-
-    def grad64(lp):
-        return plain_nll64(x64, y64, *lp)
+    if grad64 is None:
+        def grad64(lp):
+            return plain_nll64(x64, y64, *lp)
+    if dmax is None:
+        def dmax(ls, la):
+            return math.exp(la) + NOISE_VAR
 
     for label, lpv, near_optimum in points:
         lp = torch.tensor(lpv, dtype=torch.float32, device=x64.device,
@@ -1164,8 +1271,9 @@ def check_points(n, value_grad32, cond_at, x64, y64, points):
         # tolerances.  NLL: the float32 path adds its eps = 4 eps32 dmax
         # diagonal anchor (dmax the largest scaled diagonal), which
         # shifts the NLL by eps tr(K_s⁻¹)/2 <= 2 eps32 n (amp + σ²)/σ²
-        # (since λmin(K) >= σ²), doubled for rounding.
-        if dnll > 4 * eps32 * n * (math.exp(la) + NOISE_VAR) / NOISE_VAR:
+        # (since λmin(K) >= σ²), doubled for rounding; amp + σ² is the
+        # largest diagonal entry, dmax.
+        if dnll > 4 * eps32 * n * dmax(ls, la) / NOISE_VAR:
             fail(f'{label}: NLL disagrees with the float64 reference')
         if not near_optimum:
             # gradient: forward error of float32 solves, ~cond eps32
@@ -1712,6 +1820,88 @@ def compare_highest(evals=5):
     profile_phase(lambda: value_grad(make, {'f': ys}))
 
 
+# the gram='auto' measurement (`gram_route_table`): point-block sizes
+# n, numbers of coordinates p (p > 1 as StructuredArray fields), and the
+# blocks' second side: m = n (the fit's blocks) and m = NPRED (a
+# prediction's cross block)
+ROUTE_NS = (256, 1024, 4096, 6144, 8192, 16384)
+ROUTE_PS = (1, 2, 4, 8, 16)
+
+
+def gram_route_table():
+    """The point block through the GP (`GP._covblock` of ``amp *
+    ExpQuad(scale)`` at n x m points, checks off, as the fit evaluates
+    it), by kernel C (``gram='tiled'``) and by the broadcast core
+    (``gram='broadcast'``), the forward alone and forward + backward
+    (the gradient in log scale and log amp), at each n of ROUTE_NS, p
+    of ROUTE_PS, m = n and m = NPRED, in float32 and float64; each a
+    median of 7 runs on CUDA events, a run being a few calls back to
+    back (their mean).  The two routes' blocks must agree.  Prints a
+    line per case and a JSON line of the table; the rule of
+    ``gram='auto'`` comes from it (PERF.md)."""
+    import torch
+    import lsqfitgp_torch as lgp
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    table = []
+    for dtype in (torch.float32, torch.float64):
+        torch.set_default_dtype(dtype)
+        u = unit_roundoff(dtype)
+        for p in ROUTE_PS:
+            for n, m in [(n, m) for n in ROUTE_NS for m in (n, NPRED)]:
+                X = (torch.rand(n, p, device='cuda', dtype=dtype,
+                                generator=gen) - 0.5) * 50
+                Y = X[:m] if m == n else (torch.rand(
+                    m, p, device='cuda', dtype=dtype, generator=gen)
+                    - 0.5) * 50
+                pts = [Z[:, 0] if p == 1 else lgp.asarray(
+                    {f'f{i}': Z[:, i] for i in range(p)}) for Z in (X, Y)]
+                G = torch.randn(n, m, device='cuda', dtype=dtype,
+                                generator=gen)
+                lp = torch.tensor([0.5, 0.2], device='cuda', dtype=dtype,
+                                  requires_grad=True)
+                batch = 20 if n * m <= 4096 ** 2 else 5 if n * m <= 8192 ** 2 \
+                    else 3
+                row = dict(dtype=str(dtype).split('.')[-1], p=p, n=n, m=m)
+                blocks = {}
+                for gram in ('tiled', 'broadcast'):
+                    def block(gram=gram):
+                        with lgp.disable_checks():
+                            gp = lgp.GP(lp[1].exp()
+                                        * lgp.ExpQuad(scale=lp[0].exp()),
+                                        gram=gram).addx(pts[0], 'a')
+                            if m == n:
+                                return gp._covblock('a', 'a', cache=False)
+                            return gp.addx(pts[1], 'b')._covblock(
+                                'a', 'b', cache=False)
+                    with torch.no_grad():
+                        blocks[gram] = block()
+                        fwd = median_ms(block, batch=batch)
+                    both = median_ms(
+                        lambda: torch.autograd.grad(block(), lp, G),
+                        batch=batch)
+                    row[gram] = [fwd, both]
+                err = float((blocks['tiled'] - blocks['broadcast']).abs()
+                            .max())
+                del blocks
+                # the two routes round the p-term r² in other orders and
+                # take other exps: 16 (p + 1) u max|K|, max|K| = amp
+                tol = 16 * (p + 1) * u * math.exp(0.2)
+                if not err <= tol:
+                    fail(f'gram route {row}: the kernel-C block and the '
+                         f'broadcast block differ by {err:.3e} > {tol:.3e}')
+                row['max_abs_diff'] = err
+                t, b = row['tiled'], row['broadcast']
+                log(f'  {row["dtype"]} p={p:2d} {n:5d} x {m:5d}: forward C '
+                    f'{t[0]:.4f} ms, broadcast {b[0]:.4f} ms (x{b[0] / t[0]:.2f}'
+                    f'); forward + backward C {t[1]:.4f} ms, broadcast '
+                    f'{b[1]:.4f} ms (x{b[1] / t[1]:.2f})')
+                table.append(row)
+                del G, X, Y, pts
+                torch.cuda.empty_cache()
+    print(json.dumps({'gram_route': table}), flush=True)
+    return table
+
+
 def gram_route(evals=7):
     """Kernels C and E as the main path calls them, through the public API
     only (`ops.gram`, `ops.gram_sym` and autograd), so that the same
@@ -1728,6 +1918,10 @@ def gram_route(evals=7):
     import lsqfitgp_torch as lgp
     from lsqfitgp_torch import ops
     gen = torch.Generator(device='cuda').manual_seed(SEED)
+    if hasattr(lgp, 'StructuredArray'):
+        log('point blocks through the GP, kernel C against the broadcast '
+            'core:')
+        gram_route_table()
     for dtype in (torch.float32, torch.float64):
         kw = dict(device='cuda', dtype=dtype, generator=gen)
         x = ((torch.rand(N, **kw) - 0.5) * 100).requires_grad_()
@@ -2404,6 +2598,304 @@ def halfmatrix_hess_phase(fitted, dev='cuda'):
     return out[True][2]
 
 
+# -- the derivative phase ---------------------------------------------------
+
+
+def deriv_truth(x, t):
+    """The derivative phase's truth f(x, t) and ∂f/∂x, smooth on the
+    scale of a few units."""
+    import numpy as np
+    return (np.sin(x / 3) * np.cos(t / 4),
+            np.cos(x / 3) / 3 * np.cos(t / 4))
+
+
+def deriv_data():
+    """The derivative phase's points and data from numpy seed SEED:
+    ``(pf, yf, pd, yd, ps)``, each set of points an (n, 2) array of
+    (x, t); ps the 64 prediction points, on the diagonal of the square."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    pf = rng.uniform(-DERIV_SPAN, DERIV_SPAN, (N_DF, 2))
+    pd = rng.uniform(-DERIV_SPAN, DERIV_SPAN, (N_DD, 2))
+    sd = math.sqrt(NOISE_VAR)
+    yf = deriv_truth(*pf.T)[0] + sd * rng.standard_normal(N_DF)
+    yd = deriv_truth(*pd.T)[1] + sd * rng.standard_normal(N_DD)
+    s = np.linspace(-0.9 * DERIV_SPAN, 0.9 * DERIV_SPAN, NPRED)
+    ps = np.stack([s, s[::-1] / 2], 1)
+    return pf, yf, pd, yd, ps
+
+
+def deriv_blocks64(pa, pb, scale, amp, da, db):
+    """The closed-form float64 covariance between the observations at the
+    (n, 2) points pa and pb of amp * ExpQuad(scale) on (x, t): ``da``,
+    ``db`` each None (the value), 'x' or 't' (the first derivative along
+    that coordinate); no port code.  With k = amp exp(-r²/(2 s²)) and
+    Δ = pa - pb: Cov(f, f) = k, Cov(f(p), ∂_c f(q)) = k Δ_c/s²,
+    Cov(∂_c f(p), f(q)) = -k Δ_c/s², Cov(∂_c f(p), ∂_e f(q)) = k
+    (δ_ce/s² - Δ_c Δ_e/s⁴)."""
+    import torch
+    col = {'x': 0, 't': 1}
+    D = pa[:, None, :] - pb[None, :, :]
+    k = amp * torch.exp(-0.5 * (D * D).sum(-1) / scale ** 2)
+    if da is None and db is None:
+        return k
+    if da is None:
+        return k * D[..., col[db]] / scale ** 2
+    if db is None:
+        return -k * D[..., col[da]] / scale ** 2
+    dd = D[..., col[da]] * D[..., col[db]]
+    return k * ((da == db) / scale ** 2 - dd / scale ** 4)
+
+
+def deriv_oracle64(pf, yf, pd, yd, log_scale, log_amp):
+    """Independent float64 NLL of the derivative model's data and its
+    gradient in (log scale, log amp): the three closed-form blocks
+    (`deriv_blocks64`), the noise on the diagonal,
+    ``torch.linalg.cholesky`` and autograd through that computation."""
+    import torch
+    lp = torch.tensor([log_scale, log_amp], dtype=torch.float64,
+                      device=pf.device, requires_grad=True)
+    s, a = lp[0].exp(), lp[1].exp()
+    K = torch.cat([
+        torch.cat([deriv_blocks64(pf, pf, s, a, None, None),
+                   deriv_blocks64(pf, pd, s, a, None, 'x')], 1),
+        torch.cat([deriv_blocks64(pd, pf, s, a, 'x', None),
+                   deriv_blocks64(pd, pd, s, a, 'x', 'x')], 1)], 0)
+    K.diagonal().add_(NOISE_VAR)
+    L = torch.linalg.cholesky(K)
+    del K
+    y = torch.cat([yf, yd])
+    z = torch.linalg.solve_triangular(L, y[:, None], upper=False)
+    nll = 0.5 * (z * z).sum() + torch.log(L.diagonal()).sum() \
+        + 0.5 * len(y) * math.log(2 * math.pi)
+    g, = torch.autograd.grad(nll, lp)
+    return float(nll.detach()), g.detach()
+
+
+def deriv_mean64(pf, yf, pd, yd, ps, scale, amp, ds):
+    """Independent float64 posterior mean at the points ps of the value
+    (``ds`` None) or of its derivative along ``ds``, from the closed-form
+    blocks."""
+    import torch
+    with torch.no_grad():
+        K = torch.cat([
+            torch.cat([deriv_blocks64(pf, pf, scale, amp, None, None),
+                       deriv_blocks64(pf, pd, scale, amp, None, 'x')], 1),
+            torch.cat([deriv_blocks64(pd, pf, scale, amp, 'x', None),
+                       deriv_blocks64(pd, pd, scale, amp, 'x', 'x')], 1)],
+            0)
+        K.diagonal().add_(NOISE_VAR)
+        alpha = torch.cholesky_solve(torch.cat([yf, yd])[:, None],
+                                     torch.linalg.cholesky(K))[:, 0]
+        del K
+        Ks = torch.cat([deriv_blocks64(ps, pf, scale, amp, ds, None),
+                        deriv_blocks64(ps, pd, scale, amp, ds, 'x')], 1)
+        return Ks @ alpha
+
+
+def gram_p_recorder():
+    """Wrap kernel C's launching functions so that each CUDA launch's
+    number of point coordinates p is recorded: returns the list of
+    ('fwd' | 'bwd', p) and a function that undoes the wrapping."""
+    from lsqfitgp_torch.ops import _gram
+    seen = []
+    ev, bw = _gram._eval_cuda, _gram._backward_cuda
+
+    def eval_cuda(profile, ops, x, *args):
+        seen.append(('fwd', x.shape[1]))
+        return ev(profile, ops, x, *args)
+
+    def backward_cuda(G, profile, ops, x, *args):
+        seen.append(('bwd', x.shape[1]))
+        return bw(G, profile, ops, x, *args)
+
+    _gram._eval_cuda, _gram._backward_cuda = eval_cuda, backward_cuda
+
+    def restore():
+        _gram._eval_cuda, _gram._backward_cuda = ev, bw
+
+    return seen, restore
+
+
+def deriv_phase(dev='cuda'):
+    """BASELINE config #2 at full width: ``amp * ExpQuad(scale)`` on
+    structured points with fields ('x', 't'), n_f = 8192 function values
+    and n_d = 4096 observations of ∂f/∂x (``addx(..., deriv='x')``), the
+    noise 0.09 I through ``givencov``, float32, the default ``gram``
+    ('auto': kernel C on the card for the value block).  Fits the two
+    hyperparameters with ``empbayes_fit`` (at most DERIV_ITERS BFGS
+    iterations), predicts F and ∂F/∂t at 64 points; checks that kernel C
+    ran at p = 2, its forward and fused backward once per evaluation,
+    and that A and B ran; holds the NLL and gradient at the start and at
+    the fit, and both posterior means, to the closed-form float64 oracle
+    (`deriv_oracle64`, `deriv_mean64`); prints the time per evaluation,
+    the peak memory of one value+gradient in B/n², the block times
+    (kernel C's value block against the broadcast derivative blocks) and
+    a profile.  Returns the launch counts of the fit and the
+    predictions."""
+    import torch
+    import lsqfitgp_torch as lgp
+    f32 = torch.float32
+    torch.set_default_dtype(f32)
+    t_phase = time.perf_counter()
+
+    def sync():
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+
+    pf, yf, pd, yd, ps = deriv_data()
+    n = N_DF + N_DD
+
+    def points(p):
+        return lgp.asarray({'x': p[:, 0], 't': p[:, 1]}, dtype=f32,
+                           device=dev)
+
+    xf, xd, xs = points(pf), points(pd), points(ps)
+    data = {'f': torch.as_tensor(yf, dtype=f32, device=dev),
+            'd': torch.as_tensor(yd, dtype=f32, device=dev)}
+
+    def gpfactory(hp, precision=None):
+        kw = {} if precision is None else dict(precision=precision)
+        gp = lgp.GP(hp['amp'] * lgp.ExpQuad(scale=hp['scale']), **kw)
+        return gp.addx(xf, 'f').addx(xd, 'd', deriv='x')
+
+    hyperprior = {'log(scale)': (0., 1.), 'log(amp)': (0., 1.)}
+    log(f'derivative phase: n = {N_DF} values + {N_DD} x-derivatives = '
+        f'{n}, points (x, t) on [-{DERIV_SPAN}, {DERIV_SPAN}]², float32, '
+        f'amp * ExpQuad(scale), gram=\'auto\', givencov {NOISE_VAR} I')
+    seen, restore = gram_p_recorder()
+    try:
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        fit = lgp.empbayes_fit(hyperprior, gpfactory, (data, NOISE_VAR),
+                               minkw={'maxiter': DERIV_ITERS}, raises=False)
+        sync()
+        wall = time.perf_counter() - t0
+        fit_launches = read_counts()
+        fit_seen = list(seen)
+        gp = fit.gp().addx(xs, 'F').addx(xs, 'dFdt', deriv='t')
+        post = gp.predfromdata(data, ['F', 'dFdt'], NOISE_VAR)
+        means = {k: post[k].mean for k in ('F', 'dFdt')}
+        sync()
+        launches = read_counts()
+    finally:
+        restore()
+    evals = len(fit.evaltimes)
+    log(f'  fit: {wall:.2f} s wall, {fit.minresult.nit} BFGS iterations '
+        f'(cap {DERIV_ITERS}), {evals} evaluations, median '
+        f'{statistics.median(fit.evaltimes) * 1e3:.1f} ms per evaluation '
+        f'(value + gradient); {fit.minresult.message}')
+    log(f'  launches during the fit: {nonzero(fit_launches)}; fit + '
+        f'predfromdata: {nonzero(launches)}')
+    ps_seen = sorted(set(fit_seen))
+    log(f'  kernel C launches (direction, p) during the fit: {ps_seen}')
+    if dev == 'cuda':
+        require_launched(fit_launches, ['schur_update_tc',
+                                        'syrk_t_full__dmma'], 'the '
+                         'derivative fit')
+        require_counts(fit_launches, {'gram': evals, 'gram_bwd': evals},
+                       'the derivative fit')
+        if ps_seen != [('bwd', 2), ('fwd', 2)]:
+            fail(f'kernel C ran at {ps_seen}, expected p = 2 only')
+    scale = float(fit.pmean['scale'])
+    amp = float(fit.pmean['amp'])
+    fitted = [math.log(scale), math.log(amp)]
+    log(f'  fitted scale {scale:.6g}, amp {amp:.6g}; pmean '
+        f'{fit.pmean.buf.tolist()}, pcov {fit.pcov.tolist()}')
+
+    def value_grad32(lp, precision=None):
+        gp0 = gpfactory({'scale': lp[0].exp(), 'amp': lp[1].exp()},
+                        precision)
+        return -gp0.marginal_likelihood(data, NOISE_VAR)
+
+    def value_grad():
+        lp = torch.tensor(fitted, device=dev, requires_grad=True)
+        with lgp.disable_checks():
+            nll = value_grad32(lp)
+        g, = torch.autograd.grad(nll, lp)
+        return float(nll.detach()), g.tolist()
+
+    times = []
+    for _ in range(5):
+        sync()
+        t0 = time.perf_counter()
+        value_grad()
+        times.append(time.perf_counter() - t0)
+    log(f'  value+gradient at the fit: median '
+        f'{statistics.median(times) * 1e3:.1f} ms (each: '
+        f'{[round(t * 1e3, 1) for t in times]} ms)')
+
+    if dev == 'cuda':
+        # the peak memory of one value+gradient above its inputs
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        value_grad()
+        sync()
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f'  peak memory of one value+gradient above its inputs: '
+            f'{peak / n ** 2:.2f} B/n² ({peak / 2 ** 30:.2f} GiB)')
+        # the blocks alone, forward + backward: kernel C's value block
+        # against the broadcast derivative blocks
+        lp = torch.tensor(fitted, device=dev, requires_grad=True)
+        for a, b in (('f', 'f'), ('f', 'd'), ('d', 'd')):
+            def block():
+                with lgp.disable_checks():
+                    gp0 = gpfactory({'scale': lp[0].exp(),
+                                     'amp': lp[1].exp()})
+                    K = gp0._covblock(a, b, cache=False)
+                torch.autograd.grad(K, lp, torch.ones_like(K))
+            log(f'  block ({a}, {b}) forward + backward: '
+                f'{median_ms(block):.3f} ms')
+        profile_phase(value_grad, top=16)
+
+    # the port's NLL and gradient against the oracle, at the start point
+    # and at the fit
+    p64 = {k: torch.as_tensor(v, dtype=torch.float64, device=dev)
+           for k, v in (('pf', pf), ('pd', pd), ('ps', ps))}
+    # the oracle takes the data as the port sees them, rounded to float32
+    yf64, yd64 = data['f'].double(), data['d'].double()
+
+    def grad64(lp):
+        nll, g = deriv_oracle64(p64['pf'], yf64, p64['pd'], yd64, *lp)
+        return nll, g
+
+    def dmax(ls, la):
+        # the derivative block's diagonal amp/scale² or the value's amp
+        return math.exp(la) * max(1, math.exp(-2 * ls)) + NOISE_VAR
+
+    def cond_at(ls, la):
+        with torch.no_grad():
+            gp0 = gpfactory({'scale': torch.tensor(math.exp(ls)),
+                             'amp': torch.tensor(math.exp(la))})
+            K = gp0._assemble(['f', 'd'], ['f', 'd'])
+            K.diagonal().add_(NOISE_VAR)
+            return float(lgp.linalg.Chol(K).cond_estimate)
+
+    cond = cond_at(*fitted)
+    check_points(n, value_grad32, cond_at, p64['pf'], None,
+                 [('start point', [0., 0.], False),
+                  ('fitted point', fitted, True)], grad64=grad64, dmax=dmax)
+
+    eps32 = torch.finfo(f32).eps
+    for key, ds in (('F', None), ('dFdt', 't')):
+        ref = deriv_mean64(p64['pf'], yf64, p64['pd'], yd64, p64['ps'],
+                           scale, amp, ds)
+        got = means[key]
+        dmean = float((got.double() - ref).abs().max())
+        log(f'  posterior mean of {key} at {NPRED} points: max |port - '
+            f'float64| {dmean:.3e}, max |mean| {float(ref.abs().max()):.4g}'
+            f' (limit {10 * cond * eps32 * float(ref.abs().max()):.3e})')
+        if not bool(torch.isfinite(got).all()) or got.shape != (NPRED,):
+            fail(f'posterior mean of {key} not finite or of the wrong shape')
+        if dmean > 10 * cond * eps32 * float(ref.abs().max()):
+            fail(f'posterior mean of {key} disagrees with the float64 '
+                 f'oracle')
+    log(f'  derivative phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches
+
+
 def main(argv):
     sys.path.insert(0, ROOT)
     header()
@@ -2433,6 +2925,12 @@ def main(argv):
     if argv == ['--dense64']:
         build()
         dense64_phase(OPTIMUM)
+        return 0
+    if argv == ['--deriv']:
+        build()
+        kernel_gram_p2(torch.float32,
+                       torch.Generator(device='cuda').manual_seed(SEED))
+        deriv_phase()
         return 0
     if argv:
         fail(f'unknown arguments {argv}')
@@ -2466,6 +2964,9 @@ def main(argv):
     log(f'elapsed {time.perf_counter() - t0:.1f} s')
     torch.cuda.empty_cache()
     paths['halfmatrix_hess'] = halfmatrix_hess_phase(fitted)
+    log(f'elapsed {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    paths['deriv'] = deriv_phase()
     # each kernel's launches are those of its own path's run: the dense
     # fit's, but for A, C and C's backward in float64 the float64 dense
     # evaluation's.  C's and E's counters do not tell the dtypes apart:
@@ -2482,13 +2983,18 @@ def main(argv):
     # A's SIMT kernel ('highest') runs on the rescue phase's ladder
     own_key = {'schur_update': 'rescue'}
     dtype_paths = {'float32': ['rescue', 'dense', 'stream', 'halfmatrix',
-                               'second', 'fishvec', 'halfmatrix_hess'],
+                               'second', 'fishvec', 'halfmatrix_hess',
+                               'deriv'],
                    'float64': ['dense64']}
     for rec in records:
         base = rec['name'].split('/')[0]
         is_gram = 'key' in rec
         key = rec.pop('key', None) or base + COUNTERS[rec['counter']]
-        if rec['name'].endswith('/float64') and (
+        # a record of a path of its own (C at p = 2, the derivative
+        # phase's) names it
+        if 'path' in rec:
+            path = rec.pop('path')
+        elif rec['name'].endswith('/float64') and (
                 is_gram or base == 'schur_update'):
             path = own64.get(base)
         elif not is_gram and key in own_key:

@@ -7,7 +7,10 @@ This version carries the hyperparameter-fit path: ``GP(amp *
 ExpQuad(scale=...))`` with points, explicit noise covariance and linear
 transformations, the regularized blocked Cholesky with the fused
 marginal likelihood and its hand-derived gradient, ``empbayes_fit``
-with scipy BFGS, and ``predfromdata``; the streaming solver
+with scipy BFGS (and its second-order covariances), and
+``predfromdata``; structured (multi-field) points (`StructuredArray`),
+derivative observations and derived processes (``defderiv``,
+``deftransf``, ``deflintransf``, ...); the streaming solver
 (``GP(solver='chol-stream')``), which never forms the Gram matrix; and
 ``GP(halfmatrix=True)``.  Five kernels are hand-written CUDA for
 ``sm_90a`` (``ops``): the Schur update of the factorization, the same
@@ -26,13 +29,19 @@ __version__ = '0.1.0'
 from ._config import (default_float, default_device, set_default_device,
                       using_device, disable_checks, set_checks)
 from ._deriv import Deriv
+from ._array import (
+    StructuredArray, asarray, broadcast_to, broadcast_arrays,
+    broadcast_shapes, concatenate, unstructured_to_structured,
+    structured_to_unstructured, append_fields,
+)
+from ._torchutil import elementwise_grad
 
 from . import linalg
 from . import ops
 from . import uncert
 
 from .kernelalg import (
-    CrossKernel, Kernel,
+    CrossKernel, Kernel, AffineSpan, PreservedBySwap,
     CrossStationaryKernel, StationaryKernel,
     CrossIsotropicKernel, IsotropicKernel, CrossConstant, Zero,
     crosskernel, kernel,
@@ -47,8 +56,10 @@ from .fit import empbayes_fit
 from .uncert import BufferDict, add_distribution
 
 __all__ = [
-    'Deriv', 'GP', 'DefaultProcess', 'empbayes_fit', 'BufferDict',
-    'CrossKernel', 'Kernel', 'StationaryKernel', 'IsotropicKernel',
+    'StructuredArray', 'asarray', 'Deriv', 'GP', 'DefaultProcess',
+    'empbayes_fit', 'BufferDict',
+    'CrossKernel', 'Kernel', 'AffineSpan', 'PreservedBySwap',
+    'StationaryKernel', 'IsotropicKernel',
     'kernel', 'crosskernel', 'stationarykernel', 'isotropickernel',
     'crossstationarykernel', 'crossisotropickernel',
     *_zoo_all,

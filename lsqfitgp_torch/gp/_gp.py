@@ -1,17 +1,20 @@
 """The GP object: processes, elements, covariance assembly, inference.
 
 Counterpart of ``lsqfitgp_tpu/gp/_gp.py`` with the dense 'chol' and the
-streaming 'chol-stream' solvers: immutable construction (``addx``,
-``addcov``, ``addlintransf`` return new GPs), covariance-block
-assembly with point blocks evaluated by kernel C (``gram='tiled'``), by
-kernel E on the upper triangle (``halfmatrix=True``) or by broadcasting
-the kernel core, and inference (``prior``, ``pred``/``predfromdata``,
-``marginal_likelihood``) whose posteriors are `uncert.UArray`.
+streaming 'chol-stream' solvers: immutable construction (every
+``def*``/``add*`` method returns a new GP), a process registry (kernels,
+linear maps of processes, kernel transformations of processes: the
+cross-kernels come from `_crosskernel`), an element registry (points,
+possibly of a derivative of the process, finite linear maps, explicit
+covariance blocks), covariance-block assembly with point blocks
+evaluated by kernel C (``gram='tiled'``, and 'auto' on CUDA), by kernel
+E on the upper triangle (``halfmatrix=True``) or by broadcasting the
+kernel core, and inference (``prior``, ``pred``/``predfromdata``,
+``marginal_likelihood``) whose posteriors are `uncert.UArray`.  Points
+may be tensors or `StructuredArray` (multi-field) points.
 
-Not in this version: derived processes (``defproc``, ``deftransf``,
-...), derivative elements, user decompositions in ``addcov``, the
-distributed solver and the streaming solver's mesh options, and the
-double-float Gram of the conditioning rescue.
+Not in this version: the distributed solver and the streaming solver's
+mesh options, and the double-float Gram of the conditioning rescue.
 """
 
 from __future__ import annotations
@@ -22,9 +25,10 @@ import math
 import numpy
 import torch
 
-from .. import _config, _torchutil
+from .. import _array, _config, _torchutil
 from .._deriv import Deriv
-from ..kernelalg import Kernel, Zero
+from ..kernelalg import CrossKernel, Kernel, Zero
+from ..kernelalg import _util
 from ..kernelalg import _fastgram as fg
 from .. import linalg, ops, uncert
 
@@ -38,9 +42,16 @@ class _DefaultProcess:
 
 DefaultProcess = _DefaultProcess()
 
-_ProcKernel = collections.namedtuple('_ProcKernel', ['kernel'])
+# -- process kinds -----------------------------------------------------------
 
-_Points = collections.namedtuple('_Points', ['x', 'proc', 'shape'])
+_ProcKernel = collections.namedtuple('_ProcKernel', ['kernel'])
+_ProcLinTransf = collections.namedtuple('_ProcLinTransf', ['transf', 'keys'])
+_ProcKernelTransf = collections.namedtuple(
+    '_ProcKernelTransf', ['proc', 'transfname', 'arg'])
+
+# -- element kinds -----------------------------------------------------------
+
+_Points = collections.namedtuple('_Points', ['x', 'proc', 'deriv', 'shape'])
 _LinTransfEl = collections.namedtuple('_LinTransfEl',
                                       ['transf', 'keys', 'shape'])
 _CovEl = collections.namedtuple('_CovEl', ['shape'])
@@ -48,6 +59,25 @@ _CovEl = collections.namedtuple('_CovEl', ['shape'])
 
 def _size(shape):
     return math.prod(shape) if shape else 1
+
+
+def _auto_tiles(device, na, nb, p):
+    """Whether ``gram='auto'`` evaluates an (na, nb) point block of p
+    coordinates by kernel C (kernel E on a symmetric halfmatrix block):
+    on the CPU never, as the JAX package off its accelerator; on CUDA at
+    p >= 4, and at fewer coordinates from 6144² entries.  PERF.md's
+    ``gram='auto'`` cutover table (``chip_smoke.py --gram-route``, the
+    block through the GP, forward and forward + backward, float32 and
+    float64) measures n x n blocks from n = 256 to 16384 and n x 64
+    prediction blocks.  At p < 4 C wins in both dtypes and directions
+    from 6144 x 6144 up; below, both routes cost about the host time of
+    their launches.  From p = 4 the broadcast's p passes cost more
+    everywhere but in the forward of some host-bound n x 64 blocks at
+    p = 4 (by at most a quarter of a millisecond).  Blocks smaller than
+    the smallest measured (256 x 64) follow the rule unmeasured."""
+    if device.type != 'cuda':
+        return False
+    return p >= 4 or na * nb >= 6144 * 6144
 
 
 class GP:
@@ -82,8 +112,10 @@ class GP:
     gram : {'auto', 'tiled', 'broadcast'}
         Point-block assembly.  'tiled' evaluates isotropic kernels whose
         profile kernel C knows (`ops.gram`); 'broadcast' evaluates the
-        kernel core on ``x[:, None], y[None, :]``; 'auto' broadcasts, as
-        the JAX package does off the TPU, until a measured cutover.
+        kernel core on ``x[:, None], y[None, :]``; 'auto' takes kernel C
+        on CUDA points where the H100 measured it faster
+        (`_block_points_tiled`), and broadcasts on the CPU, as the JAX
+        package does off its accelerator.
     """
 
     _SOLVERS = ('chol', 'chol-stream')
@@ -96,6 +128,7 @@ class GP:
         self._kernel_cache = {}
         self._covblock_cache = {}
         self._decomp_cache = {}
+        self._user_decomps = {}
         if solver not in self._SOLVERS:
             raise KeyError(f'unknown solver {solver!r}, must be one of '
                            f'{self._SOLVERS}')
@@ -126,6 +159,7 @@ class GP:
         new._kernel_cache = dict(self._kernel_cache)
         new._covblock_cache = dict(self._covblock_cache)
         new._decomp_cache = dict(self._decomp_cache)
+        new._user_decomps = dict(self._user_decomps)
         new._solverkw = self._solverkw
         new._solver = self._solver
         new._checks = self._checks
@@ -135,10 +169,16 @@ class GP:
         return new
 
     def _asarray(self, x):
-        # floating inputs take the working dtype, as in the JAX package
-        x = _torchutil.asarray(x, device=self._device)
-        if x.is_floating_point():
-            x = x.to(_config.default_float())
+        """A tensor or a StructuredArray on the model's device; floating
+        values (fields) take the working dtype, as in the JAX package;
+        strings stay host numpy arrays."""
+        if not isinstance(x, torch.Tensor):
+            x = _array.asarray(x, device=self._device)
+        if isinstance(x, numpy.ndarray):
+            return x
+        x = x.to(device=self._device, dtype=_config.default_float()) \
+            if isinstance(x, _array.StructuredArray) or x.is_floating_point() \
+            else x.to(device=self._device)
         if self._device is None:
             self._device = x.device
         return x
@@ -153,8 +193,10 @@ class GP:
         return torch.zeros((), dtype=_config.default_float(),
                            device=self._device).expand(n1, n2)
 
-    def _checkprockey(self, key):
-        if key not in self._procs:
+    def _checkprockey(self, key, new=False):
+        if new and key in self._procs:
+            raise KeyError(f'process key {key!r} already defined')
+        if not new and key not in self._procs:
             raise KeyError(f'process {key!r} not defined')
 
     def _checkelkey(self, key, new=True):
@@ -165,18 +207,141 @@ class GP:
         if not new and key not in self._elements:
             raise KeyError(f'element {key!r} not defined')
 
+    # -- process definition ----------------------------------------------------
+
+    def defproc(self, key, kernel=None, *, deriv=0):
+        """Define a new independent process with the given kernel (the
+        default process's if None), or its derivative ``deriv``."""
+        self._checkprockey(key, new=True)
+        if kernel is None:
+            kernel = self._procs[DefaultProcess].kernel
+        if not isinstance(kernel, Kernel):
+            raise TypeError('kernel must be a symmetric Kernel')
+        new = self._clone()
+        deriv = Deriv(deriv)
+        if deriv:
+            # the derivative of an anonymous plain process
+            base = object()
+            new._procs[base] = _ProcKernel(kernel)
+            new._procs[key] = _ProcKernelTransf(base, 'diff', deriv)
+        else:
+            new._procs[key] = _ProcKernel(kernel)
+        return new
+
+    def deftransf(self, key, ops, *, deriv=0):
+        """Define a process as a linear combination of other processes:
+        f_key = Σ_i c_i f_i, with ``ops = {prockey: c_i}``, each c_i a
+        scalar or a function of the input."""
+        self._checkprockey(key, new=True)
+        keys = list(ops)
+        coefs = [ops[k] for k in keys]
+        for k in keys:
+            self._checkprockey(k)
+        for c in coefs:
+            if not (callable(c) or _util.is_numerical_scalar(c)):
+                raise TypeError(f'invalid coefficient {c!r}')
+
+        def transf(*fns):
+            def combo(x):
+                out = None
+                for c, f in zip(coefs, fns):
+                    term = (c(x) if callable(c) else c) * f(x)
+                    out = term if out is None else out + term
+                return out
+            return combo
+
+        return self.deflintransf(key, transf, keys, deriv=deriv)
+
+    def deflintransf(self, key, transf, procs, *, deriv=0, checklin=False):
+        """Define a process as a linear map of other processes:
+        f_key = T(f_1, ..., f_k), ``transf(*fns)`` returning the function
+        of x, or its derivative ``deriv``."""
+        self._checkprockey(key, new=True)
+        for k in procs:
+            self._checkprockey(k)
+        new = self._clone()
+        deriv = Deriv(deriv)
+        new._procs[key] = _ProcLinTransf(transf, list(procs))
+        if deriv:
+            inner = object()
+            new._procs[inner] = new._procs.pop(key)
+            new._procs[key] = _ProcKernelTransf(inner, 'diff', deriv)
+        return new
+
+    def deflinop(self, key, transfname, arg, proc):
+        """Define a process by applying the kernel linop ``transfname``
+        with argument ``arg`` to process ``proc``."""
+        self._checkprockey(key, new=True)
+        self._checkprockey(proc)
+        new = self._clone()
+        new._procs[key] = _ProcKernelTransf(proc, transfname, arg)
+        return new
+
+    def defderiv(self, key, deriv, proc):
+        """f_key = ∂^deriv f_proc."""
+        return self.deflinop(key, 'diff', Deriv(deriv), proc)
+
+    def defxtransf(self, key, transf, proc):
+        """f_key(x) = f_proc(transf(x))."""
+        if not callable(transf):
+            raise TypeError('transf must be callable')
+        return self.deflinop(key, 'xtransf', transf, proc)
+
+    def defrescale(self, key, fun, proc):
+        """f_key(x) = fun(x) f_proc(x)."""
+        if not callable(fun):
+            raise TypeError('fun must be callable')
+        return self.deflinop(key, 'rescale', fun, proc)
+
+    # -- cross-kernel derivation -----------------------------------------------
+
     def _crosskernel(self, pa, pb):
+        """The kernel Cov[f_pa(x), f_pb(y)], built recursively from the
+        process records and cached; a pair's transpose comes from the
+        cache swapped."""
         key = (pa, pb)
-        if key not in self._kernel_cache:
-            a = self._procs[pa]
-            self._kernel_cache[key] = a.kernel if pa is pb or pa == pb \
-                else Zero()
-        return self._kernel_cache[key]
+        cache = self._kernel_cache
+        if key in cache:
+            return cache[key]
+        if (pb, pa) in cache:
+            k = cache[pb, pa]._swap()
+            cache[key] = k
+            return k
+        a = self._procs[pa]
+        b = self._procs[pb]
+        if isinstance(a, _ProcKernel) and isinstance(b, _ProcKernel):
+            k = a.kernel if pa is pb or pa == pb else Zero()
+        elif isinstance(a, _ProcKernelTransf):
+            base = self._crosskernel(a.proc, pb)
+            k = base if isinstance(base, Zero) else base.linop(
+                a.transfname, a.arg, None)
+        elif isinstance(b, _ProcKernelTransf):
+            base = self._crosskernel(pa, b.proc)
+            k = base if isinstance(base, Zero) else base.linop(
+                b.transfname, None, b.arg)
+        elif isinstance(a, _ProcLinTransf):
+            kernels = [self._crosskernel(p, pb) for p in a.keys]
+            k = Zero() if all(isinstance(k0, Zero) for k0 in kernels) \
+                else CrossKernel._nary(a.transf, kernels,
+                                       CrossKernel._side.LEFT)
+        elif isinstance(b, _ProcLinTransf):
+            kernels = [self._crosskernel(pa, p) for p in b.keys]
+            k = Zero() if all(isinstance(k0, Zero) for k0 in kernels) \
+                else CrossKernel._nary(b.transf, kernels,
+                                       CrossKernel._side.RIGHT)
+        else:  # pragma: no cover
+            raise TypeError(f'unknown process kinds {a!r}, {b!r}')
+        cache[key] = k
+        return k
 
     # -- element definition ----------------------------------------------------
 
     def addx(self, x, key=None, *, deriv=0, proc=DefaultProcess):
-        """Add points where the process is evaluated."""
+        """Add points where the process ``proc`` (or its derivative
+        ``deriv``) is evaluated: a tensor or array-like of scalar points,
+        or structured points (`StructuredArray`, a numpy structured
+        array); a derivative along named fields needs structured
+        points with those fields."""
         if not isinstance(x, dict):
             if key is None:
                 raise ValueError('key required when x is not a dict')
@@ -184,19 +349,25 @@ class GP:
         elif key is not None:
             raise ValueError('key not allowed when x is a dict')
         self._checkprockey(proc)
-        if Deriv(deriv):
-            raise NotImplementedError(
-                'derivative elements are not in lsqfitgp_torch yet')
+        deriv = Deriv(deriv)
         new = self._clone()
         for k, xk in x.items():
             new._checkelkey(k)
             xk = new._asarray(xk)
-            if self._checks['finite']:
-                def check(xk=xk):
-                    if not bool(torch.isfinite(xk).all()):
-                        raise ValueError('non-finite x')
-                _torchutil.check(check)
-            new._elements[k] = _Points(xk, proc, tuple(xk.shape))
+            if isinstance(xk, _array.StructuredArray):
+                for dim in deriv:
+                    if dim is not None and dim not in xk.fields:
+                        raise ValueError(
+                            f'derivative along missing field {dim!r}')
+            else:
+                if not deriv.implicit:
+                    raise ValueError('named derivative with non-structured x')
+                if self._checks['finite'] and isinstance(xk, torch.Tensor):
+                    def check(xk=xk):
+                        if not bool(torch.isfinite(xk).all()):
+                            raise ValueError('non-finite x')
+                    _torchutil.check(check)
+            new._elements[k] = _Points(xk, proc, deriv, tuple(xk.shape))
         return new
 
     def addlintransf(self, transf, keys, key, *, checklin=None):
@@ -242,12 +413,65 @@ class GP:
 
         _torchutil.check(check)
 
-    def addcov(self, covblocks, key=None):
-        """Add finite variables with explicit covariance blocks."""
+    def addtransf(self, tensors, key, *, axes=1):
+        """Add a tensor-contraction linear transformation: the sum over
+        keys k of ``tensordot(tensors[k], element_k, axes)`` (a scalar
+        tensor multiplies), the per-key results broadcast together.
+        ``axes`` counts the contracted dimensions: the trailing axes of
+        each tensor against the leading axes of its element."""
+        if not (isinstance(axes, int) and axes >= 0):
+            raise ValueError(f'axes must be a nonneg integer, got {axes!r}')
+        self._checkelkey(key)
+        if not tensors:
+            raise ValueError('empty tensors, undetermined output shape')
+        keys = list(tensors)
+        tens = []
+        shapes = []
+        for k in keys:
+            self._checkelkey(k, new=False)
+            t = self._asarray(tensors[k])
+            eshape = self._elements[k].shape
+            tshape = tuple(t.shape)
+            if tshape and tshape[t.dim() - axes:] != eshape[:axes]:
+                raise ValueError(
+                    f'tensors[{k!r}].shape = {tshape} cannot contract '
+                    f'{axes} axes against element shape {eshape}')
+            if self._checks['finite']:
+                def check(t=t, k=k):
+                    if not bool(torch.isfinite(t).all()):
+                        raise ValueError(f'tensors[{k!r}] contains infs/nans')
+                _torchutil.check(check)
+            tens.append(t)
+            shapes.append(tshape[:t.dim() - axes] + eshape[axes:] if tshape
+                          else eshape)
+        try:
+            torch.broadcast_shapes(*shapes)
+        except RuntimeError:
+            raise ValueError(f'per-key results of shapes {shapes} do not '
+                             f'broadcast together') from None
+
+        def transf(*vals):
+            out = None
+            for t, v in zip(tens, vals):
+                term = t * v if t.dim() == 0 else torch.tensordot(t, v, axes)
+                out = term if out is None else out + term
+            return out
+
+        return self.addlintransf(transf, keys, key, checklin=False)
+
+    def addcov(self, covblocks, key=None, *, decomps=None):
+        """Add finite variables with explicit covariance blocks.
+
+        ``decomps``: a `linalg.Decomposition` of the diagonal block (or a
+        dict key -> decomposition).  When an inference call's data are
+        exactly one such key, with no further covariance, the stored
+        decomposition is used and the block is not factored again."""
         if not isinstance(covblocks, dict):
             if key is None:
                 raise ValueError('key required when covblocks is not a dict')
             covblocks = {(key, key): covblocks}
+            if decomps is not None and not isinstance(decomps, dict):
+                decomps = {key: decomps}
         elif key is not None:
             raise ValueError('key not allowed when covblocks is a dict')
 
@@ -294,6 +518,21 @@ class GP:
                         raise ValueError('non-finite covariance block')
             _torchutil.check(checkf)
 
+        if decomps is not None:
+            if not isinstance(decomps, dict):
+                raise TypeError('decomps must be a dict key -> '
+                                'Decomposition when covblocks is a dict')
+            for k, d in decomps.items():
+                if k not in elkeys:
+                    raise KeyError(
+                        f'decomps key {k!r} not among covblocks keys')
+                if not isinstance(d, linalg.Decomposition):
+                    raise TypeError(f'decomps[{k!r}] is not a Decomposition')
+                if d.n != _size(shapes[k]):
+                    raise ValueError(f'decomps[{k!r}].n = {d.n} != block '
+                                     f'size {_size(shapes[k])}')
+            new._user_decomps.update(decomps)
+
         for k in elkeys:
             new._elements[k] = _CovEl(shapes[k])
         for k1 in elkeys:
@@ -339,7 +578,10 @@ class GP:
         kernel = self._crosskernel(ea.proc, eb.proc)
         if isinstance(kernel, Zero):
             return self._zero_block(_size(ea.shape), _size(eb.shape))
-        sym = ea is eb or (eb.x is ea.x and eb.proc == ea.proc)
+        if ea.deriv or eb.deriv:
+            kernel = kernel.linop('diff', ea.deriv, eb.deriv)
+        sym = ea is eb or (eb.x is ea.x and eb.proc == ea.proc
+                           and eb.deriv == ea.deriv)
         blk = self._block_points_tiled(kernel, ea, eb, sym)
         if blk is not None:
             return blk
@@ -361,25 +603,33 @@ class GP:
 
     def _block_points_tiled(self, kernel, ea, eb, sym):
         """Kernel-C assembly of an isotropic point block, or None when
-        the kernel or the inputs fall outside the fast path (the caller
-        then broadcasts the core).  Decided before any launch."""
-        if self._gram_mode != 'tiled':
-            # 'auto' keeps the broadcast path off the TPU, as the JAX
-            # package does; a cutover waits for an H100 measurement
+        the kernel or the inputs fall outside the fast path, or 'auto'
+        finds the broadcast faster: the caller then broadcasts the core.
+        Decided before any launch, for a stated reason, never because a
+        launch failed."""
+        mode = self._gram_mode
+        if mode == 'broadcast':
             return None
         spec = getattr(kernel, '_fastgram', None)
         if spec is None or spec.noise is not None or spec.core is None:
-            # δ-noise components need the exact x == y comparison of the
-            # broadcast core
+            # no spec: a transformation that changes the kernel's values
+            # dropped it (a derivative, an x transformation, ...), or the
+            # kernel is no isotropic constructor; δ-noise components need
+            # the exact x == y comparison of the broadcast core
             return None
         cols_a = fg.leaf_columns(ea.x)
         cols_b = cols_a if eb is ea else fg.leaf_columns(eb.x)
         if cols_a is None or cols_b is None or len(cols_a) != len(cols_b):
             return None
-        if spec.maxdim is not None and len(cols_a) > spec.maxdim:
+        p = len(cols_a)
+        if spec.maxdim is not None and p > spec.maxdim:
             return None  # let the broadcast path raise the guard error
         prof = fg.build_profile(spec)
         if prof is None:
+            return None  # a profile outside GRAM_PROFILES
+        if mode == 'auto' and not _auto_tiles(cols_a[0].device,
+                                              _size(ea.shape),
+                                              _size(eb.shape), p):
             return None
         profile, post = prof
         X = fg.transform_points(spec, cols_a)
@@ -407,14 +657,21 @@ class GP:
         the blocks computed on the way (the points blocks, the
         `addlintransf` intermediates) are dropped as soon as their reader
         has them and never enter the GP's cache (a block read twice is
-        computed twice), and a single block is taken as it is, not
-        copied.  Returns a contiguous matrix that may be a block of the
-        GP's cache: the caller must not write into it."""
+        computed twice, but an off-diagonal block is computed once and
+        transposed for its mirror), and a single block is taken as it
+        is, not copied.  Returns a contiguous matrix that may be a block
+        of the GP's cache: the caller must not write into it."""
         if len(keys) == 1:
             K = self._covblock(keys[0], keys[0], cache=False)
         else:
-            K = torch.cat([torch.cat([self._covblock(a, b, cache=False)
-                                      for b in keys], 1) for a in keys], 0)
+            blocks = {}
+            for i, a in enumerate(keys):
+                for b in keys[i:]:
+                    blocks[a, b] = self._covblock(a, b, cache=False)
+                    blocks[b, a] = blocks[a, b].T
+            K = torch.cat([torch.cat([blocks[a, b] for b in keys], 1)
+                           for a in keys], 0)
+            del blocks
         return K.contiguous()
 
     def _checkpos(self, K):
@@ -453,6 +710,10 @@ class GP:
         cacheable = extracov is None and not decompkw
         if cacheable and cachekey in self._decomp_cache:
             return self._decomp_cache[cachekey]
+        if len(inkeys) == 1 and cacheable \
+                and inkeys[0] in self._user_decomps:
+            # the data covariance is a user-decomposed addcov block
+            return self._user_decomps[inkeys[0]]
         Kxx = self._assemble(inkeys, inkeys)
         if extracov is not None:
             Kxx = Kxx + extracov
@@ -478,7 +739,7 @@ class GP:
         if self._solver != 'chol' or len(inkeys) != 1:
             return None
         el = self._elements[inkeys[0]]
-        if not isinstance(el, _Points):
+        if not isinstance(el, _Points) or el.deriv:
             return None
         spec = getattr(self._crosskernel(el.proc, el.proc), '_fastgram',
                        None)
@@ -520,6 +781,14 @@ class GP:
                 "solver='chol'")
         return linalg.Chol(K, **{**self._solverkw, **decompkw})
 
+    @classmethod
+    def decompose(cls, posdefmatrix, solver='chol', **kw):
+        """Decompose a positive definite matrix with the GP's solver
+        machinery (`linalg.Chol`)."""
+        if solver == 'chol':
+            return linalg.Chol(_torchutil.asarray(posdefmatrix), **kw)
+        raise KeyError(f'unknown solver {solver!r}')
+
     # -- streaming solver (never-materialized Gram) --------------------------
 
     def _stream_kw(self):
@@ -548,7 +817,12 @@ class GP:
         el = self._elements[inkeys[0]]
         if not isinstance(el, _Points):
             bail('the data element must come from addx')
-        spec = getattr(self._procs[el.proc].kernel, '_fastgram', None)
+        if el.deriv:
+            bail('derivative elements are not streamable')
+        proc = self._procs[el.proc]
+        if not isinstance(proc, _ProcKernel):
+            bail('the data process must be a plain kernel process')
+        spec = getattr(proc.kernel, '_fastgram', None)
         if spec is None:
             bail('the kernel carries no fast-Gram spec (use an isotropic '
                  'constructor kernel; transformations other than scalar '
@@ -640,9 +914,10 @@ class GP:
         for k in outkeys:
             self._checkelkey(k, new=False)
             el = self._elements[k]
-            if not isinstance(el, _Points) or el.proc != proc:
+            if not isinstance(el, _Points) or el.deriv or el.proc != proc:
                 raise ValueError('streaming pred outputs must be plain addx '
-                                 'points of the same process as the data')
+                                 'points (no derivative) of the same '
+                                 'process as the data')
             ck = fg.leaf_columns(el.x)
             if ck is None:
                 raise ValueError('output inputs outside the fast path')

@@ -11,7 +11,8 @@ from . import _stationary
 from . import _isotropic
 from . import _decorators
 
-from ._core import CrossKernel, Kernel, least_common_superclass
+from ._core import (CrossKernel, Kernel, AffineSpan, PreservedBySwap,
+                    least_common_superclass)
 from ._stationary import CrossStationaryKernel, StationaryKernel
 from ._isotropic import (
     CrossIsotropicKernel, IsotropicKernel, CrossConstant, Constant, Zero,

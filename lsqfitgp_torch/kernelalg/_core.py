@@ -14,26 +14,30 @@ semantics:
   (nonnegative) or ``CrossConstant``.
 - Transformations are looked up along the MRO up to `CrossKernel`.
 
-Not in this version: ``forcekron``, ``batch``, ``_nary`` (processes
-defined as linear maps of processes), linop families, ``AffineSpan``
-and ``PreservedBySwap``; they wait for the rest of the kernel zoo and
-the GP surface.
+Kernels take tensors or `StructuredArray` points.  ``_nary`` builds
+the cross-kernels of processes defined as linear maps of processes
+(``GP.deflintransf``); `make_linop_family`, `AffineSpan` and
+`PreservedBySwap` are the class machinery of kernel families.  Not in
+this version: ``batch`` (chunked evaluation).
 """
 
 from __future__ import annotations
 
+import abc
 import collections
+import enum
 import functools
 import types
+import warnings
 
-import torch
-
-from .. import _torchutil
+from .. import _array
 from . import _util
 
 __all__ = [
     'CrossKernel',
     'Kernel',
+    'AffineSpan',
+    'PreservedBySwap',
     'least_common_superclass',
 ]
 
@@ -41,6 +45,8 @@ __all__ = [
 Kernel = None
 Constant = None
 CrossConstant = None
+IsotropicKernel = None
+CrossIsotropicKernel = None
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,14 +75,19 @@ _LINOP = 'linop'
 _ALGOP = 'algop'
 
 
+class _Side(enum.Enum):
+    LEFT = 0
+    RIGHT = 1
+
+
 class CrossKernel:
     r"""A covariance function between two (possibly different) processes:
 
     .. math:: \mathrm{kernel}(x, y) = \mathrm{Cov}[f(x), g(y)].
 
-    Callable as ``k(x, y)`` on broadcastable tensors; supports ``+`` and
-    ``*`` with kernels and scalars, and named transformations via
-    `transf`, `linop`, `algop`.
+    Callable as ``k(x, y)`` on broadcastable (structured) arrays;
+    supports ``+ * **`` with kernels and scalars, and named
+    transformations via `transf`, `linop`, `algop`.
     """
 
     __slots__ = '_initkw', '_dynkw', '_core', '_fastgram'
@@ -94,12 +105,16 @@ class CrossKernel:
         return self._core
 
     def __new__(cls, core, *, scale=None, loc=None, derivable=None,
-                maxdim=None, dim=None, dynkw={}, **initkw):
+                maxdim=None, dim=None, forcekron=False, dynkw={},
+                **initkw):
         self = super().__new__(cls)
         self._initkw = initkw
         self._dynkw = dict(dynkw)
         self._core = lambda x, y, **dkw: core(x, y, **initkw, **dkw)
         self._fastgram = None
+
+        if forcekron:
+            self = self.transf('forcekron')
 
         for name, arg in (
             ('scale', scale), ('loc', loc), ('derivable', derivable),
@@ -114,11 +129,11 @@ class CrossKernel:
         return self
 
     def __call__(self, x, y):
-        x = _torchutil.asarray(x)
-        y = _torchutil.asarray(y)
-        shape = torch.broadcast_shapes(x.shape, y.shape)
+        x = _array.asarray(x)
+        y = _array.asarray(y)
+        shape = _array.broadcast_shapes(tuple(x.shape), tuple(y.shape))
         result = self.core(x, y, **self.dynkw)
-        if result.shape != shape:
+        if tuple(result.shape) != shape:
             raise RuntimeError(f'kernel core returned shape {result.shape}'
                                f', expected {shape}')
         return result
@@ -141,6 +156,26 @@ class CrossKernel:
             CrossKernel, core=lambda x, y, **kw: core(y, x, **kw),
         )
 
+    @classmethod
+    def _nary(cls, op, kernels, side):
+        """Process-level linear map: ``op`` combines the kernels seen as
+        single-argument functions of the ``side`` argument."""
+        if side is _Side.LEFT:
+            wrap = lambda c, x, y, **kw: (lambda x_: c(x_, y, **kw))
+            pick = lambda x, y: x
+        else:
+            wrap = lambda c, x, y, **kw: (lambda y_: c(x, y_, **kw))
+            pick = lambda x, y: y
+        cores = [k.core for k in kernels]
+
+        def core(x, y, **kw):
+            fns = [wrap(c, x, y, **kw) for c in cores]
+            return op(*fns)(pick(x, y))
+
+        return CrossKernel(core)
+
+    _side = _Side
+
     # -- operators ---------------------------------------------------------
 
     def __add__(self, other):
@@ -152,6 +187,12 @@ class CrossKernel:
         return self.algop('mul', other)
 
     __rmul__ = __mul__
+
+    def __pow__(self, other):
+        return self.algop('pow', exponent=other)
+
+    def __rpow__(self, other):
+        return self.algop('rpow', base=other)
 
     # -- registry ------------------------------------------------------------
 
@@ -387,6 +428,107 @@ class CrossKernel:
         cls.register_transf(func, transfname, doc, _ALGOP)
         return op
 
+    @classmethod
+    def register_ufuncalgop(cls, ufunc, transfname=None, doc=None):
+        @functools.wraps(ufunc)
+        def op(_, self, *operands, **kw):
+            cores = tuple(
+                o.core if isinstance(o, CrossKernel)
+                else (lambda x, y, _o=o: _o)
+                for o in (self, *operands))
+
+            def core(x, y, **kw):
+                return ufunc(*(c(x, y, **kw) for c in cores), **kw)
+
+            return self._clone(core=core)
+
+        cls.register_algop(op, transfname, doc)
+        return ufunc
+
+    # -- linop families -------------------------------------------------------
+
+    @classmethod
+    def make_linop_family(cls, transfname, bothker, leftker, rightker=None,
+                          *, doc=None, argparser=None, argnames=None,
+                          translkw=None):
+        """Register a linop linking this seed class to transformed-domain
+        classes (both/left/right); the transposed cross class is generated
+        if not given."""
+
+        if rightker is None:
+            rightname = f'Cross{cls.__name__}{bothker.__name__}'
+
+            def exec_body(ns):
+                if leftker.__doc__:
+                    ns['__doc__'] = (
+                        'Automatically generated transposed version of:\n\n'
+                        + leftker.__doc__)
+
+                def __new__(rcls_, *args, **kw):
+                    self = super(rightker, rcls_).__new__(rcls_, *args, **kw)
+                    if self.__class__ is rcls_:
+                        self = self._swap()
+                        if not isinstance(self, leftker):
+                            raise TypeError(
+                                f'transposed {rightker.__name__} is not a '
+                                f'{leftker.__name__}')
+                        return self._clone(rcls_)
+                    return self._swap()
+
+                ns['__new__'] = __new__
+
+            rightker = types.new_class(rightname, (leftker,),
+                                       exec_body=exec_body)
+
+        sym = tuple(issubclass(c, Kernel)
+                    for c in (cls, bothker, leftker, rightker))
+        if sym != (True, True, False, False):
+            warnings.warn(f'make_linop_family({transfname!r}): unexpected '
+                          f'symmetry pattern {sym}')
+
+        if translkw is None:
+            def translkw(*, dynkw, **initkw):
+                if dynkw:
+                    raise ValueError(
+                        'non-empty dynkw unsupported by default translkw')
+                return initkw
+
+        def makekw(self, arg1, arg2):
+            kw = dict(dynkw=self.dynkw, **self.initkw)
+            if argnames is not None:
+                if arg1 is not None:
+                    kw[argnames[0]] = arg1
+                if arg2 is not None:
+                    kw[argnames[1]] = arg2
+            return translkw(**kw)
+
+        regkw = dict(transfname=transfname, doc=doc, argparser=argparser)
+
+        @functools.partial(cls.register_linop, **regkw)
+        def seed_to_family(_, self, arg1, arg2):
+            kw = makekw(self, arg1, arg2)
+            if arg2 is None:
+                return leftker(**kw)
+            elif arg1 is None:
+                return rightker(**kw)
+            return bothker(**kw)
+
+        @functools.partial(leftker.register_linop, **regkw)
+        def left_to_both(_, self, arg1, arg2):
+            if arg1 is None:
+                return bothker(**makekw(self, arg1, arg2))
+            raise ValueError(f'cannot transform {leftker.__name__} again on '
+                             f'the left with {transfname!r}')
+
+        @functools.partial(rightker.register_linop, **regkw)
+        def right_to_both(_, self, arg1, arg2):
+            if arg2 is None:
+                return bothker(**makekw(self, arg1, arg2))
+            raise ValueError(f'cannot transform {rightker.__name__} again on '
+                             f'the right with {transfname!r}')
+
+        return rightker
+
 
 class Kernel(CrossKernel):
     r"""Symmetric kernel of a single process:
@@ -394,4 +536,64 @@ class Kernel(CrossKernel):
 
     def _swap(self):
         return self
+
+
+@Kernel.register_transf
+def forcekron(tcls, self):
+    r"""Make the kernel a separate product over input fields:
+    newkernel(x, y) = prod_i kernel(x_i, y_i)."""
+    core = self.core
+    newcore = lambda x, y, **kw: _util.prod_recurse_fields(core, x, y, **kw)
+    return self._clone(tcls, core=newcore)
+
+
+class AffineSpan(CrossKernel, abc.ABC):
+    """Kernel mixin tracking the cumulative affine transformation applied
+    to inputs and output through 'loc', 'scale' and scalar 'add'/'mul'."""
+
+    _affine_dynkw = dict(lloc=0, rloc=0, lscale=1, rscale=1, offset=0,
+                         ampl=1)
+
+    def __new__(cls, *args, dynkw={}, **kw):
+        if cls is AffineSpan:
+            raise TypeError('cannot instantiate AffineSpan directly')
+        new_dynkw = dict(cls._affine_dynkw)
+        new_dynkw.update(dynkw)
+        return super().__new__(cls, *args, dynkw=new_dynkw, **kw)
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        for name in AffineSpan._transf:
+            cls.inherit_transf(name)
+
+    def _clone(self, *args, **kw):
+        new = super()._clone(*args, **kw)
+        if isinstance(new, AffineSpan):
+            for name in self._affine_dynkw:
+                new._dynkw[name] = self._dynkw[name]
+        return new
+
+    @classmethod
+    def __subclasshook__(cls, sub):
+        if cls is AffineSpan:
+            return NotImplemented
+        if issubclass(cls, Kernel):
+            if Constant is not None and issubclass(sub, Constant):
+                return True
+            return NotImplemented
+        elif CrossConstant is not None and issubclass(sub, CrossConstant):
+            return True
+        return NotImplemented
+
+
+class PreservedBySwap(CrossKernel):
+    """Marker: subclasses keep their class through `_swap`."""
+
+    def __new__(cls, *args, **kw):
+        if cls is PreservedBySwap:
+            raise TypeError('cannot instantiate PreservedBySwap directly')
+        return super().__new__(cls, *args, **kw)
+
+    def _swap(self):
+        return super()._swap()._clone(self.__class__)
 

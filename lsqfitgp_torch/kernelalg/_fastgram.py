@@ -1,7 +1,7 @@
 """Tiled-Gram dispatch specs for isotropic kernels.
 
 Counterpart of ``lsqfitgp_tpu/kernelalg/_fastgram.py`` without term
-sums and the double-float parts.  A freshly constructed isotropic
+sums (two profiled kernels added) and the double-float parts.  A freshly constructed isotropic
 kernel knows its scalar profile g(r², **initkw) and distance mode; the
 spec records them so the GP can assemble point blocks with kernel C
 (`ops.gram`) instead of broadcasting the core.  Every transformation
@@ -22,6 +22,8 @@ import collections
 
 import numpy
 import torch
+
+from .._array import StructuredArray
 
 __all__ = ['FastGramSpec', 'make_spec', 'make_noise_spec', 'post_spec',
            'add_specs', 'leaf_columns', 'build_profile', 'transform_points',
@@ -153,12 +155,30 @@ def add_specs(sa, sb):
 
 
 def leaf_columns(x):
-    """The coordinates of plain numeric points ``x`` as a list of one
-    1-D column, or None outside the fast path."""
-    if not isinstance(x, torch.Tensor) or x.dtype == torch.bool \
-            or x.is_complex():
-        return None
-    return [x.reshape(-1)]
+    """The coordinates of the points ``x`` as a list of 1-D columns, or
+    None outside the fast path (a boolean, complex or non-tensor leaf).
+    A plain tensor is one column; a `StructuredArray` gives its fields'
+    columns in field order, recursing into nested fields, with a field's
+    tail flattened into one column per component, the order of the JAX
+    package's ``leaf_columns`` and of the isotropic cores' sum over
+    fields."""
+    def numeric(v):
+        return isinstance(v, torch.Tensor) and v.dtype != torch.bool \
+            and not v.is_complex()
+
+    if not isinstance(x, StructuredArray):
+        return [x.reshape(-1)] if numeric(x) else None
+    cols = []
+
+    def visit(v):
+        if isinstance(v, StructuredArray):
+            return all(visit(v[name]) for name in v.fields)
+        if not numeric(v):
+            return False
+        cols.extend(v.reshape(x.size, -1).unbind(1))
+        return True
+
+    return cols if visit(x) else None
 
 
 def build_profile(spec):

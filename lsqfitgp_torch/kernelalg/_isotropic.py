@@ -1,14 +1,15 @@
 """Isotropic kernel classes and the Constant/Zero kernels.
 
-Counterpart of ``lsqfitgp_tpu/kernelalg/_isotropic.py``.  Inputs are
-plain tensors, so the squared distance is ``(x − y)²``.
+Counterpart of ``lsqfitgp_tpu/kernelalg/_isotropic.py``.  The squared
+distance sums ``(x − y)²`` over the fields of structured points and
+their tails.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _core, _fastgram, _stationary
+from . import _core, _fastgram, _stationary, _util
 
 __all__ = [
     'CrossIsotropicKernel', 'IsotropicKernel',
@@ -43,7 +44,8 @@ class CrossIsotropicKernel(_stationary.CrossStationaryKernel):
             else (lambda ss: ss)
 
         def newcore(x, y, **kwargs):
-            return core(transf(dist(x, y)), **kwargs)
+            return core(transf(_util.sum_recurse_fields(dist, x, y)),
+                        **kwargs)
 
         self = _core.CrossKernel.__new__(cls, newcore, **kw)
         if not self._dynkw:
@@ -58,7 +60,8 @@ class IsotropicKernel(CrossIsotropicKernel, _stationary.StationaryKernel):
 
 
 IsotropicKernel.inherit_all_algops(intermediates=True)
-for _name in ('loc', 'scale', 'maxdim', 'derivable'):
+for _name in ('rescale', 'loc', 'scale', 'maxdim', 'derivable',
+              'normalize', 'cond'):
     IsotropicKernel.inherit_transf(_name, intermediates=True)
 
 
@@ -82,5 +85,7 @@ class Zero(IsotropicKernel):
 
 
 # resolve forward references in the registry logic
+_core.IsotropicKernel = IsotropicKernel
+_core.CrossIsotropicKernel = CrossIsotropicKernel
 _core.Constant = Constant
 _core.CrossConstant = CrossConstant

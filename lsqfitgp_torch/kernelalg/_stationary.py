@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _core, _fastgram
+from . import _core, _fastgram, _util
 
 __all__ = ['CrossStationaryKernel', 'StationaryKernel']
 
@@ -20,7 +20,7 @@ def softabs(x):
 
 
 class CrossStationaryKernel(_core.CrossKernel):
-    """Kernel depending only on x - y.
+    """Kernel depending only on x - y (field by field).
 
     The core takes ``delta = x - y`` as its only positional argument.
     ``input`` selects the preprocessing: 'signed' (bare difference),
@@ -39,7 +39,7 @@ class CrossStationaryKernel(_core.CrossKernel):
             raise KeyError(input)
 
         def newcore(x, y, **kwargs):
-            return core(dist(x, y), **kwargs)
+            return core(_util.map_recurse_fields(dist, x, y), **kwargs)
 
         self = super().__new__(cls, newcore, **kw)
         if not self._dynkw:

@@ -1,24 +1,33 @@
-"""Scalar predicates for kernel algebra.
+"""Scalar predicates and structured-field reductions for kernel cores.
 
-Counterpart of ``lsqfitgp_tpu/kernelalg/_util.py``, for plain (not
-structured) inputs: the structured-field reductions wait for the port
-of ``_array.py``.
+Counterpart of ``lsqfitgp_tpu/kernelalg/_util.py``.
 """
 
 from __future__ import annotations
 
 import numbers
+import operator
 
 import numpy
 import torch
 
 from .. import _config
+from .._array import StructuredArray, map_leaves
 
 __all__ = [
     'is_numerical_scalar',
+    'is_nonnegative_integer_scalar',
     'is_scalar_cond_trueontracer',
     'is_nonnegative_scalar_trueontracer',
+    'sum_recurse_fields',
+    'prod_recurse_fields',
+    'map_recurse_fields',
+    'is_structured',
 ]
+
+
+def is_structured(x):
+    return isinstance(x, StructuredArray)
 
 
 def _is_0d_number(x):
@@ -33,6 +42,21 @@ def is_numerical_scalar(x):
     if isinstance(x, numbers.Number):
         return True
     return _is_0d_number(x)
+
+
+def is_nonnegative_integer_scalar(x):
+    if isinstance(x, bool):
+        return False
+    if isinstance(x, numbers.Integral):
+        return x >= 0
+    if isinstance(x, numpy.ndarray) and x.ndim == 0 \
+            and numpy.issubdtype(x.dtype, numpy.integer):
+        return x.item() >= 0
+    if isinstance(x, torch.Tensor) and x.dim() == 0 \
+            and not x.is_floating_point() and not x.is_complex() \
+            and x.dtype != torch.bool:
+        return x.item() >= 0
+    return False
 
 
 def is_scalar_cond_trueontracer(x, cond):
@@ -50,3 +74,43 @@ def is_scalar_cond_trueontracer(x, cond):
 
 def is_nonnegative_scalar_trueontracer(x):
     return is_scalar_cond_trueontracer(x, lambda v: v >= 0)
+
+
+def _reduce_recurse(fun, args, combine, reduce, **kw):
+    x = args[0]
+    if not is_structured(x):
+        return fun(*args, **kw)
+    acc = None
+    for name in x.fields:
+        res = _reduce_recurse(fun, tuple(a[name] for a in args), combine,
+                              reduce, **kw)
+        tail = x._tails[name]
+        if tail:
+            res = reduce(res, tuple(range(-len(tail), 0)))
+        acc = res if acc is None else combine(acc, res)
+    return acc
+
+
+def _prod(v, axes):
+    for _ in axes:
+        v = v.prod(-1)
+    return v
+
+
+def sum_recurse_fields(fun, *args, **kw):
+    """Reduce ``fun`` over all leaf fields with +, summing tail axes."""
+    return _reduce_recurse(fun, args, operator.add,
+                           lambda v, axes: v.sum(axes), **kw)
+
+
+def prod_recurse_fields(fun, *args, **kw):
+    """Reduce ``fun`` over all leaf fields with *, multiplying tail
+    axes."""
+    return _reduce_recurse(fun, args, operator.mul, _prod, **kw)
+
+
+def map_recurse_fields(fun, x, *args):
+    """Apply ``fun`` to all leaf fields (ufunc semantics)."""
+    if is_structured(x):
+        return map_leaves(fun, x, *args)
+    return fun(x, *args)

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernelalg import isotropickernel, _fastgram
+from ..kernelalg import isotropickernel, _fastgram, _util
 
 __all__ = ['Constant', 'White', 'ExpQuad']
 
@@ -23,7 +23,8 @@ def Constant(x, y):
 @isotropickernel(derivable=False, input='raw')
 def White(x, y):
     r"""White noise kernel: k(x, y) = 1 if x == y else 0."""
-    return (x == y).to(torch.get_default_dtype())
+    return _util.prod_recurse_fields(lambda x, y: x == y, x, y).to(
+        torch.get_default_dtype())
 
 
 # White's instances carry a pure-noise fast-Gram spec

@@ -5,7 +5,9 @@ tensor plus a dict mapping primary block ids to Jacobians of shape
 ``mean.shape + (n_block,)`` with respect to blocks of iid standard
 normals.  Two UArrays correlate through shared block ids; propagation
 through sums and linear maps is dense linear algebra on the mean's
-device.  The nonlinear (delta-method) operations wait.
+device.  The nonlinear (delta-method) operations wait.  `evalcov`,
+`corr` and `sample` read the joint distribution of UArrays; `sample`
+draws from a `torch.Generator` where the JAX package takes a key.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 from .. import _config, _torchutil
 
 __all__ = ['UArray', 'from_cov', 'normal', 'uconcatenate',
-           'next_block_id']
+           'next_block_id', 'evalcov', 'corr', 'sample']
 
 _block_counter = itertools.count()
 
@@ -225,3 +227,44 @@ def uconcatenate(arrays, axis=0):
                  for a in arrays]
         jac[k] = torch.cat(parts, axis if axis >= 0 else axis - 1)
     return UArray(m, jac)
+
+
+# -- reading the distribution ---------------------------------------------
+
+
+def evalcov(a, b=None):
+    """Covariance between a and b (default: a), of shape
+    ``a.shape + b.shape``."""
+    if b is None:
+        b = a
+    na, nb = a.size, b.size
+    out = torch.zeros((na, nb), dtype=a.mean.dtype, device=a.mean.device)
+    for k, Ja in a.jac.items():
+        Jb = b.jac.get(k)
+        if Jb is not None:
+            out = out + Ja.reshape(na, -1) @ Jb.reshape(nb, -1).T
+    return out.reshape(a.shape + b.shape)
+
+
+def corr(a, b=None):
+    """Correlation between a and b (default: a), of shape
+    ``a.shape + b.shape``."""
+    c = evalcov(a, b)
+    sa = a.sdev.reshape(-1)
+    sb = (a if b is None else b).sdev.reshape(-1)
+    return (c.reshape(sa.numel(), sb.numel())
+            / torch.outer(sa, sb)).reshape(c.shape)
+
+
+def sample(generator, x, shape=()):
+    """Joint samples of the UArray ``x``, of shape ``shape + x.shape``,
+    from standard normals drawn with the `torch.Generator`
+    ``generator`` (on ``x``'s device)."""
+    if not isinstance(shape, tuple):
+        shape = (shape,)
+    out = x.mean.expand(shape + x.shape)
+    for J in x.jac.values():
+        z = torch.randn(shape + (J.shape[-1],), generator=generator,
+                        dtype=x.mean.dtype, device=x.mean.device)
+        out = out + torch.tensordot(z, J, dims=([-1], [-1]))
+    return out

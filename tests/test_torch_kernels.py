@@ -826,3 +826,47 @@ def test_gram_double_backward_cuda(cuda, gen, halfmatrix):
         (n0[0] + 3, n0[1] + 3)
     torch.testing.assert_close(got.cpu(), hessian('cpu'), rtol=1e-10,
                                atol=1e-10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('p,n,halfmatrix,above', [(1, 8192, False, True),
+                                                  (1, 6144, False, True),
+                                                  (1, 4096, False, False),
+                                                  (2, 8192, False, True),
+                                                  (2, 4096, False, False),
+                                                  (8, 256, True, True)])
+def test_auto_gram_launches_kernel_c_cuda(cuda, gen, p, n, halfmatrix,
+                                          above):
+    """A default-gram GP (gram='auto') on CUDA points evaluates its point
+    block with kernel C (kernel E with halfmatrix), forward and fused
+    backward, where the measured cutover puts the block (n x n, p
+    coordinates, p > 1 as StructuredArray fields), and broadcasts the
+    core below it; either way the block is gram='broadcast''s, in
+    float32 within 16 (p + 1) u max|K| (the routes round the p-term r²
+    in other orders and take other exps)."""
+    from lsqfitgp_torch.gp._gp import _auto_tiles
+    X = torch.as_tensor(gen.uniform(-5, 5, (n, p)), dtype=torch.float32,
+                        device=cuda)
+    pts = X[:, 0] if p == 1 else lt.asarray(
+        {f'f{i}': X[:, i] for i in range(p)})
+    lp = torch.tensor([0.3, 0.2], device=cuda, requires_grad=True)
+
+    def block(gram):
+        gp = lt.GP(lp[1].exp() * lt.ExpQuad(scale=lp[0].exp()), gram=gram,
+                   halfmatrix=halfmatrix, checkpos=False)
+        return gp.addx(pts, 'a')._covblock('a', 'a')
+
+    fn = ops.gram_sym if halfmatrix else ops.gram
+    before = fn.launches, fn.launches_bwd
+    K = block('auto')
+    torch.autograd.grad(K.sum(), lp)
+    launched = (fn.launches - before[0], fn.launches_bwd - before[1])
+    # above or below the cutover of PERF.md's table
+    assert _auto_tiles(cuda, n, n, p) == above
+    chunks = -(-p // 4)  # the backward's launches, 4 coordinates each
+    assert launched == ((1, chunks) if above else (0, 0))
+    with torch.no_grad():
+        Kb = block('broadcast')
+    u = torch.finfo(torch.float32).eps / 2
+    tol = 16 * (p + 1) * u * float(Kb.abs().max())
+    assert float((K.detach() - Kb).abs().max()) <= tol

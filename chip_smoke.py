@@ -24,9 +24,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    record for float64 out of place and in place (DMMA; the path's) and
    for float32 (SIMT); C, E and their backward for float32 and float64
    (E's and its backward's with '/float64' off every path), and C and
-   its backward at p = 2 in float32 ('gram/p2' and 'gram_bwd/p2', the
-   derivative path's, checked at that path's shape too); the fused
-   backward must give the same bits in two calls, and E the same
+   its backward at p = 2 ('gram/p2' and 'gram_bwd/p2', the derivative
+   path's, checked at that path's shape too) and at p = 10 ('gram/p10'
+   and 'gram_bwd/p10', the multidim path's), in float32 and float64
+   (with '/float64', off every path); the fused backward must give the
+   same bits in two calls and make one launch for all p, and E the same
    entries as C; each record has its share of the bound;
 4. the float32 rescue: ``Chol`` and ``chol_nll`` of a float32 ExpQuad
    Gram with a small nugget at n = 4096 (the largest size the rescue
@@ -92,7 +94,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    broadcast), then ∂F/∂t predicted; NLL, gradient and both posterior
    means held to a closed-form float64 oracle, the peak memory, the
    blocks' times and a profile;
-10. prints a JSON line of kernel records and, last, the device line.
+10. the multidim path: ``amp * ExpQuad(scale)`` fitted (at most 10 BFGS
+   iterations) to the Friedman #1 response at n = 16384 points uniform
+   on [0, 1]^10, one structured field with a (10,) tail, standardized,
+   the noise through ``givencov``, the default ``gram`` (kernel C at
+   p = 10, forward and single-launch fused backward once per
+   evaluation), then predicted at 64 held-out points; NLL, gradient and
+   posterior mean held to a float64 oracle (K from broadcast
+   differences, ``torch.linalg.cholesky``), the peak memory and a
+   profile;
+11. prints a JSON line of kernel records and, last, the device line.
 
 Any failed check exits non-zero before the last line.
 
@@ -109,10 +120,13 @@ float64 dense evaluation, at the dense fit's optimum; ``--gram-route``
 times the point block through the GP by kernel C and by the broadcast
 core, square and against 64 prediction points (the table of ``gram='auto'``'s cutover, where the package has
 structured points), kernels C and E with their backward through the
-public API, and dense float32 value+gradients at the optimum with a
-profile (``--dense64`` and ``--gram-route`` run from an older checkout
-too, to time its route in the same call); ``--deriv`` runs only kernel
-C's p = 2 records (step 3) and the derivative path.
+public API, and dense float32 value+gradients at the optimum and the
+multidim model's at a fixed point, each with a profile (``--gram-route
+evals``: all but the table; ``--dense64`` and ``--gram-route`` run from
+an older checkout too, to time its route in the same call);
+``--deriv`` runs only kernel C's float32 p = 2 records (step 3) and the
+derivative path; ``--multidim`` kernel C's p = 2 and p = 10 records in
+both dtypes and the multidim path.
 """
 
 import json
@@ -144,6 +158,9 @@ OPTIMUM = [0.9016, 1.067]
 # observations of ∂f/∂x at points (x, t) on [-25, 25]², and the cap of
 # its BFGS fit
 N_DF, N_DD, DERIV_SPAN, DERIV_ITERS = 8192, 4096, 25.0, 10
+# the multidim phase (Friedman #1): n points uniform on the unit cube of
+# MD_P dimensions, 64 held out, and the cap of its BFGS fit
+N_MD, MD_P, MD_ITERS = 16384, 10, 10
 
 # the card's peak rates (NVIDIA's H100 SXM data sheet, at 700 W): HBM
 # bandwidth, and FP32 (outside the tensor cores), FP64 (tensor core) and
@@ -557,7 +574,7 @@ def kernel_gram(dtype, gen):
     """Kernel C: the slice's point block (n = m = 16384, p = 1, post
     chain amp, nugget), a p = 8 block, the prediction cross block
     (n x 64), and the backward: the fused kernel against the plain
-    version on the card, at p = 1 and p = 8 (two launches), and against
+    version on the card, at p = 1 and p = 8 (one launch each), and against
     autograd of the plain version.  A record each for the forward and
     the fused backward."""
     import torch
@@ -627,7 +644,7 @@ def kernel_gram(dtype, gen):
         f'{wrap_b:.3f} ms), plain {plain_b:.3f} ms, bound {bd_b[0]:.3f} ms '
         f'({bd_b[1]})')
 
-    # p = 8: two launches of 4 coordinates each
+    # p = 8: the staged coordinates, one launch
     G8 = torch.randn(N // 2, N // 2, **kw)
     check_bwd_cols(f'C gram backward p=8 {dtype}', G8, X8, amp, u)
     del G8, X8
@@ -652,33 +669,35 @@ def kernel_gram(dtype, gen):
                         record(err_b, ms_b, plain_b, bd_b, wrapper_ms=wrap_b))
 
 
-def kernel_gram_p2(dtype, gen):
-    """Kernel C at p = 2, the derivative phase's value block (points of
-    two fields) with the amp chain, forward and fused backward against
-    their plain versions at the path's shape (N_DF x 2, x both
-    arguments) and at 16384², where each is timed: the records
-    'gram/p2' and 'gram_bwd/p2', whose launches are the derivative
-    phase's."""
+def kernel_gram_p(dtype, gen, p):
+    """Kernel C at p > 1 with the amp chain, forward and fused backward
+    against their plain versions at 16384² (x both arguments), where
+    each is timed: the records 'gram/p{p}' and 'gram_bwd/p{p}' ('/float64'
+    appended in float64).  At p = 2 the derivative phase's value block
+    (points of two fields on its square, also checked at its shape,
+    N_DF x 2), whose launches the float32 records count; at p = MD_P the
+    multidim phase's points (uniform on the unit cube), likewise."""
     import torch
     from lsqfitgp_torch.ops import (gram, gram_plain, gram_backward,
                                     gram_backward_plain)
     u = unit_roundoff(dtype)
     isz = torch.finfo(dtype).bits // 8
-    p = 2
     amp = torch.tensor(1.3, device='cuda', dtype=dtype)
     post = (('mul', amp),)
     errs = []
-    for n in (N_DF, N):
-        X = (torch.rand(n, p, device='cuda', dtype=dtype, generator=gen)
-             - 0.5) * 2 * DERIV_SPAN
+    sizes = (N_DF, N) if p == 2 else (N,)
+    for n in sizes:
+        X = torch.rand(n, p, device='cuda', dtype=dtype, generator=gen)
+        if p == 2:
+            X = (X - 0.5) * 2 * DERIV_SPAN
         # tolerance as for C's p = 8 block: 16 (p + 1) u max|K|
         K = gram('expquad', X, post=post)
         Kp = gram_plain('expquad', X, post=post)
-        err = check_close(f'C gram p=2 n={n} {dtype}', K, Kp,
+        err = check_close(f'C gram p={p} n={n} {dtype}', K, Kp,
                           16 * (p + 1) * u * float(Kp.abs().max()))
         del K, Kp
         G = torch.randn(n, n, device='cuda', dtype=dtype, generator=gen)
-        err_b = check_bwd_cols(f'C gram backward p=2 n={n} {dtype}', G, X,
+        err_b = check_bwd_cols(f'C gram backward p={p} n={n} {dtype}', G, X,
                                amp, u)
         errs.append((err, err_b))
     err, err_b = errs[-1]
@@ -689,9 +708,14 @@ def kernel_gram_p2(dtype, gen):
     # the columns; per entry p differences, p squares, p - 1 additions,
     # the exp's argument, the exp and the amp: 3 p + 2 operations
     bd = bound(isz * (N * N + 2 * N * p), (3 * p + 2) * N * N, dtype)
-    log(f'  C p=2 {dtype}: kernel {ms:.3f} ms (the wrapper {wrap:.3f} ms), '
-        f'plain {plain_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]}), share '
-        f'{bd[0] / ms:.2f}')
+    log(f'  C p={p} {dtype}: kernel {ms:.3f} ms (the wrapper {wrap:.3f} '
+        f'ms), plain {plain_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]}), '
+        f'share {bd[0] / ms:.2f}')
+    n0 = gram.launches_bwd
+    gram_backward(G, 'expquad', X, post=post)
+    if gram.launches_bwd != n0 + 1:
+        fail(f'C backward p={p}: {gram.launches_bwd - n0} launches, '
+             f'expected one for all coordinates')
     ms_b, plain_b, wrap_b = gram_times(
         lambda: gram_backward(G, 'expquad', X, post=post),
         lambda: gram_backward_plain(G, 'expquad', X, post=post))
@@ -700,17 +724,23 @@ def kernel_gram_p2(dtype, gen):
     # sum, and per coordinate a product and the row and column sums:
     # 6 p + 4
     bd_b = bound(isz * (N * N + 3 * N * p), (6 * p + 4) * N * N, dtype)
-    log(f'  C backward p=2 {dtype}: fused kernel {ms_b:.3f} ms (the wrapper '
-        f'{wrap_b:.3f} ms), plain {plain_b:.3f} ms, bound {bd_b[0]:.3f} ms '
-        f'({bd_b[1]}), share {bd_b[0] / ms_b:.2f}')
+    log(f'  C backward p={p} {dtype}: fused kernel {ms_b:.3f} ms (the '
+        f'wrapper {wrap_b:.3f} ms), plain {plain_b:.3f} ms, bound '
+        f'{bd_b[0]:.3f} ms ({bd_b[1]}), share {bd_b[0] / ms_b:.2f}')
     del G, X
     label = str(dtype).split('.')[-1]
+    suffix = '' if label == 'float32' else '/' + label
+    # the path whose launches the record counts: the counters do not
+    # tell p or the dtype apart, and no path runs p > 1 in float64
+    path = ({2: 'deriv', MD_P: 'multidim'}[p] if label == 'float32'
+            else None)
     rec = record(err, ms, plain_ms, bd, wrapper_ms=wrap)
-    rec.update(name='gram/p2', key='gram', counter='launches', dtype=label,
-               path='deriv')
+    rec.update(name=f'gram/p{p}{suffix}', key='gram', counter='launches',
+               dtype=label, path=path)
     rec_b = record(err_b, ms_b, plain_b, bd_b, wrapper_ms=wrap_b)
-    rec_b.update(name='gram_bwd/p2', key='gram_bwd', counter='launches_bwd',
-                 dtype=label, path='deriv', replaces=BWD_REPLACES['gram'])
+    rec_b.update(name=f'gram_bwd/p{p}{suffix}', key='gram_bwd',
+                 counter='launches_bwd', dtype=label, path=path,
+                 replaces=BWD_REPLACES['gram'])
     return [rec, rec_b]
 
 
@@ -1107,8 +1137,12 @@ def kernel_phase():
          'lsqfitgp_tpu/ops/_syrk.py:250', [f64, f32]),
         ('gram', kernel_gram, 'lsqfitgp_torch/csrc/gram.cu',
          'lsqfitgp_tpu/ops/_gram.py:68', [f32, f64]),
-        ('gram p=2', kernel_gram_p2, 'lsqfitgp_torch/csrc/gram.cu',
-         'lsqfitgp_tpu/ops/_gram.py:68', [f32]),
+        ('gram p=2', lambda dtype, gen: kernel_gram_p(dtype, gen, 2),
+         'lsqfitgp_torch/csrc/gram.cu', 'lsqfitgp_tpu/ops/_gram.py:68',
+         [f32, f64]),
+        (f'gram p={MD_P}', lambda dtype, gen: kernel_gram_p(dtype, gen, MD_P),
+         'lsqfitgp_torch/csrc/gram.cu', 'lsqfitgp_tpu/ops/_gram.py:68',
+         [f32, f64]),
         ('schur_update_gram', kernel_schur_gram,
          'lsqfitgp_torch/csrc/syrk.cu', 'lsqfitgp_tpu/ops/_syrk.py:334',
          [f32, f64]),
@@ -1135,22 +1169,38 @@ def kernel_phase():
 
 # -- slice phase ----------------------------------------------------------------
 
-def plain_nll64(x, y, log_scale, log_amp, jitter=0.0):
+def sqdist64(x, xs=None, rows=512):
+    """|x_i − xs_j|² (xs defaults to x) from broadcast differences, for
+    points of shape (n,) or (n, p), at p > 1 by blocks of ``rows`` rows
+    (one (rows, m, p) temporary); no port code."""
+    xs = x if xs is None else xs
+    if x.dim() == 1:
+        d2 = x[:, None] - xs[None, :]
+        return d2.mul_(d2)
+    out = x.new_empty((x.shape[0], xs.shape[0]))
+    for i in range(0, x.shape[0], rows):
+        D = x[i:i + rows, None, :] - xs[None, :, :]
+        out[i:i + rows] = D.mul_(D).sum(-1)
+    return out
+
+
+def plain_nll64(x, y, log_scale, log_amp, jitter=0.0, noise=NOISE_VAR):
     """Independent float64 reference of the objective's likelihood part
     and its gradient in (log scale, log amp), with ``jitter`` more on K's
-    diagonal beside the noise: dense K, ``torch.linalg.cholesky`` and
-    the textbook gradient
+    diagonal beside the noise variance ``noise``, for points x of shape
+    (n,) or (n, p): dense K, ``torch.linalg.cholesky`` and the textbook
+    gradient
     ½ <K⁻¹ − α αᵀ, ∂K>, α = K⁻¹ y, with ∂K/∂log amp = amp E and
     ∂K/∂log scale = amp E ∘ Δ²/scale², E = exp(−Δ²/(2 scale²)); no port
     code.  Four float64 n × n buffers at the peak (autograd through the
     same computation keeps about eight, too many at n = 32768)."""
     import torch
     scale, amp = math.exp(log_scale), math.exp(log_amp)
-    d2 = x[:, None] - x[None, :]
-    d2.mul_(d2).div_(scale * scale)
+    d2 = sqdist64(x)
+    d2.div_(scale * scale)
     E = torch.exp(d2 * -0.5)
     K = E * amp
-    K.diagonal().add_(NOISE_VAR + jitter)
+    K.diagonal().add_(noise + jitter)
     L = torch.linalg.cholesky(K)
     del K
     z = torch.linalg.solve_triangular(L, y[:, None], upper=False)
@@ -1166,13 +1216,13 @@ def plain_nll64(x, y, log_scale, log_amp, jitter=0.0):
     return nll, torch.stack([g_scale, g_amp])
 
 
-def plain_mean64(x, y, xs, scale, amp):
-    """Independent float64 reference of the posterior mean."""
+def plain_mean64(x, y, xs, scale, amp, noise=NOISE_VAR):
+    """Independent float64 reference of the posterior mean (points of
+    shape (n,) or (n, p), noise variance ``noise``)."""
     import torch
-    k = lambda a, b: amp * torch.exp(-0.5 * ((a[:, None] - b[None, :])
-                                             / scale) ** 2)
+    k = lambda a, b: amp * torch.exp(sqdist64(a, b) * (-0.5 / scale ** 2))
     K = k(x, x)
-    K.diagonal().add_(NOISE_VAR)
+    K.diagonal().add_(noise)
     L = torch.linalg.cholesky(K)
     return k(x, xs).T @ torch.cholesky_solve(y[:, None], L)[:, 0]
 
@@ -1233,14 +1283,14 @@ def require_counts(counts, expected, what):
 
 
 def check_points(n, value_grad32, cond_at, x64, y64, points, grad64=None,
-                 dmax=None):
+                 dmax=None, noise=NOISE_VAR):
     """The port's float32 NLL and its gradient against the float64
     reference (`plain_nll64`, or ``grad64(lp)``) at each (label, [log
     scale, log amp], near_optimum) point; ``value_grad32(lp,
     precision=None)`` is the port's NLL at the float32 tensor lp,
     ``cond_at(ls, la)`` the float32 condition estimate there, ``dmax(ls,
     la)`` the largest diagonal entry of the model's K (default: amp +
-    the noise).  Away from the optimum the gradient's error at
+    the noise), ``noise`` the data's noise variance.  Away from the optimum the gradient's error at
     precision 'highest' is printed beside the default's ('high'); the
     limits hold the default."""
     import torch
@@ -1250,7 +1300,7 @@ def check_points(n, value_grad32, cond_at, x64, y64, points, grad64=None,
             return plain_nll64(x64, y64, *lp)
     if dmax is None:
         def dmax(ls, la):
-            return math.exp(la) + NOISE_VAR
+            return math.exp(la) + noise
 
     for label, lpv, near_optimum in points:
         lp = torch.tensor(lpv, dtype=torch.float32, device=x64.device,
@@ -1273,7 +1323,7 @@ def check_points(n, value_grad32, cond_at, x64, y64, points, grad64=None,
         # shifts the NLL by eps tr(K_s⁻¹)/2 <= 2 eps32 n (amp + σ²)/σ²
         # (since λmin(K) >= σ²), doubled for rounding; amp + σ² is the
         # largest diagonal entry, dmax.
-        if dnll > 4 * eps32 * n * dmax(ls, la) / NOISE_VAR:
+        if dnll > 4 * eps32 * n * dmax(ls, la) / noise:
             fail(f'{label}: NLL disagrees with the float64 reference')
         if not near_optimum:
             # gradient: forward error of float32 solves, ~cond eps32
@@ -1902,7 +1952,7 @@ def gram_route_table():
     return table
 
 
-def gram_route(evals=7):
+def gram_route(evals=7, table=True):
     """Kernels C and E as the main path calls them, through the public API
     only (`ops.gram`, `ops.gram_sym` and autograd), so that the same
     script times the parent's route from the parent's checkout: at the
@@ -1910,15 +1960,16 @@ def gram_route(evals=7):
     nugget), in float32 and float64, the forward alone and forward +
     backward, each a mean over GRAM_BATCH calls back to back (median of
     7), their difference the backward's time; then ``evals`` dense
-    float32 value+gradients at the dense fit's optimum (host clock up to
-    the read of the result, checks off), their median, and the profile
-    of one."""
+    float32 value+gradients at the dense fit's optimum and as many of
+    the multidim model (`multidim_evals`; host clock up to the read of
+    the result, checks off), their median, and the profile of one.
+    First, with ``table``, `gram_route_table`."""
     import numpy as np
     import torch
     import lsqfitgp_torch as lgp
     from lsqfitgp_torch import ops
     gen = torch.Generator(device='cuda').manual_seed(SEED)
-    if hasattr(lgp, 'StructuredArray'):
+    if table:
         log('point blocks through the GP, kernel C against the broadcast '
             'core:')
         gram_route_table()
@@ -1973,6 +2024,45 @@ def gram_route(evals=7):
     log(f'  dense float32 value+gradient at n = {N}, log scale, log amp '
         f'{OPTIMUM}: {statistics.median(times) * 1e3:.1f} ms median (each: '
         f'{[round(t * 1e3, 1) for t in times]} ms)')
+    profile_phase(value_grad, top=16)
+    multidim_evals(evals)
+
+
+def multidim_evals(evals, lp0=(0.0, 0.0)):
+    """``evals`` float32 value+gradients of the multidim phase's model
+    (`multidim_data`, kernel C at p = MD_P through gram='auto') at log
+    scale, log amp ``lp0``, host clock up to the read of the result,
+    checks off: their median, the peak memory of one above its inputs
+    and the profile of one.  Public API only."""
+    import torch
+    import lsqfitgp_torch as lgp
+    torch.set_default_dtype(torch.float32)
+    xt, yt, _, _, noise = multidim_data('cuda')
+
+    def value_grad():
+        lp = torch.tensor(lp0, device='cuda', requires_grad=True)
+        with lgp.disable_checks():
+            gp = multidim_gp({'scale': lp[0].exp(), 'amp': lp[1].exp()}, xt)
+            nll = -gp.marginal_likelihood({'y': yt}, noise)
+        g, = torch.autograd.grad(nll, lp)
+        return float(nll.detach()), g.tolist()
+
+    times = []
+    for _ in range(evals):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value_grad()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    value_grad()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f'  multidim float32 value+gradient at n = {N_MD}, p = {MD_P}, log '
+        f'scale, log amp {list(lp0)}: {statistics.median(times) * 1e3:.1f} '
+        f'ms median (each: {[round(t * 1e3, 1) for t in times]} ms); peak '
+        f'{peak / N_MD ** 2:.2f} B/n² above its inputs')
     profile_phase(value_grad, top=16)
 
 
@@ -2896,6 +2986,216 @@ def deriv_phase(dev='cuda'):
     return launches
 
 
+# -- the multidim phase -------------------------------------------------------
+
+
+def friedman1(X):
+    """The Friedman #1 regression function of the first five of the
+    points' coordinates (Friedman 1991; Chipman, George & McCulloch
+    2010, §5); the others do not enter."""
+    import numpy as np
+    return (10 * np.sin(np.pi * X[:, 0] * X[:, 1])
+            + 20 * (X[:, 2] - 0.5) ** 2 + 10 * X[:, 3] + 5 * X[:, 4])
+
+
+def multidim_data(dev):
+    """The multidim phase's data from numpy seed SEED: N_MD + NPRED points
+    uniform on [0, 1]^MD_P, the response Friedman #1 + N(0, 1) at the
+    first N_MD, standardized (centred, divided by its sample sd).
+    Returns ``(x, y, xs, fs, noise)``: the training and the NPRED
+    held-out points, each as one structured field 'x' with a (MD_P,)
+    tail (the kernel sees p = MD_P coordinates), and the response, in
+    float32 on ``dev``; the standardized truth at the held-out points
+    (numpy), and the noise variance on the standardized scale, 1/sd², as
+    float32 holds it."""
+    import numpy as np
+    import torch
+    import lsqfitgp_torch as lgp
+    rng = np.random.default_rng(SEED)
+    Xall = rng.uniform(0, 1, (N_MD + NPRED, MD_P))
+    y = friedman1(Xall[:N_MD]) + rng.standard_normal(N_MD)
+    mu, sd = y.mean(), y.std(ddof=1)
+    pts = np.empty(len(Xall), dtype=[('x', float, (MD_P,))])
+    pts['x'] = Xall
+
+    def put(a):
+        return lgp.asarray(a, dtype=torch.float32, device=dev)
+
+    return (put(pts[:N_MD]), put((y - mu) / sd), put(pts[N_MD:]),
+            (friedman1(Xall[N_MD:]) - mu) / sd, float(np.float32(1 / sd ** 2)))
+
+
+def multidim_gp(hp, x, precision=None):
+    """The multidim model, ``amp * ExpQuad(scale)`` with the default
+    ``gram`` at the points ``x``, as 'y'."""
+    import lsqfitgp_torch as lgp
+    kw = {} if precision is None else dict(precision=precision)
+    return lgp.GP(hp['amp'] * lgp.ExpQuad(scale=hp['scale']),
+                  **kw).addx(x, 'y')
+
+
+def multidim_phase(dev='cuda'):
+    """A full-width multi-dimensional fit: ``amp * ExpQuad(scale)`` on the
+    Friedman #1 data (`multidim_data`), n = N_MD points in MD_P = 10
+    dimensions as one structured field, the noise through ``givencov``,
+    float32, the default ``gram`` ('auto': kernel C at p = 10 on the
+    card).  Fits the two hyperparameters with ``empbayes_fit`` (at most
+    MD_ITERS BFGS iterations) and predicts at the 64 held-out points;
+    checks that kernel C ran at p = 10 only, its forward and its fused
+    backward (one launch for all coordinates) once per evaluation, and
+    that A and B ran; holds the NLL and gradient at the start and at the
+    fit, and the posterior mean, to an independent float64 oracle
+    (`plain_nll64`, `plain_mean64`: K from broadcast differences,
+    ``torch.linalg.cholesky``); prints the time per evaluation, the peak
+    memory of one value+gradient in B/n², the point block's time and a
+    profile.  Returns the launch counts of the fit and the
+    predictions."""
+    import numpy as np
+    import torch
+    import lsqfitgp_torch as lgp
+    f32 = torch.float32
+    torch.set_default_dtype(f32)
+    t_phase = time.perf_counter()
+
+    def sync():
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+
+    xt, yt, xst, fs, noise = multidim_data(dev)
+    data = {'y': yt}
+
+    def gpfactory(hp, precision=None):
+        return multidim_gp(hp, xt, precision)
+
+    hyperprior = {'log(scale)': (0., 1.), 'log(amp)': (0., 1.)}
+    log(f'multidim phase: Friedman #1, n = {N_MD} points uniform on '
+        f'[0, 1]^{MD_P} (one field of {MD_P} coordinates), y standardized, '
+        f'float32, amp * ExpQuad(scale), gram=\'auto\', givencov '
+        f'{noise:.6g}')
+    seen, restore = gram_p_recorder()
+    try:
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        fit = lgp.empbayes_fit(hyperprior, gpfactory, (data, noise),
+                               minkw={'maxiter': MD_ITERS}, raises=False)
+        sync()
+        wall = time.perf_counter() - t0
+        fit_launches = read_counts()
+        fit_seen = list(seen)
+        gp = fit.gp().addx(xst, 'pred')
+        mean = gp.predfromdata(data, 'pred', noise).mean
+        sync()
+        launches = read_counts()
+    finally:
+        restore()
+    evals = len(fit.evaltimes)
+    log(f'  fit: {wall:.2f} s wall, {fit.minresult.nit} BFGS iterations '
+        f'(cap {MD_ITERS}), {evals} evaluations, median '
+        f'{statistics.median(fit.evaltimes) * 1e3:.1f} ms per evaluation '
+        f'(value + gradient); {fit.minresult.message}')
+    log(f'  launches during the fit: {nonzero(fit_launches)}; fit + '
+        f'predfromdata: {nonzero(launches)}')
+    ps_seen = sorted(set(fit_seen))
+    log(f'  kernel C launches (direction, p) during the fit: {ps_seen}')
+    if dev == 'cuda':
+        require_launched(fit_launches, ['schur_update_tc',
+                                        'syrk_t_full__dmma'],
+                         'the multidim fit')
+        # the backward's one launch per evaluation covers all MD_P
+        # coordinates
+        require_counts(fit_launches, {'gram': evals, 'gram_bwd': evals},
+                       'the multidim fit')
+        if ps_seen != [('bwd', MD_P), ('fwd', MD_P)]:
+            fail(f'kernel C ran at {ps_seen}, expected p = {MD_P} only')
+    scale = float(fit.pmean['scale'])
+    amp = float(fit.pmean['amp'])
+    fitted = [math.log(scale), math.log(amp)]
+    log(f'  fitted scale {scale:.6g}, amp {amp:.6g}; pmean '
+        f'{fit.pmean.buf.tolist()}, pcov {fit.pcov.tolist()}')
+
+    def value_grad32(lp, precision=None):
+        gp0 = gpfactory({'scale': lp[0].exp(), 'amp': lp[1].exp()},
+                        precision)
+        return -gp0.marginal_likelihood(data, noise)
+
+    def value_grad():
+        lp = torch.tensor(fitted, device=dev, requires_grad=True)
+        with lgp.disable_checks():
+            nll = value_grad32(lp)
+        g, = torch.autograd.grad(nll, lp)
+        return float(nll.detach()), g.tolist()
+
+    times = []
+    for _ in range(5):
+        sync()
+        t0 = time.perf_counter()
+        value_grad()
+        times.append(time.perf_counter() - t0)
+    log(f'  value+gradient at the fit: median '
+        f'{statistics.median(times) * 1e3:.1f} ms (each: '
+        f'{[round(t * 1e3, 1) for t in times]} ms)')
+
+    if dev == 'cuda':
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        value_grad()
+        sync()
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f'  peak memory of one value+gradient above its inputs: '
+            f'{peak / N_MD ** 2:.2f} B/n² ({peak / 2 ** 30:.2f} GiB)')
+        lp = torch.tensor(fitted, device=dev, requires_grad=True)
+
+        def block():
+            with lgp.disable_checks():
+                K = gpfactory({'scale': lp[0].exp(), 'amp': lp[1].exp()}
+                              )._covblock('y', 'y', cache=False)
+            torch.autograd.grad(K, lp, torch.ones_like(K))
+        log(f'  point block (kernel C at p = {MD_P}) forward + backward: '
+            f'{median_ms(block):.3f} ms')
+        profile_phase(value_grad, top=16)
+
+    # the oracle takes the points and the data as the port sees them,
+    # rounded to float32
+    X64 = xt['x'].double()
+    Xs64 = xst['x'].double()
+    y64 = data['y'].double()
+
+    def grad64(lp):
+        return plain_nll64(X64, y64, *lp, noise=noise)
+
+    def cond_at(ls, la):
+        with torch.no_grad():
+            gp0 = gpfactory({'scale': torch.tensor(math.exp(ls)),
+                             'amp': torch.tensor(math.exp(la))})
+            K = gp0.prior('y', raw=True)
+            K.diagonal().add_(noise)
+            return float(lgp.linalg.Chol(K).cond_estimate)
+
+    cond = cond_at(*fitted)
+    check_points(N_MD, value_grad32, cond_at, X64, None,
+                 [('start point', [0., 0.], False),
+                  ('fitted point', fitted, True)], grad64=grad64,
+                 noise=noise)
+
+    eps32 = torch.finfo(f32).eps
+    with torch.no_grad():
+        ref = plain_mean64(X64, y64, Xs64, scale, amp, noise=noise)
+    dmean = float((mean.double() - ref).abs().max())
+    rmse = float(np.sqrt(np.mean((mean.double().cpu().numpy() - fs) ** 2)))
+    log(f'  posterior mean at {NPRED} held-out points: max |port - '
+        f'float64| {dmean:.3e}, max |mean| {float(ref.abs().max()):.4g} '
+        f'(limit {10 * cond * eps32 * float(ref.abs().max()):.3e}); RMSE '
+        f'against the standardized truth {rmse:.4g}')
+    if not bool(torch.isfinite(mean).all()) or mean.shape != (NPRED,):
+        fail('posterior mean not finite or of the wrong shape')
+    if dmean > 10 * cond * eps32 * float(ref.abs().max()):
+        fail('posterior mean disagrees with the float64 oracle')
+    log(f'  multidim phase: {time.perf_counter() - t_phase:.1f} s')
+    return launches
+
+
 def main(argv):
     sys.path.insert(0, ROOT)
     header()
@@ -2918,9 +3218,9 @@ def main(argv):
         build()
         compare_highest()
         return 0
-    if argv == ['--gram-route']:
+    if argv[:1] == ['--gram-route'] and argv[1:] in ([], ['evals']):
         build()
-        gram_route()
+        gram_route(table=argv[1:] == [])
         return 0
     if argv == ['--dense64']:
         build()
@@ -2928,9 +3228,18 @@ def main(argv):
         return 0
     if argv == ['--deriv']:
         build()
-        kernel_gram_p2(torch.float32,
-                       torch.Generator(device='cuda').manual_seed(SEED))
+        kernel_gram_p(torch.float32,
+                      torch.Generator(device='cuda').manual_seed(SEED), 2)
         deriv_phase()
+        return 0
+    if argv == ['--multidim']:
+        build()
+        gen = torch.Generator(device='cuda').manual_seed(SEED)
+        for p in (2, MD_P):
+            for dtype in (torch.float32, torch.float64):
+                kernel_gram_p(dtype, gen, p)
+                torch.cuda.empty_cache()
+        multidim_phase()
         return 0
     if argv:
         fail(f'unknown arguments {argv}')
@@ -2967,6 +3276,9 @@ def main(argv):
     log(f'elapsed {time.perf_counter() - t0:.1f} s')
     torch.cuda.empty_cache()
     paths['deriv'] = deriv_phase()
+    log(f'elapsed {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    paths['multidim'] = multidim_phase()
     # each kernel's launches are those of its own path's run: the dense
     # fit's, but for A, C and C's backward in float64 the float64 dense
     # evaluation's.  C's and E's counters do not tell the dtypes apart:
@@ -2984,16 +3296,19 @@ def main(argv):
     own_key = {'schur_update': 'rescue'}
     dtype_paths = {'float32': ['rescue', 'dense', 'stream', 'halfmatrix',
                                'second', 'fishvec', 'halfmatrix_hess',
-                               'deriv'],
+                               'deriv', 'multidim'],
                    'float64': ['dense64']}
     for rec in records:
         base = rec['name'].split('/')[0]
         is_gram = 'key' in rec
         key = rec.pop('key', None) or base + COUNTERS[rec['counter']]
-        # a record of a path of its own (C at p = 2, the derivative
-        # phase's) names it
+        names = dtype_paths[rec['dtype']] if is_gram else list(paths)
         if 'path' in rec:
+            # a record of a path of its own (C at p > 1: the derivative
+            # phase's at p = 2, the multidim phase's at p = 10; None in
+            # float64) counts only that path's launches
             path = rec.pop('path')
+            names = [path] if path else []
         elif rec['name'].endswith('/float64') and (
                 is_gram or base == 'schur_update'):
             path = own64.get(base)
@@ -3001,7 +3316,6 @@ def main(argv):
             path = own_key[key]
         else:
             path = own[base]
-        names = dtype_paths[rec['dtype']] if is_gram else list(paths)
         rec['launches'] = paths[path][key] if path else 0
         rec['launches_by_path'] = {p: paths[p][key] for p in names}
     log(f'total {time.perf_counter() - t0:.1f} s')

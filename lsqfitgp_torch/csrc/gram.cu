@@ -55,10 +55,30 @@
 //   shared memory, the scalars by shuffles and shared memory, and each
 //   block writes its partial sums to slots of its own in a scratch
 //   buffer that the wrapper sums over the slots in a fixed order, so the
-//   gradient is the same to the bit from run to run.  The coordinates
-//   go in chunks of up to PCHUNK per launch (one launch for p <= 4).
+//   gradient is the same to the bit from run to run.  E's backward and
+//   the tangent kernels take the coordinates in chunks of up to PCHUNK
+//   per launch at p > 1, each entry reading its coordinates from
+//   device memory.
 // - C's backward block covers CROWS tiles down a column of tiles, which
 //   cuts its column partial sums to n / 256 slots.
+// - C and its backward at p > 1 stage a tile's row and column
+//   coordinates in shared memory, SLAB coordinates at a time (so any p
+//   fits), with coalesced loads; each thread sums r^2 for its RPT x V
+//   entries in registers from broadcast row reads and one 16-byte
+//   column read per coordinate, in sqdist's order (fma(dl, dl, r2) for
+//   d = 0 .. p - 1), so C still writes E's entries to the bit.  That is
+//   2 instructions per entry and coordinate: at p = 10 in float32 the
+//   tile's instructions, not the 0.32 ms write stream at 16384^2, bound
+//   it.  The backward makes one launch for all p, so G is read once: per
+//   64-row step of its block it sums r^2 over the slabs, turns the
+//   thread's entries into weights G Wr in registers, then sweeps the
+//   slabs again (the last one staged first) for the row and column sums
+//   of w (x_i - y_j)_d, 3 instructions per entry and coordinate, DG
+//   coordinates at a time: rows across a row's lanes by a reduce-scatter
+//   (each lane ends with one row's sum, in RPT x DG - 1 shuffles where a
+//   sum per row would take RPT x DG x 4), columns across the block's rows
+//   through shared memory into the block's slot, added over the block's
+//   steps by the thread that owns the slot entry.
 // - E's backward walks the upper tile pairs (I, J): it loads the mirror
 //   tile G[J, I] into shared memory with coalesced rows and forms
 //   S = G[I, J] + G[J, I]^T in registers (both of K's arguments are x).
@@ -86,7 +106,10 @@ using namespace lsq;
 constexpr int TILE = 64;    // tile edge
 constexpr int NT = 256;     // threads per block
 constexpr int PCHUNK = 4;   // coordinates per backward launch at p > 1
+                            // (E's backward, C'', E'')
 constexpr int CROWS = 4;    // tiles per block of C's backward
+constexpr int SLAB = 16;    // coordinates staged at once (C at p > 1)
+constexpr int DG = 2;       // coordinates per reduction (C's backward)
 
 template <typename T>
 struct Geo {
@@ -94,6 +117,9 @@ struct Geo {
     static constexpr int TX = TILE / V;        // lanes along a tile row
     static constexpr int TY = NT / TX;         // tile rows per step
     static constexpr int RPT = TILE / TY;      // tile rows per thread
+    // a staged coordinate's row of TILE points, padded against bank
+    // conflicts while staging and 16-byte aligned
+    static constexpr int PITCH = TILE + V;
 };
 
 // streaming (evict-first) stores: the output is not read again here
@@ -162,6 +188,122 @@ __device__ __forceinline__ T lane_sum(T v)
     return v;
 }
 
+// Reduce-scatter over each group of 2 O consecutive lanes: v[0, C) summed
+// over the group in a fixed order, lane l of the group ending with the
+// sum of v[l / (2 O / C)] in v[0] (C a power of 2, at most 2 O).  Each
+// step sends half of the sums a lane still holds to its partner and
+// keeps the other half, then the last steps add whole.
+template <int O, int C, typename T>
+__device__ __forceinline__ void scatter_sum(T* v, int l)
+{
+    if constexpr (O > 0) {
+        if constexpr (C > 1) {
+            constexpr int H = C / 2;
+            const bool up = (l & O) != 0;
+#pragma unroll
+            for (int i = 0; i < H; ++i) {
+                const T send = up ? v[i] : v[i + H];
+                const T keep = up ? v[i + H] : v[i];
+                v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+            }
+            scatter_sum<O / 2, H>(v, l);
+        } else {
+            v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+            scatter_sum<O / 2, 1>(v, l);
+        }
+    }
+}
+
+__device__ __forceinline__ void lds16(const float* p, float* v)
+{
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+}
+
+__device__ __forceinline__ void lds16(const double* p, double* v)
+{
+    const double2 t = *reinterpret_cast<const double2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+}
+
+// Coordinates [d0, d0 + pc) of the TILE points z0, z0 + 1, ... of z (nz
+// points of p coordinates) into s[d][i], zeros past nz: consecutive
+// threads read consecutive addresses of the points' rows.  The point of
+// element e is e / pc in float, (e + 1/2) (1 / pc) truncated: exact for
+// e < TILE * SLAB, whose quotients lie at least 1 / (2 SLAB) from an
+// integer, where an integer division per element would cost about 20
+// instructions, a large share of a tile's work at p >= 10.
+template <typename T>
+__device__ __forceinline__ void stage(const T* __restrict__ z, long long z0,
+                                      long long nz, int p, int d0, int pc,
+                                      T (*s)[Geo<T>::PITCH])
+{
+    const float rcp = 1.0f / pc;
+    for (int e = threadIdx.x; e < TILE * pc; e += NT) {
+        const int i = (int)(((float)e + 0.5f) * rcp);
+        const int d = e - i * pc;
+        const long long r = z0 + i;
+        s[d][i] = r < nz ? z[r * p + d0 + d] : T(0);
+    }
+}
+
+// r2[a][k] += the squares of the pc staged coordinates' differences for
+// the thread's entries (rows ty + a TY, columns tx V + k of the staged
+// tile), each fma(dl, dl, r2) in the coordinates' order, as sqdist sums
+template <typename T>
+__device__ __forceinline__ void add_r2(T (*xs)[Geo<T>::PITCH],
+                                       T (*ys)[Geo<T>::PITCH], int pc,
+                                       T (&r2)[Geo<T>::RPT][Geo<T>::V])
+{
+    using Gm = Geo<T>;
+    const int tx = threadIdx.x % Gm::TX, ty = threadIdx.x / Gm::TX;
+#pragma unroll 2
+    for (int d = 0; d < pc; ++d) {
+        T yv[Gm::V];
+        lds16(&ys[d][tx * Gm::V], yv);
+#pragma unroll
+        for (int a = 0; a < Gm::RPT; ++a) {
+            const T xr = xs[d][ty + a * Gm::TY];
+#pragma unroll
+            for (int k = 0; k < Gm::V; ++k) {
+                const T dl = xr - yv[k];
+                r2[a][k] = fma(dl, dl, r2[a][k]);
+            }
+        }
+    }
+}
+
+// r^2 of the thread's entries of the tile at rows i0, columns j0, all
+// p coordinates staged SLAB at a time through xs, ys; returns the
+// number of slabs (the last one is left staged)
+template <typename T>
+__device__ __forceinline__ int tile_r2(const T* __restrict__ x,
+                                       const T* __restrict__ y, long long n,
+                                       long long m, int p, long long i0,
+                                       long long j0, T (*xs)[Geo<T>::PITCH],
+                                       T (*ys)[Geo<T>::PITCH],
+                                       T (&r2)[Geo<T>::RPT][Geo<T>::V])
+{
+#pragma unroll
+    for (int a = 0; a < Geo<T>::RPT; ++a)
+#pragma unroll
+        for (int k = 0; k < Geo<T>::V; ++k) r2[a][k] = T(0);
+    int l = 0;
+    for (int d0 = 0; d0 < p; d0 += SLAB, ++l) {
+        const int pc = min(SLAB, p - d0);
+        __syncthreads();   // the previous slab is read
+        stage(x, i0, n, p, d0, pc, xs);
+        stage(y, j0, m, p, d0, pc, ys);
+        __syncthreads();
+        add_r2(xs, ys, pc, r2);
+    }
+    return l;
+}
+
 // r^2 of entry (r, c): from the coordinates in registers at p = 1
 template <typename T, bool P1>
 __device__ __forceinline__ T dist2(const T* __restrict__ x,
@@ -217,23 +359,40 @@ gram_kernel(const T* __restrict__ x, const T* __restrict__ y, long long n,
     const bool diag = with_noise && i0 < j0 + TILE && j0 < i0 + TILE;
     const T noise = diag ? params[npost] : T(0);
     const bool wide = m % V == 0;
-    T yc[V];
+    if constexpr (P1) {
+        T yc[V];
 #pragma unroll
-    for (int k = 0; k < V; ++k)
-        yc[k] = P1 && c0 + k < m ? y[c0 + k] : T(0);
+        for (int k = 0; k < V; ++k) yc[k] = c0 + k < m ? y[c0 + k] : T(0);
 #pragma unroll
-    for (int a = 0; a < Gm::RPT; ++a) {
-        const long long r = i0 + ty + a * Gm::TY;
-        if (r >= n) break;
-        const T xr = P1 ? x[r] : T(0);
-        T v[V];
+        for (int a = 0; a < Gm::RPT; ++a) {
+            const long long r = i0 + ty + a * Gm::TY;
+            if (r >= n) break;
+            const T xr = x[r];
+            T v[V];
 #pragma unroll
-        for (int k = 0; k < V; ++k) {
-            const long long c = c0 + k < m ? c0 + k : m - 1;
-            const T r2 = dist2<T, P1>(x, y, r, c, p, xr, yc[k]);
-            v[k] = entry_value<T, Prof>(r2, ch, diag && r == c0 + k, noise);
+            for (int k = 0; k < V; ++k) {
+                const long long c = c0 + k < m ? c0 + k : m - 1;
+                const T r2 = dist2<T, true>(x, y, r, c, p, xr, yc[k]);
+                v[k] = entry_value<T, Prof>(r2, ch, diag && r == c0 + k,
+                                            noise);
+            }
+            store_row(out + r * m + c0, v, m - c0, wide);
         }
-        store_row(out + r * m + c0, v, m - c0, wide);
+    } else {
+        __shared__ __align__(16) T xs[SLAB][Gm::PITCH], ys[SLAB][Gm::PITCH];
+        T r2[Gm::RPT][V];
+        tile_r2(x, y, n, m, p, i0, j0, xs, ys, r2);
+#pragma unroll
+        for (int a = 0; a < Gm::RPT; ++a) {
+            const long long r = i0 + ty + a * Gm::TY;
+            if (r >= n) break;
+            T v[V];
+#pragma unroll
+            for (int k = 0; k < V; ++k)
+                v[k] = entry_value<T, Prof>(r2[a][k], ch, diag && r == c0 + k,
+                                            noise);
+            store_row(out + r * m + c0, v, m - c0, wide);
+        }
     }
 }
 
@@ -355,51 +514,172 @@ __device__ __forceinline__ void block_columns(T (&acc)[Geo<T>::V][PC],
     }
 }
 
-// Kernel C's backward.  Block (bx, by) covers columns [64 bx, +64) and
-// rows [256 by, +256).  Writes (when XY) rowpart[bx][i][d] and
-// colpart[by][j][d], the sums over the block's columns and rows of
-// G Wr (x_i - y_j)_d, and (when PAR) scal[by * gridDim.x + bx][0..3).
-template <typename T, class Prof, bool P1, bool XY, bool PAR>
-__global__ void __launch_bounds__(NT)
-gram_bwd_kernel(const T* __restrict__ G, const T* __restrict__ x,
-                const T* __restrict__ y, long long n, long long m, int p,
-                int d0, const T* __restrict__ params, int npost,
-                unsigned postadd, int with_noise, int wide,
-                T* __restrict__ rowpart, T* __restrict__ colpart,
-                T* __restrict__ scal)
+// Kernel C's backward at p > 1, the body of gram_bwd_kernel: the block's
+// four 64-row steps one after another, each with the step's coordinates
+// staged (tile_r2), the thread's entries' weights in registers, and the
+// slabs swept again for the row and column sums, DG coordinates at a
+// time.  A step's column sums go into the block's slot through `red`,
+// each slot entry owned by one thread, which stores the first step's sum
+// and adds the later ones in order.
+template <typename T, class Prof, bool XY, bool PAR>
+__device__ __forceinline__ void bwd_slabs(const T* __restrict__ G,
+                                          const T* __restrict__ x,
+                                          const T* __restrict__ y,
+                                          long long n, long long m, int p,
+                                          Chain<T> ch, bool with_noise,
+                                          int wide, T* __restrict__ rowpart,
+                                          T* __restrict__ colpart, T* scal)
 {
     using Gm = Geo<T>;
-    constexpr int V = Gm::V, PC = P1 ? 1 : PCHUNK;
-    __shared__ T red[Gm::TY][PC][TILE];
+    constexpr int V = Gm::V, RPT = Gm::RPT, TY = Gm::TY, NV = RPT * DG;
+    // each row's lanes share out its RPT x DG sums: NV lanes' worth
+    static_assert(NV <= Gm::TX, "too many sums for a row's lanes");
+    constexpr int SPREAD = Gm::TX / NV;
+    __shared__ __align__(16) T xs[SLAB][Gm::PITCH], ys[SLAB][Gm::PITCH];
+    __shared__ T red[TY][DG][TILE];
+    const int tx = threadIdx.x % Gm::TX, ty = threadIdx.x / Gm::TX;
+    const long long j0 = (long long)blockIdx.x * TILE;
+    const long long c0 = j0 + tx * V;
+    T* const rowblk = rowpart + (long long)blockIdx.x * n * p;
+    T* const colblk = colpart + (long long)blockIdx.y * m * p;
+    // the column-slot entry (column j0 + oc, coordinate oq of a group)
+    // this thread owns
+    const int oq = threadIdx.x / TILE, oc = threadIdx.x % TILE;
+    T sg = T(0), sgk = T(0), tr = T(0);
+    for (int s = 0; s < CROWS; ++s) {
+        const long long i0 = ((long long)blockIdx.y * CROWS + s) * TILE;
+        if (i0 >= n) break;
+        // G's entries, zeros past the edge: their weights are zero
+        T w[RPT][V];
+#pragma unroll
+        for (int a = 0; a < RPT; ++a) {
+            const long long r = i0 + ty + a * TY;
+            const bool rv = r < n;
+            load_row(G + (rv ? r : 0) * m + c0, w[a], rv ? m - c0 : 0, wide);
+        }
+        T r2[RPT][V];
+        const int nslab = tile_r2(x, y, n, m, p, i0, j0, xs, ys, r2);
+#pragma unroll
+        for (int a = 0; a < RPT; ++a) {
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+                T dg;
+                const T gv = w[a][k];
+                const T g = Prof::both(r2[a][k], dg);
+                if constexpr (PAR) {
+                    sg += gv;
+                    sgk = fma(gv, g, sgk);
+                    if (with_noise && i0 + ty + a * TY == c0 + k) tr += gv;
+                }
+                w[a][k] = r2[a][k] > T(0) ? gv * (ch.alpha * dg) : T(0);
+            }
+        }
+        if constexpr (XY) {
+            // the last slab is still staged: sweep the slabs backwards
+            for (int l = nslab - 1; l >= 0; --l) {
+                const int d0 = l * SLAB, pc = min(SLAB, p - d0);
+                if (l != nslab - 1) {
+                    __syncthreads();
+                    stage(x, i0, n, p, d0, pc, xs);
+                    stage(y, j0, m, p, d0, pc, ys);
+                    __syncthreads();
+                }
+                for (int q0 = 0; q0 < pc; q0 += DG) {
+                    // past pc the staged rows are stale: their sums are
+                    // dropped below
+                    T racc[NV], cacc[V][DG];
+#pragma unroll
+                    for (int q = 0; q < DG; ++q) {
+#pragma unroll
+                        for (int a = 0; a < RPT; ++a) racc[a * DG + q] = T(0);
+#pragma unroll
+                        for (int k = 0; k < V; ++k) cacc[k][q] = T(0);
+                        T yv[V];
+                        lds16(&ys[q0 + q][tx * V], yv);
+#pragma unroll
+                        for (int a = 0; a < RPT; ++a) {
+                            const T xr = xs[q0 + q][ty + a * TY];
+#pragma unroll
+                            for (int k = 0; k < V; ++k) {
+                                const T dl = xr - yv[k];
+                                racc[a * DG + q] =
+                                    fma(w[a][k], dl, racc[a * DG + q]);
+                                cacc[k][q] = fma(w[a][k], dl, cacc[k][q]);
+                            }
+                        }
+                    }
+                    // rows: lane tx ends with sum idx = tx / SPREAD
+                    scatter_sum<Gm::TX / 2, NV>(racc, tx);
+                    const int idx = tx / SPREAD, ra = idx / DG;
+                    const long long r = i0 + ty + ra * TY;
+                    const int d = d0 + q0 + idx % DG;
+                    if (tx % SPREAD == 0 && r < n && d < p)
+                        rowblk[r * p + d] = racc[0];
+                    // columns: over the block's rows through red
+#pragma unroll
+                    for (int k = 0; k < V; ++k)
+#pragma unroll
+                        for (int q = 0; q < DG; ++q)
+                            red[ty][q][tx * V + k] = cacc[k][q];
+                    __syncthreads();
+                    const long long c = j0 + oc;
+                    const int dc = d0 + q0 + oq;
+                    if (oq < DG && c < m && dc < p) {
+                        T sum = T(0);
+#pragma unroll
+                        for (int t = 0; t < TY; ++t) sum += red[t][oq][oc];
+                        T& dst = colblk[c * p + dc];
+                        dst = s == 0 ? sum : dst + sum;
+                    }
+                    __syncthreads();
+                }
+            }
+        }
+    }
+    if constexpr (PAR)
+        block_scalars(sg, sgk, tr,
+                      scal + 3 * ((long long)blockIdx.y * gridDim.x
+                                  + blockIdx.x));
+}
+
+// Kernel C's backward at p = 1, the body of gram_bwd_kernel: the
+// coordinates in registers, the row sums across a row's lanes.
+template <typename T, class Prof, bool XY, bool PAR>
+__device__ __forceinline__ void bwd_p1(const T* __restrict__ G,
+                                       const T* __restrict__ x,
+                                       const T* __restrict__ y, long long n,
+                                       long long m, Chain<T> ch,
+                                       bool with_noise, int wide,
+                                       T* __restrict__ rowpart,
+                                       T* __restrict__ colpart, T* scal)
+{
+    using Gm = Geo<T>;
+    constexpr int V = Gm::V;
+    __shared__ T red[Gm::TY][1][TILE];
     const int tx = threadIdx.x % Gm::TX, ty = threadIdx.x / Gm::TX;
     const long long j0 = (long long)blockIdx.x * TILE;
     const long long c0 = j0 + tx * V;
     const long long i0 = (long long)blockIdx.y * (TILE * CROWS);
-    const int pc = P1 ? 1 : min(PC, p - d0);
-    const Chain<T> ch = fold_chain(params, npost, postadd);
     const bool diag = PAR && with_noise && i0 < j0 + TILE
         && j0 < i0 + TILE * CROWS;
-    T yc[V][PC], cacc[V][PC];
+    T yc[V], cacc[V][1];
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-        coords<T, PC>(y, c0 + k, c0 + k < m, p, d0, pc, yc[k]);
-#pragma unroll
-        for (int q = 0; q < PC; ++q) cacc[k][q] = T(0);
+        yc[k] = c0 + k < m ? y[c0 + k] : T(0);
+        cacc[k][0] = T(0);
     }
     T sg = T(0), sgk = T(0), tr = T(0);
     for (int a = 0; a < Gm::RPT * CROWS; ++a) {
         const long long r = i0 + ty + a * Gm::TY;
         const bool rv = r < n;
-        T gv[V], xr[PC], racc[PC];
+        T gv[V], racc = T(0);
         load_row(G + (rv ? r : 0) * m + c0, gv, rv ? m - c0 : 0, wide);
-        coords<T, PC>(x, r, rv, p, d0, pc, xr);
-#pragma unroll
-        for (int q = 0; q < PC; ++q) racc[q] = T(0);
+        const T xr = rv ? x[r] : T(0);
 #pragma unroll
         for (int k = 0; k < V; ++k) {
             const long long c = c0 + k;
             if (!rv || c >= m) continue;
-            const T r2 = dist2<T, P1>(x, y, r, c, p, xr[0], yc[k][0]);
+            const T r2 = dist2<T, true>(x, y, r, c, 1, xr, yc[k]);
             T dg;
             const T g = Prof::both(r2, dg);
             if constexpr (PAR) {
@@ -409,31 +689,45 @@ gram_bwd_kernel(const T* __restrict__ G, const T* __restrict__ x,
             }
             if constexpr (XY) {
                 const T w = r2 > T(0) ? gv[k] * (ch.alpha * dg) : T(0);
-#pragma unroll
-                for (int q = 0; q < PC; ++q) {
-                    const T t = w * (xr[q] - yc[k][q]);
-                    racc[q] += t;
-                    cacc[k][q] += t;
-                }
+                const T t = w * (xr - yc[k]);
+                racc += t;
+                cacc[k][0] += t;
             }
         }
         if constexpr (XY) {
-#pragma unroll
-            for (int q = 0; q < PC; ++q) {
-                racc[q] = lane_sum<Gm::TX>(racc[q]);
-                if (tx == 0 && rv && q < pc)
-                    rowpart[((long long)blockIdx.x * n + r) * p + d0 + q] =
-                        racc[q];
-            }
+            racc = lane_sum<Gm::TX>(racc);
+            if (tx == 0 && rv) rowpart[(long long)blockIdx.x * n + r] = racc;
         }
     }
     if constexpr (XY)
-        block_columns<T, PC>(cacc, red, j0, m, p, d0, pc, T(1),
-                             colpart + (long long)blockIdx.y * m * p);
+        block_columns<T, 1>(cacc, red, j0, m, 1, 0, 1, T(1),
+                            colpart + (long long)blockIdx.y * m);
     if constexpr (PAR)
         block_scalars(sg, sgk, tr,
                       scal + 3 * ((long long)blockIdx.y * gridDim.x
                                   + blockIdx.x));
+}
+
+// Kernel C's backward.  Block (bx, by) covers columns [64 bx, +64) and
+// rows [256 by, +256).  Writes (when XY) rowpart[bx][i][d] and
+// colpart[by][j][d], the sums over the block's columns and rows of
+// G Wr (x_i - y_j)_d, and (when PAR) scal[by * gridDim.x + bx][0..3).
+// One launch for all p.
+template <typename T, class Prof, bool P1, bool XY, bool PAR>
+__global__ void __launch_bounds__(NT)
+gram_bwd_kernel(const T* __restrict__ G, const T* __restrict__ x,
+                const T* __restrict__ y, long long n, long long m, int p,
+                const T* __restrict__ params, int npost, unsigned postadd,
+                int with_noise, int wide, T* __restrict__ rowpart,
+                T* __restrict__ colpart, T* __restrict__ scal)
+{
+    const Chain<T> ch = fold_chain(params, npost, postadd);
+    if constexpr (P1)
+        bwd_p1<T, Prof, XY, PAR>(G, x, y, n, m, ch, with_noise, wide,
+                                 rowpart, colpart, scal);
+    else
+        bwd_slabs<T, Prof, XY, PAR>(G, x, y, n, m, p, ch, with_noise, wide,
+                                    rowpart, colpart, scal);
 }
 
 // E's backward: the mirror tile, then (reused) the column sums
@@ -978,12 +1272,12 @@ auto sym_bwd_kernel(bool xy, bool par)
 
 template <typename T>
 int launch_gram_bwd(const T* G, const T* x, const T* y, long long n,
-                    long long m, int p, int d0, const T* params, int npost,
+                    long long m, int p, const T* params, int npost,
                     unsigned postadd, int with_noise, int profile,
                     int need_xy, int need_p, int wide, T* rowpart,
                     T* colpart, T* scal, void* stream)
 {
-    if (npost > MAXPOST || !(need_xy || need_p) || d0 < 0 || d0 >= p)
+    if (npost > MAXPOST || !(need_xy || need_p) || p < 1)
         return (int)cudaErrorInvalidValue;
     if (n == 0 || m == 0) return 0;
     const dim3 grid((unsigned)cdiv(m, TILE),
@@ -993,9 +1287,8 @@ int launch_gram_bwd(const T* G, const T* x, const T* y, long long n,
         using Prof = decltype(prof);
         auto kern = p == 1 ? bwd_kernel<T, Prof, true>(need_xy, need_p)
                            : bwd_kernel<T, Prof, false>(need_xy, need_p);
-        kern<<<grid, NT, 0, s>>>(G, x, y, n, m, p, d0, params, npost,
-                                 postadd, with_noise, wide, rowpart, colpart,
-                                 scal);
+        kern<<<grid, NT, 0, s>>>(G, x, y, n, m, p, params, npost, postadd,
+                                 with_noise, wide, rowpart, colpart, scal);
     });
     return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
@@ -1140,12 +1433,12 @@ extern "C" {
                                profile, out, stream);                         \
     }                                                                         \
     int lsq_gram_bwd##SUF(const T* G, const T* x, const T* y, long long n,    \
-                          long long m, int p, int d0, const T* params,        \
-                          int npost, unsigned postadd, int with_noise,        \
-                          int profile, int need_xy, int need_p, int wide,     \
-                          T* rowpart, T* colpart, T* scal, void* stream)      \
+                          long long m, int p, const T* params, int npost,     \
+                          unsigned postadd, int with_noise, int profile,      \
+                          int need_xy, int need_p, int wide, T* rowpart,      \
+                          T* colpart, T* scal, void* stream)                  \
     {                                                                         \
-        return launch_gram_bwd(G, x, y, n, m, p, d0, params, npost, postadd,  \
+        return launch_gram_bwd(G, x, y, n, m, p, params, npost, postadd,      \
                                with_noise, profile, need_xy, need_p, wide,    \
                                rowpart, colpart, scal, stream);               \
     }                                                                         \

@@ -62,8 +62,8 @@ _SIGNATURES = {
                   _P], _BOTH),
     'lsq_gram_sym': ([_P, _I64, _I32, _P, _I32, _U32, _I32, _I32, _P, _P],
                      _BOTH),
-    'lsq_gram_bwd': ([_P, _P, _P, _I64, _I64, _I32, _I32, _P, _I32, _U32,
-                      _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P], _BOTH),
+    'lsq_gram_bwd': ([_P, _P, _P, _I64, _I64, _I32, _P, _I32, _U32, _I32,
+                      _I32, _I32, _I32, _I32, _P, _P, _P, _P], _BOTH),
     'lsq_gram_sym_bwd': ([_P, _P, _I64, _I32, _I32, _P, _I32, _U32, _I32,
                           _I32, _I32, _I32, _I32, _P, _P, _P], _BOTH),
     'lsq_gram_jvp': ([_P, _P, _P, _P, _I64, _I64, _I32, _P, _I32, _I32, _P,

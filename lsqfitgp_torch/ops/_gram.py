@@ -95,7 +95,7 @@ PROFILES = {
 
 # the backward kernels' tiling (csrc/gram.cu): the tile edge, the rows a
 # block of C's backward covers (TILE * CROWS) and the coordinates one
-# launch takes at p > 1 (PCHUNK)
+# launch of E's backward, C″ or E″ takes at p > 1 (PCHUNK)
 _TILE, _BWD_ROWS, _PCHUNK = 64, 256, 4
 
 
@@ -391,14 +391,28 @@ def _wide(G, ncols):
                == 0)
 
 
+def _transposed(G):
+    """Whether G is the transpose of a contiguous matrix, as the GP's
+    linear transformations (permuted views) hand the output gradient
+    on: the backward kernels then read Gᵀ in place rather than copy G
+    into a second n × m buffer."""
+    return not G.is_contiguous() and G.mT.is_contiguous()
+
+
 def _chunks(p, need_xy):
-    """The first coordinate of each backward launch: one launch takes
-    every coordinate at p = 1 and up to _PCHUNK at p > 1."""
+    """The first coordinate of each launch of E's backward and of C″ and
+    E″: one launch takes every coordinate at p = 1 and up to _PCHUNK at
+    p > 1 (C's backward takes all p in one launch)."""
     return range(0, p, 1 if p == 1 else _PCHUNK) if need_xy else range(1)
 
 
 def _backward_cuda(G, profile, ops, x, y, pvec, with_noise, need_xy,
                    need_p):
+    if _transposed(G):
+        # <G, K(x, y)> = <Gᵀ, K(y, x)>: the same sums and trace
+        gy, gx, sums = _backward_cuda(G.mT, profile, ops, y, x, pvec,
+                                      with_noise, need_xy, need_p)
+        return gx, gy, sums
     G = G.contiguous()
     suffix = _check_dtypes(G, x, y, pvec)
     n, p = x.shape
@@ -412,15 +426,14 @@ def _backward_cuda(G, profile, ops, x, y, pvec, with_noise, need_xy,
     rowpart = x.new_empty((nbj, n, p)) if need_xy else None
     colpart = x.new_empty((nbi, m, p)) if need_xy else None
     scal = x.new_empty((nbi * nbj, 3)) if need_p else None
-    fn = getattr(_build.lib(), 'lsq_gram_bwd' + suffix)
-    for d0 in _chunks(p, need_xy):
-        err = fn(_ptr(G), _ptr(x), _ptr(y), n, m, p, d0, _ptr(pvec),
-                 len(ops), _postadd(ops), int(with_noise), profile.id,
-                 int(need_xy), int(need_p and d0 == 0), _wide(G, m),
-                 _ptr(rowpart), _ptr(colpart), _ptr(scal),
-                 _stream(x.device))
-        _build.check(err, 'gram backward')
-        gram.launches_bwd += 1
+    # one launch for all p: G is read once
+    err = getattr(_build.lib(), 'lsq_gram_bwd' + suffix)(
+        _ptr(G), _ptr(x), _ptr(y), n, m, p, _ptr(pvec), len(ops),
+        _postadd(ops), int(with_noise), profile.id, int(need_xy),
+        int(need_p), _wide(G, m), _ptr(rowpart), _ptr(colpart), _ptr(scal),
+        _stream(x.device))
+    _build.check(err, 'gram backward')
+    gram.launches_bwd += 1
     gx = gy = None
     if need_xy:
         gx = 2 * rowpart.sum(0)
@@ -430,7 +443,8 @@ def _backward_cuda(G, profile, ops, x, y, pvec, with_noise, need_xy,
 
 def _sym_backward_cuda(G, profile, ops, x, pvec, with_noise, need_x,
                        need_p):
-    G = G.contiguous()
+    # K(x, x) is symmetric: Gᵀ gives the same gradients
+    G = G.mT if _transposed(G) else G.contiguous()
     suffix = _check_dtypes(G, x, pvec)
     n, p = x.shape
     if G.shape != (n, n):
@@ -521,6 +535,10 @@ def _sym_tangent_cuda(profile, x, dx, coef, with_noise):
 
 
 def _bwd_tangent_cuda(G, profile, x, y, dx, dy, coef, need_xy, need_s):
+    if _transposed(G):
+        gy, gx, sc = _bwd_tangent_cuda(G.mT, profile, y, x, dy, dx, coef,
+                                       need_xy, need_s)
+        return gx, gy, sc
     G = G.contiguous()
     suffix = _check_dtypes(G, x, y, dx, dy, coef)
     n, p = x.shape
@@ -548,7 +566,7 @@ def _bwd_tangent_cuda(G, profile, x, y, dx, dy, coef, need_xy, need_s):
 
 
 def _sym_bwd_tangent_cuda(G, profile, x, dx, coef, need_x, need_s):
-    G = G.contiguous()
+    G = G.mT if _transposed(G) else G.contiguous()
     suffix = _check_dtypes(G, x, dx, coef)
     n, p = x.shape
     if G.shape != (n, n):
@@ -800,8 +818,9 @@ def gram_backward(G, profile, x, y=None, *, post=(), noise=None,
     None, K's two arguments apart), and to the parameter vector, the
     post chain's scalars then the nugget (0 without one).  ``need_xy``
     and ``need_p`` say which are computed; the others are None.  One
-    launch of the fused kernel for CUDA tensors (one per 4 coordinates
-    at p > 4), `gram_backward_plain` for CPU ones."""
+    launch of the fused kernel for CUDA tensors, whatever p (a G that
+    is the transpose of a contiguous matrix read in place),
+    `gram_backward_plain` for CPU ones."""
     profile, x, y, ops, pvec = _args(profile, x, y, post, noise)
     return _backward(G, profile, ops, x, y, pvec, noise is not None,
                      need_xy, need_p)

@@ -304,17 +304,27 @@ def _bwd_tol(G, Wr, x, y, dtype, sym):
     return tx, ty, (8 * (n * m) ** 0.5 * u + rel)
 
 
+def _spread(p):
+    """The test points' coordinate scale: 2 up to p = 6, then shrinking
+    as 1/sqrt(p), so that r² stays near the p = 6 points' and K does not
+    underflow to subnormals, where the bounds' relative terms fail."""
+    return 2 * min(1, (6 / p) ** 0.5)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('n,m,p', [(300, 128, 1), (301, 70, 1), (64, 64, 1),
-                                   (257, 131, 3), (130, 67, 6)])
+                                   (257, 131, 3), (130, 67, 6),
+                                   (131, 70, 10), (200, 97, 16),
+                                   (75, 129, 33)])
 def test_gram_forward_cuda(cuda, gen, dtype, n, m, p):
     """Kernels C and E against their plain versions with a ragged n and
     m and unaligned m (rows not 16-byte aligned), and C and E equal to
-    the bit on the same points."""
+    the bit on the same points; at p > 1 C stages the coordinates 16 at
+    a time (p = 33 takes three slabs, the last of one coordinate)."""
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
-    x = t(gen.standard_normal((n, p)) * 2)
-    y = t(gen.standard_normal((m, p)) * 2)
+    x = t(gen.standard_normal((n, p)) * _spread(p))
+    y = t(gen.standard_normal((m, p)) * _spread(p))
     post = (('mul', t(1.3)), ('add', t(0.2)), ('mul', t(0.7)))
     for noise in (None, t(0.1)):
         n0 = ops.gram.launches
@@ -334,14 +344,18 @@ def test_gram_forward_cuda(cuda, gen, dtype, n, m, p):
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('n,m,p', [(300, 128, 1), (301, 70, 1), (64, 64, 1),
-                                   (257, 131, 3), (130, 67, 6)])
+                                   (257, 131, 3), (130, 67, 6),
+                                   (131, 70, 10), (75, 129, 33)])
 def test_gram_backward_cuda(cuda, gen, dtype, n, m, p):
     """Kernel C's fused backward against its plain version: ragged n
-    and m, unaligned m, p = 3 (one launch) and p = 6 (two); each subset
-    of the outputs; y given and y = x; two calls equal to the bit."""
+    and m, unaligned m, p from 1 to 33 (one launch for every p; p = 33
+    sweeps three slabs of staged coordinates); each subset of the
+    outputs; y given and y = x; two calls equal to the bit; a G that is
+    the transpose of a contiguous matrix (read in place) within the same
+    bounds."""
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
-    x = t(gen.standard_normal((n, p)) * 2)
-    y = t(gen.standard_normal((m, p)) * 2)
+    x = t(gen.standard_normal((n, p)) * _spread(p))
+    y = t(gen.standard_normal((m, p)) * _spread(p))
     x[3] = x[5]   # coincident points: the weight is zero at r² = 0
     post = (('mul', t(1.3)), ('add', t(0.2)), ('mul', t(0.7)))
     noise = t(0.1)
@@ -360,8 +374,7 @@ def test_gram_backward_cuda(cuda, gen, dtype, n, m, p):
             n0 = ops.gram.launches_bwd
             got = ops.gram_backward(G, 'expquad', x, yy, need_xy=need_xy,
                                     need_p=need_p, **kw)
-            runs = -(-p // 4) if need_xy and p > 1 else 1
-            assert ops.gram.launches_bwd == n0 + runs
+            assert ops.gram.launches_bwd == n0 + 1
             again = ops.gram_backward(G, 'expquad', x, yy, need_xy=need_xy,
                                       need_p=need_p, **kw)
             for a, b in zip(got, again):
@@ -369,12 +382,16 @@ def test_gram_backward_cuda(cuda, gen, dtype, n, m, p):
                 assert a is None or torch.equal(a, b)
             assert (got[0] is None) != need_xy
             assert (got[2] is None) != need_p
-            if need_xy:
-                assert bool(((got[0] - ref[0]).abs() <= tx).all())
-                assert bool(((got[1] - ref[1]).abs() <= ty).all())
-            if need_p:
-                assert bool(((got[2] - ref[2]).abs() <= tp).all()), \
-                    (got[2], ref[2])
+            Gt = G.T.contiguous().T   # G, laid out transposed
+            flip = ops.gram_backward(Gt, 'expquad', x, yy, need_xy=need_xy,
+                                     need_p=need_p, **kw)
+            for res in (got, flip):
+                if need_xy:
+                    assert bool(((res[0] - ref[0]).abs() <= tx).all())
+                    assert bool(((res[1] - ref[1]).abs() <= ty).all())
+                if need_p:
+                    assert bool(((res[2] - ref[2]).abs() <= tp).all()), \
+                        (res[2], ref[2])
 
 
 @pytest.mark.gpu
@@ -384,7 +401,7 @@ def test_gram_backward_cuda(cuda, gen, dtype, n, m, p):
 def test_gram_sym_backward_cuda(cuda, gen, dtype, n, p):
     """Kernel E's fused backward against its plain version: ragged and
     unaligned n, p = 3 and p = 6; each subset of the outputs; two calls
-    equal to the bit."""
+    equal to the bit; G laid out transposed within the same bounds."""
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
     x = t(gen.standard_normal((n, p)) * 2)
     x[3] = x[5]
@@ -407,15 +424,19 @@ def test_gram_sym_backward_cuda(cuda, gen, dtype, n, p):
         for a, b in zip(got, again):
             assert (a is None) == (b is None)
             assert a is None or torch.equal(a, b)
-        if need_x:
-            assert bool(((got[0] - ref[0]).abs() <= tx).all())
-        else:
-            assert got[0] is None
-        if need_p:
-            assert bool(((got[1] - ref[1]).abs() <= tp).all()), \
-                (got[1], ref[1])
-        else:
-            assert got[1] is None
+        # G laid out transposed, read in place
+        flip = ops.gram_sym_backward(G.T.contiguous().T, 'expquad', x,
+                                     need_x=need_x, need_p=need_p, **kw)
+        for res in (got, flip):
+            if need_x:
+                assert bool(((res[0] - ref[0]).abs() <= tx).all())
+            else:
+                assert res[0] is None
+            if need_p:
+                assert bool(((res[1] - ref[1]).abs() <= tp).all()), \
+                    (res[1], ref[1])
+            else:
+                assert res[1] is None
 
 
 @pytest.mark.gpu
@@ -727,7 +748,7 @@ def test_gram_backward_jvp_cuda(cuda, gen, dtype, n, m, p):
     """Kernel C″ (the tangent of C's backward at fixed G) against its
     plain version: ragged n and m, unaligned m, p = 3 (one launch) and
     p = 6 (two); each subset of the outputs; y given and y = x; two calls
-    equal to the bit."""
+    equal to the bit; G laid out transposed within the same bounds."""
     t, x, y, dx, dy, post, dpost = _tangent_inputs(gen, dtype, cuda, n, m, p)
     kw = dict(post=post, noise=t(0.1), dpost=dpost)
     for yy, dyy in ((y, dy), (None, None)):
@@ -747,16 +768,21 @@ def test_gram_backward_jvp_cuda(cuda, gen, dtype, n, m, p):
             for a, b in zip(got, again):
                 assert (a is None) == (b is None)
                 assert a is None or torch.equal(a, b)
-            if need_xy:
-                assert bool(((got[0] - ref[0]).abs() <= tx).all())
-                assert bool(((got[1] - ref[1]).abs() <= ty).all())
-            else:
-                assert got[0] is None and got[1] is None
-            if need_p:
-                assert bool(((got[2] - ref[2]).abs() <= tp).all()), \
-                    (got[2], ref[2])
-            else:
-                assert got[2] is None
+            # G laid out transposed, read in place
+            flip = ops.gram_backward_jvp(G.T.contiguous().T, 'expquad', x,
+                                         yy, dx, dyy, need_xy=need_xy,
+                                         need_p=need_p, **kw)
+            for res in (got, flip):
+                if need_xy:
+                    assert bool(((res[0] - ref[0]).abs() <= tx).all())
+                    assert bool(((res[1] - ref[1]).abs() <= ty).all())
+                else:
+                    assert res[0] is None and res[1] is None
+                if need_p:
+                    assert bool(((res[2] - ref[2]).abs() <= tp).all()), \
+                        (res[2], ref[2])
+                else:
+                    assert res[2] is None
 
 
 @pytest.mark.gpu
@@ -766,7 +792,7 @@ def test_gram_backward_jvp_cuda(cuda, gen, dtype, n, m, p):
 def test_gram_sym_backward_jvp_cuda(cuda, gen, dtype, n, p):
     """Kernel E″ against its plain version: ragged and unaligned n,
     p = 3 and p = 6; each subset of the outputs; two calls equal to the
-    bit."""
+    bit; G laid out transposed within the same bounds."""
     t, x, _, dx, _, post, dpost = _tangent_inputs(gen, dtype, cuda, n, 8, p)
     kw = dict(post=post, noise=t(0.1), dpost=dpost)
     G = t(gen.standard_normal((n, n)))
@@ -783,15 +809,20 @@ def test_gram_sym_backward_jvp_cuda(cuda, gen, dtype, n, p):
         for a, b in zip(got, again):
             assert (a is None) == (b is None)
             assert a is None or torch.equal(a, b)
-        if need_x:
-            assert bool(((got[0] - ref[0]).abs() <= tx).all())
-        else:
-            assert got[0] is None
-        if need_p:
-            assert bool(((got[1] - ref[1]).abs() <= tp).all()), \
-                (got[1], ref[1])
-        else:
-            assert got[1] is None
+        # G laid out transposed, read in place
+        flip = ops.gram_sym_backward_jvp(G.T.contiguous().T, 'expquad', x,
+                                         dx, need_x=need_x, need_p=need_p,
+                                         **kw)
+        for res in (got, flip):
+            if need_x:
+                assert bool(((res[0] - ref[0]).abs() <= tx).all())
+            else:
+                assert res[0] is None
+            if need_p:
+                assert bool(((res[1] - ref[1]).abs() <= tp).all()), \
+                    (res[1], ref[1])
+            else:
+                assert res[1] is None
 
 
 @pytest.mark.gpu

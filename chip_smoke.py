@@ -29,7 +29,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    and 'gram_bwd/p10', the multidim path's), in float32 and float64
    (with '/float64', off every path); the fused backward must give the
    same bits in two calls and make one launch for all p, and E the same
-   entries as C; each record has its share of the bound;
+   entries as C; each record has its share of the bound; and the zoo's
+   profiles (kernel C and its backward on Maternp(p=2), Expon, GammaExp
+   and Cauchy with dynamic arguments and the multiscale term sum, at
+   p = 1 and 10, in float32 and float64, 'gram/<profile>' and
+   'gram_bwd/<profile>'; E and its backward, C′ and C″ on Maternp(p=2);
+   D on the term sum at 'high' and in float64), C's and E's timed by
+   the device time of the named kernel;
 4. the float32 rescue: ``Chol`` and ``chol_nll`` of a float32 ExpQuad
    Gram with a small nugget at n = 4096 (the largest size the rescue
    takes by default), on which the 'high' rung fails: prints the rung
@@ -103,7 +109,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    posterior mean held to a float64 oracle (K from broadcast
    differences, ``torch.linalg.cholesky``), the peak memory and a
    profile;
-11. prints a JSON line of kernel records and, last, the device line.
+11. the Matérn path: ``amp * Maternp(p=2, scale)`` on the dense slice's
+   data and noise, the default ``gram`` (kernel C on the Maternp
+   profile, forward and backward once per evaluation), at most 10 BFGS
+   iterations, held to a closed-form float64 oracle as in 5, its time
+   per evaluation beside the ExpQuad fit's;
+12. the multiscale path: ``a1 * Maternp(p=2, s1) + a2 * ExpQuad(s2)`` at
+   a fixed point, one dense value+gradient at n = 16384 and two
+   streaming ones at n = 65536 (kernels C and D on the term sum),
+   checked against float64 at n = 16384 and, streaming, at n = 32768;
+   launches are also counted by profile ('gram@maternp+expquad');
+13. prints a JSON line of kernel records and, last, the device line.
 
 Any failed check exits non-zero before the last line.
 
@@ -212,13 +228,15 @@ def median_ms(fn, reps=7, setup=None, batch=1):
 GRAM_BATCH = 20
 
 
-def device_ms(fn, calls=GRAM_BATCH):
+def device_ms(fn, calls=GRAM_BATCH, kernel=None):
     """Device time of one ``fn()`` in ms: the sum of the durations of all
     the kernels it launches (torch.profiler, CUPTI), over ``calls`` calls
-    after one warm-up, divided by ``calls``.  Unlike CUDA events around
-    the calls it leaves out the time the card waits for the host, which
-    a wrapper of a few small torch operations around a sub-millisecond
-    kernel can take up."""
+    after one warm-up, divided by ``calls``; with ``kernel``, of the
+    kernels of that name only (the Gram kernels of csrc/gram.cu, apart
+    from the wrapper's small torch kernels that fold the parameter
+    vector).  Unlike CUDA events around the calls it leaves out the time
+    the card waits for the host, which a wrapper of a few small torch
+    operations around a sub-millisecond kernel can take up."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -227,21 +245,32 @@ def device_ms(fn, calls=GRAM_BATCH):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total = named = 0.0
     for e in prof.key_averages():
         if 'CUDA' in str(getattr(e, 'device_type', '')):
-            total += getattr(e, 'self_device_time_total',
-                             getattr(e, 'self_cuda_time_total', 0))
+            t = getattr(e, 'self_device_time_total',
+                        getattr(e, 'self_cuda_time_total', 0))
+            total += t
+            if kernel is not None and f'{kernel}<' in e.key:
+                named += t
     if total <= 0:
         fail('the profiler saw no device time')
+    if kernel is not None:
+        if named > 0:
+            return named / 1e3 / calls
+        log(f'    (no kernel named {kernel} in the profile: all of its '
+            f'kernels counted)')
     return total / 1e3 / calls
 
 
-def gram_times(fn, plain):
+def gram_times(fn, plain, kernel, plain_calls=GRAM_BATCH):
     """(ms, plain_ms, wrapper_ms) of kernel C's or E's wrapper ``fn`` and
-    its plain version: device time per call (`device_ms`), and the
-    wrapper's mean over GRAM_BATCH calls back to back on CUDA events."""
-    return device_ms(fn), device_ms(plain), median_ms(fn, batch=GRAM_BATCH)
+    its plain version: the device time per call of the CUDA kernel named
+    ``kernel`` (`device_ms`) and of the plain version (all its kernels,
+    over ``plain_calls`` calls), and the wrapper's mean over GRAM_BATCH
+    calls back to back on CUDA events."""
+    return device_ms(fn, kernel=kernel), device_ms(plain, plain_calls), \
+        median_ms(fn, batch=GRAM_BATCH)
 
 
 def unit_roundoff(dtype):
@@ -597,7 +626,8 @@ def kernel_gram(dtype, gen):
     del K, Kp
     ms, plain_ms, wrap = gram_times(
         lambda: gram('expquad', x, post=post, noise=noise),
-        lambda: gram_plain('expquad', x, post=post, noise=noise))
+        lambda: gram_plain('expquad', x, post=post, noise=noise),
+        'gram_kernel')
     # the output written once; per entry a difference, a square, the
     # exp's argument, the exp and the amp: 5 operations
     bd = bound(isz * (N * N + 2 * N), 5 * N * N, dtype)
@@ -636,7 +666,7 @@ def kernel_gram(dtype, gen):
                       u)
     ms_b, plain_b, wrap_b = gram_times(
         lambda: gram_backward(G, *args, **akw),
-        lambda: gram_backward_plain(G, *args, **akw))
+        lambda: gram_backward_plain(G, *args, **akw), 'gram_bwd_kernel')
     # G read once, the points read and the gradients written once; per
     # entry about 12 operations (r², the exp, the weight, three sums)
     bd_b = bound(isz * (N * N + 3 * N), 12 * N * N, dtype)
@@ -703,7 +733,8 @@ def kernel_gram_p(dtype, gen, p):
     err, err_b = errs[-1]
     ms, plain_ms, wrap = gram_times(lambda: gram('expquad', X, post=post),
                                     lambda: gram_plain('expquad', X,
-                                                       post=post))
+                                                       post=post),
+                                    'gram_kernel')
     # the output written once and the p columns read for the rows and for
     # the columns; per entry p differences, p squares, p - 1 additions,
     # the exp's argument, the exp and the amp: 3 p + 2 operations
@@ -718,7 +749,8 @@ def kernel_gram_p(dtype, gen, p):
              f'expected one for all coordinates')
     ms_b, plain_b, wrap_b = gram_times(
         lambda: gram_backward(G, 'expquad', X, post=post),
-        lambda: gram_backward_plain(G, 'expquad', X, post=post))
+        lambda: gram_backward_plain(G, 'expquad', X, post=post),
+        'gram_bwd_kernel')
     # G read once, the p columns read and the two gradients written once;
     # per entry the forward's 3 p + 2 operations, the weight and the amp
     # sum, and per coordinate a product and the row and column sums:
@@ -744,14 +776,17 @@ def kernel_gram_p(dtype, gen, p):
     return [rec, rec_b]
 
 
-def kernel_schur_gram(dtype, gen):
+def kernel_schur_gram(dtype, gen, zoo=None):
     """Kernel D at the top trailing update of the streaming factorization
     (size = h = offset = n/2, float32 at n = 65536 as on the streaming
     path, at each precision, a record each; float64 at n = 32768, the
     size whose plain version's temporaries fit the card): points on the
     path's scale, the smoke's post chain, eps, and a ragged nreal (the
-    last 300 rows are pad)."""
+    last 300 rows are pad).  With ``zoo``, the zoo profile of that name
+    (`zoo_desc`; the multiscale path's term sum) in place of the amp
+    chain on ExpQuad, at the path's precision 'high' and in float64."""
     import torch
+    from lsqfitgp_torch import ops
     from lsqfitgp_torch.ops import _syrk
     n = N_STREAM if dtype == torch.float32 else N_CHECK
     size = h = offset = n // 2
@@ -764,16 +799,23 @@ def kernel_schur_gram(dtype, gen):
     eps = torch.tensor(NOISE_VAR, device='cuda', dtype=dtype)
     args = dict(post=(('mul', amp),), eps=eps, nreal=nreal, size=size,
                 offset=offset, tile=tile)
-    ref = _syrk.schur_update_gram_plain('expquad', X, A, **args)
+    prof = 'expquad'
+    k0 = 1.3
+    if zoo is not None:
+        prof = zoo_desc(zoo, dtype)
+        args['post'] = ()
+        k0 = float(ops.k0(prof, like=X))
+    ref = _syrk.schur_update_gram_plain(prof, X, A, **args)
     reps = 3
     plain_ms = median_ms(
-        lambda: _syrk.schur_update_gram_plain('expquad', X, A, **args), reps)
+        lambda: _syrk.schur_update_gram_plain(prof, X, A, **args), reps)
     # tolerance: the kernel sums the h products into an accumulator that
     # starts at the Gram entry, so each rounding is relative to a partial
     # sum bounded by |K_ij + eps| + (|A||A|ᵀ)_ij: 4 sqrt(h) u times that
     # (a probabilistic bound for sums taken in another order), plus
     # 16 u (amp + eps) for the Gram entry itself (exp differs by a few
-    # ulps between the two implementations; r² is computed identically);
+    # ulps between the two implementations; r² is computed identically;
+    # a zoo profile, by another formula, 32 u (k(0) + eps));
     # the TF32 passes add their per-product rounding (tc_extra) times
     # (|A||A|ᵀ)_ij
     u = unit_roundoff(dtype)
@@ -788,27 +830,32 @@ def kernel_schur_gram(dtype, gen):
     nbytes = A.element_size() * (size * h + f * size * size)
     flops = f * size * size * (2 * h + 5)
     variants = PRECISIONS if dtype == torch.float32 else FLOAT64
+    if zoo is not None:
+        variants = variants[:1]
+    entry = (16 if zoo is None else 32) * u * (k0 + NOISE_VAR)
     records = []
     for precision, source, passes, counter in variants:
         prec = None if precision == 'float64' else precision
-        got = _syrk.schur_update_gram('expquad', X, A, precision=prec,
-                                      **args)
+        got = _syrk.schur_update_gram(prof, X, A, precision=prec, **args)
         got.masked_fill_(~mask, 0)
-        tol = (S + (1.3 + NOISE_VAR)).mul_(4 * math.sqrt(h) * u) \
-            .add_(S, alpha=tc_extra(passes)).add_(16 * u * (1.3 + NOISE_VAR))
+        tol = (S + (k0 + NOISE_VAR)).mul_(4 * math.sqrt(h) * u) \
+            .add_(S, alpha=tc_extra(passes)).add_(entry)
         err = check_close(f'D schur_update_gram n={n} {dtype} {precision}',
                           got, ref, tol)
         del got, tol
         ms = median_ms(lambda: _syrk.schur_update_gram(
-            'expquad', X, A, precision=prec, **args), reps)
+            prof, X, A, precision=prec, **args), reps)
         bd = bound(nbytes, flops, dtype, passes)
         log(f'  D {dtype} {precision}: kernel {ms:.3f} ms, plain '
             f'{plain_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]}), '
             f'{2 * f * size * size * h / ms / 1e9:.1f} TFLOP/s useful')
-        records.append(record(err, ms, plain_ms, bd, precision=precision,
-                              dtype=str(dtype),
-                              source='lsqfitgp_torch/csrc/' + source,
-                              counter=counter))
+        rec = record(err, ms, plain_ms, bd, precision=precision,
+                     dtype=str(dtype), source='lsqfitgp_torch/csrc/' + source,
+                     counter=counter)
+        if zoo is not None:
+            rec.update(profile=ZOO_KEYS[zoo], path=ZOO_PATHS[zoo] if dtype == torch.float32
+                       else None)
+        records.append(rec)
     return records
 
 
@@ -846,7 +893,7 @@ def kernel_gram_sym(dtype, gen):
     del K, Kp
     ms, plain_ms, wrap = gram_times(
         lambda: gram_sym('expquad', x, post=post),
-        lambda: gram_sym_plain('expquad', x, post=post))
+        lambda: gram_sym_plain('expquad', x, post=post), 'gram_sym_kernel')
     # the full output written once (the mirror included), the operations
     # of the upper half only
     bd = bound(isz * (N * N + N), 5 * N * (N + 1) / 2, dtype)
@@ -873,7 +920,8 @@ def kernel_gram_sym(dtype, gen):
         u)
     ms_b, plain_b, wrap_b = gram_times(
         lambda: gram_sym_backward(G, 'expquad', x, **akw),
-        lambda: gram_sym_backward_plain(G, 'expquad', x, **akw))
+        lambda: gram_sym_backward_plain(G, 'expquad', x, **akw),
+        'gram_sym_bwd_kernel')
     # all of G read once; the operations of the upper half
     bd_b = bound(isz * (N * N + 2 * N), 12 * N * (N + 1) / 2, dtype)
     log(f'  E backward {dtype}: fused kernel {ms_b:.3f} ms (the wrapper '
@@ -930,15 +978,23 @@ def tangent_inputs(dtype, gen):
     return x, dx, amp, noise
 
 
-def tangent_path_args(x, dx, amp, damp, dnoise):
-    """(X, dX, profile, coef): the points and their tangent as (n, 1)
-    and the coefficients [α, dα, dβ, dnoise] of the amp chain, as the
-    autograd Functions hand them to the tangent kernels."""
+def tangent_path_args(x, dx, amp, damp, dnoise, profile='expquad'):
+    """(X, dX, st, fv, dfv, one, coef): the points and their tangent as
+    (n, 1), the profile's structure, the folded parameter vector of the
+    amp chain and the nugget and its tangent, the profile's one term and
+    C″'s coefficients [α, dα], as the autograd Functions hand them to the
+    tangent kernels."""
     import torch
     from lsqfitgp_torch.ops import _gram
-    coef = torch.stack([amp, amp.new_tensor(damp), amp.new_zeros(()),
-                        amp.new_tensor(dnoise)])
-    return x[:, None], dx[:, None], _gram.PROFILES['expquad'], coef
+    X = x[:, None]
+    _, st, _, _, pvec = _gram._args(profile, X, None, (('mul', amp),),
+                                    amp.new_tensor(NOISE_VAR))
+    dpvec = torch.zeros_like(pvec)
+    dpvec[-2], dpvec[-1] = damp, dnoise
+    fv, dfv = torch.func.jvp(lambda q: _gram._fold(st, q), (pvec,),
+                             (dpvec,))
+    one = _gram._Single(st, fv)
+    return X, dx[:, None], st, fv, dfv, one, torch.stack([fv[2], dfv[2]])
 
 
 def tangent_tol(x, dx, amp, damp, dnoise, u):
@@ -1005,10 +1061,12 @@ def kernel_gram_tangent(dtype, gen):
     # backward's G-cotangent): the folded chain's coefficients formed
     # once; the public wrapper, which folds them per call, on the host
     # clock beside it
-    X, dX, prof, coef = tangent_path_args(x, dx, amp, damp, dnoise)
-    ms = device_ms(lambda: _gram._tangent(prof, X, X, dX, dX, coef, True))
+    X, dX, st, fv, dfv, one, coef = tangent_path_args(x, dx, amp, damp,
+                                                      dnoise)
+    ms = device_ms(lambda: _gram._tangent(st, X, X, dX, dX, fv, dfv, True),
+                   kernel='gram_jvp_kernel')
     plain_ms = device_ms(
-        lambda: _gram._tangent_plain(prof, X, X, dX, dX, coef, True))
+        lambda: _gram._tangent_plain(st, X, X, dX, dX, fv, dfv, True))
     wrap = median_ms(lambda: gram_jvp('expquad', x, None, dx, **kw),
                      batch=GRAM_BATCH)
     # the output written once; the points and their tangents read once
@@ -1038,10 +1096,11 @@ def kernel_gram_tangent(dtype, gen):
     # as `_GramBackward.backward` calls it: the points' half and the
     # chain's sums (the public wrapper adds the chain's tangent by
     # torch.func.jvp, a few dozen small kernels)
-    ms_b = device_ms(lambda: _gram._bwd_tangent(G, prof, X, X, dX, dX,
-                                                coef[:2], True, True))
+    ms_b = device_ms(lambda: _gram._bwd_tangent(G, one, X, X, dX, dX,
+                                                coef, True, True),
+                     kernel='gram_bwd_jvp_kernel')
     plain_b = device_ms(lambda: _gram._bwd_tangent_plain(
-        G, prof, X, X, dX, dX, coef[:2], True, True))
+        G, one, X, X, dX, dX, coef, True, True))
     wrap_b = median_ms(
         lambda: gram_backward_jvp(G, 'expquad', x, None, dx, **bkw),
         batch=GRAM_BATCH)
@@ -1079,10 +1138,12 @@ def kernel_gram_sym_tangent(dtype, gen):
                       tangent_tol(x, dx, float(amp), damp, dnoise, u))
     log(f'    E\' gram_sym_jvp {dtype}: equal to kernel C\' to the bit')
     del got, ref
-    X, dX, prof, coef = tangent_path_args(x, dx, amp, damp, dnoise)
-    ms = device_ms(lambda: _gram._sym_tangent(prof, X, dX, coef, True))
+    X, dX, st, fv, dfv, one, coef = tangent_path_args(x, dx, amp, damp,
+                                                      dnoise)
+    ms = device_ms(lambda: _gram._sym_tangent(st, X, dX, fv, dfv, True),
+                   kernel='gram_sym_jvp_kernel')
     plain_ms = device_ms(
-        lambda: _gram._tangent_plain(prof, X, X, dX, dX, coef, True))
+        lambda: _gram._tangent_plain(st, X, X, dX, dX, fv, dfv, True))
     wrap = median_ms(lambda: gram_sym_jvp('expquad', x, dx, **kw),
                      batch=GRAM_BATCH)
     bd = bound(isz * (N * N + 2 * N), 10 * N * (N + 1) / 2, dtype)
@@ -1106,10 +1167,11 @@ def kernel_gram_sym_tangent(dtype, gen):
     log(f'    E\'\' gram_sym_backward_jvp {dtype}: two calls agree to the '
         f'bit')
     del got, again, ref
-    ms_b = device_ms(lambda: _gram._sym_bwd_tangent(G, prof, X, dX,
-                                                    coef[:2], True, True))
+    ms_b = device_ms(lambda: _gram._sym_bwd_tangent(G, one, X, dX, coef,
+                                                    True, True),
+                     kernel='gram_sym_bwd_jvp_kernel')
     plain_b = device_ms(lambda: _gram._sym_bwd_tangent_plain(
-        G, prof, X, dX, coef[:2], True, True))
+        G, one, X, dX, coef, True, True))
     wrap_b = median_ms(
         lambda: gram_sym_backward_jvp(G, 'expquad', x, dx, **bkw),
         batch=GRAM_BATCH)
@@ -1121,6 +1183,327 @@ def kernel_gram_sym_tangent(dtype, gen):
             tangent_record('gram_sym_bwd_jvp', dtype,
                            record(err_b, ms_b, plain_b, bd_b,
                                   wrapper_ms=wrap_b))]
+
+
+# -- the zoo's profiles in kernels C, D and E ------------------------------------
+
+# the zoo records' profiles: the Matérn path's, the multiscale paths' term
+# sum and three more cores of the zoo (kernel phase only), each with the
+# records' p (the isotropic cores also at the multidim cell's p) and the
+# operations per entry beside r²'s 3 p, counted from profiles.cuh (a sqrt,
+# exp or log one each): the forward's core and chain, the backward's core
+# with its derivatives, weight and parameter sums
+ZOO_RECORDS = {'maternp2': ((1, MD_P), 9, 22), 'expon': ((1,), 6, 16),
+               'gammaexp': ((1, MD_P), 8, 22), 'cauchy': ((1, MD_P), 11, 30),
+               'terms': ((1, MD_P), 17, 44)}
+# the launch tallies' profile key of each (ops.gram.by_profile), and the
+# path whose launches its float32 p = 1 records count
+ZOO_KEYS = {'maternp2': 'maternp', 'expon': 'expon', 'gammaexp': 'gammaexp',
+            'cauchy': 'cauchy', 'terms': 'maternp+expquad'}
+ZOO_PATHS = {'maternp2': 'matern', 'terms': 'multiscale'}
+# the multiscale model's point (log a1, log s1, log a2, log s2)
+MS_POINT = [0.0, 0.3, -0.7, 1.6]
+
+
+def zoo_desc(name, dtype, amp=1.3):
+    """A zoo profile as ``ops.gram`` takes it, its numbers on the card:
+    Matérn-5/2, the exponential ('abs' mode), GammaExp with a dynamic
+    γ, Cauchy with dynamic α and β (each times ``amp``), and the
+    multiscale path's term sum a1 Maternp(p=2, s1) + a2 ExpQuad(s2) at
+    MS_POINT."""
+    import torch
+    from lsqfitgp_torch import ops
+    P, T, S = ops.PROFILES, ops.Term, ops.Terms
+
+    def t(v):
+        return torch.tensor(v, device='cuda', dtype=dtype)
+
+    chain = (('mul', t(amp)),)
+    if name == 'terms':
+        a1, s1, a2, s2 = (math.exp(v) for v in MS_POINT)
+        return S((T(P['maternp'], k=2, scale=t(s1), post=(('mul', t(a1)),)),
+                  T(P['expquad'], scale=t(s2), post=(('mul', t(a2)),))))
+    term = {'maternp2': T(P['maternp'], k=2),
+            'expon': T(P['expon'], 'abs'),
+            'gammaexp': T(P['gammaexp'], args=(t(1.3),)),
+            'cauchy': T(P['cauchy'], args=(t(1.4), t(0.8)))}[name]
+    return S((term,), chain)
+
+
+def zoo_points(p, n, dtype, gen):
+    """The records' points: the dense path's span at p = 1, the unit cube
+    (the multidim cell's) at p > 1."""
+    import torch
+    X = torch.rand(n, p, device='cuda', dtype=dtype, generator=gen)
+    return (X - 0.5) * 100 if p == 1 else X
+
+
+def zoo_record(rec, kind, name, p, dtype, counter):
+    label = str(dtype).split('.')[-1]
+    suffix = ('' if p == 1 else f'/p{p}') + \
+        ('' if label == 'float32' else '/' + label)
+    path = ZOO_PATHS.get(name) if (p == 1 and label == 'float32') else None
+    rec.update(name=f'{kind}/{name}{suffix}', key=kind, counter=counter,
+               dtype=label, path=path, profile=ZOO_KEYS[name])
+    if kind.endswith('_bwd'):
+        rec['replaces'] = BWD_REPLACES[kind[:-4]]
+    return rec
+
+
+def zoo_bwd_check(what, st, X, fv, G, dtype):
+    """Kernel C's fused backward on a zoo profile (x both of K's
+    arguments) against its plain version on the card, and against itself
+    to the bit: the x gradient within (8 sqrt(n) u + 32 (p + 1) u) times
+    the sums of |G Wr Δ| over rows and columns (`check_bwd_cols`'s, with
+    the profile's evaluation by another formula, 32 (p + 1) u of each
+    term); each slot of the folded parameter vector's gradient within
+    (ceil(log2(n²)) 4 u + 32 (p + 1) u) Σ|G ∂K/∂θ|.  Returns the max abs
+    error."""
+    import torch
+    from lsqfitgp_torch.ops import _gram
+    u = unit_roundoff(dtype)
+    n, p = X.shape
+    got = _gram._backward(G, st, X, X, fv, True, True, True)
+    again = _gram._backward(G, st, X, X, fv, True, True, True)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f'{what}: two calls differ')
+    del again
+    ref = _gram._backward_plain(G, st, X, X, fv, True, True, True)
+    rel = 32 * (p + 1) * u
+    with torch.no_grad():
+        r2 = _gram._sqdist_plain(X, X)
+        evals = _gram._terms_plain(st, fv, r2, d1=True, da=True)
+        A = G.abs() * _gram._deriv_plain(st, X, X, fv, evals, r2).abs()
+        A = A + A.T
+        tx = torch.stack([2 * (A * (X[:, d, None] - X[None, :, d]).abs())
+                          .sum(1) for d in range(p)], 1)
+        del A
+        mags = [G.abs().sum(), G.diagonal().abs().sum()] + [
+            G.new_zeros(()) if m is None else (G.abs() * m.abs()).sum()
+            for m in _gram._partials(st, fv, r2, evals)]
+        del evals, r2
+    err = check_close(f'{what} dx', got[0] + got[1], ref[0] + ref[1],
+                      (8 * math.sqrt(n) * u + rel) * tx)
+    tp = (math.ceil(math.log2(n * n)) * 4 * u + rel) * torch.stack(mags)
+    err = max(err, check_close(f'{what} dparams', got[2], ref[2], tp))
+    log(f'    {what}: two calls agree to the bit; the parameter vector\'s '
+        f'gradient {got[2].tolist()}')
+    return err
+
+
+def kernel_zoo(dtype, gen, name, p):
+    """Kernel C and its fused backward on a zoo profile (`zoo_desc`) at
+    16384², p coordinates, with the nugget: the forward against the plain
+    version within 32 (p + 1) u max|K| (r² in another order, and the
+    profile by another formula: the kernel takes exp, log and a Horner
+    polynomial where the plain version takes torch's pow and its own
+    polynomial, a few ulps each), the backward by `zoo_bwd_check`; the
+    records 'gram/<name>' and 'gram_bwd/<name>' ('/p10', '/float64'
+    appended)."""
+    import torch
+    from lsqfitgp_torch.ops import (gram, gram_plain, gram_backward,
+                                    gram_backward_plain, _gram)
+    u = unit_roundoff(dtype)
+    isz = torch.finfo(dtype).bits // 8
+    desc = zoo_desc(name, dtype)
+    noise = torch.tensor(NOISE_VAR, device='cuda', dtype=dtype)
+    X = zoo_points(p, N, dtype, gen)
+    K = gram(desc, X, noise=noise)
+    Kp = gram_plain(desc, X, noise=noise)
+    err = check_close(f'C gram {name} p={p} {dtype}', K, Kp,
+                      32 * (p + 1) * u * float(Kp.abs().max()))
+    del K, Kp
+    ms, plain_ms, wrap = gram_times(
+        lambda: gram(desc, X, noise=noise),
+        lambda: gram_plain(desc, X, noise=noise), 'gram_kernel',
+        plain_calls=3)
+    fwd_ops, bwd_ops = ZOO_RECORDS[name][1:]
+    bd = bound(isz * (N * N + 2 * N * p), (3 * p + fwd_ops) * N * N, dtype)
+    log(f'  C {name} p={p} {dtype}: kernel {ms:.3f} ms (the wrapper '
+        f'{wrap:.3f} ms), plain {plain_ms:.3f} ms, bound {bd[0]:.3f} ms '
+        f'({bd[1]}), share {bd[0] / ms:.2f}')
+    _, st, _, _, pvec = _gram._args(desc, X, None, (), noise)
+    fv = _gram._fold(st, pvec)
+    G = torch.randn(N, N, device='cuda', dtype=dtype, generator=gen)
+    err_b = zoo_bwd_check(f'C gram backward {name} p={p} {dtype}', st, X,
+                          fv, G, dtype)
+    n0 = gram.launches_bwd
+    gram_backward(G, desc, X, noise=noise)
+    if gram.launches_bwd != n0 + 1:
+        fail(f'C backward {name}: {gram.launches_bwd - n0} launches, '
+             f'expected one')
+    ms_b, plain_b, wrap_b = gram_times(
+        lambda: gram_backward(G, desc, X, noise=noise),
+        lambda: gram_backward_plain(G, desc, X, noise=noise),
+        'gram_bwd_kernel', plain_calls=3)
+    bd_b = bound(isz * (N * N + 3 * N * p), (6 * p + bwd_ops) * N * N, dtype)
+    log(f'  C backward {name} p={p} {dtype}: fused kernel {ms_b:.3f} ms '
+        f'(the wrapper {wrap_b:.3f} ms), plain {plain_b:.3f} ms, bound '
+        f'{bd_b[0]:.3f} ms ({bd_b[1]}), share {bd_b[0] / ms_b:.2f}')
+    del G, X
+    return [zoo_record(record(err, ms, plain_ms, bd, wrapper_ms=wrap),
+                       'gram', name, p, dtype, 'launches'),
+            zoo_record(record(err_b, ms_b, plain_b, bd_b, wrapper_ms=wrap_b),
+                       'gram_bwd', name, p, dtype, 'launches_bwd')]
+
+
+def kernel_zoo_sym(dtype, gen, name='maternp2'):
+    """Kernel E and its fused backward on the Matérn-5/2 profile at
+    16384², p = 1: E equal to C to the bit, against the plain version as
+    C (`kernel_zoo`), its backward against the plain one as C's
+    (`zoo_bwd_check`'s bounds, G and Gᵀ both entering) and to the bit in
+    two calls; the records 'gram_sym/maternp2' and
+    'gram_sym_bwd/maternp2'."""
+    import torch
+    from lsqfitgp_torch.ops import (gram, gram_sym, gram_sym_plain,
+                                    gram_sym_backward,
+                                    gram_sym_backward_plain, _gram)
+    u = unit_roundoff(dtype)
+    isz = torch.finfo(dtype).bits // 8
+    desc = zoo_desc(name, dtype)
+    noise = torch.tensor(NOISE_VAR, device='cuda', dtype=dtype)
+    X = zoo_points(1, N, dtype, gen)
+    K = gram_sym(desc, X, noise=noise)
+    if not torch.equal(K, gram(desc, X, noise=noise)):
+        fail(f'E gram_sym {name} {dtype}: differs from kernel C')
+    Kp = gram_sym_plain(desc, X, noise=noise)
+    err = check_close(f'E gram_sym {name} {dtype}', K, Kp,
+                      64 * u * float(Kp.abs().max()))
+    log(f'    E gram_sym {name} {dtype}: equal to kernel C to the bit')
+    del K, Kp
+    ms, plain_ms, wrap = gram_times(
+        lambda: gram_sym(desc, X, noise=noise),
+        lambda: gram_sym_plain(desc, X, noise=noise), 'gram_sym_kernel',
+        plain_calls=3)
+    fwd_ops, bwd_ops = ZOO_RECORDS[name][1:]
+    bd = bound(isz * (N * N + N), (3 + fwd_ops) * N * (N + 1) / 2, dtype)
+    log(f'  E {name} {dtype}: kernel {ms:.3f} ms (the wrapper {wrap:.3f} '
+        f'ms), plain {plain_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})')
+    _, st, _, _, pvec = _gram._args(desc, X, None, (), noise)
+    fv = _gram._fold(st, pvec)
+    G = torch.randn(N, N, device='cuda', dtype=dtype, generator=gen)
+    got = _gram._sym_backward(G, st, X, fv, True, True, True)
+    again = _gram._sym_backward(G, st, X, fv, True, True, True)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f'E backward {name} {dtype}: two calls differ')
+    del again
+    # E's sums are C's with G + Gᵀ: held to C's plain backward
+    gx, gy, gf = _gram._backward_plain(G, st, X, X, fv, True, True, True)
+    rel = 64 * u
+    with torch.no_grad():
+        r2 = _gram._sqdist_plain(X, X)
+        evals = _gram._terms_plain(st, fv, r2, d1=True, da=True)
+        A = G.abs() * _gram._deriv_plain(st, X, X, fv, evals, r2).abs()
+        A = A + A.T
+        tx = 2 * (A * (X - X.T).abs()).sum(1)
+        del A
+        mags = [G.abs().sum(), G.diagonal().abs().sum()] + [
+            G.new_zeros(()) if m is None else (G.abs() * m.abs()).sum()
+            for m in _gram._partials(st, fv, r2, evals)]
+        del evals, r2
+    err_b = check_close(f'E backward {name} {dtype} dx', got[0][:, 0],
+                        (gx + gy)[:, 0], (8 * math.sqrt(N) * u + rel) * tx)
+    err_b = max(err_b, check_close(
+        f'E backward {name} {dtype} dparams', got[1], gf,
+        (math.ceil(math.log2(N * N)) * 4 * u + rel) * torch.stack(mags)))
+    log(f'    E backward {name} {dtype}: two calls agree to the bit')
+    del gx, gy, gf, got
+    ms_b, plain_b, wrap_b = gram_times(
+        lambda: gram_sym_backward(G, desc, X, noise=noise),
+        lambda: gram_sym_backward_plain(G, desc, X, noise=noise),
+        'gram_sym_bwd_kernel', plain_calls=3)
+    bd_b = bound(isz * (N * N + 2 * N), (6 + bwd_ops) * N * (N + 1) / 2,
+                 dtype)
+    log(f'  E backward {name} {dtype}: fused kernel {ms_b:.3f} ms (the '
+        f'wrapper {wrap_b:.3f} ms), plain {plain_b:.3f} ms, bound '
+        f'{bd_b[0]:.3f} ms ({bd_b[1]})')
+    recs = [zoo_record(record(err, ms, plain_ms, bd, wrapper_ms=wrap),
+                       'gram_sym', name, 1, dtype, 'launches'),
+            zoo_record(record(err_b, ms_b, plain_b, bd_b, wrapper_ms=wrap_b),
+                       'gram_sym_bwd', name, 1, dtype, 'launches_bwd')]
+    for r in recs:
+        r['path'] = None   # no path runs E on this profile
+    return recs
+
+
+def kernel_zoo_tangent(dtype, gen, name='maternp2'):
+    """Kernels C′ and C″ on the Matérn-5/2 profile at 16384², p = 1 (the
+    amp chain and the nugget with their tangents): against their plain
+    versions (C′ within 32 u times the sum of its terms' magnitudes, as
+    `tangent_tol` with the profile's evaluation by another formula; C″
+    within `zoo_bwd_check`'s bounds on its weights' sums), C″ to the bit
+    in two calls; the records 'gram_jvp/maternp2' and
+    'gram_bwd_jvp/maternp2'."""
+    import torch
+    from lsqfitgp_torch.ops import _gram
+    u = unit_roundoff(dtype)
+    isz = torch.finfo(dtype).bits // 8
+    x, dx, amp, _ = tangent_inputs(dtype, gen)
+    desc = zoo_desc(name, dtype, amp=1.0)
+    X, dX, st, fv, dfv, one, coef = tangent_path_args(x, dx, amp, 0.3, 0.5,
+                                                      desc)
+    got = _gram._tangent(st, X, X, dX, dX, fv, dfv, True)
+    ref = _gram._tangent_plain(st, X, X, dX, dX, fv, dfv, True)
+    with torch.no_grad():
+        r2 = _gram._sqdist_plain(X, X)
+        dr2 = _gram._dsqdist_plain(X, X, dX, dX)
+        terms = (float(amp) * one.deriv(r2) * dr2).abs() \
+            + 0.3 * one.value(r2).abs() + 0.5
+        del dr2
+    err = check_close(f'C\' gram_jvp {name} {dtype}', got, ref,
+                      64 * u * terms)
+    del got, ref, terms
+    ms = device_ms(lambda: _gram._tangent(st, X, X, dX, dX, fv, dfv, True),
+                   kernel='gram_jvp_kernel')
+    plain_ms = device_ms(
+        lambda: _gram._tangent_plain(st, X, X, dX, dX, fv, dfv, True), 3)
+    fwd_ops = ZOO_RECORDS[name][1]
+    bd = bound(isz * (N * N + 2 * N), (8 + fwd_ops) * N * N, dtype)
+    log(f'  C\' {name} {dtype}: kernel {ms:.3f} ms, plain {plain_ms:.3f} '
+        f'ms, bound {bd[0]:.3f} ms ({bd[1]})')
+    G = torch.randn(N, N, device='cuda', dtype=dtype, generator=gen)
+    got = _gram._bwd_tangent(G, one, X, X, dX, dX, coef, True, True)
+    again = _gram._bwd_tangent(G, one, X, X, dX, dX, coef, True, True)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f'C\'\' gram_backward_jvp {name} {dtype}: two calls differ')
+    del again
+    ref = _gram._bwd_tangent_plain(G, one, X, X, dX, dX, coef, True, True)
+    with torch.no_grad():
+        w1, w2, dr2, r2 = _gram._tangent_weights_plain(one, X, X, dX, dX,
+                                                       coef[0], coef[1])
+        D = X - X.T
+        dD = dX - dX.T
+        T = G.abs() * (w1.abs() * D.abs() + w2.abs() * dD.abs())
+        tx = 2 * (T.sum(1) + T.sum(0))
+        del T, w1, w2, D, dD
+        ta = (G.abs() * (one.deriv(r2) * dr2).abs()).sum()
+        del r2, dr2
+    rel = 64 * u
+    err_b = check_close(f'C\'\' gram_backward_jvp {name} {dtype} dx',
+                        (got[0] + got[1])[:, 0], (ref[0] + ref[1])[:, 0],
+                        (8 * math.sqrt(N) * u + rel) * tx)
+    err_b = max(err_b, check_close(
+        f'C\'\' gram_backward_jvp {name} {dtype} damp', got[2][0], ref[2][0],
+        (math.ceil(math.log2(N * N)) * 4 * u + rel) * ta))
+    log(f'    C\'\' gram_backward_jvp {name} {dtype}: two calls agree to '
+        f'the bit')
+    del got, ref
+    ms_b = device_ms(lambda: _gram._bwd_tangent(G, one, X, X, dX, dX, coef,
+                                                True, True),
+                     kernel='gram_bwd_jvp_kernel')
+    plain_b = device_ms(lambda: _gram._bwd_tangent_plain(
+        G, one, X, X, dX, dX, coef, True, True), 3)
+    bd_b = bound(isz * (N * N + 4 * N), (14 + 2 * fwd_ops) * N * N, dtype)
+    log(f'  C\'\' {name} {dtype}: kernel {ms_b:.3f} ms, plain {plain_b:.3f} '
+        f'ms, bound {bd_b[0]:.3f} ms ({bd_b[1]})')
+    recs = []
+    for kind, rec in (('gram_jvp', record(err, ms, plain_ms, bd)),
+                      ('gram_bwd_jvp', record(err_b, ms_b, plain_b, bd_b))):
+        rec = tangent_record(kind, dtype, rec)
+        rec.update(name=f'{kind}/{name}' + rec['name'][len(kind):],
+                   path=None, profile=ZOO_KEYS[name])
+        recs.append(rec)
+    return recs
 
 
 def kernel_phase():
@@ -1153,6 +1536,26 @@ def kernel_phase():
         ('gram_sym tangents', kernel_gram_sym_tangent,
          'lsqfitgp_torch/csrc/gram.cu', None, [f32, f64]),
     ]
+    # the zoo's profiles: C and its backward on each at p = 1 and the
+    # multidim cell's p, E and its backward, C′ and C″ on Matérn-5/2, D on
+    # the multiscale term sum
+    for name, (ps, _, _) in ZOO_RECORDS.items():
+        for p in ps:
+            specs.append((f'gram {name} p={p}',
+                          lambda dtype, gen, name=name, p=p:
+                          kernel_zoo(dtype, gen, name, p),
+                          'lsqfitgp_torch/csrc/gram.cu',
+                          'lsqfitgp_tpu/ops/_gram.py:68', [f32, f64]))
+    specs += [
+        ('gram_sym maternp2', kernel_zoo_sym, 'lsqfitgp_torch/csrc/gram.cu',
+         'lsqfitgp_tpu/ops/_gram.py:157', [f32, f64]),
+        ('gram tangents maternp2', kernel_zoo_tangent,
+         'lsqfitgp_torch/csrc/gram.cu', None, [f32, f64]),
+        ('schur_update_gram/terms',
+         lambda dtype, gen: kernel_schur_gram(dtype, gen, 'terms'),
+         'lsqfitgp_torch/csrc/syrk.cu', 'lsqfitgp_tpu/ops/_syrk.py:334',
+         [f32, f64]),
+    ]
     for name, fn, source, replaces, variants in specs:
         log(f'kernel {name}:')
         for v in variants:
@@ -1184,7 +1587,8 @@ def sqdist64(x, xs=None, rows=512):
     return out
 
 
-def plain_nll64(x, y, log_scale, log_amp, jitter=0.0, noise=NOISE_VAR):
+def plain_nll64(x, y, log_scale, log_amp, jitter=0.0, noise=NOISE_VAR,
+                kern=None):
     """Independent float64 reference of the objective's likelihood part
     and its gradient in (log scale, log amp), with ``jitter`` more on K's
     diagonal beside the noise variance ``noise``, for points x of shape
@@ -1193,8 +1597,13 @@ def plain_nll64(x, y, log_scale, log_amp, jitter=0.0, noise=NOISE_VAR):
     ½ <K⁻¹ − α αᵀ, ∂K>, α = K⁻¹ y, with ∂K/∂log amp = amp E and
     ∂K/∂log scale = amp E ∘ Δ²/scale², E = exp(−Δ²/(2 scale²)); no port
     code.  Four float64 n × n buffers at the peak (autograd through the
-    same computation keeps about eight, too many at n = 32768)."""
+    same computation keeps about eight, too many at n = 32768).  With
+    ``kern``, the kernel ``amp kern(Δ²/scale²)[0]``, ``kern`` giving the
+    unit kernel and its derivative in log scale (`matern52`)."""
     import torch
+    if kern is not None:
+        return plain_terms64(x, y, [(kern, log_scale, log_amp)],
+                             jitter=jitter, noise=noise)
     scale, amp = math.exp(log_scale), math.exp(log_amp)
     d2 = sqdist64(x)
     d2.div_(scale * scale)
@@ -1216,11 +1625,81 @@ def plain_nll64(x, y, log_scale, log_amp, jitter=0.0, noise=NOISE_VAR):
     return nll, torch.stack([g_scale, g_amp])
 
 
-def plain_mean64(x, y, xs, scale, amp, noise=NOISE_VAR):
-    """Independent float64 reference of the posterior mean (points of
-    shape (n,) or (n, p), noise variance ``noise``)."""
+def expquad64(d2s):
+    """ExpQuad at the scaled squared distance and its derivative in log
+    scale: (E, E d2s)."""
     import torch
-    k = lambda a, b: amp * torch.exp(sqdist64(a, b) * (-0.5 / scale ** 2))
+    E = torch.exp(d2s * -0.5)
+    return E, E * d2s
+
+
+def matern52(d2s):
+    """Matérn-5/2 (Maternp(p=2)) at the scaled squared distance, in closed
+    form, and its derivative in log scale: x = √(5 d2s), (e^{−x}(1 + x +
+    x²/3), e^{−x} x² (1 + x)/3); no port code."""
+    import torch
+    x = torch.sqrt(5 * d2s)
+    e = torch.exp(-x)
+    return e * (1 + x + x * x / 3), e * x * x * (1 + x) / 3
+
+
+def kernel64(x, xs, terms, rows=4096):
+    """Σ_t amp_t kern_t(|x_i − xs_j|²/scale_t²) for ``terms`` a list of
+    (kern, log scale, log amp), assembled by blocks of ``rows`` rows (a
+    few (rows, m) temporaries); no port code."""
+    out = x.new_empty((x.shape[0], xs.shape[0]))
+    for i in range(0, x.shape[0], rows):
+        d2 = sqdist64(x[i:i + rows], xs)
+        out[i:i + rows] = sum(math.exp(la) * kern(d2 / math.exp(2 * ls))[0]
+                              for kern, ls, la in terms)
+    return out
+
+
+def plain_terms64(x, y, terms, jitter=0.0, noise=NOISE_VAR, rows=4096):
+    """Independent float64 reference of the likelihood part of the
+    objective of K = Σ_t amp_t kern_t(Δ²/scale_t²) + (noise + jitter) I
+    and its gradient in each term's (log scale, log amp), for ``terms`` a
+    list of (kern, log scale, log amp): dense K, ``torch.linalg.cholesky``
+    and the textbook gradient ½ <K⁻¹ − α αᵀ, ∂K>, its products taken by
+    blocks of rows (three float64 n × n buffers at the peak); no port
+    code."""
+    import torch
+    K = kernel64(x, x, terms, rows)
+    K.diagonal().add_(noise + jitter)
+    L = torch.linalg.cholesky(K)
+    del K
+    z = torch.linalg.solve_triangular(L, y[:, None], upper=False)
+    nll = 0.5 * float(z.T @ z) + float(torch.log(L.diagonal()).sum()) \
+        + 0.5 * len(x) * math.log(2 * math.pi)
+    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+    G = torch.cholesky_inverse(L)
+    del L
+    G.addr_(alpha, alpha, alpha=-1).mul_(0.5)
+    grads = [x.new_zeros(()) for _ in range(2 * len(terms))]
+    for i in range(0, x.shape[0], rows):
+        d2 = sqdist64(x[i:i + rows], x)
+        for t, (kern, ls, la) in enumerate(terms):
+            E, dE = kern(d2 / math.exp(2 * ls))
+            grads[2 * t] += math.exp(la) * (G[i:i + rows] * dE).sum()
+            grads[2 * t + 1] += math.exp(la) * (G[i:i + rows] * E).sum()
+    return nll, torch.stack(grads)
+
+
+def plain_mean64(x, y, xs, scale, amp, noise=NOISE_VAR, kern=None,
+                 terms=None):
+    """Independent float64 reference of the posterior mean (points of
+    shape (n,) or (n, p), noise variance ``noise``), of ``amp
+    kern(Δ²/scale²)`` (ExpQuad by default) or of the sum of ``terms`` as
+    `plain_terms64` takes them."""
+    import torch
+    if kern is not None:
+        terms = [(kern, math.log(scale), math.log(amp))]
+
+    def k(a, b):
+        if terms is None:
+            return amp * torch.exp(sqdist64(a, b) * (-0.5 / scale ** 2))
+        return kernel64(a, b, terms)
+
     K = k(x, x)
     K.diagonal().add_(noise)
     L = torch.linalg.cholesky(K)
@@ -1254,12 +1733,22 @@ def _counters():
 
 
 def reset_counts():
+    from lsqfitgp_torch import ops
     for _, fn, attr in _counters():
         setattr(fn, attr, 0)
+    for name in ('gram', 'gram_sym', 'schur_update_gram'):
+        getattr(ops, name).by_profile.clear()
 
 
 def read_counts():
-    return {key: getattr(fn, attr) for key, fn, attr in _counters()}
+    """The launch counts by key, and by key and profile ('key@profile',
+    the terms' profile names joined by '+') for C, D and E."""
+    from lsqfitgp_torch import ops
+    counts = {key: getattr(fn, attr) for key, fn, attr in _counters()}
+    for name in ('gram', 'gram_sym', 'schur_update_gram'):
+        for (attr, prof), c in getattr(ops, name).by_profile.items():
+            counts[f'{name}{COUNTERS[attr]}@{prof}'] = c
+    return counts
 
 
 def nonzero(counts):
@@ -1268,7 +1757,7 @@ def nonzero(counts):
 
 def require_launched(counts, names, what):
     for name in names:
-        if counts[name] == 0:
+        if counts.get(name, 0) == 0:
             fail(f'kernel {name} was not launched during {what}')
 
 
@@ -1278,8 +1767,9 @@ def require_counts(counts, expected, what):
     other Gram evaluation (such as the derivative weights of an unfused
     backward) ran on the card."""
     for name, n in expected.items():
-        if counts[name] != n:
-            fail(f'{what}: {counts[name]} launches of {name}, expected {n}')
+        if counts.get(name, 0) != n:
+            fail(f'{what}: {counts.get(name, 0)} launches of {name}, '
+                 f'expected {n}')
 
 
 def check_points(n, value_grad32, cond_at, x64, y64, points, grad64=None,
@@ -1364,6 +1854,11 @@ def check_points(n, value_grad32, cond_at, x64, y64, points, grad64=None,
             fail(f'{label}: the gradient error moves the optimum too far')
 
 
+# the ExpQuad dense fit's time per evaluation (ms), evaluations and
+# iterations, printed beside the Matérn fit's
+DENSE_STATS = {}
+
+
 def slice_phase(dev='cuda'):
     import numpy as np
     import torch
@@ -1412,6 +1907,8 @@ def slice_phase(dev='cuda'):
         f'{len(fit.evaltimes)} evaluations, median '
         f'{statistics.median(fit.evaltimes) * 1e3:.1f} ms per evaluation '
         f'(value + gradient)')
+    DENSE_STATS.update(ms=statistics.median(fit.evaltimes) * 1e3,
+                       evals=len(fit.evaltimes), nit=fit.minresult.nit)
     log(f'  launches during the fit: {fit_launches}; fit + '
         f'predfromdata: {launches}')
     require_launched(fit_launches, ['schur_update_tc', 'syrk_t_full__dmma',
@@ -2466,7 +2963,7 @@ def plain_curvature64(x, y, log_scale, log_amp):
 
 def counts_since(before):
     now = read_counts()
-    return {k: now[k] - before[k] for k in now}
+    return {k: now[k] - before.get(k, 0) for k in now}
 
 
 def second_order_phase(fitted, dev='cuda'):
@@ -2791,13 +3288,13 @@ def gram_p_recorder():
     seen = []
     ev, bw = _gram._eval_cuda, _gram._backward_cuda
 
-    def eval_cuda(profile, ops, x, *args):
+    def eval_cuda(st, x, *args):
         seen.append(('fwd', x.shape[1]))
-        return ev(profile, ops, x, *args)
+        return ev(st, x, *args)
 
-    def backward_cuda(G, profile, ops, x, *args):
+    def backward_cuda(G, st, x, *args):
         seen.append(('bwd', x.shape[1]))
-        return bw(G, profile, ops, x, *args)
+        return bw(G, st, x, *args)
 
     _gram._eval_cuda, _gram._backward_cuda = eval_cuda, backward_cuda
 
@@ -3196,6 +3693,301 @@ def multidim_phase(dev='cuda'):
     return launches
 
 
+# -- the zoo's paths: Matérn-5/2 and the multiscale term sum ---------------------
+
+# the cap of the Matérn fit's BFGS iterations
+MATERN_ITERS = 10
+
+
+def matern_phase(dev='cuda'):
+    """Path 1 of the zoo: ``amp * Maternp(p=2, scale)`` plus 0.09 I on the
+    dense slice's data (n = 16384 on [−50, 50], ``addcov`` +
+    ``addlintransf``), float32, the default ``gram`` (kernel C on the
+    Maternp profile, forward and fused backward once per evaluation),
+    fitted with at most MATERN_ITERS BFGS iterations, then predicted at
+    64 points; NLL and gradient at the start and at the fit, and the
+    posterior mean, held to a closed-form float64 oracle (`matern52`) as
+    the dense slice's are (`check_points`); the time per evaluation and
+    the evaluation count beside the ExpQuad dense fit's."""
+    import numpy as np
+    import torch
+    import lsqfitgp_torch as lgp
+    f32 = torch.float32
+    torch.set_default_dtype(f32)
+    rng = np.random.default_rng(20261016)
+    x = rng.uniform(-50, 50, N)
+    y = np.sin(x) + math.sqrt(NOISE_VAR) * rng.standard_normal(N)
+    xs = np.linspace(-55, 55, NPRED)
+    xt = torch.as_tensor(x, dtype=f32, device=dev)
+    yt = torch.as_tensor(y, dtype=f32, device=dev)
+    xst = torch.as_tensor(xs, dtype=f32, device=dev)
+    noise = NOISE_VAR * torch.eye(N, dtype=f32, device=dev)
+
+    def gpfactory(hp, precision=None):
+        kw = {} if precision is None else dict(precision=precision)
+        gp = lgp.GP(hp['amp'] * lgp.Maternp(p=2, scale=hp['scale']), **kw)
+        gp = gp.addx(xt, 'f').addcov(noise, 'e')
+        return gp.addlintransf(lambda f, e: f + e, ['f', 'e'], 'y')
+
+    hyperprior = {'log(scale)': (0., 1.), 'log(amp)': (0., 1.)}
+    log(f'matern path: n = {N}, float32, amp * Maternp(p=2, scale) + '
+        f'{NOISE_VAR} I, default gram, at most {MATERN_ITERS} BFGS '
+        f'iterations')
+    if dev == 'cuda':
+        torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    fit = lgp.empbayes_fit(hyperprior, gpfactory, {'y': yt},
+                           minkw={'maxiter': MATERN_ITERS}, raises=False)
+    if dev == 'cuda':
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fit_launches = read_counts()
+    gp = fit.gp().addx(xst, 'pred')
+    mean = gp.predfromdata({'y': yt}, 'pred').mean
+    launches = read_counts()
+    evals = len(fit.evaltimes)
+    ms = statistics.median(fit.evaltimes) * 1e3
+    log(f'  fit: {wall:.2f} s wall, {fit.minresult.nit} BFGS iterations, '
+        f'{evals} evaluations, median {ms:.1f} ms per evaluation (value + '
+        f'gradient); the ExpQuad dense fit: '
+        f'{DENSE_STATS.get("ms", float("nan")):.1f} ms per evaluation, '
+        f'{DENSE_STATS.get("evals")} evaluations, '
+        f'{DENSE_STATS.get("nit")} iterations')
+    log(f'  launches during the fit: {nonzero(fit_launches)}; fit + '
+        f'predfromdata: {nonzero(launches)}')
+    if dev == 'cuda':
+        require_launched(fit_launches, ['schur_update_tc',
+                                        'syrk_t_full__dmma', 'gram@maternp',
+                                        'gram_bwd@maternp'], 'the Matérn fit')
+        require_counts(fit_launches, {'gram@maternp': evals,
+                                      'gram_bwd@maternp': evals,
+                                      'gram': evals, 'gram_bwd': evals},
+                       'the Matérn fit')
+    scale = float(fit.pmean['scale'])
+    amp = float(fit.pmean['amp'])
+    fitted = [math.log(scale), math.log(amp)]
+    log(f'  fitted scale {scale:.6g}, amp {amp:.6g}; pcov '
+        f'{fit.pcov.tolist()}')
+    K = gp.prior('y', raw=True)
+    cond = float(lgp.linalg.Chol(K).cond_estimate)
+    del K
+    eps32 = torch.finfo(f32).eps
+    log(f'  Chol.cond_estimate at the fit: {cond:.4g}')
+    if not cond < 0.1 / eps32:
+        fail('conditioning beyond the float32 factorization limit')
+    x64, y64 = xt.double(), yt.double()
+
+    def value_grad32(lp, precision=None):
+        gp0 = gpfactory({'scale': lp[0].exp(), 'amp': lp[1].exp()},
+                        precision)
+        return -gp0.marginal_likelihood({'y': yt})
+
+    def cond_at(ls, la):
+        with torch.no_grad():
+            gp0 = gpfactory({'scale': torch.tensor(math.exp(ls)),
+                             'amp': torch.tensor(math.exp(la))})
+            return float(lgp.linalg.Chol(gp0.prior('y', raw=True))
+                         .cond_estimate)
+
+    check_points(N, value_grad32, cond_at, x64, y64,
+                 [('start point', [0., 0.], False),
+                  ('fitted point', fitted, True)],
+                 grad64=lambda lp: plain_nll64(x64, y64, *lp,
+                                               kern=matern52))
+    with torch.no_grad():
+        ref = plain_mean64(x64, y64, xst.double(), scale, amp, kern=matern52)
+    dmean = float((mean.double() - ref).abs().max())
+    log(f'  posterior mean at {NPRED} points: max |port - float64| '
+        f'{dmean:.3e}, max |mean| {float(ref.abs().max()):.4g}')
+    if not bool(torch.isfinite(mean).all()) or mean.shape != (NPRED,):
+        fail('posterior mean not finite or of the wrong shape')
+    if dmean > 10 * cond * eps32 * float(ref.abs().max()):
+        fail('Matérn posterior mean disagrees with the float64 reference')
+    return launches
+
+
+def ms_terms(lp):
+    """The multiscale model's terms for `plain_terms64`: (kern, log scale,
+    log amp) of a1 Maternp(p=2, s1) and a2 ExpQuad(s2)."""
+    return [(matern52, lp[1], lp[0]), (expquad64, lp[3], lp[2])]
+
+
+def ms_kernel(lgp, lp):
+    """a1 * Maternp(p=2, scale=s1) + a2 * ExpQuad(scale=s2) at the log
+    parameters lp = (log a1, log s1, log a2, log s2)."""
+    e = lp.exp()
+    return e[0] * lgp.Maternp(p=2, scale=e[1]) \
+        + e[2] * lgp.ExpQuad(scale=e[3])
+
+
+def ms_check(what, n, nll32, g32, x64, y64, cond):
+    """The port's float32 NLL and gradient in the multiscale model's four
+    log parameters against `plain_terms64` at MS_POINT: the NLL within
+    4 eps32 n dmax / σ² (the float32 path's diagonal anchor, as
+    `check_points`), the gradient within 10 cond eps32 relative."""
+    import torch
+    eps32 = torch.finfo(torch.float32).eps
+    nll64, g64 = plain_terms64(x64, y64, ms_terms(MS_POINT))
+    # plain_terms64 gives (log scale, log amp) per term: to (log a1, log
+    # s1, log a2, log s2)
+    g64 = g64[[1, 0, 3, 2]]
+    dnll = abs(float(nll32) - nll64)
+    rel = float((g32.double() - g64).norm() / g64.norm())
+    dmax = math.exp(MS_POINT[0]) + math.exp(MS_POINT[2]) + NOISE_VAR
+    log(f'  {what}: NLL port float32 {float(nll32):.8g}, plain float64 '
+        f'{nll64:.8g}, |diff| {dnll:.3e} (limit '
+        f'{4 * eps32 * n * dmax / NOISE_VAR:.3e}); gradient port '
+        f'{g32.tolist()}, plain {g64.tolist()}, relative diff {rel:.3e} '
+        f'(limit {10 * cond * eps32:.3e})')
+    if dnll > 4 * eps32 * n * dmax / NOISE_VAR:
+        fail(f'{what}: NLL disagrees with the float64 reference')
+    if rel > 10 * cond * eps32:
+        fail(f'{what}: gradient disagrees with the float64 reference')
+
+
+def multiscale_phase(dev='cuda'):
+    """Path 2 of the zoo: the multiscale model a1 Maternp(p=2, s1) + a2
+    ExpQuad(s2) at MS_POINT, float32.  Dense: one value+gradient at
+    n = 16384 on the dense slice's data with the noise as the dense
+    slice's, the default gram (kernel C on the two-term profile and its
+    fused backward, once each, four parameter sums), held to float64.
+    Streaming: ``+ 0.09 * White()``, ``solver='chol-stream'``, n = 65536
+    on the streaming slice's data, two value+gradients with the exact
+    gradient (C and D on the term sum, C's float64 backward once per
+    strip); then at n = 32768 the streaming NLL, gradient and posterior
+    mean held to float64.  Returns the dense and streaming runs' launch
+    counts."""
+    import numpy as np
+    import torch
+    import lsqfitgp_torch as lgp
+    f32 = torch.float32
+    torch.set_default_dtype(f32)
+    key = 'maternp+expquad'
+    lp0 = torch.tensor(MS_POINT, dtype=f32, device=dev)
+    # dense
+    rng = np.random.default_rng(20261016)
+    x = rng.uniform(-50, 50, N)
+    y = np.sin(x) + math.sqrt(NOISE_VAR) * rng.standard_normal(N)
+    xt = torch.as_tensor(x, dtype=f32, device=dev)
+    yt = torch.as_tensor(y, dtype=f32, device=dev)
+    noise = NOISE_VAR * torch.eye(N, dtype=f32, device=dev)
+
+    def dense_gp(lp):
+        gp = lgp.GP(ms_kernel(lgp, lp)).addx(xt, 'f').addcov(noise, 'e')
+        return gp.addlintransf(lambda f, e: f + e, ['f', 'e'], 'y')
+
+    log(f'multiscale path: a1 * Maternp(p=2, scale=s1) + a2 * '
+        f'ExpQuad(scale=s2) at (log a1, log s1, log a2, log s2) = '
+        f'{MS_POINT}, float32')
+    times = []
+    reset_counts()
+    for _ in range(3):
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp = lp0.clone().requires_grad_()
+        nll = -dense_gp(lp).marginal_likelihood({'y': yt})
+        g, = torch.autograd.grad(nll, lp)
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = read_counts()
+    log(f'  dense, n = {N}: {statistics.median(times) * 1e3:.1f} ms per '
+        f'value+gradient (median of 3, the first with the build of its '
+        f'route); launches {nonzero(counts)}')
+    if dev == 'cuda':
+        require_counts(counts, {f'gram@{key}': 3, f'gram_bwd@{key}': 3},
+                       'the dense multiscale evaluations')
+        require_launched(counts, ['schur_update_tc', 'syrk_t_full__dmma'],
+                         'the dense multiscale evaluations')
+    with torch.no_grad():
+        K = dense_gp(lp0).prior('y', raw=True)
+        cond = float(lgp.linalg.Chol(K).cond_estimate)
+        del K
+    log(f'  Chol.cond_estimate: {cond:.4g}')
+    ms_check(f'dense n = {N}', N, nll.detach(), g, xt.double(),
+             yt.double(), cond)
+    del noise
+    torch.cuda.empty_cache()
+
+    # streaming
+    def stream_gp(lp):
+        k = ms_kernel(lgp, lp) + NOISE_VAR * lgp.White()
+        return lgp.GP(k, solver='chol-stream', block=STREAM_BLOCK, b1=128)
+
+    xs_, ys_, _ = stream_data(N_STREAM)
+    log(f'  streaming: n = {N_STREAM}, + {NOISE_VAR} * White(), '
+        f'solver=chol-stream, block={STREAM_BLOCK}, two value+gradients')
+    if dev == 'cuda':
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        lp = lp0.clone().requires_grad_()
+        # as a fit evaluates it: checks off
+        with lgp.disable_checks():
+            nll = -stream_gp(lp).addx(xs_, 'f').marginal_likelihood(
+                {'f': ys_})
+        g, = torch.autograd.grad(nll, lp)
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        log(f'    NLL {float(nll.detach()):.8g}, gradient {g.tolist()}, '
+            f'{times[-1]:.3f} s')
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() if dev == 'cuda' else 0
+    log(f'  streaming: {[round(t, 3) for t in times]} s per value+gradient, '
+        f'peak {peak / N_STREAM ** 2:.2f} B/n²; launches {nonzero(counts)}')
+    if not (math.isfinite(float(nll.detach()))
+            and bool(torch.isfinite(g).all())):
+        fail('streaming multiscale: non-finite NLL or gradient')
+    if dev == 'cuda':
+        strips = -(-N_STREAM // (4 * STREAM_BLOCK))
+        require_launched(counts, [f'schur_update_gram_tc@{key}',
+                                  f'gram@{key}', 'schur_update_tc'],
+                         'the streaming multiscale evaluations')
+        require_counts(counts, {f'gram_bwd@{key}': 3 + 2 * strips},
+                       'the streaming multiscale evaluations')
+
+    # the streaming check at n = 32768 against float64
+    x, y, xs = stream_data(N_CHECK)
+    x64 = torch.as_tensor(x, dtype=f32, device=dev).double()
+    y64 = torch.as_tensor(y, dtype=f32, device=dev).double()
+    lp = lp0.clone().requires_grad_()
+    nll = -stream_gp(lp).addx(x, 'f').marginal_likelihood({'f': y})
+    g, = torch.autograd.grad(nll, lp)
+    with torch.no_grad():
+        xt = torch.as_tensor(x, dtype=f32, device=dev)
+        K = lgp.GP(ms_kernel(lgp, lp0), gram='tiled').addx(xt, 'f') \
+            .prior('f', raw=True)
+        K.diagonal().add_(NOISE_VAR)
+        cond = float(lgp.linalg.Chol(K).cond_estimate)
+        del K
+    log(f'  streaming check, n = {N_CHECK}: Chol.cond_estimate (dense '
+        f'float32) {cond:.4g}')
+    ms_check(f'streaming n = {N_CHECK}', N_CHECK, nll.detach(), g, x64, y64,
+             cond)
+    gp = stream_gp(lp0).addx(x, 'f').addx(xs, 'pred')
+    mean = gp.predfromdata({'f': y}, 'pred').mean
+    with torch.no_grad():
+        xs64 = torch.as_tensor(xs, dtype=f32, device=dev).double()
+        ref = plain_mean64(x64, y64, xs64, None, None,
+                           terms=ms_terms(MS_POINT))
+    dmean = float((mean.double() - ref).abs().max())
+    eps32 = torch.finfo(f32).eps
+    log(f'  streaming posterior mean at {NPRED} points: max |port - '
+        f'float64| {dmean:.3e}, limit '
+        f'{10 * cond * eps32 * float(ref.abs().max()):.3e}')
+    if not bool(torch.isfinite(mean).all()) or mean.shape != (NPRED,):
+        fail('streaming posterior mean not finite or of the wrong shape')
+    if dmean > 10 * cond * eps32 * float(ref.abs().max()):
+        fail('streaming multiscale posterior mean disagrees with the '
+             'float64 reference')
+    return counts
+
+
 def main(argv):
     sys.path.insert(0, ROOT)
     header()
@@ -3241,6 +4033,24 @@ def main(argv):
                 torch.cuda.empty_cache()
         multidim_phase()
         return 0
+    if argv == ['--zoo']:
+        build()
+        gen = torch.Generator(device='cuda').manual_seed(SEED)
+        for name, (ps, _, _) in ZOO_RECORDS.items():
+            for p in ps:
+                for dtype in (torch.float32, torch.float64):
+                    kernel_zoo(dtype, gen, name, p)
+                    torch.cuda.empty_cache()
+        for fn in (kernel_zoo_sym, kernel_zoo_tangent,
+                   lambda dtype, gen: kernel_schur_gram(dtype, gen,
+                                                        'terms')):
+            for dtype in (torch.float32, torch.float64):
+                fn(dtype, gen)
+                torch.cuda.empty_cache()
+        matern_phase()
+        torch.cuda.empty_cache()
+        multiscale_phase()
+        return 0
     if argv:
         fail(f'unknown arguments {argv}')
     t0 = time.perf_counter()
@@ -3279,6 +4089,12 @@ def main(argv):
     log(f'elapsed {time.perf_counter() - t0:.1f} s')
     torch.cuda.empty_cache()
     paths['multidim'] = multidim_phase()
+    log(f'elapsed {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    paths['matern'] = matern_phase()
+    log(f'elapsed {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    paths['multiscale'] = multiscale_phase()
     # each kernel's launches are those of its own path's run: the dense
     # fit's, but for A, C and C's backward in float64 the float64 dense
     # evaluation's.  C's and E's counters do not tell the dtypes apart:
@@ -3296,12 +4112,16 @@ def main(argv):
     own_key = {'schur_update': 'rescue'}
     dtype_paths = {'float32': ['rescue', 'dense', 'stream', 'halfmatrix',
                                'second', 'fishvec', 'halfmatrix_hess',
-                               'deriv', 'multidim'],
+                               'deriv', 'multidim', 'matern', 'multiscale'],
                    'float64': ['dense64']}
     for rec in records:
         base = rec['name'].split('/')[0]
         is_gram = 'key' in rec
         key = rec.pop('key', None) or base + COUNTERS[rec['counter']]
+        prof = rec.pop('profile', None)
+        if prof:
+            # a zoo profile's record counts its profile's launches
+            key = f'{key}@{prof}'
         names = dtype_paths[rec['dtype']] if is_gram else list(paths)
         if 'path' in rec:
             # a record of a path of its own (C at p > 1: the derivative
@@ -3316,8 +4136,8 @@ def main(argv):
             path = own_key[key]
         else:
             path = own[base]
-        rec['launches'] = paths[path][key] if path else 0
-        rec['launches_by_path'] = {p: paths[p][key] for p in names}
+        rec['launches'] = paths[path].get(key, 0) if path else 0
+        rec['launches_by_path'] = {p: paths[p].get(key, 0) for p in names}
     log(f'total {time.perf_counter() - t0:.1f} s')
     keys = ['name', 'route', 'source', 'replaces', 'launches',
             'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',

@@ -12,11 +12,14 @@ with scipy BFGS (and its second-order covariances), and
 derivative observations and derived processes (``defderiv``,
 ``deftransf``, ``deflintransf``, ...); the streaming solver
 (``GP(solver='chol-stream')``), which never forms the Gram matrix; and
-``GP(halfmatrix=True)``.  Five kernels are hand-written CUDA for
-``sm_90a`` (``ops``): the Schur update of the factorization, the same
-with the Gram computed in the tile, the gradient's WᵀW, and the tiled
-Gram in full and on the upper triangle.  On CPU tensors each runs its
-plain PyTorch version.
+``GP(halfmatrix=True)``; the zoo of ``kernels/_basic.py``,
+``_matern.py`` and ``_wendland.py`` with the special functions it needs
+(``special``).  Five kernels are hand-written CUDA for ``sm_90a``
+(``ops``): the Schur update of the factorization, the same with the Gram
+computed in the tile, the gradient's WᵀW, and the tiled Gram in full and
+on the upper triangle, the last three on the zoo's ExpQuad, Maternp,
+Expon, GammaExp and Cauchy profiles and their sums.  On CPU tensors each
+runs its plain PyTorch version.
 
 Array-likes go to the CUDA card unless the caller asks for another
 device (`set_default_device`, `using_device`).
@@ -38,6 +41,7 @@ from ._torchutil import elementwise_grad
 
 from . import linalg
 from . import ops
+from . import special
 from . import uncert
 
 from .kernelalg import (

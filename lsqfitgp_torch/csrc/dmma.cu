@@ -437,14 +437,15 @@ int lsq_schur_update_dmma_f64(const double* B, long long ldb,
 }
 
 int lsq_schur_gram_dmma_f64(const double* X, int dim, const double* params,
-                            int npost, unsigned postadd, int with_eps,
-                            int profile, long long nreal, long long offset,
+                            int nterms, unsigned long long codes,
+                            int with_eps, long long nreal, long long offset,
                             const double* A, long long h, double* out,
                             long long size, long long tile, void* stream)
 {
-    if (npost > MAXPOST) return (int)cudaErrorInvalidValue;
-    return launch_schur(InitGram<double>{X, dim, params, npost, postadd,
-                                         with_eps, profile, nreal, offset},
+    if (nterms < 1 || nterms > MAXTERMS)
+        return (int)cudaErrorInvalidValue;
+    return launch_schur(InitGram<double>{X, dim, params, nterms, codes,
+                                         with_eps, nreal, offset},
                         A, h, out, size, tile, stream);
 }
 

@@ -26,9 +26,11 @@
 // once, so the read stream bounds it.
 //
 // Design.
-// - The profile (profiles.cuh) and p = 1 are template parameters; the
-//   post chain is folded once per thread into alpha g + beta, read from
-//   the parameters in device memory (no host read).
+// - The evaluator of the profile (profiles.cuh: FixedExpQuad, the main
+//   path's single ExpQuad term, or Zoo, up to MAXTERMS terms of any
+//   registered profile read at run time) and p = 1 are template
+//   parameters; the folded parameter vector (profiles.cuh) stays in
+//   device memory (no host read).
 // - A block of 256 threads covers 64 x 64 tiles.  Each thread owns 16
 //   bytes of a tile row (4 floats or 2 doubles): 16-byte stores in the
 //   forwards, 16-byte loads of G in the backwards, entry by entry at the
@@ -47,10 +49,11 @@
 // - A backward recomputes r^2, g and g' (one exponential) per entry and,
 //   in one read of G, accumulates what the gradient needs: per row i and
 //   coordinate d the sum over j of G_ij Wr_ij (x_i - y_j)_d, with
-//   Wr = alpha g'(r^2), zero at r^2 <= 0 where the true tangent vanishes
-//   (the x gradient); the same per column j (the y gradient); the sums of
-//   G g and of G (the post chain's gradient), and G's trace (the
-//   nugget's).  No floating-point atomics: row sums go across a row's
+//   Wr = dK/dr^2, zero at r^2 <= 0 where the true tangent vanishes
+//   (the x gradient); the same per column j (the y gradient); and the
+//   gradient of <G, K> with respect to the parameter vector: the sum of
+//   G (for b), G's trace (the nugget's), and per term the sums of G
+//   times dK/dc, dK/dw, dK/da and dK/db (FixedExpQuad: G g only).  No floating-point atomics: row sums go across a row's
 //   lanes by warp shuffles, column sums across the block's rows through
 //   shared memory, the scalars by shuffles and shared memory, and each
 //   block writes its partial sums to slots of its own in a scratch
@@ -93,9 +96,10 @@
 //   with the backwards' slots and no atomics (two calls give the same
 //   bits), G (dalpha g' + alpha g'' dr^2)(x_i - y_j) + G alpha g'
 //   (dx_i - dy_j), and G g' dr^2, G and G g for the chain's.  The weights
-//   are zero at r^2 <= 0, as the first derivative's.  The post chain
-//   enters through coef = [alpha, dalpha, dbeta, dnoise] in device
-//   memory, which the wrapper forms from the chain and its tangent.
+//   are zero at r^2 <= 0, as the first derivative's.  C'' and E'' take
+//   one term, whose coefficient alpha and its tangent come in
+//   coef = [alpha, dalpha]; C' and E' the parameter vector's tangent,
+//   every parameter of every term.
 
 #include "profiles.cuh"
 
@@ -318,13 +322,13 @@ __device__ __forceinline__ T dist2(const T* __restrict__ x,
     }
 }
 
-// One entry of the value: the folded chain, plus the nugget on the
-// global diagonal (C and E share it, so their entries are identical).
-template <typename T, class Prof>
-__device__ __forceinline__ T entry_value(T r2, Chain<T> ch, bool on_diag,
+// One entry of the value, plus the nugget on the global diagonal (C and
+// E share it, so their entries are identical).
+template <typename T, class Ev>
+__device__ __forceinline__ T entry_value(const Ev& ev, T r2, bool on_diag,
                                          T noise)
 {
-    T v = fma(ch.alpha, Prof::value(r2), ch.beta);
+    T v = ev.value(r2);
     if (on_diag) v += noise;
     return v;
 }
@@ -343,11 +347,11 @@ __device__ __forceinline__ void upper_pair(long long b, long long& i0,
 
 // -- forwards ----------------------------------------------------------------
 
-template <typename T, class Prof, bool P1>
+template <typename T, class Ev, bool P1>
 __global__ void __launch_bounds__(NT)
 gram_kernel(const T* __restrict__ x, const T* __restrict__ y, long long n,
-            long long m, int p, const T* __restrict__ params, int npost,
-            unsigned postadd, int with_noise, T* __restrict__ out)
+            long long m, int p, const T* __restrict__ params, int nterms,
+            unsigned long long codes, int with_noise, T* __restrict__ out)
 {
     using Gm = Geo<T>;
     constexpr int V = Gm::V;
@@ -355,9 +359,9 @@ gram_kernel(const T* __restrict__ x, const T* __restrict__ y, long long n,
     const long long i0 = (long long)blockIdx.y * TILE;
     const long long j0 = (long long)blockIdx.x * TILE;
     const long long c0 = j0 + tx * V;
-    const Chain<T> ch = fold_chain(params, npost, postadd);
+    const Ev ev(params, nterms, codes);
     const bool diag = with_noise && i0 < j0 + TILE && j0 < i0 + TILE;
-    const T noise = diag ? params[npost] : T(0);
+    const T noise = diag ? params[1] : T(0);
     const bool wide = m % V == 0;
     if constexpr (P1) {
         T yc[V];
@@ -373,8 +377,7 @@ gram_kernel(const T* __restrict__ x, const T* __restrict__ y, long long n,
             for (int k = 0; k < V; ++k) {
                 const long long c = c0 + k < m ? c0 + k : m - 1;
                 const T r2 = dist2<T, true>(x, y, r, c, p, xr, yc[k]);
-                v[k] = entry_value<T, Prof>(r2, ch, diag && r == c0 + k,
-                                            noise);
+                v[k] = entry_value(ev, r2, diag && r == c0 + k, noise);
             }
             store_row(out + r * m + c0, v, m - c0, wide);
         }
@@ -389,18 +392,21 @@ gram_kernel(const T* __restrict__ x, const T* __restrict__ y, long long n,
             T v[V];
 #pragma unroll
             for (int k = 0; k < V; ++k)
-                v[k] = entry_value<T, Prof>(r2[a][k], ch, diag && r == c0 + k,
-                                            noise);
+                v[k] = entry_value(ev, r2[a][k], diag && r == c0 + k, noise);
             store_row(out + r * m + c0, v, m - c0, wide);
         }
     }
 }
 
-template <typename T, class Prof, bool P1>
-__global__ void __launch_bounds__(NT)
+// E's forwards: at least 3 blocks per SM (85 registers a thread).  Left
+// to itself ptxas gave the float64 p = 1 forward 64 registers and 464
+// bytes of spills on the H100 build (0.67 -> 1.07 ms); E's 33 KB of
+// shared memory allows 6 blocks.
+template <typename T, class Ev, bool P1>
+__global__ void __launch_bounds__(NT, 3)
 gram_sym_kernel(const T* __restrict__ x, long long n, int p,
-                const T* __restrict__ params, int npost, unsigned postadd,
-                int with_noise, T* __restrict__ out)
+                const T* __restrict__ params, int nterms,
+                unsigned long long codes, int with_noise, T* __restrict__ out)
 {
     using Gm = Geo<T>;
     constexpr int V = Gm::V;
@@ -409,9 +415,9 @@ gram_sym_kernel(const T* __restrict__ x, long long n, int p,
     upper_pair(blockIdx.x, i0, j0);
     const int tx = threadIdx.x % Gm::TX, ty = threadIdx.x / Gm::TX;
     const long long c0 = j0 + tx * V;
-    const Chain<T> ch = fold_chain(params, npost, postadd);
+    const Ev ev(params, nterms, codes);
     const bool diag = i0 == j0;
-    const T noise = diag && with_noise ? params[npost] : T(0);
+    const T noise = diag && with_noise ? params[1] : T(0);
     const bool wide = n % V == 0;
     T yc[V];
 #pragma unroll
@@ -428,9 +434,8 @@ gram_sym_kernel(const T* __restrict__ x, long long n, int p,
         for (int k = 0; k < V; ++k) {
             const long long c = c0 + k < n ? c0 + k : n - 1;
             const T r2 = dist2<T, P1>(x, x, r, c, p, xr, yc[k]);
-            v[k] = entry_value<T, Prof>(r2, ch,
-                                        diag && with_noise && r == c0 + k,
-                                        noise);
+            v[k] = entry_value(ev, r2, diag && with_noise && r == c0 + k,
+                               noise);
             sh[rr][tx * V + k] = v[k];
         }
         store_row(out + r * n + c0, v, n - c0, wide);
@@ -464,27 +469,49 @@ __device__ __forceinline__ void coords(const T* __restrict__ z, long long i,
         out[q] = valid && q < pc ? z[i * p + d0 + q] : T(0);
 }
 
-// The block's scalar sums (sum G, sum G g, trace) into scal[0, 3).
-template <typename T>
-__device__ __forceinline__ void block_scalars(T sg, T sgk, T tr, T* scal)
+// The block's scalar sums v[0, S) into scal[0, S), over its threads in
+// a fixed order.
+template <int S, typename T>
+__device__ __forceinline__ void block_scalars(T (&v)[S], T* scal)
 {
-    __shared__ T ws[NT / 32][3];
-    sg = lane_sum<32>(sg);
-    sgk = lane_sum<32>(sgk);
-    tr = lane_sum<32>(tr);
+    __shared__ T ws[NT / 32][S];
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-    if (lane == 0) {
-        ws[warp][0] = sg;
-        ws[warp][1] = sgk;
-        ws[warp][2] = tr;
+#pragma unroll
+    for (int q = 0; q < S; ++q) {
+        const T t = lane_sum<32>(v[q]);
+        if (lane == 0) ws[warp][q] = t;
     }
     __syncthreads();
-    if (threadIdx.x < 3) {
+    if (threadIdx.x < S) {
         T s = T(0);
         for (int w = 0; w < NT / 32; ++w) s += ws[w][threadIdx.x];
         scal[threadIdx.x] = s;
     }
 }
+
+// The backwards' scalar sums: sum G, G's trace, then the evaluator's
+// parameter sums (the gradient of <G, K> with respect to params)
+template <typename T, class Ev>
+struct ParSums {
+    static constexpr int S = 2 + Ev::NS;
+    T sg, tr, acc[Ev::NS];
+
+    __device__ __forceinline__ ParSums() : sg(T(0)), tr(T(0))
+    {
+#pragma unroll
+        for (int q = 0; q < Ev::NS; ++q) acc[q] = T(0);
+    }
+    // the block's sums into scal[0, S)
+    __device__ __forceinline__ void store(T* scal) const
+    {
+        T v[S];
+        v[0] = sg;
+        v[1] = tr;
+#pragma unroll
+        for (int q = 0; q < Ev::NS; ++q) v[2 + q] = acc[q];
+        block_scalars(v, scal);
+    }
+};
 
 // The column sums acc[k][q] of the threads' tile columns, added over the
 // block's rows in a fixed order through `red`, times `sign`, into
@@ -521,12 +548,12 @@ __device__ __forceinline__ void block_columns(T (&acc)[Geo<T>::V][PC],
 // time.  A step's column sums go into the block's slot through `red`,
 // each slot entry owned by one thread, which stores the first step's sum
 // and adds the later ones in order.
-template <typename T, class Prof, bool XY, bool PAR>
+template <typename T, class Ev, bool XY, bool PAR>
 __device__ __forceinline__ void bwd_slabs(const T* __restrict__ G,
                                           const T* __restrict__ x,
                                           const T* __restrict__ y,
                                           long long n, long long m, int p,
-                                          Chain<T> ch, bool with_noise,
+                                          const Ev& ev, bool with_noise,
                                           int wide, T* __restrict__ rowpart,
                                           T* __restrict__ colpart, T* scal)
 {
@@ -545,7 +572,7 @@ __device__ __forceinline__ void bwd_slabs(const T* __restrict__ G,
     // the column-slot entry (column j0 + oc, coordinate oq of a group)
     // this thread owns
     const int oq = threadIdx.x / TILE, oc = threadIdx.x % TILE;
-    T sg = T(0), sgk = T(0), tr = T(0);
+    ParSums<T, Ev> ps;
     for (int s = 0; s < CROWS; ++s) {
         const long long i0 = ((long long)blockIdx.y * CROWS + s) * TILE;
         if (i0 >= n) break;
@@ -563,15 +590,14 @@ __device__ __forceinline__ void bwd_slabs(const T* __restrict__ G,
         for (int a = 0; a < RPT; ++a) {
 #pragma unroll
             for (int k = 0; k < V; ++k) {
-                T dg;
                 const T gv = w[a][k];
-                const T g = Prof::both(r2[a][k], dg);
+                const T d1 = ev.template grad<PAR>(r2[a][k], gv, ps.acc);
                 if constexpr (PAR) {
-                    sg += gv;
-                    sgk = fma(gv, g, sgk);
-                    if (with_noise && i0 + ty + a * TY == c0 + k) tr += gv;
+                    ps.sg += gv;
+                    if (with_noise && i0 + ty + a * TY == c0 + k)
+                        ps.tr += gv;
                 }
-                w[a][k] = r2[a][k] > T(0) ? gv * (ch.alpha * dg) : T(0);
+                w[a][k] = r2[a][k] > T(0) ? gv * d1 : T(0);
             }
         }
         if constexpr (XY) {
@@ -637,18 +663,17 @@ __device__ __forceinline__ void bwd_slabs(const T* __restrict__ G,
         }
     }
     if constexpr (PAR)
-        block_scalars(sg, sgk, tr,
-                      scal + 3 * ((long long)blockIdx.y * gridDim.x
-                                  + blockIdx.x));
+        ps.store(scal + ps.S * ((long long)blockIdx.y * gridDim.x
+                                           + blockIdx.x));
 }
 
 // Kernel C's backward at p = 1, the body of gram_bwd_kernel: the
 // coordinates in registers, the row sums across a row's lanes.
-template <typename T, class Prof, bool XY, bool PAR>
+template <typename T, class Ev, bool XY, bool PAR>
 __device__ __forceinline__ void bwd_p1(const T* __restrict__ G,
                                        const T* __restrict__ x,
                                        const T* __restrict__ y, long long n,
-                                       long long m, Chain<T> ch,
+                                       long long m, const Ev& ev,
                                        bool with_noise, int wide,
                                        T* __restrict__ rowpart,
                                        T* __restrict__ colpart, T* scal)
@@ -668,7 +693,7 @@ __device__ __forceinline__ void bwd_p1(const T* __restrict__ G,
         yc[k] = c0 + k < m ? y[c0 + k] : T(0);
         cacc[k][0] = T(0);
     }
-    T sg = T(0), sgk = T(0), tr = T(0);
+    ParSums<T, Ev> ps;
     for (int a = 0; a < Gm::RPT * CROWS; ++a) {
         const long long r = i0 + ty + a * Gm::TY;
         const bool rv = r < n;
@@ -680,15 +705,13 @@ __device__ __forceinline__ void bwd_p1(const T* __restrict__ G,
             const long long c = c0 + k;
             if (!rv || c >= m) continue;
             const T r2 = dist2<T, true>(x, y, r, c, 1, xr, yc[k]);
-            T dg;
-            const T g = Prof::both(r2, dg);
+            const T d1 = ev.template grad<PAR>(r2, gv[k], ps.acc);
             if constexpr (PAR) {
-                sg += gv[k];
-                sgk = fma(gv[k], g, sgk);
-                if (diag && r == c) tr += gv[k];
+                ps.sg += gv[k];
+                if (diag && r == c) ps.tr += gv[k];
             }
             if constexpr (XY) {
-                const T w = r2 > T(0) ? gv[k] * (ch.alpha * dg) : T(0);
+                const T w = r2 > T(0) ? gv[k] * d1 : T(0);
                 const T t = w * (xr - yc[k]);
                 racc += t;
                 cacc[k][0] += t;
@@ -703,31 +726,31 @@ __device__ __forceinline__ void bwd_p1(const T* __restrict__ G,
         block_columns<T, 1>(cacc, red, j0, m, 1, 0, 1, T(1),
                             colpart + (long long)blockIdx.y * m);
     if constexpr (PAR)
-        block_scalars(sg, sgk, tr,
-                      scal + 3 * ((long long)blockIdx.y * gridDim.x
-                                  + blockIdx.x));
+        ps.store(scal + ps.S * ((long long)blockIdx.y * gridDim.x
+                                           + blockIdx.x));
 }
 
 // Kernel C's backward.  Block (bx, by) covers columns [64 bx, +64) and
 // rows [256 by, +256).  Writes (when XY) rowpart[bx][i][d] and
 // colpart[by][j][d], the sums over the block's columns and rows of
-// G Wr (x_i - y_j)_d, and (when PAR) scal[by * gridDim.x + bx][0..3).
-// One launch for all p.
-template <typename T, class Prof, bool P1, bool XY, bool PAR>
+// G Wr (x_i - y_j)_d, and (when PAR) scal[by * gridDim.x + bx][0..S),
+// the block's ParSums.  One launch for all p.
+template <typename T, class Ev, bool P1, bool XY, bool PAR>
 __global__ void __launch_bounds__(NT)
 gram_bwd_kernel(const T* __restrict__ G, const T* __restrict__ x,
                 const T* __restrict__ y, long long n, long long m, int p,
-                const T* __restrict__ params, int npost, unsigned postadd,
-                int with_noise, int wide, T* __restrict__ rowpart,
-                T* __restrict__ colpart, T* __restrict__ scal)
+                const T* __restrict__ params, int nterms,
+                unsigned long long codes, int with_noise, int wide,
+                T* __restrict__ rowpart, T* __restrict__ colpart,
+                T* __restrict__ scal)
 {
-    const Chain<T> ch = fold_chain(params, npost, postadd);
+    const Ev ev(params, nterms, codes);
     if constexpr (P1)
-        bwd_p1<T, Prof, XY, PAR>(G, x, y, n, m, ch, with_noise, wide,
-                                 rowpart, colpart, scal);
+        bwd_p1<T, Ev, XY, PAR>(G, x, y, n, m, ev, with_noise, wide, rowpart,
+                               colpart, scal);
     else
-        bwd_slabs<T, Prof, XY, PAR>(G, x, y, n, m, p, ch, with_noise, wide,
-                                    rowpart, colpart, scal);
+        bwd_slabs<T, Ev, XY, PAR>(G, x, y, n, m, p, ev, with_noise, wide,
+                                  rowpart, colpart, scal);
 }
 
 // E's backward: the mirror tile, then (reused) the column sums
@@ -741,13 +764,13 @@ union SymSmem {
 // (when XY) part[J][i][d] for the rows i of I and, off the diagonal,
 // part[I][j][d] for the rows j of J: the sums of S Wr (x_i - x_j)_d over
 // the tile's columns and, negated, over its rows; and (when PAR)
-// scal[b][0..3).
-template <typename T, class Prof, bool P1, bool XY, bool PAR>
+// scal[b][0..S), the pair's ParSums.
+template <typename T, class Ev, bool P1, bool XY, bool PAR>
 __global__ void __launch_bounds__(NT)
 gram_sym_bwd_kernel(const T* __restrict__ G, const T* __restrict__ x,
                     long long n, int p, int d0, const T* __restrict__ params,
-                    int npost, unsigned postadd, int with_noise, int wide,
-                    T* __restrict__ part, T* __restrict__ scal)
+                    int nterms, unsigned long long codes, int with_noise,
+                    int wide, T* __restrict__ part, T* __restrict__ scal)
 {
     using Gm = Geo<T>;
     constexpr int V = Gm::V, PC = P1 ? 1 : PCHUNK;
@@ -771,7 +794,7 @@ gram_sym_bwd_kernel(const T* __restrict__ G, const T* __restrict__ x,
     }
     __syncthreads();
     const long long c0 = j0 + tx * V;
-    const Chain<T> ch = fold_chain(params, npost, postadd);
+    const Ev ev(params, nterms, codes);
     T yc[V][PC], cacc[V][PC];
 #pragma unroll
     for (int k = 0; k < V; ++k) {
@@ -779,7 +802,7 @@ gram_sym_bwd_kernel(const T* __restrict__ G, const T* __restrict__ x,
 #pragma unroll
         for (int q = 0; q < PC; ++q) cacc[k][q] = T(0);
     }
-    T sg = T(0), sgk = T(0), tr = T(0);
+    ParSums<T, Ev> ps;
 #pragma unroll
     for (int a = 0; a < Gm::RPT; ++a) {
         const int rr = ty + a * Gm::TY;
@@ -802,18 +825,16 @@ gram_sym_bwd_kernel(const T* __restrict__ G, const T* __restrict__ x,
             if (!rv || c >= n) continue;
             const T s = gv[k] + sm.sh[tx * V + k][rr];
             const T r2 = dist2<T, P1>(x, x, r, c, p, xr[0], yc[k][0]);
-            T dg;
-            const T g = Prof::both(r2, dg);
+            // the whole of G: on a diagonal tile G itself, off it both
+            // G[I, J] and G[J, I]
+            const T gs = dt ? gv[k] : s;
+            const T d1 = ev.template grad<PAR>(r2, gs, ps.acc);
             if constexpr (PAR) {
-                // the whole of G: on a diagonal tile G itself, off it
-                // both G[I, J] and G[J, I]
-                const T gs = dt ? gv[k] : s;
-                sg += gs;
-                sgk = fma(gs, g, sgk);
-                if (dt && with_noise && r == c) tr += gv[k];
+                ps.sg += gs;
+                if (dt && with_noise && r == c) ps.tr += gv[k];
             }
             if constexpr (XY) {
-                const T w = r2 > T(0) ? s * (ch.alpha * dg) : T(0);
+                const T w = r2 > T(0) ? s * d1 : T(0);
 #pragma unroll
                 for (int q = 0; q < PC; ++q) {
                     const T t = w * (xr[q] - yc[k][q]);
@@ -839,23 +860,10 @@ gram_sym_bwd_kernel(const T* __restrict__ G, const T* __restrict__ x,
         }
     }
     if constexpr (PAR)
-        block_scalars(sg, sgk, tr, scal + 3 * (long long)blockIdx.x);
+        ps.store(scal + ps.S * (long long)blockIdx.x);
 }
 
 // -- tangents ----------------------------------------------------------------
-
-// alpha (the chain's 'mul' product), the tangents of the folded chain's
-// alpha and beta, and the nugget's tangent: coef[0..4)
-template <typename T>
-struct Tangent {
-    T alpha, dalpha, dbeta, dnoise;
-};
-
-template <typename T>
-__device__ __forceinline__ Tangent<T> load_tangent(const T* __restrict__ coef)
-{
-    return Tangent<T>{coef[0], coef[1], coef[2], coef[3]};
-}
 
 // r^2 and its tangent dr^2 of entry (r, c): at p = 1 from the
 // coordinates and their tangents in registers
@@ -877,28 +885,27 @@ __device__ __forceinline__ T dist2_tangent(const T* __restrict__ x,
     }
 }
 
-// One entry of the tangent Gram: alpha g'(r^2) dr^2 (zero at r^2 <= 0,
-// where the true tangent vanishes) + dalpha g + dbeta, plus dnoise on
-// the global diagonal.  C' and E' share it, so their entries are
-// identical.
-template <typename T, class Prof>
-__device__ __forceinline__ T entry_tangent(T r2, T dr2, const Tangent<T>& tc,
+// One entry of the tangent Gram: dK/dr^2 dr^2 (zero at r^2 <= 0, where
+// the true tangent vanishes) + the parameters' part, plus the nugget's
+// tangent dp[1] on the global diagonal.  C' and E' share it, so their
+// entries are identical.
+template <typename T, class Ev>
+__device__ __forceinline__ T entry_tangent(const Ev& ev, T r2, T dr2,
+                                           const T* __restrict__ dp,
                                            bool on_diag)
 {
-    T d1;
-    const T g = Prof::both(r2, d1);
-    T v = fma(tc.dalpha, g, tc.dbeta);
-    if (r2 > T(0)) v = fma(tc.alpha * d1, dr2, v);
-    if (on_diag) v += tc.dnoise;
+    T v = ev.tangent(r2, dr2, dp);
+    if (on_diag) v += dp[1];
     return v;
 }
 
 // Kernel C': the tangent Gram, tiled and stored as kernel C.
-template <typename T, class Prof, bool P1>
+template <typename T, class Ev, bool P1>
 __global__ void __launch_bounds__(NT)
 gram_jvp_kernel(const T* __restrict__ x, const T* __restrict__ y,
                 const T* __restrict__ dx, const T* __restrict__ dy,
-                long long n, long long m, int p, const T* __restrict__ coef,
+                long long n, long long m, int p, const T* __restrict__ params,
+                const T* __restrict__ dp, int nterms, unsigned long long codes,
                 int with_noise, T* __restrict__ out)
 {
     using Gm = Geo<T>;
@@ -907,7 +914,7 @@ gram_jvp_kernel(const T* __restrict__ x, const T* __restrict__ y,
     const long long i0 = (long long)blockIdx.y * TILE;
     const long long j0 = (long long)blockIdx.x * TILE;
     const long long c0 = j0 + tx * V;
-    const Tangent<T> tc = load_tangent(coef);
+    const Ev ev(params, nterms, codes);
     const bool diag = with_noise && i0 < j0 + TILE && j0 < i0 + TILE;
     const bool wide = m % V == 0;
     T yc[V], dyc[V];
@@ -929,19 +936,22 @@ gram_jvp_kernel(const T* __restrict__ x, const T* __restrict__ y,
             T dr2;
             const T r2 = dist2_tangent<T, P1>(x, y, dx, dy, r, c, p, xr,
                                               yc[k], dxr, dyc[k], dr2);
-            v[k] = entry_tangent<T, Prof>(r2, dr2, tc, diag && r == c0 + k);
+            v[k] = entry_tangent(ev, r2, dr2, dp, diag && r == c0 + k);
         }
         store_row(out + r * m + c0, v, m - c0, wide);
     }
 }
 
 // Kernel E': C' for y = x on the upper tile pairs, each tile and its
-// mirror written, as kernel E.
-template <typename T, class Prof, bool P1>
-__global__ void __launch_bounds__(NT)
+// mirror written, as kernel E; at least 2 blocks per SM (128 registers:
+// ptxas spilled the float64 p = 1 kernel at 80 left to itself).
+template <typename T, class Ev, bool P1>
+__global__ void __launch_bounds__(NT, 2)
 gram_sym_jvp_kernel(const T* __restrict__ x, const T* __restrict__ dx,
-                    long long n, int p, const T* __restrict__ coef,
-                    int with_noise, T* __restrict__ out)
+                    long long n, int p, const T* __restrict__ params,
+                    const T* __restrict__ dp, int nterms,
+                    unsigned long long codes, int with_noise,
+                    T* __restrict__ out)
 {
     using Gm = Geo<T>;
     constexpr int V = Gm::V;
@@ -950,7 +960,7 @@ gram_sym_jvp_kernel(const T* __restrict__ x, const T* __restrict__ dx,
     upper_pair(blockIdx.x, i0, j0);
     const int tx = threadIdx.x % Gm::TX, ty = threadIdx.x / Gm::TX;
     const long long c0 = j0 + tx * V;
-    const Tangent<T> tc = load_tangent(coef);
+    const Ev ev(params, nterms, codes);
     const bool diag = i0 == j0;
     const bool wide = n % V == 0;
     T yc[V], dyc[V];
@@ -973,8 +983,8 @@ gram_sym_jvp_kernel(const T* __restrict__ x, const T* __restrict__ dx,
             T dr2;
             const T r2 = dist2_tangent<T, P1>(x, x, dx, dx, r, c, p, xr,
                                               yc[k], dxr, dyc[k], dr2);
-            v[k] = entry_tangent<T, Prof>(r2, dr2, tc,
-                                          diag && with_noise && r == c0 + k);
+            v[k] = entry_tangent(ev, r2, dr2, dp,
+                                 diag && with_noise && r == c0 + k);
             sh[rr][tx * V + k] = v[k];
         }
         store_row(out + r * n + c0, v, n - c0, wide);
@@ -1012,12 +1022,14 @@ __device__ __forceinline__ void tangent_weights(T gv, T r2, T dr2, T d1, T d2,
 // w1 (x_i - y_j)_d + w2 (dx_i - dy_j)_d, and (when SC)
 // scal[by * gridDim.x + bx][0..3), the block's sums of G g' dr^2 (the
 // tangent of sum G g), G and G g (the post chain's tangent needs them).
-template <typename T, class Prof, bool P1, bool XY, bool SC>
+template <typename T, class Ev, bool P1, bool XY, bool SC>
 __global__ void __launch_bounds__(NT)
 gram_bwd_jvp_kernel(const T* __restrict__ G, const T* __restrict__ x,
                     const T* __restrict__ y, const T* __restrict__ dx,
                     const T* __restrict__ dy, long long n, long long m, int p,
-                    int d0, const T* __restrict__ coef, int wide,
+                    int d0, const T* __restrict__ params,
+                    const T* __restrict__ coef, unsigned long long codes,
+                    int wide,
                     T* __restrict__ rowpart, T* __restrict__ colpart,
                     T* __restrict__ scal)
 {
@@ -1029,6 +1041,7 @@ gram_bwd_jvp_kernel(const T* __restrict__ G, const T* __restrict__ x,
     const long long c0 = j0 + tx * V;
     const long long i0 = (long long)blockIdx.y * (TILE * CROWS);
     const int pc = P1 ? 1 : min(PC, p - d0);
+    const Ev ev(params, 1, codes);
     const T alpha = coef[0], dalpha = coef[1];
     T yc[V][PC], dyc[V][PC], cacc[V][PC];
 #pragma unroll
@@ -1056,7 +1069,7 @@ gram_bwd_jvp_kernel(const T* __restrict__ G, const T* __restrict__ x,
             const T r2 = dist2_tangent<T, P1>(x, y, dx, dy, r, c, p, xr[0],
                                               yc[k][0], dxr[0], dyc[k][0],
                                               dr2);
-            const T g = Prof::second(r2, d1, d2);
+            const T g = ev.second(r2, d1, d2);
             if constexpr (SC) {
                 s1 = fma(gv[k] * d1, dr2, s1);
                 sg += gv[k];
@@ -1088,21 +1101,24 @@ gram_bwd_jvp_kernel(const T* __restrict__ G, const T* __restrict__ x,
     if constexpr (XY)
         block_columns<T, PC>(cacc, red, j0, m, p, d0, pc, T(1),
                              colpart + (long long)blockIdx.y * m * p);
-    if constexpr (SC)
-        block_scalars(s1, sg, sgk,
-                      scal + 3 * ((long long)blockIdx.y * gridDim.x
-                                  + blockIdx.x));
+    if constexpr (SC) {
+        T sc[3] = {s1, sg, sgk};
+        block_scalars(sc, scal + 3 * ((long long)blockIdx.y * gridDim.x
+                                      + blockIdx.x));
+    }
 }
 
 // Kernel E'': C'' for y = x on E's backward's upper tile pairs, with
 // S = G[I, J] + G[J, I]^T; writes part[J][i][d], part[I][j][d] as E's
 // backward and (when SC) scal[b][0..3), the pair's shares of the sums
 // of G g' dr^2, G and G g.
-template <typename T, class Prof, bool P1, bool XY, bool SC>
+template <typename T, class Ev, bool P1, bool XY, bool SC>
 __global__ void __launch_bounds__(NT)
 gram_sym_bwd_jvp_kernel(const T* __restrict__ G, const T* __restrict__ x,
                         const T* __restrict__ dx, long long n, int p, int d0,
-                        const T* __restrict__ coef, int wide,
+                        const T* __restrict__ params,
+                        const T* __restrict__ coef, unsigned long long codes,
+                        int wide,
                         T* __restrict__ part, T* __restrict__ scal)
 {
     using Gm = Geo<T>;
@@ -1126,6 +1142,7 @@ gram_sym_bwd_jvp_kernel(const T* __restrict__ G, const T* __restrict__ x,
     }
     __syncthreads();
     const long long c0 = j0 + tx * V;
+    const Ev ev(params, 1, codes);
     const T alpha = coef[0], dalpha = coef[1];
     T yc[V][PC], dyc[V][PC], cacc[V][PC];
 #pragma unroll
@@ -1161,7 +1178,7 @@ gram_sym_bwd_jvp_kernel(const T* __restrict__ G, const T* __restrict__ x,
             const T r2 = dist2_tangent<T, P1>(x, x, dx, dx, r, c, p, xr[0],
                                               yc[k][0], dxr[0], dyc[k][0],
                                               dr2);
-            const T g = Prof::second(r2, d1, d2);
+            const T g = ev.second(r2, d1, d2);
             if constexpr (SC) {
                 // the whole of G, as in E's backward
                 const T gs = dt ? gv[k] : s;
@@ -1197,182 +1214,193 @@ gram_sym_bwd_jvp_kernel(const T* __restrict__ G, const T* __restrict__ x,
                                  part + (i0 / TILE) * n * p);
         }
     }
-    if constexpr (SC)
-        block_scalars(s1, sg, sgk, scal + 3 * (long long)blockIdx.x);
+    if constexpr (SC) {
+        T sc[3] = {s1, sg, sgk};
+        block_scalars(sc, scal + 3 * (long long)blockIdx.x);
+    }
 }
 
 // -- launchers ---------------------------------------------------------------
 
-// f(Profile<id>{}) for a registered profile id; false for another id
+template <template <typename> class E>
+struct EvTag {
+    template <typename T>
+    using type = E<T>;
+};
+
+// f(tag) for the evaluator the host chose: 0 FixedExpQuad, 1 Zoo;
+// false for another value or a term count outside [1, MAXTERMS]
 template <class F>
-bool with_profile(int id, F&& f)
+bool with_ev(int ev, int nterms, F&& f)
 {
-    switch (id) {
-    case PROFILE_EXPQUAD: f(Profile<PROFILE_EXPQUAD>{}); return true;
+    if (nterms < 1 || nterms > MAXTERMS) return false;
+    switch (ev) {
+    case 0: f(EvTag<FixedExpQuad>{}); return true;
+    case 1: f(EvTag<Zoo>{}); return true;
     }
     return false;
 }
 
 long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
+int launched(bool ok)
+{
+    return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
 int launch_gram(const T* x, const T* y, long long n, long long m, int p,
-                const T* params, int npost, unsigned postadd, int with_noise,
-                int profile, T* out, void* stream)
+                const T* params, int nterms, unsigned long long codes,
+                int with_noise, int evk, T* out, void* stream)
 {
-    if (npost > MAXPOST) return (int)cudaErrorInvalidValue;
     if (n == 0 || m == 0) return 0;
     const dim3 grid((unsigned)cdiv(m, TILE), (unsigned)cdiv(n, TILE));
     const auto s = (cudaStream_t)stream;
-    const bool ok = with_profile(profile, [&](auto prof) {
-        using Prof = decltype(prof);
-        auto kern = p == 1 ? gram_kernel<T, Prof, true>
-                           : gram_kernel<T, Prof, false>;
-        kern<<<grid, NT, 0, s>>>(x, y, n, m, p, params, npost, postadd,
+    return launched(with_ev(evk, nterms, [&](auto tag) {
+        using Ev = typename decltype(tag)::template type<T>;
+        auto kern = p == 1 ? gram_kernel<T, Ev, true>
+                           : gram_kernel<T, Ev, false>;
+        kern<<<grid, NT, 0, s>>>(x, y, n, m, p, params, nterms, codes,
                                  with_noise, out);
-    });
-    return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+    }));
 }
 
 template <typename T>
 int launch_gram_sym(const T* x, long long n, int p, const T* params,
-                    int npost, unsigned postadd, int with_noise, int profile,
-                    T* out, void* stream)
+                    int nterms, unsigned long long codes, int with_noise,
+                    int evk, T* out, void* stream)
 {
-    if (npost > MAXPOST) return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
     const long long nt = cdiv(n, TILE);
     const auto s = (cudaStream_t)stream;
-    const bool ok = with_profile(profile, [&](auto prof) {
-        using Prof = decltype(prof);
-        auto kern = p == 1 ? gram_sym_kernel<T, Prof, true>
-                           : gram_sym_kernel<T, Prof, false>;
+    return launched(with_ev(evk, nterms, [&](auto tag) {
+        using Ev = typename decltype(tag)::template type<T>;
+        auto kern = p == 1 ? gram_sym_kernel<T, Ev, true>
+                           : gram_sym_kernel<T, Ev, false>;
         kern<<<(unsigned)(nt * (nt + 1) / 2), NT, 0, s>>>(
-            x, n, p, params, npost, postadd, with_noise, out);
-    });
-    return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+            x, n, p, params, nterms, codes, with_noise, out);
+    }));
 }
 
 // the instantiation for (p == 1, need_xy, need_p); need_xy or need_p
-template <typename T, class Prof, bool P1>
+template <typename T, class Ev, bool P1>
 auto bwd_kernel(bool xy, bool par)
 {
-    return xy ? (par ? gram_bwd_kernel<T, Prof, P1, true, true>
-                     : gram_bwd_kernel<T, Prof, P1, true, false>)
-              : gram_bwd_kernel<T, Prof, P1, false, true>;
+    return xy ? (par ? gram_bwd_kernel<T, Ev, P1, true, true>
+                     : gram_bwd_kernel<T, Ev, P1, true, false>)
+              : gram_bwd_kernel<T, Ev, P1, false, true>;
 }
 
-template <typename T, class Prof, bool P1>
+template <typename T, class Ev, bool P1>
 auto sym_bwd_kernel(bool xy, bool par)
 {
-    return xy ? (par ? gram_sym_bwd_kernel<T, Prof, P1, true, true>
-                     : gram_sym_bwd_kernel<T, Prof, P1, true, false>)
-              : gram_sym_bwd_kernel<T, Prof, P1, false, true>;
+    return xy ? (par ? gram_sym_bwd_kernel<T, Ev, P1, true, true>
+                     : gram_sym_bwd_kernel<T, Ev, P1, true, false>)
+              : gram_sym_bwd_kernel<T, Ev, P1, false, true>;
 }
 
 template <typename T>
 int launch_gram_bwd(const T* G, const T* x, const T* y, long long n,
-                    long long m, int p, const T* params, int npost,
-                    unsigned postadd, int with_noise, int profile,
+                    long long m, int p, const T* params, int nterms,
+                    unsigned long long codes, int with_noise, int evk,
                     int need_xy, int need_p, int wide, T* rowpart,
                     T* colpart, T* scal, void* stream)
 {
-    if (npost > MAXPOST || !(need_xy || need_p) || p < 1)
-        return (int)cudaErrorInvalidValue;
+    if (!(need_xy || need_p) || p < 1) return (int)cudaErrorInvalidValue;
     if (n == 0 || m == 0) return 0;
     const dim3 grid((unsigned)cdiv(m, TILE),
                     (unsigned)cdiv(n, TILE * CROWS));
     const auto s = (cudaStream_t)stream;
-    const bool ok = with_profile(profile, [&](auto prof) {
-        using Prof = decltype(prof);
-        auto kern = p == 1 ? bwd_kernel<T, Prof, true>(need_xy, need_p)
-                           : bwd_kernel<T, Prof, false>(need_xy, need_p);
-        kern<<<grid, NT, 0, s>>>(G, x, y, n, m, p, params, npost, postadd,
+    return launched(with_ev(evk, nterms, [&](auto tag) {
+        using Ev = typename decltype(tag)::template type<T>;
+        auto kern = p == 1 ? bwd_kernel<T, Ev, true>(need_xy, need_p)
+                           : bwd_kernel<T, Ev, false>(need_xy, need_p);
+        kern<<<grid, NT, 0, s>>>(G, x, y, n, m, p, params, nterms, codes,
                                  with_noise, wide, rowpart, colpart, scal);
-    });
-    return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+    }));
 }
 
 template <typename T>
 int launch_gram_sym_bwd(const T* G, const T* x, long long n, int p, int d0,
-                        const T* params, int npost, unsigned postadd,
-                        int with_noise, int profile, int need_x, int need_p,
+                        const T* params, int nterms, unsigned long long codes,
+                        int with_noise, int evk, int need_x, int need_p,
                         int wide, T* part, T* scal, void* stream)
 {
-    if (npost > MAXPOST || !(need_x || need_p) || d0 < 0 || d0 >= p)
+    if (!(need_x || need_p) || d0 < 0 || d0 >= p)
         return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
     const long long nt = cdiv(n, TILE);
     const auto s = (cudaStream_t)stream;
-    const bool ok = with_profile(profile, [&](auto prof) {
-        using Prof = decltype(prof);
-        auto kern = p == 1 ? sym_bwd_kernel<T, Prof, true>(need_x, need_p)
-                           : sym_bwd_kernel<T, Prof, false>(need_x, need_p);
+    return launched(with_ev(evk, nterms, [&](auto tag) {
+        using Ev = typename decltype(tag)::template type<T>;
+        auto kern = p == 1 ? sym_bwd_kernel<T, Ev, true>(need_x, need_p)
+                           : sym_bwd_kernel<T, Ev, false>(need_x, need_p);
         kern<<<(unsigned)(nt * (nt + 1) / 2), NT, 0, s>>>(
-            G, x, n, p, d0, params, npost, postadd, with_noise, wide, part,
+            G, x, n, p, d0, params, nterms, codes, with_noise, wide, part,
             scal);
-    });
-    return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+    }));
 }
 
 template <typename T>
 int launch_gram_jvp(const T* x, const T* y, const T* dx, const T* dy,
-                    long long n, long long m, int p, const T* coef,
-                    int with_noise, int profile, T* out, void* stream)
+                    long long n, long long m, int p, const T* params,
+                    const T* dparams, int nterms, unsigned long long codes,
+                    int with_noise, int evk, T* out, void* stream)
 {
     if (n == 0 || m == 0) return 0;
     const dim3 grid((unsigned)cdiv(m, TILE), (unsigned)cdiv(n, TILE));
     const auto s = (cudaStream_t)stream;
-    const bool ok = with_profile(profile, [&](auto prof) {
-        using Prof = decltype(prof);
-        auto kern = p == 1 ? gram_jvp_kernel<T, Prof, true>
-                           : gram_jvp_kernel<T, Prof, false>;
-        kern<<<grid, NT, 0, s>>>(x, y, dx, dy, n, m, p, coef, with_noise,
-                                 out);
-    });
-    return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+    return launched(with_ev(evk, nterms, [&](auto tag) {
+        using Ev = typename decltype(tag)::template type<T>;
+        auto kern = p == 1 ? gram_jvp_kernel<T, Ev, true>
+                           : gram_jvp_kernel<T, Ev, false>;
+        kern<<<grid, NT, 0, s>>>(x, y, dx, dy, n, m, p, params, dparams,
+                                 nterms, codes, with_noise, out);
+    }));
 }
 
 template <typename T>
 int launch_gram_sym_jvp(const T* x, const T* dx, long long n, int p,
-                        const T* coef, int with_noise, int profile, T* out,
-                        void* stream)
+                        const T* params, const T* dparams, int nterms,
+                        unsigned long long codes, int with_noise, int evk,
+                        T* out, void* stream)
 {
     if (n == 0) return 0;
     const long long nt = cdiv(n, TILE);
     const auto s = (cudaStream_t)stream;
-    const bool ok = with_profile(profile, [&](auto prof) {
-        using Prof = decltype(prof);
-        auto kern = p == 1 ? gram_sym_jvp_kernel<T, Prof, true>
-                           : gram_sym_jvp_kernel<T, Prof, false>;
+    return launched(with_ev(evk, nterms, [&](auto tag) {
+        using Ev = typename decltype(tag)::template type<T>;
+        auto kern = p == 1 ? gram_sym_jvp_kernel<T, Ev, true>
+                           : gram_sym_jvp_kernel<T, Ev, false>;
         kern<<<(unsigned)(nt * (nt + 1) / 2), NT, 0, s>>>(
-            x, dx, n, p, coef, with_noise, out);
-    });
-    return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+            x, dx, n, p, params, dparams, nterms, codes, with_noise, out);
+    }));
 }
 
 // the instantiations for (p == 1, need_xy, need_s); need_xy or need_s
-template <typename T, class Prof, bool P1>
+template <typename T, class Ev, bool P1>
 auto bwd_jvp_kernel(bool xy, bool sc)
 {
-    return xy ? (sc ? gram_bwd_jvp_kernel<T, Prof, P1, true, true>
-                    : gram_bwd_jvp_kernel<T, Prof, P1, true, false>)
-              : gram_bwd_jvp_kernel<T, Prof, P1, false, true>;
+    return xy ? (sc ? gram_bwd_jvp_kernel<T, Ev, P1, true, true>
+                    : gram_bwd_jvp_kernel<T, Ev, P1, true, false>)
+              : gram_bwd_jvp_kernel<T, Ev, P1, false, true>;
 }
 
-template <typename T, class Prof, bool P1>
+template <typename T, class Ev, bool P1>
 auto sym_bwd_jvp_kernel(bool xy, bool sc)
 {
-    return xy ? (sc ? gram_sym_bwd_jvp_kernel<T, Prof, P1, true, true>
-                    : gram_sym_bwd_jvp_kernel<T, Prof, P1, true, false>)
-              : gram_sym_bwd_jvp_kernel<T, Prof, P1, false, true>;
+    return xy ? (sc ? gram_sym_bwd_jvp_kernel<T, Ev, P1, true, true>
+                    : gram_sym_bwd_jvp_kernel<T, Ev, P1, true, false>)
+              : gram_sym_bwd_jvp_kernel<T, Ev, P1, false, true>;
 }
 
+// C'' and E'' take one term
 template <typename T>
 int launch_gram_bwd_jvp(const T* G, const T* x, const T* y, const T* dx,
                         const T* dy, long long n, long long m, int p, int d0,
-                        const T* coef, int profile, int need_xy, int need_s,
-                        int wide, T* rowpart, T* colpart, T* scal,
+                        const T* params, const T* coef,
+                        unsigned long long codes, int evk, int need_xy,
+                        int need_s, int wide, T* rowpart, T* colpart, T* scal,
                         void* stream)
 {
     if (!(need_xy || need_s) || d0 < 0 || d0 >= p)
@@ -1381,36 +1409,35 @@ int launch_gram_bwd_jvp(const T* G, const T* x, const T* y, const T* dx,
     const dim3 grid((unsigned)cdiv(m, TILE),
                     (unsigned)cdiv(n, TILE * CROWS));
     const auto s = (cudaStream_t)stream;
-    const bool ok = with_profile(profile, [&](auto prof) {
-        using Prof = decltype(prof);
-        auto kern = p == 1 ? bwd_jvp_kernel<T, Prof, true>(need_xy, need_s)
-                           : bwd_jvp_kernel<T, Prof, false>(need_xy, need_s);
-        kern<<<grid, NT, 0, s>>>(G, x, y, dx, dy, n, m, p, d0, coef, wide,
-                                 rowpart, colpart, scal);
-    });
-    return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+    return launched(with_ev(evk, 1, [&](auto tag) {
+        using Ev = typename decltype(tag)::template type<T>;
+        auto kern = p == 1 ? bwd_jvp_kernel<T, Ev, true>(need_xy, need_s)
+                           : bwd_jvp_kernel<T, Ev, false>(need_xy, need_s);
+        kern<<<grid, NT, 0, s>>>(G, x, y, dx, dy, n, m, p, d0, params, coef,
+                                 codes, wide, rowpart, colpart, scal);
+    }));
 }
 
 template <typename T>
 int launch_gram_sym_bwd_jvp(const T* G, const T* x, const T* dx, long long n,
-                            int p, int d0, const T* coef, int profile,
-                            int need_x, int need_s, int wide, T* part,
-                            T* scal, void* stream)
+                            int p, int d0, const T* params, const T* coef,
+                            unsigned long long codes, int evk, int need_x,
+                            int need_s, int wide, T* part, T* scal,
+                            void* stream)
 {
     if (!(need_x || need_s) || d0 < 0 || d0 >= p)
         return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
     const long long nt = cdiv(n, TILE);
     const auto s = (cudaStream_t)stream;
-    const bool ok = with_profile(profile, [&](auto prof) {
-        using Prof = decltype(prof);
+    return launched(with_ev(evk, 1, [&](auto tag) {
+        using Ev = typename decltype(tag)::template type<T>;
         auto kern = p == 1
-            ? sym_bwd_jvp_kernel<T, Prof, true>(need_x, need_s)
-            : sym_bwd_jvp_kernel<T, Prof, false>(need_x, need_s);
+            ? sym_bwd_jvp_kernel<T, Ev, true>(need_x, need_s)
+            : sym_bwd_jvp_kernel<T, Ev, false>(need_x, need_s);
         kern<<<(unsigned)(nt * (nt + 1) / 2), NT, 0, s>>>(
-            G, x, dx, n, p, d0, coef, wide, part, scal);
-    });
-    return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+            G, x, dx, n, p, d0, params, coef, codes, wide, part, scal);
+    }));
 }
 
 }  // namespace
@@ -1419,71 +1446,78 @@ extern "C" {
 
 #define LSQ_GRAM(T, SUF)                                                     \
     int lsq_gram##SUF(const T* x, const T* y, long long n, long long m,       \
-                      int p, const T* params, int npost, unsigned postadd,    \
-                      int with_noise, int profile, T* out, void* stream)      \
+                      int p, const T* params, int nterms,                     \
+                      unsigned long long codes, int with_noise, int ev,       \
+                      T* out, void* stream)                                   \
     {                                                                         \
-        return launch_gram(x, y, n, m, p, params, npost, postadd,             \
-                           with_noise, profile, out, stream);                 \
+        return launch_gram(x, y, n, m, p, params, nterms, codes, with_noise,  \
+                           ev, out, stream);                                  \
     }                                                                         \
     int lsq_gram_sym##SUF(const T* x, long long n, int p, const T* params,    \
-                          int npost, unsigned postadd, int with_noise,        \
-                          int profile, T* out, void* stream)                  \
+                          int nterms, unsigned long long codes,               \
+                          int with_noise, int ev, T* out, void* stream)       \
     {                                                                         \
-        return launch_gram_sym(x, n, p, params, npost, postadd, with_noise,   \
-                               profile, out, stream);                         \
+        return launch_gram_sym(x, n, p, params, nterms, codes, with_noise,    \
+                               ev, out, stream);                              \
     }                                                                         \
     int lsq_gram_bwd##SUF(const T* G, const T* x, const T* y, long long n,    \
-                          long long m, int p, const T* params, int npost,     \
-                          unsigned postadd, int with_noise, int profile,      \
+                          long long m, int p, const T* params, int nterms,    \
+                          unsigned long long codes, int with_noise, int ev,   \
                           int need_xy, int need_p, int wide, T* rowpart,      \
                           T* colpart, T* scal, void* stream)                  \
     {                                                                         \
-        return launch_gram_bwd(G, x, y, n, m, p, params, npost, postadd,      \
-                               with_noise, profile, need_xy, need_p, wide,    \
+        return launch_gram_bwd(G, x, y, n, m, p, params, nterms, codes,       \
+                               with_noise, ev, need_xy, need_p, wide,         \
                                rowpart, colpart, scal, stream);               \
     }                                                                         \
     int lsq_gram_sym_bwd##SUF(const T* G, const T* x, long long n, int p,     \
-                              int d0, const T* params, int npost,             \
-                              unsigned postadd, int with_noise, int profile,  \
-                              int need_x, int need_p, int wide, T* part,      \
-                              T* scal, void* stream)                          \
+                              int d0, const T* params, int nterms,            \
+                              unsigned long long codes, int with_noise,       \
+                              int ev, int need_x, int need_p, int wide,       \
+                              T* part, T* scal, void* stream)                 \
     {                                                                         \
-        return launch_gram_sym_bwd(G, x, n, p, d0, params, npost, postadd,    \
-                                   with_noise, profile, need_x, need_p, wide, \
+        return launch_gram_sym_bwd(G, x, n, p, d0, params, nterms, codes,     \
+                                   with_noise, ev, need_x, need_p, wide,      \
                                    part, scal, stream);                       \
     }                                                                         \
     int lsq_gram_jvp##SUF(const T* x, const T* y, const T* dx, const T* dy,  \
-                          long long n, long long m, int p, const T* coef,    \
-                          int with_noise, int profile, T* out, void* stream) \
+                          long long n, long long m, int p, const T* params,  \
+                          const T* dparams, int nterms,                       \
+                          unsigned long long codes, int with_noise, int ev,   \
+                          T* out, void* stream)                               \
     {                                                                         \
-        return launch_gram_jvp(x, y, dx, dy, n, m, p, coef, with_noise,       \
-                               profile, out, stream);                         \
+        return launch_gram_jvp(x, y, dx, dy, n, m, p, params, dparams,        \
+                               nterms, codes, with_noise, ev, out, stream);   \
     }                                                                         \
     int lsq_gram_sym_jvp##SUF(const T* x, const T* dx, long long n, int p,    \
-                              const T* coef, int with_noise, int profile,     \
-                              T* out, void* stream)                           \
+                              const T* params, const T* dparams, int nterms,  \
+                              unsigned long long codes, int with_noise,       \
+                              int ev, T* out, void* stream)                   \
     {                                                                         \
-        return launch_gram_sym_jvp(x, dx, n, p, coef, with_noise, profile,    \
-                                   out, stream);                              \
+        return launch_gram_sym_jvp(x, dx, n, p, params, dparams, nterms,      \
+                                   codes, with_noise, ev, out, stream);       \
     }                                                                         \
     int lsq_gram_bwd_jvp##SUF(const T* G, const T* x, const T* y,             \
                               const T* dx, const T* dy, long long n,          \
-                              long long m, int p, int d0, const T* coef,      \
-                              int profile, int need_xy, int need_s, int wide, \
+                              long long m, int p, int d0, const T* params,    \
+                              const T* coef, unsigned long long codes,        \
+                              int ev, int need_xy, int need_s, int wide,      \
                               T* rowpart, T* colpart, T* scal, void* stream)  \
     {                                                                         \
-        return launch_gram_bwd_jvp(G, x, y, dx, dy, n, m, p, d0, coef,        \
-                                   profile, need_xy, need_s, wide, rowpart,   \
-                                   colpart, scal, stream);                    \
+        return launch_gram_bwd_jvp(G, x, y, dx, dy, n, m, p, d0, params,      \
+                                   coef, codes, ev, need_xy, need_s, wide,    \
+                                   rowpart, colpart, scal, stream);           \
     }                                                                         \
     int lsq_gram_sym_bwd_jvp##SUF(const T* G, const T* x, const T* dx,        \
-                                  long long n, int p, int d0, const T* coef,  \
-                                  int profile, int need_x, int need_s,        \
-                                  int wide, T* part, T* scal, void* stream)   \
+                                  long long n, int p, int d0,                 \
+                                  const T* params, const T* coef,             \
+                                  unsigned long long codes, int ev,           \
+                                  int need_x, int need_s, int wide, T* part,  \
+                                  T* scal, void* stream)                      \
     {                                                                         \
-        return launch_gram_sym_bwd_jvp(G, x, dx, n, p, d0, coef, profile,     \
-                                       need_x, need_s, wide, part, scal,      \
-                                       stream);                               \
+        return launch_gram_sym_bwd_jvp(G, x, dx, n, p, d0, params, coef,      \
+                                       codes, ev, need_x, need_s, wide, part, \
+                                       scal, stream);                         \
     }
 
 LSQ_GRAM(float, _f32)

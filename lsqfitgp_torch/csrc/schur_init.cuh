@@ -38,27 +38,29 @@ struct InitScaled {
 };
 
 // Kernel D: entry (r, c) of the virtual matrix blockdiag(K, I) plus eps
-// on the real diagonal, K[i, j] = post(g(|X_i - X_j|^2)) computed from
-// the points X (npad x dim, row-major, global rows) with the post chain
-// and eps in params (profiles.cuh).  By GLOBAL index, entries with a row
-// or column >= nreal are 0 off the diagonal and exactly 1 on it.
+// on the real diagonal, K[i, j] = the profile sum of |X_i - X_j|^2
+// (profiles.cuh, the Zoo evaluator: any registered profile and term
+// sum) computed from the points X (npad x dim, row-major, global rows)
+// with the parameter vector params, eps at params[1].  By GLOBAL index,
+// entries with a row or column >= nreal are 0 off the diagonal and
+// exactly 1 on it.
 template <typename T>
 struct InitGram {
     const T* X;
     int dim;
     const T* params;
-    int npost;
-    unsigned postadd;
-    int with_eps, profile;
+    int nterms;
+    unsigned long long codes;
+    int with_eps;
     long long nreal, offset;
 
     __device__ __forceinline__ T operator()(long long r, long long c) const
     {
         const long long gr = offset + r, gc = offset + c;
         if (gr >= nreal || gc >= nreal) return gr == gc ? T(1) : T(0);
-        T v = entry(profile, sqdist(X + gr * dim, X + gc * dim, dim),
-                    params, npost, postadd);
-        if (with_eps && gr == gc) v += params[npost];
+        T v = Zoo<T>(params, nterms, codes).value(
+            sqdist(X + gr * dim, X + gc * dim, dim));
+        if (with_eps && gr == gc) v += params[1];
         return v;
     }
 };

@@ -498,16 +498,17 @@ int lsq_schur_update_tc_f32(const float* B, long long ldb, long long offset,
 }
 
 int lsq_schur_gram_tc_f32(const float* X, int dim, const float* params,
-                          int npost, unsigned postadd, int with_eps,
-                          int profile, long long nreal, long long offset,
+                          int nterms, unsigned long long codes,
+                          int with_eps, long long nreal, long long offset,
                           const float* A, long long h, float* out,
                           long long size, long long tile, int passes,
                           void* stream)
 {
-    if (npost > MAXPOST) return (int)cudaErrorInvalidValue;
+    if (nterms < 1 || nterms > MAXTERMS)
+        return (int)cudaErrorInvalidValue;
     return launch_passes(passes,
-                         InitGram<float>{X, dim, params, npost, postadd,
-                                         with_eps, profile, nreal, offset},
+                         InitGram<float>{X, dim, params, nterms, codes,
+                                         with_eps, nreal, offset},
                          A, h, out, size, tile, stream);
 }
 

@@ -9,7 +9,7 @@
 //
 // Kernel D, schur_update_gram: the lower tiles of
 //     S = K[off:off+size, off:off+size] + eps I - A A^T
-// where K[i, j] = post(g(|X_i - X_j|^2)) is computed in the tile from
+// where K[i, j] = the profile of |X_i - X_j|^2 is computed in the tile from
 // the points, so the Gram block never exists in device memory.  The
 // virtual matrix is exactly blockdiag(K, I): by GLOBAL index, entries
 // with a row or column >= nreal are 0 off the diagonal and 1 on it, and
@@ -431,15 +431,16 @@ int lsq_schur_update_f32(const float* B, long long ldb, long long offset,
 }
 
 int lsq_schur_gram_f32(const float* X, int dim, const float* params,
-                       int npost, unsigned postadd, int with_eps,
-                       int profile, long long nreal, long long offset,
+                       int nterms, unsigned long long codes,
+                       int with_eps, long long nreal, long long offset,
                        const float* A, long long h, float* out,
                        long long size, long long tile, void* stream)
 {
-    if (npost > lsq::MAXPOST) return (int)cudaErrorInvalidValue;
+    if (nterms < 1 || nterms > lsq::MAXTERMS)
+        return (int)cudaErrorInvalidValue;
     return launch_schur(
-        lsq::InitGram<float>{X, dim, params, npost, postadd, with_eps,
-                             profile, nreal, offset},
+        lsq::InitGram<float>{X, dim, params, nterms, codes, with_eps,
+                             nreal, offset},
         A, h, out, size, tile, stream);
 }
 

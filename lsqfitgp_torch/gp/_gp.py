@@ -611,7 +611,8 @@ class GP:
         if mode == 'broadcast':
             return None
         spec = getattr(kernel, '_fastgram', None)
-        if spec is None or spec.noise is not None or spec.core is None:
+        if spec is None or spec.noise is not None or (
+                spec.core is None and spec.terms is None):
             # no spec: a transformation that changes the kernel's values
             # dropped it (a derivative, an x transformation, ...), or the
             # kernel is no isotropic constructor; δ-noise components need
@@ -624,19 +625,18 @@ class GP:
         p = len(cols_a)
         if spec.maxdim is not None and p > spec.maxdim:
             return None  # let the broadcast path raise the guard error
-        prof = fg.build_profile(spec)
-        if prof is None:
-            return None  # a profile outside GRAM_PROFILES
+        profile = fg.build_profile(spec)
+        if profile is None:
+            return None  # a core outside GRAM_PROFILES (fg.why_not)
         if mode == 'auto' and not _auto_tiles(cols_a[0].device,
                                               _size(ea.shape),
                                               _size(eb.shape), p):
             return None
-        profile, post = prof
         X = fg.transform_points(spec, cols_a)
         if sym and self._halfmatrix:
-            return ops.gram_sym(profile, X, post=post)
+            return ops.gram_sym(profile, X)
         Y = None if sym else fg.transform_points(spec, cols_b)
-        return ops.gram(profile, X, Y, post=post)
+        return ops.gram(profile, X, Y)
 
     def _block_lintransf_left(self, ea, b, cache=True):
         nb = _size(self._elements[b].shape)
@@ -743,14 +743,13 @@ class GP:
             return None
         spec = getattr(self._crosskernel(el.proc, el.proc), '_fastgram',
                        None)
-        if spec is None or spec.core is None:
+        if spec is None or (spec.core is None and spec.terms is None):
             return None
-        prof = fg.build_profile(spec)
+        profile = fg.build_profile(spec)
         cols = fg.leaf_columns(el.x)
-        if prof is None or cols is None or (
+        if profile is None or cols is None or (
                 spec.maxdim is not None and len(cols) > spec.maxdim):
             return None
-        profile, post = prof
 
         def wide(v):
             return torch.as_tensor(v).detach().to(device=el.x.device,
@@ -762,8 +761,7 @@ class GP:
             X = torch.stack([wide(c) for c in cols], -1)
             if spec.scale is not None:
                 X = X / wide(spec.scale)
-            K = ops.gram(profile, X, post=tuple((op, wide(v))
-                                                for op, v in post))
+            K = ops.gram(ops.map_scalars(profile, wide), X)
             if spec.noise is not None:
                 K.diagonal().add_(wide(spec.noise))
             if extracov is not None:
@@ -800,16 +798,19 @@ class GP:
 
     def _stream_model(self, inkeys, givencov):
         """Reduce the model to (profile, post, X, lenscale, noise_kernel,
-        noise_total) for the streaming pipeline, or raise a ValueError
-        naming the constraint that failed."""
+        noise_total) for the streaming pipeline (every profiled spec the
+        JAX package streams: a core kernel C knows, or a sum of such
+        terms), or raise a ValueError naming the constraint that
+        failed."""
 
         def bail(msg):
             raise ValueError(
                 "solver='chol-stream' needs a model of the form 'one "
                 "isotropic-kernel process + diagonal noise' (a single addx "
                 "element, kernel = an isotropic constructor whose profile "
-                "kernel C knows, optionally inside scalar amp*k + c chains "
-                "and + sigma2*White() sums, givencov a scalar or a "
+                "kernel C knows, or a sum of such kernels, optionally "
+                "inside scalar amp*k + c chains and + sigma2*White() sums, "
+                "givencov a scalar or a "
                 f"per-point variance vector): {msg}")
 
         if len(inkeys) != 1:
@@ -827,7 +828,7 @@ class GP:
             bail('the kernel carries no fast-Gram spec (use an isotropic '
                  'constructor kernel; transformations other than scalar '
                  'mul/add and White sums drop it)')
-        if spec.core is None:
+        if spec.core is None and spec.terms is None:
             bail('the kernel has no isotropic profile (pure noise)')
         cols = fg.leaf_columns(el.x)
         if cols is None:
@@ -835,10 +836,10 @@ class GP:
         if spec.maxdim is not None and len(cols) > spec.maxdim:
             bail(f'{len(cols)} input dims exceed the kernel maxdim '
                  f'{spec.maxdim}')
-        prof = fg.build_profile(spec)
-        if prof is None:
-            bail('the kernel profile is not one kernel C evaluates')
-        profile, post = prof
+        reason = fg.why_not(spec)
+        if reason is not None:
+            bail(reason)
+        profile, post = fg.build_profile(spec), ()
         X = fg.transform_points(spec._replace(scale=None), cols)
         noise_kernel = spec.noise
         noise_total = noise_kernel

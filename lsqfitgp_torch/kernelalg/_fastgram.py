@@ -1,19 +1,28 @@
 """Tiled-Gram dispatch specs for isotropic kernels.
 
-Counterpart of ``lsqfitgp_tpu/kernelalg/_fastgram.py`` without term
-sums (two profiled kernels added) and the double-float parts.  A freshly constructed isotropic
-kernel knows its scalar profile g(r², **initkw) and distance mode; the
-spec records them so the GP can assemble point blocks with kernel C
-(`ops.gram`) instead of broadcasting the core.  Every transformation
-that changes the kernel's values drops the spec, except the scalar
-``mul``/``add`` algops, which extend its ``post`` chain, and a sum with
-a constant or white-noise kernel.  Constructor ``scale``/``loc`` are
-folded into the points (`transform_points`).
+Counterpart of ``lsqfitgp_tpu/kernelalg/_fastgram.py`` without the
+double-float parts.  A freshly constructed isotropic kernel knows its
+scalar profile g(r², **initkw) and distance mode; the spec records them
+so the GP can assemble point blocks with kernel C (`ops.gram`) instead
+of broadcasting the core.  Every transformation that changes the
+kernel's values drops the spec, except the scalar ``mul``/``add``
+algops, which extend its ``post`` chain, a sum with a constant or
+white-noise kernel, and a sum of two profiled kernels, which becomes a
+``terms`` sum (each term with its own scale, applied to r² inside the
+profile, and its own chain).  Constructor ``scale``/``loc`` of a single
+kernel are folded into the points (`transform_points`).  Constructor
+arguments that are tensors are dynamic (they ride the kernels'
+parameter vector and are differentiable), as traced values are in the
+JAX package; Python numbers are static.
 
 A CUDA kernel cannot trace an arbitrary profile, so `build_profile`
-maps the spec's core to a profile of `ops.PROFILES` through
-`GRAM_PROFILES`, which the kernels register next to their definitions.
-A spec outside that registry takes the broadcast path.
+maps each core of the spec to a profile of `ops.PROFILES` through
+`GRAM_PROFILES`, which the kernels register next to their definitions,
+and returns an `ops.Terms` description.  A spec with a core outside
+that registry, or with more than `ops.MAXTERMS` terms (the device
+code's term sum is unrolled to that count; a wider sum would need the
+profile list read from memory, which no model of the port needs yet),
+takes the broadcast path; `why_not` says which.
 """
 
 from __future__ import annotations
@@ -26,19 +35,24 @@ import torch
 from .._array import StructuredArray
 
 __all__ = ['FastGramSpec', 'make_spec', 'make_noise_spec', 'post_spec',
-           'add_specs', 'leaf_columns', 'build_profile', 'transform_points',
-           'NOISE_CORES', 'GRAM_PROFILES']
+           'add_specs', 'leaf_columns', 'build_profile', 'why_not',
+           'transform_points', 'NOISE_CORES', 'GRAM_PROFILES']
 
 FastGramSpec = collections.namedtuple(
     'FastGramSpec',
     ['core', 'mode', 'static_kw', 'dyn_names', 'dyn_values', 'scale',
-     'loc', 'maxdim', 'post', 'noise'],
+     'loc', 'maxdim', 'post', 'noise', 'terms'],
+    defaults=(None,),
 )
 # post: ordered chain of ('mul'|'add', scalar) applied outside the
 # profile, accumulated by the scalar algops.
 # noise: coefficient of an additive White component, or None; the
 # profile and post chain never include it.  ``core=None`` is a zero
-# base profile (a pure-noise or constant spec).
+# base profile (a pure-noise or constant spec) when terms is None.
+# terms: the sub-specs whose profiles sum (``a1*k1(scale=s1) +
+# a2*k2(scale=s2)``, the multi-scale model); a term-sum spec has
+# core=None, scale=None, loc=None, each term its own core, mode, scale
+# and post chain, and the spec's own chain applies to the sum.
 
 # constructor arguments consumed by CrossKernel.__new__ itself
 _RESERVED = {'scale', 'loc', 'derivable', 'maxdim', 'dim', 'dynkw'}
@@ -46,7 +60,11 @@ _RESERVED = {'scale', 'loc', 'derivable', 'maxdim', 'dim', 'dynkw'}
 # identity cores of δ-noise kernels (White registers its core here)
 NOISE_CORES = []
 
-# core function -> name of its profile in ops.PROFILES
+# core function -> the name of its profile in ops.PROFILES (a core
+# without arguments), or a resolver ``f(**kwargs) -> (name, k, args)``
+# or None, with the core's arguments (static numbers and dynamic
+# tensors) as keywords: the profile, its static integer and its
+# arguments, None where no CUDA profile takes them
 GRAM_PROFILES = {}
 
 
@@ -135,23 +153,46 @@ def _chain_const(spec):
     return out
 
 
+def _is_flat(s):
+    """Profile-less spec: pure noise and/or a constant post chain."""
+    return s.core is None and s.terms is None
+
+
 def add_specs(sa, sb):
-    """Spec of the sum of two kernels when one side is core-less (pure
-    noise or a constant chain): its constant joins the other side's post
-    chain as one 'add' and the noises add.  Sums of two profiled
-    kernels (term sums) are not in this version: None."""
+    """Spec of the sum of two kernels, or None.  A core-less side (pure
+    noise, a constant chain) joins the other side's post chain as one
+    'add' and the noises add.  Two profiled kernels become a ``terms``
+    sum: each keeps its core, mode, scale and chain (loc cancels in the
+    distance and is dropped); a term sum without a chain of its own
+    contributes its terms, one with a chain nests."""
     if sa is None or sb is None:
         return None
-    if sb.core is not None and sa.core is not None:
-        return None
-    base, flat = (sa, sb) if sb.core is None else (sb, sa)
-    noise = base.noise
-    if flat.noise is not None:
-        noise = flat.noise if noise is None else noise + flat.noise
-    post = base.post
-    if flat.post:
-        post = post + (('add', _chain_const(flat)),)
-    return base._replace(post=post, noise=noise)
+    if _is_flat(sa) or _is_flat(sb):
+        base, flat = (sa, sb) if _is_flat(sb) else (sb, sa)
+        noise = base.noise
+        if flat.noise is not None:
+            noise = flat.noise if noise is None else noise + flat.noise
+        post = base.post
+        if flat.post:
+            post = post + (('add', _chain_const(flat)),)
+        return base._replace(post=post, noise=noise)
+
+    def terms_of(s):
+        if s.terms is not None and not s.post:
+            return s.terms
+        return (s._replace(loc=None, noise=None),)
+
+    noise = sa.noise
+    if sb.noise is not None:
+        noise = sb.noise if noise is None else noise + sb.noise
+    md = None
+    for m in (sa.maxdim, sb.maxdim):
+        if m is not None:
+            md = m if md is None else min(md, m)
+    return FastGramSpec(
+        core=None, mode='squared', static_kw={}, dyn_names=(),
+        dyn_values=(), scale=None, loc=None, maxdim=md, post=(),
+        noise=noise, terms=terms_of(sa) + terms_of(sb))
 
 
 def leaf_columns(x):
@@ -181,19 +222,76 @@ def leaf_columns(x):
     return cols if visit(x) else None
 
 
+def _resolve(spec):
+    """(name, k, args) of the spec's core in `GRAM_PROFILES`, or None."""
+    entry = GRAM_PROFILES.get(spec.core)
+    kwargs = dict(spec.static_kw)
+    kwargs.update(zip(spec.dyn_names, spec.dyn_values))
+    if entry is None:
+        return None
+    if isinstance(entry, str):
+        return None if kwargs else (entry, 0, ())
+    try:
+        return entry(**kwargs)
+    except TypeError:  # an argument the core does not take
+        return None
+
+
+def _describe(spec, with_scale):
+    """The `ops.Term` or `ops.Terms` of a spec, or None; a sum term's
+    scale goes inside the profile (``with_scale``)."""
+    from .. import ops
+    if spec.terms is not None:
+        subs = [_describe(t, True) for t in spec.terms]
+        if any(t is None for t in subs):
+            return None
+        return ops.Terms(tuple(subs), tuple(spec.post))
+    if spec.core is None:
+        return None
+    r = _resolve(spec)
+    if r is None:
+        return None
+    name, k, args = r
+    return ops.Term(ops.PROFILES[name], spec.mode, k, tuple(args),
+                    spec.scale if with_scale else None, tuple(spec.post))
+
+
+def _cores(spec):
+    if spec.terms is not None:
+        return [c for t in spec.terms for c in _cores(t)]
+    return [spec]
+
+
+def why_not(spec):
+    """Why kernel C cannot evaluate a profiled spec (naming the core),
+    or None when it can."""
+    from .. import ops
+    for s in _cores(spec):
+        if s.core is not None and _resolve(s) is None:
+            name = getattr(s.core, '__name__', repr(s.core))
+            return (f'the core {name} (arguments '
+                    f'{sorted(s.static_kw) + list(s.dyn_names)}) has no '
+                    f'CUDA profile')
+    n = len(_cores(spec))
+    if n > ops.MAXTERMS:
+        return (f'a sum of {n} profiled kernels: the kernels take at most '
+                f'{ops.MAXTERMS}')
+    return None
+
+
 def build_profile(spec):
-    """``(profile, post)`` for `ops.gram`: the registered profile name of
-    the spec's core and its post chain, or None when kernel C cannot
-    evaluate the spec (core outside `GRAM_PROFILES`, a distance mode
-    other than r², or constructor arguments reaching the core).  The
-    spec's scale and loc are the caller's job (`transform_points`)."""
-    if spec.core is None or spec.mode != 'squared' or spec.static_kw \
-            or spec.dyn_names:
+    """The `ops.Terms` description of a profiled spec for `ops.gram` (a
+    single core with its chain, or a term sum with each term's scale
+    applied to r² inside the profile), or None when kernel C cannot
+    evaluate it (`why_not`).  A single core's scale and loc are the
+    caller's job (`transform_points`)."""
+    from .. import ops
+    if spec.core is None and spec.terms is None:
         return None
-    name = GRAM_PROFILES.get(spec.core)
-    if name is None:
+    if why_not(spec) is not None:
         return None
-    return name, spec.post
+    desc = _describe(spec, False)
+    return desc if isinstance(desc, ops.Terms) else ops.Terms((desc,))
 
 
 def transform_points(spec, cols):

@@ -12,11 +12,18 @@ from . import _core, _fastgram, _util
 __all__ = ['CrossStationaryKernel', 'StationaryKernel']
 
 
+def _abs(x):
+    """|x| with the derivative 1 at 0, as ``jnp.abs``'s (torch's abs has
+    0 there, which zeroes the derivatives of a kernel of |x − y| at
+    coincident points)."""
+    return torch.where(x >= 0, x, -x)
+
+
 def softabs(x):
     """|x| offset away from zero, for cores singular at 0."""
     eps = torch.finfo(x.dtype if x.is_floating_point()
                       else torch.get_default_dtype()).eps
-    return x.abs() + eps
+    return _abs(x) + eps
 
 
 class CrossStationaryKernel(_core.CrossKernel):
@@ -34,7 +41,7 @@ class CrossStationaryKernel(_core.CrossKernel):
         elif input == 'signed':
             dist = lambda x, y: x - y
         elif input == 'abs':
-            dist = lambda x, y: (x - y).abs()
+            dist = lambda x, y: _abs(x - y)
         else:
             raise KeyError(input)
 

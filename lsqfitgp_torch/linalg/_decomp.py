@@ -877,11 +877,9 @@ def _on(post, like):
 
 
 def _k0(profile, post, like):
-    """The kernel's value at zero distance, post(g(0))."""
-    v = ops._gram._profile(profile).value(like.new_zeros(()))
-    for op, c in post:
-        v = v * c if op == 'mul' else v + c
-    return v
+    """The kernel's value at zero distance (for a term sum Σ c_t g_t(0)
+    plus its constant), differentiable in the profile's numbers."""
+    return ops.k0(profile, post, like)
 
 
 def _stream_probe_resid(tree, profile, post, Xp, n, eps, block):
@@ -991,8 +989,9 @@ def chol_nll_stream(profile, x, y, *, post=(), epsabs=None, block=512,
     floats); the solve runs on the tree and the log-determinant comes
     from its leaves.  Value only: the gradient is `chol_nll_stream_grad`.
 
-    ``profile`` is a registered profile (`ops.PROFILES`) and ``post`` its
-    chain of ('mul' | 'add', scalar) steps.  ``epsabs`` (default 0) is
+    ``profile`` is a profile as `ops.gram` takes it (a registered name, a
+    `ops.Term` or a `ops.Terms` sum) and ``post`` a chain of ('mul' |
+    'add', scalar) steps after it.  ``epsabs`` (default 0) is
     added to the 'auto' diagonal anchor ``4 eps k(0)``; it may be a
     per-point noise-variance vector.  There is no eps ladder: an
     infeasible model warns (eagerly) instead of failing silently.
@@ -1067,12 +1066,11 @@ class _StreamNLL(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, meta, Xp, y, eps, lenscale, *pvec):
-        profile, ops_, block, b1, precision, gradblock = meta
+        st, block, b1, precision, gradblock = meta
         n = y.shape[0]
-        post = tuple(zip(ops_, pvec))
         tree, dinvs, _, _ = _stream_factor(
-            Xp / lenscale, n, profile, post, eps, block, b1, precision,
-            'chol_nll_stream_grad')
+            Xp / lenscale, n, ops._gram._rebuild(st, pvec), (), eps, block,
+            b1, precision, 'chol_nll_stream_grad')
         nll, _ = _stream_nll_value(tree, dinvs, y, Xp.shape[0], block)
         ctx.meta = meta
         ctx.tree = tree, dinvs
@@ -1089,7 +1087,7 @@ class _StreamNLL(torch.autograd.Function):
                 'the streaming likelihood is differentiable once: a '
                 'backward with create_graph (a Hessian) is not implemented; '
                 "use covariance='minhess' or the dense solver")
-        profile, ops_, block, b1, precision, gradblock = ctx.meta
+        st, block, b1, precision, gradblock = ctx.meta
         Xp, y, eps, lenscale, *pvec = ctx.saved_tensors
         need_y, need_eps, need_ls, *need_p = ctx.needs_input_grad[2:]
         n = y.shape[0]
@@ -1108,7 +1106,7 @@ class _StreamNLL(torch.autograd.Function):
         ls = lenscale.detach().to(wide).requires_grad_(need_ls)
         pv = [p.detach().to(wide).requires_grad_(q)
               for p, q in zip(pvec, need_p)]
-        post = tuple(zip(ops_, pv))
+        profile, post = ops._gram._rebuild(st, pv), ()
         leaves = [t for t in (ls, *pv) if t.requires_grad]
         grads = [torch.zeros((), dtype=wide, device=y.device) for _ in leaves]
         cdiag = torch.zeros(n, dtype=wide, device=y.device)
@@ -1169,8 +1167,10 @@ def chol_nll_stream_grad(profile, x, y, *, post=(), lenscale=None,
                          epsabs=1e-4, exact=True, block=512, b1=128,
                          gradblock=None, precision='high'):
     """The streaming NLL of `chol_nll_stream`, differentiable: the exact
-    hand-derived gradient (`_StreamNLL`) with respect to the post-chain
-    scalars ``post``, the isotropic input length scale ``lenscale``
+    hand-derived gradient (`_StreamNLL`) with respect to the profile's
+    numbers (its arguments, term scales and post chains, and ``post``;
+    the θ-dependence of the diagonal anchor 4 eps k(0) included), the
+    isotropic input length scale ``lenscale``
     (applied as x / lenscale; the coordinates themselves carry no
     gradient), the nugget ``epsabs`` (a scalar, or a per-point variance
     vector with per-element gradients) and ``y``.  K⁻¹ is produced in
@@ -1179,20 +1179,22 @@ def chol_nll_stream_grad(profile, x, y, *, post=(), lenscale=None,
     nothing n × n is formed.
 
     ``exact=False`` (the JAX package's Hutchinson estimate) is not in
-    lsqfitgp_torch yet (ROADMAP.md, queue 1, item 8).
+    lsqfitgp_torch yet (ROADMAP.md, queue 1, item 2).
     """
     if not exact:
         raise NotImplementedError(
             'chol_nll_stream_grad(exact=False), the Hutchinson estimate, '
-            'is not in lsqfitgp_torch yet (ROADMAP.md, queue 1, item 8)')
+            'is not in lsqfitgp_torch yet (ROADMAP.md, queue 1, item 2)')
     _, Xp, _ = _stream_points(x, block)
     y = _torchutil.asarray(y, dtype=Xp.dtype, device=Xp.device)
-    post = _on(post, Xp)
+    desc = ops._gram._desc(profile, post)
+    pvec = [torch.as_tensor(v, dtype=Xp.dtype, device=Xp.device).reshape(())
+            for v in ops._gram._flat(desc)]
     ls = torch.as_tensor(1.0 if lenscale is None else lenscale,
                          dtype=Xp.dtype, device=Xp.device).reshape(())
     ep = torch.as_tensor(epsabs, dtype=Xp.dtype, device=Xp.device)
     if gradblock is None:
         gradblock = 4 * int(block)
-    meta = (ops._gram._profile(profile), tuple(op for op, _ in post),
-            int(block), int(b1), precision, int(gradblock))
-    return _StreamNLL.apply(meta, Xp, y, ep, ls, *(v for _, v in post))
+    meta = (ops._gram._struct(desc), int(block), int(b1), precision,
+            int(gradblock))
+    return _StreamNLL.apply(meta, Xp, y, ep, ls, *pvec)

@@ -36,19 +36,21 @@ _FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
-_U32 = ctypes.c_uint
+_U64 = ctypes.c_ulonglong
 
 _BOTH = ('_f32', '_f64')
 _F32, _F64 = ('_f32',), ('_f64',)
 
 _SCHUR = [_P, _I64, _I64, _P, _P, _I64, _P, _I64, _P, _I64, _I64]
-_SCHUR_GRAM = [_P, _I32, _P, _I32, _U32, _I32, _I32, _I64, _I64, _P, _I64,
-               _P, _I64, _I64]
+_SCHUR_GRAM = [_P, _I32, _P, _I32, _U64, _I32, _I64, _I64, _P, _I64, _P,
+               _I64, _I64]
 
 # C signatures and the dtype suffixes each entry point has: the SIMT
 # kernels of syrk.cu (float32), the TF32 tensor-core kernels of
 # schur_tc.cu (float32, with a pass count) and the FP64 tensor-core
-# kernels of dmma.cu (float64)
+# kernels of dmma.cu (float64).  The Gram kernels take the parameter
+# vector, the term count, the terms' codes and the evaluator
+# (csrc/profiles.cuh).
 _SIGNATURES = {
     'lsq_schur_update': ([*_SCHUR, _P], _F32),
     'lsq_schur_update_tc': ([*_SCHUR, _I32, _P], _F32),
@@ -58,22 +60,23 @@ _SIGNATURES = {
     'lsq_schur_gram_dmma': ([*_SCHUR_GRAM, _P], _F64),
     'lsq_syrk_t': ([_P, _I64, _I64, _P, _P], _F32),
     'lsq_syrk_t_dmma': ([_P, _I64, _I64, _P, _P, _P], _F64),
-    'lsq_gram': ([_P, _P, _I64, _I64, _I32, _P, _I32, _U32, _I32, _I32, _P,
+    'lsq_gram': ([_P, _P, _I64, _I64, _I32, _P, _I32, _U64, _I32, _I32, _P,
                   _P], _BOTH),
-    'lsq_gram_sym': ([_P, _I64, _I32, _P, _I32, _U32, _I32, _I32, _P, _P],
+    'lsq_gram_sym': ([_P, _I64, _I32, _P, _I32, _U64, _I32, _I32, _P, _P],
                      _BOTH),
-    'lsq_gram_bwd': ([_P, _P, _P, _I64, _I64, _I32, _P, _I32, _U32, _I32,
+    'lsq_gram_bwd': ([_P, _P, _P, _I64, _I64, _I32, _P, _I32, _U64, _I32,
                       _I32, _I32, _I32, _I32, _P, _P, _P, _P], _BOTH),
-    'lsq_gram_sym_bwd': ([_P, _P, _I64, _I32, _I32, _P, _I32, _U32, _I32,
+    'lsq_gram_sym_bwd': ([_P, _P, _I64, _I32, _I32, _P, _I32, _U64, _I32,
                           _I32, _I32, _I32, _I32, _P, _P, _P], _BOTH),
-    'lsq_gram_jvp': ([_P, _P, _P, _P, _I64, _I64, _I32, _P, _I32, _I32, _P,
-                      _P], _BOTH),
-    'lsq_gram_sym_jvp': ([_P, _P, _I64, _I32, _P, _I32, _I32, _P, _P],
-                         _BOTH),
+    'lsq_gram_jvp': ([_P, _P, _P, _P, _I64, _I64, _I32, _P, _P, _I32, _U64,
+                      _I32, _I32, _P, _P], _BOTH),
+    'lsq_gram_sym_jvp': ([_P, _P, _I64, _I32, _P, _P, _I32, _U64, _I32,
+                          _I32, _P, _P], _BOTH),
     'lsq_gram_bwd_jvp': ([_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P,
-                          _I32, _I32, _I32, _I32, _P, _P, _P, _P], _BOTH),
-    'lsq_gram_sym_bwd_jvp': ([_P, _P, _P, _I64, _I32, _I32, _P, _I32, _I32,
-                              _I32, _I32, _P, _P, _P], _BOTH),
+                          _P, _U64, _I32, _I32, _I32, _I32, _P, _P, _P, _P],
+                         _BOTH),
+    'lsq_gram_sym_bwd_jvp': ([_P, _P, _P, _I64, _I32, _I32, _P, _P, _U64,
+                              _I32, _I32, _I32, _I32, _P, _P, _P], _BOTH),
 }
 
 _state = {}

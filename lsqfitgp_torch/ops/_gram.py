@@ -4,7 +4,7 @@ and their fused backward passes.
 Counterpart of ``lsqfitgp_tpu/ops/_gram.py`` (``gram``, ``gram_sym``).
 The Gram
 
-    K[i, j] = post(g(‖x_i − y_j‖²)) (+ noise if i == j)
+    K[i, j] = k(‖x_i − y_j‖²) (+ noise if i == j)
 
 is evaluated by the hand-written CUDA kernels of ``csrc/gram.cu`` for
 CUDA tensors and by their plain PyTorch versions, `gram_plain` and
@@ -17,52 +17,74 @@ each thread writes 16 bytes of a row at once, and the ragged edge is
 masked instead of padding the points.  Both evaluate an entry by the
 same expression, so they write identical matrices.
 
-A Pallas kernel traces any profile callable; a CUDA kernel cannot, so
-the profile ``g`` is chosen from a registry, `PROFILES`, whose ids match
-the device code (``csrc/profiles.cuh``).  ``post`` is the spec's chain
-of scalar ``('mul', a)`` / ``('add', c)`` steps (``amp * k``,
-``k + c``), applied in the kernel's epilogue from a parameter vector
-that stays on the device.
+The profile.  A Pallas kernel traces any profile callable; a CUDA
+kernel cannot, so a profile is chosen from a registry, `PROFILES`,
+whose ids match the device code (``csrc/profiles.cuh``), and the
+kernels evaluate a description of the JAX package's
+``kernelalg/_fastgram.py::build_profile`` profiles: a `Term` (a
+registered core, its distance mode 'squared', 'abs' (√r² clamped at
+tiny) or 'posabs' (√(r² + eps²)), its static integer, its arguments,
+an optional scale applied to r² and its post chain of scalar ``('mul',
+a)`` / ``('add', c)`` steps), or a `Terms` sum of such terms (up to
+`MAXTERMS` in all) with a post chain of its own.  A profile given by
+name is one 'squared' term without arguments.  The numbers (arguments,
+scales, chains, the nugget) are the parameter vector of the public
+functions, in the order of `_flat`; `_fold` maps it, differentiably,
+to the kernels' folded vector (``csrc/profiles.cuh``: the constant b,
+the diagonal term, and per term its coefficient c, r² factor w and two
+arguments), which stays on the device, so every number of the
+description is differentiable.
 
 Differentiation replaces the JAX ``_gram_d_jvp`` (and
-``_gram_sym_d_jvp``) rules with `torch.autograd.Function`s whose
-backward, `gram_backward` (`gram_sym_backward`), is one more kernel of
-``csrc/gram.cu`` on CUDA tensors: it reads the output gradient ``G``
-once, recomputes g and g' per entry, and sums what the gradients need,
-with ``Wr = post'(g'(r²))`` (zero at r² = 0) and ``C = G ∘ Wr``:
-``dX = 2 Σ_j C_ij (x_i − y_j)``, ``dY = −2 Σ_i C_ij (x_i − y_j)``, and
-the sums of ``G``, ``G ∘ g`` and G's trace, from which `_param_grads`
-forms the post chain's and the nugget's gradients.  Each kernel block
-writes its partial sums to its own slots of a small scratch buffer,
-summed here over the slots: no atomics, so the gradient is the same to
-the bit from run to run, and no n × m buffer.  The symmetric version
-contracts ``G + Gᵀ`` (both of K's arguments are x) and reads the
-mirrored tiles of ``G`` in the same pass.  The plain versions,
-`gram_backward_plain` and `gram_sym_backward_plain`, evaluate ``Wr``
-and ``g`` as whole matrices and contract them in plain torch; CPU
-tensors take them.
+``_gram_sym_d_jvp``) rules with `torch.autograd.Function`s of the
+points and the folded vector, whose backward, `gram_backward`
+(`gram_sym_backward`), is one more kernel of ``csrc/gram.cu`` on CUDA
+tensors: it reads the output gradient ``G`` once, recomputes each
+entry's profile and its r²-derivative, and sums what the gradients
+need, with ``Wr = dK/dr²`` (zero at r² = 0) and ``C = G ∘ Wr``: ``dX =
+2 Σ_j C_ij (x_i − y_j)``, ``dY = −2 Σ_i C_ij (x_i − y_j)``, and the
+gradient of ⟨G, K⟩ with respect to the folded vector: the sum of G, its
+trace, and per term the sums of G times K's partial derivatives in c,
+w and the two arguments (the JAX rule's ``_elemgrad_pk``), from which
+autograd forms the gradient of every number of the description.  Each
+kernel block writes its partial sums to its own slots of a small
+scratch buffer, summed here over the slots: no atomics, so the gradient
+is the same to the bit from run to run, and no n × m buffer.  The
+symmetric version contracts ``G + Gᵀ`` (both of K's arguments are x)
+and reads the mirrored tiles of ``G`` in the same pass.  The plain
+versions, `gram_backward_plain` and `gram_sym_backward_plain`, evaluate
+``Wr`` and the partial derivatives as whole matrices and contract them
+in plain torch; CPU tensors take them.
 
 Second-order and forward-mode derivatives run on four more kernels.
 Kernel C′ (`gram_jvp`, E′ `gram_sym_jvp`) is the forward direction of
 ``_gram_d_jvp``, fused into one pass: the tangent Gram
 
-    dK = α g'(r²) dr² + dα g + dβ (+ dnoise·I),  dr² = 2 (x_i − y_j)·(dx_i − dy_j),
+    dK = (dK/dr²) dr² + Σ_k (∂K/∂θ_k) dθ_k (+ dnoise·I),
+    dr² = 2 (x_i − y_j)·(dx_i − dy_j),
 
-with the weight zero at r² = 0, where post(g) = α g + β is the folded
-chain.  It is `_Gram.jvp` (torch forward AD) and, since the backward is
-linear in G with transpose J_K, the G-cotangent of the backward's own
-backward.  Kernel C″ (`gram_backward_jvp`, E″ `gram_sym_backward_jvp`)
-is the tangent of C's backward at a fixed G, the counterpart of JAX's
-second differentiation of the ``_elemgrad_*`` Pallas calls: with g, g'
-and g'' per entry it sums ``G ((dα g' + α g'' dr²)(x_i − y_j) + α g'
-(dx_i − dy_j))`` over rows and columns, and ``Σ G g' dr²``, into the
-backward's per-block slots (no atomics, the same bits in two calls).
-Under ``create_graph`` the Functions' backward is itself a Function
-(`_GramBackward`, `_GramSymBackward`) whose backward sends the
-cotangent of G through C′ (E′) and those of the points and α through
-C″ (E″): the backward's Hessian is symmetric, so its transpose is its
-tangent.  Without ``create_graph`` the first-order path is unchanged.
-A third derivative raises.
+with the weight of dr² zero at r² = 0, over every parameter θ_k of the
+folded vector.  It is `_Gram.jvp` (torch forward AD) and, since the
+backward is linear in G with transpose J_K, the G-cotangent of the
+backward's own backward.  Kernel C″ (`gram_backward_jvp`, E″
+`gram_sym_backward_jvp`) is the tangent of C's backward at a fixed G
+for a one-term description, the counterpart of JAX's second
+differentiation of the ``_elemgrad_*`` Pallas calls: with g, g' and g''
+per entry it sums ``G ((dα g' + α g'' dr²)(x_i − y_j) + α g' (dx_i −
+dy_j))`` over rows and columns, and ``Σ G g' dr²``, into the backward's
+per-block slots (no atomics, the same bits in two calls), α the term's
+coefficient.  Under ``create_graph`` the Functions' backward is itself
+a Function (`_GramBackward`, `_GramSymBackward`) whose backward sends
+the cotangent of G through C′ (E′) and those of the points and α
+through C″ (E″): the backward's Hessian is symmetric, so its transpose
+is its tangent.  That route needs a single term whose scale and
+arguments carry no gradient (the points and the chain's scalars do):
+the host decides it from the description (`_fast_second`).  Any other
+description (a term sum, a dynamic argument or scale) takes its second
+derivatives on the host from the plain backward, differentiated by
+autograd: C″ and E″ have no mixed derivatives in the profile's
+parameters.  Without ``create_graph`` the first-order path is
+unchanged.  A third derivative raises.
 """
 
 from __future__ import annotations
@@ -79,24 +101,374 @@ __all__ = ['gram', 'gram_plain', 'gram_sym', 'gram_sym_plain',
            'gram_sym_backward_plain', 'gram_jvp', 'gram_jvp_plain',
            'gram_sym_jvp', 'gram_sym_jvp_plain', 'gram_backward_jvp',
            'gram_backward_jvp_plain', 'gram_sym_backward_jvp',
-           'gram_sym_backward_jvp_plain', 'Profile', 'PROFILES']
+           'gram_sym_backward_jvp_plain', 'Profile', 'PROFILES', 'Term',
+           'Terms', 'MAXTERMS', 'MATERNP_MAX', 'k0', 'map_scalars']
 
-Profile = collections.namedtuple('Profile', ['name', 'id', 'value',
-                                             'deriv', 'deriv2'])
-Profile.__doc__ = """A registered isotropic profile: ``id`` is its
-number in ``csrc/profiles.cuh`` (PROFILE_*), ``value``, ``deriv`` and
-``deriv2`` are the plain torch ``g(r²)``, ``g'(r²)`` and ``g''(r²)``."""
+# the device code's limits (csrc/profiles.cuh): terms of a sum, and the
+# largest Maternp order of its coefficient table
+MAXTERMS, MATERNP_MAX = 4, 16
+
+Profile = collections.namedtuple('Profile', ['name', 'id', 'value', 'deriv',
+                                             'deriv2', 'dargs'])
+Profile.__doc__ = """A registered profile: ``id`` is its number in
+``csrc/profiles.cuh`` (PROFILE_*); ``value``, ``deriv`` and ``deriv2``
+are the plain torch core g(t), g'(t) and g''(t) of its own argument t,
+``dargs`` its derivatives in its two arguments ``(∂g/∂a, ∂g/∂b)``
+(None where it takes none), each a function ``f(t, k, a, b)`` with k
+the static integer (Maternp's p) and a, b 0-d tensors."""
+
+Term = collections.namedtuple(
+    'Term', ['profile', 'mode', 'k', 'args', 'scale', 'post'],
+    defaults=('squared', 0, (), None, ()))
+Term.__doc__ = """One profiled kernel: ``post(g(mode(r² / scale²)))``,
+``profile`` a `Profile` (or its name), ``mode`` 'squared', 'abs' or
+'posabs', ``k`` the static integer, ``args`` the core's arguments (up
+to 2 numbers or 0-d tensors), ``scale`` None or a scalar, ``post`` a
+chain of ('mul' | 'add', scalar) steps."""
+
+Terms = collections.namedtuple('Terms', ['terms', 'post'], defaults=((),))
+Terms.__doc__ = """A sum of `Term`s (or nested `Terms`) followed by the
+post chain ``post``."""
+
+_MODES = {'squared': 0, 'abs': 1, 'posabs': 2}
+_NPAR = 4   # folded parameters per term: c, w, a, b
+
+
+# -- the registered profiles, plain versions ------------------------------------
+
+def _tiny(t):
+    return torch.finfo(t.dtype).tiny
+
+
+def _exp_neg(t, k, a, b):
+    return torch.exp(-t)
+
+
+def _neg_exp_neg(t, k, a, b):
+    return -torch.exp(-t)
+
+
+def _mp(x2, p):
+    from ..special import kvmodx2_hi
+    return kvmodx2_hi(x2, p)
+
+
+def _maternp_value(t, k, a, b):
+    return _mp((2 * k + 1) * t, k)
+
+
+def _maternp_deriv(t, k, a, b):
+    s = 2 * k + 1
+    if k >= 1:
+        return -s * _mp(s * t, k - 1) / (2 * (2 * k - 1))
+    from ..special._bessel import _expon_deriv
+    return _expon_deriv(t)
+
+
+def _maternp_deriv2(t, k, a, b):
+    s = 2 * k + 1
+    x2 = s * t
+    if k >= 2:
+        return s * s * _mp(x2, k - 2) / (4 * (2 * k - 1) * (2 * k - 3))
+    xc = torch.sqrt(torch.clamp(x2, min=_tiny(x2)))
+    ec = torch.exp(-xc)
+    if k == 1:
+        return s * s * ec / (4 * xc)
+    return torch.where(x2 > _tiny(x2), ec * (xc + 1) / (4 * xc ** 3),
+                       torch.zeros_like(x2))
+
+
+def _gammaexp_parts(t, a):
+    """(γ == 2, g, s, log(t + tiny)) of GammaExp's non-smooth branch."""
+    tt = t + _tiny(t)
+    s = tt ** (a / 2)
+    return a == 2, torch.exp(-s), s, torch.log(tt)
+
+
+def _gammaexp_value(t, k, a, b):
+    is2, g, _, _ = _gammaexp_parts(t, a)
+    return torch.where(is2, torch.exp(-t), g)
+
+
+def _gammaexp_d1(t, a):
+    is2, g, s, _ = _gammaexp_parts(t, a)
+    return is2, torch.where(is2, -torch.exp(-t), -g * (a / 2) * s / (t + _tiny(t)))
+
+
+def _gammaexp_deriv(t, k, a, b):
+    return _gammaexp_d1(t, a)[1]
+
+
+def _gammaexp_deriv2(t, k, a, b):
+    is2, g1 = _gammaexp_d1(t, a)
+    _, _, s, _ = _gammaexp_parts(t, a)
+    h = a / 2
+    return torch.where(is2, torch.exp(-t),
+                       -g1 * (h * s - (h - 1)) / (t + _tiny(t)))
+
+
+def _gammaexp_dargs(t, k, a, b):
+    is2, g, s, ls = _gammaexp_parts(t, a)
+    return torch.where(is2, torch.zeros_like(t), -g * s * ls / 2), None
+
+
+def _cauchy_parts(t, a, b):
+    """(g, P, P_t, P_tt, P_a, B, log B) of the generalized Cauchy core,
+    P = r^α (r² at α == 2), B = 1 + P/β."""
+    is2 = a == 2
+    tt = t + _tiny(t)
+    h = a / 2
+    Pn = tt ** h
+    P = torch.where(is2, t, Pn)
+    Pt = torch.where(is2, torch.ones_like(t), h * Pn / tt)
+    Ptt = torch.where(is2, torch.zeros_like(t), (h - 1) * h * Pn / tt / tt)
+    Pa = torch.where(is2, torch.zeros_like(t), Pn * torch.log(tt) / 2)
+    B = 1 + P / b
+    return B ** (-b / a), P, Pt, Ptt, Pa, B, torch.log1p(P / b)
+
+
+def _cauchy_value(t, k, a, b):
+    return _cauchy_parts(t, a, b)[0]
+
+
+def _cauchy_deriv(t, k, a, b):
+    g, _, Pt, _, _, B, _ = _cauchy_parts(t, a, b)
+    return -g * Pt / (a * B)
+
+
+def _cauchy_deriv2(t, k, a, b):
+    g, _, Pt, Ptt, _, B, _ = _cauchy_parts(t, a, b)
+    g1 = -g * Pt / (a * B)
+    return -(g1 * Pt / B + g * Ptt / B - g * Pt * Pt / (b * B * B)) / a
+
+
+def _cauchy_dargs(t, k, a, b):
+    g, P, _, _, Pa, B, lB = _cauchy_parts(t, a, b)
+    return (g * (b / (a * a) * lB - Pa / (a * B)),
+            g * (P / (b * B) - lB) / a)
+
+
+def _cauchy2_value(t, k, a, b):
+    return (1 + t / a) ** (-a / 2)
+
+
+def _cauchy2_deriv(t, k, a, b):
+    return -0.5 * _cauchy2_value(t, k, a, b) / (1 + t / a)
+
+
+def _cauchy2_deriv2(t, k, a, b):
+    g = _cauchy2_value(t, k, a, b)
+    B = 1 + t / a
+    return -0.5 * (-0.5 * g / B / B - g / (a * B * B))
+
+
+def _cauchy2_dargs(t, k, a, b):
+    g = _cauchy2_value(t, k, a, b)
+    B = 1 + t / a
+    return 0.5 * g * (t / (a * B) - torch.log1p(t / a)), None
+
+
+def _expquad(c):
+    return lambda t, k, a, b: c * torch.exp(-0.5 * t)
+
 
 PROFILES = {
-    'expquad': Profile('expquad', 0, lambda r2: torch.exp(-0.5 * r2),
-                       lambda r2: -0.5 * torch.exp(-0.5 * r2),
-                       lambda r2: 0.25 * torch.exp(-0.5 * r2)),
+    'expquad': Profile('expquad', 0, _expquad(1.0), _expquad(-0.5),
+                       _expquad(0.25), None),
+    'maternp': Profile('maternp', 1, _maternp_value, _maternp_deriv,
+                       _maternp_deriv2, None),
+    'gammaexp': Profile('gammaexp', 2, _gammaexp_value, _gammaexp_deriv,
+                        _gammaexp_deriv2, _gammaexp_dargs),
+    'gammaexp2': Profile('gammaexp2', 3, _exp_neg, _neg_exp_neg, _exp_neg,
+                         None),
+    'cauchy': Profile('cauchy', 4, _cauchy_value, _cauchy_deriv,
+                      _cauchy_deriv2, _cauchy_dargs),
+    'cauchy2': Profile('cauchy2', 5, _cauchy2_value, _cauchy2_deriv,
+                       _cauchy2_deriv2, _cauchy2_dargs),
+    'expon': Profile('expon', 6, _exp_neg, _neg_exp_neg, _exp_neg, None),
 }
 
 # the backward kernels' tiling (csrc/gram.cu): the tile edge, the rows a
 # block of C's backward covers (TILE * CROWS) and the coordinates one
 # launch of E's backward, C″ or E″ takes at p > 1 (PCHUNK)
 _TILE, _BWD_ROWS, _PCHUNK = 64, 256, 4
+
+
+# -- descriptions and the parameter vector ------------------------------------
+
+# the structure of a description: per term (profile, mode, k, number of
+# arguments, whether it has a scale, its chain's steps), nested sums as
+# ('sum', children, steps); hashable, so it rides the Functions' meta
+_TermSt = collections.namedtuple('_TermSt', ['profile', 'mode', 'k', 'nargs',
+                                             'scaled', 'ops'])
+_SumSt = collections.namedtuple('_SumSt', ['terms', 'ops'])
+
+
+def _profile(profile):
+    return PROFILES[profile] if isinstance(profile, str) else profile
+
+
+def _desc(profile, post=()):
+    """The `Terms` of ``profile`` (a name, `Profile`, `Term` or `Terms`)
+    followed by the chain ``post``."""
+    post = tuple(post)
+    if isinstance(profile, Terms):
+        return profile._replace(post=tuple(profile.post) + post)
+    if isinstance(profile, Term):
+        return Terms((profile,), post)
+    return Terms((Term(_profile(profile)),), post)
+
+
+def _ops(post):
+    ops = tuple(op for op, _ in post)
+    for op in ops:
+        if op not in ('mul', 'add'):
+            raise ValueError(f'unknown post step {op!r}')
+    return ops
+
+
+def _struct(desc):
+    """The hashable structure of a description (the numbers apart)."""
+    if isinstance(desc, Terms):
+        return _SumSt(tuple(_struct(t) for t in desc.terms), _ops(desc.post))
+    prof = _profile(desc.profile)
+    if desc.mode not in _MODES:
+        raise ValueError(f'unknown distance mode {desc.mode!r}')
+    if len(desc.args) > 2:
+        raise ValueError('a profile takes at most 2 arguments')
+    return _TermSt(prof, desc.mode, int(desc.k), len(desc.args),
+                   desc.scale is not None, _ops(desc.post))
+
+
+def _flat(desc):
+    """The numbers of a description in the parameter vector's order: per
+    term its arguments, its scale, its chain; a sum's terms, then its
+    chain."""
+    if isinstance(desc, Terms):
+        out = [v for t in desc.terms for v in _flat(t)]
+    else:
+        out = list(desc.args)
+        if desc.scale is not None:
+            out.append(desc.scale)
+    return out + [v for _, v in desc.post]
+
+
+def _rebuild(st, vals):
+    """The description of structure ``st`` with the numbers ``vals`` (an
+    iterator, consumed in `_flat`'s order)."""
+    vals = iter(vals)
+
+    def build(s):
+        if isinstance(s, _SumSt):
+            terms = tuple(build(t) for t in s.terms)
+            return Terms(terms, tuple((op, next(vals)) for op in s.ops))
+        args = tuple(next(vals) for _ in range(s.nargs))
+        scale = next(vals) if s.scaled else None
+        return Term(s.profile, s.mode, s.k, args, scale,
+                    tuple((op, next(vals)) for op in s.ops))
+
+    return build(st)
+
+
+def map_scalars(desc, fn):
+    """The description with ``fn`` applied to each of its numbers."""
+    return _rebuild(_struct(desc), map(fn, _flat(desc)))
+
+
+def _leaves(st):
+    """The terms of a structure, depth first."""
+    if isinstance(st, _SumSt):
+        return [t for s in st.terms for t in _leaves(s)]
+    return [st]
+
+
+def _codes(st):
+    """(term count, packed codes, evaluator) for the kernels: term t's
+    code id | mode << 4 | k << 6 at bit 16 t; the evaluator 0 for a
+    single unscaled ExpQuad term (FixedExpQuad), 1 otherwise (Zoo)."""
+    terms = _leaves(st)
+    if not 1 <= len(terms) <= MAXTERMS:
+        raise ValueError(f'the kernels take 1 to {MAXTERMS} terms, not '
+                         f'{len(terms)}')
+    codes = 0
+    for t, s in enumerate(terms):
+        if not 0 <= s.k <= (MATERNP_MAX if s.profile.name == 'maternp'
+                            else 1023):
+            raise ValueError(f'static integer {s.k} out of the kernels\' '
+                             f'range for {s.profile.name}')
+        codes |= (s.profile.id | _MODES[s.mode] << 4 | s.k << 6) << (16 * t)
+    t0 = terms[0]
+    fixed = len(terms) == 1 and t0.profile.name == 'expquad' \
+        and t0.mode == 'squared' and not t0.scaled
+    return len(terms), codes, 0 if fixed else 1
+
+
+def _chain(ops, vals, one, zero):
+    """The chain folded to post(g) = α g + β: (α, β)."""
+    a, b = one, zero
+    for op, v in zip(ops, vals):
+        if op == 'mul':
+            a, b = a * v, b * v
+        else:
+            b = b + v
+    return a, b
+
+
+def _fold(st, pvec):
+    """The kernels' folded vector from the parameter vector ``pvec``
+    (`_flat`'s numbers then the nugget): [b, nugget, (c, w, a, b) per
+    term], differentiable in pvec."""
+    one, zero = pvec.new_ones(()), pvec.new_zeros(())
+    vals = iter(pvec.unbind())
+
+    def read(s):
+        """The numbers of ``s``, in `_flat`'s order."""
+        if isinstance(s, _SumSt):
+            return [read(t) for t in s.terms], [next(vals) for _ in s.ops]
+        args = [next(vals) for _ in range(s.nargs)]
+        scale = next(vals) if s.scaled else None
+        return args, scale, [next(vals) for _ in s.ops]
+
+    terms = []
+
+    def fold(s, nums, A):
+        """Append the terms of ``s`` under the outer coefficient A;
+        return its constant."""
+        if isinstance(s, _SumSt):
+            inner, chain = nums
+            a, b = _chain(s.ops, chain, one, zero)
+            const = zero
+            for t, n in zip(s.terms, inner):
+                const = const + fold(t, n, A * a)
+            return const + A * b
+        args, scale, chain = nums
+        a, b = _chain(s.ops, chain, one, zero)
+        w = one if scale is None else 1 / (scale * scale)
+        terms.extend([A * a, w, *args, *[zero] * (2 - len(args))])
+        return A * b
+
+    nums = read(st)
+    noise = next(vals)
+    const = fold(st, nums, one)
+    return torch.stack([const, noise, *terms])
+
+
+def _paramvec(vals, x):
+    return torch.stack([
+        torch.as_tensor(v, dtype=x.dtype, device=x.device).reshape(())
+        for v in vals])
+
+
+def _fast_second(desc, st):
+    """Whether C″ and E″ can take the second derivatives: one term whose
+    arguments and scale (the first numbers of `_flat`) carry no
+    gradient."""
+    terms = _leaves(st)
+    if len(terms) != 1:
+        return False
+    fixed = _flat(desc)[:terms[0].nargs + terms[0].scaled]
+    return not any(isinstance(v, torch.Tensor) and v.requires_grad
+                   for v in fixed)
 
 
 def _prep(x):
@@ -108,46 +480,21 @@ def _prep(x):
     return x.contiguous()
 
 
-def _profile(profile):
-    return PROFILES[profile] if isinstance(profile, str) else profile
-
-
-def _paramvec(post, noise, x):
-    vals = [v for _, v in post] + [0.0 if noise is None else noise]
-    return torch.stack([
-        torch.as_tensor(v, dtype=x.dtype, device=x.device).reshape(())
-        for v in vals])
-
-
-def _postadd(ops):
-    return sum(1 << k for k, op in enumerate(ops) if op == 'add')
-
-
-def _fold(ops, pvec, dpvec=None):
-    """The chain folded to post(g) = α g + β, and the tangents dα, dβ
-    along ``dpvec``: ``(α, β, dα, dβ)``, differentiable in pvec."""
-    zero = pvec.new_zeros(())
-    a, b, da, db = pvec.new_ones(()), zero, zero, zero
-    for k, op in enumerate(ops):
-        v = pvec[k]
-        dv = zero if dpvec is None else dpvec[k]
-        if op == 'mul':
-            da, db = da * v + a * dv, db * v + b * dv
-            a, b = a * v, b * v
-        else:
-            b, db = b + v, db + dv
-    return a, b, da, db
-
-
-def _coef(ops, pvec, dpvec, with_noise):
-    """The tangent kernels' coefficient vector [α, dα, dβ, dnoise]."""
-    a, _, da, db = _fold(ops, pvec, dpvec)
-    dn = dpvec[len(ops)] if with_noise else pvec.new_zeros(())
-    return torch.stack([a, da, db, dn])
-
-
 def _cdiv(a, b):
     return -(-a // b)
+
+
+def _profile_name(st):
+    """The terms' profile names joined by '+' (the launch tallies' key)."""
+    return '+'.join(s.profile.name for s in _leaves(st))
+
+
+def _count(fn, attr, st):
+    """One launch of ``fn``'s kernel: its count ``attr`` and its count for
+    the profile, ``fn.by_profile[attr, name]``, go up by one."""
+    setattr(fn, attr, getattr(fn, attr) + 1)
+    key = attr, _profile_name(st)
+    fn.by_profile[key] = fn.by_profile.get(key, 0) + 1
 
 
 # -- plain versions -----------------------------------------------------------
@@ -160,100 +507,141 @@ def _sqdist_plain(x, y):
     return r2
 
 
-def _eval_plain(profile, ops, x, y, pvec, with_noise):
-    v = profile.value(_sqdist_plain(x, y))
-    for k, op in enumerate(ops):
-        v = v * pvec[k] if op == 'mul' else v + pvec[k]
-    if with_noise:
-        v = v + pvec[len(ops)] * torch.eye(*v.shape, dtype=v.dtype,
-                                           device=v.device)
+_Eval = collections.namedtuple('_Eval', ['g', 'gu', 'guu', 'ga', 'gb'])
+
+
+def _term_eval(s, u, a, b, d1=False, d2=False, da=False):
+    """Term ``s`` at the scaled r² ``u``: g and, as asked, its first and
+    second u-derivatives (the mode's chain rule applied) and its
+    derivatives in the arguments."""
+    prof, k = s.profile, s.k
+    if s.mode == 'squared':
+        t, pos = u, None
+    elif s.mode == 'abs':
+        v = torch.clamp(u, min=_tiny(u))
+        t, pos = torch.sqrt(v), u > _tiny(u)
+    else:
+        eps = torch.finfo(u.dtype).eps
+        v = u + eps * eps
+        t, pos = torch.sqrt(v), None
+    g = prof.value(t, k, a, b)
+    g1 = prof.deriv(t, k, a, b) if d1 or d2 else None
+    g2 = prof.deriv2(t, k, a, b) if d2 else None
+    ga = gb = None
+    if da and prof.dargs is not None:
+        ga, gb = prof.dargs(t, k, a, b)
+    if s.mode != 'squared':
+        tu = 0.5 / t
+        if d2:
+            g2 = g2 * tu * tu - g1 * tu / (2 * v)
+        if d1 or d2:
+            g1 = g1 * tu
+        if pos is not None:
+            zero = torch.zeros_like(u)
+            g1 = None if g1 is None else torch.where(pos, g1, zero)
+            g2 = None if g2 is None else torch.where(pos, g2, zero)
+    return _Eval(g, g1, g2, ga, gb)
+
+
+def _terms_plain(st, fv, r2, **kw):
+    """[(c, w, _Eval)] of the terms at r²."""
+    out = []
+    for t, s in enumerate(_leaves(st)):
+        c, w, a, b = fv[2 + _NPAR * t:2 + _NPAR * (t + 1)].unbind()
+        out.append((c, w, _term_eval(s, r2 * w, a, b, **kw)))
+    return out
+
+
+def _value_r2(st, fv, r2):
+    """K without the diagonal term: b + Σ c g."""
+    v = fv[0]
+    for c, _, e in _terms_plain(st, fv, r2):
+        v = v + c * e.g
     return v
 
 
-def _deriv_plain(profile, ops, x, y, pvec):
-    """The r²-derivative weights ``Wr`` of K: g'(r²) times the chain's
-    'mul' steps, zero at r² <= 0 where the true tangent vanishes."""
-    r2 = _sqdist_plain(x, y)
-    v = profile.deriv(r2)
-    for k, op in enumerate(ops):
-        if op == 'mul':
-            v = v * pvec[k]
+def _dr2(st, fv, r2, evals=None):
+    """dK/dr² = Σ c w g_u."""
+    v = None
+    for c, w, e in evals or _terms_plain(st, fv, r2, d1=True):
+        t = c * w * e.gu
+        v = t if v is None else v + t
+    return v
+
+
+def _partials(st, fv, r2, evals=None):
+    """K's partial derivatives in the folded vector's entries from index
+    2 on, as matrices (None where zero): per term g, c r² g_u (zero at
+    r² <= 0), c ∂g/∂a, c ∂g/∂b."""
+    out = []
+    zero = r2.new_zeros(())
+    for c, _, e in evals or _terms_plain(st, fv, r2, d1=True, da=True):
+        out += [e.g, torch.where(r2 <= 0, zero, c * r2 * e.gu),
+                None if e.ga is None else c * e.ga,
+                None if e.gb is None else c * e.gb]
+    return out
+
+
+def _eval_plain(st, x, y, fv, with_noise):
+    v = _value_r2(st, fv, _sqdist_plain(x, y))
+    if with_noise:
+        v = v + fv[1] * torch.eye(*v.shape, dtype=v.dtype, device=v.device)
+    return v
+
+
+def _deriv_plain(st, x, y, fv, evals=None, r2=None):
+    """The r²-derivative weights ``Wr`` of K, zero at r² <= 0 where the
+    true tangent vanishes."""
+    r2 = _sqdist_plain(x, y) if r2 is None else r2
+    v = _dr2(st, fv, r2, evals)
     return torch.where(r2 <= 0, torch.zeros((), dtype=v.dtype,
                                             device=v.device), v)
 
 
-def _param_grads(sums, ops, pvec, with_noise):
-    """Gradient of <G, K> with respect to the post-chain scalars and the
-    nugget from ``sums`` = (Σ G, Σ G ∘ g, tr G).  Before step k the
-    chain's value is α_k g + β_k, and the steps after k scale by γ_k
-    (the product of their 'mul' scalars)."""
-    sum_g, sum_gk, trace = sums
-    one = torch.ones((), dtype=sum_g.dtype, device=sum_g.device)
-    zero = torch.zeros((), dtype=sum_g.dtype, device=sum_g.device)
-    gammas = [None] * len(ops)
-    acc = one
-    for k in reversed(range(len(ops))):
-        gammas[k] = acc
-        if ops[k] == 'mul':
-            acc = acc * pvec[k]
-    alpha, beta = one, zero
-    out = []
-    for k, op in enumerate(ops):
-        if op == 'mul':
-            out.append(gammas[k] * (alpha * sum_gk + beta * sum_g))
-            alpha = alpha * pvec[k]
-            beta = beta * pvec[k]
-        else:
-            out.append(gammas[k] * sum_g)
-            beta = beta + pvec[k]
-    out.append(trace if with_noise else zero)
+def _sums_plain(G, st, fv, r2, with_noise, evals=None):
+    """The gradient of ⟨G, K⟩ with respect to the folded vector."""
+    zero = G.new_zeros(())
+    out = [G.sum(), G.diagonal().sum() if with_noise else zero]
+    for m in _partials(st, fv, r2, evals):
+        out.append(zero if m is None else (G * m).sum())
     return torch.stack(out)
 
 
-def _sums_plain(G, profile, ops, x, y):
-    """(Σ G, Σ G ∘ g, tr G), the core g evaluated only when a 'mul' step
-    needs it."""
-    sum_gk = (G * profile.value(_sqdist_plain(x, y))).sum() \
-        if 'mul' in ops else G.new_zeros(())
-    return G.sum(), sum_gk, G.diagonal().sum()
+def _point_grads(C, x, y):
+    if x.shape[1] == 1:
+        C = C * (x - y.T)
+        return 2 * C.sum(1, keepdim=True), -2 * C.sum(0)[:, None]
+    return (2 * (C.sum(1, keepdim=True) * x - C @ y),
+            2 * (C.sum(0)[:, None] * y - C.T @ x))
 
 
-def _backward_plain(G, profile, ops, x, y, pvec, with_noise, need_xy,
-                    need_p):
-    """(gx, gy, sums): the points' gradients and (Σ G, Σ G ∘ g, tr G)."""
-    gx = gy = sums = None
+def _backward_plain(G, st, x, y, fv, with_noise, need_xy, need_p):
+    """(gx, gy, gfv): the points' gradients and the folded vector's, in
+    differentiable torch (the route of the second derivatives that C″
+    does not take)."""
+    r2 = _sqdist_plain(x, y)
+    evals = _terms_plain(st, fv, r2, d1=True, da=need_p)
+    gx = gy = gfv = None
     if need_xy:
-        C = G * _deriv_plain(profile, ops, x, y, pvec)
-        if x.shape[1] == 1:
-            C.mul_(x - y.T)
-            gx = 2 * C.sum(1, keepdim=True)
-            gy = -2 * C.sum(0)[:, None]
-        else:
-            gx = 2 * (C.sum(1, keepdim=True) * x - C @ y)
-            gy = 2 * (C.sum(0)[:, None] * y - C.T @ x)
-        del C   # n × m: not alive with the core below
+        gx, gy = _point_grads(G * _deriv_plain(st, x, y, fv, evals, r2), x,
+                              y)
     if need_p:
-        sums = torch.stack(_sums_plain(G, profile, ops, x, y))
-    return gx, gy, sums
+        gfv = _sums_plain(G, st, fv, r2, with_noise, evals)
+    return gx, gy, gfv
 
 
-def _sym_backward_plain(G, profile, ops, x, pvec, with_noise, need_x,
-                        need_p):
-    gx = sums = None
+def _sym_backward_plain(G, st, x, fv, with_noise, need_x, need_p):
+    r2 = _sqdist_plain(x, x)
+    evals = _terms_plain(st, fv, r2, d1=True, da=need_p)
+    gx = gfv = None
     if need_x:
         # both arguments of K are x: the y-gradient of C's backward
         # transposed lands on x too, so G enters symmetrized
-        C = G + G.T
-        C.mul_(_deriv_plain(profile, ops, x, x, pvec))
-        if x.shape[1] == 1:
-            C.mul_(x - x.T)
-            gx = 2 * C.sum(1, keepdim=True)
-        else:
-            gx = 2 * (C.sum(1, keepdim=True) * x - C @ x)
-        del C
+        gx = _point_grads((G + G.T) * _deriv_plain(st, x, x, fv, evals, r2),
+                          x, x)[0]
     if need_p:
-        sums = torch.stack(_sums_plain(G, profile, ops, x, x))
-    return gx, sums
+        gfv = _sums_plain(G, st, fv, r2, with_noise, evals)
+    return gx, gfv
 
 
 def _dsqdist_plain(x, y, dx, dy):
@@ -266,43 +654,68 @@ def _dsqdist_plain(x, y, dx, dy):
     return 2 * t
 
 
-def _tangent_plain(profile, x, y, dx, dy, coef, with_noise):
-    """C′: dK = α g'(r²) dr² (zero at r² <= 0) + dα g + dβ (+ dnoise
-    on the diagonal), coef = [α, dα, dβ, dnoise]."""
+def _tangent_plain(st, x, y, dx, dy, fv, dfv, with_noise):
+    """C′: dK = (dK/dr²) dr² (zero at r² <= 0) + Σ_k (∂K/∂θ_k) dθ_k (+
+    dnoise on the diagonal)."""
     r2 = _sqdist_plain(x, y)
-    w = torch.where(r2 <= 0, r2.new_zeros(()), coef[0] * profile.deriv(r2))
-    v = w * _dsqdist_plain(x, y, dx, dy) + coef[1] * profile.value(r2) \
-        + coef[2]
+    evals = _terms_plain(st, fv, r2, d1=True, da=True)
+    v = _deriv_plain(st, x, y, fv, evals, r2) * _dsqdist_plain(x, y, dx, dy) \
+        + dfv[0]
+    for k, m in enumerate(_partials(st, fv, r2, evals)):
+        if m is not None:
+            v = v + m * dfv[2 + k]
     if with_noise:
-        v = v + coef[3] * torch.eye(*v.shape, dtype=v.dtype, device=v.device)
+        v = v + dfv[1] * torch.eye(*v.shape, dtype=v.dtype, device=v.device)
     return v
 
 
-def _tangent_weights_plain(profile, x, y, dx, dy, alpha, dalpha):
+class _Single:
+    """The one term of a one-term description at its parameters, in r²:
+    g, dg/dr² and d²g/dr² (its coefficient apart), for C″ and E″."""
+
+    def __init__(self, st, fv):
+        (self.term,) = _leaves(st)
+        self.st, self.fv = st, fv
+        self.w, self.a, self.b = fv[3], fv[4], fv[5]
+
+    def _eval(self, r2, **kw):
+        return _term_eval(self.term, r2 * self.w, self.a, self.b, **kw)
+
+    def value(self, r2):
+        return self._eval(r2).g
+
+    def deriv(self, r2):
+        return self.w * self._eval(r2, d1=True).gu
+
+    def deriv2(self, r2):
+        return self.w * self.w * self._eval(r2, d2=True).guu
+
+
+def _tangent_weights_plain(one, x, y, dx, dy, alpha, dalpha):
     """(w1, w2, dr², r²): the weights of (x_i − y_j) and (dx_i − dy_j)
     in the tangent of the backward, zero at r² <= 0."""
     r2 = _sqdist_plain(x, y)
     dr2 = _dsqdist_plain(x, y, dx, dy)
     zero = r2.new_zeros(())
-    d1 = profile.deriv(r2)
+    d1 = one.deriv(r2)
     w1 = torch.where(r2 <= 0, zero,
-                     dalpha * d1 + alpha * profile.deriv2(r2) * dr2)
+                     dalpha * d1 + alpha * one.deriv2(r2) * dr2)
     w2 = torch.where(r2 <= 0, zero, alpha * d1)
     return w1, w2, dr2, r2
 
 
-def _tangent_scalars_plain(G, profile, r2, dr2):
+def _tangent_scalars_plain(G, one, r2, dr2):
     """(Σ G g' dr², Σ G, Σ G g), the scalar slots of C″ and E″."""
-    return torch.stack([(G * profile.deriv(r2) * dr2).sum(), G.sum(),
-                        (G * profile.value(r2)).sum()])
+    return torch.stack([(G * one.deriv(r2) * dr2).sum(), G.sum(),
+                        (G * one.value(r2)).sum()])
 
 
-def _bwd_tangent_plain(G, profile, x, y, dx, dy, coef, need_xy, need_s):
+def _bwd_tangent_plain(G, one, x, y, dx, dy, coef, need_xy, need_s):
     """C″: the tangent of C's backward at fixed G along (dx, dy, dα),
     coef = [α, dα]: (dgx, dgy, scalars) with scalars (Σ G g' dr², Σ G,
     Σ G g)."""
     gx = gy = sc = None
-    w1, w2, dr2, r2 = _tangent_weights_plain(profile, x, y, dx, dy, coef[0],
+    w1, w2, dr2, r2 = _tangent_weights_plain(one, x, y, dx, dy, coef[0],
                                              coef[1])
     if need_xy:
         w1 = G * w1
@@ -312,14 +725,14 @@ def _bwd_tangent_plain(G, profile, x, y, dx, dy, coef, need_xy, need_s):
         gy = 2 * (w1.sum(0)[:, None] * y - w1.T @ x
                   + w2.sum(0)[:, None] * dy - w2.T @ dx)
     if need_s:
-        sc = _tangent_scalars_plain(G, profile, r2, dr2)
+        sc = _tangent_scalars_plain(G, one, r2, dr2)
     return gx, gy, sc
 
 
-def _sym_bwd_tangent_plain(G, profile, x, dx, coef, need_x, need_s):
+def _sym_bwd_tangent_plain(G, one, x, dx, coef, need_x, need_s):
     """E″: C″ for y = x, dy = dx; G enters as G + Gᵀ."""
     gx = sc = None
-    w1, w2, dr2, r2 = _tangent_weights_plain(profile, x, x, dx, dx, coef[0],
+    w1, w2, dr2, r2 = _tangent_weights_plain(one, x, x, dx, dx, coef[0],
                                              coef[1])
     if need_x:
         S = G + G.T
@@ -328,7 +741,7 @@ def _sym_bwd_tangent_plain(G, profile, x, dx, coef, need_x, need_s):
         gx = 2 * (w1.sum(1, keepdim=True) * x - w1 @ x
                   + w2.sum(1, keepdim=True) * dx - w2 @ dx)
     if need_s:
-        sc = _tangent_scalars_plain(G, profile, r2, dr2)
+        sc = _tangent_scalars_plain(G, one, r2, dr2)
     return gx, sc
 
 
@@ -341,48 +754,65 @@ def _check_dtypes(*tensors):
     return _suffix(tensors[0].dtype)
 
 
-def _eval_cuda(profile, ops, x, y, pvec, with_noise):
-    suffix = _check_dtypes(x, y, pvec)
+def _nsums(ev):
+    """The scalar slots per block of the backwards: Σ G, tr G and the
+    evaluator's parameter sums (csrc/gram.cu ParSums)."""
+    return 3 if ev == 0 else 2 + _NPAR * MAXTERMS
+
+
+def _gfv(scal, fv):
+    """The folded vector's gradient from the blocks' slots."""
+    s = scal.sum(0)
+    out = fv.new_zeros(fv.shape)
+    n = min(s.shape[0], out.shape[0])
+    out[:n] = s[:n]
+    return out
+
+
+def _eval_cuda(st, x, y, fv, with_noise):
+    suffix = _check_dtypes(x, y, fv)
     n, p = x.shape
     m, py = y.shape
     if py != p:
         raise ValueError(f'x has {p} coordinates, y has {py}')
-    pvec = pvec.contiguous()
+    nterms, codes, ev = _codes(st)
+    fv = fv.contiguous()
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
     err = getattr(_build.lib(), 'lsq_gram' + suffix)(
-        _ptr(x), _ptr(y), n, m, p, _ptr(pvec), len(ops), _postadd(ops),
-        int(with_noise), profile.id, _ptr(out), _stream(x.device))
+        _ptr(x), _ptr(y), n, m, p, _ptr(fv), nterms, codes, int(with_noise),
+        ev, _ptr(out), _stream(x.device))
     _build.check(err, 'gram')
-    gram.launches += 1
+    _count(gram, 'launches', st)
     return out
 
 
-def _eval(profile, ops, x, y, pvec, with_noise):
-    if _device_kind(x, y, pvec) == 'cpu':
-        return _eval_plain(profile, ops, x, y, pvec, with_noise)
-    return _eval_cuda(profile, ops, x, y, pvec, with_noise)
+def _eval(st, x, y, fv, with_noise):
+    if _device_kind(x, y, fv) == 'cpu':
+        return _eval_plain(st, x, y, fv, with_noise)
+    return _eval_cuda(st, x, y, fv, with_noise)
 
 
-def _eval_sym_cuda(profile, ops, x, pvec, with_noise):
-    suffix = _check_dtypes(x, pvec)
+def _eval_sym_cuda(st, x, fv, with_noise):
+    suffix = _check_dtypes(x, fv)
     n, p = x.shape
-    pvec = pvec.contiguous()
+    nterms, codes, ev = _codes(st)
+    fv = fv.contiguous()
     out = torch.empty((n, n), dtype=x.dtype, device=x.device)
     err = getattr(_build.lib(), 'lsq_gram_sym' + suffix)(
-        _ptr(x), n, p, _ptr(pvec), len(ops), _postadd(ops), int(with_noise),
-        profile.id, _ptr(out), _stream(x.device))
+        _ptr(x), n, p, _ptr(fv), nterms, codes, int(with_noise), ev,
+        _ptr(out), _stream(x.device))
     _build.check(err, 'gram_sym')
-    gram_sym.launches += 1
+    _count(gram_sym, 'launches', st)
     return out
 
 
-def _eval_sym(profile, ops, x, pvec, with_noise):
+def _eval_sym(st, x, fv, with_noise):
     """K(x, x): kernel E for CUDA tensors; for CPU ones the plain full
     evaluation, which equals the mirrored upper triangle exactly (r² is
     computed symmetrically)."""
-    if _device_kind(x, pvec) == 'cpu':
-        return _eval_plain(profile, ops, x, x, pvec, with_noise)
-    return _eval_sym_cuda(profile, ops, x, pvec, with_noise)
+    if _device_kind(x, fv) == 'cpu':
+        return _eval_plain(st, x, x, fv, with_noise)
+    return _eval_sym_cuda(st, x, fv, with_noise)
 
 
 def _wide(G, ncols):
@@ -406,101 +836,82 @@ def _chunks(p, need_xy):
     return range(0, p, 1 if p == 1 else _PCHUNK) if need_xy else range(1)
 
 
-def _backward_cuda(G, profile, ops, x, y, pvec, with_noise, need_xy,
-                   need_p):
+def _backward_cuda(G, st, x, y, fv, with_noise, need_xy, need_p):
     if _transposed(G):
         # <G, K(x, y)> = <Gᵀ, K(y, x)>: the same sums and trace
-        gy, gx, sums = _backward_cuda(G.mT, profile, ops, y, x, pvec,
-                                      with_noise, need_xy, need_p)
-        return gx, gy, sums
+        gy, gx, gfv = _backward_cuda(G.mT, st, y, x, fv, with_noise,
+                                     need_xy, need_p)
+        return gx, gy, gfv
     G = G.contiguous()
-    suffix = _check_dtypes(G, x, y, pvec)
+    suffix = _check_dtypes(G, x, y, fv)
     n, p = x.shape
     m = y.shape[0]
     if G.shape != (n, m):
         raise ValueError(f'G has shape {tuple(G.shape)}, K {(n, m)}')
-    pvec = pvec.contiguous()
+    nterms, codes, ev = _codes(st)
+    fv = fv.contiguous()
     nbj, nbi = _cdiv(m, _TILE), _cdiv(n, _BWD_ROWS)
     # each block's partial sums: over its columns for its rows, over its
     # rows for its columns, and its scalars
     rowpart = x.new_empty((nbj, n, p)) if need_xy else None
     colpart = x.new_empty((nbi, m, p)) if need_xy else None
-    scal = x.new_empty((nbi * nbj, 3)) if need_p else None
+    scal = x.new_empty((nbi * nbj, _nsums(ev))) if need_p else None
     # one launch for all p: G is read once
     err = getattr(_build.lib(), 'lsq_gram_bwd' + suffix)(
-        _ptr(G), _ptr(x), _ptr(y), n, m, p, _ptr(pvec), len(ops),
-        _postadd(ops), int(with_noise), profile.id, int(need_xy),
-        int(need_p), _wide(G, m), _ptr(rowpart), _ptr(colpart), _ptr(scal),
-        _stream(x.device))
+        _ptr(G), _ptr(x), _ptr(y), n, m, p, _ptr(fv), nterms, codes,
+        int(with_noise), ev, int(need_xy), int(need_p), _wide(G, m),
+        _ptr(rowpart), _ptr(colpart), _ptr(scal), _stream(x.device))
     _build.check(err, 'gram backward')
-    gram.launches_bwd += 1
+    _count(gram, 'launches_bwd', st)
     gx = gy = None
     if need_xy:
         gx = 2 * rowpart.sum(0)
         gy = -2 * colpart.sum(0)
-    return gx, gy, scal.sum(0) if need_p else None
+    return gx, gy, _gfv(scal, fv) if need_p else None
 
 
-def _sym_backward_cuda(G, profile, ops, x, pvec, with_noise, need_x,
-                       need_p):
+def _sym_backward_cuda(G, st, x, fv, with_noise, need_x, need_p):
     # K(x, x) is symmetric: Gᵀ gives the same gradients
     G = G.mT if _transposed(G) else G.contiguous()
-    suffix = _check_dtypes(G, x, pvec)
+    suffix = _check_dtypes(G, x, fv)
     n, p = x.shape
     if G.shape != (n, n):
         raise ValueError(f'G has shape {tuple(G.shape)}, K {(n, n)}')
-    pvec = pvec.contiguous()
+    nterms, codes, ev = _codes(st)
+    fv = fv.contiguous()
     nt = _cdiv(n, _TILE)
     # rows of tile I: one slot per other tile J (the pair (I, J) or
     # (J, I) writes it); the scalars per upper tile pair
     part = x.new_empty((nt, n, p)) if need_x else None
-    scal = x.new_empty((nt * (nt + 1) // 2, 3)) if need_p else None
+    scal = x.new_empty((nt * (nt + 1) // 2, _nsums(ev))) if need_p else None
     fn = getattr(_build.lib(), 'lsq_gram_sym_bwd' + suffix)
     for d0 in _chunks(p, need_x):
-        err = fn(_ptr(G), _ptr(x), n, p, d0, _ptr(pvec), len(ops),
-                 _postadd(ops), int(with_noise), profile.id, int(need_x),
-                 int(need_p and d0 == 0), _wide(G, n), _ptr(part),
-                 _ptr(scal), _stream(x.device))
+        err = fn(_ptr(G), _ptr(x), n, p, d0, _ptr(fv), nterms, codes,
+                 int(with_noise), ev, int(need_x), int(need_p and d0 == 0),
+                 _wide(G, n), _ptr(part), _ptr(scal), _stream(x.device))
         _build.check(err, 'gram_sym backward')
-        gram_sym.launches_bwd += 1
+        _count(gram_sym, 'launches_bwd', st)
     gx = 2 * part.sum(0) if need_x else None
-    return gx, scal.sum(0) if need_p else None
+    return gx, _gfv(scal, fv) if need_p else None
 
 
-def _backward_sums(G, profile, ops, x, y, pvec, with_noise, need_xy,
-                   need_p):
-    """(gx, gy, sums): C's backward, with (Σ G, Σ G ∘ g, tr G) for the
-    parameters' gradients."""
-    fn = _backward_plain if _device_kind(G, x, y, pvec) == 'cpu' \
+def _backward(G, st, x, y, fv, with_noise, need_xy, need_p):
+    """(gx, gy, gfv): C's backward, the folded vector's gradient gfv."""
+    fn = _backward_plain if _device_kind(G, x, y, fv) == 'cpu' \
         else _backward_cuda
-    return fn(G, profile, ops, x, y, pvec, with_noise, need_xy, need_p)
+    return fn(G, st, x, y, fv, with_noise, need_xy, need_p)
 
 
-def _sym_backward_sums(G, profile, ops, x, pvec, with_noise, need_x,
-                       need_p):
-    fn = _sym_backward_plain if _device_kind(G, x, pvec) == 'cpu' \
+def _sym_backward(G, st, x, fv, with_noise, need_x, need_p):
+    fn = _sym_backward_plain if _device_kind(G, x, fv) == 'cpu' \
         else _sym_backward_cuda
-    return fn(G, profile, ops, x, pvec, with_noise, need_x, need_p)
-
-
-def _backward(G, profile, ops, x, y, pvec, with_noise, need_xy, need_p):
-    gx, gy, sums = _backward_sums(G, profile, ops, x, y, pvec, with_noise,
-                                  need_xy, need_p)
-    gp = _param_grads(sums, ops, pvec, with_noise) if need_p else None
-    return gx, gy, gp
-
-
-def _sym_backward(G, profile, ops, x, pvec, with_noise, need_x, need_p):
-    gx, sums = _sym_backward_sums(G, profile, ops, x, pvec, with_noise,
-                                  need_x, need_p)
-    gp = _param_grads(sums, ops, pvec, with_noise) if need_p else None
-    return gx, gp
+    return fn(G, st, x, fv, with_noise, need_x, need_p)
 
 
 # -- the tangent kernels (C′, C″, E′, E″) ----------------------------------------
 
-def _tangent_cuda(profile, x, y, dx, dy, coef, with_noise):
-    suffix = _check_dtypes(x, y, dx, dy, coef)
+def _tangent_cuda(st, x, y, dx, dy, fv, dfv, with_noise):
+    suffix = _check_dtypes(x, y, dx, dy, fv, dfv)
     n, p = x.shape
     m = y.shape[0]
     if y.shape[1] != p or dx.shape != x.shape or dy.shape != y.shape:
@@ -508,44 +919,49 @@ def _tangent_cuda(profile, x, y, dx, dy, coef, with_noise):
                          f'(n, p), (m, p): {tuple(x.shape)}, '
                          f'{tuple(y.shape)}, {tuple(dx.shape)}, '
                          f'{tuple(dy.shape)}')
-    dx, dy, coef = dx.contiguous(), dy.contiguous(), coef.contiguous()
+    nterms, codes, ev = _codes(st)
+    dx, dy = dx.contiguous(), dy.contiguous()
+    fv, dfv = fv.contiguous(), dfv.contiguous()
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
     err = getattr(_build.lib(), 'lsq_gram_jvp' + suffix)(
-        _ptr(x), _ptr(y), _ptr(dx), _ptr(dy), n, m, p, _ptr(coef),
-        int(with_noise), profile.id, _ptr(out), _stream(x.device))
+        _ptr(x), _ptr(y), _ptr(dx), _ptr(dy), n, m, p, _ptr(fv), _ptr(dfv),
+        nterms, codes, int(with_noise), ev, _ptr(out), _stream(x.device))
     _build.check(err, 'gram tangent')
-    gram.launches_jvp += 1
+    _count(gram, 'launches_jvp', st)
     return out
 
 
-def _sym_tangent_cuda(profile, x, dx, coef, with_noise):
-    suffix = _check_dtypes(x, dx, coef)
+def _sym_tangent_cuda(st, x, dx, fv, dfv, with_noise):
+    suffix = _check_dtypes(x, dx, fv, dfv)
     n, p = x.shape
     if dx.shape != x.shape:
         raise ValueError(f'dx has shape {tuple(dx.shape)}, x '
                          f'{tuple(x.shape)}')
-    dx, coef = dx.contiguous(), coef.contiguous()
+    nterms, codes, ev = _codes(st)
+    dx, fv, dfv = dx.contiguous(), fv.contiguous(), dfv.contiguous()
     out = torch.empty((n, n), dtype=x.dtype, device=x.device)
     err = getattr(_build.lib(), 'lsq_gram_sym_jvp' + suffix)(
-        _ptr(x), _ptr(dx), n, p, _ptr(coef), int(with_noise), profile.id,
-        _ptr(out), _stream(x.device))
+        _ptr(x), _ptr(dx), n, p, _ptr(fv), _ptr(dfv), nterms, codes,
+        int(with_noise), ev, _ptr(out), _stream(x.device))
     _build.check(err, 'gram_sym tangent')
-    gram_sym.launches_jvp += 1
+    _count(gram_sym, 'launches_jvp', st)
     return out
 
 
-def _bwd_tangent_cuda(G, profile, x, y, dx, dy, coef, need_xy, need_s):
+def _bwd_tangent_cuda(G, one, x, y, dx, dy, coef, need_xy, need_s):
     if _transposed(G):
-        gy, gx, sc = _bwd_tangent_cuda(G.mT, profile, y, x, dy, dx, coef,
+        gy, gx, sc = _bwd_tangent_cuda(G.mT, one, y, x, dy, dx, coef,
                                        need_xy, need_s)
         return gx, gy, sc
     G = G.contiguous()
-    suffix = _check_dtypes(G, x, y, dx, dy, coef)
+    suffix = _check_dtypes(G, x, y, dx, dy, coef, one.fv)
     n, p = x.shape
     m = y.shape[0]
     if G.shape != (n, m):
         raise ValueError(f'G has shape {tuple(G.shape)}, K {(n, m)}')
+    _, codes, ev = _codes(one.st)
     dx, dy, coef = dx.contiguous(), dy.contiguous(), coef.contiguous()
+    fv = one.fv.contiguous()
     nbj, nbi = _cdiv(m, _TILE), _cdiv(n, _BWD_ROWS)
     rowpart = x.new_empty((nbj, n, p)) if need_xy else None
     colpart = x.new_empty((nbi, m, p)) if need_xy else None
@@ -553,11 +969,11 @@ def _bwd_tangent_cuda(G, profile, x, y, dx, dy, coef, need_xy, need_s):
     fn = getattr(_build.lib(), 'lsq_gram_bwd_jvp' + suffix)
     for d0 in _chunks(p, need_xy):
         err = fn(_ptr(G), _ptr(x), _ptr(y), _ptr(dx), _ptr(dy), n, m, p, d0,
-                 _ptr(coef), profile.id, int(need_xy), int(need_s and d0 == 0),
-                 _wide(G, m), _ptr(rowpart), _ptr(colpart), _ptr(scal),
-                 _stream(x.device))
+                 _ptr(fv), _ptr(coef), codes, ev, int(need_xy),
+                 int(need_s and d0 == 0), _wide(G, m), _ptr(rowpart),
+                 _ptr(colpart), _ptr(scal), _stream(x.device))
         _build.check(err, 'gram backward tangent')
-        gram.launches_bwd_jvp += 1
+        _count(gram, 'launches_bwd_jvp', one.st)
     gx = gy = None
     if need_xy:
         gx = 2 * rowpart.sum(0)
@@ -565,51 +981,52 @@ def _bwd_tangent_cuda(G, profile, x, y, dx, dy, coef, need_xy, need_s):
     return gx, gy, scal.sum(0) if need_s else None
 
 
-def _sym_bwd_tangent_cuda(G, profile, x, dx, coef, need_x, need_s):
+def _sym_bwd_tangent_cuda(G, one, x, dx, coef, need_x, need_s):
     G = G.mT if _transposed(G) else G.contiguous()
-    suffix = _check_dtypes(G, x, dx, coef)
+    suffix = _check_dtypes(G, x, dx, coef, one.fv)
     n, p = x.shape
     if G.shape != (n, n):
         raise ValueError(f'G has shape {tuple(G.shape)}, K {(n, n)}')
-    dx, coef = dx.contiguous(), coef.contiguous()
+    _, codes, ev = _codes(one.st)
+    dx, coef, fv = dx.contiguous(), coef.contiguous(), one.fv.contiguous()
     nt = _cdiv(n, _TILE)
     part = x.new_empty((nt, n, p)) if need_x else None
     scal = x.new_empty((nt * (nt + 1) // 2, 3)) if need_s else None
     fn = getattr(_build.lib(), 'lsq_gram_sym_bwd_jvp' + suffix)
     for d0 in _chunks(p, need_x):
-        err = fn(_ptr(G), _ptr(x), _ptr(dx), n, p, d0, _ptr(coef),
-                 profile.id, int(need_x), int(need_s and d0 == 0),
+        err = fn(_ptr(G), _ptr(x), _ptr(dx), n, p, d0, _ptr(fv), _ptr(coef),
+                 codes, ev, int(need_x), int(need_s and d0 == 0),
                  _wide(G, n), _ptr(part), _ptr(scal), _stream(x.device))
         _build.check(err, 'gram_sym backward tangent')
-        gram_sym.launches_bwd_jvp += 1
+        _count(gram_sym, 'launches_bwd_jvp', one.st)
     gx = 2 * part.sum(0) if need_x else None
     return gx, scal.sum(0) if need_s else None
 
 
-def _tangent(profile, x, y, dx, dy, coef, with_noise):
-    fn = _tangent_plain if _device_kind(x, y, dx, dy, coef) == 'cpu' \
+def _tangent(st, x, y, dx, dy, fv, dfv, with_noise):
+    fn = _tangent_plain if _device_kind(x, y, dx, dy, fv) == 'cpu' \
         else _tangent_cuda
-    return fn(profile, x, y, dx, dy, coef, with_noise)
+    return fn(st, x, y, dx, dy, fv, dfv, with_noise)
 
 
-def _sym_tangent(profile, x, dx, coef, with_noise):
+def _sym_tangent(st, x, dx, fv, dfv, with_noise):
     """E′: the tangent of K(x, x); for CPU tensors the plain full
     evaluation, equal to the mirrored upper triangle."""
-    if _device_kind(x, dx, coef) == 'cpu':
-        return _tangent_plain(profile, x, x, dx, dx, coef, with_noise)
-    return _sym_tangent_cuda(profile, x, dx, coef, with_noise)
+    if _device_kind(x, dx, fv) == 'cpu':
+        return _tangent_plain(st, x, x, dx, dx, fv, dfv, with_noise)
+    return _sym_tangent_cuda(st, x, dx, fv, dfv, with_noise)
 
 
-def _bwd_tangent(G, profile, x, y, dx, dy, coef, need_xy, need_s):
+def _bwd_tangent(G, one, x, y, dx, dy, coef, need_xy, need_s):
     fn = _bwd_tangent_plain if _device_kind(G, x, y, dx, dy, coef) == 'cpu' \
         else _bwd_tangent_cuda
-    return fn(G, profile, x, y, dx, dy, coef, need_xy, need_s)
+    return fn(G, one, x, y, dx, dy, coef, need_xy, need_s)
 
 
-def _sym_bwd_tangent(G, profile, x, dx, coef, need_x, need_s):
+def _sym_bwd_tangent(G, one, x, dx, coef, need_x, need_s):
     fn = _sym_bwd_tangent_plain if _device_kind(G, x, dx, coef) == 'cpu' \
         else _sym_bwd_tangent_cuda
-    return fn(G, profile, x, dx, coef, need_x, need_s)
+    return fn(G, one, x, dx, coef, need_x, need_s)
 
 
 # -- differentiable wrappers --------------------------------------------------
@@ -625,189 +1042,210 @@ def _zeros_if_none(t, like):
 class _Gram(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, y, pvec, profile, ops, with_noise):
-        ctx.save_for_backward(x, y, pvec)
-        ctx.save_for_forward(x, y, pvec)
-        ctx.meta = profile, ops, with_noise
-        return _eval(profile, ops, x, y, pvec, with_noise)
+    def forward(ctx, x, y, fv, st, with_noise, fast2):
+        ctx.save_for_backward(x, y, fv)
+        ctx.save_for_forward(x, y, fv)
+        ctx.meta = st, with_noise, fast2
+        return _eval(st, x, y, fv, with_noise)
 
     @staticmethod
-    def jvp(ctx, dx, dy, dpvec, *_):
-        x, y, pvec = ctx.saved_tensors
-        profile, ops, with_noise = ctx.meta
-        coef = _coef(ops, pvec, _zeros_if_none(dpvec, pvec), with_noise)
-        return _tangent(profile, x, y, _zeros_if_none(dx, x),
-                        _zeros_if_none(dy, y), coef, with_noise)
+    def jvp(ctx, dx, dy, dfv, *_):
+        x, y, fv = ctx.saved_tensors
+        st, with_noise, _ = ctx.meta
+        return _tangent(st, x, y, _zeros_if_none(dx, x),
+                        _zeros_if_none(dy, y), fv, _zeros_if_none(dfv, fv),
+                        with_noise)
 
     @staticmethod
     def backward(ctx, G):
-        x, y, pvec = ctx.saved_tensors
-        profile, ops, with_noise = ctx.meta
+        x, y, fv = ctx.saved_tensors
+        st, with_noise, fast2 = ctx.meta
         need_x, need_y, need_p = ctx.needs_input_grad[:3]
         if not (need_x or need_y or need_p):
             return None, None, None, None, None, None
-        if torch.is_grad_enabled():
-            # create_graph: the backward as a Function of its own, with
-            # the parameters' gradients formed from its sums by
-            # differentiable torch
-            alpha = _fold(ops, pvec)[0]
-            gx, gy, sums = _GramBackward.apply(G, x, y, alpha, profile,
-                                               need_x or need_y, need_p)
-            gp = _param_grads(sums, ops, pvec, with_noise) if need_p \
-                else None
+        args = st, x, y, fv, with_noise, need_x or need_y, need_p
+        if not torch.is_grad_enabled():
+            gx, gy, gfv = _backward(G, *args)
+        elif fast2:
+            # create_graph: the backward as a Function of its own
+            gx, gy, gfv = _GramBackward.apply(G, *args)
         else:
-            gx, gy, gp = _backward(G, profile, ops, x, y, pvec, with_noise,
-                                   need_x or need_y, need_p)
-        return gx, gy, gp, None, None, None
+            # create_graph on a sum or with dynamic profile parameters:
+            # the plain backward, differentiated by autograd
+            gx, gy, gfv = _backward_plain(G, *args)
+        return gx, gy, gfv, None, None, None
 
 
 class _GramBackward(torch.autograd.Function):
-    """C's backward as a function of (G, x, y, α): (gx, gy, (Σ G, Σ G g,
-    tr G)).  Its backward is C′ for G (the backward is linear in G, with
-    transpose J_K) and C″ for x, y and α (the backward is a gradient, so
-    its Jacobian in them is a symmetric Hessian: the transpose is the
+    """C's backward as a function of (G, x, y, fv) for one term whose
+    w, a and b are constant: (gx, gy, gfv).  Its backward is C′ for G
+    (the backward is linear in G, with transpose J_K) and C″ for x, y
+    and the coefficient c = fv[2] (the backward is a gradient, so its
+    Jacobian in them is a symmetric Hessian: the transpose is the
     tangent)."""
 
     @staticmethod
-    def forward(ctx, G, x, y, alpha, profile, need_xy, need_s):
-        ctx.save_for_backward(G, x, y, alpha)
-        ctx.meta = profile, need_xy, need_s
+    def forward(ctx, G, st, x, y, fv, with_noise, need_xy, need_p):
+        ctx.save_for_backward(G, x, y, fv)
+        ctx.meta = st, with_noise, need_xy, need_p
         ctx.set_materialize_grads(False)
-        return _backward_sums(G, profile, ('mul',), x, y,
-                              torch.stack([alpha, alpha.new_zeros(())]),
-                              True, need_xy, need_s)
+        return _backward(G, st, x, y, fv, with_noise, need_xy, need_p)
 
     @staticmethod
-    def backward(ctx, ugx, ugy, us):
+    def backward(ctx, ugx, ugy, ugfv):
         if torch.is_grad_enabled():
             raise RuntimeError(_THIRD)
-        G, x, y, alpha = ctx.saved_tensors
-        profile, need_xy, need_s = ctx.meta
-        need_G, need_x, need_y, need_a = ctx.needs_input_grad[:4]
+        G, x, y, fv = ctx.saved_tensors
+        st, with_noise, _, _ = ctx.meta
+        need_G, _, need_x, need_y, need_f = ctx.needs_input_grad[:5]
         dx = _zeros_if_none(ugx, x)
         dy = _zeros_if_none(ugy, y)
-        u0, u1, u2 = _zeros_if_none(us, alpha.new_zeros(3)).unbind()
-        gG = gx = gy = ga = None
+        dfv = _zeros_if_none(ugfv, fv)
+        gG = gx = gy = gf = None
         if need_G:
-            coef = torch.stack([alpha, u1, u0, u2])
-            gG = _tangent(profile, x, y, dx, dy, coef, True)
-        if need_x or need_y or need_a:
-            gx, gy, sc = _bwd_tangent(G, profile, x, y, dx, dy,
-                                      torch.stack([alpha, u1]),
-                                      need_x or need_y, need_a)
-            ga = sc[0] if need_a else None
-        return gG, gx, gy, ga, None, None, None
+            gG = _tangent(st, x, y, dx, dy, fv, dfv, with_noise)
+        if need_x or need_y or need_f:
+            gx, gy, sc = _bwd_tangent(G, _Single(st, fv), x, y, dx, dy,
+                                      torch.stack([fv[2], dfv[2]]),
+                                      need_x or need_y, need_f)
+            if need_f:
+                gf = torch.zeros_like(fv)
+                gf[2] = sc[0]
+        return gG, None, gx, gy, gf, None, None, None
 
 
 class _GramSym(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, pvec, profile, ops, with_noise):
-        ctx.save_for_backward(x, pvec)
-        ctx.save_for_forward(x, pvec)
-        ctx.meta = profile, ops, with_noise
-        return _eval_sym(profile, ops, x, pvec, with_noise)
+    def forward(ctx, x, fv, st, with_noise, fast2):
+        ctx.save_for_backward(x, fv)
+        ctx.save_for_forward(x, fv)
+        ctx.meta = st, with_noise, fast2
+        return _eval_sym(st, x, fv, with_noise)
 
     @staticmethod
-    def jvp(ctx, dx, dpvec, *_):
-        x, pvec = ctx.saved_tensors
-        profile, ops, with_noise = ctx.meta
-        coef = _coef(ops, pvec, _zeros_if_none(dpvec, pvec), with_noise)
-        return _sym_tangent(profile, x, _zeros_if_none(dx, x), coef,
-                            with_noise)
+    def jvp(ctx, dx, dfv, *_):
+        x, fv = ctx.saved_tensors
+        st, with_noise, _ = ctx.meta
+        return _sym_tangent(st, x, _zeros_if_none(dx, x), fv,
+                            _zeros_if_none(dfv, fv), with_noise)
 
     @staticmethod
     def backward(ctx, G):
-        x, pvec = ctx.saved_tensors
-        profile, ops, with_noise = ctx.meta
+        x, fv = ctx.saved_tensors
+        st, with_noise, fast2 = ctx.meta
         need_x, need_p = ctx.needs_input_grad[:2]
         if not (need_x or need_p):
             return None, None, None, None, None
-        if torch.is_grad_enabled():
-            alpha = _fold(ops, pvec)[0]
-            gx, sums = _GramSymBackward.apply(G, x, alpha, profile, need_x,
-                                              need_p)
-            gp = _param_grads(sums, ops, pvec, with_noise) if need_p \
-                else None
+        args = st, x, fv, with_noise, need_x, need_p
+        if not torch.is_grad_enabled():
+            gx, gfv = _sym_backward(G, *args)
+        elif fast2:
+            gx, gfv = _GramSymBackward.apply(G, *args)
         else:
-            gx, gp = _sym_backward(G, profile, ops, x, pvec, with_noise,
-                                   need_x, need_p)
-        return gx, gp, None, None, None
+            gx, gfv = _sym_backward_plain(G, *args)
+        return gx, gfv, None, None, None
 
 
 class _GramSymBackward(torch.autograd.Function):
-    """E's backward as a function of (G, x, α): (gx, (Σ G, Σ G g, tr G));
-    its backward is E′ for G and E″ for x and α."""
+    """E's backward as a function of (G, x, fv): (gx, gfv); its backward
+    is E′ for G and E″ for x and the coefficient."""
 
     @staticmethod
-    def forward(ctx, G, x, alpha, profile, need_x, need_s):
-        ctx.save_for_backward(G, x, alpha)
-        ctx.meta = profile, need_x, need_s
+    def forward(ctx, G, st, x, fv, with_noise, need_x, need_p):
+        ctx.save_for_backward(G, x, fv)
+        ctx.meta = st, with_noise
         ctx.set_materialize_grads(False)
-        return _sym_backward_sums(G, profile, ('mul',), x,
-                                  torch.stack([alpha, alpha.new_zeros(())]),
-                                  True, need_x, need_s)
+        return _sym_backward(G, st, x, fv, with_noise, need_x, need_p)
 
     @staticmethod
-    def backward(ctx, ugx, us):
+    def backward(ctx, ugx, ugfv):
         if torch.is_grad_enabled():
             raise RuntimeError(_THIRD)
-        G, x, alpha = ctx.saved_tensors
-        profile, need_xo, need_s = ctx.meta
-        need_G, need_x, need_a = ctx.needs_input_grad[:3]
+        G, x, fv = ctx.saved_tensors
+        st, with_noise = ctx.meta
+        need_G, _, need_x, need_f = ctx.needs_input_grad[:4]
         dx = _zeros_if_none(ugx, x)
-        u0, u1, u2 = _zeros_if_none(us, alpha.new_zeros(3)).unbind()
-        gG = gx = ga = None
+        dfv = _zeros_if_none(ugfv, fv)
+        gG = gx = gf = None
         if need_G:
-            gG = _sym_tangent(profile, x, dx,
-                              torch.stack([alpha, u1, u0, u2]), True)
-        if need_x or need_a:
-            gx, sc = _sym_bwd_tangent(G, profile, x, dx,
-                                      torch.stack([alpha, u1]), need_x,
-                                      need_a)
-            ga = sc[0] if need_a else None
-        return gG, gx, ga, None, None, None
+            gG = _sym_tangent(st, x, dx, fv, dfv, with_noise)
+        if need_x or need_f:
+            gx, sc = _sym_bwd_tangent(G, _Single(st, fv), x, dx,
+                                      torch.stack([fv[2], dfv[2]]), need_x,
+                                      need_f)
+            if need_f:
+                gf = torch.zeros_like(fv)
+                gf[2] = sc[0]
+        return gG, None, gx, gf, None, None, None
 
 
 def _args(profile, x, y, post, noise):
-    profile = _profile(profile)
+    """(desc, st, x, y, pvec): the description, its structure, the
+    points and the parameter vector (`_flat`'s numbers, then the nugget,
+    0 without one)."""
+    desc = _desc(profile, post)
+    st = _struct(desc)
     x = _prep(x)
     y = x if y is None else _prep(y)
-    ops = tuple(op for op, _ in post)
-    for op in ops:
-        if op not in ('mul', 'add'):
-            raise ValueError(f'unknown post step {op!r}')
-    return profile, x, y, ops, _paramvec(post, noise, x)
+    pvec = _paramvec(_flat(desc) + [0.0 if noise is None else noise], x)
+    return desc, st, x, y, pvec
 
 
 def gram(profile, x, y=None, *, post=(), noise=None):
-    """Tiled Gram matrix ``K[i, j] = post(g(‖x_i − y_j‖²))`` (+ noise·I).
+    """Tiled Gram matrix ``K[i, j] = k(‖x_i − y_j‖²)`` (+ noise·I).
 
     Parameters
     ----------
-    profile : str or Profile
-        A registered profile (`PROFILES`), e.g. ``'expquad'``.
+    profile : str, Profile, Term or Terms
+        A registered profile (`PROFILES`) by name, e.g. ``'expquad'``,
+        or a description of a profiled kernel or a sum of them.
     x, y : (n, p), (m, p) tensors
         Input points (y defaults to x); 1-D inputs are p = 1.
     post : tuple of ('mul' | 'add', scalar)
-        Scalar chain applied to g in order; scalars may be tensors and
-        are differentiable.
+        Scalar chain applied to the profile in order; scalars may be
+        tensors and are differentiable, as are the description's.
     noise : scalar, optional
         Nugget on the global diagonal; differentiable.
     """
-    profile, x, y, ops, pvec = _args(profile, x, y, post, noise)
-    return _Gram.apply(x, y, pvec, profile, ops, noise is not None)
+    desc, st, x, y, pvec = _args(profile, x, y, post, noise)
+    return _Gram.apply(x, y, _fold(st, pvec), st, noise is not None,
+                       _fast_second(desc, st))
 
 
 gram.launches = gram.launches_bwd = 0
 gram.launches_jvp = gram.launches_bwd_jvp = 0
+gram.by_profile = {}
 
 
 def gram_plain(profile, x, y=None, *, post=(), noise=None):
     """Plain PyTorch version of `gram` on any device, differentiable by
     autograd; the reference the kernel is held against."""
-    profile, x, y, ops, pvec = _args(profile, x, y, post, noise)
-    return _eval_plain(profile, ops, x, y, pvec, noise is not None)
+    _, st, x, y, pvec = _args(profile, x, y, post, noise)
+    return _eval_plain(st, x, y, _fold(st, pvec), noise is not None)
+
+
+def k0(profile, post=(), like=None):
+    """The kernel's value at zero distance, differentiable in the
+    description's numbers (a 0-d tensor of ``like``'s dtype and
+    device)."""
+    if like is None:
+        like = torch.zeros(())
+    _, st, z, _, pvec = _args(profile, like.new_zeros((1, 1)), None, post,
+                              None)
+    return _value_r2(st, _fold(st, pvec), z.new_zeros(()))
+
+
+def _pgrad(st, pvec, gfv):
+    """The parameter vector's gradient from the folded vector's."""
+    return torch.func.vjp(lambda p: _fold(st, p), pvec)[1](gfv)[0]
+
+
+def _backward_public(fn, G, profile, x, y, post, noise, need_xy, need_p):
+    _, st, x, y, pvec = _args(profile, x, y, post, noise)
+    fv = _fold(st, pvec)
+    gx, gy, gfv = fn(G, st, x, y, fv, noise is not None, need_xy, need_p)
+    return gx, gy, _pgrad(st, pvec, gfv) if need_p else None
 
 
 def gram_backward(G, profile, x, y=None, *, post=(), noise=None,
@@ -816,46 +1254,51 @@ def gram_backward(G, profile, x, y=None, *, post=(), noise=None,
     ``gram(profile, x, y, post=post, noise=noise)``, as ``(gx, gy, gp)``:
     with respect to x and y (of their (n, p) and (m, p) shapes; with y
     None, K's two arguments apart), and to the parameter vector, the
-    post chain's scalars then the nugget (0 without one).  ``need_xy``
+    description's numbers (`_flat`'s order; for a profile by name the
+    post chain's scalars) then the nugget (0 without one).  ``need_xy``
     and ``need_p`` say which are computed; the others are None.  One
     launch of the fused kernel for CUDA tensors, whatever p (a G that
     is the transpose of a contiguous matrix read in place),
     `gram_backward_plain` for CPU ones."""
-    profile, x, y, ops, pvec = _args(profile, x, y, post, noise)
-    return _backward(G, profile, ops, x, y, pvec, noise is not None,
-                     need_xy, need_p)
+    return _backward_public(_backward, G, profile, x, y, post, noise,
+                            need_xy, need_p)
 
 
 def gram_backward_plain(G, profile, x, y=None, *, post=(), noise=None,
                         need_xy=True, need_p=True):
     """Plain PyTorch version of `gram_backward` on any device: the
-    derivative weights and the core as n × m matrices, contracted with G
-    in torch."""
-    profile, x, y, ops, pvec = _args(profile, x, y, post, noise)
-    gx, gy, sums = _backward_plain(G, profile, ops, x, y, pvec,
-                                   noise is not None, need_xy, need_p)
-    gp = _param_grads(sums, ops, pvec, noise is not None) if need_p \
-        else None
-    return gx, gy, gp
+    derivative weights and partial derivatives as n × m matrices,
+    contracted with G in torch."""
+    return _backward_public(_backward_plain, G, profile, x, y, post, noise,
+                            need_xy, need_p)
 
 
 def gram_sym(profile, x, *, post=(), noise=None):
     """Symmetric Gram matrix ``K(x, x)`` (+ noise·I) evaluated on the
     upper-triangle tiles only and mirrored (kernel E on CUDA): half the
     profile evaluations of `gram`.  Arguments as for `gram`."""
-    profile, x, _, ops, pvec = _args(profile, x, None, post, noise)
-    return _GramSym.apply(x, pvec, profile, ops, noise is not None)
+    desc, st, x, _, pvec = _args(profile, x, None, post, noise)
+    return _GramSym.apply(x, _fold(st, pvec), st, noise is not None,
+                          _fast_second(desc, st))
 
 
 gram_sym.launches = gram_sym.launches_bwd = 0
 gram_sym.launches_jvp = gram_sym.launches_bwd_jvp = 0
+gram_sym.by_profile = {}
 
 
 def gram_sym_plain(profile, x, *, post=(), noise=None):
     """Plain PyTorch version of `gram_sym` on any device, differentiable
     by autograd."""
-    profile, x, _, ops, pvec = _args(profile, x, None, post, noise)
-    return _eval_plain(profile, ops, x, x, pvec, noise is not None)
+    _, st, x, _, pvec = _args(profile, x, None, post, noise)
+    return _eval_plain(st, x, x, _fold(st, pvec), noise is not None)
+
+
+def _sym_public(fn, G, profile, x, post, noise, need_x, need_p):
+    _, st, x, _, pvec = _args(profile, x, None, post, noise)
+    gx, gfv = fn(G, st, x, _fold(st, pvec), noise is not None, need_x,
+                 need_p)
+    return gx, _pgrad(st, pvec, gfv) if need_p else None
 
 
 def gram_sym_backward(G, profile, x, *, post=(), noise=None, need_x=True,
@@ -865,87 +1308,75 @@ def gram_sym_backward(G, profile, x, *, post=(), noise=None, need_x=True,
     `gram_backward`.  The fused kernel for CUDA tensors (upper tile pairs
     only, G and its mirror read in one pass), `gram_sym_backward_plain`
     for CPU ones."""
-    profile, x, _, ops, pvec = _args(profile, x, None, post, noise)
-    return _sym_backward(G, profile, ops, x, pvec, noise is not None,
-                         need_x, need_p)
+    return _sym_public(_sym_backward, G, profile, x, post, noise, need_x,
+                       need_p)
 
 
 def gram_sym_backward_plain(G, profile, x, *, post=(), noise=None,
                             need_x=True, need_p=True):
     """Plain PyTorch version of `gram_sym_backward` on any device."""
-    profile, x, _, ops, pvec = _args(profile, x, None, post, noise)
-    gx, sums = _sym_backward_plain(G, profile, ops, x, pvec,
-                                   noise is not None, need_x, need_p)
-    gp = _param_grads(sums, ops, pvec, noise is not None) if need_p \
-        else None
-    return gx, gp
+    return _sym_public(_sym_backward_plain, G, profile, x, post, noise,
+                       need_x, need_p)
 
 
 # -- tangents -----------------------------------------------------------------
 
 def _tangent_args(profile, x, y, dx, dy, post, noise, dpost, dnoise):
-    """(profile, x, y, dx, dy, ops, pvec, dpvec): `_args` and the
-    tangents, zeros where not given; with y None, dy is dx."""
-    profile, xx, yy, ops, pvec = _args(profile, x, y, post, noise)
+    """(desc, st, x, y, dx, dy, pvec, dpvec): `_args` and the tangents,
+    zeros where not given; with y None, dy is dx.  ``dpost`` is the
+    tangent of ``post`` (the chain given apart from the description),
+    ``dnoise`` the nugget's."""
+    desc, st, xx, yy, pvec = _args(profile, x, y, post, noise)
     dx = torch.zeros_like(xx) if dx is None else _prep(dx).to(xx.dtype)
     if y is None:
         dy = dx
     else:
         dy = torch.zeros_like(yy) if dy is None else _prep(dy).to(yy.dtype)
-    dpost = [0.0] * len(ops) if dpost is None else list(dpost)
-    if len(dpost) != len(ops):
-        raise ValueError(f'{len(dpost)} chain tangents for {len(ops)} steps')
-    dpvec = _paramvec(tuple(zip(ops, dpost)),
-                      None if noise is None else
-                      (0.0 if dnoise is None else dnoise), xx)
-    return profile, xx, yy, dx, dy, ops, pvec, dpvec
+    npost = len(tuple(post))
+    dpost = [0.0] * npost if dpost is None else list(dpost)
+    if len(dpost) != npost:
+        raise ValueError(f'{len(dpost)} chain tangents for {npost} steps')
+    lead = [0.0] * (pvec.shape[0] - 1 - npost)
+    dpvec = _paramvec(lead + dpost + [0.0 if dnoise is None else dnoise],
+                      xx)
+    return desc, st, xx, yy, dx, dy, pvec, dpvec
 
 
-def _param_grads_tangent(sc, ops, pvec, dpvec, with_noise):
-    """The tangent of `_param_grads` from C″'s scalars (Σ G g' dr², Σ G,
-    Σ G g): Σ G and tr G are constant, Σ G g moves by Σ G g' dr², and
-    the chain's scalars by dpvec."""
-    zero = sc.new_zeros(())
-    sums = torch.stack([sc[1], sc[2], zero])
-    dsums = torch.stack([zero, sc[0], zero])
-    return torch.func.jvp(
-        lambda s, p: _param_grads(s, ops, p, with_noise), (sums, pvec),
-        (dsums, dpvec))[1]
+def _jvp_public(fn, profile, x, y, dx, dy, post, noise, dpost, dnoise):
+    _, st, x, y, dx, dy, pvec, dpvec = _tangent_args(
+        profile, x, y, dx, dy, post, noise, dpost, dnoise)
+    fv, dfv = torch.func.jvp(lambda p: _fold(st, p), (pvec,), (dpvec,))
+    return fn(st, x, y, dx, dy, fv, dfv, noise is not None)
 
 
 def gram_jvp(profile, x, y=None, dx=None, dy=None, *, post=(), noise=None,
              dpost=None, dnoise=None):
     """The tangent of `gram` along the points' tangents ``dx``, ``dy``
     (zeros if None; with y None, K(x, x) and dy = dx), the chain's
-    scalars' ``dpost`` and the nugget's ``dnoise``: ``dK = α g'(r²) dr²
-    + dα g + dβ (+ dnoise·I)``, zero weight at r² = 0.  Kernel C′ for
-    CUDA tensors, `gram_jvp_plain` for CPU ones."""
-    profile, x, y, dx, dy, ops, pvec, dpvec = _tangent_args(
-        profile, x, y, dx, dy, post, noise, dpost, dnoise)
-    with_noise = noise is not None
-    return _tangent(profile, x, y, dx, dy,
-                    _coef(ops, pvec, dpvec, with_noise), with_noise)
+    scalars' ``dpost`` and the nugget's ``dnoise``: ``dK = (dK/dr²) dr²
+    + Σ_k (∂K/∂θ_k) dθ_k (+ dnoise·I)``, zero weight at r² = 0.  Kernel
+    C′ for CUDA tensors, `gram_jvp_plain` for CPU ones.  (The tangents
+    of a description's own numbers reach C′ through torch's forward AD
+    on `gram`.)"""
+    return _jvp_public(_tangent, profile, x, y, dx, dy, post, noise, dpost,
+                       dnoise)
 
 
 def gram_jvp_plain(profile, x, y=None, dx=None, dy=None, *, post=(),
                    noise=None, dpost=None, dnoise=None):
     """Plain PyTorch version of `gram_jvp` on any device."""
-    profile, x, y, dx, dy, ops, pvec, dpvec = _tangent_args(
-        profile, x, y, dx, dy, post, noise, dpost, dnoise)
-    with_noise = noise is not None
-    return _tangent_plain(profile, x, y, dx, dy,
-                          _coef(ops, pvec, dpvec, with_noise), with_noise)
+    return _jvp_public(_tangent_plain, profile, x, y, dx, dy, post, noise,
+                       dpost, dnoise)
 
 
 def gram_sym_jvp(profile, x, dx=None, *, post=(), noise=None, dpost=None,
                  dnoise=None):
     """The tangent of `gram_sym` (kernel E′ on CUDA: the upper tile
     pairs, mirrored; the same entries as `gram_jvp`)."""
-    profile, x, _, dx, _, ops, pvec, dpvec = _tangent_args(
-        profile, x, None, dx, None, post, noise, dpost, dnoise)
-    with_noise = noise is not None
-    return _sym_tangent(profile, x, dx, _coef(ops, pvec, dpvec, with_noise),
-                        with_noise)
+    def fn(st, x, y, dx, dy, fv, dfv, with_noise):
+        return _sym_tangent(st, x, dx, fv, dfv, with_noise)
+    return _jvp_public(fn, profile, x, None, dx, None, post, noise, dpost,
+                       dnoise)
 
 
 def gram_sym_jvp_plain(profile, x, dx=None, *, post=(), noise=None,
@@ -957,20 +1388,31 @@ def gram_sym_jvp_plain(profile, x, dx=None, *, post=(), noise=None,
 
 def _backward_jvp(fn, G, profile, x, y, dx, dy, post, noise, dpost, need_xy,
                   need_p):
-    profile, x, y, dx, dy, ops, pvec, dpvec = _tangent_args(
+    desc, st, x, y, dx, dy, pvec, dpvec = _tangent_args(
         profile, x, y, dx, dy, post, noise, dpost, None)
-    a, _, da, _ = _fold(ops, pvec, dpvec)
-    gx, gy, sc = fn(G, profile, x, y, dx, dy, torch.stack([a, da]), need_xy,
-                    need_p)
-    gp = _param_grads_tangent(sc, ops, pvec, dpvec, noise is not None) \
-        if need_p else None
+    if len(_leaves(st)) != 1:
+        raise ValueError('the backward tangent (C″, E″) takes one term')
+    fv, dfv = torch.func.jvp(lambda p: _fold(st, p), (pvec,), (dpvec,))
+    gx, gy, sc = fn(G, _Single(st, fv), x, y, dx, dy,
+                    torch.stack([fv[2], dfv[2]]), need_xy, need_p)
+    gp = None
+    if need_p:
+        # gp = J_foldᵀ gfv, gfv = [Σ G, tr G, Σ G g, ...]: its tangent
+        # moves Σ G g by Σ G g' dr², and J_fold with dpvec
+        gfv = torch.zeros_like(fv)
+        gfv[0], gfv[2] = sc[1], sc[2]
+        dgfv = torch.zeros_like(fv)
+        dgfv[2] = sc[0]
+        gp = torch.func.jvp(lambda p, g: _pgrad(st, p, g), (pvec, gfv),
+                            (dpvec, dgfv))[1]
     return gx, gy, gp
 
 
 def gram_backward_jvp(G, profile, x, y=None, dx=None, dy=None, *, post=(),
                       noise=None, dpost=None, need_xy=True, need_p=True):
     """The tangent of `gram_backward` at fixed ``G`` along the points'
-    tangents and the chain's ``dpost``: ``(dgx, dgy, dgp)``, as
+    tangents and the chain's ``dpost``, for a one-term profile whose
+    arguments and scale stay fixed: ``(dgx, dgy, dgp)``, as
     `gram_backward` returns ``(gx, gy, gp)``.  One launch of kernel C″
     for CUDA tensors (one per 4 coordinates at p > 4), reading G once,
     `gram_backward_jvp_plain` for CPU ones."""
@@ -987,8 +1429,8 @@ def gram_backward_jvp_plain(G, profile, x, y=None, dx=None, dy=None, *,
 
 
 def _sym_bwd_tangent_as(fn):
-    def run(G, profile, x, y, dx, dy, coef, need_x, need_s):
-        gx, sc = fn(G, profile, x, dx, coef, need_x, need_s)
+    def run(G, one, x, y, dx, dy, coef, need_x, need_s):
+        gx, sc = fn(G, one, x, dx, coef, need_x, need_s)
         return gx, None, sc
     return run
 

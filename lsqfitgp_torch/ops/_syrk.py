@@ -272,10 +272,11 @@ def schur_update_gram_plain(profile, X, A, *, post=(), eps=None, nreal=None,
 def schur_update_gram(profile, X, A, *, post=(), eps=None, nreal=None,
                       size=None, offset=0, tile=512, precision=None):
     """Lower-trapezoid tiles of ``S = K[off:off+size, off:off+size] + eps I
-    − A Aᵀ`` where ``K[i, j] = post(g(‖X_i − X_j‖²))`` is computed inside
-    the kernel from the points: the Gram block never exists in memory.
+    − A Aᵀ`` where ``K[i, j] = k(‖X_i − X_j‖²)`` is computed inside the
+    kernel from the points: the Gram block never exists in memory.
 
-    profile : str or Profile, a registered profile (`ops.PROFILES`)
+    profile : str, Profile, Term or Terms, the profile as for `ops.gram`
+        (any registered profile and term sum)
     X : (npad, p) points of the whole virtual matrix, global rows
     A : (size, h); size and offset multiples of ``tile``
     post : the profile's post chain of ('mul' | 'add', scalar) steps
@@ -304,22 +305,23 @@ def schur_update_gram(profile, X, A, *, post=(), eps=None, nreal=None,
                                        nreal=nreal, size=size, offset=offset,
                                        tile=tile)
     from . import _gram
-    profile, X, _, ops, pvec = _gram._args(profile, X, None, post, eps)
+    _, st, X, _, pvec = _gram._args(profile, X, None, post, eps)
+    nterms, codes, _ = _gram._codes(st)
+    fv = _gram._fold(st, pvec).detach().contiguous()
     _suffix(A.dtype)
     if tile % KERNEL_TILE:
         raise ValueError(f'tile {tile} must be a multiple of {KERNEL_TILE} '
                          f'on CUDA')
-    if X.dtype != A.dtype or pvec.dtype != A.dtype:
+    if X.dtype != A.dtype or fv.dtype != A.dtype:
         raise ValueError('X, A and the parameters must share one dtype')
     if not A.is_contiguous():
         raise ValueError('A must be contiguous')
     passes = _passes(A.dtype, precision)
     counter = _counter(A.dtype, precision)
     out = torch.empty((size, size), dtype=A.dtype, device=A.device)
-    postadd = sum(1 << k for k, op in enumerate(ops) if op == 'add')
-    args = (_ptr(X), X.shape[1], _ptr(pvec), len(ops), postadd,
-            int(eps is not None), profile.id, nreal, offset, _ptr(A), h,
-            _ptr(out), size, tile)
+    args = (_ptr(X), X.shape[1], _ptr(fv), nterms, codes,
+            int(eps is not None), nreal, offset, _ptr(A), h, _ptr(out), size,
+            tile)
     lib = _build.lib()
     if counter == 'launches_dmma':
         err = lib.lsq_schur_gram_dmma_f64(*args, _stream(A.device))
@@ -330,11 +332,15 @@ def schur_update_gram(profile, X, A, *, post=(), eps=None, nreal=None,
         err = lib.lsq_schur_gram_f32(*args, _stream(A.device))
     _build.check(err, 'schur_update_gram')
     _count(schur_update_gram, counter)
+    key = counter, _gram._profile_name(st)
+    schur_update_gram.by_profile[key] = \
+        schur_update_gram.by_profile.get(key, 0) + 1
     return out
 
 
 schur_update_gram.launches = schur_update_gram.launches_tc = 0
 schur_update_gram.launches_tc1 = schur_update_gram.launches_dmma = 0
+schur_update_gram.by_profile = {}
 
 
 def syrk_t_full_plain(W):

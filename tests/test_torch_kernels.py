@@ -901,3 +901,244 @@ def test_auto_gram_launches_kernel_c_cuda(cuda, gen, p, n, halfmatrix,
     u = torch.finfo(torch.float32).eps / 2
     tol = 16 * (p + 1) * u * float(Kb.abs().max())
     assert float((K.detach() - Kb).abs().max()) <= tol
+
+
+# -- the zoo's profiles ----------------------------------------------------------
+
+def _zoo_descs(t):
+    """The profiles of the zoo that kernels C, D and E evaluate, as
+    descriptions with numbers made by ``t``: single cores in each mode,
+    dynamic and static arguments, and 2- and 3-term sums."""
+    P = ops.PROFILES
+    T, S = ops.Term, ops.Terms
+    amp = (('mul', t(1.3)),)
+    return {
+        'maternp0': S((T(P['maternp'], k=0),), amp),
+        'maternp1': S((T(P['maternp'], k=1),), amp),
+        'maternp2': S((T(P['maternp'], k=2),), amp),
+        'maternp5': S((T(P['maternp'], k=5),), amp),
+        'expon': S((T(P['expon'], 'abs'),), amp + (('add', t(0.2)),)),
+        'gammaexp': S((T(P['gammaexp'], args=(t(1.3),)),), amp),
+        'gammaexp2': S((T(P['gammaexp2']),), amp),
+        'cauchy': S((T(P['cauchy'], args=(t(1.4), t(0.8))),), amp),
+        'cauchy2': S((T(P['cauchy2'], args=(t(0.8),)),), amp),
+        'posabs': S((T(P['expquad'], 'posabs'),), amp),
+        'terms': S((T(P['maternp'], k=2, scale=t(0.7),
+                      post=(('mul', t(1.1)),)),
+                    T(P['expquad'], scale=t(3.0),
+                      post=(('mul', t(0.6)),)))),
+        'terms3': S((T(P['maternp'], k=1, scale=t(0.5)),
+                     T(P['gammaexp'], args=(t(1.6),), scale=t(2.0),
+                       post=(('mul', t(0.4)),)),
+                     T(P['expon'], 'abs', scale=t(1.5))),
+                    (('mul', t(0.9)), ('add', t(0.05)))),
+    }
+
+
+ZOO = sorted(_zoo_descs(lambda v: torch.tensor(v)))
+
+
+def _zoo_setup(cuda, gen, dtype, n, m, p, name):
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    x = t(gen.standard_normal((n, p)) * _spread(p))
+    y = t(gen.standard_normal((m, p)) * _spread(p))
+    x[3] = x[5]   # coincident points: the weight is zero at r² = 0
+    y[1] = x[7]
+    return t, x, y, _zoo_descs(t)[name]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n,m,p', [(300, 128, 1), (131, 70, 3),
+                                   (75, 129, 10)])
+@pytest.mark.parametrize('name', ZOO)
+def test_zoo_gram_cuda(cuda, gen, dtype, n, m, p, name):
+    """Kernels C and E on each zoo profile against the plain version,
+    with a nugget, ragged n and m and unaligned m, C and E equal to the
+    bit; C's fused backward (two calls equal to the bit, one launch)
+    against the plain backward in float64 on the same inputs, within the
+    bounds of `_bwd_tol` (the parameter vector's slots: its sums times
+    the sum of |G ∂K/∂θ|); C′ (forward AD on `ops.gram`, along the
+    points and every number of the description) against the plain
+    version's tangent, to rtol 1e-4 (float32) or 1e-11 (float64) of
+    the tangent's largest entry."""
+    import torch.autograd.forward_ad as fwAD
+    from lsqfitgp_torch.ops import _gram
+    t, x, y, desc = _zoo_setup(cuda, gen, dtype, n, m, p, name)
+    noise = t(0.1)
+    got = ops.gram(desc, x, y, noise=noise)
+    ref = ops.gram_plain(desc, x, y, noise=noise)
+    torch.testing.assert_close(got, ref, **TOL[dtype])
+    full = ops.gram(desc, x, noise=noise)
+    half = ops.gram_sym(desc, x, noise=noise)
+    assert torch.equal(full, half)
+    # the backward through the wrappers' internals: the folded vector
+    _, st, _, _, pvec = _gram._args(desc, x, None, (), noise)
+    fv = _gram._fold(st, pvec)
+    G = t(gen.standard_normal((n, m)))
+    n0 = ops.gram.launches_bwd
+    res = _gram._backward(G, st, x, y, fv, True, True, True)
+    assert ops.gram.launches_bwd == n0 + 1
+    again = _gram._backward(G, st, x, y, fv, True, True, True)
+    assert all(torch.equal(a, b) for a, b in zip(res, again))
+    d = lambda a: a.double()
+    G64, x64, y64, fv64 = d(G), d(x), d(y), d(fv)
+    ref = _gram._backward_plain(G64, st, x64, y64, fv64, True, True, True)
+    r2 = _gram._sqdist_plain(x64, y64)
+    evals = _gram._terms_plain(st, fv64, r2, d1=True, da=True)
+    Wr = _gram._deriv_plain(st, x64, y64, fv64, evals, r2)
+    tx, ty, ts = _bwd_tol(G64, Wr, x64, y64, dtype, False)
+    assert bool(((d(res[0]) - ref[0]).abs() <= tx).all())
+    assert bool(((d(res[1]) - ref[1]).abs() <= ty).all())
+    mags = [G64.abs().sum(), G64.diagonal().abs().sum()] + [
+        G64.new_zeros(()) if mt is None else (G64.abs() * mt.abs()).sum()
+        for mt in _gram._partials(st, fv64, r2, evals)]
+    tp = ts * 4 * torch.stack(mags) + 1e-30
+    assert bool(((d(res[2]) - ref[2]).abs() <= tp).all()), (res[2], ref[2])
+    # C′ along the points and the description's numbers
+    vals = _gram._flat(desc)
+    dx, dy = t(gen.standard_normal((n, p))), t(gen.standard_normal((m, p)))
+    dv = [t(gen.standard_normal(())) for _ in vals]
+
+    def tangent(fn):
+        with fwAD.dual_level():
+            num = [fwAD.make_dual(t(v), dvi) for v, dvi in zip(vals, dv)]
+            out = fn(_gram._rebuild(st, num), fwAD.make_dual(x, dx),
+                     fwAD.make_dual(y, dy), noise=noise)
+            return fwAD.unpack_dual(out).tangent
+
+    n0 = ops.gram.launches_jvp
+    tg = tangent(ops.gram)
+    assert ops.gram.launches_jvp == n0 + 1
+    tr = tangent(ops.gram_plain)
+    rtol = 1e-4 if dtype == torch.float32 else 1e-11
+    assert float((tg - tr).abs().max()) <= rtol * float(tr.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n,p', [(300, 1), (257, 3)])
+@pytest.mark.parametrize('name', ZOO)
+def test_zoo_gram_sym_cuda(cuda, gen, dtype, n, p, name):
+    """Kernel E's fused backward on each zoo profile against C's (the
+    same sums: G and Gᵀ both enter), two calls equal to the bit."""
+    from lsqfitgp_torch.ops import _gram
+    t, x, _, desc = _zoo_setup(cuda, gen, dtype, n, n, p, name)
+    _, st, _, _, pvec = _gram._args(desc, x, None, (), t(0.1))
+    fv = _gram._fold(st, pvec)
+    G = t(gen.standard_normal((n, n)))
+    got = _gram._sym_backward(G, st, x, fv, True, True, True)
+    again = _gram._sym_backward(G, st, x, fv, True, True, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    gx, gy, gf = _gram._backward_plain(G.double(), st, x.double(),
+                                       x.double(), fv.double(), True, True,
+                                       True)
+    rtol = 1e-4 if dtype == torch.float32 else 1e-11
+    ref = gx + gy
+    assert float((got[0].double() - ref).norm()) <= rtol * float(ref.norm())
+    assert float((got[1].double() - gf).abs().max()) \
+        <= rtol * float(gf.abs().max() + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('precision', ['high', 'highest'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('p', [1, 3])
+@pytest.mark.parametrize('name', ['maternp2', 'expon', 'gammaexp', 'cauchy',
+                                  'terms', 'terms3'])
+def test_zoo_schur_update_gram_cuda(cuda, gen, dtype, p, name, precision):
+    """Kernel D on the zoo's profiles and term sums, at an offset with a
+    ragged nreal and eps, against its plain version within `_tc_tol`."""
+    size, tile, offset = 512, 256, 256
+    npad = offset + size
+    nreal = npad - 70
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    X = t(gen.standard_normal((npad, p)) * 2)
+    A = t(gen.standard_normal((size, 384)) / 384 ** 0.5)
+    desc = _zoo_descs(t)[name]
+    keep = _syrk._tile_mask(size, tile, cuda)
+    kw = dict(eps=t(0.25), nreal=nreal, size=size, offset=offset, tile=tile)
+    got = ops.schur_update_gram(desc, X, A, precision=precision, **kw)
+    ref = _syrk.schur_update_gram_plain(desc, X, A, **kw)
+    init = _syrk.schur_update_gram_plain(desc, X, torch.zeros_like(A), **kw)
+    err = (got - ref).abs()[keep]
+    # the profile by another formula: 32 u more of the entry
+    tol = (_tc_tol(A, init, dtype, precision)
+           + 32 * torch.finfo(dtype).eps * init.abs())[keep]
+    assert bool((err <= tol).all()), float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('name', ['maternp2', 'maternp5', 'gammaexp2',
+                                  'cauchy2'])
+def test_zoo_gram_backward_jvp_cuda(cuda, gen, dtype, name):
+    """Kernels C″ and E″ on one-term zoo profiles along the points and the
+    chain against their plain versions (norm-wise rtol 1e-4 in float32,
+    1e-11 in float64), two calls equal to the bit.  The profiles are
+    twice differentiable at r² = 0: on the others (Maternp p < 2, Expon,
+    GammaExp γ < 2) g'' grows without bound near coincident points and
+    amplifies the rounding of r² into the tangent, whatever the route
+    (their plain versions are held to the double backward on the CPU,
+    tests/test_torch_zoo.py)."""
+    t, x, y, desc = _zoo_setup(cuda, gen, dtype, 200, 90, 1, name)
+    dx, dy = t(gen.standard_normal((200, 1))), t(gen.standard_normal((90, 1)))
+    G = t(gen.standard_normal((200, 90)))
+    rtol = 1e-4 if dtype == torch.float32 else 1e-11
+    for fn, ref_fn, args in (
+            (ops.gram_backward_jvp, ops.gram_backward_jvp_plain,
+             (G, desc, x, y, dx, dy)),
+            (ops.gram_sym_backward_jvp, ops.gram_sym_backward_jvp_plain,
+             (G[:, :90] @ G[:, :90].T / 10, desc, x, dx))):
+        kw = dict(post=(('mul', t(0.8)),), dpost=(0.3,))
+        got, again = fn(*args, **kw), fn(*args, **kw)
+        assert all(a is None or torch.equal(a, b)
+                   for a, b in zip(got, again))
+        ref = ref_fn(*args, **kw)
+        for a, b in zip(got, ref):
+            if a is not None:
+                assert float((a - b).norm()) <= rtol * float(b.norm() + 1)
+
+
+@pytest.mark.gpu
+def test_zoo_models_on_cuda_match_cpu(cuda, gen):
+    """The Matérn-5/2 model (dense, default gram: kernel C) and the
+    multi-scale term sum (dense and chol-stream: C and D) on the card
+    give the CPU's likelihood and gradient in float64 (rtol 1e-9 and
+    1e-8), the Matérn model's Hessian too (C′ and C″)."""
+    x = np.sort(gen.uniform(-20, 20, 700))
+    y = np.sin(x) + 0.3 * gen.standard_normal(700)
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        def models(lp):
+            def k2():
+                return lp[1].exp() * lt.Maternp(p=2, scale=lp[0].exp()) \
+                    + lp[2].exp() * lt.ExpQuad(scale=lp[3].exp()) \
+                    + 0.09 * lt.White()
+            k1 = lp[1].exp() * lt.Maternp(p=2, scale=lp[0].exp())
+            yield lt.GP(k1 + 0.09 * lt.White(), gram='tiled'), True
+            yield lt.GP(k2(), gram='tiled'), False
+            yield lt.GP(k2(), solver='chol-stream', block=128), False
+
+        out = {}
+        for dev in ('cpu', 'cuda'):
+            with lt.using_device(dev):
+                lp = torch.tensor([0.3, 0.1, -0.5, 1.0], device=dev,
+                                  requires_grad=True)
+                res = []
+                for gp, hess in models(lp):
+                    with lt.linalg.second_order():
+                        v = gp.addx(x, 'y').marginal_likelihood({'y': y})
+                        (g,) = torch.autograd.grad(v, lp, create_graph=hess)
+                        res += [v.detach().cpu(), g.detach().cpu()]
+                        if hess:
+                            H = torch.stack([torch.autograd.grad(
+                                g[k], lp, retain_graph=True)[0]
+                                for k in range(2)])
+                            res.append(H.cpu())
+                out[dev] = res
+        for a, b in zip(out['cuda'], out['cpu']):
+            torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-9)
+    finally:
+        torch.set_default_dtype(old)

@@ -34,8 +34,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    and Cauchy with dynamic arguments and the multiscale term sum, at
    p = 1 and 10, in float32 and float64, 'gram/<profile>' and
    'gram_bwd/<profile>'; E and its backward, C′ and C″ on Maternp(p=2);
-   D on the term sum at 'high' and in float64), C's and E's timed by
-   the device time of the named kernel;
+   D on the term sum at 'high' and in float64), and the 1-D time-series
+   cores and the rest of the 'abs'/'posabs' zoo (C and its backward on
+   Celerite, Periodic, Harmonic at Q = 2 and 0.4, Cos, Sinc, HoleEffect,
+   CausalExpQuad, Log, Wendland (k = 2) and Circular with dynamic
+   arguments at p = 1, CausalExpQuad and Log at p = 10 too; E and its
+   backward, C′ and C″ on Periodic; D on Celerite at 'high' and in
+   float64), C's and E's timed by the device time of the named kernel;
 4. the float32 rescue: ``Chol`` and ``chol_nll`` of a float32 ExpQuad
    Gram with a small nugget at n = 4096 (the largest size the rescue
    takes by default), on which the 'high' rung fails: prints the rung
@@ -63,7 +68,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    each evaluation) ran, and the NLL and gradient against the float64
    computation;
 6. the streaming path: ``GP(solver='chol-stream')`` fitted by
-   ``empbayes_fit`` (3 BFGS iterations from the dense fit's MAP) to
+   ``empbayes_fit`` (L-BFGS-B, at most STREAM_MAXFUN evaluations, from the
+   dense MAP) to
    n = 65536 points from numpy, a size whose dense Gram does not fit the
    card, then
    ``predfromdata``; checks that kernels D and A were launched on the
@@ -119,7 +125,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    streaming ones at n = 65536 (kernels C and D on the term sum),
    checked against float64 at n = 16384 and, streaming, at n = 32768;
    launches are also counted by profile ('gram@maternp+expquad');
-13. prints a JSON line of kernel records and, last, the device line.
+13. the time-series path (examples/timeseries_streaming.py's model, amp
+   * Celerite(gamma, B=0.05) + noise * White(), its hyperprior, data of
+   its true values and density): a dense fit at n = 16384 (kernel C on
+   the celerite profile, forward and backward once per evaluation, the
+   noise as the data's scalar givencov) held to float64 at the start,
+   at the fit and in its posterior mean past the data; a streaming fit
+   at n = 65536 from the dense MAP (kernel D on the celerite profile),
+   its NLL and exact gradient held to float64 at n = 32768, and a
+   forecast past the end whose sdev must grow;
+14. prints a JSON line of kernel records and, last, the device line.
 
 Any failed check exits non-zero before the last line.
 
@@ -142,7 +157,9 @@ evals``: all but the table; ``--dense64`` and ``--gram-route`` run from
 an older checkout too, to time its route in the same call);
 ``--deriv`` runs only kernel C's float32 p = 2 records (step 3) and the
 derivative path; ``--multidim`` kernel C's p = 2 and p = 10 records in
-both dtypes and the multidim path.
+both dtypes and the multidim path; ``--zoo`` the zoo's records of PR 11
+and the Matérn and multiscale paths; ``--timeseries`` the time-series
+cores' records and the time-series path.
 """
 
 import json
@@ -160,6 +177,12 @@ N_STREAM = 65536   # the streaming slice's size
 N_CHECK = 32768    # the streaming slice's float64 check
 NPRED = 64
 STREAM_BLOCK = 512  # the streaming solver's block
+# the streaming slice's fit from the dense MAP: 3 BFGS iterations until
+# the time-series path joined the run (42 evaluations, 321 s; 1 iteration
+# took 48, its line search failing at the start point), since then
+# L-BFGS-B capped at STREAM_MAXFUN evaluations (the time-series path runs
+# a streaming BFGS fit at the same n)
+STREAM_MAXFUN = 8
 NOISE_VAR = 0.09   # 0.3**2, the data's noise
 # the rescue phase: a float32 Gram at the largest size the float32 rescue
 # takes by default (DF_MAX), smooth enough (ExpQuad of scale 2 over 4096
@@ -1196,11 +1219,26 @@ def kernel_gram_sym_tangent(dtype, gen):
 ZOO_RECORDS = {'maternp2': ((1, MD_P), 9, 22), 'expon': ((1,), 6, 16),
                'gammaexp': ((1, MD_P), 8, 22), 'cauchy': ((1, MD_P), 11, 30),
                'terms': ((1, MD_P), 17, 44)}
+# the 1-D time-series cores and the rest of the 'abs'/'posabs' zoo (their
+# forward's core with the mode's square root and the chain; the
+# backward's core with its two derivatives, the chain rule, the weight
+# and the parameter sums), at p = 1, and at the multidim cell's p the two
+# without maxdim 1
+TS_RECORDS = {'celerite': ((1,), 10, 30), 'periodic': ((1,), 9, 26),
+              'harmonic2': ((1,), 16, 42), 'harmonic04': ((1,), 16, 42),
+              'cos': ((1,), 5, 14), 'sinc': ((1,), 9, 24),
+              'holeeffect': ((1,), 7, 18), 'causalexpquad': ((1, MD_P), 9, 28),
+              'log': ((1, MD_P), 7, 20), 'wendland': ((1,), 25, 64),
+              'circular': ((1,), 16, 42)}
+ZOO_RECORDS.update(TS_RECORDS)
 # the launch tallies' profile key of each (ops.gram.by_profile), and the
 # path whose launches its float32 p = 1 records count
 ZOO_KEYS = {'maternp2': 'maternp', 'expon': 'expon', 'gammaexp': 'gammaexp',
-            'cauchy': 'cauchy', 'terms': 'maternp+expquad'}
-ZOO_PATHS = {'maternp2': 'matern', 'terms': 'multiscale'}
+            'cauchy': 'cauchy', 'terms': 'maternp+expquad',
+            **{name: name for name in TS_RECORDS},
+            'harmonic2': 'harmonic', 'harmonic04': 'harmonic'}
+ZOO_PATHS = {'maternp2': 'matern', 'terms': 'multiscale',
+             'celerite': 'timeseries'}
 # the multiscale model's point (log a1, log s1, log a2, log s2)
 MS_POINT = [0.0, 0.3, -0.7, 1.6]
 
@@ -1208,9 +1246,10 @@ MS_POINT = [0.0, 0.3, -0.7, 1.6]
 def zoo_desc(name, dtype, amp=1.3):
     """A zoo profile as ``ops.gram`` takes it, its numbers on the card:
     Matérn-5/2, the exponential ('abs' mode), GammaExp with a dynamic
-    γ, Cauchy with dynamic α and β (each times ``amp``), and the
-    multiscale path's term sum a1 Maternp(p=2, s1) + a2 ExpQuad(s2) at
-    MS_POINT."""
+    γ, Cauchy with dynamic α and β, the time-series path's Celerite(γ,
+    B) and the other cores of TS_RECORDS with dynamic arguments (each
+    times ``amp``), and the multiscale path's term sum a1 Maternp(p=2,
+    s1) + a2 ExpQuad(s2) at MS_POINT."""
     import torch
     from lsqfitgp_torch import ops
     P, T, S = ops.PROFILES, ops.Term, ops.Terms
@@ -1226,7 +1265,24 @@ def zoo_desc(name, dtype, amp=1.3):
     term = {'maternp2': T(P['maternp'], k=2),
             'expon': T(P['expon'], 'abs'),
             'gammaexp': T(P['gammaexp'], args=(t(1.3),)),
-            'cauchy': T(P['cauchy'], args=(t(1.4), t(0.8)))}[name]
+            'cauchy': T(P['cauchy'], args=(t(1.4), t(0.8))),
+            # the time-series path's (γ, B) and the rest, every argument
+            # dynamic; Wendland (k = 2) scaled to the span
+            'celerite': T(P['celerite'], 'abs',
+                          args=(t(TS_TRUE['gamma']), t(TS_TRUE['B']))),
+            'periodic': T(P['periodic'], 'abs', args=(t(1.4),)),
+            'harmonic2': T(P['harmonic'], 'abs', args=(t(2.0),)),
+            'harmonic04': T(P['harmonic'], 'abs', args=(t(0.4),)),
+            'cos': T(P['cos'], 'abs'),
+            'sinc': T(P['sinc'], 'posabs'),
+            'holeeffect': T(P['holeeffect'], 'abs'),
+            'causalexpquad': T(P['causalexpquad'], 'posabs',
+                               args=(t(1.7),)),
+            'log': T(P['log'], 'posabs'),
+            'wendland': T(P['wendland'], 'posabs', k=2, args=(t(1.6),),
+                          scale=t(50.0)),
+            'circular': T(P['circular'], 'posabs',
+                          args=(t(4.5), t(0.4)))}[name]
     return S((term,), chain)
 
 
@@ -1538,8 +1594,10 @@ def kernel_phase():
     ]
     # the zoo's profiles: C and its backward on each at p = 1 and the
     # multidim cell's p, E and its backward, C′ and C″ on Matérn-5/2, D on
-    # the multiscale term sum
+    # the multiscale term sum (the time-series cores' records follow)
     for name, (ps, _, _) in ZOO_RECORDS.items():
+        if name in TS_RECORDS:
+            continue
         for p in ps:
             specs.append((f'gram {name} p={p}',
                           lambda dtype, gen, name=name, p=p:
@@ -1555,7 +1613,7 @@ def kernel_phase():
          lambda dtype, gen: kernel_schur_gram(dtype, gen, 'terms'),
          'lsqfitgp_torch/csrc/syrk.cu', 'lsqfitgp_tpu/ops/_syrk.py:334',
          [f32, f64]),
-    ]
+    ] + ts_kernel_specs()
     for name, fn, source, replaces, variants in specs:
         log(f'kernel {name}:')
         for v in variants:
@@ -2614,8 +2672,9 @@ def stream_gp(hp, precision=None):
 
 
 def stream_phase(start, dev='cuda'):
-    """The streaming slice at n = 65536 from numpy inputs: a 3-iteration
-    fit and predfromdata; returns the launch counts and the end point.
+    """The streaming slice at n = 65536 from numpy inputs: a fit of at
+    most STREAM_MAXFUN evaluations (L-BFGS-B) and predfromdata; returns
+    the launch counts and the end point.
 
     The fit starts from ``start``, the dense slice's MAP on a quarter of
     the span at the same point density, as a user warm-starts a large
@@ -2638,7 +2697,9 @@ def stream_phase(start, dev='cuda'):
     reset_counts()
     t0 = time.perf_counter()
     fit = lgp.empbayes_fit(hyperprior, lambda hp: stream_gp(hp).addx(x, 'f'),
-                           {'f': y}, initial=start, minkw={'maxiter': 3},
+                           {'f': y}, initial=start,
+                           minkw={'method': 'L-BFGS-B',
+                                  'options': {'maxfun': STREAM_MAXFUN}},
                            raises=False)
     if cuda:
         torch.cuda.synchronize()
@@ -3988,6 +4049,373 @@ def multiscale_phase(dev='cuda'):
     return counts
 
 
+# -- the time-series path: examples/timeseries_streaming.py's model --------------
+
+# the example's true values and hyperprior (log amp, log γ, log noise)
+TS_TRUE = dict(amp=1.2, gamma=0.1, B=0.05, noise=0.04)
+TS_PRIOR = {'log(amp)': (0., 1.), 'log(gamma)': (math.log(0.2), 1.),
+            'log(noise)': (math.log(0.02), 1.)}
+TS_KEYS = ('amp', 'gamma', 'noise')
+TS_ITERS = 10          # the dense fit's BFGS iterations, at most
+TS_STREAM_ITERS = 3    # the streaming fit's, from the dense MAP
+TS_WINDOW = 4096       # the data's independent windows
+TS_SEED = 20261019
+TS_FORECAST = 60
+
+
+def ts_kernel_specs():
+    """The kernel phase's specs of the time-series records: C and its
+    backward on each core of TS_RECORDS (p = 1, and p = 10 for the two
+    without maxdim 1), E and its backward, C′ and C″ on Periodic, D on
+    Celerite at 'high' (n = 65536) and in float64 (n = 32768)."""
+    import torch
+    f32, f64 = torch.float32, torch.float64
+    gram_cu = 'lsqfitgp_torch/csrc/gram.cu'
+    specs = []
+    for name, (ps, _, _) in TS_RECORDS.items():
+        for p in ps:
+            specs.append((f'gram {name} p={p}',
+                          lambda dtype, gen, name=name, p=p:
+                          kernel_zoo(dtype, gen, name, p), gram_cu,
+                          'lsqfitgp_tpu/ops/_gram.py:68', [f32, f64]))
+    return specs + [
+        ('gram_sym periodic',
+         lambda dtype, gen: kernel_zoo_sym(dtype, gen, 'periodic'), gram_cu,
+         'lsqfitgp_tpu/ops/_gram.py:157', [f32, f64]),
+        ('gram tangents periodic',
+         lambda dtype, gen: kernel_zoo_tangent(dtype, gen, 'periodic'),
+         gram_cu, None, [f32, f64]),
+        ('schur_update_gram/celerite',
+         lambda dtype, gen: kernel_schur_gram(dtype, gen, 'celerite'),
+         'lsqfitgp_torch/csrc/syrk.cu', 'lsqfitgp_tpu/ops/_syrk.py:334',
+         [f32, f64])]
+
+
+def ts_data(n, seed=TS_SEED):
+    """The time-series path's data, in float64 on the host with numpy
+    only: t sorted uniform on [0, 120 n / 700] (the example's 5.8 points
+    per unit time), rounded to float32; y from the true model
+    (TS_TRUE), drawn by a Cholesky of the true covariance in independent
+    windows of TS_WINDOW consecutive points (each window exact, the
+    correlation across a window's edge dropped: e^{−γΔ} of the points
+    there), rounded to float32."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0.0, 120.0 * n / 700, n)).astype(np.float32)
+    t64 = t.astype(np.float64)
+    y = np.empty(n)
+    a, g, B, s2 = (TS_TRUE[k] for k in ('amp', 'gamma', 'B', 'noise'))
+    for i in range(0, n, TS_WINDOW):
+        tw = t64[i:i + TS_WINDOW]
+        d = np.abs(tw[:, None] - tw[None, :])
+        K = a * np.exp(-g * d) * (np.cos(d) + B * np.sin(d))
+        K[np.diag_indices_from(K)] += s2
+        y[i:i + TS_WINDOW] = np.linalg.cholesky(K) \
+            @ rng.standard_normal(tw.size)
+    return t, y.astype(np.float32)
+
+
+def ts_kernel(lgp, hp):
+    return hp['amp'] * lgp.Celerite(gamma=hp['gamma'], B=TS_TRUE['B']) \
+        + hp['noise'] * lgp.White()
+
+
+def celerite64(t, ts, gamma, rows=4096):
+    """Celerite(γ, B) between the float64 points t and ts, and its
+    derivative in log γ, by blocks of rows: (C, −γ|Δ| C); no port
+    code."""
+    import torch
+    C = t.new_empty((t.shape[0], ts.shape[0]))
+    dC = torch.empty_like(C)
+    B = TS_TRUE['B']
+    for i in range(0, t.shape[0], rows):
+        d = (t[i:i + rows, None] - ts[None, :]).abs_()
+        E = torch.exp(-gamma * d)
+        C[i:i + rows] = E * (torch.cos(d) + B * torch.sin(d))
+        dC[i:i + rows] = -gamma * d * C[i:i + rows]
+    return C, dC
+
+
+def ts_nll64(t, y, lp):
+    """Independent float64 reference of the likelihood part of the
+    objective of K = amp C + noise I, C = Celerite(γ, B), and its
+    gradient in (log amp, log γ, log noise): dense K,
+    ``torch.linalg.cholesky``, ½ <K⁻¹ − α αᵀ, ∂K>; no port code."""
+    import torch
+    amp, gamma, noise = (math.exp(v) for v in lp)
+    C, dC = celerite64(t, t, gamma)
+    K = C * amp
+    K.diagonal().add_(noise)
+    L = torch.linalg.cholesky(K)
+    del K
+    z = torch.linalg.solve_triangular(L, y[:, None], upper=False)
+    nll = 0.5 * float(z.T @ z) + float(torch.log(L.diagonal()).sum()) \
+        + 0.5 * len(t) * math.log(2 * math.pi)
+    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+    G = torch.cholesky_inverse(L)
+    del L
+    G.addr_(alpha, alpha, alpha=-1).mul_(0.5)
+    g = torch.stack([amp * (G * C).sum(), amp * (G * dC).sum(),
+                     noise * G.diagonal().sum()])
+    return nll, g
+
+
+def ts_mean64(t, y, ts, lp):
+    """Float64 reference of the posterior mean at ts."""
+    import torch
+    amp, gamma, noise = (math.exp(v) for v in lp)
+    K = celerite64(t, t, gamma)[0] * amp
+    K.diagonal().add_(noise)
+    L = torch.linalg.cholesky(K)
+    del K
+    return (celerite64(t, ts, gamma)[0] * amp).T \
+        @ torch.cholesky_solve(y[:, None], L)[:, 0]
+
+
+def ts_check(what, n, nll32, g32, t64, y64, lp, cond, near_optimum):
+    """The port's float32 NLL and gradient in (log amp, log γ, log noise)
+    against `ts_nll64` at lp: the NLL within 4 eps32 n (amp + noise) /
+    noise (the float32 path's diagonal anchor, as `check_points`); away
+    from an optimum the gradient within 10 cond eps32 relative; near one
+    the optimum's shift H⁻¹ dg within a tenth of the posterior standard
+    deviation, H the float64 Hessian of the objective (central
+    differences of the float64 gradient plus the prior's identity)."""
+    import torch
+    eps32 = torch.finfo(torch.float32).eps
+    nll64, g64 = ts_nll64(t64, y64, lp)
+    dnll = abs(float(nll32) - nll64)
+    amp, noise = math.exp(lp[0]), math.exp(lp[2])
+    lim = 4 * eps32 * n * (amp + noise) / noise
+    dg = g32.double() - g64
+    log(f'  {what} at (log amp, log γ, log noise) = '
+        f'{[round(v, 6) for v in lp]}: cond_estimate {cond:.4g}; NLL port '
+        f'float32 {float(nll32):.8g}, plain float64 {nll64:.8g}, |diff| '
+        f'{dnll:.3e} (limit {lim:.3e}); gradient port {g32.tolist()}, '
+        f'plain {g64.tolist()}')
+    if dnll > lim:
+        fail(f'{what}: NLL disagrees with the float64 reference')
+    if not near_optimum:
+        rel = float(dg.norm() / g64.norm())
+        log(f'    relative diff {rel:.3e} (limit {10 * cond * eps32:.3e})')
+        if rel > 10 * cond * eps32:
+            fail(f'{what}: gradient disagrees with the float64 reference')
+        return
+    h = 1e-3
+    H = torch.stack([
+        (ts_nll64(t64, y64, [v + h * (k == j) for j, v in enumerate(lp)])[1]
+         - ts_nll64(t64, y64, [v - h * (k == j)
+                               for j, v in enumerate(lp)])[1]) / (2 * h)
+        for k in range(3)], 1)
+    Hinv = torch.linalg.inv(0.5 * (H + H.T)
+                            + torch.eye(3, dtype=H.dtype, device=H.device))
+    shift = (Hinv @ dg).abs() / Hinv.diagonal().sqrt()
+    log(f'    optimum shift from the gradient error: {shift.tolist()} '
+        f'posterior sdev (limit 0.1)')
+    if not bool((shift <= 0.1).all()):
+        fail(f'{what}: the gradient error moves the optimum too far')
+
+
+def timeseries_phase(dev='cuda'):
+    """The time-series path: examples/timeseries_streaming.py's model,
+    ``amp * Celerite(gamma, B=0.05) + noise * White()``, its hyperprior
+    and its data's true values and density (`ts_data`), float32.
+
+    Dense, n = N: ``empbayes_fit`` with at most TS_ITERS BFGS
+    iterations, the default gram (kernel C on the celerite profile,
+    forward and fused backward once per evaluation), the noise the
+    scalar ``givencov`` of the data (``data=lambda hp: ({'obs': y},
+    hp['noise'])``): a White component in the kernel makes the dense GP
+    broadcast the block (its δ needs the x == y comparison, in the JAX
+    package too), while the streaming solver takes it as the same iid
+    diagonal; NLL and gradient at the start and at the fit and the
+    posterior mean at NPRED points past the data held to float64
+    (`ts_check`, `ts_mean64`).  Streaming, n = N_STREAM:
+    ``solver='chol-stream'``, at most TS_STREAM_ITERS iterations from the
+    dense MAP (kernel D on the celerite profile at every internal node,
+    C's fused backward once per gradient strip); the NLL and its exact
+    gradient at the prior mean held to float64 at n = N_CHECK; a forecast
+    of TS_FORECAST points across the end of the data by
+    ``fit.gp().addx`` and ``predfromdata``, finite, its sdev growing past
+    the data, as the example asserts.  Returns the launch counts of the
+    whole phase."""
+    import numpy as np
+    import torch
+    import lsqfitgp_torch as lgp
+    f32 = torch.float32
+    cuda = dev == 'cuda'
+    torch.set_default_dtype(f32)
+    key = 'celerite'
+    reset_counts()
+    t0 = time.perf_counter()
+    t, y = ts_data(N)
+    log(f'timeseries path: amp * Celerite(gamma, B={TS_TRUE["B"]}) + noise '
+        f'* White(), true {TS_TRUE}, data seed {TS_SEED}, drawn in '
+        f'independent windows of {TS_WINDOW} points '
+        f'({time.perf_counter() - t0:.1f} s on the host)')
+    tt = torch.as_tensor(t, device=dev)
+    yt = torch.as_tensor(y, device=dev)
+    span = 120.0 * N / 700
+
+    def gpfactory(hp):
+        k = hp['amp'] * lgp.Celerite(gamma=hp['gamma'], B=TS_TRUE['B'])
+        return lgp.GP(k).addx(tt, 'obs')
+
+    log(f'  dense: n = {N} on [0, {span:.1f}], float32, default gram, the '
+        f'noise as givencov, at most {TS_ITERS} BFGS iterations')
+    if cuda:
+        torch.cuda.synchronize()
+    before = read_counts()
+    t1 = time.perf_counter()
+    fit = lgp.empbayes_fit(TS_PRIOR, gpfactory,
+                           lambda hp: ({'obs': yt}, hp['noise']),
+                           minkw={'maxiter': TS_ITERS}, raises=False)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    fit_counts = counts_since(before)
+    evals = len(fit.evaltimes)
+    ms = statistics.median(fit.evaltimes) * 1e3
+    log(f'  fit: {wall:.2f} s wall, {fit.minresult.nit} BFGS iterations, '
+        f'{evals} evaluations, median {ms:.1f} ms per evaluation (value + '
+        f'gradient); launches {nonzero(fit_counts)}')
+    if cuda:
+        require_launched(fit_counts, ['schur_update_tc', 'syrk_t_full__dmma',
+                                      f'gram@{key}', f'gram_bwd@{key}'],
+                         'the dense time-series fit')
+        require_counts(fit_counts, {f'gram@{key}': evals,
+                                    f'gram_bwd@{key}': evals,
+                                    'gram': evals, 'gram_bwd': evals},
+                       'the dense time-series fit')
+    fitted = [math.log(float(fit.pmean[k])) for k in TS_KEYS]
+    log(f'  fitted amp, gamma, noise {[float(fit.pmean[k]) for k in TS_KEYS]}'
+        f' (true {[TS_TRUE[k] for k in TS_KEYS]}); pcov '
+        f'{fit.pcov.tolist()}')
+    t64, y64 = tt.double(), yt.double()
+
+    def value_grad32(lp):
+        lp = torch.tensor(lp, dtype=f32, device=dev, requires_grad=True)
+        hp = dict(zip(TS_KEYS, lp.exp()))
+        nll = -gpfactory(hp).marginal_likelihood({'obs': yt}, hp['noise'])
+        g, = torch.autograd.grad(nll, lp)
+        with torch.no_grad():
+            K = gpfactory(hp).prior('obs', raw=True)
+            K.diagonal().add_(hp['noise'])
+            cond = float(lgp.linalg.Chol(K).cond_estimate)
+        return nll.detach(), g, cond
+
+    start = [TS_PRIOR[f'log({k})'][0] for k in TS_KEYS]
+    for label, lp, near in (('start point', start, False),
+                            ('fitted point', fitted, True)):
+        nll, g, cond = value_grad32(lp)
+        if not cond < 0.1 / torch.finfo(f32).eps:
+            fail('conditioning beyond the float32 factorization limit')
+        ts_check(f'dense n = {N}, {label}', N, nll, g, t64, y64, lp, cond,
+                 near)
+    xs = np.linspace(span, span + 20, NPRED)
+    xst = torch.as_tensor(xs, dtype=f32, device=dev)
+    mean = fit.gp().addx(xst, 'pred').predfromdata(
+        {'obs': yt}, 'pred', fit.pmean['noise']).mean
+    with torch.no_grad():
+        ref = ts_mean64(t64, y64, xst.double(), fitted)
+    dmean = float((mean.double() - ref).abs().max())
+    eps32 = torch.finfo(f32).eps
+    lim = 10 * cond * eps32 * float(ref.abs().max())
+    log(f'  posterior mean at {NPRED} points past the data: max |port - '
+        f'float64| {dmean:.3e} (limit {lim:.3e}), max |mean| '
+        f'{float(ref.abs().max()):.4g}')
+    if not bool(torch.isfinite(mean).all()) or mean.shape != (NPRED,):
+        fail('time-series posterior mean not finite or of the wrong shape')
+    if dmean > lim:
+        fail('time-series posterior mean disagrees with the float64 '
+             'reference')
+    del fit, mean
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # streaming
+    t, y = ts_data(N_STREAM)
+    span = 120.0 * N_STREAM / 700
+
+    def stream_gp(hp):
+        return lgp.GP(ts_kernel(lgp, hp), solver='chol-stream',
+                      block=STREAM_BLOCK, b1=128)
+
+    log(f'  streaming: n = {N_STREAM} on [0, {span:.1f}], solver='
+        f'chol-stream, block={STREAM_BLOCK}, at most {TS_STREAM_ITERS} BFGS '
+        f'iterations from the dense MAP')
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    before = read_counts()
+    t1 = time.perf_counter()
+    sfit = lgp.empbayes_fit(TS_PRIOR, lambda hp: stream_gp(hp).addx(t, 'obs'),
+                            {'obs': y}, initial=fitted,
+                            minkw={'maxiter': TS_STREAM_ITERS}, raises=False)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = counts_since(before)
+    ev = sfit.evaltimes
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    log(f'  streaming fit: {wall:.2f} s wall, {sfit.minresult.nit} BFGS '
+        f'iterations, {len(ev)} evaluations, {statistics.median(ev):.3f} s '
+        f'median per value + gradient, peak {peak / N_STREAM ** 2:.2f} B/n²;'
+        f' launches {nonzero(counts)}')
+    if cuda:
+        strips = -(-N_STREAM // (4 * STREAM_BLOCK))
+        require_launched(counts, [f'schur_update_gram_tc@{key}',
+                                  f'gram@{key}', 'schur_update_tc'],
+                         'the streaming time-series fit')
+        require_counts(counts, {f'gram_bwd@{key}': strips * len(ev)},
+                       'the streaming time-series fit')
+    end = [math.log(float(sfit.pmean[k])) for k in TS_KEYS]
+    log(f'  end point amp, gamma, noise '
+        f'{[float(sfit.pmean[k]) for k in TS_KEYS]}')
+    tstar = np.linspace(span - 20, span + 20, TS_FORECAST)
+    post = sfit.gp().addx(tstar, 'forecast').predfromdata({'obs': y},
+                                                          'forecast')
+    fmean, fsdev = post.mean, post.sdev
+    log(f'  forecast of {TS_FORECAST} points on [{tstar[0]:.1f}, '
+        f'{tstar[-1]:.1f}]: sdev {float(fsdev[0]):.4f} -> '
+        f'{float(fsdev[-1]):.4f} (prior level '
+        f'{math.sqrt(float(sfit.pmean["amp"])):.4f})')
+    if not (bool(torch.isfinite(fmean).all())
+            and bool(torch.isfinite(fsdev).all())
+            and bool((fsdev >= 0).all())):
+        fail('time-series forecast not finite')
+    if not float(fsdev[-1]) > float(fsdev[0]):
+        fail('time-series forecast: the sdev does not grow past the data')
+    del sfit, post
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the streaming check at n = N_CHECK against float64
+    t, y = ts_data(N_CHECK)
+    tt = torch.as_tensor(t, device=dev)
+    yt = torch.as_tensor(y, device=dev)
+    lp = torch.tensor(start, dtype=f32, device=dev, requires_grad=True)
+    with lgp.disable_checks():
+        nll = -stream_gp(dict(zip(TS_KEYS, lp.exp()))).addx(tt, 'obs') \
+            .marginal_likelihood({'obs': yt})
+    g, = torch.autograd.grad(nll, lp)
+    with torch.no_grad():
+        # the condition of the matrix the streaming solver factors, K +
+        # noise I (a White kernel would make duplicate points singular)
+        hp = dict(zip(TS_KEYS, lp.exp()))
+        K = lgp.GP(hp['amp'] * lgp.Celerite(gamma=hp['gamma'],
+                                            B=TS_TRUE['B'])).addx(
+            tt, 'obs').prior('obs', raw=True)
+        K.diagonal().add_(hp['noise'])
+        cond = float(lgp.linalg.Chol(K).cond_estimate)
+        del K
+    ts_check(f'streaming n = {N_CHECK}', N_CHECK, nll.detach(), g,
+             tt.double(), yt.double(), start, cond, False)
+    counts = read_counts()
+    log(f'  the phase: {time.perf_counter() - t0:.1f} s; launches '
+        f'{nonzero(counts)}')
+    return counts
+
+
 def main(argv):
     sys.path.insert(0, ROOT)
     header()
@@ -4037,6 +4465,8 @@ def main(argv):
         build()
         gen = torch.Generator(device='cuda').manual_seed(SEED)
         for name, (ps, _, _) in ZOO_RECORDS.items():
+            if name in TS_RECORDS:
+                continue
             for p in ps:
                 for dtype in (torch.float32, torch.float64):
                     kernel_zoo(dtype, gen, name, p)
@@ -4050,6 +4480,16 @@ def main(argv):
         matern_phase()
         torch.cuda.empty_cache()
         multiscale_phase()
+        return 0
+    if argv == ['--timeseries']:
+        build()
+        gen = torch.Generator(device='cuda').manual_seed(SEED)
+        for name, fn, _, _, variants in ts_kernel_specs():
+            log(f'kernel {name}:')
+            for dtype in variants:
+                fn(dtype, gen)
+                torch.cuda.empty_cache()
+        timeseries_phase()
         return 0
     if argv:
         fail(f'unknown arguments {argv}')
@@ -4095,6 +4535,9 @@ def main(argv):
     log(f'elapsed {time.perf_counter() - t0:.1f} s')
     torch.cuda.empty_cache()
     paths['multiscale'] = multiscale_phase()
+    log(f'elapsed {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    paths['timeseries'] = timeseries_phase()
     # each kernel's launches are those of its own path's run: the dense
     # fit's, but for A, C and C's backward in float64 the float64 dense
     # evaluation's.  C's and E's counters do not tell the dtypes apart:
@@ -4112,7 +4555,8 @@ def main(argv):
     own_key = {'schur_update': 'rescue'}
     dtype_paths = {'float32': ['rescue', 'dense', 'stream', 'halfmatrix',
                                'second', 'fishvec', 'halfmatrix_hess',
-                               'deriv', 'multidim', 'matern', 'multiscale'],
+                               'deriv', 'multidim', 'matern', 'multiscale',
+                               'timeseries'],
                    'float64': ['dense64']}
     for rec in records:
         base = rec['name'].split('/')[0]

@@ -30,9 +30,19 @@
 // with respect to this vector; the tangent kernels take its tangent.
 // Static numbers that choose code ride a launch argument instead: each
 // term's code, 16 bits of `codes` (term t at bit 16 t), holds the
-// profile id (bits 0-3), the mode (bits 4-5) and the static integer k
-// (bits 6-15: Maternp's p).  The static gamma = 2 and alpha = 2 branches
-// of GammaExp and Cauchy are ids of their own.
+// profile id (bits 0-4), the mode (bits 5-6) and the static integer k
+// (bits 7-15: Maternp's p, Wendland's k).  The static gamma = 2 and
+// alpha = 2 branches of GammaExp and Cauchy are ids of their own.
+//
+// The cores of the 1-D time-series kernels (Periodic, Celerite,
+// Harmonic, Cos, Sinc) and the rest of the 'abs'/'posabs' zoo
+// (HoleEffect, CausalExpQuad, Log, Wendland, Circular) are functions of
+// the distance t.  Their trigonometric functions take full range
+// reduction (sincos, sin; this code never takes the __sinf intrinsics
+// and the build has no --use_fast_math): the time-series path reaches
+// |t| ~ 1e4.  Log's and Sinc's closed forms cancel near t = 0, so below
+// a threshold they take their power series (LOG_SERIES, SINC_SERIES in
+// ops/_gram.py).
 //
 // Two evaluators take this vector.  FixedExpQuad is the single ExpQuad
 // term with w = 1 (the main path's profile), compiled as before;
@@ -60,6 +70,16 @@ enum {
     PROFILE_CAUCHY = 4,     // (1 + P / b)^(-b / a), P = (t + tiny)^(a/2)
     PROFILE_CAUCHY2 = 5,    // (1 + t / a)^(-a / 2), Cauchy's static alpha = 2
     PROFILE_EXPON = 6,      // exp(-t), t the distance
+    PROFILE_PERIODIC = 7,   // exp(-2 sin^2(t/2) / a^2)
+    PROFILE_HOLEEFFECT = 8, // (1 - t) exp(-t)
+    PROFILE_CAUSALEXPQUAD = 9,  // erfc(a t / 4) exp(-t^2 / 2)
+    PROFILE_LOG = 10,       // log1p(t) / t
+    PROFILE_WENDLAND = 11,  // (1 - t)_+^(nu + k) P_k(t), nu = k + a
+    PROFILE_CIRCULAR = 12,  // (1 + a s / b)(1 - s / b)_+^a, s = dist(t, Z)
+    PROFILE_CELERITE = 13,  // exp(-a t)(cos t + b sin t)
+    PROFILE_HARMONIC = 14,  // the damped oscillator of quality factor a
+    PROFILE_COS = 15,       // cos t
+    PROFILE_SINC = 16,      // sin(pi t) / (pi t)
 };
 
 enum { MODE_SQUARED = 0, MODE_ABS = 1, MODE_POSABS = 2 };
@@ -72,6 +92,20 @@ __device__ __forceinline__ float dlog1p(float v) { return log1pf(v); }
 __device__ __forceinline__ double dlog1p(double v) { return log1p(v); }
 __device__ __forceinline__ float dsqrt(float v) { return sqrtf(v); }
 __device__ __forceinline__ double dsqrt(double v) { return sqrt(v); }
+__device__ __forceinline__ float dexpm1(float v) { return expm1f(v); }
+__device__ __forceinline__ double dexpm1(double v) { return expm1(v); }
+__device__ __forceinline__ float derfc(float v) { return erfcf(v); }
+__device__ __forceinline__ double derfc(double v) { return erfc(v); }
+__device__ __forceinline__ float dsin(float v) { return sinf(v); }
+__device__ __forceinline__ double dsin(double v) { return sin(v); }
+__device__ __forceinline__ void dsincos(float v, float* s, float* c)
+{
+    sincosf(v, s, c);
+}
+__device__ __forceinline__ void dsincos(double v, double* s, double* c)
+{
+    sincos(v, s, c);
+}
 
 template <typename T> struct Lim;
 template <> struct Lim<float> {
@@ -141,6 +175,80 @@ __device__ __forceinline__ float mfac2(float, int p) { return kMatern.d2f[p]; }
 __device__ __forceinline__ double mfac2(double, int p)
 {
     return kMatern.d2d[p];
+}
+
+// Wendland's polynomial P_k(t) = sum_j c_j(nu) t^(k - j): the
+// coefficient c_j as a polynomial in nu = k + alpha, lowest power first
+// (lsqfitgp_tpu/kernels/_wendland.py's table), and the series of Log's
+// and Sinc's cores below their thresholds: log1p(t)/t = sum_j (-t)^j /
+// (j + 1) for t < LOG_SERIES and sin(x)/x = sum_j (-1)^j x^(2j) /
+// (2j + 1)! for x = pi t < SINC_SERIES (ops/_gram.py's constants)
+constexpr int WENDLAND_KMAX = 3;
+constexpr int LOG_TERMS = 20, SINC_TERMS = 10;
+constexpr double LOG_SERIES = 0.1, SINC_SERIES = 1.0;
+
+struct SeriesTable {
+    double wd[WENDLAND_KMAX + 1][WENDLAND_KMAX + 1][4];
+    float wf[WENDLAND_KMAX + 1][WENDLAND_KMAX + 1][4];
+    double logd[LOG_TERMS + 1], sincd[SINC_TERMS + 1];
+    float logf_[LOG_TERMS + 1], sinc_f[SINC_TERMS + 1];
+};
+
+constexpr SeriesTable make_series()
+{
+    SeriesTable t{};
+    // wd[k][j] = c_j(nu), lowest power of nu first
+    const double w[4][4][4] = {
+        {{1, 0, 0, 0}},
+        {{1, 1, 0, 0}, {1, 0, 0, 0}},
+        {{1, 4. / 3, 1. / 3, 0}, {2, 1, 0, 0}, {1, 0, 0, 0}},
+        {{1, 23. / 15, 3. / 5, 1. / 15}, {3, 12. / 5, 2. / 5, 0},
+         {3, 1, 0, 0}, {1, 0, 0, 0}},
+    };
+    for (int k = 0; k <= WENDLAND_KMAX; ++k)
+        for (int j = 0; j <= WENDLAND_KMAX; ++j)
+            for (int m = 0; m < 4; ++m) {
+                t.wd[k][j][m] = w[k][j][m];
+                t.wf[k][j][m] = (float)w[k][j][m];
+            }
+    for (int j = 0; j <= LOG_TERMS; ++j) {
+        t.logd[j] = (j % 2 ? -1.0 : 1.0) / (j + 1);
+        t.logf_[j] = (float)t.logd[j];
+    }
+    double c = 1;
+    for (int j = 0; j <= SINC_TERMS; ++j) {
+        if (j > 0) c = -c / ((2 * j) * (2 * j + 1));
+        t.sincd[j] = c;
+        t.sinc_f[j] = (float)c;
+    }
+    return t;
+}
+
+static __constant__ SeriesTable kSeries = make_series();
+
+__device__ __forceinline__ float wcoef(float, int k, int j, int m)
+{
+    return kSeries.wf[k][j][m];
+}
+__device__ __forceinline__ double wcoef(double, int k, int j, int m)
+{
+    return kSeries.wd[k][j][m];
+}
+__device__ __forceinline__ float logcoef(float, int j)
+{
+    return kSeries.logf_[j];
+}
+__device__ __forceinline__ double logcoef(double, int j)
+{
+    return kSeries.logd[j];
+}
+__device__ __forceinline__ float sinccoef(float, int j)
+{
+    return kSeries.sinc_f[j];
+}
+__device__ __forceinline__ double sinccoef(double, int j)
+{
+    return kSeries.sincd[j];
 }
 
 // Q_p(x) by Horner
@@ -271,6 +379,202 @@ __device__ __forceinline__ Core<T> core_eval(int id, int k, T t, T a, T b)
         if (DA) o.ga = T(0.5) * o.g * (t / (a * B) - lB);
         break;
     }
+    case PROFILE_PERIODIC: {
+        // a is the outer scale
+        T s, c;
+        dsincos(t, &s, &c);
+        const T h = dsin(T(0.5) * t), ia2 = T(1) / (a * a);
+        o.g = dexp(T(-2) * h * h * ia2);
+        o.g1 = -o.g * s * ia2;
+        o.g2 = o.g * (s * s * ia2 - c) * ia2;
+        if (DA) o.ga = T(4) * o.g * h * h * ia2 / a;
+        break;
+    }
+    case PROFILE_HOLEEFFECT: {
+        const T e = dexp(-t);
+        o.g = (T(1) - t) * e;
+        o.g1 = (t - T(2)) * e;
+        o.g2 = (T(3) - t) * e;
+        break;
+    }
+    case PROFILE_CAUSALEXPQUAD: {
+        // c = alpha / 4; d = 2/sqrt(pi) exp(-c^2 t^2) exp(-t^2/2)
+        const T c = T(0.25) * a;
+        const T E = dexp(T(-0.5) * t * t);
+        o.g = derfc(c * t) * E;
+        const T d = T(1.1283791670955126) * dexp(-(c * c + T(0.5)) * t * t);
+        o.g1 = -c * d - t * o.g;
+        o.g2 = c * d * t * (T(2) * c * c + T(1)) - o.g - t * o.g1;
+        if (DA) o.ga = T(-0.25) * t * d;
+        break;
+    }
+    case PROFILE_LOG: {
+        if (t < T(LOG_SERIES)) {
+            T s0 = T(0), s1 = T(0), s2 = T(0);
+            for (int j = LOG_TERMS; j >= 0; --j) {
+                const T c = logcoef(T(0), j);
+                s0 = fma(s0, t, c);
+                if (j >= 1) s1 = fma(s1, t, c * T(j));
+                if (j >= 2) s2 = fma(s2, t, c * T(j * (j - 1)));
+            }
+            o.g = s0;
+            o.g1 = s1;
+            o.g2 = s2;
+        } else {
+            const T L = dlog1p(t), u = T(1) / (T(1) + t), it = T(1) / t;
+            o.g = L * it;
+            o.g1 = (t * u - L) * it * it;
+            o.g2 = (T(2) * L * it - T(2) * u) * it * it - u * u * it;
+        }
+        break;
+    }
+    case PROFILE_WENDLAND: {
+        // P, its t-derivatives and its nu-derivative by Horner; the
+        // coefficients c_j(nu) and c_j'(nu) by Horner in nu
+        const T nu = T(k) + a, e = nu + T(k);
+        T P = T(0), P1 = T(0), P2 = T(0), Pa = T(0);
+        for (int j = 0; j <= k; ++j) {
+            T cj = T(0), dcj = T(0);
+            for (int m = 3; m >= 0; --m) {
+                dcj = fma(dcj, nu, cj);
+                cj = fma(cj, nu, wcoef(T(0), k, j, m));
+            }
+            P2 = fma(P2, t, P1);
+            P1 = fma(P1, t, P);
+            P = fma(P, t, cj);
+            Pa = fma(Pa, t, dcj);
+        }
+        if (t < T(1)) {
+            const T w = T(1) - t, L = dlog(w);
+            const T we1 = dexp((e - T(1)) * L), we = we1 * w;
+            o.g = we * P;
+            o.g1 = we1 * (w * P1 - e * P);
+            o.g2 = e * (e - T(1)) * we1 / w * P - T(2) * e * we1 * P1
+                + we * T(2) * P2;
+            if (DA) o.ga = we * (L * P + Pa);
+        }
+        break;
+    }
+    case PROFILE_CIRCULAR: {
+        // tau = a, c = b; s the distance of t to the nearest integer
+        const T x = t - floor(t);
+        const T s = fmin(x, T(1) - x), q = T(1) - s / b;
+        if (q > T(0)) {
+            const T lq = dlog(q), qt1 = dexp((a - T(1)) * lq), qt = qt1 * q;
+            const T f = a * (a + T(1)) / (b * b), u = T(1) + a * s / b;
+            o.g = u * qt;
+            o.g1 = (x <= T(0.5) ? -f : f) * s * qt1;
+            o.g2 = -f * (qt1 - (a - T(1)) * s / b * qt1 / q);
+            if (DA) {
+                o.ga = s / b * qt + u * qt * lq;
+                o.gb = f * s * s / b * qt1;
+            }
+        }
+        break;
+    }
+    case PROFILE_CELERITE: {
+        // gamma = a, B = b
+        T s, c;
+        dsincos(t, &s, &c);
+        const T E = dexp(-a * t);
+        o.g = E * fma(b, s, c);
+        o.g1 = E * ((b - a) * c - fma(a, b, T(1)) * s);
+        o.g2 = E * ((a * a - T(2) * a * b - T(1)) * c
+                    + (T(2) * a + a * a * b - b) * s);
+        if (DA) {
+            o.ga = -t * o.g;
+            o.gb = E * s;
+        }
+        break;
+    }
+    case PROFILE_HARMONIC: {
+        // Q = a: within sqrt(eps) of 1 the Matern-3/2 form; below,
+        // e^-s (cosh(eta s) + sinh(eta s) / eta) by e^-(1-eta)s and
+        // expm1(-2 eta s), which cannot overflow; above, e^-s (cos(eta s)
+        // + sin(eta s) / eta); s = t / Q, eta = sqrt|1 - Q^2|
+        const T Q = a;
+        if (fabs(Q - T(1)) < dsqrt(Lim<T>::eps())) {
+            const T x = t / Q, e = dexp(-x), iQ = T(1) / Q;
+            const T T3 = t * t * (T(1) + t / T(3)), P = (T(1) - Q) * T3;
+            const T P1 = (T(1) - Q) * (T(2) * t + t * t);
+            const T P2 = (T(1) - Q) * (T(2) + T(2) * t);
+            o.g = (T(1) + x) * e + e * P;
+            o.g1 = -x * e * iQ + e * (P1 - P * iQ);
+            o.g2 = (x - T(1)) * e * iQ * iQ
+                + e * (P * iQ * iQ - T(2) * P1 * iQ + P2);
+            if (DA)
+                o.ga = x * e * t * iQ * iQ
+                    + e * T3 * ((T(1) - Q) * t * iQ * iQ - T(1));
+        } else {
+            const T s = t / Q;
+            T eta, C, S, Sp, deta;
+            if (Q < T(1)) {
+                eta = dsqrt((T(1) - Q) * (T(1) + Q));
+                const T A = dexp(-Q * Q / (T(1) + eta) * s);
+                const T m = dexpm1(T(-2) * eta * s);
+                C = T(0.5) * A * (T(2) + m);
+                S = T(-0.5) * A * m;
+                Sp = S;
+                deta = -Q / eta;
+            } else {
+                eta = dsqrt((Q - T(1)) * (Q + T(1)));
+                T sn, cs;
+                dsincos(eta * s, &sn, &cs);
+                const T e = dexp(-s);
+                C = e * cs;
+                Sp = e * sn;
+                S = -Sp;
+                deta = Q / eta;
+            }
+            o.g = C + Sp / eta;
+            const T gs = -o.g + C + eta * S;
+            o.g1 = gs / Q;
+            o.g2 = (-gs - Q * Q * C) / (Q * Q);
+            if (DA)
+                o.ga = gs * (-s / Q)
+                    + (s * S + s * C / eta - Sp / (eta * eta)) * deta;
+        }
+        break;
+    }
+    case PROFILE_COS: {
+        T s, c;
+        dsincos(t, &s, &c);
+        o.g = c;
+        o.g1 = -s;
+        o.g2 = -c;
+        break;
+    }
+    case PROFILE_SINC: {
+        // f(x) = sin(x)/x at x = pi t; g' = pi f', g'' = pi^2 f''
+        const T pi = T(3.141592653589793), x = pi * t;
+        T f, f1, f2;
+        if (x < T(SINC_SERIES)) {
+            const T z = x * x;
+            T s0 = T(0), s1 = T(0), s2 = T(0);
+            for (int j = SINC_TERMS; j >= 0; --j) {
+                const T c = sinccoef(T(0), j);
+                s0 = fma(s0, z, c);
+                if (j >= 1) {
+                    s1 = fma(s1, z, c * T(2 * j));
+                    s2 = fma(s2, z, c * T(2 * j * (2 * j - 1)));
+                }
+            }
+            f = s0;
+            f1 = s1 * x;
+            f2 = s2;
+        } else {
+            T sn, cs;
+            dsincos(x, &sn, &cs);
+            const T ix = T(1) / x;
+            f = sn * ix;
+            f1 = (x * cs - sn) * ix * ix;
+            f2 = -f - T(2) * f1 * ix;
+        }
+        o.g = f;
+        o.g1 = pi * f1;
+        o.g2 = pi * pi * f2;
+        break;
+    }
     }
     return o;
 }
@@ -284,7 +588,7 @@ __device__ __forceinline__ Core<T> core_eval(int id, int k, T t, T a, T b)
 template <typename T, bool D1, bool D2, bool DA>
 __device__ __noinline__ Core<T> term_eval(unsigned code, T u, T a, T b)
 {
-    const int id = code & 15u, mode = (code >> 4) & 3u, k = code >> 6;
+    const int id = code & 31u, mode = (code >> 5) & 3u, k = code >> 7;
     if (mode == MODE_SQUARED) return core_eval<T, D1, D2, DA>(id, k, u, a, b);
     T v, tu;
     bool pos = true;

@@ -142,6 +142,10 @@ def Periodic(delta, outerscale=1):
     return torch.exp(-2 * (torch.sin(delta / 2) / outerscale) ** 2)
 
 
+_fastgram.GRAM_PROFILES[Periodic.__wrapped__] = \
+    lambda outerscale=1: ('periodic', 0, (outerscale,))
+
+
 @kernel(derivable=False, maxdim=1)
 def Categorical(x, y, cov=None):
     r"""Categorical kernel over integers 0..N-1: k(x, y) = cov[x, y]."""
@@ -201,6 +205,9 @@ def HoleEffect(delta):
     return (1 - delta) * torch.exp(-delta)
 
 
+_fastgram.GRAM_PROFILES[HoleEffect.__wrapped__] = 'holeeffect'
+
+
 def _cauchy_derivable(alpha=2, **_):
     # a dynamic α sits at a generic value: not derivable
     return _static(alpha) and alpha == 2
@@ -241,6 +248,10 @@ def CausalExpQuad(r, alpha=1):
     return torch.special.erfc(alpha / 4 * r) * torch.exp(-0.5 * r * r)
 
 
+_fastgram.GRAM_PROFILES[CausalExpQuad.__wrapped__] = \
+    lambda alpha=1: ('causalexpquad', 0, (alpha,))
+
+
 @kernel(derivable=True, maxdim=1)
 def Decaying(x, y, alpha=1):
     r"""Decaying kernel: k(x, y) = 1/(x + y + 1)^α for x, y ≥ 0."""
@@ -255,6 +266,9 @@ def Decaying(x, y, alpha=1):
 def Log(r):
     r"""Log kernel: k(r) = log1p(r)/r."""
     return torch.log1p(r) / r
+
+
+_fastgram.GRAM_PROFILES[Log.__wrapped__] = 'log'
 
 
 @kernel(derivable=True, maxdim=1)

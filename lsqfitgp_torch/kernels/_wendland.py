@@ -1,18 +1,20 @@
 """Compact-support kernels.
 
-Counterpart of ``lsqfitgp_tpu/kernels/_wendland.py`` (on the broadcast
-path: no CUDA profile).
+Counterpart of ``lsqfitgp_tpu/kernels/_wendland.py``.  Both cores carry
+a CUDA profile: Wendland's k ∈ {0..3} rides the profile's static
+integer and α its argument (the polynomial's coefficients, polynomials
+in ν = k + α, are formed from it where the profile is evaluated).
 """
 
 from __future__ import annotations
 
 import math
 
-import numpy
 import torch
 
 from .. import _torchutil
-from ..kernelalg import stationarykernel, isotropickernel
+from ..kernelalg import stationarykernel, isotropickernel, _fastgram
+from ..ops._gram import WENDLAND_POLY, _polyval
 
 __all__ = ['Wendland', 'Circular']
 
@@ -22,15 +24,9 @@ def _wendland_derivable(k=0, **_):
 
 
 def _wendland_maxdim(k=0, alpha=1):
+    if isinstance(alpha, torch.Tensor):
+        alpha = float(alpha.detach())
     return int(math.floor(2 * alpha - 1))
-
-
-_WENDLAND_POLY = {
-    0: [[1]],
-    1: [[1, 1], [1]],
-    2: [[1 / 3, 4 / 3, 1], [1, 2], [1]],
-    3: [[1 / 15, 3 / 5, 23 / 15, 1], [2 / 5, 12 / 5, 3], [1, 3], [1]],
-}
 
 
 @isotropickernel(input='posabs', derivable=_wendland_derivable,
@@ -43,11 +39,11 @@ def Wendland(r, k=0, alpha=1):
         assert _wendland_maxdim(k, alpha) >= 1
     _torchutil.check(check)
     try:
-        poly = _WENDLAND_POLY[k]
+        poly = WENDLAND_POLY[k]
     except KeyError:
         raise NotImplementedError(f'Wendland k={k} not implemented')
     nu = k + alpha
-    coeffs = [float(numpy.polyval(pj, nu)) for pj in poly]
+    coeffs = [_polyval(pj, nu) for pj in poly]
     polyval = torch.zeros_like(r)
     for c in coeffs:
         polyval = polyval * r + c
@@ -55,6 +51,15 @@ def Wendland(r, k=0, alpha=1):
     # nan, and so would its derivative under the where
     return torch.where(r < 1, torch.clamp(1 - r, min=0) ** (nu + k) * polyval,
                        torch.zeros_like(r))
+
+
+def _wendland_gram(k=0, alpha=1):
+    if not isinstance(k, int) or k not in WENDLAND_POLY:
+        return None
+    return 'wendland', k, (alpha,)
+
+
+_fastgram.GRAM_PROFILES[Wendland.__wrapped__] = _wendland_gram
 
 
 @stationarykernel(derivable=1, maxdim=1, input='posabs')
@@ -68,3 +73,7 @@ def Circular(delta, tau=4, c=1 / 2):
     x = delta % 1
     t = torch.minimum(x, 1 - x)
     return (1 + tau * t / c) * torch.clamp(1 - t / c, min=0) ** tau
+
+
+_fastgram.GRAM_PROFILES[Circular.__wrapped__] = \
+    lambda tau=4, c=1 / 2: ('circular', 0, (tau, c))

@@ -90,6 +90,7 @@ unchanged.  A third derivative raises.
 from __future__ import annotations
 
 import collections
+import math
 
 import torch
 
@@ -115,7 +116,7 @@ Profile.__doc__ = """A registered profile: ``id`` is its number in
 are the plain torch core g(t), g'(t) and g''(t) of its own argument t,
 ``dargs`` its derivatives in its two arguments ``(∂g/∂a, ∂g/∂b)``
 (None where it takes none), each a function ``f(t, k, a, b)`` with k
-the static integer (Maternp's p) and a, b 0-d tensors."""
+the static integer (Maternp's p, Wendland's k) and a, b 0-d tensors."""
 
 Term = collections.namedtuple(
     'Term', ['profile', 'mode', 'k', 'args', 'scale', 'post'],
@@ -272,6 +273,237 @@ def _expquad(c):
     return lambda t, k, a, b: c * torch.exp(-0.5 * t)
 
 
+# -- the 1-D time-series and compact-support cores (each a function of t
+# that returns (g, g', g'', ∂g/∂a, ∂g/∂b), None where the core takes no
+# such argument; `_parts` splits it into a Profile's four functions) -----
+
+def _parts(pid, name, fn, nargs):
+    def pick(i):
+        return lambda t, k, a, b: fn(t, k, a, b)[i]
+
+    dargs = None if nargs == 0 else \
+        (lambda t, k, a, b: fn(t, k, a, b)[3:])
+    return Profile(name, pid, pick(0), pick(1), pick(2), dargs)
+
+
+def _periodic(t, k, a, b):
+    # exp(-2 sin²(t/2) / a²), a the outer scale
+    h = torch.sin(t / 2)
+    g = torch.exp(-2 * h * h / (a * a))
+    s = torch.sin(t)
+    return (g, -g * s / (a * a), g * (s * s / a ** 4 - torch.cos(t) / (a * a)),
+            g * 4 * h * h / a ** 3, None)
+
+
+def _holeeffect(t, k, a, b):
+    e = torch.exp(-t)
+    return (1 - t) * e, (t - 2) * e, (3 - t) * e, None, None
+
+
+def _causalexpquad(t, k, a, b):
+    # erfc(α t / 4) exp(-t²/2), α = a
+    c = a / 4
+    E = torch.exp(-0.5 * t * t)
+    g = torch.special.erfc(c * t) * E
+    d = 2 / math.sqrt(math.pi) * torch.exp(-c * c * t * t) * E
+    g1 = -c * d - t * g
+    g2 = c * d * t * (2 * c * c + 1) - g - t * g1
+    return g, g1, g2, -t * d / 4, None
+
+
+# below these arguments the series of Log's and Sinc's cores, whose
+# closed forms cancel near 0; their terms
+LOG_SERIES, LOG_TERMS = 0.1, 20
+SINC_SERIES, SINC_TERMS = 1.0, 10
+
+
+def _log(t, k, a, b):
+    # log1p(t) / t; the series Σ (−t)^j / (j + 1) below LOG_SERIES
+    ts = torch.clamp(t, max=LOG_SERIES)
+    s0 = s1 = s2 = torch.zeros_like(t)
+    for j in range(LOG_TERMS, -1, -1):
+        c = (-1) ** j / (j + 1)
+        s0 = s0 * ts + c
+        if j >= 1:
+            s1 = s1 * ts + c * j
+        if j >= 2:
+            s2 = s2 * ts + c * j * (j - 1)
+    tc = torch.clamp(t, min=LOG_SERIES)
+    L = torch.log1p(tc)
+    u = 1 / (1 + tc)
+    g = L / tc
+    g1 = (tc * u - L) / (tc * tc)
+    g2 = 2 * L / tc ** 3 - 2 * u / (tc * tc) - u * u / tc
+    small = t < LOG_SERIES
+    return (torch.where(small, s0, g), torch.where(small, s1, g1),
+            torch.where(small, s2, g2), None, None)
+
+
+# Wendland's polynomial: the coefficient of t^(k − j) is a polynomial in
+# ν = k + α, highest power first (lsqfitgp_tpu/kernels/_wendland.py)
+WENDLAND_POLY = {
+    0: [[1]],
+    1: [[1, 1], [1]],
+    2: [[1 / 3, 4 / 3, 1], [1, 2], [1]],
+    3: [[1 / 15, 3 / 5, 23 / 15, 1], [2 / 5, 12 / 5, 3], [1, 3], [1]],
+}
+
+
+def _polyval(coef, x):
+    """Σ coef[i] x^(deg − i) by Horner, for numbers or tensors."""
+    out = 0
+    for c in coef:
+        out = out * x + c
+    return out
+
+
+def _polyder(coef):
+    n = len(coef) - 1
+    return [c * (n - i) for i, c in enumerate(coef[:-1])] or [0]
+
+
+def _wendland(t, k, a, b):
+    # (1 − t)_+^(ν + k) P(t), ν = k + α, P's coefficients polynomials in ν
+    nu = k + a
+    e = nu + k
+    cs = [_polyval(pj, nu) for pj in WENDLAND_POLY[k]]
+    dcs = [_polyval(_polyder(pj), nu) for pj in WENDLAND_POLY[k]]
+    P = _polyval(cs, t)
+    P1 = _polyval(_polyder(cs), t)
+    P2 = _polyval(_polyder(_polyder(cs)), t)
+    Pa = _polyval(dcs, t)
+    inside = t < 1
+    w = torch.where(inside, 1 - t, torch.ones_like(t))
+    L = torch.log(w)
+    we = torch.exp(e * L)
+    we1 = torch.exp((e - 1) * L)
+    we2 = torch.exp((e - 2) * L)
+    zero = torch.zeros_like(t)
+    g = we * P
+    g1 = we1 * (w * P1 - e * P)
+    g2 = e * (e - 1) * we2 * P - 2 * e * we1 * P1 + we * P2
+    ga = we * (L * P + Pa)
+    return (torch.where(inside, g, zero), torch.where(inside, g1, zero),
+            torch.where(inside, g2, zero), torch.where(inside, ga, zero),
+            None)
+
+
+def _circular(t, k, a, b):
+    # (1 + τ s/c)(1 − s/c)_+^τ, s the distance to the nearest integer of
+    # t (period 1), τ = a, c = b
+    x = torch.remainder(t, 1.0)
+    sg = torch.where(x <= 0.5, torch.ones_like(x), -torch.ones_like(x))
+    s = torch.minimum(x, 1 - x)
+    q = 1 - s / b
+    inside = q > 0
+    qs = torch.where(inside, q, torch.ones_like(q))
+    lq = torch.log(qs)
+    qt = torch.exp(a * lq)
+    qt1 = torch.exp((a - 1) * lq)
+    qt2 = torch.exp((a - 2) * lq)
+    f = a * (a + 1) / (b * b)
+    zero = torch.zeros_like(t)
+    g = (1 + a * s / b) * qt
+    g1 = -sg * f * s * qt1
+    g2 = -f * (qt1 - (a - 1) * s / b * qt2)
+    ga = s / b * qt + (1 + a * s / b) * qt * lq
+    gb = f * s * s / b * qt1
+    return tuple(torch.where(inside, v, zero) for v in (g, g1, g2, ga, gb))
+
+
+def _celerite(t, k, a, b):
+    # exp(−γ t)(cos t + B sin t), γ = a, B = b
+    E = torch.exp(-a * t)
+    C, S = torch.cos(t), torch.sin(t)
+    g = E * (C + b * S)
+    g1 = E * ((b - a) * C - (1 + a * b) * S)
+    g2 = E * ((a * a - 2 * a * b - 1) * C + (2 * a + a * a * b - b) * S)
+    return g, g1, g2, -t * g, E * S
+
+
+def _harmonic(t, k, a, b):
+    """The damped oscillator, Q = a: within √eps of Q = 1 the
+    Matérn-3/2 form of ``_harmonic_q1``; below, e^{-s}(cosh ηs + sinh
+    ηs / η) and above, e^{-s}(cos ηs + sin ηs / η), s = t/Q, η =
+    √|1 − Q²|, the JAX package's functions.  Below 1 the hyperbolic
+    functions are taken as e^{-(1-η)s} and expm1(−2ηs), which cannot
+    overflow at large s (the JAX expression's cosh does, and gives
+    inf·0 = nan there)."""
+    eps = torch.finfo(t.dtype).eps
+    rt = math.sqrt(eps)
+    # the branches at clamped Q, so that each is finite where another is
+    # taken
+    x = t / a
+    e = torch.exp(-x)
+    T = t * t * (1 + t / 3)
+    P = (1 - a) * T
+    P1 = (1 - a) * (2 * t + t * t)
+    P2 = (1 - a) * (2 + 2 * t)
+    q1 = ((1 + x) * e + e * P,
+          -x * e / a + e * (P1 - P / a),
+          (x - 1) * e / (a * a) + e * (P / (a * a) - 2 * P1 / a + P2),
+          x * e * t / (a * a) + e * T * ((1 - a) * t / (a * a) - 1))
+    ql = torch.clamp(a, max=1 - rt)
+    eta = torch.sqrt((1 - ql) * (1 + ql))
+    s = t / ql
+    A = torch.exp(-ql * ql / (1 + eta) * s)
+    m = torch.expm1(-2 * eta * s)
+    C, S = A * (2 + m) / 2, -A * m / 2
+    lo = _harmonic_branch(C, S, eta, s, ql, -ql / eta)
+    qh = torch.clamp(a, min=1 + rt)
+    eta = torch.sqrt((qh - 1) * (qh + 1))
+    s = t / qh
+    e = torch.exp(-s)
+    C, S = e * torch.cos(eta * s), e * torch.sin(eta * s)
+    hi = _harmonic_branch(C, -S, eta, s, qh, qh / eta, sgn=-1)
+    near1 = (a - 1).abs() < rt
+    out = tuple(torch.where(near1, u, torch.where(a < 1, v, w))
+                for u, v, w in zip(q1, lo, hi))
+    return out + (None,)
+
+
+def _harmonic_branch(C, S, eta, s, Q, deta, sgn=1):
+    """(g, g', g'', ∂g/∂Q) of g = C + S'/η with C = e^{-s} cosh ηs (cos
+    ηs), S' = e^{-s} sinh ηs (sin ηs) and sgn = 1 (−1), given C and
+    sgn·S'; ``deta`` = dη/dQ."""
+    Sp = sgn * S
+    g = C + Sp / eta
+    gs = -g + C + eta * S
+    gss = -gs - Q * Q * C
+    geta = s * S + s * C / eta - Sp / (eta * eta)
+    return g, gs / Q, gss / (Q * Q), gs * (-s / Q) + geta * deta
+
+
+def _cos(t, k, a, b):
+    c = torch.cos(t)
+    return c, -torch.sin(t), -c, None, None
+
+
+def _sinc(t, k, a, b):
+    # sin(πt)/(πt); the series Σ (−1)^j x^{2j}/(2j + 1)! in x = πt below
+    # SINC_SERIES
+    x = math.pi * t
+    xs = torch.clamp(x, max=SINC_SERIES)
+    z = xs * xs
+    s0 = s1 = s2 = torch.zeros_like(t)
+    for j in range(SINC_TERMS, -1, -1):
+        c = (-1) ** j / math.factorial(2 * j + 1)
+        s0 = s0 * z + c
+        if j >= 1:
+            s1 = s1 * z + c * 2 * j
+            s2 = s2 * z + c * 2 * j * (2 * j - 1)
+    s1 = s1 * xs   # the odd series: x^{2j−1}
+    xc = torch.clamp(x, min=SINC_SERIES)
+    sn, cs = torch.sin(xc), torch.cos(xc)
+    f = sn / xc
+    f1 = (xc * cs - sn) / (xc * xc)
+    f2 = -f - 2 * f1 / xc
+    small = x < SINC_SERIES
+    pi = math.pi
+    return (torch.where(small, s0, f), pi * torch.where(small, s1, f1),
+            pi * pi * torch.where(small, s2, f2), None, None)
+
+
 PROFILES = {
     'expquad': Profile('expquad', 0, _expquad(1.0), _expquad(-0.5),
                        _expquad(0.25), None),
@@ -286,6 +518,16 @@ PROFILES = {
     'cauchy2': Profile('cauchy2', 5, _cauchy2_value, _cauchy2_deriv,
                        _cauchy2_deriv2, _cauchy2_dargs),
     'expon': Profile('expon', 6, _exp_neg, _neg_exp_neg, _exp_neg, None),
+    'periodic': _parts(7, 'periodic', _periodic, 1),
+    'holeeffect': _parts(8, 'holeeffect', _holeeffect, 0),
+    'causalexpquad': _parts(9, 'causalexpquad', _causalexpquad, 1),
+    'log': _parts(10, 'log', _log, 0),
+    'wendland': _parts(11, 'wendland', _wendland, 1),
+    'circular': _parts(12, 'circular', _circular, 2),
+    'celerite': _parts(13, 'celerite', _celerite, 2),
+    'harmonic': _parts(14, 'harmonic', _harmonic, 1),
+    'cos': _parts(15, 'cos', _cos, 0),
+    'sinc': _parts(16, 'sinc', _sinc, 0),
 }
 
 # the backward kernels' tiling (csrc/gram.cu): the tile edge, the rows a
@@ -384,19 +626,19 @@ def _leaves(st):
 
 def _codes(st):
     """(term count, packed codes, evaluator) for the kernels: term t's
-    code id | mode << 4 | k << 6 at bit 16 t; the evaluator 0 for a
+    code id | mode << 5 | k << 7 at bit 16 t; the evaluator 0 for a
     single unscaled ExpQuad term (FixedExpQuad), 1 otherwise (Zoo)."""
     terms = _leaves(st)
     if not 1 <= len(terms) <= MAXTERMS:
         raise ValueError(f'the kernels take 1 to {MAXTERMS} terms, not '
                          f'{len(terms)}')
+    kmax = {'maternp': MATERNP_MAX, 'wendland': max(WENDLAND_POLY)}
     codes = 0
     for t, s in enumerate(terms):
-        if not 0 <= s.k <= (MATERNP_MAX if s.profile.name == 'maternp'
-                            else 1023):
+        if not 0 <= s.k <= kmax.get(s.profile.name, 511):
             raise ValueError(f'static integer {s.k} out of the kernels\' '
                              f'range for {s.profile.name}')
-        codes |= (s.profile.id | _MODES[s.mode] << 4 | s.k << 6) << (16 * t)
+        codes |= (s.profile.id | _MODES[s.mode] << 5 | s.k << 7) << (16 * t)
     t0 = terms[0]
     fixed = len(terms) == 1 and t0.profile.name == 'expquad' \
         and t0.mode == 'squared' and not t0.scaled

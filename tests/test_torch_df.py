@@ -93,12 +93,20 @@ def _check(got, ref):
 
 @pytest.mark.parametrize('n', [384, 1100])
 def test_rescue_triggers_and_values(n):
-    """The rescue fires (on the condition estimate) and its NLL, logdet
-    and solve agree with the float64 truth of the matrix it factors;
-    n = 1100 takes the blocked path."""
+    """The rescue fires and its NLL, logdet and solve agree with the
+    float64 truth of the matrix it factors; n = 1100 takes the blocked
+    path.  At these condition numbers (≈ n / 1e-4, about 1/eps32) the
+    float32 factor at the primary eps may or may not break down: its
+    smallest pivots are of the size of the float32 rounding of the Schur
+    complements, whose summation order in the CPU's SGEMM depends on the
+    machine's vector width.  So the rescue fires on the condition
+    estimate or after the ladder's escalation, and either way factors at
+    the primary eps; `test_rescue_after_escalation` holds the escalated
+    case on an input built to escalate."""
     K32, y64, _ = _illcond(n)
     dec = _quiet(Chol, torch.as_tensor(K32))
-    assert dec._df_rescued and not dec._df_failed and not dec._escalated
+    assert dec._df_rescued and not dec._df_failed
+    assert float(dec._eps) < 8 * float(np.finfo(np.float32).eps)
     assert (dec._wide[1] is not None) == (n >= 1024)
     y32 = torch.as_tensor(y64, dtype=torch.float32)
     got = _outputs(dec, y32)
@@ -106,6 +114,24 @@ def test_rescue_triggers_and_values(n):
         lambda: (dec.minus_log_normal_density(y32), dec.logdet(),
                  dec.ginv_linear(y32))))
     _check(got, _truth(_reg(K32, dec), y64))
+
+
+def test_rescue_after_escalation():
+    """A noiseless smooth Gram (``tests/linalg/test_df.py``'s
+    ``test_escalated_singular_rescued``): the float32 ladder fails at the
+    primary eps on every machine and escalates, and the rescue then
+    factors at the primary eps (not the bound-scaled eps of the last
+    rung) with its NLL, logdet and solve at the float64 truth.  The
+    truth takes the float32-rounded data the rescue is given: at this
+    condition (≈1e7 in float64) the data's own rounding moves the solve
+    by more than the tolerance."""
+    K32, y64, _ = _illcond(256, noise=0.0)
+    dec = _quiet(Chol, torch.as_tensor(K32))
+    assert dec._escalated and dec._df_rescued and not dec._df_failed
+    assert float(dec._eps) < 8 * float(np.finfo(np.float32).eps)
+    y32 = y64.astype(np.float32)
+    got = _outputs(dec, torch.as_tensor(y32))
+    _check(got, _truth(_reg(K32, dec), y32.astype(np.float64)))
 
 
 @pytest.mark.parametrize('n,noise', [(384, 1e-4), (256, 0.0)])

@@ -932,6 +932,31 @@ def _zoo_descs(t):
                        post=(('mul', t(0.4)),)),
                      T(P['expon'], 'abs', scale=t(1.5))),
                     (('mul', t(0.9)), ('add', t(0.05)))),
+        # the 1-D time-series cores and the rest of the 'abs'/'posabs'
+        # zoo, their arguments dynamic
+        'periodic': S((T(P['periodic'], 'abs', args=(t(1.4),)),), amp),
+        'holeeffect': S((T(P['holeeffect'], 'abs'),), amp),
+        'causalexpquad': S((T(P['causalexpquad'], 'posabs',
+                              args=(t(1.7),)),), amp),
+        'log': S((T(P['log'], 'posabs'),), amp),
+        # scaled so that the test's points stay well inside its support:
+        # near the edge (1 − t)^(ν+k−1) amplifies r²'s rounding by
+        # (ν+k−1)/(1 − t), beyond `_bwd_tol`'s per-term bound (the smoke's
+        # record holds the edge, on a quarter of its pairs, by row sums)
+        'wendland2': S((T(P['wendland'], 'posabs', k=2, args=(t(1.6),),
+                          scale=t(20.0)),), amp),
+        'circular': S((T(P['circular'], 'posabs',
+                         args=(t(4.5), t(0.4))),), amp),
+        'celerite': S((T(P['celerite'], 'abs', args=(t(0.3), t(0.1))),),
+                      amp),
+        'harmonic-hi': S((T(P['harmonic'], 'abs', args=(t(2.0),)),), amp),
+        'harmonic-lo': S((T(P['harmonic'], 'abs', args=(t(0.4),)),), amp),
+        'harmonic-1': S((T(P['harmonic'], 'abs', args=(t(1.0),)),), amp),
+        'cos': S((T(P['cos'], 'abs'),), amp),
+        'sinc': S((T(P['sinc'], 'posabs'),), amp),
+        'ts-terms': S((T(P['celerite'], 'abs', args=(t(0.3), t(0.1))),
+                       T(P['harmonic'], 'abs', args=(t(2.0),),
+                         scale=t(2.0), post=(('mul', t(0.5)),)))),
     }
 
 
@@ -1045,7 +1070,8 @@ def test_zoo_gram_sym_cuda(cuda, gen, dtype, n, p, name):
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('p', [1, 3])
 @pytest.mark.parametrize('name', ['maternp2', 'expon', 'gammaexp', 'cauchy',
-                                  'terms', 'terms3'])
+                                  'terms', 'terms3', 'celerite',
+                                  'harmonic-lo', 'wendland2', 'ts-terms'])
 def test_zoo_schur_update_gram_cuda(cuda, gen, dtype, p, name, precision):
     """Kernel D on the zoo's profiles and term sums, at an offset with a
     ragged nreal and eps, against its plain version within `_tc_tol`."""
@@ -1071,16 +1097,17 @@ def test_zoo_schur_update_gram_cuda(cuda, gen, dtype, p, name, precision):
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('name', ['maternp2', 'maternp5', 'gammaexp2',
-                                  'cauchy2'])
+                                  'cauchy2', 'periodic'])
 def test_zoo_gram_backward_jvp_cuda(cuda, gen, dtype, name):
     """Kernels C″ and E″ on one-term zoo profiles along the points and the
     chain against their plain versions (norm-wise rtol 1e-4 in float32,
     1e-11 in float64), two calls equal to the bit.  The profiles are
     twice differentiable at r² = 0: on the others (Maternp p < 2, Expon,
-    GammaExp γ < 2) g'' grows without bound near coincident points and
-    amplifies the rounding of r² into the tangent, whatever the route
-    (their plain versions are held to the double backward on the CPU,
-    tests/test_torch_zoo.py)."""
+    GammaExp γ < 2, Celerite, Harmonic) g'' grows without bound near
+    coincident points and amplifies the rounding of r² into the tangent,
+    whatever the route (their plain versions are held to the double
+    backward on the CPU, tests/test_torch_zoo.py and
+    tests/test_torch_timeseries.py)."""
     t, x, y, desc = _zoo_setup(cuda, gen, dtype, 200, 90, 1, name)
     dx, dy = t(gen.standard_normal((200, 1))), t(gen.standard_normal((90, 1)))
     G = t(gen.standard_normal((200, 90)))
@@ -1137,6 +1164,45 @@ def test_zoo_models_on_cuda_match_cpu(cuda, gen):
                                 g[k], lp, retain_graph=True)[0]
                                 for k in range(2)])
                             res.append(H.cpu())
+                out[dev] = res
+        for a, b in zip(out['cuda'], out['cpu']):
+            torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-9)
+    finally:
+        torch.set_default_dtype(old)
+
+
+@pytest.mark.gpu
+def test_timeseries_models_on_cuda_match_cpu(cuda, gen):
+    """The time-series example's model, amp * Celerite(gamma, B) + noise *
+    White(), dense (default gram: kernel C on the celerite profile) and
+    chol-stream (C and D), and a Celerite + Harmonic sum dense, on the
+    card give the CPU's likelihood and gradient in float64 (rtol 1e-8)."""
+    t = np.sort(gen.uniform(0, 120, 900))
+    y = np.cos(t) * np.exp(-0.01 * t) + 0.2 * gen.standard_normal(900)
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        def celerite(lp):
+            e = lp.exp()
+            return e[0] * lt.Celerite(gamma=e[1], B=0.05) \
+                + e[2] * lt.White()
+
+        def models(lp):
+            yield lt.GP(celerite(lp), gram='tiled')
+            yield lt.GP(celerite(lp), solver='chol-stream', block=128)
+            yield lt.GP(celerite(lp) + lt.Harmonic(Q=lp[3].exp(), scale=2.0),
+                        gram='tiled')
+
+        out = {}
+        for dev in ('cpu', 'cuda'):
+            with lt.using_device(dev):
+                lp = torch.tensor([0.2, -2.0, -3.0, 0.7], device=dev,
+                                  requires_grad=True)
+                res = []
+                for gp in models(lp):
+                    v = gp.addx(t, 'y').marginal_likelihood({'y': y})
+                    (g,) = torch.autograd.grad(v, lp)
+                    res += [v.detach().cpu(), g.detach().cpu()]
                 out[dev] = res
         for a, b in zip(out['cuda'], out['cpu']):
             torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-9)

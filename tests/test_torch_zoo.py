@@ -319,7 +319,7 @@ def test_build_profile_refuses():
     """Cores without a CUDA profile and sums wider than the kernels'
     term limit take the broadcast path, for a stated reason."""
     for k in (lt.Matern(nu=1.5), lt.Maternp(p=ops.MATERNP_MAX + 1),
-              lt.Wendland(k=1), lt.Log(), lt.Periodic(),
+              lt.Bessel(nu=1.0), lt.Pink(), lt.Color(n=3),
               lt.ExpQuad() + lt.Matern(nu=0.7),
               sum(lt.ExpQuad(scale=s) for s in (1.0, 2.0, 3.0, 4.0, 5.0))):
         assert fg.build_profile(k._fastgram) is None

@@ -40,7 +40,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    CausalExpQuad, Log, Wendland (k = 2) and Circular with dynamic
    arguments at p = 1, CausalExpQuad and Log at p = 10 too; E and its
    backward, C′ and C″ on Periodic; D on Celerite at 'high' and in
-   float64), C's and E's timed by the device time of the named kernel;
+   float64), and the last spec-carrying cores (C and its backward on
+   StationaryFracBrownian, the real-order Matérn, Bessel, Pink and Color
+   at p = 1, Bessel at p = 2 and Matérn-ν at p = 10; E, its backward, C′
+   and C″ on Matérn-ν; D on StationaryFracBrownian and Matérn-ν; the
+   plain versions of the special-function cores held and timed on a
+   block, ZOO_BLOCK), C's and E's timed by the device time of the named
+   kernel;
 4. the float32 rescue: ``Chol`` and ``chol_nll`` of a float32 ExpQuad
    Gram with a small nugget at n = 4096 (the largest size the rescue
    takes by default), on which the 'high' rung fails: prints the rung
@@ -134,7 +140,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    at n = 65536 from the dense MAP (kernel D on the celerite profile),
    its NLL and exact gradient held to float64 at n = 32768, and a
    forecast past the end whose sdev must grow;
-14. prints a JSON line of kernel records and, last, the device line.
+14. the Hurst path: ``amp * StationaryFracBrownian(H)`` on t = 0 … n−1
+   plus white noise, data of H = 0.75 by circulant embedding, a dense
+   fit at n = 16384 (kernel C on 'sfb' with its H-derivative) held to a
+   Toeplitz float64 truth, the fitted H within 3 posterior sdev of 0.75,
+   and a streaming fit at n = 65536 (kernel D on 'sfb'), checked at
+   n = 32768;
+15. the model-comparison path: examples/model_comparison.py at
+   n = 16384, its four candidates' evidence held to float64 (ExpQuad
+   must win), then ``amp * Matern(nu=1.7, scale)`` fitted (kernel C on
+   'matern') against a float64 truth from ``scipy.special.kv``;
+16. prints a JSON line of kernel records and, last, the device line.
 
 Any failed check exits non-zero before the last line.
 
@@ -159,7 +175,9 @@ an older checkout too, to time its route in the same call);
 derivative path; ``--multidim`` kernel C's p = 2 and p = 10 records in
 both dtypes and the multidim path; ``--zoo`` the zoo's records of PR 11
 and the Matérn and multiscale paths; ``--timeseries`` the time-series
-cores' records and the time-series path.
+cores' records and the time-series path; ``--hurst`` the 'sfb' records
+and the Hurst path; ``--evidence`` the records of the other four cores
+and the model-comparison path.
 """
 
 import json
@@ -180,9 +198,10 @@ STREAM_BLOCK = 512  # the streaming solver's block
 # the streaming slice's fit from the dense MAP: 3 BFGS iterations until
 # the time-series path joined the run (42 evaluations, 321 s; 1 iteration
 # took 48, its line search failing at the start point), since then
-# L-BFGS-B capped at STREAM_MAXFUN evaluations (the time-series path runs
-# a streaming BFGS fit at the same n)
-STREAM_MAXFUN = 8
+# L-BFGS-B capped at STREAM_MAXFUN evaluations (the time-series and
+# Hurst paths run streaming BFGS fits at the same n): 8 until the Hurst
+# and model-comparison paths joined the run, 4 since
+STREAM_MAXFUN = 4
 NOISE_VAR = 0.09   # 0.3**2, the data's noise
 # the rescue phase: a float32 Gram at the largest size the float32 rescue
 # takes by default (DF_MAX), smooth enough (ExpQuad of scale 2 over 4096
@@ -259,7 +278,9 @@ def device_ms(fn, calls=GRAM_BATCH, kernel=None):
     from the wrapper's small torch kernels that fold the parameter
     vector).  Unlike CUDA events around the calls it leaves out the time
     the card waits for the host, which a wrapper of a few small torch
-    operations around a sub-millisecond kernel can take up."""
+    operations around a sub-millisecond kernel can take up; where the
+    profiler sees no device time, the median of ``calls`` calls on CUDA
+    events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -277,7 +298,11 @@ def device_ms(fn, calls=GRAM_BATCH, kernel=None):
             if kernel is not None and f'{kernel}<' in e.key:
                 named += t
     if total <= 0:
-        fail('the profiler saw no device time')
+        # CUDA events around the calls instead (the card's wait for the
+        # host included)
+        log(f'    (the profiler saw no device time: {calls} calls timed on '
+            f'CUDA events)')
+        return median_ms(fn, reps=calls)
     if kernel is not None:
         if named > 0:
             return named / 1e3 / calls
@@ -286,14 +311,29 @@ def device_ms(fn, calls=GRAM_BATCH, kernel=None):
     return total / 1e3 / calls
 
 
+# a kernel slower than this many ms per call is timed over SLOW_CALLS
+# calls, and its wrapper's time is not taken apart (a few tenths of a
+# millisecond of host time are lost in its own)
+SLOW_MS, SLOW_CALLS = 5.0, 3
+
+
+def kernel_calls(fn):
+    """GRAM_BATCH, or SLOW_CALLS for a call of ``fn`` slower than SLOW_MS
+    (one call after a warm-up, CUDA events)."""
+    return GRAM_BATCH if median_ms(fn, reps=1) < SLOW_MS else SLOW_CALLS
+
+
 def gram_times(fn, plain, kernel, plain_calls=GRAM_BATCH):
     """(ms, plain_ms, wrapper_ms) of kernel C's or E's wrapper ``fn`` and
     its plain version: the device time per call of the CUDA kernel named
-    ``kernel`` (`device_ms`) and of the plain version (all its kernels,
-    over ``plain_calls`` calls), and the wrapper's mean over GRAM_BATCH
-    calls back to back on CUDA events."""
-    return device_ms(fn, kernel=kernel), device_ms(plain, plain_calls), \
-        median_ms(fn, batch=GRAM_BATCH)
+    ``kernel`` (`device_ms`, over `kernel_calls` calls) and of the plain
+    version (all its kernels, over ``plain_calls`` calls), and the
+    wrapper's mean over GRAM_BATCH calls back to back on CUDA events
+    (None for a slow kernel)."""
+    calls = kernel_calls(fn)
+    wrap = median_ms(fn, batch=GRAM_BATCH) if calls == GRAM_BATCH else None
+    return device_ms(fn, calls, kernel=kernel), \
+        device_ms(plain, plain_calls), wrap
 
 
 def unit_roundoff(dtype):
@@ -806,28 +846,34 @@ def kernel_schur_gram(dtype, gen, zoo=None):
     size whose plain version's temporaries fit the card): points on the
     path's scale, the smoke's post chain, eps, and a ragged nreal (the
     last 300 rows are pad).  With ``zoo``, the zoo profile of that name
-    (`zoo_desc`; the multiscale path's term sum) in place of the amp
-    chain on ExpQuad, at the path's precision 'high' and in float64."""
+    (`zoo_desc`) in place of the amp chain on ExpQuad, at the path's
+    precision 'high' and in float64; where ZOO_BLOCK names it, the
+    kernel is held to its plain version at n = 2 ZOO_BLOCK (the plain
+    version timed there, ``plain_n`` in the record) and timed at n."""
     import torch
     from lsqfitgp_torch import ops
     from lsqfitgp_torch.ops import _syrk
     n = N_STREAM if dtype == torch.float32 else N_CHECK
-    size = h = offset = n // 2
     tile = 512
-    nreal = n - 300
     kw = dict(device='cuda', dtype=dtype, generator=gen)
-    X = (torch.rand(n, 1, **kw) - 0.5) * (400 * n / N_STREAM)
-    A = torch.randn(size, h, **kw) / math.sqrt(h)
+
+    def inputs(n):
+        size = n // 2
+        X = (torch.rand(n, 1, **kw) - 0.5) * (400 * n / N_STREAM)
+        A = torch.randn(size, size, **kw) / math.sqrt(size)
+        return X, A, dict(nreal=n - 300, size=size, offset=size, tile=tile)
+
     amp = torch.tensor(1.3, device='cuda', dtype=dtype)
     eps = torch.tensor(NOISE_VAR, device='cuda', dtype=dtype)
-    args = dict(post=(('mul', amp),), eps=eps, nreal=nreal, size=size,
-                offset=offset, tile=tile)
-    prof = 'expquad'
+    prof, post = 'expquad', (('mul', amp),)
     k0 = 1.3
     if zoo is not None:
-        prof = zoo_desc(zoo, dtype)
-        args['post'] = ()
-        k0 = float(ops.k0(prof, like=X))
+        prof, post = zoo_desc(zoo, dtype), ()
+        k0 = float(ops.k0(prof, like=eps))
+    nc = 2 * ZOO_BLOCK[zoo] if zoo in ZOO_BLOCK else n
+    X, A, geom = inputs(nc)
+    args = dict(post=post, eps=eps, **geom)
+    size = h = geom['size']
     ref = _syrk.schur_update_gram_plain(prof, X, A, **args)
     reps = 3
     plain_ms = median_ms(
@@ -838,45 +884,59 @@ def kernel_schur_gram(dtype, gen, zoo=None):
     # (a probabilistic bound for sums taken in another order), plus
     # 16 u (amp + eps) for the Gram entry itself (exp differs by a few
     # ulps between the two implementations; r² is computed identically;
-    # a zoo profile, by another formula, 32 u (k(0) + eps));
-    # the TF32 passes add their per-product rounding (tc_extra) times
-    # (|A||A|ᵀ)_ij
+    # a zoo profile, by another formula, 32 u (k(0) + eps) times its
+    # `zoo_amp`); the TF32 passes add their per-product rounding
+    # (tc_extra) times (|A||A|ᵀ)_ij
     u = unit_roundoff(dtype)
     Aa = A.abs()
     S = torch.mm(Aa, Aa.T)
     del Aa
     mask = _syrk._tile_mask(size, tile, A.device)
-    # useful work: the lower 512-tiles, 2h flops per entry (the in-tile
-    # Gram, ~5 operations per entry, is negligible beside it); A read
-    # once, the lower tiles written once
-    f = lower_fraction(size, tile)
-    nbytes = A.element_size() * (size * h + f * size * size)
-    flops = f * size * size * (2 * h + 5)
     variants = PRECISIONS if dtype == torch.float32 else FLOAT64
     if zoo is not None:
         variants = variants[:1]
-    entry = (16 if zoo is None else 32) * u * (k0 + NOISE_VAR)
-    records = []
+    entry = (16 if zoo is None else 32 * zoo_amp(zoo, dtype)) * u \
+        * (k0 + NOISE_VAR)
+    errs = {}
     for precision, source, passes, counter in variants:
         prec = None if precision == 'float64' else precision
         got = _syrk.schur_update_gram(prof, X, A, precision=prec, **args)
         got.masked_fill_(~mask, 0)
         tol = (S + (k0 + NOISE_VAR)).mul_(4 * math.sqrt(h) * u) \
             .add_(S, alpha=tc_extra(passes)).add_(entry)
-        err = check_close(f'D schur_update_gram n={n} {dtype} {precision}',
-                          got, ref, tol)
+        errs[precision] = check_close(
+            f'D schur_update_gram n={nc} {dtype} {precision}', got, ref, tol)
         del got, tol
+    del ref, S
+    if nc != n:
+        X, A, geom = inputs(n)
+        args = dict(post=post, eps=eps, **geom)
+        size = h = geom['size']
+    # useful work: the lower 512-tiles, 2h flops per entry (the in-tile
+    # Gram, ~5 operations per entry, or the zoo core's `zoo_ops`, beside
+    # it); A read once, the lower tiles written once
+    f = lower_fraction(size, tile)
+    nbytes = A.element_size() * (size * h + f * size * size)
+    core = 5 if zoo is None else zoo_ops(zoo, dtype, X)[0]
+    flops = f * size * size * (2 * h + core)
+    records = []
+    for precision, source, passes, counter in variants:
+        prec = None if precision == 'float64' else precision
         ms = median_ms(lambda: _syrk.schur_update_gram(
             prof, X, A, precision=prec, **args), reps)
         bd = bound(nbytes, flops, dtype, passes)
+        at = '' if nc == n else f' (plain at n = {nc})'
         log(f'  D {dtype} {precision}: kernel {ms:.3f} ms, plain '
-            f'{plain_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]}), '
+            f'{plain_ms:.3f} ms{at}, bound {bd[0]:.3f} ms ({bd[1]}), '
             f'{2 * f * size * size * h / ms / 1e9:.1f} TFLOP/s useful')
-        rec = record(err, ms, plain_ms, bd, precision=precision,
+        rec = record(errs[precision], ms, plain_ms, bd, precision=precision,
                      dtype=str(dtype), source='lsqfitgp_torch/csrc/' + source,
                      counter=counter)
+        if nc != n:
+            rec['plain_n'] = nc
         if zoo is not None:
-            rec.update(profile=ZOO_KEYS[zoo], path=ZOO_PATHS[zoo] if dtype == torch.float32
+            rec.update(profile=ZOO_KEYS[zoo],
+                       path=ZOO_PATHS.get(zoo) if dtype == torch.float32
                        else None)
         records.append(rec)
     return records
@@ -1231,25 +1291,46 @@ TS_RECORDS = {'celerite': ((1,), 10, 30), 'periodic': ((1,), 9, 26),
               'log': ((1, MD_P), 7, 20), 'wendland': ((1,), 25, 64),
               'circular': ((1,), 16, 42)}
 ZOO_RECORDS.update(TS_RECORDS)
+# the last spec-carrying cores (StationaryFracBrownian, the real-order
+# Matérn and Bessel, Pink, Color) at p = 1, Bessel at p = 2 (within its
+# maxdim) and Matérn-ν at the multidim cell's p: their operations per
+# entry depend on the branch each entry takes (`zoo_ops`)
+CORE_RECORDS = {'sfb': ((1,), None, None), 'matern': ((1, MD_P), None, None),
+                'bessel': ((1, 2), None, None), 'pink': ((1,), None, None),
+                'color': ((1,), None, None)}
+ZOO_RECORDS.update(CORE_RECORDS)
+# the block at which a record's plain version is held and timed where
+# its broadcast temporaries at N² would not fit the card (the
+# quadrature's (n², 100) nodes, Bessel's (n², 40) series terms, the
+# continued fraction's complex steps, the series' and Ci's dozens of n²
+# temporaries) or would take seconds; the kernel is timed at N²
+ZOO_BLOCK = {'matern': 2048, 'bessel': 4096, 'color': 4096, 'sfb': 4096,
+             'pink': 4096}
 # the launch tallies' profile key of each (ops.gram.by_profile), and the
 # path whose launches its float32 p = 1 records count
 ZOO_KEYS = {'maternp2': 'maternp', 'expon': 'expon', 'gammaexp': 'gammaexp',
             'cauchy': 'cauchy', 'terms': 'maternp+expquad',
             **{name: name for name in TS_RECORDS},
-            'harmonic2': 'harmonic', 'harmonic04': 'harmonic'}
+            'harmonic2': 'harmonic', 'harmonic04': 'harmonic',
+            **{name: name for name in CORE_RECORDS}}
 ZOO_PATHS = {'maternp2': 'matern', 'terms': 'multiscale',
-             'celerite': 'timeseries'}
+             'celerite': 'timeseries', 'sfb': 'hurst', 'matern': 'evidence'}
 # the multiscale model's point (log a1, log s1, log a2, log s2)
 MS_POINT = [0.0, 0.3, -0.7, 1.6]
+
+
+# the calls over which a zoo record's plain version is timed (3 until
+# the last five cores' records joined the run)
+ZOO_PLAIN_CALLS = 1
 
 
 def zoo_desc(name, dtype, amp=1.3):
     """A zoo profile as ``ops.gram`` takes it, its numbers on the card:
     Matérn-5/2, the exponential ('abs' mode), GammaExp with a dynamic
     γ, Cauchy with dynamic α and β, the time-series path's Celerite(γ,
-    B) and the other cores of TS_RECORDS with dynamic arguments (each
-    times ``amp``), and the multiscale path's term sum a1 Maternp(p=2,
-    s1) + a2 ExpQuad(s2) at MS_POINT."""
+    B), the other cores of TS_RECORDS with dynamic arguments and those
+    of CORE_RECORDS (each times ``amp``), and the multiscale path's
+    term sum a1 Maternp(p=2, s1) + a2 ExpQuad(s2) at MS_POINT."""
     import torch
     from lsqfitgp_torch import ops
     P, T, S = ops.PROFILES, ops.Term, ops.Terms
@@ -1282,8 +1363,93 @@ def zoo_desc(name, dtype, amp=1.3):
             'wendland': T(P['wendland'], 'posabs', k=2, args=(t(1.6),),
                           scale=t(50.0)),
             'circular': T(P['circular'], 'posabs',
-                          args=(t(4.5), t(0.4)))}[name]
+                          args=(t(4.5), t(0.4))),
+            # the Hurst path's H (dynamic) and the evidence path's ν
+            # (static, the term's argument without a gradient); Bessel's
+            # ν, Pink's δω (dynamic), Color's n
+            'sfb': T(P['sfb'], 'abs', args=(t(HURST_TRUE['H']),)),
+            'matern': T(P['matern'], args=(EV_NU,)),
+            'bessel': T(P['bessel'], args=(1.0,)),
+            'pink': T(P['pink'], 'abs', args=(t(1.5),)),
+            'color': T(P['color'], 'abs', k=3)}[name]
     return S((term,), chain)
+
+
+def zoo_ops(name, dtype, X):
+    """(forward, backward) operations per Gram entry of a zoo record's
+    core: ZOO_RECORDS's counts, or for CORE_RECORDS the counts of the
+    device code's branches (csrc/profiles.cuh, csrc/special.cuh),
+    weighted by the share of this record's entries that take each (on
+    256 rows of the points X): StationaryFracBrownian's three powers
+    below t = 2 and its series above, J = 14 (float32) or 30 (float64)
+    terms of 8 (forward) and 17 (backward) operations; Matérn-ν's
+    100-node quadrature, about 20 operations a node (a cosh, a log1p,
+    two exponentials), once forward and twice backward; Bessel's 40-term
+    series below its cut (x = 8 or 20) or its 20-term Hankel expansion,
+    once forward and twice backward; Pink's two cosine integrals
+    (rational functions of about 20 operations below 4, 70 with the
+    auxiliary functions above); Color's 40-term series for each order
+    (three backward) below t = 1, its 130 complex Lentz steps of about
+    34 operations above.  A special function counts as one operation, so
+    the bound is a least time."""
+    import torch
+    _, fwd, bwd = ZOO_RECORDS[name]
+    if fwd is not None:
+        return fwd, bwd
+    if name == 'matern':
+        return 2020, 4050
+    f64 = dtype == torch.float64
+    J, cut = (30, 20.0) if f64 else (14, 8.0)
+    d = torch.cdist(X[:256], X).flatten()
+    mask, lo, hi = {
+        'sfb': (d < 2, (10, 27), (8 * J + 6, 17 * J + 10)),
+        'bessel': (2.5 * d < cut, (205, 410), (150, 300)),
+        'pink': (2.5 * d <= 4, (50, 60), (150, 170)),
+        'color': (d < 1, (250, 750), (4425, 4440))}[name]
+    f = float(mask.double().mean())
+    return tuple(f * a + (1 - f) * b for a, b in zip(lo, hi))
+
+
+def zoo_amp(name, dtype):
+    """The factor by which a zoo record's rounding tolerance, 32 (p + 1)
+    u of the largest entry, grows with its core's cancellation (1 for the
+    closed forms): Bessel's alternating series in float64, whose terms
+    reach I_0(x) in sum at the cut x = 20, each in the plain version the
+    exponential of a logarithm of size ~x: 20 I_0(20) (the float32
+    kernel, which sums its series in float64, is held to the float64
+    plain version, `bessel_truth`: 1); Pink's difference of two cosine
+    integrals of size |log t| over log1p(δω) near t = 0: 64; the
+    quadrature's exponent of up to 45 and the continued fraction's 130
+    complex steps: 4.  The `gpu` tests' `_CANCEL` holds other numbers
+    because it scales another tolerance, 1e-4 (float32) or 1e-12
+    (float64) of each entry, at other points (x ≤ 10)."""
+    import numpy as np
+    import torch
+    if name == 'bessel':
+        return 20.0 * float(np.i0(20.0)) if dtype == torch.float64 else 1.0
+    return {'pink': 64.0, 'matern': 4.0, 'color': 4.0}.get(name, 1.0)
+
+
+def bessel_truth(name, dtype):
+    """Whether a zoo record holds its kernel to the float64 plain version:
+    Bessel in float32, whose plain series (each term the exponential of
+    its logarithm, as the JAX package's) errs by ~I_0(8) u near the cut,
+    hundreds of times what the kernel, which sums it in float64, errs."""
+    import torch
+    return name == 'bessel' and dtype == torch.float32
+
+
+def check_typical(what, tol, K):
+    """Fail unless the tolerance ``tol`` of a zoo record with a large
+    `zoo_amp` stays below a hundredth of the median |entry| of K: a
+    kernel that zeroed the entries past the series' cut would then
+    fail."""
+    import torch
+    med = float(K.abs().median())
+    log(f'    {what}: tolerance {tol:.3e}, median |entry| {med:.3e}')
+    if not tol <= 1e-2 * med:
+        fail(f'{what}: the tolerance is not below a hundredth of a typical '
+             f'entry')
 
 
 def zoo_points(p, n, dtype, gen):
@@ -1306,15 +1472,16 @@ def zoo_record(rec, kind, name, p, dtype, counter):
     return rec
 
 
-def zoo_bwd_check(what, st, X, fv, G, dtype):
+def zoo_bwd_check(what, st, X, fv, G, dtype, amp=1.0, truth64=False):
     """Kernel C's fused backward on a zoo profile (x both of K's
-    arguments) against its plain version on the card, and against itself
+    arguments) against its plain version on the card (with
+    ``truth64``, in float64 on the same inputs), and against itself
     to the bit: the x gradient within (8 sqrt(n) u + 32 (p + 1) u) times
     the sums of |G Wr Δ| over rows and columns (`check_bwd_cols`'s, with
     the profile's evaluation by another formula, 32 (p + 1) u of each
     term); each slot of the folded parameter vector's gradient within
-    (ceil(log2(n²)) 4 u + 32 (p + 1) u) Σ|G ∂K/∂θ|.  Returns the max abs
-    error."""
+    (ceil(log2(n²)) 4 u + 32 (p + 1) u) Σ|G ∂K/∂θ|, the per-term part
+    times ``amp`` (`zoo_amp`).  Returns the max abs error."""
     import torch
     from lsqfitgp_torch.ops import _gram
     u = unit_roundoff(dtype)
@@ -1324,8 +1491,10 @@ def zoo_bwd_check(what, st, X, fv, G, dtype):
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         fail(f'{what}: two calls differ')
     del again
+    if truth64:
+        G, X, fv = G.double(), X.double(), fv.double()
     ref = _gram._backward_plain(G, st, X, X, fv, True, True, True)
-    rel = 32 * (p + 1) * u
+    rel = 32 * (p + 1) * u * amp
     with torch.no_grad():
         r2 = _gram._sqdist_plain(X, X)
         evals = _gram._terms_plain(st, fv, r2, d1=True, da=True)
@@ -1353,7 +1522,12 @@ def kernel_zoo(dtype, gen, name, p):
     version within 32 (p + 1) u max|K| (r² in another order, and the
     profile by another formula: the kernel takes exp, log and a Horner
     polynomial where the plain version takes torch's pow and its own
-    polynomial, a few ulps each), the backward by `zoo_bwd_check`; the
+    polynomial, a few ulps each) times the core's `zoo_amp` (where that
+    exceeds 1e3, below a hundredth of the median entry, `check_typical`;
+    Bessel in float32 against the float64 plain version, `bessel_truth`),
+    the backward by `zoo_bwd_check`; where ZOO_BLOCK names the profile, both
+    held on the first ZOO_BLOCK points (the plain version timed there,
+    ``plain_n`` in the record) and the kernel timed at 16384²; the
     records 'gram/<name>' and 'gram_bwd/<name>' ('/p10', '/float64'
     appended)."""
     import torch
@@ -1361,28 +1535,42 @@ def kernel_zoo(dtype, gen, name, p):
                                     gram_backward_plain, _gram)
     u = unit_roundoff(dtype)
     isz = torch.finfo(dtype).bits // 8
+    amp = zoo_amp(name, dtype)
     desc = zoo_desc(name, dtype)
     noise = torch.tensor(NOISE_VAR, device='cuda', dtype=dtype)
     X = zoo_points(p, N, dtype, gen)
-    K = gram(desc, X, noise=noise)
-    Kp = gram_plain(desc, X, noise=noise)
-    err = check_close(f'C gram {name} p={p} {dtype}', K, Kp,
-                      32 * (p + 1) * u * float(Kp.abs().max()))
+    nb = ZOO_BLOCK.get(name, N)
+    Xb = X[:nb]
+    K = gram(desc, Xb, noise=noise)
+    truth64 = bessel_truth(name, dtype)
+    if truth64:
+        Kp = gram_plain(zoo_desc(name, torch.float64), Xb.double(),
+                        noise=noise.double())
+    else:
+        Kp = gram_plain(desc, Xb, noise=noise)
+    what = f'C gram {name} p={p} {dtype}' + \
+        (' (the plain version in float64)' if truth64 else '')
+    tol = 32 * (p + 1) * u * amp * float(Kp.abs().max())
+    if amp > 1e3:
+        check_typical(what, tol, Kp)
+    err = check_close(what, K, Kp, tol)
     del K, Kp
     ms, plain_ms, wrap = gram_times(
         lambda: gram(desc, X, noise=noise),
-        lambda: gram_plain(desc, X, noise=noise), 'gram_kernel',
-        plain_calls=3)
-    fwd_ops, bwd_ops = ZOO_RECORDS[name][1:]
+        lambda: gram_plain(desc, Xb, noise=noise), 'gram_kernel',
+        plain_calls=ZOO_PLAIN_CALLS)
+    fwd_ops, bwd_ops = zoo_ops(name, dtype, X)
     bd = bound(isz * (N * N + 2 * N * p), (3 * p + fwd_ops) * N * N, dtype)
+    at = '' if nb == N else f' (plain at {nb}²)'
     log(f'  C {name} p={p} {dtype}: kernel {ms:.3f} ms (the wrapper '
-        f'{wrap:.3f} ms), plain {plain_ms:.3f} ms, bound {bd[0]:.3f} ms '
+        f'{wrap} ms), plain {plain_ms:.3f} ms{at}, bound {bd[0]:.3f} ms '
         f'({bd[1]}), share {bd[0] / ms:.2f}')
     _, st, _, _, pvec = _gram._args(desc, X, None, (), noise)
     fv = _gram._fold(st, pvec)
     G = torch.randn(N, N, device='cuda', dtype=dtype, generator=gen)
-    err_b = zoo_bwd_check(f'C gram backward {name} p={p} {dtype}', st, X,
-                          fv, G, dtype)
+    Gb = G[:nb, :nb].contiguous() if nb < N else G
+    err_b = zoo_bwd_check(f'C gram backward {name} p={p} {dtype}', st, Xb,
+                          fv, Gb, dtype, amp, truth64)
     n0 = gram.launches_bwd
     gram_backward(G, desc, X, noise=noise)
     if gram.launches_bwd != n0 + 1:
@@ -1390,51 +1578,60 @@ def kernel_zoo(dtype, gen, name, p):
              f'expected one')
     ms_b, plain_b, wrap_b = gram_times(
         lambda: gram_backward(G, desc, X, noise=noise),
-        lambda: gram_backward_plain(G, desc, X, noise=noise),
-        'gram_bwd_kernel', plain_calls=3)
+        lambda: gram_backward_plain(Gb, desc, Xb, noise=noise),
+        'gram_bwd_kernel', plain_calls=ZOO_PLAIN_CALLS)
     bd_b = bound(isz * (N * N + 3 * N * p), (6 * p + bwd_ops) * N * N, dtype)
     log(f'  C backward {name} p={p} {dtype}: fused kernel {ms_b:.3f} ms '
-        f'(the wrapper {wrap_b:.3f} ms), plain {plain_b:.3f} ms, bound '
+        f'(the wrapper {wrap_b} ms), plain {plain_b:.3f} ms{at}, bound '
         f'{bd_b[0]:.3f} ms ({bd_b[1]}), share {bd_b[0] / ms_b:.2f}')
-    del G, X
-    return [zoo_record(record(err, ms, plain_ms, bd, wrapper_ms=wrap),
-                       'gram', name, p, dtype, 'launches'),
-            zoo_record(record(err_b, ms_b, plain_b, bd_b, wrapper_ms=wrap_b),
+    del G, Gb, X, Xb
+    extra = {} if nb == N else dict(plain_n=nb)
+    return [zoo_record(record(err, ms, plain_ms, bd, wrapper_ms=wrap,
+                              **extra), 'gram', name, p, dtype, 'launches'),
+            zoo_record(record(err_b, ms_b, plain_b, bd_b, wrapper_ms=wrap_b,
+                              **extra),
                        'gram_bwd', name, p, dtype, 'launches_bwd')]
 
 
 def kernel_zoo_sym(dtype, gen, name='maternp2'):
-    """Kernel E and its fused backward on the Matérn-5/2 profile at
-    16384², p = 1: E equal to C to the bit, against the plain version as
-    C (`kernel_zoo`), its backward against the plain one as C's
+    """Kernel E and its fused backward on a zoo profile at 16384², p = 1:
+    E equal to C to the bit, against the plain version as C
+    (`kernel_zoo`), its backward against the plain one as C's
     (`zoo_bwd_check`'s bounds, G and Gᵀ both entering) and to the bit in
-    two calls; the records 'gram_sym/maternp2' and
-    'gram_sym_bwd/maternp2'."""
+    two calls; the plain versions held and timed on ZOO_BLOCK's block
+    where it names the profile; the records 'gram_sym/<name>' and
+    'gram_sym_bwd/<name>'."""
     import torch
     from lsqfitgp_torch.ops import (gram, gram_sym, gram_sym_plain,
                                     gram_sym_backward,
                                     gram_sym_backward_plain, _gram)
     u = unit_roundoff(dtype)
     isz = torch.finfo(dtype).bits // 8
+    amp = zoo_amp(name, dtype)
     desc = zoo_desc(name, dtype)
     noise = torch.tensor(NOISE_VAR, device='cuda', dtype=dtype)
     X = zoo_points(1, N, dtype, gen)
+    nb = ZOO_BLOCK.get(name, N)
+    Xb = X[:nb]
     K = gram_sym(desc, X, noise=noise)
     if not torch.equal(K, gram(desc, X, noise=noise)):
         fail(f'E gram_sym {name} {dtype}: differs from kernel C')
-    Kp = gram_sym_plain(desc, X, noise=noise)
+    del K
+    K = gram_sym(desc, Xb, noise=noise)
+    Kp = gram_sym_plain(desc, Xb, noise=noise)
     err = check_close(f'E gram_sym {name} {dtype}', K, Kp,
-                      64 * u * float(Kp.abs().max()))
+                      64 * u * amp * float(Kp.abs().max()))
     log(f'    E gram_sym {name} {dtype}: equal to kernel C to the bit')
     del K, Kp
     ms, plain_ms, wrap = gram_times(
         lambda: gram_sym(desc, X, noise=noise),
-        lambda: gram_sym_plain(desc, X, noise=noise), 'gram_sym_kernel',
+        lambda: gram_sym_plain(desc, Xb, noise=noise), 'gram_sym_kernel',
         plain_calls=3)
-    fwd_ops, bwd_ops = ZOO_RECORDS[name][1:]
+    fwd_ops, bwd_ops = zoo_ops(name, dtype, X)
     bd = bound(isz * (N * N + N), (3 + fwd_ops) * N * (N + 1) / 2, dtype)
-    log(f'  E {name} {dtype}: kernel {ms:.3f} ms (the wrapper {wrap:.3f} '
-        f'ms), plain {plain_ms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})')
+    at = '' if nb == N else f' (plain at {nb}²)'
+    log(f'  E {name} {dtype}: kernel {ms:.3f} ms (the wrapper {wrap} '
+        f'ms), plain {plain_ms:.3f} ms{at}, bound {bd[0]:.3f} ms ({bd[1]})')
     _, st, _, _, pvec = _gram._args(desc, X, None, (), noise)
     fv = _gram._fold(st, pvec)
     G = torch.randn(N, N, device='cuda', dtype=dtype, generator=gen)
@@ -1443,118 +1640,134 @@ def kernel_zoo_sym(dtype, gen, name='maternp2'):
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         fail(f'E backward {name} {dtype}: two calls differ')
     del again
+    Gb = G[:nb, :nb].contiguous() if nb < N else G
+    if nb < N:
+        got = _gram._sym_backward(Gb, st, Xb, fv, True, True, True)
     # E's sums are C's with G + Gᵀ: held to C's plain backward
-    gx, gy, gf = _gram._backward_plain(G, st, X, X, fv, True, True, True)
-    rel = 64 * u
+    gx, gy, gf = _gram._backward_plain(Gb, st, Xb, Xb, fv, True, True, True)
+    rel = 64 * u * amp
     with torch.no_grad():
-        r2 = _gram._sqdist_plain(X, X)
+        r2 = _gram._sqdist_plain(Xb, Xb)
         evals = _gram._terms_plain(st, fv, r2, d1=True, da=True)
-        A = G.abs() * _gram._deriv_plain(st, X, X, fv, evals, r2).abs()
+        A = Gb.abs() * _gram._deriv_plain(st, Xb, Xb, fv, evals, r2).abs()
         A = A + A.T
-        tx = 2 * (A * (X - X.T).abs()).sum(1)
+        tx = 2 * (A * (Xb - Xb.T).abs()).sum(1)
         del A
-        mags = [G.abs().sum(), G.diagonal().abs().sum()] + [
-            G.new_zeros(()) if m is None else (G.abs() * m.abs()).sum()
+        mags = [Gb.abs().sum(), Gb.diagonal().abs().sum()] + [
+            Gb.new_zeros(()) if m is None else (Gb.abs() * m.abs()).sum()
             for m in _gram._partials(st, fv, r2, evals)]
         del evals, r2
     err_b = check_close(f'E backward {name} {dtype} dx', got[0][:, 0],
-                        (gx + gy)[:, 0], (8 * math.sqrt(N) * u + rel) * tx)
+                        (gx + gy)[:, 0], (8 * math.sqrt(nb) * u + rel) * tx)
     err_b = max(err_b, check_close(
         f'E backward {name} {dtype} dparams', got[1], gf,
-        (math.ceil(math.log2(N * N)) * 4 * u + rel) * torch.stack(mags)))
+        (math.ceil(math.log2(nb * nb)) * 4 * u + rel) * torch.stack(mags)))
     log(f'    E backward {name} {dtype}: two calls agree to the bit')
     del gx, gy, gf, got
     ms_b, plain_b, wrap_b = gram_times(
         lambda: gram_sym_backward(G, desc, X, noise=noise),
-        lambda: gram_sym_backward_plain(G, desc, X, noise=noise),
+        lambda: gram_sym_backward_plain(Gb, desc, Xb, noise=noise),
         'gram_sym_bwd_kernel', plain_calls=3)
     bd_b = bound(isz * (N * N + 2 * N), (6 + bwd_ops) * N * (N + 1) / 2,
                  dtype)
     log(f'  E backward {name} {dtype}: fused kernel {ms_b:.3f} ms (the '
-        f'wrapper {wrap_b:.3f} ms), plain {plain_b:.3f} ms, bound '
+        f'wrapper {wrap_b} ms), plain {plain_b:.3f} ms{at}, bound '
         f'{bd_b[0]:.3f} ms ({bd_b[1]})')
-    recs = [zoo_record(record(err, ms, plain_ms, bd, wrapper_ms=wrap),
-                       'gram_sym', name, 1, dtype, 'launches'),
-            zoo_record(record(err_b, ms_b, plain_b, bd_b, wrapper_ms=wrap_b),
-                       'gram_sym_bwd', name, 1, dtype, 'launches_bwd')]
+    extra = {} if nb == N else dict(plain_n=nb)
+    recs = [zoo_record(record(err, ms, plain_ms, bd, wrapper_ms=wrap,
+                              **extra), 'gram_sym', name, 1, dtype,
+                       'launches'),
+            zoo_record(record(err_b, ms_b, plain_b, bd_b, wrapper_ms=wrap_b,
+                              **extra), 'gram_sym_bwd', name, 1, dtype,
+                       'launches_bwd')]
     for r in recs:
         r['path'] = None   # no path runs E on this profile
     return recs
 
 
 def kernel_zoo_tangent(dtype, gen, name='maternp2'):
-    """Kernels C′ and C″ on the Matérn-5/2 profile at 16384², p = 1 (the
+    """Kernels C′ and C″ on a one-term zoo profile at 16384², p = 1 (the
     amp chain and the nugget with their tangents): against their plain
     versions (C′ within 32 u times the sum of its terms' magnitudes, as
     `tangent_tol` with the profile's evaluation by another formula; C″
-    within `zoo_bwd_check`'s bounds on its weights' sums), C″ to the bit
-    in two calls; the records 'gram_jvp/maternp2' and
-    'gram_bwd_jvp/maternp2'."""
+    within `zoo_bwd_check`'s bounds on its weights' sums; both times the
+    core's `zoo_amp`), on ZOO_BLOCK's block where it names the profile
+    (the plain versions timed there), C″ to the bit in two calls; the
+    records 'gram_jvp/<name>' and 'gram_bwd_jvp/<name>'."""
     import torch
     from lsqfitgp_torch.ops import _gram
     u = unit_roundoff(dtype)
     isz = torch.finfo(dtype).bits // 8
+    zamp = zoo_amp(name, dtype)
     x, dx, amp, _ = tangent_inputs(dtype, gen)
     desc = zoo_desc(name, dtype, amp=1.0)
     X, dX, st, fv, dfv, one, coef = tangent_path_args(x, dx, amp, 0.3, 0.5,
                                                       desc)
-    got = _gram._tangent(st, X, X, dX, dX, fv, dfv, True)
-    ref = _gram._tangent_plain(st, X, X, dX, dX, fv, dfv, True)
+    nb = ZOO_BLOCK.get(name, N)
+    Xb, dXb = X[:nb], dX[:nb]
+    got = _gram._tangent(st, Xb, Xb, dXb, dXb, fv, dfv, True)
+    ref = _gram._tangent_plain(st, Xb, Xb, dXb, dXb, fv, dfv, True)
     with torch.no_grad():
-        r2 = _gram._sqdist_plain(X, X)
-        dr2 = _gram._dsqdist_plain(X, X, dX, dX)
+        r2 = _gram._sqdist_plain(Xb, Xb)
+        dr2 = _gram._dsqdist_plain(Xb, Xb, dXb, dXb)
         terms = (float(amp) * one.deriv(r2) * dr2).abs() \
             + 0.3 * one.value(r2).abs() + 0.5
         del dr2
     err = check_close(f'C\' gram_jvp {name} {dtype}', got, ref,
-                      64 * u * terms)
+                      64 * u * zamp * terms)
     del got, ref, terms
-    ms = device_ms(lambda: _gram._tangent(st, X, X, dX, dX, fv, dfv, True),
-                   kernel='gram_jvp_kernel')
+    fn = lambda: _gram._tangent(st, X, X, dX, dX, fv, dfv, True)
+    ms = device_ms(fn, kernel_calls(fn), kernel='gram_jvp_kernel')
     plain_ms = device_ms(
-        lambda: _gram._tangent_plain(st, X, X, dX, dX, fv, dfv, True), 3)
-    fwd_ops = ZOO_RECORDS[name][1]
+        lambda: _gram._tangent_plain(st, Xb, Xb, dXb, dXb, fv, dfv, True), 3)
+    fwd_ops = zoo_ops(name, dtype, X)[0]
     bd = bound(isz * (N * N + 2 * N), (8 + fwd_ops) * N * N, dtype)
+    at = '' if nb == N else f' (plain at {nb}²)'
     log(f'  C\' {name} {dtype}: kernel {ms:.3f} ms, plain {plain_ms:.3f} '
-        f'ms, bound {bd[0]:.3f} ms ({bd[1]})')
+        f'ms{at}, bound {bd[0]:.3f} ms ({bd[1]})')
     G = torch.randn(N, N, device='cuda', dtype=dtype, generator=gen)
     got = _gram._bwd_tangent(G, one, X, X, dX, dX, coef, True, True)
     again = _gram._bwd_tangent(G, one, X, X, dX, dX, coef, True, True)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         fail(f'C\'\' gram_backward_jvp {name} {dtype}: two calls differ')
     del again
-    ref = _gram._bwd_tangent_plain(G, one, X, X, dX, dX, coef, True, True)
+    Gb = G[:nb, :nb].contiguous() if nb < N else G
+    if nb < N:
+        got = _gram._bwd_tangent(Gb, one, Xb, Xb, dXb, dXb, coef, True, True)
+    ref = _gram._bwd_tangent_plain(Gb, one, Xb, Xb, dXb, dXb, coef, True,
+                                   True)
     with torch.no_grad():
-        w1, w2, dr2, r2 = _gram._tangent_weights_plain(one, X, X, dX, dX,
+        w1, w2, dr2, r2 = _gram._tangent_weights_plain(one, Xb, Xb, dXb, dXb,
                                                        coef[0], coef[1])
-        D = X - X.T
-        dD = dX - dX.T
-        T = G.abs() * (w1.abs() * D.abs() + w2.abs() * dD.abs())
+        D = Xb - Xb.T
+        dD = dXb - dXb.T
+        T = Gb.abs() * (w1.abs() * D.abs() + w2.abs() * dD.abs())
         tx = 2 * (T.sum(1) + T.sum(0))
         del T, w1, w2, D, dD
-        ta = (G.abs() * (one.deriv(r2) * dr2).abs()).sum()
+        ta = (Gb.abs() * (one.deriv(r2) * dr2).abs()).sum()
         del r2, dr2
-    rel = 64 * u
+    rel = 64 * u * zamp
     err_b = check_close(f'C\'\' gram_backward_jvp {name} {dtype} dx',
                         (got[0] + got[1])[:, 0], (ref[0] + ref[1])[:, 0],
-                        (8 * math.sqrt(N) * u + rel) * tx)
+                        (8 * math.sqrt(nb) * u + rel) * tx)
     err_b = max(err_b, check_close(
         f'C\'\' gram_backward_jvp {name} {dtype} damp', got[2][0], ref[2][0],
-        (math.ceil(math.log2(N * N)) * 4 * u + rel) * ta))
+        (math.ceil(math.log2(nb * nb)) * 4 * u + rel) * ta))
     log(f'    C\'\' gram_backward_jvp {name} {dtype}: two calls agree to '
         f'the bit')
     del got, ref
-    ms_b = device_ms(lambda: _gram._bwd_tangent(G, one, X, X, dX, dX, coef,
-                                                True, True),
-                     kernel='gram_bwd_jvp_kernel')
+    fn = lambda: _gram._bwd_tangent(G, one, X, X, dX, dX, coef, True, True)
+    ms_b = device_ms(fn, kernel_calls(fn), kernel='gram_bwd_jvp_kernel')
     plain_b = device_ms(lambda: _gram._bwd_tangent_plain(
-        G, one, X, X, dX, dX, coef, True, True), 3)
+        Gb, one, Xb, Xb, dXb, dXb, coef, True, True), 3)
     bd_b = bound(isz * (N * N + 4 * N), (14 + 2 * fwd_ops) * N * N, dtype)
     log(f'  C\'\' {name} {dtype}: kernel {ms_b:.3f} ms, plain {plain_b:.3f} '
-        f'ms, bound {bd_b[0]:.3f} ms ({bd_b[1]})')
+        f'ms{at}, bound {bd_b[0]:.3f} ms ({bd_b[1]})')
+    extra = {} if nb == N else dict(plain_n=nb)
     recs = []
-    for kind, rec in (('gram_jvp', record(err, ms, plain_ms, bd)),
-                      ('gram_bwd_jvp', record(err_b, ms_b, plain_b, bd_b))):
+    for kind, rec in (('gram_jvp', record(err, ms, plain_ms, bd, **extra)),
+                      ('gram_bwd_jvp', record(err_b, ms_b, plain_b, bd_b,
+                                              **extra))):
         rec = tangent_record(kind, dtype, rec)
         rec.update(name=f'{kind}/{name}' + rec['name'][len(kind):],
                    path=None, profile=ZOO_KEYS[name])
@@ -1596,7 +1809,7 @@ def kernel_phase():
     # multidim cell's p, E and its backward, C′ and C″ on Matérn-5/2, D on
     # the multiscale term sum (the time-series cores' records follow)
     for name, (ps, _, _) in ZOO_RECORDS.items():
-        if name in TS_RECORDS:
+        if name in TS_RECORDS or name in CORE_RECORDS:
             continue
         for p in ps:
             specs.append((f'gram {name} p={p}',
@@ -1613,7 +1826,7 @@ def kernel_phase():
          lambda dtype, gen: kernel_schur_gram(dtype, gen, 'terms'),
          'lsqfitgp_torch/csrc/syrk.cu', 'lsqfitgp_tpu/ops/_syrk.py:334',
          [f32, f64]),
-    ] + ts_kernel_specs()
+    ] + ts_kernel_specs() + core_kernel_specs()
     for name, fn, source, replaces, variants in specs:
         log(f'kernel {name}:')
         for v in variants:
@@ -4057,7 +4270,9 @@ TS_PRIOR = {'log(amp)': (0., 1.), 'log(gamma)': (math.log(0.2), 1.),
             'log(noise)': (math.log(0.02), 1.)}
 TS_KEYS = ('amp', 'gamma', 'noise')
 TS_ITERS = 10          # the dense fit's BFGS iterations, at most
-TS_STREAM_ITERS = 3    # the streaming fit's, from the dense MAP
+# the streaming fit's, from the dense MAP: 3 until the Hurst path (its
+# own streaming fit) joined the run
+TS_STREAM_ITERS = 1
 TS_WINDOW = 4096       # the data's independent windows
 TS_SEED = 20261019
 TS_FORECAST = 60
@@ -4089,6 +4304,38 @@ def ts_kernel_specs():
          lambda dtype, gen: kernel_schur_gram(dtype, gen, 'celerite'),
          'lsqfitgp_torch/csrc/syrk.cu', 'lsqfitgp_tpu/ops/_syrk.py:334',
          [f32, f64])]
+
+
+def core_kernel_specs():
+    """The kernel phase's specs of the last spec-carrying cores: C and
+    its backward on each of CORE_RECORDS (p = 1; Bessel at p = 2 and
+    Matérn-ν at the multidim cell's p too), E and its backward, C′ and
+    C″ on Matérn-ν, D on StationaryFracBrownian and on Matérn-ν at
+    'high' (n = 65536) and in float64 (n = 32768)."""
+    import torch
+    f32, f64 = torch.float32, torch.float64
+    gram_cu = 'lsqfitgp_torch/csrc/gram.cu'
+    specs = []
+    for name, (ps, _, _) in CORE_RECORDS.items():
+        for p in ps:
+            specs.append((f'gram {name} p={p}',
+                          lambda dtype, gen, name=name, p=p:
+                          kernel_zoo(dtype, gen, name, p), gram_cu,
+                          'lsqfitgp_tpu/ops/_gram.py:68', [f32, f64]))
+    specs += [
+        ('gram_sym matern',
+         lambda dtype, gen: kernel_zoo_sym(dtype, gen, 'matern'), gram_cu,
+         'lsqfitgp_tpu/ops/_gram.py:157', [f32, f64]),
+        ('gram tangents matern',
+         lambda dtype, gen: kernel_zoo_tangent(dtype, gen, 'matern'),
+         gram_cu, None, [f32, f64])]
+    for name in ('sfb', 'matern'):
+        specs.append((f'schur_update_gram/{name}',
+                      lambda dtype, gen, name=name:
+                      kernel_schur_gram(dtype, gen, name),
+                      'lsqfitgp_torch/csrc/syrk.cu',
+                      'lsqfitgp_tpu/ops/_syrk.py:334', [f32, f64]))
+    return specs
 
 
 def ts_data(n, seed=TS_SEED):
@@ -4172,39 +4419,49 @@ def ts_mean64(t, y, ts, lp):
         @ torch.cholesky_solve(y[:, None], L)[:, 0]
 
 
-def ts_check(what, n, nll32, g32, t64, y64, lp, cond, near_optimum):
-    """The port's float32 NLL and gradient in (log amp, log γ, log noise)
-    against `ts_nll64` at lp: the NLL within 4 eps32 n (amp + noise) /
+def ts_check(what, n, nll32, g32, truth, lp, cond, near_optimum):
+    """The port's float32 NLL and gradient in lp = (log amp, θ, log
+    noise) against the float64 reference ``truth(lp)`` -> (nll,
+    gradient[, the gradient's scale]) (`ts_nll64`, `hurst_nll64`), for a
+    kernel of unit variance: the NLL within 4 eps32 n (amp + noise) /
     noise (the float32 path's diagonal anchor, as `check_points`); away
-    from an optimum the gradient within 10 cond eps32 relative; near one
-    the optimum's shift H⁻¹ dg within a tenth of the posterior standard
-    deviation, H the float64 Hessian of the objective (central
-    differences of the float64 gradient plus the prior's identity)."""
+    from an optimum the gradient within 10 cond eps32 of its scale (its
+    norm, or that of its terms' sizes); near one the optimum's shift
+    H⁻¹ dg within a tenth of the posterior standard deviation, H the
+    float64 Hessian of the objective (central differences of the float64
+    gradient plus the N(·, 1) priors' identity), whose inverse's
+    diagonal's square root, the posterior standard deviations, it
+    returns (None away from an optimum)."""
     import torch
     eps32 = torch.finfo(torch.float32).eps
-    nll64, g64 = ts_nll64(t64, y64, lp)
+    nll64, g64, *scale = truth(lp)
+    # the gradient's scale: its own size, or where ``truth`` gives them
+    # the sizes of its two terms, ½|tr(K⁻¹ ∂K)| + ½|αᵀ ∂K α| (they
+    # cancel to a gradient far smaller than either, whose error follows
+    # theirs)
+    scale = scale[0] if scale else g64.abs()
     dnll = abs(float(nll32) - nll64)
     amp, noise = math.exp(lp[0]), math.exp(lp[2])
     lim = 4 * eps32 * n * (amp + noise) / noise
     dg = g32.double() - g64
-    log(f'  {what} at (log amp, log γ, log noise) = '
-        f'{[round(v, 6) for v in lp]}: cond_estimate {cond:.4g}; NLL port '
+    log(f'  {what} at {[round(v, 6) for v in lp]}: cond_estimate '
+        f'{cond:.4g}; NLL port '
         f'float32 {float(nll32):.8g}, plain float64 {nll64:.8g}, |diff| '
         f'{dnll:.3e} (limit {lim:.3e}); gradient port {g32.tolist()}, '
         f'plain {g64.tolist()}')
     if dnll > lim:
         fail(f'{what}: NLL disagrees with the float64 reference')
     if not near_optimum:
-        rel = float(dg.norm() / g64.norm())
-        log(f'    relative diff {rel:.3e} (limit {10 * cond * eps32:.3e})')
+        rel = float(dg.norm() / scale.norm())
+        log(f'    diff relative to the gradient\'s scale {rel:.3e} (limit '
+            f'{10 * cond * eps32:.3e})')
         if rel > 10 * cond * eps32:
             fail(f'{what}: gradient disagrees with the float64 reference')
-        return
+        return None
     h = 1e-3
     H = torch.stack([
-        (ts_nll64(t64, y64, [v + h * (k == j) for j, v in enumerate(lp)])[1]
-         - ts_nll64(t64, y64, [v - h * (k == j)
-                               for j, v in enumerate(lp)])[1]) / (2 * h)
+        (truth([v + h * (k == j) for j, v in enumerate(lp)])[1]
+         - truth([v - h * (k == j) for j, v in enumerate(lp)])[1]) / (2 * h)
         for k in range(3)], 1)
     Hinv = torch.linalg.inv(0.5 * (H + H.T)
                             + torch.eye(3, dtype=H.dtype, device=H.device))
@@ -4213,6 +4470,7 @@ def ts_check(what, n, nll32, g32, t64, y64, lp, cond, near_optimum):
         f'posterior sdev (limit 0.1)')
     if not bool((shift <= 0.1).all()):
         fail(f'{what}: the gradient error moves the optimum too far')
+    return Hinv.diagonal().sqrt()
 
 
 def timeseries_phase(dev='cuda'):
@@ -4309,8 +4567,8 @@ def timeseries_phase(dev='cuda'):
         nll, g, cond = value_grad32(lp)
         if not cond < 0.1 / torch.finfo(f32).eps:
             fail('conditioning beyond the float32 factorization limit')
-        ts_check(f'dense n = {N}, {label}', N, nll, g, t64, y64, lp, cond,
-                 near)
+        ts_check(f'dense n = {N}, {label}', N, nll, g,
+                 lambda q: ts_nll64(t64, y64, q), lp, cond, near)
     xs = np.linspace(span, span + 20, NPRED)
     xst = torch.as_tensor(xs, dtype=f32, device=dev)
     mean = fit.gp().addx(xst, 'pred').predfromdata(
@@ -4408,8 +4666,589 @@ def timeseries_phase(dev='cuda'):
         K.diagonal().add_(hp['noise'])
         cond = float(lgp.linalg.Chol(K).cond_estimate)
         del K
+    t64, y64 = tt.double(), yt.double()
     ts_check(f'streaming n = {N_CHECK}', N_CHECK, nll.detach(), g,
-             tt.double(), yt.double(), start, cond, False)
+             lambda q: ts_nll64(t64, y64, q), start, cond, False)
+    counts = read_counts()
+    log(f'  the phase: {time.perf_counter() - t0:.1f} s; launches '
+        f'{nonzero(counts)}')
+    return counts
+
+
+# -- the Hurst path -------------------------------------------------------------
+
+HURST_TRUE = dict(amp=1.0, H=0.75, noise=0.3)
+# priors on (log amp, h, log noise), H = 1 / (1 + e^{-h}); h's mean puts
+# the start at H = 0.62, away from H = 1/2 (white noise, where amp and
+# the noise cannot be told apart)
+HURST_PRIOR = {'log(amp)': (0., 1.), 'h': (0.5, 1.),
+               'log(noise)': (math.log(0.2), 1.)}
+HURST_KEYS = ('amp', 'h', 'noise')
+HURST_ITERS = 10         # the dense fit's BFGS iterations, at most
+HURST_STREAM_ITERS = 1   # the streaming fit's, from the dense MAP
+HURST_SEED = 20261020
+FGN_TERMS = 40           # the reference's binomial series, from lag 2 on
+
+
+def fgn_cov64(n, H):
+    """The fractional Gaussian noise autocovariance γ(k) = ½(|k+1|^2H +
+    |k−1|^2H − 2k^2H) at lags 0 … n−1 and its H-derivative, float64 on
+    the host (numpy and scipy; no port code): lags 0 and 1 as written,
+    from lag 2 on the binomial series k^α Σ_{j≥1} C(α, 2j) k^{−2j}, α =
+    2H, whose terms do not cancel (the expression as written loses the
+    value at large lags), FGN_TERMS terms, its α-derivative through
+    dC(α, m)/dα = C(α, m)(ψ(α+1) − ψ(α−m+1))."""
+    import numpy as np
+    from scipy.special import binom, digamma
+    a = 2 * H
+    g = np.empty(n)
+    dg = np.empty(n)
+    g[0], dg[0] = 1.0, 0.0
+    if n > 1:
+        g[1] = 2 ** (a - 1) - 1
+        dg[1] = 2 ** (a - 1) * math.log(2)
+    k = np.arange(2, n, dtype=np.float64)
+    j = np.arange(1, FGN_TERMS + 1)
+    C = binom(a, 2 * j)
+    dC = C * (digamma(a + 1) - digamma(a - 2 * j + 1))
+    P = k[:, None] ** (-2.0 * j)
+    ka = k ** a
+    s0 = P @ C
+    g[2:] = ka * s0
+    dg[2:] = np.log(k) * ka * s0 + ka * (P @ dC)
+    return g, 2 * dg
+
+
+def fgn_cov32_cancelling(n, H):
+    """γ(k) and its H-derivative at lags 0 … n−1 by the expression as
+    the JAX package writes it, ½(|k+1|^2H + |k−1|^2H − 2k^2H), in float32
+    on the host, then widened: the control of the Hurst gradient check
+    (`hurst_controls`), a Gram whose three powers cancel."""
+    import numpy as np
+    k = np.arange(n, dtype=np.float32)
+    a = np.float32(2 * H)
+    bases = (k + 1, np.abs(k - 1), k)
+    wts = (np.float32(0.5), np.float32(0.5), np.float32(-1))
+    g = np.zeros(n, np.float32)
+    dg = np.zeros(n, np.float32)
+    for b, w in zip(bases, wts):
+        pw = b ** a
+        g += w * pw
+        with np.errstate(divide='ignore'):
+            lb = np.where(b > 0, np.log(b), np.float32(0))
+        dg += 2 * w * pw * lb
+    return g.astype(np.float64), dg.astype(np.float64)
+
+
+def hurst_data(n, seed=HURST_SEED):
+    """The Hurst path's data: t = 0 … n−1 (float32, exact) and y = √amp
+    fGn(H) + √noise ε at HURST_TRUE, drawn exactly in float64 on the host
+    by circulant embedding (Davies–Harte: the 2n-circulant of γ(0 … n),
+    nonnegative for every H in (0, 1), its square root applied by numpy's
+    FFT to complex normals), rounded to float32."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    g, _ = fgn_cov64(n + 1, HURST_TRUE['H'])
+    lam = np.fft.fft(np.concatenate([g, g[-2:0:-1]])).real
+    if lam.min() < -1e-9 * lam.max():
+        fail('fGn circulant embedding: a negative eigenvalue')
+    m = 2 * n
+    z = rng.standard_normal(m) + 1j * rng.standard_normal(m)
+    x = np.fft.fft(np.sqrt(np.clip(lam, 0, None) / m) * z).real[:n]
+    y = math.sqrt(HURST_TRUE['amp']) * x \
+        + math.sqrt(HURST_TRUE['noise']) * rng.standard_normal(n)
+    return np.arange(n, dtype=np.float32), y.astype(np.float32)
+
+
+def hurst_nll64(y, lp, rows=4096, cov=fgn_cov64):
+    """Independent float64 reference of the likelihood part of the
+    objective of K = amp Γ + noise I on the unit grid (Γ Toeplitz in
+    the γ of ``cov``, `fgn_cov64`), its gradient in (log amp, h, log
+    noise) and the sizes of the gradient's two terms: K by blocks of
+    rows, ``torch.linalg.cholesky``, ½ <K⁻¹ − α αᵀ, ∂K>, the Toeplitz ∂K
+    by the sums of K⁻¹'s diagonals and α's autocorrelation; no port
+    code."""
+    import torch
+    amp, h, noise = math.exp(lp[0]), lp[1], math.exp(lp[2])
+    H = 1 / (1 + math.exp(-h))
+    n = y.shape[0]
+    g, dg = (torch.as_tensor(v, device=y.device) for v in cov(n, H))
+    ar = torch.arange(n, device=y.device)
+    K = y.new_empty((n, n))
+    for i in range(0, n, rows):
+        K[i:i + rows] = g[(ar[i:i + rows, None] - ar[None, :]).abs_()]
+    K.mul_(amp).diagonal().add_(noise)
+    L = torch.linalg.cholesky(K)
+    del K
+    z = torch.linalg.solve_triangular(L, y[:, None], upper=False)
+    nll = 0.5 * float(z.T @ z) + float(torch.log(L.diagonal()).sum()) \
+        + 0.5 * n * math.log(2 * math.pi)
+    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+    Kinv = torch.cholesky_inverse(L)
+    del L
+    # <M, T(v)> = Σ_k v_k d_k, d_0 = tr M, d_k = 2 Σ_i M[i, i+k]: for M =
+    # K⁻¹ by its diagonals' sums, for M = α αᵀ by α's autocorrelation
+    di = torch.stack([torch.diagonal(Kinv, k).sum() for k in range(n)])
+    del Kinv
+    f = torch.fft.rfft(alpha, 2 * n)
+    da = torch.fft.irfft(f * f.conj(), 2 * n)[:n]
+    tr_i, tr_a = di[0].clone(), da[0].clone()
+    di[1:] *= 2
+    da[1:] *= 2
+    # each gradient entry is ½ <K⁻¹ − α αᵀ, ∂K>: its two terms apart
+    ti = 0.5 * torch.stack([amp * (g @ di), amp * H * (1 - H) * (dg @ di),
+                            noise * tr_i])
+    ta = 0.5 * torch.stack([amp * (g @ da), amp * H * (1 - H) * (dg @ da),
+                            noise * tr_a])
+    return nll, ti - ta, ti.abs() + ta.abs()
+
+
+def hurst_controls(what, y64, lp, cond):
+    """Two controls of the streaming Hurst gradient check (`ts_check`
+    away from an optimum: |dg| over the norm of the gradient's two
+    terms' sizes, limit 10 cond eps32): the float64 gradient with H moved
+    by 1e-3, and with γ and ∂γ/∂H from the cancelling expression in
+    float32 (`fgn_cov32_cancelling`; at n = 32768 its K is not positive
+    definite, which is logged), each read against the float64 gradient
+    at ``lp`` as the check reads the port's; fails if either stays
+    within the limit, a check that could not tell them from the
+    truth."""
+    import torch
+    eps32 = torch.finfo(torch.float32).eps
+    _, g64, scale = hurst_nll64(y64, lp)
+    H = 1 / (1 + math.exp(-lp[1]))
+    dh = 1e-3 / (H * (1 - H))
+    lim = 10 * cond * eps32
+    for label, q, cov in (('H + 1e-3', [lp[0], lp[1] + dh, lp[2]],
+                           fgn_cov64),
+                          ('the cancelling expression in float32', lp,
+                           fgn_cov32_cancelling)):
+        try:
+            g = hurst_nll64(y64, q, cov=cov)[1]
+        except torch.linalg.LinAlgError as exc:
+            # an indefinite K: no gradient, which the check would refuse
+            log(f'    {what}, control {label}: K is not positive definite '
+                f'({str(exc).split("(")[-1].rstrip(").")})')
+            continue
+        rel = float((g - g64).norm() / scale.norm())
+        log(f'    {what}, control {label}: diff relative to the '
+            f'gradient\'s scale {rel:.3e} (limit {lim:.3e})')
+        if not rel > lim:
+            fail(f'{what}: the gradient check cannot tell the control '
+                 f'{label} from the truth')
+
+
+def hurst_phase(dev='cuda'):
+    """The Hurst path: a fractional-Gaussian-noise fit, ``amp *
+    StationaryFracBrownian(H)`` on the integer times t = 0 … n−1 with
+    unit scale, plus white noise, hyperparameters (log amp, h, log
+    noise), H = 1/(1 + e^{-h}), data from `hurst_data` at HURST_TRUE,
+    float32.
+
+    Dense, n = N: ``empbayes_fit`` with at most HURST_ITERS BFGS
+    iterations, ``gram='tiled'`` (kernel C on the 'sfb' profile, forward
+    and fused backward with its H-derivative once per evaluation), the
+    noise the data's scalar ``givencov``, covariance 'auto'; NLL and
+    gradient at the start and at the fit held to the Toeplitz float64
+    reference (`ts_check` with `hurst_nll64`), and the fitted H within 3
+    posterior standard deviations of HURST_TRUE's.  Streaming, n =
+    N_STREAM: ``+ noise * White()``, ``solver='chol-stream'``, at most
+    HURST_STREAM_ITERS iterations from the dense MAP (kernel D on 'sfb'
+    at every internal node, C's fused backward once per gradient strip);
+    its NLL and exact gradient at the start point held to float64 at n =
+    N_CHECK, and the check's two controls (`hurst_controls`).  Returns
+    the launch counts of the whole phase."""
+    import torch
+    import lsqfitgp_torch as lgp
+    f32 = torch.float32
+    cuda = dev == 'cuda'
+    torch.set_default_dtype(f32)
+    key = 'sfb'
+    reset_counts()
+    t0 = time.perf_counter()
+    t, y = hurst_data(N)
+    log(f'hurst path: amp * StationaryFracBrownian(H) + noise * White() on '
+        f't = 0 … n−1, true {HURST_TRUE}, data seed {HURST_SEED} by '
+        f'circulant embedding ({time.perf_counter() - t0:.1f} s on the '
+        f'host)')
+    tt = torch.as_tensor(t, device=dev)
+    yt = torch.as_tensor(y, device=dev)
+
+    def kernel(hp):
+        return hp['amp'] * lgp.StationaryFracBrownian(
+            H=torch.sigmoid(hp['h']))
+
+    def gpfactory(hp):
+        return lgp.GP(kernel(hp), gram='tiled').addx(tt, 'obs')
+
+    log(f'  dense: n = {N}, float32, gram=\'tiled\', the noise as '
+        f'givencov, at most {HURST_ITERS} BFGS iterations')
+    if cuda:
+        torch.cuda.synchronize()
+    before = read_counts()
+    t1 = time.perf_counter()
+    fit = lgp.empbayes_fit(HURST_PRIOR, gpfactory,
+                           lambda hp: ({'obs': yt}, hp['noise']),
+                           minkw={'maxiter': HURST_ITERS}, raises=False)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    fit_counts = counts_since(before)
+    evals = len(fit.evaltimes)
+    ms = statistics.median(fit.evaltimes) * 1e3
+    log(f'  fit: {wall:.2f} s wall, {fit.minresult.nit} BFGS iterations, '
+        f'{evals} evaluations, median {ms:.1f} ms per evaluation (value + '
+        f'gradient); launches {nonzero(fit_counts)}')
+    if cuda:
+        require_launched(fit_counts, ['schur_update_tc', 'syrk_t_full__dmma',
+                                      f'gram@{key}', f'gram_bwd@{key}'],
+                         'the dense Hurst fit')
+        require_counts(fit_counts, {f'gram@{key}': evals,
+                                    f'gram_bwd@{key}': evals,
+                                    'gram': evals, 'gram_bwd': evals},
+                       'the dense Hurst fit')
+
+    def lp_of(pmean):
+        return [math.log(float(pmean['amp'])), float(pmean['h']),
+                math.log(float(pmean['noise']))]
+
+    fitted = lp_of(fit.pmean)
+    Hfit = 1 / (1 + math.exp(-fitted[1]))
+    log(f'  fitted amp, H, noise {math.exp(fitted[0]):.6g}, {Hfit:.6g}, '
+        f'{math.exp(fitted[2]):.6g} (true {HURST_TRUE}); pcov '
+        f'{fit.pcov.tolist()}')
+    y64 = yt.double()
+
+    def value_grad32(lp):
+        lp = torch.tensor(lp, dtype=f32, device=dev, requires_grad=True)
+        hp = {'amp': lp[0].exp(), 'h': lp[1], 'noise': lp[2].exp()}
+        nll = -gpfactory(hp).marginal_likelihood({'obs': yt}, hp['noise'])
+        g, = torch.autograd.grad(nll, lp)
+        with torch.no_grad():
+            K = gpfactory(hp).prior('obs', raw=True)
+            K.diagonal().add_(hp['noise'])
+            cond = float(lgp.linalg.Chol(K).cond_estimate)
+        return nll.detach(), g, cond
+
+    start = [HURST_PRIOR[k][0] for k in ('log(amp)', 'h', 'log(noise)')]
+    sdev = None
+    for label, lp, near in (('start point', start, False),
+                            ('fitted point', fitted, True)):
+        nll, g, cond = value_grad32(lp)
+        if not cond < 0.1 / torch.finfo(f32).eps:
+            fail('conditioning beyond the float32 factorization limit')
+        sdev = ts_check(f'dense n = {N}, {label}', N, nll, g,
+                        lambda q: hurst_nll64(y64, q), lp, cond, near)
+    sd_H = Hfit * (1 - Hfit) * float(sdev[1])
+    log(f'  fitted H {Hfit:.6g}, posterior sdev {sd_H:.3g} (float64 '
+        f'Hessian): {abs(Hfit - HURST_TRUE["H"]) / sd_H:.2f} sdev from the '
+        f'true {HURST_TRUE["H"]} (limit 3)')
+    if not abs(Hfit - HURST_TRUE['H']) <= 3 * sd_H:
+        fail('the fitted H is more than 3 posterior sdev from the true H')
+    del fit
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # streaming
+    t, y = hurst_data(N_STREAM)
+
+    def stream_gp(hp):
+        return lgp.GP(kernel(hp) + hp['noise'] * lgp.White(),
+                      solver='chol-stream', block=STREAM_BLOCK, b1=128)
+
+    log(f'  streaming: n = {N_STREAM}, solver=chol-stream, block='
+        f'{STREAM_BLOCK}, at most {HURST_STREAM_ITERS} BFGS iterations from '
+        f'the dense MAP')
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    before = read_counts()
+    t1 = time.perf_counter()
+    sfit = lgp.empbayes_fit(HURST_PRIOR,
+                            lambda hp: stream_gp(hp).addx(t, 'obs'),
+                            {'obs': y}, initial=fitted,
+                            minkw={'maxiter': HURST_STREAM_ITERS},
+                            raises=False)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = counts_since(before)
+    ev = sfit.evaltimes
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    log(f'  streaming fit: {wall:.2f} s wall, {sfit.minresult.nit} BFGS '
+        f'iterations, {len(ev)} evaluations, {statistics.median(ev):.3f} s '
+        f'median per value + gradient, peak {peak / N_STREAM ** 2:.2f} B/n²;'
+        f' launches {nonzero(counts)}')
+    if cuda:
+        strips = -(-N_STREAM // (4 * STREAM_BLOCK))
+        require_launched(counts, [f'schur_update_gram_tc@{key}',
+                                  f'gram@{key}', 'schur_update_tc'],
+                         'the streaming Hurst fit')
+        require_counts(counts, {f'gram_bwd@{key}': strips * len(ev)},
+                       'the streaming Hurst fit')
+    end = lp_of(sfit.pmean)
+    log(f'  end point amp, H, noise {math.exp(end[0]):.6g}, '
+        f'{1 / (1 + math.exp(-end[1])):.6g}, {math.exp(end[2]):.6g}')
+    if not all(math.isfinite(v) for v in end):
+        fail('the streaming Hurst fit ended at a non-finite point')
+    del sfit
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the streaming check at n = N_CHECK against float64
+    t, y = hurst_data(N_CHECK)
+    tt = torch.as_tensor(t, device=dev)
+    yt = torch.as_tensor(y, device=dev)
+    lp = torch.tensor(start, dtype=f32, device=dev, requires_grad=True)
+    hp = {'amp': lp[0].exp(), 'h': lp[1], 'noise': lp[2].exp()}
+    with lgp.disable_checks():
+        nll = -stream_gp(hp).addx(tt, 'obs').marginal_likelihood({'obs': yt})
+    g, = torch.autograd.grad(nll, lp)
+    with torch.no_grad():
+        hp = {k: v.detach() for k, v in hp.items()}
+        K = lgp.GP(kernel(hp)).addx(tt, 'obs').prior('obs', raw=True)
+        K.diagonal().add_(hp['noise'])
+        cond = float(lgp.linalg.Chol(K).cond_estimate)
+        del K
+    y64 = yt.double()
+    ts_check(f'streaming n = {N_CHECK}', N_CHECK, nll.detach(), g,
+             lambda q: hurst_nll64(y64, q), start, cond, False)
+    hurst_controls(f'streaming n = {N_CHECK}', y64, start, cond)
+    counts = read_counts()
+    log(f'  the phase: {time.perf_counter() - t0:.1f} s; launches '
+        f'{nonzero(counts)}')
+    return counts
+
+
+# -- the model-comparison path -----------------------------------------------------
+
+# examples/model_comparison.py's kernels, noise and point density (60
+# points per 10 units), at n = N; the data's windows and seed; the cap
+# of the real-order Matérn fit
+EV_NU, EV_SCALE, EV_NOISE, EV_DENSITY = 1.7, 1.5, 0.1, 6.0
+EV_WINDOW, EV_SEED, EV_ITERS = 4096, 20261021, 10
+# the float64 Matérn-ν reference's table in r: step and end (f(40) <
+# 1e-30)
+EV_TABLE_H, EV_TABLE_END = 2e-3, 40.0
+
+
+def ev_data(n, seed=EV_SEED):
+    """The model-comparison path's data: x sorted uniform at EV_DENSITY
+    points per unit around 0, y from ExpQuad(scale=EV_SCALE) drawn in
+    float64 on the host in independent windows of EV_WINDOW consecutive
+    points (each exact, with 1e-8 of jitter), plus EV_NOISE times a
+    standard normal, both rounded to float32."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    half = n / EV_DENSITY / 2
+    x = np.sort(rng.uniform(-half, half, n)).astype(np.float32)
+    x64 = x.astype(np.float64)
+    y = np.empty(n)
+    for i in range(0, n, EV_WINDOW):
+        xw = x64[i:i + EV_WINDOW]
+        K = np.exp(-0.5 * ((xw[:, None] - xw[None, :]) / EV_SCALE) ** 2)
+        K[np.diag_indices_from(K)] += 1e-8
+        y[i:i + EV_WINDOW] = np.linalg.cholesky(K) \
+            @ rng.standard_normal(xw.size)
+    y += EV_NOISE * rng.standard_normal(n)
+    return x, y.astype(np.float32)
+
+
+def matern_table64(nu=EV_NU, device='cuda'):
+    """The real-order Matérn f(r) = 2^{1−ν}/Γ(ν) z^ν K_ν(z), z = √(2ν) r,
+    and f'(r) = −√(2ν) 2^{1−ν}/Γ(ν) z^ν K_{ν−1}(z), tabulated in float64
+    on the host with ``scipy.special.kv`` on [0, EV_TABLE_END] at step
+    EV_TABLE_H (f(0) = 1, f'(0) = 0); no port code."""
+    import numpy as np
+    import torch
+    from scipy.special import gammaln, kv
+    r = np.arange(0, EV_TABLE_END + 2 * EV_TABLE_H, EV_TABLE_H)
+    z = np.sqrt(2 * nu) * r
+    c = np.exp((1 - nu) * math.log(2) - gammaln(nu))
+    with np.errstate(invalid='ignore', divide='ignore'):
+        f = c * z ** nu * kv(nu, z)
+        df = -np.sqrt(2 * nu) * c * z ** nu * kv(nu - 1, z)
+    f[0], df[0] = 1.0, 0.0
+    return (torch.as_tensor(f, device=device),
+            torch.as_tensor(df, device=device))
+
+
+def matern_nu64(d2s, table):
+    """The real-order Matérn at the scaled squared distance and its
+    derivative in log scale, −r f'(r), by cubic Hermite interpolation of
+    `matern_table64`'s f and f' (error ~h⁴ f''''/384, below 1e-9 beside
+    the r^(2ν) cusp at 0), 0 past the table's end; no port code."""
+    import torch
+    f, df = table
+    h = EV_TABLE_H
+    r = torch.sqrt(d2s)
+    u = r / h
+    i = torch.clamp(torch.floor(u), max=f.shape[0] - 2).long()
+    s = torch.clamp(u - i, 0, 1)
+    f0, f1, d0, d1 = f[i], f[i + 1], df[i] * h, df[i + 1] * h
+    s2, s3 = s * s, s * s * s
+    val = (2 * s3 - 3 * s2 + 1) * f0 + (s3 - 2 * s2 + s) * d0 \
+        + (-2 * s3 + 3 * s2) * f1 + (s3 - s2) * d1
+    dval = ((6 * s2 - 6 * s) * f0 + (3 * s2 - 4 * s + 1) * d0
+            + (-6 * s2 + 6 * s) * f1 + (3 * s2 - 2 * s) * d1) / h
+    far = r >= EV_TABLE_END
+    zero = torch.zeros((), dtype=val.dtype, device=val.device)
+    return torch.where(far, zero, val), torch.where(far, zero, -r * dval)
+
+
+def white64(d2s):
+    """White noise at the scaled squared distance: 1 where the points
+    coincide (float32-rounded points may), 0 elsewhere; no scale."""
+    return (d2s == 0).to(d2s.dtype), d2s * 0
+
+
+def expon64(d2s):
+    """The exponential kernel e^{−r} at the scaled squared distance and
+    its derivative in log scale, r e^{−r}."""
+    import torch
+    r = torch.sqrt(d2s)
+    e = torch.exp(-r)
+    return e, r * e
+
+
+def evidence_phase(dev='cuda'):
+    """The model-comparison path: examples/model_comparison.py at n = N
+    (`ev_data`): the log evidence of its four candidates, in its order,
+    ExpQuad(1.5), Expon(1.5), Matern(nu=1.7, scale=1.5) and White, each
+    one float32 ``marginal_likelihood`` with the noise variance as the
+    scalar givencov (the default gram: kernel C on expquad, expon and
+    'matern'; White broadcasts its δ), held to a float64 reference
+    (`plain_terms64` on ExpQuad's and Expon's closed forms, on
+    `matern_nu64`'s table of ``scipy.special.kv`` and on White's δ of
+    the float32-rounded points, a few of which coincide) within
+    `check_points`'s NLL bound, and
+    ExpQuad must win, as the example asserts; then ``amp *
+    Matern(nu=1.7, scale)`` fitted with at most EV_ITERS BFGS
+    iterations (C on 'matern' and its backward, the quadrature of
+    f_{0.7}, once per evaluation), its NLL and gradient at the start and
+    at the fit held to the table's float64 reference as the Matérn path
+    holds Maternp's (`check_points`), and its posterior mean at NPRED
+    points.  Returns the launch counts of the whole phase."""
+    import torch
+    import lsqfitgp_torch as lgp
+    f32 = torch.float32
+    cuda = dev == 'cuda'
+    torch.set_default_dtype(f32)
+    reset_counts()
+    t0 = time.perf_counter()
+    x, y = ev_data(N)
+    noise = EV_NOISE ** 2
+    xt = torch.as_tensor(x, device=dev)
+    yt = torch.as_tensor(y, device=dev)
+    x64, y64 = xt.double(), yt.double()
+    table = matern_table64(device=dev)
+    log(f'evidence path: examples/model_comparison.py at n = {N} on '
+        f'[{x[0]:.1f}, {x[-1]:.1f}], noise {EV_NOISE}, data from '
+        f'ExpQuad(scale={EV_SCALE}) in windows of {EV_WINDOW}, seed '
+        f'{EV_SEED} ({time.perf_counter() - t0:.1f} s on the host, with '
+        f'the Matérn table)')
+    ls = math.log(EV_SCALE)
+    candidates = [
+        ('ExpQuad(1.5)', lambda: lgp.ExpQuad(scale=EV_SCALE), expquad64),
+        ('Expon(1.5)', lambda: lgp.Expon(scale=EV_SCALE), expon64),
+        (f'Matern nu={EV_NU}', lambda: lgp.Matern(nu=EV_NU, scale=EV_SCALE),
+         lambda d2s: matern_nu64(d2s, table)),
+        ('White', lgp.White, white64)]
+    eps32 = torch.finfo(f32).eps
+    lim = 4 * eps32 * N * (1 + noise) / noise
+    scores = {}
+    for name, make, kern in candidates:
+        before = read_counts()
+        with torch.no_grad():
+            s32 = float(lgp.GP(make()).addx(xt, 'data').marginal_likelihood(
+                {'data': yt}, givencov=noise))
+        counts = counts_since(before)
+        nll64 = plain_terms64(x64, y64, [(kern, ls, 0.0)], noise=noise)[0]
+        scores[name] = s32
+        log(f'  {name:15s} log evidence port float32 {s32:.8g}, plain '
+            f'float64 {-nll64:.8g}, |diff| {abs(s32 + nll64):.3e} (limit '
+            f'{lim:.3e}); launches {nonzero(counts)}')
+        if not abs(s32 + nll64) <= lim:
+            fail(f'evidence of {name}: disagrees with the float64 reference')
+        if cuda and name.startswith('Matern'):
+            require_launched(counts, ['gram@matern'], 'the Matérn evidence')
+    best = max(scores, key=scores.get)
+    log(f'  the evidence prefers {best}')
+    if best != 'ExpQuad(1.5)':
+        fail(f'the evidence prefers {best}, not the generating ExpQuad')
+
+    def gpfactory(hp, precision=None):
+        kw = {} if precision is None else dict(precision=precision)
+        k = hp['amp'] * lgp.Matern(nu=EV_NU, scale=hp['scale'])
+        return lgp.GP(k, **kw).addx(xt, 'y')
+
+    hyperprior = {'log(scale)': (ls, 1.), 'log(amp)': (0., 1.)}
+    log(f'  fit: amp * Matern(nu={EV_NU}, scale), float32, the noise as '
+        f'givencov, default gram, at most {EV_ITERS} BFGS iterations')
+    if cuda:
+        torch.cuda.synchronize()
+    before = read_counts()
+    t1 = time.perf_counter()
+    fit = lgp.empbayes_fit(hyperprior, gpfactory,
+                           lambda hp: ({'y': yt}, noise),
+                           minkw={'maxiter': EV_ITERS}, raises=False)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    fit_counts = counts_since(before)
+    evals = len(fit.evaltimes)
+    ms = statistics.median(fit.evaltimes) * 1e3
+    log(f'  fit: {wall:.2f} s wall, {fit.minresult.nit} BFGS iterations, '
+        f'{evals} evaluations, median {ms:.1f} ms per evaluation (value + '
+        f'gradient); launches {nonzero(fit_counts)}')
+    if cuda:
+        require_launched(fit_counts, ['schur_update_tc', 'syrk_t_full__dmma',
+                                      'gram@matern', 'gram_bwd@matern'],
+                         'the Matérn-ν fit')
+        require_counts(fit_counts, {'gram@matern': evals,
+                                    'gram_bwd@matern': evals,
+                                    'gram': evals, 'gram_bwd': evals},
+                       'the Matérn-ν fit')
+    scale, amp = float(fit.pmean['scale']), float(fit.pmean['amp'])
+    fitted = [math.log(scale), math.log(amp)]
+    log(f'  fitted scale {scale:.6g}, amp {amp:.6g}; pcov '
+        f'{fit.pcov.tolist()}')
+
+    def value_grad32(lp, precision=None):
+        gp0 = gpfactory({'scale': lp[0].exp(), 'amp': lp[1].exp()},
+                        precision)
+        return -gp0.marginal_likelihood({'y': yt}, givencov=noise)
+
+    def cond_at(lsc, la):
+        with torch.no_grad():
+            gp0 = gpfactory({'scale': torch.tensor(math.exp(lsc)),
+                             'amp': torch.tensor(math.exp(la))})
+            K = gp0.prior('y', raw=True)
+            K.diagonal().add_(noise)
+            return float(lgp.linalg.Chol(K).cond_estimate)
+
+    kern = lambda d2s: matern_nu64(d2s, table)
+    check_points(N, value_grad32, cond_at, x64, y64,
+                 [('start point', [ls, 0.], False),
+                  ('fitted point', fitted, True)],
+                 grad64=lambda lp: plain_nll64(x64, y64, *lp, kern=kern,
+                                               noise=noise),
+                 noise=noise)
+    xs = torch.linspace(float(x[0]), float(x[0]) + 20, NPRED, device=dev)
+    mean = fit.gp().addx(xs, 'pred').predfromdata(
+        {'y': yt}, 'pred', noise).mean
+    with torch.no_grad():
+        ref = plain_mean64(x64, y64, xs.double(), scale, amp, noise=noise,
+                           kern=kern)
+    cond = cond_at(*fitted)
+    dmean = float((mean.double() - ref).abs().max())
+    log(f'  posterior mean at {NPRED} points: max |port - float64| '
+        f'{dmean:.3e} (limit {10 * cond * eps32 * float(ref.abs().max()):.3e}'
+        f'), max |mean| {float(ref.abs().max()):.4g}')
+    if not bool(torch.isfinite(mean).all()) or mean.shape != (NPRED,):
+        fail('Matérn-ν posterior mean not finite or of the wrong shape')
+    if dmean > 10 * cond * eps32 * float(ref.abs().max()):
+        fail('Matérn-ν posterior mean disagrees with the float64 reference')
     counts = read_counts()
     log(f'  the phase: {time.perf_counter() - t0:.1f} s; launches '
         f'{nonzero(counts)}')
@@ -4465,7 +5304,7 @@ def main(argv):
         build()
         gen = torch.Generator(device='cuda').manual_seed(SEED)
         for name, (ps, _, _) in ZOO_RECORDS.items():
-            if name in TS_RECORDS:
+            if name in TS_RECORDS or name in CORE_RECORDS:
                 continue
             for p in ps:
                 for dtype in (torch.float32, torch.float64):
@@ -4490,6 +5329,20 @@ def main(argv):
                 fn(dtype, gen)
                 torch.cuda.empty_cache()
         timeseries_phase()
+        return 0
+    if argv in (['--hurst'], ['--evidence']):
+        build()
+        gen = torch.Generator(device='cuda').manual_seed(SEED)
+        names = ('sfb',) if argv == ['--hurst'] else ('matern', 'bessel',
+                                                        'pink', 'color')
+        for name, fn, _, _, variants in core_kernel_specs():
+            if any(f' {k} ' in f' {name} '.replace('/', ' ')
+                   for k in names):
+                log(f'kernel {name}:')
+                for dtype in variants:
+                    fn(dtype, gen)
+                    torch.cuda.empty_cache()
+        (hurst_phase if argv == ['--hurst'] else evidence_phase)()
         return 0
     if argv:
         fail(f'unknown arguments {argv}')
@@ -4538,6 +5391,12 @@ def main(argv):
     log(f'elapsed {time.perf_counter() - t0:.1f} s')
     torch.cuda.empty_cache()
     paths['timeseries'] = timeseries_phase()
+    log(f'elapsed {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    paths['hurst'] = hurst_phase()
+    log(f'elapsed {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    paths['evidence'] = evidence_phase()
     # each kernel's launches are those of its own path's run: the dense
     # fit's, but for A, C and C's backward in float64 the float64 dense
     # evaluation's.  C's and E's counters do not tell the dtypes apart:
@@ -4556,7 +5415,7 @@ def main(argv):
     dtype_paths = {'float32': ['rescue', 'dense', 'stream', 'halfmatrix',
                                'second', 'fishvec', 'halfmatrix_hess',
                                'deriv', 'multidim', 'matern', 'multiscale',
-                               'timeseries'],
+                               'timeseries', 'hurst', 'evidence'],
                    'float64': ['dense64']}
     for rec in records:
         base = rec['name'].split('/')[0]
@@ -4586,7 +5445,7 @@ def main(argv):
     keys = ['name', 'route', 'source', 'replaces', 'launches',
             'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'share_of_bound', 'library_ms', 'precision', 'dtype', 'library',
-            'launches_by_path', 'wrapper_ms']
+            'launches_by_path', 'wrapper_ms', 'plain_n']
     print(json.dumps({'kernels': [{k: r.get(k) for k in keys}
                                   for r in records]}))
     print(json.dumps({'ok': True, 'device': {

@@ -13,16 +13,17 @@ derivative observations and derived processes (``defderiv``,
 ``deftransf``, ``deflintransf``, ...); the streaming solver
 (``GP(solver='chol-stream')``), which never forms the Gram matrix; and
 ``GP(halfmatrix=True)``; the zoo of ``kernels/_basic.py``,
-``_matern.py``, ``_wendland.py``, ``_celerite.py`` and ``_spectral.py``
-with the special functions it needs (``special``).  Five kernels are
-hand-written CUDA for ``sm_90a`` (``ops``): the Schur update of the
-factorization, the same with the Gram computed in the tile, the
-gradient's WᵀW, and the tiled Gram in full and on the upper triangle,
-the last three on the zoo's profiles (``ops.PROFILES``: ExpQuad,
-Maternp, Expon, GammaExp, Cauchy, the 1-D time-series cores Celerite,
-Harmonic, Periodic, Cos and Sinc, and HoleEffect, CausalExpQuad, Log,
-Wendland and Circular) and their sums.  On CPU tensors each runs its
-plain PyTorch version.
+``_matern.py``, ``_randomwalk.py``, ``_wendland.py``, ``_celerite.py``
+and ``_spectral.py`` with the special functions it needs
+(``special``).  Five kernels are hand-written CUDA for ``sm_90a``
+(``ops``): the Schur update of the factorization, the same with the
+Gram computed in the tile, the gradient's WᵀW, and the tiled Gram in
+full and on the upper triangle, the last three on the zoo's profiles
+(``ops.PROFILES``: ExpQuad, Maternp, Expon, GammaExp, Cauchy, the 1-D
+time-series cores Celerite, Harmonic, Periodic, Cos and Sinc,
+HoleEffect, CausalExpQuad, Log, Wendland and Circular, and
+StationaryFracBrownian, the real-order Matérn, Bessel, Pink and Color)
+and their sums.  On CPU tensors each runs its plain PyTorch version.
 
 Array-likes go to the CUDA card unless the caller asks for another
 device (`set_default_device`, `using_device`).

@@ -27,10 +27,15 @@
 //
 // Design.
 // - The evaluator of the profile (profiles.cuh: FixedExpQuad, the main
-//   path's single ExpQuad term, or Zoo, up to MAXTERMS terms of any
-//   registered profile read at run time) and p = 1 are template
-//   parameters; the folded parameter vector (profiles.cuh) stays in
-//   device memory (no host read).
+//   path's single ExpQuad term, Zoo, up to MAXTERMS terms of the
+//   closed-form profiles read at run time, or ZooSpecial, of any
+//   registered profile) and p = 1 are template parameters; the folded
+//   parameter vector (profiles.cuh) stays in device memory (no host
+//   read).  This file builds the kernels of the first two, with the
+//   entry points lsq_gram*_f32/_f64; gram_special.cu compiles it again
+//   with LSQ_GRAM_SPECIAL for ZooSpecial's, with the entry points
+//   lsq_gram*_zs_f32/_zs_f64, in an nvcc process of its own (the special
+//   cores' code takes most of the build).
 // - A block of 256 threads covers 64 x 64 tiles.  Each thread owns 16
 //   bytes of a tile row (4 floats or 2 doubles): 16-byte stores in the
 //   forwards, 16-byte loads of G in the backwards, entry by entry at the
@@ -102,6 +107,10 @@
 //   every parameter of every term.
 
 #include "profiles.cuh"
+
+#ifndef LSQ_GRAM_SPECIAL
+#define LSQ_GRAM_SPECIAL 0
+#endif
 
 namespace {
 
@@ -1228,15 +1237,20 @@ struct EvTag {
     using type = E<T>;
 };
 
-// f(tag) for the evaluator the host chose: 0 FixedExpQuad, 1 Zoo;
-// false for another value or a term count outside [1, MAXTERMS]
+// f(tag) for the evaluator the host chose: 0 FixedExpQuad, 1 Zoo (this
+// file), 2 ZooSpecial (with LSQ_GRAM_SPECIAL); false for another value
+// or a term count outside [1, MAXTERMS]
 template <class F>
 bool with_ev(int ev, int nterms, F&& f)
 {
     if (nterms < 1 || nterms > MAXTERMS) return false;
     switch (ev) {
+#if LSQ_GRAM_SPECIAL
+    case 2: f(EvTag<ZooSpecial>{}); return true;
+#else
     case 0: f(EvTag<FixedExpQuad>{}); return true;
     case 1: f(EvTag<Zoo>{}); return true;
+#endif
     }
     return false;
 }
@@ -1520,8 +1534,13 @@ extern "C" {
                                        scal, stream);                         \
     }
 
+#if LSQ_GRAM_SPECIAL
+LSQ_GRAM(float, _zs_f32)
+LSQ_GRAM(double, _zs_f64)
+#else
 LSQ_GRAM(float, _f32)
 LSQ_GRAM(double, _f64)
+#endif
 
 #undef LSQ_GRAM
 

@@ -44,17 +44,37 @@
 // a threshold they take their power series (LOG_SERIES, SINC_SERIES in
 // ops/_gram.py).
 //
-// Two evaluators take this vector.  FixedExpQuad is the single ExpQuad
-// term with w = 1 (the main path's profile), compiled as before;
-// Zoo reads the term list at run time.  Kernels C and E and their
-// derivative kernels take the evaluator as a template parameter (the
-// host picks it), kernel D's tile initializer always takes Zoo, which
-// writes the same bits as FixedExpQuad for that term.
+// The last five are the cores of StationaryFracBrownian, Matern of real
+// order, Bessel, Pink and Color.  StationaryFracBrownian's three powers
+// of about t^2H cancel to a value of about t^(2H-2) (an error of 0.1 in
+// float32 at t = 16384, H = 0.75, against a value of 0.003): from
+// SFB_SERIES on it sums the binomial series t^2H sum_j C(2H, 2j) t^-2j,
+// SFB_TERMS terms, and its t- and H-derivatives from the same sums.
+// Matern's and Bessel's static orders, Pink's delta-omega and
+// StationaryFracBrownian's H ride the argument a (the orders without a
+// gradient); Color's n is k.  Their special functions are in
+// special.cuh; the five cores are functions of their own, not inlined,
+// reached through a term function of their own (special_term) that only
+// ZooSpecial calls: a kernel takes the registers of every function its
+// code can call (one Zoo for all cores made the earlier profiles' kernels
+// take 64 registers where they took 48, and their backwards 28-36 %
+// longer).
+//
+// Three evaluators take this vector.  FixedExpQuad is the single ExpQuad
+// term with w = 1 (the main path's profile), compiled as before; Zoo
+// reads a term list of closed-form profiles at run time, ZooSpecial one
+// of any profile.  Kernels C and E and their derivative kernels take the
+// evaluator as a template parameter (the host picks it; gram_special.cu
+// builds ZooSpecial's kernels in a process of its own), kernel D's tile
+// initializer always takes ZooSpecial, which writes the same bits as
+// FixedExpQuad for that term.
 
 #pragma once
 
 #include <cfloat>
 #include <cuda_runtime.h>
+
+#include "special.cuh"
 
 namespace lsq {
 
@@ -80,42 +100,14 @@ enum {
     PROFILE_HARMONIC = 14,  // the damped oscillator of quality factor a
     PROFILE_COS = 15,       // cos t
     PROFILE_SINC = 16,      // sin(pi t) / (pi t)
+    PROFILE_SFB = 17,       // (|t+1|^2a + |t-1|^2a - 2 t^2a) / 2
+    PROFILE_MATERN = 18,    // f_a(s t), s = 2a: Matern of real order a
+    PROFILE_BESSEL = 19,    // Gamma(a+1) (2/x)^a J_a(x), x^2 = (2 + a/2)^2 t
+    PROFILE_PINK = 20,      // (Ci(t (1 + a)) - Ci(t)) / log1p(a)
+    PROFILE_COLOR = 21,     // (k - 1) Re E_k(-i t)
 };
 
 enum { MODE_SQUARED = 0, MODE_ABS = 1, MODE_POSABS = 2 };
-
-__device__ __forceinline__ float dexp(float v) { return expf(v); }
-__device__ __forceinline__ double dexp(double v) { return exp(v); }
-__device__ __forceinline__ float dlog(float v) { return logf(v); }
-__device__ __forceinline__ double dlog(double v) { return log(v); }
-__device__ __forceinline__ float dlog1p(float v) { return log1pf(v); }
-__device__ __forceinline__ double dlog1p(double v) { return log1p(v); }
-__device__ __forceinline__ float dsqrt(float v) { return sqrtf(v); }
-__device__ __forceinline__ double dsqrt(double v) { return sqrt(v); }
-__device__ __forceinline__ float dexpm1(float v) { return expm1f(v); }
-__device__ __forceinline__ double dexpm1(double v) { return expm1(v); }
-__device__ __forceinline__ float derfc(float v) { return erfcf(v); }
-__device__ __forceinline__ double derfc(double v) { return erfc(v); }
-__device__ __forceinline__ float dsin(float v) { return sinf(v); }
-__device__ __forceinline__ double dsin(double v) { return sin(v); }
-__device__ __forceinline__ void dsincos(float v, float* s, float* c)
-{
-    sincosf(v, s, c);
-}
-__device__ __forceinline__ void dsincos(double v, double* s, double* c)
-{
-    sincos(v, s, c);
-}
-
-template <typename T> struct Lim;
-template <> struct Lim<float> {
-    static __device__ __forceinline__ float tiny() { return FLT_MIN; }
-    static __device__ __forceinline__ float eps() { return FLT_EPSILON; }
-};
-template <> struct Lim<double> {
-    static __device__ __forceinline__ double tiny() { return DBL_MIN; }
-    static __device__ __forceinline__ double eps() { return DBL_EPSILON; }
-};
 
 // The half-integer Matern polynomials: f_p(x^2) = e^-x Q_p(x) with
 // Q_p(x) = sum_k q[p][k] x^k, q[p][k] = p!/(2p)! (2p-k)!/((p-k)! k!) 2^k;
@@ -295,6 +287,181 @@ template <typename T>
 struct Core {
     T g, g1, g2, ga, gb;
 };
+
+// StationaryFracBrownian's series: the number of terms per dtype
+// (ops/_gram.py SFB_SERIES, SFB_TERMS)
+constexpr double SFB_SERIES = 2.0;
+template <typename T> struct SfbTerms;
+template <> struct SfbTerms<float> { static constexpr int n = 14; };
+template <> struct SfbTerms<double> { static constexpr int n = 30; };
+
+// StationaryFracBrownian, alpha = 2 H, H = a (ops/_gram.py _sfb_parts)
+template <typename T, bool D1, bool D2, bool DA>
+__device__ __noinline__ Core<T> sfb_core(T t, T a)
+{
+    Core<T> o{T(0), T(0), T(0), T(0), T(0)};
+    const T al = T(2) * a;
+    if (t < T(SFB_SERIES)) {
+        // the three powers; a zero base has no H-derivative
+        const T bases[3] = {t + T(1), fabs(t - T(1)), t};
+        const T wts[3] = {T(0.5), T(0.5), T(-1)};
+        const T sg = t >= T(1) ? T(1) : T(-1);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+            const T base = bases[i], w = wts[i];
+            const T pw = ni_pow(base, al);
+            o.g = fma(w, pw, o.g);
+            if (D1)
+                o.g1 = fma(w * (i == 1 ? sg : T(1)) * al,
+                           ni_pow(base, al - T(1)), o.g1);
+            if (D2)
+                o.g2 = fma(w * al * (al - T(1)), ni_pow(base, al - T(2)), o.g2);
+            if (DA && base > T(0))
+                o.ga = fma(T(2) * w, dlog(base) * pw, o.ga);
+        }
+        return o;
+    }
+    // t^alpha sum_{j>=1} C(alpha, 2j) t^-2j; C and dC/dalpha by the
+    // product recurrence C(alpha, i+1) = C(alpha, i) (alpha - i) / (i + 1)
+    const T z = T(1) / (t * t), lt = dlog(t), P = dexp(al * lt);
+    T c = T(1), dc = T(0), zj = T(1);
+    T s0 = T(0), s1 = T(0), s2 = T(0), sh = T(0);
+#pragma unroll 1
+    for (int j = 1; j <= SfbTerms<T>::n; ++j) {
+#pragma unroll
+        for (int i = 2 * j - 2; i < 2 * j; ++i) {
+            const T ai = al - T(i), inv = T(i + 1);
+            const T cn = c * ai / inv;
+            dc = (dc * ai + c) / inv;
+            c = cn;
+        }
+        zj *= z;
+        const T m = al - T(2 * j);
+        s0 += c * zj;
+        if (D1) s1 += c * m * zj;
+        if (D2) s2 += c * m * (m - T(1)) * zj;
+        if (DA) sh += dc * zj;
+    }
+    o.g = P * s0;
+    o.g1 = P / t * s1;
+    o.g2 = P / (t * t) * s2;
+    o.ga = T(2) * P * (sh + lt * s0);
+    return o;
+}
+
+// Pink, delta-omega = a (ops/_gram.py _pink): below t a < sqrt(eps),
+// cos(t m), m = 1 + a/2; cos(t u) - cos t, u = 1 + a, as -2 sin(t m)
+// sin(t a/2), which does not cancel
+template <typename T, bool D1, bool D2, bool DA>
+__device__ __noinline__ Core<T> pink_core(T t, T a)
+{
+    Core<T> o{T(0), T(0), T(0), T(0), T(0)};
+    const T u = T(1) + a, m = T(1) + T(0.5) * a;
+    T sm, cm;
+    ni_sincos(t * m, &sm, &cm);
+    if (t * a < dsqrt(Lim<T>::eps())) {
+        o.g = cm;
+        o.g1 = -m * sm;
+        o.g2 = -m * m * cm;
+        if (DA) o.ga = T(-0.5) * t * sm;
+        return o;
+    }
+    const T L = dlog1p(a);
+    o.g = (cosint(t * u) - cosint(t)) / L;
+    if (D1 || D2 || DA) {
+        T stu, ctu;
+        ni_sincos(t * u, &stu, &ctu);
+        const T A = T(-2) * sm * ni_sin(T(0.5) * a * t);
+        o.g1 = A / (t * L);
+        o.g2 = ((ni_sin(t) - u * stu) / t - A / (t * t)) / L;
+        if (DA) o.ga = (ctu - o.g) / (u * L);
+    }
+    return o;
+}
+
+// Matern of real order nu = a, in t = r^2 (ops/_gram.py _matern): f_nu
+// at x2 = s t, s = 2 nu; its derivatives by the recurrences regular at
+// 0 (nu > 1, nu > 2), else by the quadrature's raw forms; nu = 0 is
+// white noise
+template <typename T, bool D1, bool D2>
+__device__ __noinline__ Core<T> matern_core(T nu, T t)
+{
+    Core<T> o{T(0), T(0), T(0), T(0), T(0)};
+    if (nu == T(0)) {
+        o.g = T(2) * t <= Lim<T>::tiny() ? T(1) : T(0);
+        return o;
+    }
+    const T s = T(2) * nu, x2 = s * t;
+    o.g = kvmodx2(nu, x2);
+    if (D1)
+        o.g1 = s * (nu > T(1)
+                    ? -kvmodx2(nu - T(1), x2) / (T(4) * (nu - T(1)))
+                    : kvmodx2_raw(nu, x2, 1));
+    if (D2)
+        o.g2 = s * s * (nu > T(2)
+                        ? kvmodx2(nu - T(2), x2)
+                            / (T(16) * (nu - T(1)) * (nu - T(2)))
+                        : kvmodx2_raw(nu, x2, 2));
+    return o;
+}
+
+// Bessel of order nu = a, in t = r^2 (ops/_gram.py _bessel): f_nu at
+// x2 = (2 + nu/2)^2 t, f_nu' = -f_{nu+1} / (4 (nu + 1))
+template <typename T, bool D1, bool D2>
+__device__ __noinline__ Core<T> bessel_core(T nu, T t)
+{
+    Core<T> o{T(0), T(0), T(0), T(0), T(0)};
+    const T h = T(2) + nu / T(2), s = h * h, x2 = s * t;
+    o.g = jvmodx2(nu, x2);
+    if (D1)
+        o.g1 = s * (-jvmodx2(nu + T(1), x2) / (T(4) * (nu + T(1))));
+    if (D2)
+        o.g2 = s * s * (jvmodx2(nu + T(2), x2)
+                        / (T(16) * (nu + T(1)) * (nu + T(2))));
+    return o;
+}
+
+// Color of order n = k (ops/_gram.py _color): (n - 1) Re E_n(-it), g' =
+// -(n - 1) Im E_{n-1}(-it), g'' = -(n - 1) Re E_{n-2}(-it); below 1 each
+// order's series, above one continued fraction and the recurrence
+// E_{m-1} = (e^{it} - (m - 1) E_m) / (-it); below eps the limits
+template <typename T, bool D1, bool D2>
+__device__ __noinline__ Core<T> color_core(int n, T t)
+{
+    Core<T> o{T(0), T(0), T(0), T(0), T(0)};
+    const T f = T(n - 1);
+    if (t < Lim<T>::eps()) {
+        o.g = f * T(1.0 / (n - 1));
+        return o;
+    }
+    T re, im;
+    if (t < T(1)) {
+        expn_series(n, t, re, im);
+        o.g = f * re;
+        if (D1) {
+            expn_series(n - 1, t, re, im);
+            o.g1 = -f * im;
+        }
+        if (D2) {
+            expn_series(n - 2, t, re, im);
+            o.g2 = -f * re;
+        }
+        return o;
+    }
+    expn_cf(n, t, re, im);
+    o.g = f * re;
+    if (D1 || D2) {
+        T sn, cs;
+        ni_sincos(t, &sn, &cs);
+        // E_{n-1} = (w_r + i w_i) / (-it) = (-w_i + i w_r) / t, w_r =
+        // cos t - (n - 1) Re E_n: g' takes its imaginary part
+        const T wr = cs - f * re;
+        const T i1 = wr / t;
+        o.g1 = -f * i1;
+        if (D2) o.g2 = -f * (-(sn - T(n - 2) * i1) / t);
+    }
+    return o;
+}
 
 template <typename T, bool D1, bool D2, bool DA>
 __device__ __forceinline__ Core<T> core_eval(int id, int k, T t, T a, T b)
@@ -579,17 +746,35 @@ __device__ __forceinline__ Core<T> core_eval(int id, int k, T t, T a, T b)
     return o;
 }
 
-// A term at r^2 = u / w: the core at mode(u) and its derivatives in u
-// (the mode's chain rule applied): g, gu, guu, ga, gb.  Not inlined: the
-// kernels evaluate entries in fully unrolled loops (a thread's 64 entries
-// in C), and an inlined copy of every profile at each would make the
-// Zoo kernels, and kernel D's tile initializers, take minutes to build;
-// one call per term and entry instead.
+// The special-function cores (ids from PROFILE_SFB on), each a call
 template <typename T, bool D1, bool D2, bool DA>
-__device__ __noinline__ Core<T> term_eval(unsigned code, T u, T a, T b)
+__device__ __forceinline__ Core<T> special_eval(int id, int k, T t, T a,
+                                                T b)
+{
+    switch (id) {
+    case PROFILE_SFB:
+        return sfb_core<T, D1, D2, DA>(t, a);
+    case PROFILE_MATERN:
+        return matern_core<T, D1, D2>(a, t);
+    case PROFILE_BESSEL:
+        return bessel_core<T, D1, D2>(a, t);
+    case PROFILE_PINK:
+        return pink_core<T, D1, D2, DA>(t, a);
+    default:
+        return color_core<T, D1, D2>(k, t);
+    }
+}
+
+// A term at r^2 = u / w: the core at mode(u) and its derivatives in u
+// (the mode's chain rule applied): g, gu, guu, ga, gb; SPECIAL takes the
+// special-function cores' switch, else the closed forms'.
+template <typename T, bool D1, bool D2, bool DA, bool SPECIAL>
+__device__ __forceinline__ Core<T> term_modes(unsigned code, T u, T a, T b)
 {
     const int id = code & 31u, mode = (code >> 5) & 3u, k = code >> 7;
-    if (mode == MODE_SQUARED) return core_eval<T, D1, D2, DA>(id, k, u, a, b);
+    if (mode == MODE_SQUARED)
+        return SPECIAL ? special_eval<T, D1, D2, DA>(id, k, u, a, b)
+                       : core_eval<T, D1, D2, DA>(id, k, u, a, b);
     T v, tu;
     bool pos = true;
     if (mode == MODE_ABS) {
@@ -600,11 +785,40 @@ __device__ __noinline__ Core<T> term_eval(unsigned code, T u, T a, T b)
         v = u + Lim<T>::eps() * Lim<T>::eps();
     }
     const T t = dsqrt(v);
-    Core<T> o = core_eval<T, D1 || D2, D2, DA>(id, k, t, a, b);
+    Core<T> o = SPECIAL
+        ? special_eval<T, D1 || D2, D2, DA>(id, k, t, a, b)
+        : core_eval<T, D1 || D2, D2, DA>(id, k, t, a, b);
     tu = pos ? T(0.5) / t : T(0);
     if (D2) o.g2 = pos ? o.g2 * tu * tu - o.g1 * tu / (T(2) * v) : T(0);
     if (D1) o.g1 = o.g1 * tu;
     return o;
+}
+
+// Not inlined: the kernels evaluate entries in fully unrolled loops (a
+// thread's 64 entries in C), and an inlined copy of every profile at each
+// would make the Zoo kernels, and kernel D's tile initializers, take
+// minutes to build; one call per term and entry instead.  A kernel takes
+// the registers of every function its code can call, so the closed
+// forms' evaluator (Zoo) calls closed_term only, and the special cores'
+// (ZooSpecial) picks it or special_term by the term's id.
+template <typename T, bool D1, bool D2, bool DA>
+__device__ __noinline__ Core<T> closed_term(unsigned code, T u, T a, T b)
+{
+    return term_modes<T, D1, D2, DA, false>(code, u, a, b);
+}
+
+template <typename T, bool D1, bool D2, bool DA>
+__device__ __noinline__ Core<T> special_term(unsigned code, T u, T a, T b)
+{
+    return term_modes<T, D1, D2, DA, true>(code, u, a, b);
+}
+
+template <typename T, bool D1, bool D2, bool DA, bool SPECIAL = true>
+__device__ __forceinline__ Core<T> term_eval(unsigned code, T u, T a, T b)
+{
+    if (SPECIAL && (code & 31u) >= PROFILE_SFB)
+        return special_term<T, D1, D2, DA>(code, u, a, b);
+    return closed_term<T, D1, D2, DA>(code, u, a, b);
 }
 
 __device__ __forceinline__ unsigned term_code(unsigned long long codes, int t)
@@ -655,16 +869,18 @@ struct FixedExpQuad {
     }
 };
 
-// Up to MAXTERMS terms of any registered profile, read at run time.
-template <typename T>
-struct Zoo {
+// Up to MAXTERMS terms, read at run time: of the closed-form profiles
+// (ids below PROFILE_SFB; Zoo) or of any registered profile (SPECIAL;
+// ZooSpecial).
+template <typename T, bool SPECIAL>
+struct ZooT {
     static constexpr int NS = TERMPAR * MAXTERMS;
     const T* __restrict__ p;
     int n;
     unsigned long long codes;
 
-    __device__ __forceinline__ Zoo(const T* __restrict__ params, int nterms,
-                                   unsigned long long cd)
+    __device__ __forceinline__ ZooT(const T* __restrict__ params,
+                                    int nterms, unsigned long long cd)
         : p(params), n(nterms), codes(cd)
     {
     }
@@ -675,7 +891,7 @@ struct Zoo {
         for (int t = 0; t < MAXTERMS; ++t) {
             if (t >= n) break;
             const T* q = p + 2 + TERMPAR * t;
-            const Core<T> o = term_eval<T, false, false, false>(
+            const Core<T> o = term_eval<T, false, false, false, SPECIAL>(
                 term_code(codes, t), r2 * q[1], q[2], q[3]);
             v = fma(q[0], o.g, v);
         }
@@ -690,7 +906,10 @@ struct Zoo {
         for (int t = 0; t < MAXTERMS; ++t) {
             if (t >= n) break;
             const T* q = p + 2 + TERMPAR * t;
-            const Core<T> o = term_eval<T, true, false, PAR>(
+            // the argument derivatives whatever PAR: one instance of
+            // term_eval less to build (no path takes PAR false but a
+            // backward without the profile's parameters)
+            const Core<T> o = term_eval<T, true, false, true, SPECIAL>(
                 term_code(codes, t), r2 * q[1], q[2], q[3]);
             const T cg = q[0] * o.g1;
             d1 = fma(cg, q[1], d1);
@@ -716,7 +935,7 @@ struct Zoo {
             if (t >= n) break;
             const T* q = p + 2 + TERMPAR * t;
             const T* dq = dp + 2 + TERMPAR * t;
-            const Core<T> o = term_eval<T, true, false, true>(
+            const Core<T> o = term_eval<T, true, false, true, SPECIAL>(
                 term_code(codes, t), r2 * q[1], q[2], q[3]);
             v = fma(dq[0], o.g, v);
             T s = fma(o.ga, dq[2], o.gb * dq[3]);
@@ -728,13 +947,16 @@ struct Zoo {
     __device__ __forceinline__ T second(T r2, T& d1, T& d2) const
     {
         const T w = p[3];
-        const Core<T> o = term_eval<T, true, true, false>(
+        const Core<T> o = term_eval<T, true, true, false, SPECIAL>(
             term_code(codes, 0), r2 * w, p[4], p[5]);
         d1 = w * o.g1;
         d2 = w * w * o.g2;
         return o.g;
     }
 };
+
+template <typename T> using Zoo = ZooT<T, false>;
+template <typename T> using ZooSpecial = ZooT<T, true>;
 
 // r^2 = |x - y|^2 and its tangent dr^2 = 2 (x - y).(dx - dy), summed
 // as `sqdist` sums r^2: symmetric in the two points to the bit.

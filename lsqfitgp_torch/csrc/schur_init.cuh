@@ -39,8 +39,8 @@ struct InitScaled {
 
 // Kernel D: entry (r, c) of the virtual matrix blockdiag(K, I) plus eps
 // on the real diagonal, K[i, j] = the profile sum of |X_i - X_j|^2
-// (profiles.cuh, the Zoo evaluator: any registered profile and term
-// sum) computed from the points X (npad x dim, row-major, global rows)
+// (profiles.cuh, the ZooSpecial evaluator: any registered profile and
+// term sum) computed from the points X (npad x dim, row-major, global rows)
 // with the parameter vector params, eps at params[1].  By GLOBAL index,
 // entries with a row or column >= nreal are 0 off the diagonal and
 // exactly 1 on it.
@@ -58,7 +58,7 @@ struct InitGram {
     {
         const long long gr = offset + r, gc = offset + c;
         if (gr >= nreal || gc >= nreal) return gr == gc ? T(1) : T(0);
-        T v = Zoo<T>(params, nterms, codes).value(
+        T v = ZooSpecial<T>(params, nterms, codes).value(
             sqdist(X + gr * dim, X + gc * dim, dim));
         if (with_eps && gr == gc) v += params[1];
         return v;

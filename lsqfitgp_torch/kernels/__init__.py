@@ -1,12 +1,13 @@
-"""The kernel zoo: ``_basic.py``, the Matérn family, the Wendland
-kernels, the celerite family and the spectral kernels."""
+"""The kernel zoo: ``_basic.py``, the Matérn family, the random walks,
+the Wendland kernels, the celerite family and the spectral kernels."""
 
 from ._basic import *  # noqa: F401,F403
 from ._matern import *  # noqa: F401,F403
+from ._randomwalk import *  # noqa: F401,F403
 from ._wendland import *  # noqa: F401,F403
 from ._celerite import *  # noqa: F401,F403
 from ._spectral import *  # noqa: F401,F403
-from . import _basic, _matern, _wendland, _celerite, _spectral
+from . import _basic, _matern, _randomwalk, _wendland, _celerite, _spectral
 
-__all__ = (_basic.__all__ + _matern.__all__ + _wendland.__all__
-           + _celerite.__all__ + _spectral.__all__)
+__all__ = (_basic.__all__ + _matern.__all__ + _randomwalk.__all__
+           + _wendland.__all__ + _celerite.__all__ + _spectral.__all__)

@@ -3,8 +3,10 @@
 Counterpart of ``lsqfitgp_tpu/kernels/_matern.py``: `Maternp`
 (half-integer order, the closed-form polynomial; kernels C, D and E
 evaluate it on the card for a static p up to ``ops.MATERNP_MAX``), the
-real-ν `Matern` and `Bessel` (special functions of real order, on the
-broadcast path).
+real-ν `Matern` and `Bessel` (special functions of real order; kernels
+C, D and E evaluate them for a static ν, the profiles 'matern' and
+'bessel', whose order rides the term's argument slot without a
+gradient).
 """
 
 from __future__ import annotations
@@ -83,6 +85,20 @@ def _bessel_maxdim(nu=0):
         return None
 
 
+def _static_order(name):
+    """The resolver of a real-order core: a static ν gives the profile
+    ``name`` with ν as its argument; a tensor ν takes the broadcast
+    path (the JAX package's special functions take a concrete order)."""
+    def resolve(nu=None):
+        if nu is None or isinstance(nu, torch.Tensor):
+            return None
+        return name, 0, (float(nu),)
+    return resolve
+
+
+_fastgram.GRAM_PROFILES[Matern.__wrapped__] = _static_order('matern')
+
+
 @isotropickernel(derivable=_bessel_derivable, maxdim=_bessel_maxdim)
 def Bessel(r2, nu=0):
     r"""Bessel kernel: k(r) = Γ(ν+1) 2^ν (sr)^{-ν} J_ν(sr), s = 2 + ν/2;
@@ -91,3 +107,6 @@ def Bessel(r2, nu=0):
         assert 0 <= nu < math.inf, nu
     _torchutil.check(check)
     return jvmodx2(nu, r2 * (2 + nu / 2) ** 2)
+
+
+_fastgram.GRAM_PROFILES[Bessel.__wrapped__] = _static_order('bessel')

@@ -1,8 +1,10 @@
 """Band-limited and power-law spectrum kernels.
 
-Counterpart of ``lsqfitgp_tpu/kernels/_spectral.py``.  `Cos` and
-`Sinc` carry a CUDA profile; `Pink` and `Color` (the cosine integral
-and Re E_n(−iΔ) by a continued fraction) take the broadcast path.
+Counterpart of ``lsqfitgp_tpu/kernels/_spectral.py``.  Each kernel
+carries a CUDA profile: kernels C, D and E evaluate `Pink` (two cosine
+integrals, δω an argument) and `Color` (Re E_n(−iΔ) by its series and
+continued fraction, n the static integer) on the card, as `Cos` and
+`Sinc`.
 """
 
 from __future__ import annotations
@@ -37,6 +39,9 @@ def Pink(delta, dw=1):
     return torch.where(delta * dw < tol, torch.cos(mean), (r - l) / norm)
 
 
+_fastgram.GRAM_PROFILES[Pink.__wrapped__] = lambda dw=1: ('pink', 0, (dw,))
+
+
 def _color_derivable(n=2):
     return n // 2 - 1
 
@@ -47,6 +52,15 @@ def Color(delta, n=2):
     k(Δ) = (n-1) Re Eₙ(-iΔ), integer n ≥ 2."""
     assert int(n) == n and n >= 2, n
     return (n - 1) * expn_imag_real(int(n), delta)
+
+
+def _color_gram(n=2):
+    if isinstance(n, torch.Tensor) or int(n) != n or n < 2:
+        return None
+    return 'color', int(n), ()
+
+
+_fastgram.GRAM_PROFILES[Color.__wrapped__] = _color_gram
 
 
 @stationarykernel(derivable=True, input='posabs', maxdim=1)

@@ -39,6 +39,9 @@ _I32 = ctypes.c_int
 _U64 = ctypes.c_ulonglong
 
 _BOTH = ('_f32', '_f64')
+# the Gram entry points of both dtypes for the closed-form evaluators
+# (csrc/gram.cu) and for ZooSpecial (csrc/gram_special.cu)
+_GRAM = ('_f32', '_f64', '_zs_f32', '_zs_f64')
 _F32, _F64 = ('_f32',), ('_f64',)
 
 _SCHUR = [_P, _I64, _I64, _P, _P, _I64, _P, _I64, _P, _I64, _I64]
@@ -61,22 +64,22 @@ _SIGNATURES = {
     'lsq_syrk_t': ([_P, _I64, _I64, _P, _P], _F32),
     'lsq_syrk_t_dmma': ([_P, _I64, _I64, _P, _P, _P], _F64),
     'lsq_gram': ([_P, _P, _I64, _I64, _I32, _P, _I32, _U64, _I32, _I32, _P,
-                  _P], _BOTH),
+                  _P], _GRAM),
     'lsq_gram_sym': ([_P, _I64, _I32, _P, _I32, _U64, _I32, _I32, _P, _P],
-                     _BOTH),
+                     _GRAM),
     'lsq_gram_bwd': ([_P, _P, _P, _I64, _I64, _I32, _P, _I32, _U64, _I32,
-                      _I32, _I32, _I32, _I32, _P, _P, _P, _P], _BOTH),
+                      _I32, _I32, _I32, _I32, _P, _P, _P, _P], _GRAM),
     'lsq_gram_sym_bwd': ([_P, _P, _I64, _I32, _I32, _P, _I32, _U64, _I32,
-                          _I32, _I32, _I32, _I32, _P, _P, _P], _BOTH),
+                          _I32, _I32, _I32, _I32, _P, _P, _P], _GRAM),
     'lsq_gram_jvp': ([_P, _P, _P, _P, _I64, _I64, _I32, _P, _P, _I32, _U64,
-                      _I32, _I32, _P, _P], _BOTH),
+                      _I32, _I32, _P, _P], _GRAM),
     'lsq_gram_sym_jvp': ([_P, _P, _I64, _I32, _P, _P, _I32, _U64, _I32,
-                          _I32, _P, _P], _BOTH),
+                          _I32, _P, _P], _GRAM),
     'lsq_gram_bwd_jvp': ([_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P,
                           _P, _U64, _I32, _I32, _I32, _I32, _P, _P, _P, _P],
-                         _BOTH),
+                         _GRAM),
     'lsq_gram_sym_bwd_jvp': ([_P, _P, _P, _I64, _I32, _I32, _P, _P, _U64,
-                              _I32, _I32, _I32, _I32, _P, _P, _P], _BOTH),
+                              _I32, _I32, _I32, _I32, _P, _P, _P], _GRAM),
 }
 
 _state = {}

@@ -504,6 +504,148 @@ def _sinc(t, k, a, b):
             pi * pi * torch.where(small, s2, f2), None, None)
 
 
+# StationaryFracBrownian: from SFB_SERIES on, the profile sums its
+# binomial series, SFB_TERMS[dtype] terms (the JAX expression's three
+# powers of about t^2H cancel to a value of about t^(2H−2))
+SFB_SERIES = 2.0
+SFB_TERMS = {torch.float32: 14, torch.float64: 30}
+
+
+def _sfb_parts(t, a, parts):
+    """The requested ``parts`` of (g, g', g'', ∂g/∂H) of ½(|t+1|^α +
+    |t−1|^α − 2t^α), α = 2H, H = a: below SFB_SERIES as written (a zero
+    base has no H-derivative, as torch.pow's and lax.pow's rules), above
+    it t^α Σ_{j≥1} C(α, 2j) t^{−2j} and the t- and H-derivatives of the
+    same sums (C(α, m) and its α-derivative by their product
+    recurrence); None for a part not asked."""
+    al = 2 * a
+    one = torch.ones_like(t)
+    # below the switch: (exponent, coefficient, sign) of each part
+    tl = torch.clamp(t, max=SFB_SERIES)
+    sg = torch.where(tl >= 1, one, -one)
+    lo = [0, 0, 0, 0]
+    for base, w, s1 in ((tl + 1, 0.5, 1), ((tl - 1).abs(), 0.5, sg),
+                        (tl, -1.0, 1)):
+        if 0 in parts:
+            lo[0] = lo[0] + w * base ** al
+        if 1 in parts:
+            lo[1] = lo[1] + w * s1 * al * base ** (al - 1)
+        if 2 in parts:
+            lo[2] = lo[2] + w * al * (al - 1) * base ** (al - 2)
+        if 3 in parts:
+            pos = base > 0
+            lb = torch.log(torch.where(pos, base, one))
+            lo[3] = lo[3] + 2 * w * torch.where(pos, lb * base ** al, 0 * one)
+    # the series
+    th = torch.clamp(t, min=SFB_SERIES)
+    z = 1 / (th * th)
+    c, dc, zj = 1.0, 0.0, one
+    sums = [0, 0, 0, 0]
+    for j in range(1, SFB_TERMS[t.dtype] + 1):
+        for i in (2 * j - 2, 2 * j - 1):
+            c, dc = c * (al - i) / (i + 1), (dc * (al - i) + c) / (i + 1)
+        zj = zj * z
+        m = al - 2 * j
+        if 0 in parts or 3 in parts:
+            sums[0] = sums[0] + c * zj
+        if 1 in parts:
+            sums[1] = sums[1] + c * m * zj
+        if 2 in parts:
+            sums[2] = sums[2] + c * m * (m - 1) * zj
+        if 3 in parts:
+            sums[3] = sums[3] + dc * zj
+    lt = torch.log(th)
+    P = torch.exp(al * lt)
+    hi = (lambda: P * sums[0], lambda: P / th * sums[1],
+          lambda: P / (th * th) * sums[2],
+          lambda: 2 * P * (sums[3] + lt * sums[0]))
+    small = t < SFB_SERIES
+    return tuple(torch.where(small, lo[i], hi[i]()) if i in parts else None
+                 for i in range(4))
+
+
+def _sfb_profile():
+    """The 'sfb' profile: each of its functions computes its own part."""
+    def part(i):
+        return lambda t, k, a, b: _sfb_parts(t, a, (i,))[i]
+
+    return Profile('sfb', 17, part(0), part(1), part(2),
+                   lambda t, k, a, b: (_sfb_parts(t, a, (3,))[3], None))
+
+
+def _matern_parts(t, a, j):
+    """The j-th t-derivative of the Matérn profile of real order ν = a
+    (static) in t = r²: s^j f_ν^{(j)}(s t), s = 2ν (2 at ν = 0), f_ν =
+    2^{1−ν}/Γ(ν) x^ν K_ν(x) as a function of x² (``special.kvmodx2``,
+    whose autograd rule is the exact recurrence); its x²-derivatives by
+    the recurrences f_ν' = −f_{ν−1}/(4(ν−1)) (ν > 1) and f_ν'' =
+    f_{ν−2}/(16(ν−1)(ν−2)) (ν > 2), regular at 0, else by the
+    quadrature's raw forms (singular at zero distance)."""
+    from ..special import _kv
+    nu = float(a.detach())
+    s = 2 * nu if nu else 2.0
+    x2 = s * t
+    if j == 0:
+        return _kv.kvmodx2(nu, x2)
+    if nu > j:
+        # (−¼)^j f_{ν−j} / ((ν−1) … (ν−j))
+        den = math.prod(nu - i for i in range(1, j + 1))
+        f = (-0.25) ** j * _kv.kvmodx2(nu - j, x2) / den
+    else:
+        f = _kv._kvmodx2_raw(nu, x2, j)
+    return s ** j * f
+
+
+def _bessel_parts(t, a, j):
+    """The j-th t-derivative of the Bessel profile of order ν = a
+    (static) in t = r²: s^j f_ν^{(j)}(s t), s = (2 + ν/2)², f_ν =
+    Γ(ν+1)(2/x)^ν J_ν(x) as a function of x² (``special.jvmodx2``),
+    f_ν^{(j)} = (−¼)^j f_{ν+j} / ((ν+1) … (ν+j))."""
+    from ..special import _kv
+    nu = float(a.detach())
+    s = (2 + nu / 2) ** 2
+    den = math.prod(nu + i for i in range(1, j + 1))
+    return s ** j * (-0.25) ** j * _kv.jvmodx2(nu + j, s * t) / den
+
+
+def _order_profile(name, pid, parts):
+    """A profile of static order (the argument a, no gradient) whose
+    j-th derivative is ``parts(t, a, j)``."""
+    def part(j):
+        return lambda t, k, a, b: parts(t, a, j)
+
+    return Profile(name, pid, part(0), part(1), part(2), None)
+
+
+def _pink(t, k, a, b):
+    """(Ci(t u) − Ci(t)) / log1p(δω), u = 1 + δω, δω = a; below t δω <
+    √eps, cos(t m), m = 1 + δω/2, as the JAX core.  Its derivatives in
+    closed form, cos(tu) − cos t as −2 sin(t m) sin(t δω/2), which does
+    not cancel."""
+    from ..special import ci
+    u, m, h = 1 + a, 1 + a / 2, a / 2
+    L = torch.log1p(a)
+    sm, cm = torch.sin(t * m), torch.cos(t * m)
+    stu, ctu = torch.sin(t * u), torch.cos(t * u)
+    A = -2 * sm * torch.sin(t * h)
+    g = (ci(t * u) - ci(t)) / L
+    g1 = A / (t * L)
+    g2 = ((torch.sin(t) - u * stu) / t - A / (t * t)) / L
+    ga = (ctu - g) / (u * L)
+    small = t * a < math.sqrt(torch.finfo(t.dtype).eps)
+    lo = (cm, -m * sm, -m * m * cm, -t / 2 * sm)
+    return tuple(torch.where(small, v, w)
+                 for v, w in zip(lo, (g, g1, g2, ga))) + (None,)
+
+
+def _color(t, k, a, b):
+    """(n − 1) Re E_n(−it), n = k: ``special.expn_imag_derivs``, g' =
+    −(n − 1) Im E_{n−1}(−it), g'' = −(n − 1) Re E_{n−2}(−it)."""
+    from ..special._expint import expn_imag_derivs
+    e0, e1, e2 = expn_imag_derivs(k, t)
+    return (k - 1) * e0, -(k - 1) * e1, -(k - 1) * e2, None, None
+
+
 PROFILES = {
     'expquad': Profile('expquad', 0, _expquad(1.0), _expquad(-0.5),
                        _expquad(0.25), None),
@@ -528,6 +670,12 @@ PROFILES = {
     'harmonic': _parts(14, 'harmonic', _harmonic, 1),
     'cos': _parts(15, 'cos', _cos, 0),
     'sinc': _parts(16, 'sinc', _sinc, 0),
+    'sfb': _sfb_profile(),
+    # the static order rides the argument slot a: no argument derivative
+    'matern': _order_profile('matern', 18, _matern_parts),
+    'bessel': _order_profile('bessel', 19, _bessel_parts),
+    'pink': _parts(20, 'pink', _pink, 1),
+    'color': _parts(21, 'color', _color, 0),
 }
 
 # the backward kernels' tiling (csrc/gram.cu): the tile edge, the rows a
@@ -624,10 +772,19 @@ def _leaves(st):
     return [st]
 
 
+# the entry points' infix per evaluator: ZooSpecial's kernels are built
+# apart (csrc/gram_special.cu)
+_SPECIAL_SUFFIX = {0: '', 1: '', 2: '_zs'}
+# the first id of the special-function cores, which only ZooSpecial
+# evaluates (csrc/profiles.cuh PROFILE_SFB)
+_FIRST_SPECIAL = 17
+
+
 def _codes(st):
     """(term count, packed codes, evaluator) for the kernels: term t's
     code id | mode << 5 | k << 7 at bit 16 t; the evaluator 0 for a
-    single unscaled ExpQuad term (FixedExpQuad), 1 otherwise (Zoo)."""
+    single unscaled ExpQuad term (FixedExpQuad), 2 for a list with a
+    special-function core (ZooSpecial), 1 otherwise (Zoo)."""
     terms = _leaves(st)
     if not 1 <= len(terms) <= MAXTERMS:
         raise ValueError(f'the kernels take 1 to {MAXTERMS} terms, not '
@@ -635,14 +792,16 @@ def _codes(st):
     kmax = {'maternp': MATERNP_MAX, 'wendland': max(WENDLAND_POLY)}
     codes = 0
     for t, s in enumerate(terms):
-        if not 0 <= s.k <= kmax.get(s.profile.name, 511):
+        kmin = 2 if s.profile.name == 'color' else 0
+        if not kmin <= s.k <= kmax.get(s.profile.name, 511):
             raise ValueError(f'static integer {s.k} out of the kernels\' '
                              f'range for {s.profile.name}')
         codes |= (s.profile.id | _MODES[s.mode] << 5 | s.k << 7) << (16 * t)
     t0 = terms[0]
     fixed = len(terms) == 1 and t0.profile.name == 'expquad' \
         and t0.mode == 'squared' and not t0.scaled
-    return len(terms), codes, 0 if fixed else 1
+    special = any(t.profile.id >= _FIRST_SPECIAL for t in terms)
+    return len(terms), codes, 0 if fixed else 2 if special else 1
 
 
 def _chain(ops, vals, one, zero):
@@ -1020,7 +1179,7 @@ def _eval_cuda(st, x, y, fv, with_noise):
     nterms, codes, ev = _codes(st)
     fv = fv.contiguous()
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
-    err = getattr(_build.lib(), 'lsq_gram' + suffix)(
+    err = getattr(_build.lib(), 'lsq_gram' + _SPECIAL_SUFFIX[ev] + suffix)(
         _ptr(x), _ptr(y), n, m, p, _ptr(fv), nterms, codes, int(with_noise),
         ev, _ptr(out), _stream(x.device))
     _build.check(err, 'gram')
@@ -1040,7 +1199,7 @@ def _eval_sym_cuda(st, x, fv, with_noise):
     nterms, codes, ev = _codes(st)
     fv = fv.contiguous()
     out = torch.empty((n, n), dtype=x.dtype, device=x.device)
-    err = getattr(_build.lib(), 'lsq_gram_sym' + suffix)(
+    err = getattr(_build.lib(), 'lsq_gram_sym' + _SPECIAL_SUFFIX[ev] + suffix)(
         _ptr(x), n, p, _ptr(fv), nterms, codes, int(with_noise), ev,
         _ptr(out), _stream(x.device))
     _build.check(err, 'gram_sym')
@@ -1099,7 +1258,7 @@ def _backward_cuda(G, st, x, y, fv, with_noise, need_xy, need_p):
     colpart = x.new_empty((nbi, m, p)) if need_xy else None
     scal = x.new_empty((nbi * nbj, _nsums(ev))) if need_p else None
     # one launch for all p: G is read once
-    err = getattr(_build.lib(), 'lsq_gram_bwd' + suffix)(
+    err = getattr(_build.lib(), 'lsq_gram_bwd' + _SPECIAL_SUFFIX[ev] + suffix)(
         _ptr(G), _ptr(x), _ptr(y), n, m, p, _ptr(fv), nterms, codes,
         int(with_noise), ev, int(need_xy), int(need_p), _wide(G, m),
         _ptr(rowpart), _ptr(colpart), _ptr(scal), _stream(x.device))
@@ -1126,7 +1285,7 @@ def _sym_backward_cuda(G, st, x, fv, with_noise, need_x, need_p):
     # (J, I) writes it); the scalars per upper tile pair
     part = x.new_empty((nt, n, p)) if need_x else None
     scal = x.new_empty((nt * (nt + 1) // 2, _nsums(ev))) if need_p else None
-    fn = getattr(_build.lib(), 'lsq_gram_sym_bwd' + suffix)
+    fn = getattr(_build.lib(), 'lsq_gram_sym_bwd' + _SPECIAL_SUFFIX[ev] + suffix)
     for d0 in _chunks(p, need_x):
         err = fn(_ptr(G), _ptr(x), n, p, d0, _ptr(fv), nterms, codes,
                  int(with_noise), ev, int(need_x), int(need_p and d0 == 0),
@@ -1165,7 +1324,7 @@ def _tangent_cuda(st, x, y, dx, dy, fv, dfv, with_noise):
     dx, dy = dx.contiguous(), dy.contiguous()
     fv, dfv = fv.contiguous(), dfv.contiguous()
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
-    err = getattr(_build.lib(), 'lsq_gram_jvp' + suffix)(
+    err = getattr(_build.lib(), 'lsq_gram_jvp' + _SPECIAL_SUFFIX[ev] + suffix)(
         _ptr(x), _ptr(y), _ptr(dx), _ptr(dy), n, m, p, _ptr(fv), _ptr(dfv),
         nterms, codes, int(with_noise), ev, _ptr(out), _stream(x.device))
     _build.check(err, 'gram tangent')
@@ -1182,7 +1341,7 @@ def _sym_tangent_cuda(st, x, dx, fv, dfv, with_noise):
     nterms, codes, ev = _codes(st)
     dx, fv, dfv = dx.contiguous(), fv.contiguous(), dfv.contiguous()
     out = torch.empty((n, n), dtype=x.dtype, device=x.device)
-    err = getattr(_build.lib(), 'lsq_gram_sym_jvp' + suffix)(
+    err = getattr(_build.lib(), 'lsq_gram_sym_jvp' + _SPECIAL_SUFFIX[ev] + suffix)(
         _ptr(x), _ptr(dx), n, p, _ptr(fv), _ptr(dfv), nterms, codes,
         int(with_noise), ev, _ptr(out), _stream(x.device))
     _build.check(err, 'gram_sym tangent')
@@ -1208,7 +1367,7 @@ def _bwd_tangent_cuda(G, one, x, y, dx, dy, coef, need_xy, need_s):
     rowpart = x.new_empty((nbj, n, p)) if need_xy else None
     colpart = x.new_empty((nbi, m, p)) if need_xy else None
     scal = x.new_empty((nbi * nbj, 3)) if need_s else None
-    fn = getattr(_build.lib(), 'lsq_gram_bwd_jvp' + suffix)
+    fn = getattr(_build.lib(), 'lsq_gram_bwd_jvp' + _SPECIAL_SUFFIX[ev] + suffix)
     for d0 in _chunks(p, need_xy):
         err = fn(_ptr(G), _ptr(x), _ptr(y), _ptr(dx), _ptr(dy), n, m, p, d0,
                  _ptr(fv), _ptr(coef), codes, ev, int(need_xy),
@@ -1234,7 +1393,7 @@ def _sym_bwd_tangent_cuda(G, one, x, dx, coef, need_x, need_s):
     nt = _cdiv(n, _TILE)
     part = x.new_empty((nt, n, p)) if need_x else None
     scal = x.new_empty((nt * (nt + 1) // 2, 3)) if need_s else None
-    fn = getattr(_build.lib(), 'lsq_gram_sym_bwd_jvp' + suffix)
+    fn = getattr(_build.lib(), 'lsq_gram_sym_bwd_jvp' + _SPECIAL_SUFFIX[ev] + suffix)
     for d0 in _chunks(p, need_x):
         err = fn(_ptr(G), _ptr(x), _ptr(dx), n, p, d0, _ptr(fv), _ptr(coef),
                  codes, ev, int(need_x), int(need_s and d0 == 0),

@@ -163,28 +163,32 @@ def ci(x):
     return sici(x)[1]
 
 
-def _expn_imag_series_real(n, x, nterms=40):
-    """Re E_n(-ix) for integer n >= 2 by DLMF 8.19.8, x small and > 0:
-    the real part of (ix)^(n-1)/(n-1)! (ψ(n) − ln(−ix)) minus the series
-    Σ_{k != n-1} (ix)^k / (k! (k − n + 1)), whose real part keeps the
-    even k."""
-    psi_n = -_EULER + sum(1.0 / j for j in range(1, n))
-    A = psi_n - torch.log(x.abs())   # ln(−ix) = ln|x| − iπ/2
+def _expn_imag_series(m, x, nterms=40):
+    """E_m(−ix), complex, for integer m >= 1 by DLMF 8.19.8 (x small and
+    > 0): (ix)^(m−1)/(m−1)! (ψ(m) − ln(−ix)) − Σ_{k != m−1, k < nterms}
+    (ix)^k / (k! (k − m + 1)), ln(−ix) = ln|x| − iπ/2; the real part
+    keeps the even k, the imaginary part the odd."""
+    psi_m = -_EULER + sum(1.0 / j for j in range(1, m))
+    A = psi_m - torch.log(x.abs())   # ln(−ix) = ln|x| − iπ/2
     B = math.pi / 2
-    m = (n - 1) % 4
-    xp = x ** (n - 1) / math.factorial(n - 1)
-    lead = (xp * A, -xp * B, -xp * A, xp * B)[m]
-    ssum = torch.zeros_like(x)
-    for k in range(0, nterms, 2):
-        if k == n - 1:
+    xp = x ** (m - 1) / math.factorial(m - 1)
+    lead = ((xp * A, xp * B), (-xp * B, xp * A), (-xp * A, -xp * B),
+            (xp * B, -xp * A))[(m - 1) % 4]
+    re, im = torch.zeros_like(x), torch.zeros_like(x)
+    for k in range(nterms):
+        if k == m - 1:
             continue
-        sign = 1.0 if k % 4 == 0 else -1.0
-        ssum = ssum + sign / (math.factorial(k) * (k - n + 1)) * x ** k
-    return lead - ssum
+        term = ((1.0, -1.0)[k // 2 % 2] / (math.factorial(k) * (k - m + 1))
+                * x ** k)
+        if k % 2:
+            im = im + term
+        else:
+            re = re + term
+    return torch.complex(lead[0] - re, lead[1] - im)
 
 
-def _expn_imag_cf_real(n, x, iters=130):
-    """Re E_n(-ix) by the modified-Lentz continued fraction
+def _expn_imag_cf(n, x, iters=130):
+    """E_n(−ix), complex, by the modified-Lentz continued fraction
 
         E_n(z) = e^{-z} / (z + n/(1 + 1/(z + (n+1)/(1 + 2/(z + ...)))))
 
@@ -200,7 +204,41 @@ def _expn_imag_cf_real(n, x, iters=130):
         d = 1.0 / (a * d + b)
         c = b + a / c
         h = h * (c * d)
-    return (h * torch.exp(-z)).real
+    return h * torch.exp(-z)
+
+
+def expn_imag_derivs(n, x):
+    """(Re E_n(−ix), Im E_{n−1}(−ix), Re E_{n−2}(−ix)) for static integer
+    n >= 2 and x >= 0, the Color profile's value and first two
+    derivatives over ±(n − 1) (dE_m(−ix)/dx = i E_{m−1}(−ix)): below
+    x = 1 each order's series (E_0(−ix) = i e^{ix}/x in closed form),
+    above it one continued fraction for E_n and the recurrence E_{m−1} =
+    (e^{ix} − (m − 1) E_m)/(−ix); below eps the limits (1/(n − 1), 0,
+    0) of the value and of `expn_imag_real`'s clamped derivative."""
+    assert int(n) == n and n >= 2, n
+    n = int(n)
+    x = _float(x)
+    eps = torch.finfo(x.dtype).eps
+    xs = torch.clamp(x, min=eps)
+    xl = torch.where(xs < 1, xs, torch.full_like(xs, 0.5))
+    xh = torch.where(xs >= 1, xs, torch.full_like(xs, 5.0))
+
+    def series(m):
+        if m == 0:
+            return torch.complex(-torch.sin(xl), torch.cos(xl)) / xl
+        return _expn_imag_series(m, xl)
+
+    lo = [series(n).real, series(n - 1).imag, series(n - 2).real]
+    eix = torch.complex(torch.cos(xh), torch.sin(xh))
+    zi = torch.complex(torch.zeros_like(xh), -xh)
+    En = _expn_imag_cf(n, xh)
+    En1 = (eix - (n - 1) * En) / zi
+    En2 = (eix - (n - 2) * En1) / zi
+    hi = [En.real, En1.imag, En2.real]
+    lim = [1.0 / (n - 1), 0.0, 0.0]
+    return tuple(torch.where(x < eps, torch.full_like(x, v),
+                             torch.where(xs < 1, a, b))
+                 for a, b, v in zip(lo, hi, lim))
 
 
 def expn_imag_real(n, x):
@@ -212,9 +250,9 @@ def expn_imag_real(n, x):
     x = _float(x)
     eps = torch.finfo(x.dtype).eps
     xs = torch.clamp(x, min=eps)
-    small = _expn_imag_series_real(
-        n, torch.where(xs < 1, xs, torch.full_like(xs, 0.5)))
-    large = _expn_imag_cf_real(
-        n, torch.where(xs >= 1, xs, torch.full_like(xs, 5.0)))
+    small = _expn_imag_series(
+        n, torch.where(xs < 1, xs, torch.full_like(xs, 0.5))).real
+    large = _expn_imag_cf(
+        n, torch.where(xs >= 1, xs, torch.full_like(xs, 5.0))).real
     out = torch.where(xs < 1, small, large)
     return torch.where(x < eps, torch.full_like(out, 1.0 / (n - 1)), out)

@@ -28,8 +28,13 @@ def _dt():
 
 
 def _tensor(v, like=None):
+    """``v`` as a tensor of ``like``'s dtype and device; without
+    ``like``, a floating tensor as it is, anything else in the default
+    dtype."""
     if like is not None:
         return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+    if isinstance(v, torch.Tensor) and v.is_floating_point():
+        return v
     return torch.as_tensor(v, dtype=_dt())
 
 
@@ -127,16 +132,18 @@ def _kvmodx2_value(nu, x2):
     return torch.where(x2 <= _tiny(x2), one, val)
 
 
-def _kvmodx2_raw_deriv(nu, x2):
-    """d/dx² f_ν = −½ 2^{1−ν}/Γ(ν) x^{ν−1} K_{|ν−1|}(x), the prefactor
-    fused into the quadrature (ν ≤ 1, singular at zero distance)."""
+def _kvmodx2_raw(nu, x2, j):
+    """The j-th x²-derivative of f_ν = 2^{1−ν}/Γ(ν) x^ν K_ν(x),
+    (−½)^j 2^{1−ν}/Γ(ν) x^{ν−j} K_{|ν−j|}(x) (from d/dx [x^μ K_μ] =
+    −x^μ K_{μ−1}), the prefactor fused into the quadrature: singular at
+    zero distance for ν ≤ j."""
     x = torch.sqrt(torch.clamp(x2, min=_tiny(x2)))
     nut = _tensor(nu, x2)
     lpref = (1 - nut) * math.log(2.0) - torch.lgamma(nut) \
-        + (nut - 1) * torch.log(x)
+        + (nut - j) * torch.log(x)
     lpref, xb = torch.broadcast_tensors(lpref, x)
-    return -0.5 * _kv_quad_scaled((torch.zeros_like(xb) + nut - 1).abs(),
-                                  xb, lpref)
+    return (-0.5) ** j * _kv_quad_scaled(
+        (torch.zeros_like(xb) + nut - j).abs(), xb, lpref)
 
 
 def _kvmodx2_deriv(nu, x2):
@@ -144,7 +151,8 @@ def _kvmodx2_deriv(nu, x2):
         # the exact recurrence d/dx² f_ν = −f_{ν−1}/(4(ν−1)): regular at
         # x² = 0 and a Function again
         return -kvmodx2(abs(nu - 1), x2) / (4 * (nu - 1))
-    return _kvmodx2_raw_deriv(nu, x2)
+    # ν ≤ 1: singular at zero distance
+    return _kvmodx2_raw(nu, x2, 1)
 
 
 class _KvModX2(torch.autograd.Function):

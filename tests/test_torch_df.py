@@ -308,12 +308,12 @@ def test_gp_df_gram_end_to_end():
 
 
 def test_gp_without_fast_gram_takes_float32_gram():
-    """A model kernel C cannot assemble (the real-order Matern, whose
-    core has no CUDA profile) has no float64 Gram: the rescue refactors
-    its float32 Gram."""
+    """A model kernel C cannot assemble (a Maternp order above the
+    kernels' table, ops.MATERNP_MAX) has no float64 Gram: the rescue
+    refactors its float32 Gram."""
     rng = np.random.default_rng(4)
     x = np.sort(rng.uniform(0, 10, 300)).astype(np.float32)
-    gp = lt.GP(lt.Matern(nu=2.2, scale=2.0)).addx(x, 'a')
+    gp = lt.GP(lt.Maternp(p=lt.ops.MATERNP_MAX + 1, scale=2.0)).addx(x, 'a')
     assert gp._df_gram_maker(['a'], None) is None
     cov = 1e-4 * torch.eye(300)
     dec = _quiet(gp._solver_for, ['a'], cov)

@@ -284,10 +284,11 @@ def test_gram_cuda(cuda, gen, dtype, p):
         torch.testing.assert_close(g, r, **TOL[dtype])
 
 
-def _bwd_tol(G, Wr, x, y, dtype, sym):
+def _bwd_tol(G, Wr, x, y, dtype, sym, cancel=1.0):
     """Bounds of the backward's sums taken in another order: 8 sqrt(k) u
     times the sum of |terms| over the k terms of each, plus the p-term
-    r² rounding of the forward, 16 (p + 1) u per term.  A term's
+    r² rounding of the forward, 16 (p + 1) u per term (times the
+    profile's ``cancel``, `_CANCEL`).  A term's
     coordinate factor is taken as |x_i| + |y_j|, not |x_i - y_j|: at
     p > 1 the plain version sums the two apart (rowsum(C) x - C y).
     ``sym``: x is both of K's arguments (G enters as G + Gᵀ)."""
@@ -297,7 +298,7 @@ def _bwd_tol(G, Wr, x, y, dtype, sym):
     A = G.abs() * Wr.abs()
     if sym:
         A = A + A.T
-    rel = 16 * (p + 1) * u
+    rel = 16 * (p + 1) * u * cancel
     D = x[:, None, :].abs() + y[None, :, :].abs()
     tx = 2 * (A[:, :, None] * D).sum(1) * (8 * m ** 0.5 * u + rel)
     ty = 2 * (A[:, :, None] * D).sum(0) * (8 * n ** 0.5 * u + rel)
@@ -957,10 +958,34 @@ def _zoo_descs(t):
         'ts-terms': S((T(P['celerite'], 'abs', args=(t(0.3), t(0.1))),
                        T(P['harmonic'], 'abs', args=(t(2.0),),
                          scale=t(2.0), post=(('mul', t(0.5)),)))),
+        # StationaryFracBrownian (H dynamic), the real-order Matérn and
+        # Bessel (static orders; Bessel scaled so that its series, whose
+        # terms reach e^x, stays below x = 9 in float64), Pink (δω
+        # dynamic), Color and a sum of the two spectral cores
+        'sfb': S((T(P['sfb'], 'abs', args=(t(0.7),)),), amp),
+        'matern1.7': S((T(P['matern'], args=(1.7,)),), amp),
+        'matern4.2': S((T(P['matern'], args=(4.2,)),), amp),
+        'bessel': S((T(P['bessel'], args=(1.0,), scale=t(3.0)),), amp),
+        'pink': S((T(P['pink'], 'abs', args=(t(1.5),)),), amp),
+        'color3': S((T(P['color'], 'abs', k=3),), amp),
+        'spectral-terms': S((T(P['pink'], 'abs', args=(t(0.5),)),
+                             T(P['color'], 'abs', k=4, scale=t(2.0),
+                               post=(('mul', t(0.5)),)))),
     }
 
 
 ZOO = sorted(_zoo_descs(lambda v: torch.tensor(v)))
+
+# the factor by which a profile's evaluation by another formula errs
+# beyond TOL: Bessel's alternating series in float64, whose terms reach
+# I_0(x) in sum, x ≤ 10 at the tests' points (I_0(10) ≈ 2.8e3), summed
+# by their recurrence on the card and as exponentials of logarithms in
+# the plain version (the float32 kernel, which sums its series in
+# float64, is held to the float64 plain version with no factor);
+# Color's 130 complex continued-fraction steps.  `chip_smoke.py`'s
+# `zoo_amp` has other numbers because it scales another tolerance, 32
+# (p + 1) u of the largest entry, on points that reach Bessel's cut
+_CANCEL = {'bessel': 2.8e3, 'color3': 4.0, 'spectral-terms': 4.0}
 
 
 def _zoo_setup(cuda, gen, dtype, n, m, p, name):
@@ -991,9 +1016,17 @@ def test_zoo_gram_cuda(cuda, gen, dtype, n, m, p, name):
     from lsqfitgp_torch.ops import _gram
     t, x, y, desc = _zoo_setup(cuda, gen, dtype, n, m, p, name)
     noise = t(0.1)
+    # Bessel's plain series in float32 (each term the exponential of its
+    # logarithm, as the JAX package's) errs by ~I_0(x) u near its cut:
+    # the float32 kernel is held to the float64 plain version instead
+    exact = name == 'bessel' and dtype == torch.float32
+    t64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=cuda)
+    rt = t64 if exact else t
     got = ops.gram(desc, x, y, noise=noise)
-    ref = ops.gram_plain(desc, x, y, noise=noise)
-    torch.testing.assert_close(got, ref, **TOL[dtype])
+    ref = ops.gram_plain(_zoo_descs(rt)[name], rt(x), rt(y), noise=rt(0.1))
+    f = 1.0 if exact else _CANCEL.get(name, 1.0)
+    torch.testing.assert_close(got, ref.to(dtype), rtol=TOL[dtype]['rtol'] * f,
+                               atol=TOL[dtype]['atol'] * f)
     full = ops.gram(desc, x, noise=noise)
     half = ops.gram_sym(desc, x, noise=noise)
     assert torch.equal(full, half)
@@ -1012,7 +1045,7 @@ def test_zoo_gram_cuda(cuda, gen, dtype, n, m, p, name):
     r2 = _gram._sqdist_plain(x64, y64)
     evals = _gram._terms_plain(st, fv64, r2, d1=True, da=True)
     Wr = _gram._deriv_plain(st, x64, y64, fv64, evals, r2)
-    tx, ty, ts = _bwd_tol(G64, Wr, x64, y64, dtype, False)
+    tx, ty, ts = _bwd_tol(G64, Wr, x64, y64, dtype, False, f)
     assert bool(((d(res[0]) - ref[0]).abs() <= tx).all())
     assert bool(((d(res[1]) - ref[1]).abs() <= ty).all())
     mags = [G64.abs().sum(), G64.diagonal().abs().sum()] + [
@@ -1025,17 +1058,17 @@ def test_zoo_gram_cuda(cuda, gen, dtype, n, m, p, name):
     dx, dy = t(gen.standard_normal((n, p))), t(gen.standard_normal((m, p)))
     dv = [t(gen.standard_normal(())) for _ in vals]
 
-    def tangent(fn):
+    def tangent(fn, c=t):
         with fwAD.dual_level():
-            num = [fwAD.make_dual(t(v), dvi) for v, dvi in zip(vals, dv)]
-            out = fn(_gram._rebuild(st, num), fwAD.make_dual(x, dx),
-                     fwAD.make_dual(y, dy), noise=noise)
+            num = [fwAD.make_dual(c(v), c(dvi)) for v, dvi in zip(vals, dv)]
+            out = fn(_gram._rebuild(st, num), fwAD.make_dual(c(x), c(dx)),
+                     fwAD.make_dual(c(y), c(dy)), noise=c(noise))
             return fwAD.unpack_dual(out).tangent
 
     n0 = ops.gram.launches_jvp
     tg = tangent(ops.gram)
     assert ops.gram.launches_jvp == n0 + 1
-    tr = tangent(ops.gram_plain)
+    tr = tangent(ops.gram_plain, rt).to(dtype)
     rtol = 1e-4 if dtype == torch.float32 else 1e-11
     assert float((tg - tr).abs().max()) <= rtol * float(tr.abs().max())
 
@@ -1071,7 +1104,9 @@ def test_zoo_gram_sym_cuda(cuda, gen, dtype, n, p, name):
 @pytest.mark.parametrize('p', [1, 3])
 @pytest.mark.parametrize('name', ['maternp2', 'expon', 'gammaexp', 'cauchy',
                                   'terms', 'terms3', 'celerite',
-                                  'harmonic-lo', 'wendland2', 'ts-terms'])
+                                  'harmonic-lo', 'wendland2', 'ts-terms',
+                                  'sfb', 'matern1.7', 'bessel', 'pink',
+                                  'color3'])
 def test_zoo_schur_update_gram_cuda(cuda, gen, dtype, p, name, precision):
     """Kernel D on the zoo's profiles and term sums, at an offset with a
     ragged nreal and eps, against its plain version within `_tc_tol`."""
@@ -1085,19 +1120,33 @@ def test_zoo_schur_update_gram_cuda(cuda, gen, dtype, p, name, precision):
     keep = _syrk._tile_mask(size, tile, cuda)
     kw = dict(eps=t(0.25), nreal=nreal, size=size, offset=offset, tile=tile)
     got = ops.schur_update_gram(desc, X, A, precision=precision, **kw)
-    ref = _syrk.schur_update_gram_plain(desc, X, A, **kw)
+    # Bessel's float32 plain series errs by ~I_0(x) u (as in
+    # `test_zoo_gram_cuda`): held to the float64 plain version
+    exact = name == 'bessel' and dtype == torch.float32
+    rt = (lambda a: torch.as_tensor(a, dtype=torch.float64, device=cuda)) \
+        if exact else t
+    kw64 = dict(kw, eps=rt(0.25))
+    ref = _syrk.schur_update_gram_plain(_zoo_descs(rt)[name], rt(X), rt(A),
+                                        **kw64).to(dtype)
     init = _syrk.schur_update_gram_plain(desc, X, torch.zeros_like(A), **kw)
     err = (got - ref).abs()[keep]
-    # the profile by another formula: 32 u more of the entry
+    # the profile by another formula: 32 u more of the entry; for the
+    # cores of `_CANCEL`, whose error is absolute (a series' or a
+    # continued fraction's), that times the factor and the largest entry
+    if exact or name not in _CANCEL:
+        entry = init.abs()
+    else:
+        entry = _CANCEL[name] * float(init.abs().max())
     tol = (_tc_tol(A, init, dtype, precision)
-           + 32 * torch.finfo(dtype).eps * init.abs())[keep]
+           + 32 * torch.finfo(dtype).eps * entry)[keep]
     assert bool((err <= tol).all()), float(err.max())
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('name', ['maternp2', 'maternp5', 'gammaexp2',
-                                  'cauchy2', 'periodic'])
+                                  'cauchy2', 'periodic', 'matern4.2',
+                                  'bessel'])
 def test_zoo_gram_backward_jvp_cuda(cuda, gen, dtype, name):
     """Kernels C″ and E″ on one-term zoo profiles along the points and the
     chain against their plain versions (norm-wise rtol 1e-4 in float32,
@@ -1107,7 +1156,8 @@ def test_zoo_gram_backward_jvp_cuda(cuda, gen, dtype, name):
     coincident points and amplifies the rounding of r² into the tangent,
     whatever the route (their plain versions are held to the double
     backward on the CPU, tests/test_torch_zoo.py and
-    tests/test_torch_timeseries.py)."""
+    tests/test_torch_timeseries.py; the real-order Matérn is twice
+    differentiable at 0 from ν > 2 on, Bessel everywhere)."""
     t, x, y, desc = _zoo_setup(cuda, gen, dtype, 200, 90, 1, name)
     dx, dy = t(gen.standard_normal((200, 1))), t(gen.standard_normal((90, 1)))
     G = t(gen.standard_normal((200, 90)))
@@ -1201,6 +1251,50 @@ def test_timeseries_models_on_cuda_match_cpu(cuda, gen):
                 res = []
                 for gp in models(lp):
                     v = gp.addx(t, 'y').marginal_likelihood({'y': y})
+                    (g,) = torch.autograd.grad(v, lp)
+                    res += [v.detach().cpu(), g.detach().cpu()]
+                out[dev] = res
+        for a, b in zip(out['cuda'], out['cpu']):
+            torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-9)
+    finally:
+        torch.set_default_dtype(old)
+
+
+@pytest.mark.gpu
+def test_new_cores_models_on_cuda_match_cpu(cuda, gen):
+    """The fractional-Gaussian-noise model, amp * StationaryFracBrownian(H)
+    on the unit grid with white noise, dense (the noise as the data's
+    scalar givencov, so that kernel C evaluates 'sfb') and chol-stream
+    (+ noise * White(): C and D), and amp * Matern(nu=1.7, scale) dense
+    (C on 'matern'), on the card give the CPU's likelihood and gradient
+    in float64 (rtol 1e-8)."""
+    t = np.arange(900, dtype=float)
+    y = gen.standard_normal(900)
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        def sfb(lp):
+            H = 1 / (1 + (-lp[1]).exp())
+            return lp[0].exp() * lt.StationaryFracBrownian(H=H)
+
+        def values(lp):
+            # each model its own graph: the gradients free theirs
+            yield lt.GP(sfb(lp), gram='tiled').addx(t, 'y') \
+                .marginal_likelihood({'y': y}, givencov=lp[2].exp())
+            yield lt.GP(sfb(lp) + lp[2].exp() * lt.White(),
+                        solver='chol-stream', block=128).addx(t, 'y') \
+                .marginal_likelihood({'y': y})
+            k = lp[0].exp() * lt.Matern(nu=1.7, scale=30 * lp[1].exp())
+            yield lt.GP(k, gram='tiled').addx(t, 'y') \
+                .marginal_likelihood({'y': y}, givencov=lp[2].exp())
+
+        out = {}
+        for dev in ('cpu', 'cuda'):
+            with lt.using_device(dev):
+                lp = torch.tensor([0.2, 1.0, -1.0], device=dev,
+                                  requires_grad=True)
+                res = []
+                for v in values(lp):
                     (g,) = torch.autograd.grad(v, lp)
                     res += [v.detach().cpu(), g.detach().cpu()]
                 out[dev] = res

@@ -660,13 +660,18 @@ def test_stream_raises_on_derivative():
 # -- the examples -----------------------------------------------------------
 
 
-@pytest.mark.parametrize('name', ['double_integral', 'even_symmetry'])
+@pytest.mark.parametrize('name', ['double_integral', 'even_symmetry',
+                                  'ornstein_uhlenbeck_filter',
+                                  'model_comparison'])
 def test_example(name):
     """examples/double_integral.py (a second derivative observed, the
-    double antiderivative predicted: the affine-deflated rmse < 0.05)
-    and examples/even_symmetry.py (deflintransf: the mirror side within
-    0.05 of the data with sdev < 0.05), run against lsqfitgp_torch with
-    their own assertions."""
+    double antiderivative predicted: the affine-deflated rmse < 0.05),
+    examples/even_symmetry.py (deflintransf: the mirror side within
+    0.05 of the data with sdev < 0.05), ornstein_uhlenbeck_filter.py
+    (the OU kernel: the smoothed path beats the raw data, the forecast's
+    sdev relaxes to 1) and model_comparison.py (the log evidence of
+    ExpQuad, Expon, the real-order Matérn and White: ExpQuad wins), run
+    against lsqfitgp_torch with their own assertions."""
     path = os.path.join(ROOT, 'examples', name + '.py')
     src = open(path).read()
     assert 'import lsqfitgp_tpu as lgp' in src
@@ -675,7 +680,8 @@ def test_example(name):
     ns = {'__name__': 'example'}
     exec(compile(src, path, 'exec'), ns)
     u = ns['main']()
-    assert isinstance(u, lt.uncert.UArray)
+    if name in ('double_integral', 'even_symmetry'):
+        assert isinstance(u, lt.uncert.UArray)
 
 
 # -- the kernel classes' machinery -------------------------------------------

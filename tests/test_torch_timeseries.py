@@ -1,9 +1,9 @@
 """The 1-D time-series kernels (Celerite, Harmonic, Cos, Sinc, Pink,
-Color), the exponential integrals and the ten closed-form profiles that
-kernels C, D and E evaluate for them and for the rest of the
-'abs'/'posabs' zoo (Periodic, HoleEffect, CausalExpQuad, Log, Wendland,
-Circular), on the CPU, against the JAX package on the same inputs (made
-from a seed with numpy), in float64.
+Color), the exponential integrals and the profiles that kernels C, D and
+E evaluate for them and for the rest of the 'abs'/'posabs' zoo
+(Periodic, HoleEffect, CausalExpQuad, Log, Wendland, Circular), on the
+CPU, against the JAX package on the same inputs (made from a seed with
+numpy), in float64.
 
 - the kernels' values, and their derivative kernels where ``derivable``
   allows; Harmonic in each static-Q branch, inside the |Q − 1| < √eps
@@ -15,8 +15,10 @@ from a seed with numpy), in float64.
   ``jax.grad``; two-term sums with a new core;
 - ``ops.gram``, ``gram_sym`` and ``schur_update_gram`` on these
   descriptions against the JAX functions in interpret mode;
-- ``why_not``: None for the ten cores, a reason for those still on the
-  broadcast path;
+- the 'pink' and 'color' profiles on each of their branches, and GP
+  models on Pink and Color, dense and ``chol-stream``;
+- ``why_not``: None for every spec-carrying core, a reason for a Maternp
+  order above the kernels' table and for sums of more than 4 kernels;
 - the time-series example's model (``amp * Celerite(gamma, B=0.05) +
   noise * White()``) at n = 300, dense and ``chol-stream``, and a
   3-iteration ``empbayes_fit``; and ``examples/timeseries_streaming.py``,
@@ -245,6 +247,14 @@ def _cases(mod, d):
                               + d['a'] * mod.Harmonic(Q=d['q']), 3),
         'periodic+expquad': (mod.Periodic(outerscale=d['os'], scale=2.0)
                              + d['a'] * mod.ExpQuad(scale=3.0), 3),
+        # the spectral cores: δω dynamic and static, Color's series and
+        # continued fraction (distances on both sides of 1)
+        'pink': (d['a'] * mod.Pink(dw=d['os']), 3),
+        'pink-static': (mod.Pink(dw=0.5), 3),
+        'color2': (mod.Color(n=2), 3),
+        'color3': (d['a'] * mod.Color(n=3), 3),
+        'color5': (mod.Color(n=5), 3),
+        'pink+color': (mod.Pink() + d['a'] * mod.Color(n=4, scale=2.0), 3),
     }
 
 
@@ -288,18 +298,82 @@ def test_build_profile(name):
 
 
 def test_why_not():
-    """The ten cores carry a CUDA profile; the cores still on the
-    broadcast path are named."""
+    """Every spec-carrying core has a CUDA profile now: the ten cores of
+    this file, the real-order Matérn and Bessel, Pink, Color and
+    StationaryFracBrownian; a Maternp order above the kernels' table and
+    a sum of more than 4 profiled kernels are refused for a stated
+    reason."""
     for k in (lt.Periodic(), lt.HoleEffect(), lt.CausalExpQuad(), lt.Log(),
               lt.Wendland(k=2), lt.Circular(), lt.Celerite(gamma=0.2),
-              lt.Harmonic(Q=0.5), lt.Cos(), lt.Sinc()):
+              lt.Harmonic(Q=0.5), lt.Cos(), lt.Sinc(), lt.Matern(nu=1.5),
+              lt.Bessel(nu=1.0), lt.Pink(), lt.Color(n=3),
+              lt.StationaryFracBrownian(H=0.7)):
         assert fg.why_not(k._fastgram) is None
         assert fg.build_profile(k._fastgram) is not None
-    for k, name in ((lt.Matern(nu=1.5), 'Matern'), (lt.Bessel(nu=1.0),
-                    'Bessel'), (lt.Pink(), 'Pink'), (lt.Color(n=3),
-                                                     'Color')):
-        assert name in fg.why_not(k._fastgram)
+    for k, what in ((lt.Maternp(p=ops.MATERNP_MAX + 1), 'Maternp'),
+                    (sum(lt.Cos(scale=s) for s in (1.0, 2.0, 3.0, 4.0, 5.0)),
+                     'sum of 5')):
+        assert what in fg.why_not(k._fastgram)
         assert fg.build_profile(k._fastgram) is None
+
+
+def _jcore(core, *args):
+    return lambda t: core(t, *args)
+
+
+@pytest.mark.parametrize('name', ['pink-1.5', 'pink-0.2', 'color2', 'color3',
+                                  'color5'])
+def test_spectral_profiles(name):
+    """The 'pink' and 'color' profiles' value, first t-derivative and
+    δω-derivative against the JAX cores by autodiff: Pink below √eps
+    (the cosine branch), near it and beyond; Color on both sides of t =
+    1 (the series and the continued fraction) and below eps; g'' against
+    a central difference of g'.  Pink's derivative in closed form
+    (cos(tu) − cos t as a product of sines) against autodiff of the
+    difference of two cosine integrals, which cancels: within 4 eps /
+    (t log1p δω) absolute."""
+    from lsqfitgp_tpu.kernels import _spectral as js
+    kind, arg = name.split('-') if '-' in name else (name[:5], name[5:])
+    prof = ops.PROFILES[kind]
+    if kind == 'pink':
+        dw = float(arg)
+        t = np.array([0.0, 1e-12, 1e-9, 3e-8, 1e-6, 1e-3, 0.7, 5.0, 50.0])
+        a, k = torch.tensor(dw), 0
+        core = lambda v, w: js.Pink.__wrapped__(v, dw=w)
+        g1j = jax.vmap(jax.grad(core), (0, None))(jnp.asarray(t), dw)
+        gaj = jax.vmap(jax.grad(core, 1), (0, None))(jnp.asarray(t),
+                                                      jnp.asarray(dw))
+    else:
+        k = int(arg)
+        t = np.array([1e-20, 1e-3, 0.3, 0.999, 1.001, 3.0, 40.0])
+        a = torch.tensor(0.0)
+        core = lambda v, w: js.Color.__wrapped__(v, n=k)
+        g1j = jax.vmap(jax.grad(core), (0, None))(jnp.asarray(t), 0.0)
+        gaj = None
+    tt = torch.as_tensor(t)
+    gj = jax.vmap(core, (0, None))(jnp.asarray(t), dw if kind == 'pink'
+                                   else 0.0)
+    close(prof.value(tt, k, a, None), gj, rtol=1e-12, atol=1e-14)
+    g1 = prof.deriv(tt, k, a, None)
+    ok = t > 1e-15
+    # JAX's (cos(tu) − cos t)/(t L) loses eps/(t L) to cancellation
+    cancel = 4 * np.finfo(float).eps / (np.maximum(t, 1e-300)
+                                        * math.log1p(float(a))) \
+        if kind == 'pink' else 0 * t
+    assert np.all(np.abs(g1.numpy() - np.asarray(g1j))[ok]
+                  <= (1e-13 + cancel + 1e-10 * np.abs(np.asarray(g1j)))[ok])
+    if gaj is not None:
+        # at t = 0 JAX's where gives nan (its unselected branch's 0/0);
+        # (cos(tu) − g)/(u L) cancels to eps/(u L) on both sides
+        close(prof.dargs(tt, k, a, None)[0].numpy()[1:], np.asarray(gaj)[1:],
+              rtol=1e-10, atol=4 * np.finfo(float).eps / math.log1p(dw))
+    h = 1e-6 * np.maximum(t, 1e-3)
+    far = t > 0.1
+    d2 = (prof.deriv(tt + torch.as_tensor(h), k, a, None)
+          - prof.deriv(tt - torch.as_tensor(h), k, a, None)) / \
+        torch.as_tensor(2 * h)
+    close(prof.deriv2(tt, k, a, None).numpy()[far], d2.numpy()[far],
+          rtol=1e-5, atol=1e-8)
 
 
 def _profile_at(name, t, mod):
@@ -519,6 +593,35 @@ def test_fit(series):
     fj = ltpu.empbayes_fit(PRIOR, factory(ltpu), {'obs': y}, **kw)
     ft = lt.empbayes_fit(PRIOR, factory(lt), {'obs': y}, **kw)
     close(ft.pmean.buf, fj.pmean.buf, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize('solver', ['tiled', 'chol-stream'])
+@pytest.mark.parametrize('core', ['pink', 'color'])
+def test_spectral_model(series, core, solver):
+    """amp * Pink(dw) + noise * White() and amp * Color(n=3, scale) +
+    noise * White() on the example's series: NLL and gradient in the log
+    hyperparameters, dense through kernel C's plain version and
+    streaming (C and D's plain versions), against the JAX package."""
+    t, y = series
+    kw = dict(gram='tiled') if solver == 'tiled' \
+        else dict(solver='chol-stream', block=128, b1=128)
+    p0 = np.array([0.1, math.log(0.8), math.log(0.05)])
+
+    def model(mod, p, exp):
+        if core == 'pink':
+            k = exp(p[0]) * mod.Pink(dw=exp(p[1]))
+        else:
+            k = exp(p[0]) * mod.Color(n=3, scale=exp(p[1]))
+        return mod.GP(k + exp(p[2]) * mod.White(), **kw).addx(t, 'obs')
+
+    vj, gj = jax.value_and_grad(
+        lambda p: model(ltpu, p, jnp.exp).marginal_likelihood({'obs': y}))(
+        jnp.asarray(p0))
+    p = torch.as_tensor(p0).requires_grad_()
+    v = model(lt, p, torch.exp).marginal_likelihood({'obs': y})
+    v.backward()
+    close(v, vj, rtol=1e-9)
+    close(p.grad, gj, rtol=1e-8, atol=1e-9)
 
 
 @pytest.mark.parametrize('name', ['timeseries_streaming', 'periodic_seasonal',

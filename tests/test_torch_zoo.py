@@ -260,6 +260,12 @@ def _cases(mod, dyn):
                 + mod.Expon(scale=1.7),
         'sum-chain': (mod.Cauchy(alpha=d['al'], scale=d['s'])
                       + d['a'] * mod.ExpQuad(scale=d['s2']) + d['c']) * d['b'],
+        # the real-order Matérn (its quadrature; static ν), alone and in
+        # a sum; Bessel's series and Hankel branches have a test of their
+        # own (its alternating series' rounding needs its own tolerance)
+        'matern1.7': d['a'] * mod.Matern(nu=1.7),
+        'matern0.3+expquad': mod.Matern(nu=0.3, scale=d['s'])
+        + d['b'] * mod.ExpQuad(scale=d['s2']),
     }
 
 
@@ -316,15 +322,78 @@ def test_build_profile(name):
 
 
 def test_build_profile_refuses():
-    """Cores without a CUDA profile and sums wider than the kernels'
-    term limit take the broadcast path, for a stated reason."""
-    for k in (lt.Matern(nu=1.5), lt.Maternp(p=ops.MATERNP_MAX + 1),
-              lt.Bessel(nu=1.0), lt.Pink(), lt.Color(n=3),
-              lt.ExpQuad() + lt.Matern(nu=0.7),
+    """The real-order Matérn and Bessel, Pink, Color and
+    StationaryFracBrownian carry a CUDA profile now; a Maternp order above
+    the kernels' table and sums wider than the kernels' term limit take
+    the broadcast path, for a stated reason."""
+    for k in (lt.Matern(nu=1.7), lt.Bessel(nu=1.0), lt.Pink(),
+              lt.Color(n=3), lt.StationaryFracBrownian(H=0.7),
+              lt.ExpQuad() + lt.Matern(nu=0.7)):
+        assert fg.why_not(k._fastgram) is None
+        assert fg.build_profile(k._fastgram) is not None
+    for k in (lt.Maternp(p=ops.MATERNP_MAX + 1),
               sum(lt.ExpQuad(scale=s) for s in (1.0, 2.0, 3.0, 4.0, 5.0))):
         assert fg.build_profile(k._fastgram) is None
         assert fg.why_not(k._fastgram)
-    assert 'Matern' in fg.why_not(lt.Matern(nu=1.5)._fastgram)
+    assert 'Maternp' in fg.why_not(
+        lt.Maternp(p=ops.MATERNP_MAX + 1)._fastgram)
+    assert 'sum of 5' in fg.why_not(
+        sum(lt.ExpQuad(scale=s) for s in (1.0, 2.0, 3.0, 4.0, 5.0))._fastgram)
+
+
+def _jcore(spec):
+    """The JAX core of a one-kernel spec as a function of r²."""
+    fn, params = jfg.build_profile(spec)
+    return lambda r2: fn(r2, *params)
+
+
+@pytest.mark.parametrize('name,nu', [('matern', 0.3), ('matern', 1.7),
+                                     ('matern', 2.5), ('matern', 4.2),
+                                     ('bessel', 0.0), ('bessel', 1.0),
+                                     ('bessel', 2.5)])
+def test_real_order_profiles(name, nu):
+    """The 'matern' and 'bessel' profiles (value and first r²-derivative;
+    their static order has no argument derivative) against the JAX core
+    and jax.grad on r² grids from 0, Bessel's on both sides of its
+    series-to-Hankel cut (x = 20 in float64); g'' against a central
+    difference of g' (for Bessel away from the cut, where g''s rounding
+    over the difference's step swamps it).  Bessel within 2e-16 x
+    I_0(min(x, 20)) absolute: the alternating series' terms, up to
+    I_0(x) in sum, each the exponential of its logarithm (of size ~x, by
+    lgamma in another implementation), rounded differently (the JAX
+    package's own error there)."""
+    cls = lt.Matern if name == 'matern' else lt.Bessel
+    jcls = ltpu.Matern if name == 'matern' else ltpu.Bessel
+    s = (2 * nu if nu else 2.0) if name == 'matern' else (2 + nu / 2) ** 2
+    x = np.concatenate([[0.0, 1e-12, 1e-3, 0.5, 2.0, 7.0], np.linspace(
+        18.0, 22.0, 9), [30.0, 60.0]])
+    r2 = x * x / s
+    prof = ops.PROFILES[name]
+    desc = fg.build_profile(cls(nu=nu)._fastgram)
+    a = torch.tensor(desc.terms[0].args[0])
+    t = torch.as_tensor(r2)
+    g, g1 = prof.value(t, 0, a, None), prof.deriv(t, 0, a, None)
+    core = _jcore(jcls(nu=nu)._fastgram)
+    gj = core(jnp.asarray(r2))
+    g1j = jax.vmap(jax.grad(core))(jnp.asarray(r2))
+    if name == 'matern':
+        close(g, gj, rtol=1e-10, atol=1e-13)
+        ok = r2 > 0 if nu <= 1 else r2 >= 0
+        close(g1.numpy()[ok], np.asarray(g1j)[ok], rtol=1e-10, atol=1e-13)
+    else:
+        from scipy.special import i0
+        atol = 2e-16 * np.maximum(x, 1) * i0(np.minimum(x, 20.0)) + 1e-14
+        assert np.all(np.abs(g.numpy() - np.asarray(gj)) <= atol)
+        assert np.all(np.abs(g1.numpy() - np.asarray(g1j)) <= s * atol)
+    h = 1e-6 * np.maximum(r2, 1e-3)
+    far = r2 > 1e-3
+    if name == 'bessel':
+        far &= (x < 10) | (x > 25)
+    d2 = (prof.deriv(t + torch.as_tensor(h), 0, a, None)
+          - prof.deriv(t - torch.as_tensor(h), 0, a, None)) / \
+        torch.as_tensor(2 * h)
+    close(prof.deriv2(t, 0, a, None).numpy()[far], d2.numpy()[far],
+          rtol=1e-5, atol=1e-7)
 
 
 def _jdesc(name, x):
@@ -441,22 +510,38 @@ def _multiscale(mod, hp, **kw):
                   + 0.09 * mod.White(), **kw)
 
 
+def _matern_nu(mod, hp, **kw):
+    return mod.GP(hp['amp'] * mod.Matern(nu=1.7, scale=hp['scale'])
+                  + 0.09 * mod.White(), **kw)
+
+
+def _bessel(mod, hp, **kw):
+    # scaled so that x = (2 + ν/2) r stays below 13: the series' rounding
+    # (e^x u, in both packages) stays below the likelihood's tolerance
+    return mod.GP(hp['amp'] * mod.Bessel(nu=1.0, scale=hp['scale'])
+                  + 0.09 * mod.White(), **kw)
+
+
 MODELS = {
     'matern': (_matern, np.array([0.3, 0.5])),
     'multiscale': (_multiscale, np.array([0.1, 1.2, -0.5, -0.3])),
+    'matern-nu': (_matern_nu, np.array([0.3, 0.5])),
+    'bessel': (_bessel, np.array([0.2, 2.1])),
 }
 
 
 def _hp(name, p, lib):
-    keys = ('amp', 'scale') if name == 'matern' else ('a1', 's1', 'a2', 's2')
+    keys = ('a1', 's1', 'a2', 's2') if name == 'multiscale' \
+        else ('amp', 'scale')
     return {k: lib.exp(p[i]) for i, k in enumerate(keys)}
 
 
 @pytest.mark.parametrize('solver', ['tiled', 'chol-stream'])
 @pytest.mark.parametrize('name', sorted(MODELS))
 def test_gp_models(data, name, solver):
-    """NLL and gradient in the log hyperparameters of the Matérn-5/2 and
-    the multi-scale models, dense through kernel C's plain version and
+    """NLL and gradient in the log hyperparameters of the Matérn-5/2, the
+    multi-scale, the real-order Matérn (ν = 1.7) and the Bessel (ν = 1)
+    models, dense through kernel C's plain version and
     streaming with the exact gradient (kernels C and D's plain versions),
     against the JAX package's dense and streaming GP."""
     x, y = data

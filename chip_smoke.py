@@ -276,7 +276,10 @@ def device_ms(fn, calls=GRAM_BATCH, kernel=None):
     after one warm-up, divided by ``calls``; with ``kernel``, of the
     kernels of that name only (the Gram kernels of csrc/gram.cu, apart
     from the wrapper's small torch kernels that fold the parameter
-    vector).  Unlike CUDA events around the calls it leaves out the time
+    vector; a kernel launched once a call, by its median launch, one
+    launched k times, by its mean launch times k, so that a launch the
+    profiler loses does not count as time saved).  Unlike CUDA events
+    around the calls it leaves out the time
     the card waits for the host, which a wrapper of a few small torch
     operations around a sub-millisecond kernel can take up; where the
     profiler sees no device time, the median of ``calls`` calls on CUDA
@@ -289,14 +292,15 @@ def device_ms(fn, calls=GRAM_BATCH, kernel=None):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = named = 0.0
-    for e in prof.key_averages():
+    total = 0.0
+    named = []
+    for e in prof.events():
         if 'CUDA' in str(getattr(e, 'device_type', '')):
             t = getattr(e, 'self_device_time_total',
                         getattr(e, 'self_cuda_time_total', 0))
             total += t
-            if kernel is not None and f'{kernel}<' in e.key:
-                named += t
+            if kernel is not None and f'{kernel}<' in e.name:
+                named.append(t)
     if total <= 0:
         # CUDA events around the calls instead (the card's wait for the
         # host included)
@@ -304,8 +308,27 @@ def device_ms(fn, calls=GRAM_BATCH, kernel=None):
             f'CUDA events)')
         return median_ms(fn, reps=calls)
     if kernel is not None:
-        if named > 0:
-            return named / 1e3 / calls
+        if named:
+            # the profiler has been seen to lose one launch of a slow
+            # kernel's 3 calls (2/3 of its time) and to report one long:
+            # a kernel launched once a call is timed by its median launch,
+            # the launches logged where one is missing or lies 20 % off
+            # the median; one launched k times a call by its mean launch
+            # times k
+            per_call = max(1, round(len(named) / calls))
+            if per_call == 1:
+                med = statistics.median(named)
+                if len(named) != calls or any(abs(v - med) > 0.2 * med
+                                              for v in named):
+                    log(f'    ({kernel}: {len(named)} launches over '
+                        f'{calls} calls, of '
+                        f'{[round(v / 1e3, 4) for v in named]} ms, timed '
+                        f'by their median)')
+                return med / 1e3
+            if len(named) != per_call * calls:
+                log(f'    ({kernel}: {len(named)} launches over {calls} '
+                    f'calls, timed as {per_call} a call)')
+            return sum(named) / len(named) * per_call / 1e3
         log(f'    (no kernel named {kernel} in the profile: all of its '
             f'kernels counted)')
     return total / 1e3 / calls
@@ -1296,23 +1319,27 @@ ZOO_RECORDS.update(TS_RECORDS)
 # maxdim) and Matérn-ν at the multidim cell's p: their operations per
 # entry depend on the branch each entry takes (`zoo_ops`)
 CORE_RECORDS = {'sfb': ((1,), None, None), 'matern': ((1, MD_P), None, None),
+                'matern07': ((1, MD_P), None, None),
                 'bessel': ((1, 2), None, None), 'pink': ((1,), None, None),
                 'color': ((1,), None, None)}
+# the order of the real-order Matérn record besides the evidence path's
+# (EV_NU): 0.7, whose first derivative takes the raw form's table (ν ≤ 1)
+ZOO_NU = {'matern07': 0.7}
 ZOO_RECORDS.update(CORE_RECORDS)
 # the block at which a record's plain version is held and timed where
 # its broadcast temporaries at N² would not fit the card (the
 # quadrature's (n², 100) nodes, Bessel's (n², 40) series terms, the
 # continued fraction's complex steps, the series' and Ci's dozens of n²
 # temporaries) or would take seconds; the kernel is timed at N²
-ZOO_BLOCK = {'matern': 2048, 'bessel': 4096, 'color': 4096, 'sfb': 4096,
-             'pink': 4096}
+ZOO_BLOCK = {'matern': 2048, 'matern07': 2048, 'bessel': 4096, 'color': 4096,
+             'sfb': 4096, 'pink': 4096}
 # the launch tallies' profile key of each (ops.gram.by_profile), and the
 # path whose launches its float32 p = 1 records count
 ZOO_KEYS = {'maternp2': 'maternp', 'expon': 'expon', 'gammaexp': 'gammaexp',
             'cauchy': 'cauchy', 'terms': 'maternp+expquad',
             **{name: name for name in TS_RECORDS},
             'harmonic2': 'harmonic', 'harmonic04': 'harmonic',
-            **{name: name for name in CORE_RECORDS}}
+            **{name: name for name in CORE_RECORDS}, 'matern07': 'matern'}
 ZOO_PATHS = {'maternp2': 'matern', 'terms': 'multiscale',
              'celerite': 'timeseries', 'sfb': 'hurst', 'matern': 'evidence'}
 # the multiscale model's point (log a1, log s1, log a2, log s2)
@@ -1369,10 +1396,19 @@ def zoo_desc(name, dtype, amp=1.3):
             # ν, Pink's δω (dynamic), Color's n
             'sfb': T(P['sfb'], 'abs', args=(t(HURST_TRUE['H']),)),
             'matern': T(P['matern'], args=(EV_NU,)),
+            'matern07': T(P['matern'], args=(ZOO_NU['matern07'],)),
             'bessel': T(P['bessel'], args=(1.0,)),
             'pink': T(P['pink'], 'abs', args=(t(1.5),)),
             'color': T(P['color'], 'abs', k=3)}[name]
     return S((term,), chain)
+
+
+# the operations per entry of the Matérn-ν core by its table besides its
+# Clenshaw sums (forward, backward): x = √x², the panel from its bits,
+# the exponential and the rounding's correction, the chain; the
+# backward's second value, its recurrence, the weight and the parameter
+# sums
+MTAB_OPS = (20, 30)
 
 
 def zoo_ops(name, dtype, X):
@@ -1382,9 +1418,13 @@ def zoo_ops(name, dtype, X):
     weighted by the share of this record's entries that take each (on
     256 rows of the points X): StationaryFracBrownian's three powers
     below t = 2 and its series above, J = 14 (float32) or 30 (float64)
-    terms of 8 (forward) and 17 (backward) operations; Matérn-ν's
-    100-node quadrature, about 20 operations a node (a cosh, a log1p,
-    two exponentials), once forward and twice backward; Bessel's 40-term
+    terms of 8 (forward) and 17 (backward) operations; Matérn-ν's table
+    from x = 2^E_LO on (`MTAB_OPS`: the panel's Clenshaw sum, 2 a
+    coefficient, and about 20 more, a square root and an exponential
+    among them; the backward two sums and its weight and sums) and below
+    it the 100-node quadrature, about 20 operations a node (a cosh, a
+    log1p, two exponentials), once forward and twice backward (at every
+    entry before the tables: 2020, 4050); Bessel's 40-term
     series below its cut (x = 8 or 20) or its 20-term Hankel expansion,
     once forward and twice backward; Pink's two cosine integrals
     (rational functions of about 20 operations below 4, 70 with the
@@ -1396,8 +1436,14 @@ def zoo_ops(name, dtype, X):
     _, fwd, bwd = ZOO_RECORDS[name]
     if fwd is not None:
         return fwd, bwd
-    if name == 'matern':
-        return 2020, 4050
+    if ZOO_KEYS[name] == 'matern':
+        from lsqfitgp_torch.ops import _mtable
+        elo, _, nc, _ = _mtable.layout(dtype)
+        nu = ZOO_NU.get(name, EV_NU)
+        x = math.sqrt(2 * nu) * torch.cdist(X[:256], X).flatten()
+        f = float(((x > 0) & (x < 2.0 ** elo)).double().mean())
+        fwd, bwd = MTAB_OPS[0] + 2 * nc, MTAB_OPS[1] + 4 * nc
+        return f * 2020 + (1 - f) * fwd, f * 4050 + (1 - f) * bwd
     f64 = dtype == torch.float64
     J, cut = (30, 20.0) if f64 else (14, 8.0)
     d = torch.cdist(X[:256], X).flatten()
@@ -1427,7 +1473,8 @@ def zoo_amp(name, dtype):
     import torch
     if name == 'bessel':
         return 20.0 * float(np.i0(20.0)) if dtype == torch.float64 else 1.0
-    return {'pink': 64.0, 'matern': 4.0, 'color': 4.0}.get(name, 1.0)
+    return {'pink': 64.0, 'matern': 4.0, 'matern07': 4.0,
+            'color': 4.0}.get(name, 1.0)
 
 
 def bessel_truth(name, dtype):
@@ -1450,6 +1497,78 @@ def check_typical(what, tol, K):
     if not tol <= 1e-2 * med:
         fail(f'{what}: the tolerance is not below a hundredth of a typical '
              f'entry')
+
+
+def matern_rel_tol(name, dtype, p, r2):
+    """The per-entry relative tolerance of a Matérn-ν record's kernel
+    against the float64 plain version at the float64 squared distances
+    ``r2``: 4 (p + 1) (1 + x + ν |log x|) eps + 4e-14, x = √(2ν r²).
+    The table is within 4 eps (float32) or 2e-14 (float64) of f at the
+    kernel's argument, whose x² rounds by about (p + 3) u in r² and the
+    scaling (moving f by x/2 times that), and the float64 quadrature is
+    within 2e-14 + 1.5 (x + ν |log x|) eps₆₄ (ops/_mtable.py); below the
+    tables and above NU_MAX the kernel's own quadrature, whose exponent
+    rounds to about (x + ν |log x|) eps."""
+    import torch
+    nu = ZOO_NU.get(name, EV_NU)
+    x = (2 * nu * r2).sqrt()
+    lx = torch.where(x > 0, x.log().abs(), torch.zeros_like(x))
+    eps = torch.finfo(dtype).eps
+    return 4 * (p + 1) * (1 + x + nu * lx) * eps + 4e-14
+
+
+def check_entries(what, got, ref, tol, dtype):
+    """Fail unless each entry of ``got`` is within ``tol`` (relative, per
+    entry) of the float64 ``ref`` wherever |ref| is at least the dtype's
+    smallest normal number (a kernel that zeroed or misplaced any panel
+    of its tables would fail); returns the largest error over its
+    tolerance."""
+    import torch
+    tiny = torch.finfo(dtype).tiny
+    ok = ref.abs() >= tiny
+    rel = (got.double() - ref).abs() / ref.abs().clamp_min(tiny)
+    worst = float((rel / tol)[ok].max())
+    log(f'    {what}: per entry, the largest error is {worst:.3f} of its '
+        f'relative tolerance ({int(ok.sum())} entries)')
+    if not worst <= 1:
+        fail(f'{what}: an entry beyond its relative tolerance '
+             f'({worst:.3f} of it)')
+    return worst
+
+
+def matern_probe(name, dtype, p):
+    """Kernel C and its fused backward on a Matérn-ν record's core over
+    the whole of its tables: 4096 points along the first axis at
+    log-uniform x from 2^-13 (below the tables) to past the dtype's
+    underflow point (120 in float32, 760 in float64: every panel, the
+    split exponential from 80 or 700 and the tables' end), against the
+    origin; each entry, and each entry's x-gradient (the backward with G
+    all ones on one column), against the float64 plain version within
+    `matern_rel_tol`."""
+    import torch
+    from lsqfitgp_torch.ops import gram, gram_plain, _gram
+    nu = ZOO_NU.get(name, EV_NU)
+    xend = 120.0 if dtype == torch.float32 else 760.0
+    x = torch.exp(torch.linspace(math.log(2.0 ** -13), math.log(xend), 4096,
+                                 device='cuda', dtype=torch.float64))
+    X = torch.zeros(4096, p, device='cuda', dtype=dtype)
+    X[:, 0] = (x / math.sqrt(2 * nu)).to(dtype)
+    Y = torch.zeros(1, p, device='cuda', dtype=dtype)
+    X64, Y64 = X.double(), Y.double()
+    desc, desc64 = zoo_desc(name, dtype), zoo_desc(name, torch.float64)
+    r2 = _gram._sqdist_plain(X64, Y64)
+    tol = matern_rel_tol(name, dtype, p, r2)
+    what = f'C gram {name} p={p} {dtype} over the tables'
+    check_entries(what, gram(desc, X, Y), gram_plain(desc64, X64, Y64), tol,
+                  dtype)
+    _, st, _, _, pvec = _gram._args(desc, X, Y, (), None)
+    fv = _gram._fold(st, pvec)
+    G = torch.ones(4096, 1, device='cuda', dtype=dtype)
+    gx = _gram._backward(G, st, X, Y, fv, False, True, False)[0]
+    ref = _gram._backward_plain(G.double(), st, X64, Y64, fv.double(), False,
+                                True, False)[0]
+    check_entries(f'C gram backward {name} p={p} {dtype} over the tables',
+                  gx[:, :1], ref[:, :1], tol, dtype)
 
 
 def zoo_points(p, n, dtype, gen):
@@ -1524,7 +1643,9 @@ def kernel_zoo(dtype, gen, name, p):
     polynomial where the plain version takes torch's pow and its own
     polynomial, a few ulps each) times the core's `zoo_amp` (where that
     exceeds 1e3, below a hundredth of the median entry, `check_typical`;
-    Bessel in float32 against the float64 plain version, `bessel_truth`),
+    Bessel in float32 against the float64 plain version, `bessel_truth`;
+    Matérn-ν's entries each against the float64 plain version too,
+    `check_entries`, and over its tables' whole range, `matern_probe`),
     the backward by `zoo_bwd_check`; where ZOO_BLOCK names the profile, both
     held on the first ZOO_BLOCK points (the plain version timed there,
     ``plain_n`` in the record) and the kernel timed at 16384²; the
@@ -1554,6 +1675,18 @@ def kernel_zoo(dtype, gen, name, p):
     if amp > 1e3:
         check_typical(what, tol, Kp)
     err = check_close(what, K, Kp, tol)
+    if ZOO_KEYS[name] == 'matern':
+        # each entry too, against the float64 plain version: the
+        # tolerance above is of the largest entry, and most of this
+        # block's entries are far smaller
+        Xb64 = Xb.double()
+        check_entries(what + ' (float64 plain)', K,
+                      gram_plain(zoo_desc(name, torch.float64), Xb64,
+                                 noise=noise.double()),
+                      matern_rel_tol(name, dtype, p,
+                                     _gram._sqdist_plain(Xb64, Xb64)), dtype)
+        del Xb64
+        matern_probe(name, dtype, p)
     del K, Kp
     ms, plain_ms, wrap = gram_times(
         lambda: gram(desc, X, noise=noise),
@@ -1760,7 +1893,10 @@ def kernel_zoo_tangent(dtype, gen, name='maternp2'):
     ms_b = device_ms(fn, kernel_calls(fn), kernel='gram_bwd_jvp_kernel')
     plain_b = device_ms(lambda: _gram._bwd_tangent_plain(
         Gb, one, Xb, Xb, dXb, dXb, coef, True, True), 3)
-    bd_b = bound(isz * (N * N + 4 * N), (14 + 2 * fwd_ops) * N * N, dtype)
+    # the real-order Matérn's g'' takes the quadrature (2020 operations)
+    g2 = 2020 if ZOO_KEYS[name] == 'matern' else 0
+    bd_b = bound(isz * (N * N + 4 * N), (14 + 2 * fwd_ops + g2) * N * N,
+                 dtype)
     log(f'  C\'\' {name} {dtype}: kernel {ms_b:.3f} ms, plain {plain_b:.3f} '
         f'ms{at}, bound {bd_b[0]:.3f} ms ({bd_b[1]})')
     extra = {} if nb == N else dict(plain_n=nb)
@@ -1978,7 +2114,7 @@ def plain_mean64(x, y, xs, scale, amp, noise=NOISE_VAR, kern=None,
 
 
 KERNELS = ['schur_update', 'syrk_t_full', 'syrk_t_full_', 'gram',
-           'schur_update_gram', 'gram_sym']
+           'schur_update_gram', 'gram_sym', 'matern_table']
 
 # each wrapper's launch counters and the suffix of their key in the
 # counts: A and D count their SIMT kernel ('launches'), their TF32
@@ -4306,16 +4442,75 @@ def ts_kernel_specs():
          [f32, f64])]
 
 
+def kernel_matern_table(dtype, gen):
+    """The real-order Matérn's table builder, ``matern_table_kernel``
+    (csrc/special.cuh), on the tables of the evidence path's order
+    (f_ν, and f_{ν−1}, its first derivative's) and of ν = 0.7's raw
+    form, each built anew (the cache emptied), held to the plain builder
+    on the host (`ops.matern_table_plain`): each coefficient within (eps
+    + 64 eps₆₄) of its panel's largest (the two quadratures' exponentials
+    and logarithms differ by an ulp or two; a float32 coefficient may
+    round the other way).  Timed: one build (device time) against the
+    plain builder on the card; bound: the quadrature's operations at the
+    table's nodes in float64 (100 nodes of about 20 operations, a special
+    function one) or the table's bytes.  The record 'matern_table' counts
+    the evidence path's builds (float32; none in float64)."""
+    import torch
+    from lsqfitgp_torch import ops
+    from lsqfitgp_torch.ops import _mtable
+    dev = torch.device('cuda', torch.cuda.current_device())
+    nu = float(torch.tensor(EV_NU, dtype=dtype))
+    elo, ehi, nc, npan = _mtable.layout(dtype)
+    err = 0.0
+    for order, kind in ((nu, 0), (nu - 1, 0), (0.7, 1)):
+        _mtable._CACHE.pop((order, kind, dtype, dev), None)
+        n0 = ops.matern_table.launches
+        got = ops.matern_table(order, kind, dtype, dev).double().reshape(
+            npan, nc)
+        if ops.matern_table.launches != n0 + 1:
+            fail(f'matern_table {order} {kind}: not built by its kernel')
+        ref = ops.matern_table_plain(order, kind, dtype).double().reshape(
+            npan, nc).to(dev)
+        tol = (torch.finfo(dtype).eps + 64 * torch.finfo(torch.float64).eps) \
+            * ref.abs().amax(1, keepdim=True)
+        err = max(err, check_close(
+            f'matern_table_kernel order {order:.8g} kind {kind} {dtype}',
+            got, ref, tol))
+
+    def build():
+        _mtable._CACHE.pop((nu, 0, dtype, dev), None)
+        return ops.matern_table(nu, 0, dtype, dev)
+
+    ms = device_ms(build, 5, kernel='matern_table_kernel')
+    plain_ms = median_ms(
+        lambda: _mtable.matern_table_plain(nu, 0, dtype, device='cuda'), 3)
+    nodes = npan * nc
+    bd = bound(torch.finfo(dtype).bits // 8 * nodes, nodes * 100 * 20,
+               torch.float64)
+    isz = torch.finfo(dtype).bits // 8
+    log(f'  matern_table_kernel {dtype}: {npan} panels of {nc} '
+        f'coefficients on [2^{elo}, 2^{ehi}), {nodes * isz} bytes; build '
+        f'{ms:.4f} ms, plain builder {plain_ms:.3f} ms, bound {bd[0]:.2e} '
+        f'ms ({bd[1]})')
+    label = str(dtype).split('.')[-1]
+    return [record(err, ms, plain_ms, bd, dtype=label, counter='launches',
+                   path='evidence' if label == 'float32' else None,
+                   precision=label)]
+
+
 def core_kernel_specs():
     """The kernel phase's specs of the last spec-carrying cores: C and
     its backward on each of CORE_RECORDS (p = 1; Bessel at p = 2 and
-    Matérn-ν at the multidim cell's p too), E and its backward, C′ and
-    C″ on Matérn-ν, D on StationaryFracBrownian and on Matérn-ν at
-    'high' (n = 65536) and in float64 (n = 32768)."""
+    Matérn-ν, of the evidence path's order and of 0.7, at the multidim
+    cell's p too), E and its backward, C′ and C″ on Matérn-ν, D on
+    StationaryFracBrownian and on Matérn-ν at 'high' (n = 65536) and in
+    float64 (n = 32768), and the Matérn-ν table's builder."""
     import torch
     f32, f64 = torch.float32, torch.float64
     gram_cu = 'lsqfitgp_torch/csrc/gram.cu'
-    specs = []
+    specs = [('matern_table', kernel_matern_table,
+              'lsqfitgp_torch/csrc/special.cuh',
+              'lsqfitgp_tpu/special/_kv.py:88', [f32, f64])]
     for name, (ps, _, _) in CORE_RECORDS.items():
         for p in ps:
             specs.append((f'gram {name} p={p}',
@@ -5111,6 +5306,17 @@ def expon64(d2s):
     return e, r * e
 
 
+def below_table_share(x, nu, scale, xlo):
+    """The share of the n² pairs of the sorted 1-D points x whose
+    Matérn argument √(2ν) |x_i − x_j| / scale lies in (0, xlo)."""
+    import numpy as np
+    x = np.sort(np.asarray(x, np.float64))
+    d = xlo * scale / math.sqrt(2 * nu)
+    close = np.searchsorted(x, x + d, side='left') - np.arange(x.size) - 1
+    same = np.searchsorted(x, x, side='right') - np.arange(x.size) - 1
+    return 2 * float(np.maximum(close - same, 0).sum()) / x.size ** 2
+
+
 def evidence_phase(dev='cuda'):
     """The model-comparison path: examples/model_comparison.py at n = N
     (`ev_data`): the log evidence of its four candidates, in its order,
@@ -5124,17 +5330,23 @@ def evidence_phase(dev='cuda'):
     `check_points`'s NLL bound, and
     ExpQuad must win, as the example asserts; then ``amp *
     Matern(nu=1.7, scale)`` fitted with at most EV_ITERS BFGS
-    iterations (C on 'matern' and its backward, the quadrature of
-    f_{0.7}, once per evaluation), its NLL and gradient at the start and
-    at the fit held to the table's float64 reference as the Matérn path
-    holds Maternp's (`check_points`), and its posterior mean at NPRED
-    points.  Returns the launch counts of the whole phase."""
+    iterations (C on 'matern' and its backward, once per evaluation,
+    both on the order's tables: f_ν's and, for the backward, f_{ν−1}'s,
+    each built once in the phase, the cache emptied at its start), its
+    NLL and gradient at the start and at the fit held to the table's
+    float64 reference as the Matérn path holds Maternp's
+    (`check_points`), and its posterior mean at NPRED points.  Logs the
+    share of the Gram's entries below the tables (0 < x < 2^E_LO, where
+    the kernels take the quadrature).  Returns the launch counts of the
+    whole phase."""
     import torch
     import lsqfitgp_torch as lgp
+    from lsqfitgp_torch.ops import _mtable
     f32 = torch.float32
     cuda = dev == 'cuda'
     torch.set_default_dtype(f32)
     reset_counts()
+    _mtable._CACHE.clear()
     t0 = time.perf_counter()
     x, y = ev_data(N)
     noise = EV_NOISE ** 2
@@ -5171,7 +5383,8 @@ def evidence_phase(dev='cuda'):
         if not abs(s32 + nll64) <= lim:
             fail(f'evidence of {name}: disagrees with the float64 reference')
         if cuda and name.startswith('Matern'):
-            require_launched(counts, ['gram@matern'], 'the Matérn evidence')
+            require_launched(counts, ['gram@matern', 'gram@tables',
+                                      'matern_table'], 'the Matérn evidence')
     best = max(scores, key=scores.get)
     log(f'  the evidence prefers {best}')
     if best != 'ExpQuad(1.5)':
@@ -5207,10 +5420,18 @@ def evidence_phase(dev='cuda'):
                          'the Matérn-ν fit')
         require_counts(fit_counts, {'gram@matern': evals,
                                     'gram_bwd@matern': evals,
-                                    'gram': evals, 'gram_bwd': evals},
+                                    'gram@tables': evals,
+                                    'gram_bwd@tables': evals,
+                                    'gram': evals, 'gram_bwd': evals,
+                                    'matern_table': 0},
                        'the Matérn-ν fit')
     scale, amp = float(fit.pmean['scale']), float(fit.pmean['amp'])
     fitted = [math.log(scale), math.log(amp)]
+    elo = _mtable.layout(f32)[0]
+    for what, s in (('start', EV_SCALE), ('fitted', scale)):
+        log(f'  entries below the tables (0 < x < 2^{elo}, the quadrature) '
+            f'at the {what} scale {s:.6g}: '
+            f'{below_table_share(x, EV_NU, s, 2.0 ** elo):.3e} of n²')
     log(f'  fitted scale {scale:.6g}, amp {amp:.6g}; pcov '
         f'{fit.pcov.tolist()}')
 
@@ -5252,7 +5473,111 @@ def evidence_phase(dev='cuda'):
     counts = read_counts()
     log(f'  the phase: {time.perf_counter() - t0:.1f} s; launches '
         f'{nonzero(counts)}')
+    if cuda:
+        # each of the order's two tables (f_ν, f_{ν−1}) built once
+        require_counts(counts, {'matern_table': 2}, 'the evidence phase')
     return counts
+
+
+# the records `zoo_times` times: FixedExpQuad ('expquad', the main path's
+# single term), `Zoo` (closed forms), ZooSpecial (the special cores) at
+# p = 1, and the real-order Matérn at the multidim cell's p too
+ZOO_TIMES = [('expquad', 1), ('maternp2', 1), ('expon', 1), ('terms', 1),
+             ('celerite', 1), ('periodic', 1), ('sfb', 1), ('bessel', 1),
+             ('pink', 1), ('color', 1), ('matern', 1), ('matern07', 1),
+             ('matern', MD_P), ('matern07', MD_P)]
+
+
+def zoo_times(label, names=()):
+    """`--zoo-times LABEL [NAME ...]`: kernel C's and its fused backward's
+    device time (`device_ms` of the named kernel, as `kernel_zoo` times
+    them) on each of ZOO_TIMES at 16384², in float32 and float64, E, C′,
+    C″ on Matérn-ν at p = 1, and D on Matérn-ν ('high', n = 65536;
+    float64, n = 32768), with no check and no plain version, so that two
+    checkouts can be timed in turns in one call (copy this script into the
+    other checkout); the times in a JSON line, the checkout's ``LABEL``
+    with them.  Given ``names``, only the rows of ZOO_TIMES with those
+    names: C and its backward, and at p = 1 C′ and C″ too."""
+    import torch
+    from lsqfitgp_torch import ops
+    from lsqfitgp_torch.ops import _gram, _syrk
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        label_dt = str(dtype).split('.')[-1]
+        noise = torch.tensor(NOISE_VAR, device='cuda', dtype=dtype)
+        for name, p in ZOO_TIMES:
+            if names and name not in names:
+                continue
+            X = zoo_points(p, N, dtype, gen)
+            desc = ('expquad' if name == 'expquad'
+                    else zoo_desc(name, dtype))
+            post = (('mul', torch.tensor(1.3, device='cuda', dtype=dtype)),) \
+                if name == 'expquad' else ()
+            G = torch.randn(N, N, device='cuda', dtype=dtype, generator=gen)
+            fwd = lambda: ops.gram(desc, X, post=post, noise=noise)
+            bwd = lambda: ops.gram_backward(G, desc, X, post=post,
+                                            noise=noise)
+            key = f'{name}/p{p}/{label_dt}'
+            out[key] = [device_ms(fwd, kernel_calls(fwd), 'gram_kernel'),
+                        device_ms(bwd, kernel_calls(bwd), 'gram_bwd_kernel')]
+            log(f'  {label} {key}: C {out[key][0]:.4f} ms, backward '
+                f'{out[key][1]:.4f} ms')
+            del X
+            if names and p == 1:
+                x, dx, amp, _ = tangent_inputs(dtype, gen)
+                X1, dX, st, fv, dfv, one, coef = tangent_path_args(
+                    x, dx, amp, 0.3, 0.5, 'expquad' if name == 'expquad'
+                    else zoo_desc(name, dtype, amp=1.0))
+                jvp = lambda: _gram._tangent(st, X1, X1, dX, dX, fv, dfv,
+                                             True)
+                bjvp = lambda: _gram._bwd_tangent(G, one, X1, X1, dX, dX,
+                                                  coef, True, True)
+                out[key] += [device_ms(jvp, kernel_calls(jvp),
+                                       'gram_jvp_kernel'),
+                             device_ms(bjvp, kernel_calls(bjvp),
+                                       'gram_bwd_jvp_kernel')]
+                log(f'  {label} {key}: C′ {out[key][2]:.4f} ms, C″ '
+                    f'{out[key][3]:.4f} ms')
+                del X1, dX
+            del G
+            torch.cuda.empty_cache()
+        if names:
+            continue
+        desc = zoo_desc('matern', dtype)
+        X = zoo_points(1, N, dtype, gen)
+        G = torch.randn(N, N, device='cuda', dtype=dtype, generator=gen)
+        fns = {'gram_sym': (lambda: ops.gram_sym(desc, X, noise=noise),
+                            'gram_sym_kernel'),
+               'gram_sym_bwd': (lambda: ops.gram_sym_backward(
+                   G, desc, X, noise=noise), 'gram_sym_bwd_kernel')}
+        x, dx, amp, _ = tangent_inputs(dtype, gen)
+        X1, dX, st, fv, dfv, one, coef = tangent_path_args(
+            x, dx, amp, 0.3, 0.5, zoo_desc('matern', dtype, amp=1.0))
+        fns['gram_jvp'] = (lambda: _gram._tangent(st, X1, X1, dX, dX, fv,
+                                                  dfv, True),
+                           'gram_jvp_kernel')
+        fns['gram_bwd_jvp'] = (lambda: _gram._bwd_tangent(
+            G, one, X1, X1, dX, dX, coef, True, True), 'gram_bwd_jvp_kernel')
+        for kind, (fn, kname) in fns.items():
+            key = f'{kind}/matern/{label_dt}'
+            out[key] = device_ms(fn, kernel_calls(fn), kname)
+            log(f'  {label} {key}: {out[key]:.4f} ms')
+        del G, X, X1
+        torch.cuda.empty_cache()
+        n = N_STREAM if dtype == torch.float32 else N_CHECK
+        size = n // 2
+        kw = dict(device='cuda', dtype=dtype, generator=gen)
+        Xd = (torch.rand(n, 1, **kw) - 0.5) * (400 * n / N_STREAM)
+        A = torch.randn(size, size, **kw) / math.sqrt(size)
+        key = f'schur_update_gram/matern/{label_dt}'
+        out[key] = median_ms(lambda: _syrk.schur_update_gram(
+            desc, Xd, A, eps=noise, nreal=n - 300, size=size, offset=size,
+            tile=512), 3)
+        log(f'  {label} {key}: {out[key]:.3f} ms')
+        del Xd, A
+        torch.cuda.empty_cache()
+    print(json.dumps({'zoo_times': label, 'times': out}), flush=True)
 
 
 def main(argv):
@@ -5284,6 +5609,10 @@ def main(argv):
     if argv == ['--dense64']:
         build()
         dense64_phase(OPTIMUM)
+        return 0
+    if argv[:1] == ['--zoo-times'] and len(argv) >= 2:
+        build()
+        zoo_times(argv[1], argv[2:])
         return 0
     if argv == ['--deriv']:
         build()
@@ -5333,8 +5662,8 @@ def main(argv):
     if argv in (['--hurst'], ['--evidence']):
         build()
         gen = torch.Generator(device='cuda').manual_seed(SEED)
-        names = ('sfb',) if argv == ['--hurst'] else ('matern', 'bessel',
-                                                        'pink', 'color')
+        names = ('sfb',) if argv == ['--hurst'] else (
+            'matern', 'matern07', 'matern_table', 'bessel', 'pink', 'color')
         for name, fn, _, _, variants in core_kernel_specs():
             if any(f' {k} ' in f' {name} '.replace('/', ' ')
                    for k in names):

@@ -440,12 +440,14 @@ int lsq_schur_gram_dmma_f64(const double* X, int dim, const double* params,
                             int nterms, unsigned long long codes,
                             int with_eps, long long nreal, long long offset,
                             const double* A, long long h, double* out,
-                            long long size, long long tile, void* stream)
+                            long long size, long long tile,
+                            const void* const* tabs, void* stream)
 {
     if (nterms < 1 || nterms > MAXTERMS)
         return (int)cudaErrorInvalidValue;
     return launch_schur(InitGram<double>{X, dim, params, nterms, codes,
-                                         with_eps, nreal, offset},
+                                         with_eps, nreal, offset,
+                                         host_tabs(tabs)},
                         A, h, out, size, tile, stream);
 }
 

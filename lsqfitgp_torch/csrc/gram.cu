@@ -32,10 +32,11 @@
 //   registered profile) and p = 1 are template parameters; the folded
 //   parameter vector (profiles.cuh) stays in device memory (no host
 //   read).  This file builds the kernels of the first two, with the
-//   entry points lsq_gram*_f32/_f64; gram_special.cu compiles it again
-//   with LSQ_GRAM_SPECIAL for ZooSpecial's, with the entry points
-//   lsq_gram*_zs_f32/_zs_f64, in an nvcc process of its own (the special
-//   cores' code takes most of the build).
+//   entry points lsq_gram*_f32/_f64; gram_special.cu and
+//   gram_special_f64.cu compile it again with LSQ_GRAM_SPECIAL for
+//   ZooSpecial's, float32's and float64's apart, with the entry points
+//   lsq_gram*_zs_f32 and _zs_f64, each in an nvcc process of its own (the
+//   special cores' code takes most of the build).
 // - A block of 256 threads covers 64 x 64 tiles.  Each thread owns 16
 //   bytes of a tile row (4 floats or 2 doubles): 16-byte stores in the
 //   forwards, 16-byte loads of G in the backwards, entry by entry at the
@@ -69,6 +70,9 @@
 //   device memory.
 // - C's backward block covers CROWS tiles down a column of tiles, which
 //   cuts its column partial sums to n / 256 slots.
+// - The real-order Matern's tables (special.cuh MTab: 2.1 KB an order in
+//   float32, 8.9 KB in float64): every kernel reads them through the
+//   cache, where they stay for the whole launch.
 // - C and its backward at p > 1 stage a tile's row and column
 //   coordinates in shared memory, SLAB coordinates at a time (so any p
 //   fits), with coalesced loads; each thread sums r^2 for its RPT x V
@@ -108,6 +112,8 @@
 
 #include "profiles.cuh"
 
+// 0: the closed forms' evaluators, both dtypes; 32 or 64: ZooSpecial's
+// kernels of that float width (gram_special.cu, gram_special_f64.cu)
 #ifndef LSQ_GRAM_SPECIAL
 #define LSQ_GRAM_SPECIAL 0
 #endif
@@ -360,7 +366,8 @@ template <typename T, class Ev, bool P1>
 __global__ void __launch_bounds__(NT)
 gram_kernel(const T* __restrict__ x, const T* __restrict__ y, long long n,
             long long m, int p, const T* __restrict__ params, int nterms,
-            unsigned long long codes, int with_noise, T* __restrict__ out)
+            unsigned long long codes, int with_noise, T* __restrict__ out,
+            const MTabs tb)
 {
     using Gm = Geo<T>;
     constexpr int V = Gm::V;
@@ -368,7 +375,7 @@ gram_kernel(const T* __restrict__ x, const T* __restrict__ y, long long n,
     const long long i0 = (long long)blockIdx.y * TILE;
     const long long j0 = (long long)blockIdx.x * TILE;
     const long long c0 = j0 + tx * V;
-    const Ev ev(params, nterms, codes);
+    const Ev ev(params, nterms, codes, tb);
     const bool diag = with_noise && i0 < j0 + TILE && j0 < i0 + TILE;
     const T noise = diag ? params[1] : T(0);
     const bool wide = m % V == 0;
@@ -415,7 +422,8 @@ template <typename T, class Ev, bool P1>
 __global__ void __launch_bounds__(NT, 3)
 gram_sym_kernel(const T* __restrict__ x, long long n, int p,
                 const T* __restrict__ params, int nterms,
-                unsigned long long codes, int with_noise, T* __restrict__ out)
+                unsigned long long codes, int with_noise, T* __restrict__ out,
+                const MTabs tb)
 {
     using Gm = Geo<T>;
     constexpr int V = Gm::V;
@@ -424,7 +432,7 @@ gram_sym_kernel(const T* __restrict__ x, long long n, int p,
     upper_pair(blockIdx.x, i0, j0);
     const int tx = threadIdx.x % Gm::TX, ty = threadIdx.x / Gm::TX;
     const long long c0 = j0 + tx * V;
-    const Ev ev(params, nterms, codes);
+    const Ev ev(params, nterms, codes, tb);
     const bool diag = i0 == j0;
     const T noise = diag && with_noise ? params[1] : T(0);
     const bool wide = n % V == 0;
@@ -751,9 +759,9 @@ gram_bwd_kernel(const T* __restrict__ G, const T* __restrict__ x,
                 const T* __restrict__ params, int nterms,
                 unsigned long long codes, int with_noise, int wide,
                 T* __restrict__ rowpart, T* __restrict__ colpart,
-                T* __restrict__ scal)
+                T* __restrict__ scal, const MTabs tb)
 {
-    const Ev ev(params, nterms, codes);
+    const Ev ev(params, nterms, codes, tb);
     if constexpr (P1)
         bwd_p1<T, Ev, XY, PAR>(G, x, y, n, m, ev, with_noise, wide, rowpart,
                                colpart, scal);
@@ -779,7 +787,8 @@ __global__ void __launch_bounds__(NT)
 gram_sym_bwd_kernel(const T* __restrict__ G, const T* __restrict__ x,
                     long long n, int p, int d0, const T* __restrict__ params,
                     int nterms, unsigned long long codes, int with_noise,
-                    int wide, T* __restrict__ part, T* __restrict__ scal)
+                    int wide, T* __restrict__ part, T* __restrict__ scal,
+                    const MTabs tb)
 {
     using Gm = Geo<T>;
     constexpr int V = Gm::V, PC = P1 ? 1 : PCHUNK;
@@ -803,7 +812,7 @@ gram_sym_bwd_kernel(const T* __restrict__ G, const T* __restrict__ x,
     }
     __syncthreads();
     const long long c0 = j0 + tx * V;
-    const Ev ev(params, nterms, codes);
+    const Ev ev(params, nterms, codes, tb);
     T yc[V][PC], cacc[V][PC];
 #pragma unroll
     for (int k = 0; k < V; ++k) {
@@ -915,7 +924,7 @@ gram_jvp_kernel(const T* __restrict__ x, const T* __restrict__ y,
                 const T* __restrict__ dx, const T* __restrict__ dy,
                 long long n, long long m, int p, const T* __restrict__ params,
                 const T* __restrict__ dp, int nterms, unsigned long long codes,
-                int with_noise, T* __restrict__ out)
+                int with_noise, T* __restrict__ out, const MTabs tb)
 {
     using Gm = Geo<T>;
     constexpr int V = Gm::V;
@@ -923,7 +932,7 @@ gram_jvp_kernel(const T* __restrict__ x, const T* __restrict__ y,
     const long long i0 = (long long)blockIdx.y * TILE;
     const long long j0 = (long long)blockIdx.x * TILE;
     const long long c0 = j0 + tx * V;
-    const Ev ev(params, nterms, codes);
+    const Ev ev(params, nterms, codes, tb);
     const bool diag = with_noise && i0 < j0 + TILE && j0 < i0 + TILE;
     const bool wide = m % V == 0;
     T yc[V], dyc[V];
@@ -960,7 +969,7 @@ gram_sym_jvp_kernel(const T* __restrict__ x, const T* __restrict__ dx,
                     long long n, int p, const T* __restrict__ params,
                     const T* __restrict__ dp, int nterms,
                     unsigned long long codes, int with_noise,
-                    T* __restrict__ out)
+                    T* __restrict__ out, const MTabs tb)
 {
     using Gm = Geo<T>;
     constexpr int V = Gm::V;
@@ -969,7 +978,7 @@ gram_sym_jvp_kernel(const T* __restrict__ x, const T* __restrict__ dx,
     upper_pair(blockIdx.x, i0, j0);
     const int tx = threadIdx.x % Gm::TX, ty = threadIdx.x / Gm::TX;
     const long long c0 = j0 + tx * V;
-    const Ev ev(params, nterms, codes);
+    const Ev ev(params, nterms, codes, tb);
     const bool diag = i0 == j0;
     const bool wide = n % V == 0;
     T yc[V], dyc[V];
@@ -1040,7 +1049,7 @@ gram_bwd_jvp_kernel(const T* __restrict__ G, const T* __restrict__ x,
                     const T* __restrict__ coef, unsigned long long codes,
                     int wide,
                     T* __restrict__ rowpart, T* __restrict__ colpart,
-                    T* __restrict__ scal)
+                    T* __restrict__ scal, const MTabs tb)
 {
     using Gm = Geo<T>;
     constexpr int V = Gm::V, PC = P1 ? 1 : PCHUNK;
@@ -1050,7 +1059,7 @@ gram_bwd_jvp_kernel(const T* __restrict__ G, const T* __restrict__ x,
     const long long c0 = j0 + tx * V;
     const long long i0 = (long long)blockIdx.y * (TILE * CROWS);
     const int pc = P1 ? 1 : min(PC, p - d0);
-    const Ev ev(params, 1, codes);
+    const Ev ev(params, 1, codes, tb);
     const T alpha = coef[0], dalpha = coef[1];
     T yc[V][PC], dyc[V][PC], cacc[V][PC];
 #pragma unroll
@@ -1127,8 +1136,8 @@ gram_sym_bwd_jvp_kernel(const T* __restrict__ G, const T* __restrict__ x,
                         const T* __restrict__ dx, long long n, int p, int d0,
                         const T* __restrict__ params,
                         const T* __restrict__ coef, unsigned long long codes,
-                        int wide,
-                        T* __restrict__ part, T* __restrict__ scal)
+                        int wide, T* __restrict__ part, T* __restrict__ scal,
+                        const MTabs tb)
 {
     using Gm = Geo<T>;
     constexpr int V = Gm::V, PC = P1 ? 1 : PCHUNK;
@@ -1151,7 +1160,7 @@ gram_sym_bwd_jvp_kernel(const T* __restrict__ G, const T* __restrict__ x,
     }
     __syncthreads();
     const long long c0 = j0 + tx * V;
-    const Ev ev(params, 1, codes);
+    const Ev ev(params, 1, codes, tb);
     const T alpha = coef[0], dalpha = coef[1];
     T yc[V][PC], dyc[V][PC], cacc[V][PC];
 #pragma unroll
@@ -1265,25 +1274,28 @@ int launched(bool ok)
 template <typename T>
 int launch_gram(const T* x, const T* y, long long n, long long m, int p,
                 const T* params, int nterms, unsigned long long codes,
-                int with_noise, int evk, T* out, void* stream)
+                int with_noise, int evk, T* out, const void* const* tabs,
+                void* stream)
 {
     if (n == 0 || m == 0) return 0;
     const dim3 grid((unsigned)cdiv(m, TILE), (unsigned)cdiv(n, TILE));
     const auto s = (cudaStream_t)stream;
+    const MTabs tb = host_tabs(tabs);
     return launched(with_ev(evk, nterms, [&](auto tag) {
         using Ev = typename decltype(tag)::template type<T>;
         auto kern = p == 1 ? gram_kernel<T, Ev, true>
                            : gram_kernel<T, Ev, false>;
         kern<<<grid, NT, 0, s>>>(x, y, n, m, p, params, nterms, codes,
-                                 with_noise, out);
+                                 with_noise, out, tb);
     }));
 }
 
 template <typename T>
 int launch_gram_sym(const T* x, long long n, int p, const T* params,
                     int nterms, unsigned long long codes, int with_noise,
-                    int evk, T* out, void* stream)
+                    int evk, T* out, const void* const* tabs, void* stream)
 {
+    const MTabs tb = host_tabs(tabs);
     if (n == 0) return 0;
     const long long nt = cdiv(n, TILE);
     const auto s = (cudaStream_t)stream;
@@ -1292,7 +1304,7 @@ int launch_gram_sym(const T* x, long long n, int p, const T* params,
         auto kern = p == 1 ? gram_sym_kernel<T, Ev, true>
                            : gram_sym_kernel<T, Ev, false>;
         kern<<<(unsigned)(nt * (nt + 1) / 2), NT, 0, s>>>(
-            x, n, p, params, nterms, codes, with_noise, out);
+            x, n, p, params, nterms, codes, with_noise, out, tb);
     }));
 }
 
@@ -1318,19 +1330,22 @@ int launch_gram_bwd(const T* G, const T* x, const T* y, long long n,
                     long long m, int p, const T* params, int nterms,
                     unsigned long long codes, int with_noise, int evk,
                     int need_xy, int need_p, int wide, T* rowpart,
-                    T* colpart, T* scal, void* stream)
+                    T* colpart, T* scal, const void* const* tabs,
+                    void* stream)
 {
     if (!(need_xy || need_p) || p < 1) return (int)cudaErrorInvalidValue;
     if (n == 0 || m == 0) return 0;
     const dim3 grid((unsigned)cdiv(m, TILE),
                     (unsigned)cdiv(n, TILE * CROWS));
     const auto s = (cudaStream_t)stream;
+    const MTabs tb = host_tabs(tabs);
     return launched(with_ev(evk, nterms, [&](auto tag) {
         using Ev = typename decltype(tag)::template type<T>;
         auto kern = p == 1 ? bwd_kernel<T, Ev, true>(need_xy, need_p)
                            : bwd_kernel<T, Ev, false>(need_xy, need_p);
         kern<<<grid, NT, 0, s>>>(G, x, y, n, m, p, params, nterms, codes,
-                                 with_noise, wide, rowpart, colpart, scal);
+                                 with_noise, wide, rowpart, colpart, scal,
+                                 tb);
     }));
 }
 
@@ -1338,8 +1353,10 @@ template <typename T>
 int launch_gram_sym_bwd(const T* G, const T* x, long long n, int p, int d0,
                         const T* params, int nterms, unsigned long long codes,
                         int with_noise, int evk, int need_x, int need_p,
-                        int wide, T* part, T* scal, void* stream)
+                        int wide, T* part, T* scal, const void* const* tabs,
+                        void* stream)
 {
+    const MTabs tb = host_tabs(tabs);
     if (!(need_x || need_p) || d0 < 0 || d0 >= p)
         return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
@@ -1351,7 +1368,7 @@ int launch_gram_sym_bwd(const T* G, const T* x, long long n, int p, int d0,
                            : sym_bwd_kernel<T, Ev, false>(need_x, need_p);
         kern<<<(unsigned)(nt * (nt + 1) / 2), NT, 0, s>>>(
             G, x, n, p, d0, params, nterms, codes, with_noise, wide, part,
-            scal);
+            scal, tb);
     }));
 }
 
@@ -1359,8 +1376,10 @@ template <typename T>
 int launch_gram_jvp(const T* x, const T* y, const T* dx, const T* dy,
                     long long n, long long m, int p, const T* params,
                     const T* dparams, int nterms, unsigned long long codes,
-                    int with_noise, int evk, T* out, void* stream)
+                    int with_noise, int evk, T* out, const void* const* tabs,
+                    void* stream)
 {
+    const MTabs tb = host_tabs(tabs);
     if (n == 0 || m == 0) return 0;
     const dim3 grid((unsigned)cdiv(m, TILE), (unsigned)cdiv(n, TILE));
     const auto s = (cudaStream_t)stream;
@@ -1369,7 +1388,7 @@ int launch_gram_jvp(const T* x, const T* y, const T* dx, const T* dy,
         auto kern = p == 1 ? gram_jvp_kernel<T, Ev, true>
                            : gram_jvp_kernel<T, Ev, false>;
         kern<<<grid, NT, 0, s>>>(x, y, dx, dy, n, m, p, params, dparams,
-                                 nterms, codes, with_noise, out);
+                                 nterms, codes, with_noise, out, tb);
     }));
 }
 
@@ -1377,8 +1396,9 @@ template <typename T>
 int launch_gram_sym_jvp(const T* x, const T* dx, long long n, int p,
                         const T* params, const T* dparams, int nterms,
                         unsigned long long codes, int with_noise, int evk,
-                        T* out, void* stream)
+                        T* out, const void* const* tabs, void* stream)
 {
+    const MTabs tb = host_tabs(tabs);
     if (n == 0) return 0;
     const long long nt = cdiv(n, TILE);
     const auto s = (cudaStream_t)stream;
@@ -1387,7 +1407,8 @@ int launch_gram_sym_jvp(const T* x, const T* dx, long long n, int p,
         auto kern = p == 1 ? gram_sym_jvp_kernel<T, Ev, true>
                            : gram_sym_jvp_kernel<T, Ev, false>;
         kern<<<(unsigned)(nt * (nt + 1) / 2), NT, 0, s>>>(
-            x, dx, n, p, params, dparams, nterms, codes, with_noise, out);
+            x, dx, n, p, params, dparams, nterms, codes, with_noise, out,
+            tb);
     }));
 }
 
@@ -1415,8 +1436,9 @@ int launch_gram_bwd_jvp(const T* G, const T* x, const T* y, const T* dx,
                         const T* params, const T* coef,
                         unsigned long long codes, int evk, int need_xy,
                         int need_s, int wide, T* rowpart, T* colpart, T* scal,
-                        void* stream)
+                        const void* const* tabs, void* stream)
 {
+    const MTabs tb = host_tabs(tabs);
     if (!(need_xy || need_s) || d0 < 0 || d0 >= p)
         return (int)cudaErrorInvalidValue;
     if (n == 0 || m == 0) return 0;
@@ -1428,7 +1450,7 @@ int launch_gram_bwd_jvp(const T* G, const T* x, const T* y, const T* dx,
         auto kern = p == 1 ? bwd_jvp_kernel<T, Ev, true>(need_xy, need_s)
                            : bwd_jvp_kernel<T, Ev, false>(need_xy, need_s);
         kern<<<grid, NT, 0, s>>>(G, x, y, dx, dy, n, m, p, d0, params, coef,
-                                 codes, wide, rowpart, colpart, scal);
+                                 codes, wide, rowpart, colpart, scal, tb);
     }));
 }
 
@@ -1437,8 +1459,9 @@ int launch_gram_sym_bwd_jvp(const T* G, const T* x, const T* dx, long long n,
                             int p, int d0, const T* params, const T* coef,
                             unsigned long long codes, int evk, int need_x,
                             int need_s, int wide, T* part, T* scal,
-                            void* stream)
+                            const void* const* tabs, void* stream)
 {
+    const MTabs tb = host_tabs(tabs);
     if (!(need_x || need_s) || d0 < 0 || d0 >= p)
         return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
@@ -1450,93 +1473,124 @@ int launch_gram_sym_bwd_jvp(const T* G, const T* x, const T* dx, long long n,
             ? sym_bwd_jvp_kernel<T, Ev, true>(need_x, need_s)
             : sym_bwd_jvp_kernel<T, Ev, false>(need_x, need_s);
         kern<<<(unsigned)(nt * (nt + 1) / 2), NT, 0, s>>>(
-            G, x, dx, n, p, d0, params, coef, codes, wide, part, scal);
+            G, x, dx, n, p, d0, params, coef, codes, wide, part, scal, tb);
     }));
 }
+
+#if LSQ_GRAM_SPECIAL
+// matern_table_kernel (special.cuh): one block of one warp per panel
+template <typename T>
+int launch_matern_table(double nu, int kind, T* out, void* stream)
+{
+    if (!(nu > 0) || (kind != 0 && kind != 1) || (kind == 1 && nu > 1))
+        return (int)cudaErrorInvalidValue;
+    constexpr int panels = (MTab<T>::E_HI - MTab<T>::E_LO) * MTAB_SUB;
+    static_assert(MTab<T>::NC <= 32, "a panel's nodes in one warp");
+    matern_table_kernel<T><<<panels, 32, 0, (cudaStream_t)stream>>>(
+        nu, kind, out);
+    return (int)cudaGetLastError();
+}
+#endif
 
 }  // namespace
 
 extern "C" {
 
 #define LSQ_GRAM(T, SUF)                                                     \
-    int lsq_gram##SUF(const T* x, const T* y, long long n, long long m,       \
-                      int p, const T* params, int nterms,                     \
-                      unsigned long long codes, int with_noise, int ev,       \
-                      T* out, void* stream)                                   \
-    {                                                                         \
-        return launch_gram(x, y, n, m, p, params, nterms, codes, with_noise,  \
-                           ev, out, stream);                                  \
-    }                                                                         \
-    int lsq_gram_sym##SUF(const T* x, long long n, int p, const T* params,    \
-                          int nterms, unsigned long long codes,               \
-                          int with_noise, int ev, T* out, void* stream)       \
-    {                                                                         \
-        return launch_gram_sym(x, n, p, params, nterms, codes, with_noise,    \
-                               ev, out, stream);                              \
-    }                                                                         \
-    int lsq_gram_bwd##SUF(const T* G, const T* x, const T* y, long long n,    \
-                          long long m, int p, const T* params, int nterms,    \
-                          unsigned long long codes, int with_noise, int ev,   \
-                          int need_xy, int need_p, int wide, T* rowpart,      \
-                          T* colpart, T* scal, void* stream)                  \
-    {                                                                         \
-        return launch_gram_bwd(G, x, y, n, m, p, params, nterms, codes,       \
-                               with_noise, ev, need_xy, need_p, wide,         \
-                               rowpart, colpart, scal, stream);               \
-    }                                                                         \
-    int lsq_gram_sym_bwd##SUF(const T* G, const T* x, long long n, int p,     \
-                              int d0, const T* params, int nterms,            \
-                              unsigned long long codes, int with_noise,       \
-                              int ev, int need_x, int need_p, int wide,       \
-                              T* part, T* scal, void* stream)                 \
-    {                                                                         \
-        return launch_gram_sym_bwd(G, x, n, p, d0, params, nterms, codes,     \
-                                   with_noise, ev, need_x, need_p, wide,      \
-                                   part, scal, stream);                       \
-    }                                                                         \
+    int lsq_gram##SUF(const T* x, const T* y, long long n, long long m,      \
+                      int p, const T* params, int nterms,                    \
+                      unsigned long long codes, int with_noise, int ev,      \
+                      T* out, const void* const* tabs, void* stream)         \
+    {                                                                        \
+        return launch_gram(x, y, n, m, p, params, nterms, codes, with_noise, \
+                           ev, out, tabs, stream);                           \
+    }                                                                        \
+    int lsq_gram_sym##SUF(const T* x, long long n, int p, const T* params,   \
+                          int nterms, unsigned long long codes,              \
+                          int with_noise, int ev, T* out,                    \
+                          const void* const* tabs, void* stream)             \
+    {                                                                        \
+        return launch_gram_sym(x, n, p, params, nterms, codes, with_noise,   \
+                               ev, out, tabs, stream);                       \
+    }                                                                        \
+    int lsq_gram_bwd##SUF(const T* G, const T* x, const T* y, long long n,   \
+                          long long m, int p, const T* params, int nterms,   \
+                          unsigned long long codes, int with_noise, int ev,  \
+                          int need_xy, int need_p, int wide, T* rowpart,     \
+                          T* colpart, T* scal, const void* const* tabs,      \
+                          void* stream)                                      \
+    {                                                                        \
+        return launch_gram_bwd(G, x, y, n, m, p, params, nterms, codes,      \
+                               with_noise, ev, need_xy, need_p, wide,        \
+                               rowpart, colpart, scal, tabs, stream);        \
+    }                                                                        \
+    int lsq_gram_sym_bwd##SUF(const T* G, const T* x, long long n, int p,    \
+                              int d0, const T* params, int nterms,           \
+                              unsigned long long codes, int with_noise,      \
+                              int ev, int need_x, int need_p, int wide,      \
+                              T* part, T* scal, const void* const* tabs,     \
+                              void* stream)                                  \
+    {                                                                        \
+        return launch_gram_sym_bwd(G, x, n, p, d0, params, nterms, codes,    \
+                                   with_noise, ev, need_x, need_p, wide,     \
+                                   part, scal, tabs, stream);                \
+    }                                                                        \
     int lsq_gram_jvp##SUF(const T* x, const T* y, const T* dx, const T* dy,  \
                           long long n, long long m, int p, const T* params,  \
-                          const T* dparams, int nterms,                       \
-                          unsigned long long codes, int with_noise, int ev,   \
-                          T* out, void* stream)                               \
-    {                                                                         \
-        return launch_gram_jvp(x, y, dx, dy, n, m, p, params, dparams,        \
-                               nterms, codes, with_noise, ev, out, stream);   \
-    }                                                                         \
-    int lsq_gram_sym_jvp##SUF(const T* x, const T* dx, long long n, int p,    \
-                              const T* params, const T* dparams, int nterms,  \
-                              unsigned long long codes, int with_noise,       \
-                              int ev, T* out, void* stream)                   \
-    {                                                                         \
-        return launch_gram_sym_jvp(x, dx, n, p, params, dparams, nterms,      \
-                                   codes, with_noise, ev, out, stream);       \
-    }                                                                         \
-    int lsq_gram_bwd_jvp##SUF(const T* G, const T* x, const T* y,             \
-                              const T* dx, const T* dy, long long n,          \
-                              long long m, int p, int d0, const T* params,    \
-                              const T* coef, unsigned long long codes,        \
-                              int ev, int need_xy, int need_s, int wide,      \
-                              T* rowpart, T* colpart, T* scal, void* stream)  \
-    {                                                                         \
-        return launch_gram_bwd_jvp(G, x, y, dx, dy, n, m, p, d0, params,      \
-                                   coef, codes, ev, need_xy, need_s, wide,    \
-                                   rowpart, colpart, scal, stream);           \
-    }                                                                         \
-    int lsq_gram_sym_bwd_jvp##SUF(const T* G, const T* x, const T* dx,        \
-                                  long long n, int p, int d0,                 \
-                                  const T* params, const T* coef,             \
-                                  unsigned long long codes, int ev,           \
-                                  int need_x, int need_s, int wide, T* part,  \
-                                  T* scal, void* stream)                      \
-    {                                                                         \
-        return launch_gram_sym_bwd_jvp(G, x, dx, n, p, d0, params, coef,      \
-                                       codes, ev, need_x, need_s, wide, part, \
-                                       scal, stream);                         \
+                          const T* dparams, int nterms,                      \
+                          unsigned long long codes, int with_noise, int ev,  \
+                          T* out, const void* const* tabs, void* stream)     \
+    {                                                                        \
+        return launch_gram_jvp(x, y, dx, dy, n, m, p, params, dparams,       \
+                               nterms, codes, with_noise, ev, out, tabs,     \
+                               stream);                                      \
+    }                                                                        \
+    int lsq_gram_sym_jvp##SUF(const T* x, const T* dx, long long n, int p,   \
+                              const T* params, const T* dparams, int nterms, \
+                              unsigned long long codes, int with_noise,      \
+                              int ev, T* out, const void* const* tabs,       \
+                              void* stream)                                  \
+    {                                                                        \
+        return launch_gram_sym_jvp(x, dx, n, p, params, dparams, nterms,     \
+                                   codes, with_noise, ev, out, tabs, stream);\
+    }                                                                        \
+    int lsq_gram_bwd_jvp##SUF(const T* G, const T* x, const T* y,            \
+                              const T* dx, const T* dy, long long n,         \
+                              long long m, int p, int d0, const T* params,   \
+                              const T* coef, unsigned long long codes,       \
+                              int ev, int need_xy, int need_s, int wide,     \
+                              T* rowpart, T* colpart, T* scal,               \
+                              const void* const* tabs, void* stream)         \
+    {                                                                        \
+        return launch_gram_bwd_jvp(G, x, y, dx, dy, n, m, p, d0, params,     \
+                                   coef, codes, ev, need_xy, need_s, wide,   \
+                                   rowpart, colpart, scal, tabs, stream);    \
+    }                                                                        \
+    int lsq_gram_sym_bwd_jvp##SUF(const T* G, const T* x, const T* dx,       \
+                                  long long n, int p, int d0,                \
+                                  const T* params, const T* coef,            \
+                                  unsigned long long codes, int ev,          \
+                                  int need_x, int need_s, int wide, T* part, \
+                                  T* scal, const void* const* tabs,          \
+                                  void* stream)                              \
+    {                                                                        \
+        return launch_gram_sym_bwd_jvp(G, x, dx, n, p, d0, params, coef,     \
+                                       codes, ev, need_x, need_s, wide, part,\
+                                       scal, tabs, stream);                  \
     }
 
-#if LSQ_GRAM_SPECIAL
+#if LSQ_GRAM_SPECIAL == 32
 LSQ_GRAM(float, _zs_f32)
+int lsq_matern_table_f32(double nu, int kind, float* out, void* stream)
+{
+    return launch_matern_table(nu, kind, out, stream);
+}
+#elif LSQ_GRAM_SPECIAL == 64
 LSQ_GRAM(double, _zs_f64)
+int lsq_matern_table_f64(double nu, int kind, double* out, void* stream)
+{
+    return launch_matern_table(nu, kind, out, stream);
+}
 #else
 LSQ_GRAM(float, _f32)
 LSQ_GRAM(double, _f64)

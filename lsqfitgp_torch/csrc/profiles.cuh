@@ -53,19 +53,21 @@
 // Matern's and Bessel's static orders, Pink's delta-omega and
 // StationaryFracBrownian's H ride the argument a (the orders without a
 // gradient); Color's n is k.  Their special functions are in
-// special.cuh; the five cores are functions of their own, not inlined,
-// reached through a term function of their own (special_term) that only
-// ZooSpecial calls: a kernel takes the registers of every function its
-// code can call (one Zoo for all cores made the earlier profiles' kernels
-// take 64 registers where they took 48, and their backwards 28-36 %
-// longer).
+// special.cuh; the cores are functions of their own, not inlined,
+// reached through term functions of their own (special_term, and
+// matern_term for the real-order Matern, which reads its tables) that
+// only ZooSpecial calls: a kernel takes the registers of every function
+// its code can call (one Zoo for all cores made the earlier profiles'
+// kernels take 64 registers where they took 48, and their backwards
+// 28-36 % longer).
 //
 // Three evaluators take this vector.  FixedExpQuad is the single ExpQuad
 // term with w = 1 (the main path's profile), compiled as before; Zoo
 // reads a term list of closed-form profiles at run time, ZooSpecial one
 // of any profile.  Kernels C and E and their derivative kernels take the
 // evaluator as a template parameter (the host picks it; gram_special.cu
-// builds ZooSpecial's kernels in a process of its own), kernel D's tile
+// and gram_special_f64.cu build ZooSpecial's kernels in processes of
+// their own), kernel D's tile
 // initializer always takes ZooSpecial, which writes the same bits as
 // FixedExpQuad for that term.
 
@@ -382,9 +384,16 @@ __device__ __noinline__ Core<T> pink_core(T t, T a)
 // Matern of real order nu = a, in t = r^2 (ops/_gram.py _matern): f_nu
 // at x2 = s t, s = 2 nu; its derivatives by the recurrences regular at
 // 0 (nu > 1, nu > 2), else by the quadrature's raw forms; nu = 0 is
-// white noise
+// white noise.  From x = 2^E_LO on, f_nu and its first derivative come
+// from the order's tables (special.cuh MTab; tf the value's, td the
+// first derivative's: f_{nu-1}'s for nu > 1, else the raw form's), one
+// exponential for both; below, for an order without tables (tf null:
+// nu above ops/_mtable.py NU_MAX) and for the second derivative
+// (kernels C'' and E'' only), the quadrature.  Inlined into matern_term, its only
+// caller.
 template <typename T, bool D1, bool D2>
-__device__ __noinline__ Core<T> matern_core(T nu, T t)
+__device__ __forceinline__ Core<T> matern_core(T nu, T t, const T* tf,
+                                               const T* td)
 {
     Core<T> o{T(0), T(0), T(0), T(0), T(0)};
     if (nu == T(0)) {
@@ -392,6 +401,23 @@ __device__ __noinline__ Core<T> matern_core(T nu, T t)
         return o;
     }
     const T s = T(2) * nu, x2 = s * t;
+    const T x = dsqrt(x2);
+    if (tf && x >= T(1.0 / (1 << -MTab<T>::E_LO))) {
+        if (x < T(1 << MTab<T>::E_HI)) {
+            const MTabAt<T> at(x, x2);
+            o.g = at.value(tf);
+            if (D1) {
+                const T f1 = at.value(td);
+                o.g1 = s * (nu > T(1) ? -f1 / (T(4) * (nu - T(1))) : f1);
+            }
+        }
+        if (D2)
+            o.g2 = s * s * (nu > T(2)
+                            ? kvmodx2(nu - T(2), x2)
+                                / (T(16) * (nu - T(1)) * (nu - T(2)))
+                            : kvmodx2_raw(nu, x2, 2));
+        return o;
+    }
     o.g = kvmodx2(nu, x2);
     if (D1)
         o.g1 = s * (nu > T(1)
@@ -746,7 +772,8 @@ __device__ __forceinline__ Core<T> core_eval(int id, int k, T t, T a, T b)
     return o;
 }
 
-// The special-function cores (ids from PROFILE_SFB on), each a call
+// The special-function cores (ids from PROFILE_SFB on, but the real-order
+// Matern's, which matern_term takes), each a call
 template <typename T, bool D1, bool D2, bool DA>
 __device__ __forceinline__ Core<T> special_eval(int id, int k, T t, T a,
                                                 T b)
@@ -754,8 +781,6 @@ __device__ __forceinline__ Core<T> special_eval(int id, int k, T t, T a,
     switch (id) {
     case PROFILE_SFB:
         return sfb_core<T, D1, D2, DA>(t, a);
-    case PROFILE_MATERN:
-        return matern_core<T, D1, D2>(a, t);
     case PROFILE_BESSEL:
         return bessel_core<T, D1, D2>(a, t);
     case PROFILE_PINK:
@@ -765,16 +790,32 @@ __device__ __forceinline__ Core<T> special_eval(int id, int k, T t, T a,
     }
 }
 
+// the cores a term function evaluates: the closed forms' switch, the
+// special-function cores' switch, or the real-order Matern with its
+// tables
+enum { CORES_CLOSED = 0, CORES_SPECIAL = 1, CORES_MATERN = 2 };
+
+template <typename T, bool D1, bool D2, bool DA, int CORES>
+__device__ __forceinline__ Core<T> cores_eval(int id, int k, T t, T a, T b,
+                                              const T* tf, const T* td)
+{
+    if constexpr (CORES == CORES_MATERN)
+        return matern_core<T, D1, D2>(a, t, tf, td);
+    else if constexpr (CORES == CORES_SPECIAL)
+        return special_eval<T, D1, D2, DA>(id, k, t, a, b);
+    else
+        return core_eval<T, D1, D2, DA>(id, k, t, a, b);
+}
+
 // A term at r^2 = u / w: the core at mode(u) and its derivatives in u
-// (the mode's chain rule applied): g, gu, guu, ga, gb; SPECIAL takes the
-// special-function cores' switch, else the closed forms'.
-template <typename T, bool D1, bool D2, bool DA, bool SPECIAL>
-__device__ __forceinline__ Core<T> term_modes(unsigned code, T u, T a, T b)
+// (the mode's chain rule applied): g, gu, guu, ga, gb.
+template <typename T, bool D1, bool D2, bool DA, int CORES>
+__device__ __forceinline__ Core<T> term_modes(unsigned code, T u, T a, T b,
+                                              const T* tf, const T* td)
 {
     const int id = code & 31u, mode = (code >> 5) & 3u, k = code >> 7;
     if (mode == MODE_SQUARED)
-        return SPECIAL ? special_eval<T, D1, D2, DA>(id, k, u, a, b)
-                       : core_eval<T, D1, D2, DA>(id, k, u, a, b);
+        return cores_eval<T, D1, D2, DA, CORES>(id, k, u, a, b, tf, td);
     T v, tu;
     bool pos = true;
     if (mode == MODE_ABS) {
@@ -785,9 +826,8 @@ __device__ __forceinline__ Core<T> term_modes(unsigned code, T u, T a, T b)
         v = u + Lim<T>::eps() * Lim<T>::eps();
     }
     const T t = dsqrt(v);
-    Core<T> o = SPECIAL
-        ? special_eval<T, D1 || D2, D2, DA>(id, k, t, a, b)
-        : core_eval<T, D1 || D2, D2, DA>(id, k, t, a, b);
+    Core<T> o = cores_eval<T, D1 || D2, D2, DA, CORES>(id, k, t, a, b, tf,
+                                                       td);
     tu = pos ? T(0.5) / t : T(0);
     if (D2) o.g2 = pos ? o.g2 * tu * tu - o.g1 * tu / (T(2) * v) : T(0);
     if (D1) o.g1 = o.g1 * tu;
@@ -800,22 +840,38 @@ __device__ __forceinline__ Core<T> term_modes(unsigned code, T u, T a, T b)
 // minutes to build; one call per term and entry instead.  A kernel takes
 // the registers of every function its code can call, so the closed
 // forms' evaluator (Zoo) calls closed_term only, and the special cores'
-// (ZooSpecial) picks it or special_term by the term's id.
+// (ZooSpecial) picks it, special_term or matern_term by the term's id:
+// only the real-order Matern's call takes the table pointers, so the
+// other special cores' calls pass what they passed before the tables.
 template <typename T, bool D1, bool D2, bool DA>
 __device__ __noinline__ Core<T> closed_term(unsigned code, T u, T a, T b)
 {
-    return term_modes<T, D1, D2, DA, false>(code, u, a, b);
+    return term_modes<T, D1, D2, DA, CORES_CLOSED>(code, u, a, b, nullptr,
+                                                   nullptr);
 }
 
 template <typename T, bool D1, bool D2, bool DA>
 __device__ __noinline__ Core<T> special_term(unsigned code, T u, T a, T b)
 {
-    return term_modes<T, D1, D2, DA, true>(code, u, a, b);
+    return term_modes<T, D1, D2, DA, CORES_SPECIAL>(code, u, a, b, nullptr,
+                                                    nullptr);
 }
 
-template <typename T, bool D1, bool D2, bool DA, bool SPECIAL = true>
-__device__ __forceinline__ Core<T> term_eval(unsigned code, T u, T a, T b)
+template <typename T, bool D1, bool D2, bool DA>
+__device__ __noinline__ Core<T> matern_term(unsigned code, T u, T a, T b,
+                                            const T* tf, const T* td)
 {
+    return term_modes<T, D1, D2, DA, CORES_MATERN>(code, u, a, b, tf, td);
+}
+
+// tf, td: the term's Matern tables (matern_term's)
+template <typename T, bool D1, bool D2, bool DA, bool SPECIAL = true>
+__device__ __forceinline__ Core<T> term_eval(unsigned code, T u, T a, T b,
+                                             const T* tf = nullptr,
+                                             const T* td = nullptr)
+{
+    if (SPECIAL && (code & 31u) == PROFILE_MATERN)
+        return matern_term<T, D1, D2, DA>(code, u, a, b, tf, td);
     if (SPECIAL && (code & 31u) >= PROFILE_SFB)
         return special_term<T, D1, D2, DA>(code, u, a, b);
     return closed_term<T, D1, D2, DA>(code, u, a, b);
@@ -826,6 +882,27 @@ __device__ __forceinline__ unsigned term_code(unsigned long long codes, int t)
     return (unsigned)(codes >> (16 * t)) & 0xffffu;
 }
 
+// The tables of the terms' real-order Matern cores (special.cuh MTab):
+// per term t the device pointer of its value table, f[t], and of its
+// first derivative's, d[t], null for a term without; a launch argument
+// of every kernel (only ZooSpecial reads it), read through the cache.
+struct MTabs {
+    const void* f[MAXTERMS];
+    const void* d[MAXTERMS];
+};
+
+// MTabs from the host's array of 2 MAXTERMS pointers (all f, then all d;
+// null for no table at all)
+inline MTabs host_tabs(const void* const* p)
+{
+    MTabs m{};
+    for (int t = 0; t < MAXTERMS; ++t) {
+        m.f[t] = p ? p[t] : nullptr;
+        m.d[t] = p ? p[MAXTERMS + t] : nullptr;
+    }
+    return m;
+}
+
 // The single ExpQuad term with w = 1: K = c g(r2) + b.
 template <typename T>
 struct FixedExpQuad {
@@ -834,7 +911,8 @@ struct FixedExpQuad {
     T c, b;
 
     __device__ __forceinline__ FixedExpQuad(const T* __restrict__ params,
-                                            int, unsigned long long)
+                                            int, unsigned long long,
+                                            const MTabs&)
         : c(params[2]), b(params[0])
     {
     }
@@ -878,11 +956,22 @@ struct ZooT {
     const T* __restrict__ p;
     int n;
     unsigned long long codes;
+    MTabs tb;
 
     __device__ __forceinline__ ZooT(const T* __restrict__ params,
-                                    int nterms, unsigned long long cd)
-        : p(params), n(nterms), codes(cd)
+                                    int nterms, unsigned long long cd,
+                                    const MTabs& tabs)
+        : p(params), n(nterms), codes(cd), tb(tabs)
     {
+    }
+    // term t's tables (null for a term without)
+    __device__ __forceinline__ const T* tf(int t) const
+    {
+        return static_cast<const T*>(tb.f[t]);
+    }
+    __device__ __forceinline__ const T* td(int t) const
+    {
+        return static_cast<const T*>(tb.d[t]);
     }
     __device__ __forceinline__ T value(T r2) const
     {
@@ -892,7 +981,7 @@ struct ZooT {
             if (t >= n) break;
             const T* q = p + 2 + TERMPAR * t;
             const Core<T> o = term_eval<T, false, false, false, SPECIAL>(
-                term_code(codes, t), r2 * q[1], q[2], q[3]);
+                term_code(codes, t), r2 * q[1], q[2], q[3], tf(t), td(t));
             v = fma(q[0], o.g, v);
         }
         return v;
@@ -910,7 +999,7 @@ struct ZooT {
             // term_eval less to build (no path takes PAR false but a
             // backward without the profile's parameters)
             const Core<T> o = term_eval<T, true, false, true, SPECIAL>(
-                term_code(codes, t), r2 * q[1], q[2], q[3]);
+                term_code(codes, t), r2 * q[1], q[2], q[3], tf(t), td(t));
             const T cg = q[0] * o.g1;
             d1 = fma(cg, q[1], d1);
             if (PAR) {
@@ -936,7 +1025,7 @@ struct ZooT {
             const T* q = p + 2 + TERMPAR * t;
             const T* dq = dp + 2 + TERMPAR * t;
             const Core<T> o = term_eval<T, true, false, true, SPECIAL>(
-                term_code(codes, t), r2 * q[1], q[2], q[3]);
+                term_code(codes, t), r2 * q[1], q[2], q[3], tf(t), td(t));
             v = fma(dq[0], o.g, v);
             T s = fma(o.ga, dq[2], o.gb * dq[3]);
             if (r2 > T(0)) s = fma(o.g1, fma(q[1], dr2, r2 * dq[1]), s);
@@ -948,7 +1037,7 @@ struct ZooT {
     {
         const T w = p[3];
         const Core<T> o = term_eval<T, true, true, false, SPECIAL>(
-            term_code(codes, 0), r2 * w, p[4], p[5]);
+            term_code(codes, 0), r2 * w, p[4], p[5], tf(0), td(0));
         d1 = w * o.g1;
         d2 = w * w * o.g2;
         return o.g;

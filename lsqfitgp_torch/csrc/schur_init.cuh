@@ -41,9 +41,10 @@ struct InitScaled {
 // on the real diagonal, K[i, j] = the profile sum of |X_i - X_j|^2
 // (profiles.cuh, the ZooSpecial evaluator: any registered profile and
 // term sum) computed from the points X (npad x dim, row-major, global rows)
-// with the parameter vector params, eps at params[1].  By GLOBAL index,
-// entries with a row or column >= nreal are 0 off the diagonal and
-// exactly 1 on it.
+// with the parameter vector params, eps at params[1], and the terms'
+// real-order Matern tables tb (read through the cache).  By
+// GLOBAL index, entries with a row or column >= nreal are 0 off the
+// diagonal and exactly 1 on it.
 template <typename T>
 struct InitGram {
     const T* X;
@@ -53,12 +54,13 @@ struct InitGram {
     unsigned long long codes;
     int with_eps;
     long long nreal, offset;
+    MTabs tb;
 
     __device__ __forceinline__ T operator()(long long r, long long c) const
     {
         const long long gr = offset + r, gc = offset + c;
         if (gr >= nreal || gc >= nreal) return gr == gc ? T(1) : T(0);
-        T v = ZooSpecial<T>(params, nterms, codes).value(
+        T v = ZooSpecial<T>(params, nterms, codes, tb).value(
             sqdist(X + gr * dim, X + gc * dim, dim));
         if (with_eps && gr == gc) v += params[1];
         return v;

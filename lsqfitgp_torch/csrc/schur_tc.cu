@@ -501,14 +501,15 @@ int lsq_schur_gram_tc_f32(const float* X, int dim, const float* params,
                           int nterms, unsigned long long codes,
                           int with_eps, long long nreal, long long offset,
                           const float* A, long long h, float* out,
-                          long long size, long long tile, int passes,
-                          void* stream)
+                          long long size, long long tile,
+                          const void* const* tabs, int passes, void* stream)
 {
     if (nterms < 1 || nterms > MAXTERMS)
         return (int)cudaErrorInvalidValue;
     return launch_passes(passes,
                          InitGram<float>{X, dim, params, nterms, codes,
-                                         with_eps, nreal, offset},
+                                         with_eps, nreal, offset,
+                                         host_tabs(tabs)},
                          A, h, out, size, tile, stream);
 }
 

@@ -434,13 +434,14 @@ int lsq_schur_gram_f32(const float* X, int dim, const float* params,
                        int nterms, unsigned long long codes,
                        int with_eps, long long nreal, long long offset,
                        const float* A, long long h, float* out,
-                       long long size, long long tile, void* stream)
+                       long long size, long long tile,
+                       const void* const* tabs, void* stream)
 {
     if (nterms < 1 || nterms > lsq::MAXTERMS)
         return (int)cudaErrorInvalidValue;
     return launch_schur(
         lsq::InitGram<float>{X, dim, params, nterms, codes, with_eps,
-                             nreal, offset},
+                             nreal, offset, lsq::host_tabs(tabs)},
         A, h, out, size, tile, stream);
 }
 

@@ -40,20 +40,23 @@ _U64 = ctypes.c_ulonglong
 
 _BOTH = ('_f32', '_f64')
 # the Gram entry points of both dtypes for the closed-form evaluators
-# (csrc/gram.cu) and for ZooSpecial (csrc/gram_special.cu)
+# (csrc/gram.cu) and for ZooSpecial (csrc/gram_special.cu, float32;
+# gram_special_f64.cu, float64)
 _GRAM = ('_f32', '_f64', '_zs_f32', '_zs_f64')
 _F32, _F64 = ('_f32',), ('_f64',)
 
 _SCHUR = [_P, _I64, _I64, _P, _P, _I64, _P, _I64, _P, _I64, _I64]
+# ... and the terms' Matérn tables (csrc/profiles.cuh MTabs: a host array
+# of 2 MAXTERMS device pointers, or null)
 _SCHUR_GRAM = [_P, _I32, _P, _I32, _U64, _I32, _I64, _I64, _P, _I64, _P,
-               _I64, _I64]
+               _I64, _I64, _P]
 
 # C signatures and the dtype suffixes each entry point has: the SIMT
 # kernels of syrk.cu (float32), the TF32 tensor-core kernels of
 # schur_tc.cu (float32, with a pass count) and the FP64 tensor-core
 # kernels of dmma.cu (float64).  The Gram kernels take the parameter
 # vector, the term count, the terms' codes and the evaluator
-# (csrc/profiles.cuh).
+# (csrc/profiles.cuh), then the terms' Matérn tables.
 _SIGNATURES = {
     'lsq_schur_update': ([*_SCHUR, _P], _F32),
     'lsq_schur_update_tc': ([*_SCHUR, _I32, _P], _F32),
@@ -64,22 +67,26 @@ _SIGNATURES = {
     'lsq_syrk_t': ([_P, _I64, _I64, _P, _P], _F32),
     'lsq_syrk_t_dmma': ([_P, _I64, _I64, _P, _P, _P], _F64),
     'lsq_gram': ([_P, _P, _I64, _I64, _I32, _P, _I32, _U64, _I32, _I32, _P,
-                  _P], _GRAM),
-    'lsq_gram_sym': ([_P, _I64, _I32, _P, _I32, _U64, _I32, _I32, _P, _P],
-                     _GRAM),
+                  _P, _P], _GRAM),
+    'lsq_gram_sym': ([_P, _I64, _I32, _P, _I32, _U64, _I32, _I32, _P, _P,
+                      _P], _GRAM),
     'lsq_gram_bwd': ([_P, _P, _P, _I64, _I64, _I32, _P, _I32, _U64, _I32,
-                      _I32, _I32, _I32, _I32, _P, _P, _P, _P], _GRAM),
+                      _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P], _GRAM),
     'lsq_gram_sym_bwd': ([_P, _P, _I64, _I32, _I32, _P, _I32, _U64, _I32,
-                          _I32, _I32, _I32, _I32, _P, _P, _P], _GRAM),
+                          _I32, _I32, _I32, _I32, _P, _P, _P, _P], _GRAM),
     'lsq_gram_jvp': ([_P, _P, _P, _P, _I64, _I64, _I32, _P, _P, _I32, _U64,
-                      _I32, _I32, _P, _P], _GRAM),
+                      _I32, _I32, _P, _P, _P], _GRAM),
     'lsq_gram_sym_jvp': ([_P, _P, _I64, _I32, _P, _P, _I32, _U64, _I32,
-                          _I32, _P, _P], _GRAM),
+                          _I32, _P, _P, _P], _GRAM),
     'lsq_gram_bwd_jvp': ([_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P,
-                          _P, _U64, _I32, _I32, _I32, _I32, _P, _P, _P, _P],
-                         _GRAM),
+                          _P, _U64, _I32, _I32, _I32, _I32, _P, _P, _P, _P,
+                          _P], _GRAM),
     'lsq_gram_sym_bwd_jvp': ([_P, _P, _P, _I64, _I32, _I32, _P, _P, _U64,
-                              _I32, _I32, _I32, _I32, _P, _P, _P], _GRAM),
+                              _I32, _I32, _I32, _I32, _P, _P, _P, _P],
+                             _GRAM),
+    # the real-order Matérn's table builder (csrc/special.cuh, its entry
+    # points in gram_special.cu and gram_special_f64.cu)
+    'lsq_matern_table': ([ctypes.c_double, _I32, _P, _P], _BOTH),
 }
 
 _state = {}

@@ -90,6 +90,7 @@ unchanged.  A third derivative raises.
 from __future__ import annotations
 
 import collections
+import ctypes
 import math
 
 import torch
@@ -687,10 +688,12 @@ _TILE, _BWD_ROWS, _PCHUNK = 64, 256, 4
 # -- descriptions and the parameter vector ------------------------------------
 
 # the structure of a description: per term (profile, mode, k, number of
-# arguments, whether it has a scale, its chain's steps), nested sums as
-# ('sum', children, steps); hashable, so it rides the Functions' meta
+# arguments, whether it has a scale, its chain's steps, and the static
+# order of a real-order Matérn core, whose tables the kernels read),
+# nested sums as ('sum', children, steps); hashable, so it rides the
+# Functions' meta
 _TermSt = collections.namedtuple('_TermSt', ['profile', 'mode', 'k', 'nargs',
-                                             'scaled', 'ops'])
+                                             'scaled', 'ops', 'order'])
 _SumSt = collections.namedtuple('_SumSt', ['terms', 'ops'])
 
 
@@ -726,8 +729,9 @@ def _struct(desc):
         raise ValueError(f'unknown distance mode {desc.mode!r}')
     if len(desc.args) > 2:
         raise ValueError('a profile takes at most 2 arguments')
+    order = float(desc.args[0]) if prof.name == 'matern' else None
     return _TermSt(prof, desc.mode, int(desc.k), len(desc.args),
-                   desc.scale is not None, _ops(desc.post))
+                   desc.scale is not None, _ops(desc.post), order)
 
 
 def _flat(desc):
@@ -773,7 +777,7 @@ def _leaves(st):
 
 
 # the entry points' infix per evaluator: ZooSpecial's kernels are built
-# apart (csrc/gram_special.cu)
+# apart (csrc/gram_special.cu, gram_special_f64.cu)
 _SPECIAL_SUFFIX = {0: '', 1: '', 2: '_zs'}
 # the first id of the special-function cores, which only ZooSpecial
 # evaluates (csrc/profiles.cuh PROFILE_SFB)
@@ -802,6 +806,26 @@ def _codes(st):
         and t0.mode == 'squared' and not t0.scaled
     special = any(t.profile.id >= _FIRST_SPECIAL for t in terms)
     return len(terms), codes, 0 if fixed else 2 if special else 1
+
+
+def _mtabs(st, x):
+    """The launch's table pointers (``csrc/profiles.cuh`` MTabs): per term
+    the value table of its real-order Matérn core, then per term its
+    first derivative's (``ops._mtable``, built on the first use of an
+    order, dtype and device), null for the other terms and for an order
+    above ``_mtable.NU_MAX`` (the kernels' quadrature); None when no
+    term has one.  The order is read as the kernels read it, in x's
+    dtype."""
+    from . import _mtable
+    ptrs = [None] * (2 * MAXTERMS)
+    for t, s in enumerate(_leaves(st)):
+        if s.order and _mtable.tabulated(s.order):
+            nu = float(torch.tensor(s.order, dtype=x.dtype))
+            f, d = _mtable.matern_tables(nu, x.dtype, x.device)
+            ptrs[t], ptrs[MAXTERMS + t] = f.data_ptr(), d.data_ptr()
+    if not any(ptrs):
+        return None
+    return (ctypes.c_void_p * (2 * MAXTERMS))(*ptrs)
 
 
 def _chain(ops, vals, one, zero):
@@ -892,10 +916,15 @@ def _profile_name(st):
 
 def _count(fn, attr, st):
     """One launch of ``fn``'s kernel: its count ``attr`` and its count for
-    the profile, ``fn.by_profile[attr, name]``, go up by one."""
+    the profile, ``fn.by_profile[attr, name]``, go up by one, and, for a
+    launch that read Matérn tables (`_mtabs`), ``fn.by_profile[attr,
+    'tables']``."""
+    from ._mtable import tabulated
     setattr(fn, attr, getattr(fn, attr) + 1)
-    key = attr, _profile_name(st)
-    fn.by_profile[key] = fn.by_profile.get(key, 0) + 1
+    tables = any(s.order and tabulated(s.order) for s in _leaves(st))
+    for name in (_profile_name(st),) + (('tables',) if tables else ()):
+        key = attr, name
+        fn.by_profile[key] = fn.by_profile.get(key, 0) + 1
 
 
 # -- plain versions -----------------------------------------------------------
@@ -1181,7 +1210,7 @@ def _eval_cuda(st, x, y, fv, with_noise):
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
     err = getattr(_build.lib(), 'lsq_gram' + _SPECIAL_SUFFIX[ev] + suffix)(
         _ptr(x), _ptr(y), n, m, p, _ptr(fv), nterms, codes, int(with_noise),
-        ev, _ptr(out), _stream(x.device))
+        ev, _ptr(out), _mtabs(st, x), _stream(x.device))
     _build.check(err, 'gram')
     _count(gram, 'launches', st)
     return out
@@ -1201,7 +1230,7 @@ def _eval_sym_cuda(st, x, fv, with_noise):
     out = torch.empty((n, n), dtype=x.dtype, device=x.device)
     err = getattr(_build.lib(), 'lsq_gram_sym' + _SPECIAL_SUFFIX[ev] + suffix)(
         _ptr(x), n, p, _ptr(fv), nterms, codes, int(with_noise), ev,
-        _ptr(out), _stream(x.device))
+        _ptr(out), _mtabs(st, x), _stream(x.device))
     _build.check(err, 'gram_sym')
     _count(gram_sym, 'launches', st)
     return out
@@ -1261,7 +1290,8 @@ def _backward_cuda(G, st, x, y, fv, with_noise, need_xy, need_p):
     err = getattr(_build.lib(), 'lsq_gram_bwd' + _SPECIAL_SUFFIX[ev] + suffix)(
         _ptr(G), _ptr(x), _ptr(y), n, m, p, _ptr(fv), nterms, codes,
         int(with_noise), ev, int(need_xy), int(need_p), _wide(G, m),
-        _ptr(rowpart), _ptr(colpart), _ptr(scal), _stream(x.device))
+        _ptr(rowpart), _ptr(colpart), _ptr(scal), _mtabs(st, x),
+        _stream(x.device))
     _build.check(err, 'gram backward')
     _count(gram, 'launches_bwd', st)
     gx = gy = None
@@ -1286,10 +1316,11 @@ def _sym_backward_cuda(G, st, x, fv, with_noise, need_x, need_p):
     part = x.new_empty((nt, n, p)) if need_x else None
     scal = x.new_empty((nt * (nt + 1) // 2, _nsums(ev))) if need_p else None
     fn = getattr(_build.lib(), 'lsq_gram_sym_bwd' + _SPECIAL_SUFFIX[ev] + suffix)
+    tabs = _mtabs(st, x)
     for d0 in _chunks(p, need_x):
         err = fn(_ptr(G), _ptr(x), n, p, d0, _ptr(fv), nterms, codes,
                  int(with_noise), ev, int(need_x), int(need_p and d0 == 0),
-                 _wide(G, n), _ptr(part), _ptr(scal), _stream(x.device))
+                 _wide(G, n), _ptr(part), _ptr(scal), tabs, _stream(x.device))
         _build.check(err, 'gram_sym backward')
         _count(gram_sym, 'launches_bwd', st)
     gx = 2 * part.sum(0) if need_x else None
@@ -1326,7 +1357,8 @@ def _tangent_cuda(st, x, y, dx, dy, fv, dfv, with_noise):
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
     err = getattr(_build.lib(), 'lsq_gram_jvp' + _SPECIAL_SUFFIX[ev] + suffix)(
         _ptr(x), _ptr(y), _ptr(dx), _ptr(dy), n, m, p, _ptr(fv), _ptr(dfv),
-        nterms, codes, int(with_noise), ev, _ptr(out), _stream(x.device))
+        nterms, codes, int(with_noise), ev, _ptr(out), _mtabs(st, x),
+        _stream(x.device))
     _build.check(err, 'gram tangent')
     _count(gram, 'launches_jvp', st)
     return out
@@ -1343,7 +1375,7 @@ def _sym_tangent_cuda(st, x, dx, fv, dfv, with_noise):
     out = torch.empty((n, n), dtype=x.dtype, device=x.device)
     err = getattr(_build.lib(), 'lsq_gram_sym_jvp' + _SPECIAL_SUFFIX[ev] + suffix)(
         _ptr(x), _ptr(dx), n, p, _ptr(fv), _ptr(dfv), nterms, codes,
-        int(with_noise), ev, _ptr(out), _stream(x.device))
+        int(with_noise), ev, _ptr(out), _mtabs(st, x), _stream(x.device))
     _build.check(err, 'gram_sym tangent')
     _count(gram_sym, 'launches_jvp', st)
     return out
@@ -1368,11 +1400,12 @@ def _bwd_tangent_cuda(G, one, x, y, dx, dy, coef, need_xy, need_s):
     colpart = x.new_empty((nbi, m, p)) if need_xy else None
     scal = x.new_empty((nbi * nbj, 3)) if need_s else None
     fn = getattr(_build.lib(), 'lsq_gram_bwd_jvp' + _SPECIAL_SUFFIX[ev] + suffix)
+    tabs = _mtabs(one.st, x)
     for d0 in _chunks(p, need_xy):
         err = fn(_ptr(G), _ptr(x), _ptr(y), _ptr(dx), _ptr(dy), n, m, p, d0,
                  _ptr(fv), _ptr(coef), codes, ev, int(need_xy),
                  int(need_s and d0 == 0), _wide(G, m), _ptr(rowpart),
-                 _ptr(colpart), _ptr(scal), _stream(x.device))
+                 _ptr(colpart), _ptr(scal), tabs, _stream(x.device))
         _build.check(err, 'gram backward tangent')
         _count(gram, 'launches_bwd_jvp', one.st)
     gx = gy = None
@@ -1394,10 +1427,11 @@ def _sym_bwd_tangent_cuda(G, one, x, dx, coef, need_x, need_s):
     part = x.new_empty((nt, n, p)) if need_x else None
     scal = x.new_empty((nt * (nt + 1) // 2, 3)) if need_s else None
     fn = getattr(_build.lib(), 'lsq_gram_sym_bwd_jvp' + _SPECIAL_SUFFIX[ev] + suffix)
+    tabs = _mtabs(one.st, x)
     for d0 in _chunks(p, need_x):
         err = fn(_ptr(G), _ptr(x), _ptr(dx), n, p, d0, _ptr(fv), _ptr(coef),
                  codes, ev, int(need_x), int(need_s and d0 == 0),
-                 _wide(G, n), _ptr(part), _ptr(scal), _stream(x.device))
+                 _wide(G, n), _ptr(part), _ptr(scal), tabs, _stream(x.device))
         _build.check(err, 'gram_sym backward tangent')
         _count(gram_sym, 'launches_bwd_jvp', one.st)
     gx = 2 * part.sum(0) if need_x else None

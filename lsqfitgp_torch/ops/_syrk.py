@@ -321,7 +321,7 @@ def schur_update_gram(profile, X, A, *, post=(), eps=None, nreal=None,
     out = torch.empty((size, size), dtype=A.dtype, device=A.device)
     args = (_ptr(X), X.shape[1], _ptr(fv), nterms, codes,
             int(eps is not None), nreal, offset, _ptr(A), h, _ptr(out), size,
-            tile)
+            tile, _gram._mtabs(st, X))
     lib = _build.lib()
     if counter == 'launches_dmma':
         err = lib.lsq_schur_gram_dmma_f64(*args, _stream(A.device))
@@ -331,10 +331,7 @@ def schur_update_gram(profile, X, A, *, post=(), eps=None, nreal=None,
     else:
         err = lib.lsq_schur_gram_f32(*args, _stream(A.device))
     _build.check(err, 'schur_update_gram')
-    _count(schur_update_gram, counter)
-    key = counter, _gram._profile_name(st)
-    schur_update_gram.by_profile[key] = \
-        schur_update_gram.by_profile.get(key, 0) + 1
+    _gram._count(schur_update_gram, counter, st)
     return out
 
 

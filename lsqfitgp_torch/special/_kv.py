@@ -84,12 +84,15 @@ def _logcosh(z):
     return a + torch.log1p(torch.exp(-2 * a)) - math.log(2.0)
 
 
-def _kv_quad_scaled(nu, x, logpref=None):
+def _kv_quad_scaled(nu, x, logpref=None, ex=False):
     """e^{logpref} K_ν(x), the prefactor fused into the quadrature
     exponent: K_ν(x) = e^{−x} ∫_0^∞ e^{−x(cosh t − 1)} cosh(νt) dt by
     100-point Gauss-Legendre on [0, tmax], every intermediate guarded
     against overflow (x → 0, where K_ν ~ x^{−ν} and the Matérn prefactor
-    ~ x^ν, would otherwise give 0·inf)."""
+    ~ x^ν, would otherwise give 0·inf).  With ``ex``, e^{x + logpref}
+    K_ν(x): the exponent without its −x, whose rounding would cost x·u
+    (the Matérn tables, ``ops._mtable``), and cosh t − 1 without its
+    cancellation."""
     x = torch.clamp(x, min=1e3 * torch.finfo(x.dtype).tiny)
     gx = torch.as_tensor(_GL_X, dtype=x.dtype, device=x.device)
     gw = torch.as_tensor(_GL_W, dtype=x.dtype, device=x.device)
@@ -99,7 +102,14 @@ def _kv_quad_scaled(nu, x, logpref=None):
     w = 0.5 * tmax[..., None] * gw
     big = torch.finfo(x.dtype).max / 4
     cosh_m1 = torch.clamp(torch.cosh(t) - 1, max=big)
-    e = -(x[..., None] * cosh_m1 + x[..., None]) + _logcosh(nu[..., None] * t)
+    if ex:
+        # cosh t − 1 as 2 sinh²(t/2): no cancellation near t = 0, where
+        # x (cosh t − 1) would otherwise lose x·u
+        cosh_m1 = torch.clamp(2 * torch.sinh(t / 2) ** 2, max=big)
+        e = -(x[..., None] * cosh_m1) + _logcosh(nu[..., None] * t)
+    else:
+        e = -(x[..., None] * cosh_m1 + x[..., None]) \
+            + _logcosh(nu[..., None] * t)
     if logpref is not None:
         e = e + logpref[..., None]
     return (w * torch.exp(e)).sum(-1)

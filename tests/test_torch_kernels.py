@@ -963,6 +963,7 @@ def _zoo_descs(t):
         # terms reach e^x, stays below x = 9 in float64), Pink (δω
         # dynamic), Color and a sum of the two spectral cores
         'sfb': S((T(P['sfb'], 'abs', args=(t(0.7),)),), amp),
+        'matern0.7': S((T(P['matern'], args=(0.7,)),), amp),
         'matern1.7': S((T(P['matern'], args=(1.7,)),), amp),
         'matern4.2': S((T(P['matern'], args=(4.2,)),), amp),
         'bessel': S((T(P['bessel'], args=(1.0,), scale=t(3.0)),), amp),
@@ -1105,8 +1106,8 @@ def test_zoo_gram_sym_cuda(cuda, gen, dtype, n, p, name):
 @pytest.mark.parametrize('name', ['maternp2', 'expon', 'gammaexp', 'cauchy',
                                   'terms', 'terms3', 'celerite',
                                   'harmonic-lo', 'wendland2', 'ts-terms',
-                                  'sfb', 'matern1.7', 'bessel', 'pink',
-                                  'color3'])
+                                  'sfb', 'matern0.7', 'matern1.7',
+                                  'bessel', 'pink', 'color3'])
 def test_zoo_schur_update_gram_cuda(cuda, gen, dtype, p, name, precision):
     """Kernel D on the zoo's profiles and term sums, at an offset with a
     ragged nreal and eps, against its plain version within `_tc_tol`."""
@@ -1140,6 +1141,93 @@ def test_zoo_schur_update_gram_cuda(cuda, gen, dtype, p, name, precision):
     tol = (_tc_tol(A, init, dtype, precision)
            + 32 * torch.finfo(dtype).eps * entry)[keep]
     assert bool((err <= tol).all()), float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('nu,kind', [(0.3, 0), (0.3, 1), (0.7, 0), (0.7, 1),
+                                     (1.0, 1), (1.7, 0), (3.7, 0), (7.3, 0),
+                                     (8.0, 0)])
+def test_matern_table_kernel_cuda(cuda, dtype, nu, kind):
+    """``matern_table_kernel`` (the float64 quadrature at the panels'
+    Chebyshev nodes and a DCT per panel; float32 tables rounded) against
+    its plain builder on the CPU: each coefficient within (eps + 64
+    eps₆₄) of its panel's largest (the two quadratures' exponentials and
+    logarithms differ by an ulp or two; a float32 coefficient may round
+    the other way)."""
+    from lsqfitgp_torch.ops import _mtable
+    dev = torch.device('cuda', torch.cuda.current_device())
+    _mtable._CACHE.pop((nu, kind, dtype, dev), None)
+    n0 = ops.matern_table.launches
+    got = ops.matern_table(nu, kind, dtype, cuda)
+    assert ops.matern_table.launches == n0 + 1
+    assert ops.matern_table(nu, kind, dtype, cuda) is got
+    assert ops.matern_table.launches == n0 + 1
+    ref = ops.matern_table_plain(nu, kind, dtype)
+    nc = _mtable.layout(dtype)[2]
+    g, r = got.cpu().double().reshape(-1, nc), ref.double().reshape(-1, nc)
+    tol = (torch.finfo(dtype).eps + 64 * torch.finfo(torch.float64).eps) \
+        * r.abs().amax(1, keepdim=True)
+    assert bool(((g - r).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('p', [1, 10])
+@pytest.mark.parametrize('nu', [0.7, 1.7, 20.0])
+def test_matern_table_route_cuda(cuda, gen, dtype, p, nu):
+    """Kernels C and C's backward on the real-order Matérn read its
+    tables, built once per order (the backward's derivative table: the
+    value table of ν − 1 above 1, the raw form's below; none above
+    NU_MAX, where the kernels keep the quadrature) and held to the
+    quadrature's plain version at TOL and `_bwd_tol`, with entries below
+    the tables (x < 2^E_LO: pairs 1e-6 apart, the quadrature) and
+    coincident points; C and E equal to the bit."""
+    from lsqfitgp_torch.ops import _gram, _mtable
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    n = 192
+    xs = gen.standard_normal((n, p)) * _spread(p)
+    xs[1::16] = xs[0::16] + 1e-6
+    xs[5] = xs[9]
+    x = t(xs)
+    desc = ops.Terms((ops.Term(ops.PROFILES['matern'], args=(nu,),
+                               scale=t(1.3)),), (('mul', t(1.4)),))
+    nu_t = float(torch.tensor(nu, dtype=dtype))
+    dev = torch.device('cuda', torch.cuda.current_device())
+    for key in [(nu_t, 0), (nu_t - 1, 0) if nu > 1 else (nu_t, 1)]:
+        _mtable._CACHE.pop((*key, dtype, dev), None)
+    builds = 2 if _mtable.tabulated(nu) else 0
+    n0, b0 = ops.matern_table.launches, ops.gram.launches_bwd
+    tab0 = ops.gram.by_profile.get(('launches_bwd', 'tables'), 0)
+    xr = x.clone().requires_grad_()
+    K = ops.gram(desc, xr, noise=t(0.1))
+    G = t(gen.standard_normal((n, n)))
+    (K * G).sum().backward()
+    assert ops.matern_table.launches == n0 + builds
+    assert ops.gram.launches_bwd == b0 + 1
+    assert ops.gram.by_profile.get(('launches_bwd', 'tables'), 0) \
+        == tab0 + (builds > 0)
+    ops.gram(desc, x)
+    assert ops.matern_table.launches == n0 + builds
+    ref = ops.gram_plain(desc, x, noise=t(0.1))
+    torch.testing.assert_close(K.detach(), ref, **TOL[dtype])
+    assert torch.equal(ops.gram(desc, x, noise=t(0.1)),
+                       ops.gram_sym(desc, x, noise=t(0.1)))
+    _, st, _, _, pvec = _gram._args(desc, x, None, (), t(0.1))
+    fv = _gram._fold(st, pvec)
+    res = _gram._backward(G, st, x, x, fv, True, True, True)
+    d = lambda a: a.double()
+    G64, x64, fv64 = d(G), d(x), d(fv)
+    refb = _gram._backward_plain(G64, st, x64, x64, fv64, True, True, True)
+    r2 = _gram._sqdist_plain(x64, x64)
+    evals = _gram._terms_plain(st, fv64, r2, d1=True, da=True)
+    Wr = _gram._deriv_plain(st, x64, x64, fv64, evals, r2)
+    tx, ty, _ = _bwd_tol(G64, Wr, x64, x64, dtype, False)
+    assert bool(((d(res[0]) - refb[0]).abs() <= tx).all())
+    assert bool(((d(res[1]) - refb[1]).abs() <= ty).all())
+    torch.testing.assert_close(d(xr.grad), refb[0] + refb[1],
+                               rtol=TOL[dtype]['rtol'] * 10,
+                               atol=float((tx + ty).max()))
 
 
 @pytest.mark.gpu

@@ -142,10 +142,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    forecast past the end whose sdev must grow;
 14. the Hurst path: ``amp * StationaryFracBrownian(H)`` on t = 0 … n−1
    plus white noise, data of H = 0.75 by circulant embedding, a dense
-   fit at n = 16384 (kernel C on 'sfb' with its H-derivative) held to a
-   Toeplitz float64 truth, the fitted H within 3 posterior sdev of 0.75,
-   and a streaming fit at n = 65536 (kernel D on 'sfb'), checked at
-   n = 32768;
+   fit at n = 16384 (kernel C on 'sfb' with its H-derivative, each
+   launch after one of the coefficient builder ``sfb_table_kernel``)
+   held to a Toeplitz float64 truth, the fitted H within 3 posterior
+   sdev of 0.75, and a streaming fit at n = 65536 (kernel D on 'sfb'),
+   checked at n = 32768;
 15. the model-comparison path: examples/model_comparison.py at
    n = 16384, its four candidates' evidence held to float64 (ExpQuad
    must win), then ``amp * Matern(nu=1.7, scale)`` fitted (kernel C on
@@ -176,8 +177,9 @@ derivative path; ``--multidim`` kernel C's p = 2 and p = 10 records in
 both dtypes and the multidim path; ``--zoo`` the zoo's records of PR 11
 and the Matérn and multiscale paths; ``--timeseries`` the time-series
 cores' records and the time-series path; ``--hurst`` the 'sfb' records
-and the Hurst path; ``--evidence`` the records of the other four cores
-and the model-comparison path.
+and the Hurst path (``--hurst-evals LABEL`` only the timing of its dense
+value + gradient, for checkouts in turns); ``--evidence`` the records of
+the other four cores and the model-comparison path.
 """
 
 import json
@@ -442,10 +444,11 @@ def build():
     info = ops.build_info()
     log(f'build: {info["seconds"]:.1f} s -> {info["path"]}')
     # ptxas reports each kernel's spills, then its registers, after the
-    # line that names it (mangled)
+    # line that names it (mangled, in full: the template arguments at its
+    # end tell the instantiations apart)
     for line in info['log'].splitlines():
         if 'Compiling entry function' in line:
-            log(f'  ptxas: {line.split(chr(39))[1][:100]}')
+            log(f'  ptxas: {line.split(chr(39))[1]}')
         elif 'registers' in line or 'spill' in line:
             log(f'    {line.strip()}')
 
@@ -1318,7 +1321,8 @@ ZOO_RECORDS.update(TS_RECORDS)
 # Matérn and Bessel, Pink, Color) at p = 1, Bessel at p = 2 (within its
 # maxdim) and Matérn-ν at the multidim cell's p: their operations per
 # entry depend on the branch each entry takes (`zoo_ops`)
-CORE_RECORDS = {'sfb': ((1,), None, None), 'matern': ((1, MD_P), None, None),
+CORE_RECORDS = {'sfb': ((1,), None, None), 'sfbpath': ((1,), None, None),
+                'matern': ((1, MD_P), None, None),
                 'matern07': ((1, MD_P), None, None),
                 'bessel': ((1, 2), None, None), 'pink': ((1,), None, None),
                 'color': ((1,), None, None)}
@@ -1332,16 +1336,18 @@ ZOO_RECORDS.update(CORE_RECORDS)
 # continued fraction's complex steps, the series' and Ci's dozens of n²
 # temporaries) or would take seconds; the kernel is timed at N²
 ZOO_BLOCK = {'matern': 2048, 'matern07': 2048, 'bessel': 4096, 'color': 4096,
-             'sfb': 4096, 'pink': 4096}
+             'sfb': 4096, 'sfbpath': 4096, 'pink': 4096}
 # the launch tallies' profile key of each (ops.gram.by_profile), and the
 # path whose launches its float32 p = 1 records count
 ZOO_KEYS = {'maternp2': 'maternp', 'expon': 'expon', 'gammaexp': 'gammaexp',
             'cauchy': 'cauchy', 'terms': 'maternp+expquad',
             **{name: name for name in TS_RECORDS},
             'harmonic2': 'harmonic', 'harmonic04': 'harmonic',
-            **{name: name for name in CORE_RECORDS}, 'matern07': 'matern'}
+            **{name: name for name in CORE_RECORDS}, 'matern07': 'matern',
+            'sfbpath': 'sfb'}
 ZOO_PATHS = {'maternp2': 'matern', 'terms': 'multiscale',
-             'celerite': 'timeseries', 'sfb': 'hurst', 'matern': 'evidence'}
+             'celerite': 'timeseries', 'sfb': 'hurst', 'sfbpath': 'hurst',
+             'matern': 'evidence'}
 # the multiscale model's point (log a1, log s1, log a2, log s2)
 MS_POINT = [0.0, 0.3, -0.7, 1.6]
 
@@ -1356,7 +1362,8 @@ def zoo_desc(name, dtype, amp=1.3):
     Matérn-5/2, the exponential ('abs' mode), GammaExp with a dynamic
     γ, Cauchy with dynamic α and β, the time-series path's Celerite(γ,
     B), the other cores of TS_RECORDS with dynamic arguments and those
-    of CORE_RECORDS (each times ``amp``), and the multiscale path's
+    of CORE_RECORDS (each times ``amp``; 'sfbpath' is 'sfb' on the
+    Hurst path's points, `record_points`), and the multiscale path's
     term sum a1 Maternp(p=2, s1) + a2 ExpQuad(s2) at MS_POINT."""
     import torch
     from lsqfitgp_torch import ops
@@ -1395,6 +1402,7 @@ def zoo_desc(name, dtype, amp=1.3):
             # (static, the term's argument without a gradient); Bessel's
             # ν, Pink's δω (dynamic), Color's n
             'sfb': T(P['sfb'], 'abs', args=(t(HURST_TRUE['H']),)),
+            'sfbpath': T(P['sfb'], 'abs', args=(t(HURST_TRUE['H']),)),
             'matern': T(P['matern'], args=(EV_NU,)),
             'matern07': T(P['matern'], args=(ZOO_NU['matern07'],)),
             'bessel': T(P['bessel'], args=(1.0,)),
@@ -1409,6 +1417,14 @@ def zoo_desc(name, dtype, amp=1.3):
 # backward's second value, its recurrence, the weight and the parameter
 # sums
 MTAB_OPS = (20, 30)
+# the operations per entry of StationaryFracBrownian's series from t = 2
+# on at J(t) = 1 (csrc/profiles.cuh sfb_core; forward, backward): the
+# mode's square root, z = t^-2, log t, t^(alpha - 2), J's bucket and
+# lookup, the product and the chain; the backward's two more products,
+# the chain rule, the weight and the parameter sums.  Each further term
+# is a Horner step of each sum (one forward; three backward: g, g' and
+# the H-derivative).  Below t = 2 the three powers (10, 27).
+SFB_OPS = (20, 40)
 
 
 def zoo_ops(name, dtype, X):
@@ -1417,8 +1433,9 @@ def zoo_ops(name, dtype, X):
     device code's branches (csrc/profiles.cuh, csrc/special.cuh),
     weighted by the share of this record's entries that take each (on
     256 rows of the points X): StationaryFracBrownian's three powers
-    below t = 2 and its series above, J = 14 (float32) or 30 (float64)
-    terms of 8 (forward) and 17 (backward) operations; Matérn-ν's table
+    below t = 2 and its series above (`SFB_OPS` and a Horner step for
+    each term past the first of J(t), ``ops.sfb_terms``, of its
+    forward's and its backward's sums); Matérn-ν's table
     from x = 2^E_LO on (`MTAB_OPS`: the panel's Clenshaw sum, 2 a
     coefficient, and about 20 more, a square root and an exponential
     among them; the backward two sums and its weight and sums) and below
@@ -1445,10 +1462,17 @@ def zoo_ops(name, dtype, X):
         fwd, bwd = MTAB_OPS[0] + 2 * nc, MTAB_OPS[1] + 4 * nc
         return f * 2020 + (1 - f) * fwd, f * 4050 + (1 - f) * bwd
     f64 = dtype == torch.float64
-    J, cut = (30, 20.0) if f64 else (14, 8.0)
+    cut = 20.0 if f64 else 8.0
     d = torch.cdist(X[:256], X).flatten()
+    if ZOO_KEYS[name] == 'sfb':
+        from lsqfitgp_torch import ops
+        far = d >= 2
+        more = [float(ops.sfb_terms(d[far].to(dtype), kind).double()
+                      .mean()) - 1 for kind in (0, 1)]
+        f = float((~far).double().mean())
+        return (f * 10 + (1 - f) * (SFB_OPS[0] + more[0]),
+                f * 27 + (1 - f) * (SFB_OPS[1] + 3 * more[1]))
     mask, lo, hi = {
-        'sfb': (d < 2, (10, 27), (8 * J + 6, 17 * J + 10)),
         'bessel': (2.5 * d < cut, (205, 410), (150, 300)),
         'pink': (2.5 * d <= 4, (50, 60), (150, 170)),
         'color': (d < 1, (250, 750), (4425, 4440))}[name]
@@ -1579,6 +1603,143 @@ def zoo_points(p, n, dtype, gen):
     return (X - 0.5) * 100 if p == 1 else X
 
 
+def record_points(name, p, n, dtype, gen):
+    """A zoo record's points: `zoo_points`, but for 'sfbpath' the Hurst
+    path's, t = 0 … n−1 (lags to n − 1; its launches come from there)."""
+    import torch
+    if name == 'sfbpath':
+        return torch.arange(n, device='cuda', dtype=dtype)[:, None]
+    return zoo_points(p, n, dtype, gen)
+
+
+# the 'sfb' records' per-entry tolerance, in eps of each entry's scale
+# (`sfb_scales`), as tests/test_torch_randomwalk.py holds the plain
+# version in float32; and the number of lags at which the backward is
+# held entry by entry
+SFB_REL, SFB_LAGS = 16, 192
+
+
+def sfb_scales(t, H, amp):
+    """The scales of 'sfb' entries at the float64 lags t, times ``amp``:
+    of the value, |H(2H−1)| t^(2H−2) (the leading term of its series) from
+    t = 2 on and (1 + t)^2H below (the three powers'); of the
+    t-derivative, that times (1 + |2H − 2|)/t, and 2H (1 + t)^2H below;
+    of the H-derivative, 2 (|2H − ½| + |H(2H−1)| log t) t^(2H−2) (the
+    leading term's, dC(2H, 2)/d(2H) = 2H − ½) and 2 (1 + t)^2H (1 +
+    log(1 + t)) below."""
+    import torch
+    a = 2 * H
+    c1 = abs(H * (2 * H - 1))
+    far = t >= 2
+    tf = t.clamp(min=2)
+    p = tf ** (a - 2)
+    lo = (1 + t) ** a
+    value = torch.where(far, c1 * p, lo)
+    dt = torch.where(far, c1 * p * (1 + abs(a - 2)) / tf, a * lo)
+    dh = torch.where(far, 2 * (abs(a - 0.5) + c1 * tf.log()) * p,
+                     2 * lo * (1 + (1 + t).log()))
+    return amp * value, amp * dt, amp * dh
+
+
+def check_scaled(what, got, ref, tol):
+    """Fail unless |got − ref| <= tol at every entry; log the largest
+    error over its tolerance and return the max abs error."""
+    err = (got.double() - ref).abs()
+    worst = float((err / tol).max())
+    log(f'    {what}: per entry, the largest error is {worst:.3f} of its '
+        f'tolerance ({err.numel()} entries)')
+    if not worst <= 1:
+        fail(f'{what}: an entry beyond {SFB_REL} eps of its scale '
+             f'({worst:.3f} of it)')
+    return float(err.max())
+
+
+def sfb_divergence(name, dtype, X):
+    """How far J(t) and the t < 2 branch part a warp's lanes in kernel C
+    on an 'sfb' record, computed on the host from the points and the
+    kernel's lane layout (csrc/gram.cu Geo: a thread owns V adjacent
+    columns of every TY-th row of a 64 × 64 tile; a warp's 32 lanes are
+    32 / TX rows of TX column groups, entry k of each group at a time), on
+    three 64-row tiles (top, middle, bottom) against all columns: the
+    share of entries below t = 2 beside the share of warp steps with a
+    lane there (which all then take the three powers' time), and the mean
+    J(t) beside the mean over warp steps of the largest; logged."""
+    import torch
+    from lsqfitgp_torch import ops
+    v = 16 // (torch.finfo(dtype).bits // 8)
+    tx = 64 // v
+    ty, lanes = 256 // tx, 32 // tx
+    n = X.shape[0]
+
+    def warps(a):
+        a = a.reshape(64 // ty, ty // lanes, lanes, n // 64, tx, v)
+        return a.permute(0, 1, 3, 5, 2, 4).reshape(-1, 32)
+
+    out = []
+    for i0 in (0, n // 128 * 64, n - 64):
+        t = (X[i0:i0 + 64, :1] - X[:, 0]).abs().double()
+        J = ops.sfb_terms(t.clamp(min=2).to(dtype), 0).double()
+        small = warps((t < 2).double())
+        out.append((float(small.mean()), float(small.amax(1).mean()),
+                    float(J[t >= 2].mean()),
+                    float(warps(torch.where(t < 2, 0 * J, J)).amax(1)
+                          .mean())))
+    m = [statistics.mean(c) for c in zip(*out)]
+    log(f'    {name} {dtype}: entries below t = 2 {m[0]:.4f}, warp steps '
+        f'with such a lane {m[1]:.4f}; mean J(t) {m[2]:.3f}, mean over '
+        f'warp steps of the largest {m[3]:.3f} (host, from the points)')
+
+
+def sfb_entries(name, dtype, X, nb):
+    """The 'sfb' records' per-entry checks against the float64 plain
+    version, within SFB_REL eps of each entry's scale (`sfb_scales`):
+    kernel C's values on the block of the first ``nb`` points and on the
+    first and last 128 rows against all of X (every lag of the path
+    record), and the fused backward's per-entry H-derivative and
+    x-gradient, one 1 × 1 Gram at a time (G = 1: the gradient is the
+    entry's), at SFB_LAGS lags |X_0 − X_k|, k log-spaced over the points.
+    These see a truncated series, which the absolute check of the
+    largest entry does not at the path's lags (its tolerance is about a
+    hundred times the entries there)."""
+    import torch
+    from lsqfitgp_torch.ops import gram, gram_plain, _gram
+    H, amp = HURST_TRUE['H'], 1.3
+    tol = SFB_REL * torch.finfo(dtype).eps
+    desc, desc64 = zoo_desc(name, dtype), zoo_desc(name, torch.float64)
+    n = X.shape[0]
+    X64 = X.double()
+    rows = torch.cat([torch.arange(128), torch.arange(n - 128, n)]).to(
+        X.device)
+    for label, a, b in (('block', X[:nb], X[:nb]), ('rows', X[rows], X)):
+        t = _gram._sqdist_plain(a.double(), b.double()).sqrt()
+        check_scaled(f'C gram {name} {dtype} ({label}, the float64 plain '
+                     f'version)', gram(desc, a, b),
+                     gram_plain(desc64, a.double(), b.double()),
+                     tol * sfb_scales(t, H, amp)[0])
+    ks = torch.unique(torch.logspace(0, math.log10(n - 1), SFB_LAGS).round()
+                      .long()).tolist()
+    _, st, _, _, pvec = _gram._args(desc, X[:1], None, (), None)
+    fv = _gram._fold(st, pvec).detach()
+    one = torch.ones(1, 1, device=X.device, dtype=dtype)
+    got, ref = [], []
+    for k in ks:
+        gx, _, gf = _gram._backward(one, st, X[:1], X[k:k + 1], fv, False,
+                                    True, True)
+        got.append(torch.stack([gx[0, 0], gf[4]]))
+        gx, _, gf = _gram._backward_plain(one.double(), st, X64[:1],
+                                          X64[k:k + 1], fv.double(), False,
+                                          True, True)
+        ref.append(torch.stack([gx[0, 0], gf[4]]))
+    got, ref = torch.stack(got), torch.stack(ref)
+    t = (X64[ks, 0] - X64[0, 0]).abs()
+    _, dt, dh = sfb_scales(t, H, amp)
+    err = check_scaled(f'C gram backward {name} {dtype}: dK/dH',
+                       got[:, 1], ref[:, 1], tol * dh)
+    check_scaled(f'C gram backward {name} {dtype}: dK/dx', got[:, 0],
+                 ref[:, 0], tol * dt)
+    return err
+
+
 def zoo_record(rec, kind, name, p, dtype, counter):
     label = str(dtype).split('.')[-1]
     suffix = ('' if p == 1 else f'/p{p}') + \
@@ -1645,8 +1806,9 @@ def kernel_zoo(dtype, gen, name, p):
     exceeds 1e3, below a hundredth of the median entry, `check_typical`;
     Bessel in float32 against the float64 plain version, `bessel_truth`;
     Matérn-ν's entries each against the float64 plain version too,
-    `check_entries`, and over its tables' whole range, `matern_probe`),
-    the backward by `zoo_bwd_check`; where ZOO_BLOCK names the profile, both
+    `check_entries`, and over its tables' whole range, `matern_probe`;
+    the 'sfb' records' entries too, `sfb_entries`), the backward by
+    `zoo_bwd_check`; where ZOO_BLOCK names the profile, both
     held on the first ZOO_BLOCK points (the plain version timed there,
     ``plain_n`` in the record) and the kernel timed at 16384²; the
     records 'gram/<name>' and 'gram_bwd/<name>' ('/p10', '/float64'
@@ -1659,7 +1821,7 @@ def kernel_zoo(dtype, gen, name, p):
     amp = zoo_amp(name, dtype)
     desc = zoo_desc(name, dtype)
     noise = torch.tensor(NOISE_VAR, device='cuda', dtype=dtype)
-    X = zoo_points(p, N, dtype, gen)
+    X = record_points(name, p, N, dtype, gen)
     nb = ZOO_BLOCK.get(name, N)
     Xb = X[:nb]
     K = gram(desc, Xb, noise=noise)
@@ -1688,6 +1850,9 @@ def kernel_zoo(dtype, gen, name, p):
         del Xb64
         matern_probe(name, dtype, p)
     del K, Kp
+    if ZOO_KEYS[name] == 'sfb':
+        sfb_entries(name, dtype, X, nb)
+        sfb_divergence(name, dtype, X)
     ms, plain_ms, wrap = gram_times(
         lambda: gram(desc, X, noise=noise),
         lambda: gram_plain(desc, Xb, noise=noise), 'gram_kernel',
@@ -2114,7 +2279,7 @@ def plain_mean64(x, y, xs, scale, amp, noise=NOISE_VAR, kern=None,
 
 
 KERNELS = ['schur_update', 'syrk_t_full', 'syrk_t_full_', 'gram',
-           'schur_update_gram', 'gram_sym', 'matern_table']
+           'schur_update_gram', 'gram_sym', 'matern_table', 'sfb_table']
 
 # each wrapper's launch counters and the suffix of their key in the
 # counts: A and D count their SIMT kernel ('launches'), their TF32
@@ -4498,19 +4663,68 @@ def kernel_matern_table(dtype, gen):
                    precision=label)]
 
 
+def kernel_sfb_table(dtype, gen):
+    """StationaryFracBrownian's coefficient builder, ``sfb_table_kernel``
+    (csrc/profiles.cuh), at the Hurst path's true H and at 0.3 and 1:
+    its table against the plain builder (`ops.sfb_coeffs_plain`), each
+    entry within (eps + 64 eps₆₄) of its column's largest (the float64
+    recurrence's multiply-adds may fuse on the card; a float32 entry is
+    the float64 one rounded).  Timed: one build (device time) against
+    the plain builder (host arithmetic, and the copy to the card); bound:
+    its table's bytes or its 2 J recurrence steps of about 8 float64
+    operations, two divisions among them, each one (its single thread's
+    latency bounds it).  The record 'sfb_table' counts the Hurst path's
+    builds (float32; none in float64)."""
+    import torch
+    from lsqfitgp_torch import ops
+    from lsqfitgp_torch.ops import _gram
+    J = _gram.SFB_TERMS[dtype]
+    err = 0.0
+    for H in (HURST_TRUE['H'], 0.3, 1.0):
+        Ht = torch.tensor(H, device='cuda', dtype=dtype)
+        n0 = ops.sfb_table.launches
+        got = ops.sfb_table(Ht).double()
+        if ops.sfb_table.launches != n0 + 1:
+            fail(f'sfb_table H={H}: not built by its kernel')
+        ref = ops.sfb_coeffs_plain(Ht, J).to('cuda')
+        tol = (torch.finfo(dtype).eps + 64 * torch.finfo(torch.float64).eps) \
+            * ref.abs().amax(0, keepdim=True)
+        err = max(err, check_close(f'sfb_table_kernel H={H} {dtype}', got,
+                                   ref, tol))
+    Ht = torch.tensor(HURST_TRUE['H'], device='cuda', dtype=dtype)
+    ms = device_ms(lambda: ops.sfb_table(Ht), GRAM_BATCH,
+                   kernel='sfb_table_kernel')
+    plain_ms = median_ms(lambda: ops.sfb_coeffs_plain(Ht, J).to(
+        device='cuda', dtype=dtype), 5)
+    isz = torch.finfo(dtype).bits // 8
+    bd = bound(isz * (6 + 4 * J), 2 * J * 8, torch.float64)
+    log(f'  sfb_table_kernel {dtype}: {J} rows of {_gram.SFB_COLS}; build '
+        f'{ms:.4f} ms, plain builder {plain_ms:.3f} ms, bound {bd[0]:.2e} '
+        f'ms ({bd[1]})')
+    label = str(dtype).split('.')[-1]
+    return [record(err, ms, plain_ms, bd, dtype=label, counter='launches',
+                   path='hurst' if label == 'float32' else None,
+                   precision=label)]
+
+
 def core_kernel_specs():
     """The kernel phase's specs of the last spec-carrying cores: C and
     its backward on each of CORE_RECORDS (p = 1; Bessel at p = 2 and
     Matérn-ν, of the evidence path's order and of 0.7, at the multidim
     cell's p too), E and its backward, C′ and C″ on Matérn-ν, D on
     StationaryFracBrownian and on Matérn-ν at 'high' (n = 65536) and in
-    float64 (n = 32768), and the Matérn-ν table's builder."""
+    float64 (n = 32768), and the tables' builders (Matérn-ν's and
+    StationaryFracBrownian's; the latter stands in for no TPU kernel:
+    its 'replaces' names the JAX kernel whose coefficients it forms)."""
     import torch
     f32, f64 = torch.float32, torch.float64
     gram_cu = 'lsqfitgp_torch/csrc/gram.cu'
     specs = [('matern_table', kernel_matern_table,
               'lsqfitgp_torch/csrc/special.cuh',
-              'lsqfitgp_tpu/special/_kv.py:88', [f32, f64])]
+              'lsqfitgp_tpu/special/_kv.py:88', [f32, f64]),
+             ('sfb_table', kernel_sfb_table,
+              'lsqfitgp_torch/csrc/profiles.cuh',
+              'lsqfitgp_tpu/kernels/_randomwalk.py:121', [f32, f64])]
     for name, (ps, _, _) in CORE_RECORDS.items():
         for p in ps:
             specs.append((f'gram {name} p={p}',
@@ -5042,7 +5256,8 @@ def hurst_phase(dev='cuda'):
 
     Dense, n = N: ``empbayes_fit`` with at most HURST_ITERS BFGS
     iterations, ``gram='tiled'`` (kernel C on the 'sfb' profile, forward
-    and fused backward with its H-derivative once per evaluation), the
+    and fused backward with its H-derivative once per evaluation, each
+    after one launch of the coefficient builder ``sfb_table_kernel``), the
     noise the data's scalar ``givencov``, covariance 'auto'; NLL and
     gradient at the start and at the fit held to the Toeplitz float64
     reference (`ts_check` with `hurst_nll64`), and the fitted H within 3
@@ -5100,7 +5315,8 @@ def hurst_phase(dev='cuda'):
                          'the dense Hurst fit')
         require_counts(fit_counts, {f'gram@{key}': evals,
                                     f'gram_bwd@{key}': evals,
-                                    'gram': evals, 'gram_bwd': evals},
+                                    'gram': evals, 'gram_bwd': evals,
+                                    'sfb_table': 2 * evals},
                        'the dense Hurst fit')
 
     def lp_of(pmean):
@@ -5179,7 +5395,10 @@ def hurst_phase(dev='cuda'):
         require_launched(counts, [f'schur_update_gram_tc@{key}',
                                   f'gram@{key}', 'schur_update_tc'],
                          'the streaming Hurst fit')
-        require_counts(counts, {f'gram_bwd@{key}': strips * len(ev)},
+        # one build before each launch on the 'sfb' profile
+        builds = sum(c for k, c in counts.items() if k.endswith(f'@{key}'))
+        require_counts(counts, {f'gram_bwd@{key}': strips * len(ev),
+                                'sfb_table': builds},
                        'the streaming Hurst fit')
     end = lp_of(sfit.pmean)
     log(f'  end point amp, H, noise {math.exp(end[0]):.6g}, '
@@ -5483,7 +5702,8 @@ def evidence_phase(dev='cuda'):
 # single term), `Zoo` (closed forms), ZooSpecial (the special cores) at
 # p = 1, and the real-order Matérn at the multidim cell's p too
 ZOO_TIMES = [('expquad', 1), ('maternp2', 1), ('expon', 1), ('terms', 1),
-             ('celerite', 1), ('periodic', 1), ('sfb', 1), ('bessel', 1),
+             ('celerite', 1), ('periodic', 1), ('sfb', 1), ('sfbpath', 1),
+             ('bessel', 1),
              ('pink', 1), ('color', 1), ('matern', 1), ('matern07', 1),
              ('matern', MD_P), ('matern07', MD_P)]
 
@@ -5491,9 +5711,10 @@ ZOO_TIMES = [('expquad', 1), ('maternp2', 1), ('expon', 1), ('terms', 1),
 def zoo_times(label, names=()):
     """`--zoo-times LABEL [NAME ...]`: kernel C's and its fused backward's
     device time (`device_ms` of the named kernel, as `kernel_zoo` times
-    them) on each of ZOO_TIMES at 16384², in float32 and float64, E, C′,
-    C″ on Matérn-ν at p = 1, and D on Matérn-ν ('high', n = 65536;
-    float64, n = 32768), with no check and no plain version, so that two
+    them) on each of ZOO_TIMES at 16384² (`record_points`), in float32 and
+    float64, E, C′, C″ on Matérn-ν at p = 1, and D on Matérn-ν and on
+    'sfb' at the Hurst path's points ('high', n = 65536; float64, n =
+    32768), with no check and no plain version, so that two
     checkouts can be timed in turns in one call (copy this script into the
     other checkout); the times in a JSON line, the checkout's ``LABEL``
     with them.  Given ``names``, only the rows of ZOO_TIMES with those
@@ -5509,7 +5730,7 @@ def zoo_times(label, names=()):
         for name, p in ZOO_TIMES:
             if names and name not in names:
                 continue
-            X = zoo_points(p, N, dtype, gen)
+            X = record_points(name, p, N, dtype, gen)
             desc = ('expquad' if name == 'expquad'
                     else zoo_desc(name, dtype))
             post = (('mul', torch.tensor(1.3, device='cuda', dtype=dtype)),) \
@@ -5568,16 +5789,58 @@ def zoo_times(label, names=()):
         n = N_STREAM if dtype == torch.float32 else N_CHECK
         size = n // 2
         kw = dict(device='cuda', dtype=dtype, generator=gen)
-        Xd = (torch.rand(n, 1, **kw) - 0.5) * (400 * n / N_STREAM)
         A = torch.randn(size, size, **kw) / math.sqrt(size)
-        key = f'schur_update_gram/matern/{label_dt}'
-        out[key] = median_ms(lambda: _syrk.schur_update_gram(
-            desc, Xd, A, eps=noise, nreal=n - 300, size=size, offset=size,
-            tile=512), 3)
-        log(f'  {label} {key}: {out[key]:.3f} ms')
-        del Xd, A
+        # D on Matérn-ν at the streaming span's points, on 'sfb' at the
+        # Hurst path's (t = 0 … n−1)
+        for dname in ('matern', 'sfb'):
+            desc = zoo_desc(dname, dtype)
+            Xd = record_points('sfbpath', 1, n, dtype, gen) \
+                if dname == 'sfb' else \
+                (torch.rand(n, 1, **kw) - 0.5) * (400 * n / N_STREAM)
+            key = f'schur_update_gram/{dname}/{label_dt}'
+            out[key] = median_ms(lambda: _syrk.schur_update_gram(
+                desc, Xd, A, eps=noise, nreal=n - 300, size=size,
+                offset=size, tile=512), 3)
+            log(f'  {label} {key}: {out[key]:.3f} ms')
+            del Xd
+        del A
         torch.cuda.empty_cache()
     print(json.dumps({'zoo_times': label, 'times': out}), flush=True)
+
+
+def hurst_evals(label, evals=9):
+    """`--hurst-evals LABEL`: the Hurst path's dense float32 value +
+    gradient (`hurst_phase`'s model and data, n = N, ``gram='tiled'``, the
+    noise as givencov) at the prior's mean, ``evals`` times after one
+    warm-up, host clock to a synchronize; no check, the public API only,
+    so that two checkouts can be timed in turns in one call.  Prints the
+    times in a JSON line with the checkout's ``LABEL``."""
+    import torch
+    import lsqfitgp_torch as lgp
+    torch.set_default_dtype(torch.float32)
+    t, y = hurst_data(N)
+    tt, yt = torch.as_tensor(t, device='cuda'), torch.as_tensor(y,
+                                                               device='cuda')
+    lp = torch.tensor([HURST_PRIOR[k][0] for k in ('log(amp)', 'h',
+                                                   'log(noise)')],
+                      device='cuda', requires_grad=True)
+
+    def step():
+        k = lp[0].exp() * lgp.StationaryFracBrownian(H=torch.sigmoid(lp[1]))
+        nll = -lgp.GP(k, gram='tiled').addx(tt, 'obs').marginal_likelihood(
+            {'obs': yt}, lp[2].exp())
+        torch.autograd.grad(nll, lp)
+        torch.cuda.synchronize()
+
+    step()
+    times = []
+    for _ in range(evals):
+        t0 = time.perf_counter()
+        step()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f'  {label} hurst dense value + gradient, n = {N}: median '
+        f'{statistics.median(times):.2f} ms of {[round(v, 2) for v in times]}')
+    print(json.dumps({'hurst_evals': label, 'ms': times}), flush=True)
 
 
 def main(argv):
@@ -5609,6 +5872,10 @@ def main(argv):
     if argv == ['--dense64']:
         build()
         dense64_phase(OPTIMUM)
+        return 0
+    if argv[:1] == ['--hurst-evals'] and len(argv) == 2:
+        build()
+        hurst_evals(argv[1])
         return 0
     if argv[:1] == ['--zoo-times'] and len(argv) >= 2:
         build()
@@ -5662,7 +5929,7 @@ def main(argv):
     if argv in (['--hurst'], ['--evidence']):
         build()
         gen = torch.Generator(device='cuda').manual_seed(SEED)
-        names = ('sfb',) if argv == ['--hurst'] else (
+        names = ('sfb', 'sfbpath', 'sfb_table') if argv == ['--hurst'] else (
             'matern', 'matern07', 'matern_table', 'bessel', 'pink', 'color')
         for name, fn, _, _, variants in core_kernel_specs():
             if any(f' {k} ' in f' {name} '.replace('/', ' ')

@@ -1490,6 +1490,17 @@ int launch_matern_table(double nu, int kind, T* out, void* stream)
         nu, kind, out);
     return (int)cudaGetLastError();
 }
+
+// sfb_table_kernel (profiles.cuh): one warp, a thread per term
+template <typename T>
+int launch_sfb_table(const T* params, int nterms, unsigned long long codes,
+                     T* out, void* stream)
+{
+    if (nterms < 1 || nterms > MAXTERMS) return (int)cudaErrorInvalidValue;
+    sfb_table_kernel<T><<<1, 32, 0, (cudaStream_t)stream>>>(params, nterms,
+                                                            codes, out);
+    return (int)cudaGetLastError();
+}
 #endif
 
 }  // namespace
@@ -1585,11 +1596,21 @@ int lsq_matern_table_f32(double nu, int kind, float* out, void* stream)
 {
     return launch_matern_table(nu, kind, out, stream);
 }
+int lsq_sfb_table_f32(const float* params, int nterms,
+                      unsigned long long codes, float* out, void* stream)
+{
+    return launch_sfb_table(params, nterms, codes, out, stream);
+}
 #elif LSQ_GRAM_SPECIAL == 64
 LSQ_GRAM(double, _zs_f64)
 int lsq_matern_table_f64(double nu, int kind, double* out, void* stream)
 {
     return launch_matern_table(nu, kind, out, stream);
+}
+int lsq_sfb_table_f64(const double* params, int nterms,
+                      unsigned long long codes, double* out, void* stream)
+{
+    return launch_sfb_table(params, nterms, codes, out, stream);
 }
 #else
 LSQ_GRAM(float, _f32)

@@ -15,6 +15,11 @@
 // and E.  Its work is the quadrature at (E_HI - E_LO) MTAB_SUB NC nodes,
 // about a thousand, in float64: the launch, not its bytes or operations,
 // bounds it.
+//
+// And StationaryFracBrownian's coefficient builder, sfb_table_kernel
+// (profiles.cuh), entry point lsq_sfb_table_f32 (_f64 in
+// gram_special_f64.cu): one launch per launch of a kernel on a term list
+// with an 'sfb' term, before it (ops/_gram.py sfb_table).
 
 #define LSQ_GRAM_SPECIAL 32
 #include "gram.cu"

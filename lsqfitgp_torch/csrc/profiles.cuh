@@ -48,14 +48,16 @@
 // order, Bessel, Pink and Color.  StationaryFracBrownian's three powers
 // of about t^2H cancel to a value of about t^(2H-2) (an error of 0.1 in
 // float32 at t = 16384, H = 0.75, against a value of 0.003): from
-// SFB_SERIES on it sums the binomial series t^2H sum_j C(2H, 2j) t^-2j,
-// SFB_TERMS terms, and its t- and H-derivatives from the same sums.
+// SFB_SERIES on it sums the binomial series t^2H sum_j C(2H, 2j) t^-2j
+// and its t- and H-derivatives by Horner, J(t) terms, on coefficients
+// that sfb_table_kernel forms once per launch (SfbTerms).
 // Matern's and Bessel's static orders, Pink's delta-omega and
 // StationaryFracBrownian's H ride the argument a (the orders without a
 // gradient); Color's n is k.  Their special functions are in
 // special.cuh; the cores are functions of their own, not inlined,
 // reached through term functions of their own (special_term, and
-// matern_term for the real-order Matern, which reads its tables) that
+// matern_term and sfb_term for the real-order Matern and for
+// StationaryFracBrownian, which read their tables) that
 // only ZooSpecial calls: a kernel takes the registers of every function
 // its code can call (one Zoo for all cores made the earlier profiles'
 // kernels take 64 registers where they took 48, and their backwards
@@ -290,16 +292,142 @@ struct Core {
     T g, g1, g2, ga, gb;
 };
 
-// StationaryFracBrownian's series: the number of terms per dtype
-// (ops/_gram.py SFB_SERIES, SFB_TERMS)
+// StationaryFracBrownian's series from t = SFB_SERIES on (ops/_gram.py
+// SFB_SERIES, SFB_TERMS, sfb_terms, sfb_parts_plain):
+//
+//     g = t^(alpha - 2) h0,  h0 = sum_{j >= 1} c_j z^(j - 1),  z = t^-2,
+//
+// c_j = C(alpha, 2j), alpha = 2H, and the sums of the derivatives with
+// c_j m_j, c_j m_j (m_j - 1) (m_j = alpha - 2j) and dc_j = dC(alpha,
+// 2j)/dalpha in place of c_j.  The coefficients are the same for every
+// entry of a launch: sfb_table_kernel forms them once per launch, in
+// float64 by the product recurrence C(alpha, i + 1) = C(alpha, i) (alpha -
+// i) / (i + 1), and each entry sums by Horner, with no division, J(t)
+// terms, at most SfbTerms<T>::n (14 in float32, 30 in float64).
+//
+// J(t) is the fewest terms whose tail stays below the unit roundoff u of
+// the sums' leading terms.  For alpha in (0, 2] and m >= 2, |C(alpha,
+// m + 1) / C(alpha, m)| = (m - alpha) / (m + 1) < m / (m + 1), so
+// |C(alpha, m)| <= 2 |c_1| / m; with c_j m_j = (2j + 1) C(alpha, 2j + 1)
+// and c_j m_j (m_j - 1) = (2j + 1)(2j + 2) C(alpha, 2j + 2):
+//     |c_j| <= |c_1| / j,  |c_j m_j| <= 2 |c_1|,
+//     |c_j m_j (m_j - 1)| <= 2 (2j + 1) |c_1|,
+//     |dc_j| <= b_j = (1 + 2 H_{2j-1}) / (2j)  (H_n the harmonic number,
+//         from |alpha| + |alpha - 1| <= 3 and |alpha (alpha - 1)| <= 2).
+// After J terms the tails, relative to the leading term's bound, |c_1| z
+// for g, g' and g'' and (|c_1| + |dc_1|) z >= z / 8 for dg/dH, are at most
+// z^J G(J, z):
+//     g:        G0 = 1 / ((J + 1)(1 - z))
+//     g', dH:   G1 = max(G0, 2 / (1 - z), 8 b_{J+1} / (1 - z))
+//     g'':      G2 = max(G1, 2 (2J + 3) / (1 - z) + 4 z / (1 - z)^2)
+// J is the least with z^J G(J, z) <= u at the largest z of z's bucket:
+// z's exponent and its top two mantissa bits, q = (bits(1/4) - bits(z))
+// >> (mantissa bits - 2), where z <= 2^(-2 - q/4) (1 - (q % 4) / 8) (z <=
+// 1/4 as t >= 2); no logarithm.  kSfbJ holds J per bucket and kind of
+// sums, formed here at compile time; from bucket SfbTerms<T>::NQ on, J
+// = 1.  The rule holds for H in (0, 1]; an H outside takes the ceiling.
+// The ceiling misses it only for g'' (kernels C'' and E'') next to t = 2:
+// float32 would take 16 terms at t = 2, and 14 leave a tail of 5.3 u
+// (float64: 31 and 1.3 u).
 constexpr double SFB_SERIES = 2.0;
+constexpr int SFB_COLS = 4;  // per j: c, c m, c m (m - 1), dc
 template <typename T> struct SfbTerms;
-template <> struct SfbTerms<float> { static constexpr int n = 14; };
-template <> struct SfbTerms<double> { static constexpr int n = 30; };
+template <> struct SfbTerms<float> {
+    static constexpr int n = 14;      // the ceiling
+    static constexpr int NQ = 112;    // the buckets with a tabulated J
+    static constexpr int SHIFT = 21;  // to z's exponent and 2 mantissa bits
+    static constexpr double U = 5.9604644775390625e-08;  // 2^-24
+};
+template <> struct SfbTerms<double> {
+    static constexpr int n = 30;
+    static constexpr int NQ = 228;
+    static constexpr int SHIFT = 50;
+    static constexpr double U = 1.1102230246251565e-16;  // 2^-53
+};
 
-// StationaryFracBrownian, alpha = 2 H, H = a (ops/_gram.py _sfb_parts)
+// the largest z of bucket q
+constexpr double sfb_zmax(int q)
+{
+    double z = 0.25 * (1.0 - (q % 4) / 8.0);
+    for (int i = 0; i < q / 4; ++i) z *= 0.5;
+    return z;
+}
+
+// z^J G(J, z) for the sums of kind 0 (g), 1 (with g' and dg/dH) or 2
+// (with g'')
+constexpr double sfb_tail(int kind, int J, double z)
+{
+    const double r = 1.0 / (1.0 - z);
+    double h = 0.0;  // H_{2J+1}, for b_{J+1}
+    for (int i = 1; i <= 2 * J + 1; ++i) h += 1.0 / i;
+    double g = r / (J + 1);
+    if (kind >= 1) {
+        const double b = (1.0 + 2.0 * h) / (2.0 * (J + 1));
+        g = g > 2.0 * r ? g : 2.0 * r;
+        g = g > 8.0 * b * r ? g : 8.0 * b * r;
+    }
+    if (kind >= 2) {
+        const double g2 = 2.0 * (2 * J + 3) * r + 4.0 * z * r * r;
+        g = g > g2 ? g : g2;
+    }
+    for (int i = 0; i < J; ++i) g *= z;
+    return g;
+}
+
+constexpr int sfb_terms_at(int kind, int q, double u, int jmax)
+{
+    int J = 1;
+    while (J < jmax && sfb_tail(kind, J, sfb_zmax(q)) > u) ++J;
+    return J;
+}
+
+struct SfbJTable {
+    unsigned char f[3][SfbTerms<float>::NQ];
+    unsigned char d[3][SfbTerms<double>::NQ];
+};
+
+constexpr SfbJTable make_sfbj()
+{
+    SfbJTable t{};
+    for (int k = 0; k < 3; ++k) {
+        for (int q = 0; q < SfbTerms<float>::NQ; ++q)
+            t.f[k][q] = (unsigned char)sfb_terms_at(
+                k, q, SfbTerms<float>::U, SfbTerms<float>::n);
+        for (int q = 0; q < SfbTerms<double>::NQ; ++q)
+            t.d[k][q] = (unsigned char)sfb_terms_at(
+                k, q, SfbTerms<double>::U, SfbTerms<double>::n);
+    }
+    return t;
+}
+
+// from bucket NQ on, one term holds every kind
+static_assert(sfb_terms_at(2, SfbTerms<float>::NQ, SfbTerms<float>::U, 99)
+                  == 1, "float32: one term from bucket NQ on");
+static_assert(sfb_terms_at(2, SfbTerms<double>::NQ, SfbTerms<double>::U,
+                           99) == 1, "float64: one term from bucket NQ on");
+
+static __constant__ SfbJTable kSfbJ = make_sfbj();
+
+// J(t) from z = t^-2 <= 1/4
+template <int KIND>
+__device__ __forceinline__ int sfb_terms(float z)
+{
+    const int q = (0x3e800000 - __float_as_int(z)) >> SfbTerms<float>::SHIFT;
+    return q < SfbTerms<float>::NQ ? kSfbJ.f[KIND][q] : 1;
+}
+template <int KIND>
+__device__ __forceinline__ int sfb_terms(double z)
+{
+    const long long q = (0x3fd0000000000000LL - __double_as_longlong(z))
+        >> SfbTerms<double>::SHIFT;
+    return q < SfbTerms<double>::NQ ? kSfbJ.d[KIND][q] : 1;
+}
+
+// StationaryFracBrownian, alpha = 2 H, H = a (ops/_gram.py _sfb_parts,
+// sfb_parts_plain); tab: the term's coefficients, SFB_COLS per j from
+// j = 1 (sfb_table_kernel)
 template <typename T, bool D1, bool D2, bool DA>
-__device__ __noinline__ Core<T> sfb_core(T t, T a)
+__device__ __noinline__ Core<T> sfb_core(T t, T a, const T* __restrict__ tab)
 {
     Core<T> o{T(0), T(0), T(0), T(0), T(0)};
     const T al = T(2) * a;
@@ -323,31 +451,29 @@ __device__ __noinline__ Core<T> sfb_core(T t, T a)
         }
         return o;
     }
-    // t^alpha sum_{j>=1} C(alpha, 2j) t^-2j; C and dC/dalpha by the
-    // product recurrence C(alpha, i+1) = C(alpha, i) (alpha - i) / (i + 1)
-    const T z = T(1) / (t * t), lt = dlog(t), P = dexp(al * lt);
-    T c = T(1), dc = T(0), zj = T(1);
-    T s0 = T(0), s1 = T(0), s2 = T(0), sh = T(0);
+    constexpr int KIND = D2 ? 2 : (D1 || DA) ? 1 : 0;
+    const T z = T(1) / (t * t), lt = dlog(t);
+    // t^(alpha - 2): g = t^alpha s0 with s0 = z h0, and the same for the
+    // other sums; 1 / t = z t
+    const T Pz = dexp((al - T(2)) * lt);
+    const int J = a > T(0) && a <= T(1) ? sfb_terms<KIND>(z)
+                                        : SfbTerms<T>::n;
+    const T* r = tab + SFB_COLS * (J - 1);
+    T h0 = r[0];
+    T h1 = D1 ? r[1] : T(0), h2 = D2 ? r[2] : T(0), hh = DA ? r[3] : T(0);
 #pragma unroll 1
-    for (int j = 1; j <= SfbTerms<T>::n; ++j) {
-#pragma unroll
-        for (int i = 2 * j - 2; i < 2 * j; ++i) {
-            const T ai = al - T(i), inv = T(i + 1);
-            const T cn = c * ai / inv;
-            dc = (dc * ai + c) / inv;
-            c = cn;
-        }
-        zj *= z;
-        const T m = al - T(2 * j);
-        s0 += c * zj;
-        if (D1) s1 += c * m * zj;
-        if (D2) s2 += c * m * (m - T(1)) * zj;
-        if (DA) sh += dc * zj;
+    for (int j = J - 1; j >= 1; --j) {
+        r -= SFB_COLS;
+        h0 = fma(h0, z, r[0]);
+        if (D1) h1 = fma(h1, z, r[1]);
+        if (D2) h2 = fma(h2, z, r[2]);
+        if (DA) hh = fma(hh, z, r[3]);
     }
-    o.g = P * s0;
-    o.g1 = P / t * s1;
-    o.g2 = P / (t * t) * s2;
-    o.ga = T(2) * P * (sh + lt * s0);
+    o.g = Pz * h0;
+    if (D1) o.g1 = Pz * h1 * (z * t);
+    if (D2) o.g2 = Pz * h2 * z;
+    // dg/dH = 2 t^alpha (sh + s0 log t)
+    if (DA) o.ga = T(2) * Pz * fma(lt, h0, hh);
     return o;
 }
 
@@ -772,15 +898,13 @@ __device__ __forceinline__ Core<T> core_eval(int id, int k, T t, T a, T b)
     return o;
 }
 
-// The special-function cores (ids from PROFILE_SFB on, but the real-order
+// The special-function cores (ids above PROFILE_SFB, but the real-order
 // Matern's, which matern_term takes), each a call
 template <typename T, bool D1, bool D2, bool DA>
 __device__ __forceinline__ Core<T> special_eval(int id, int k, T t, T a,
                                                 T b)
 {
     switch (id) {
-    case PROFILE_SFB:
-        return sfb_core<T, D1, D2, DA>(t, a);
     case PROFILE_BESSEL:
         return bessel_core<T, D1, D2>(a, t);
     case PROFILE_PINK:
@@ -791,9 +915,9 @@ __device__ __forceinline__ Core<T> special_eval(int id, int k, T t, T a,
 }
 
 // the cores a term function evaluates: the closed forms' switch, the
-// special-function cores' switch, or the real-order Matern with its
-// tables
-enum { CORES_CLOSED = 0, CORES_SPECIAL = 1, CORES_MATERN = 2 };
+// special-function cores' switch, the real-order Matern with its tables
+// or StationaryFracBrownian with its coefficients (tf)
+enum { CORES_CLOSED = 0, CORES_SPECIAL = 1, CORES_MATERN = 2, CORES_SFB = 3 };
 
 template <typename T, bool D1, bool D2, bool DA, int CORES>
 __device__ __forceinline__ Core<T> cores_eval(int id, int k, T t, T a, T b,
@@ -801,6 +925,8 @@ __device__ __forceinline__ Core<T> cores_eval(int id, int k, T t, T a, T b,
 {
     if constexpr (CORES == CORES_MATERN)
         return matern_core<T, D1, D2>(a, t, tf, td);
+    else if constexpr (CORES == CORES_SFB)
+        return sfb_core<T, D1, D2, DA>(t, a, tf);
     else if constexpr (CORES == CORES_SPECIAL)
         return special_eval<T, D1, D2, DA>(id, k, t, a, b);
     else
@@ -840,9 +966,10 @@ __device__ __forceinline__ Core<T> term_modes(unsigned code, T u, T a, T b,
 // minutes to build; one call per term and entry instead.  A kernel takes
 // the registers of every function its code can call, so the closed
 // forms' evaluator (Zoo) calls closed_term only, and the special cores'
-// (ZooSpecial) picks it, special_term or matern_term by the term's id:
-// only the real-order Matern's call takes the table pointers, so the
-// other special cores' calls pass what they passed before the tables.
+// (ZooSpecial) picks it, special_term, matern_term or sfb_term by the
+// term's id: only the real-order Matern's and StationaryFracBrownian's
+// calls take table pointers, so the other special cores' calls pass what
+// they passed before the tables.
 template <typename T, bool D1, bool D2, bool DA>
 __device__ __noinline__ Core<T> closed_term(unsigned code, T u, T a, T b)
 {
@@ -864,7 +991,16 @@ __device__ __noinline__ Core<T> matern_term(unsigned code, T u, T a, T b,
     return term_modes<T, D1, D2, DA, CORES_MATERN>(code, u, a, b, tf, td);
 }
 
-// tf, td: the term's Matern tables (matern_term's)
+template <typename T, bool D1, bool D2, bool DA>
+__device__ __noinline__ Core<T> sfb_term(unsigned code, T u, T a,
+                                         const T* tab)
+{
+    return term_modes<T, D1, D2, DA, CORES_SFB>(code, u, a, T(0), tab,
+                                                nullptr);
+}
+
+// tf, td: the term's tables (matern_term's two; sfb_term's coefficients
+// in tf)
 template <typename T, bool D1, bool D2, bool DA, bool SPECIAL = true>
 __device__ __forceinline__ Core<T> term_eval(unsigned code, T u, T a, T b,
                                              const T* tf = nullptr,
@@ -872,7 +1008,9 @@ __device__ __forceinline__ Core<T> term_eval(unsigned code, T u, T a, T b,
 {
     if (SPECIAL && (code & 31u) == PROFILE_MATERN)
         return matern_term<T, D1, D2, DA>(code, u, a, b, tf, td);
-    if (SPECIAL && (code & 31u) >= PROFILE_SFB)
+    if (SPECIAL && (code & 31u) == PROFILE_SFB)
+        return sfb_term<T, D1, D2, DA>(code, u, a, tf);
+    if (SPECIAL && (code & 31u) > PROFILE_SFB)
         return special_term<T, D1, D2, DA>(code, u, a, b);
     return closed_term<T, D1, D2, DA>(code, u, a, b);
 }
@@ -882,9 +1020,10 @@ __device__ __forceinline__ unsigned term_code(unsigned long long codes, int t)
     return (unsigned)(codes >> (16 * t)) & 0xffffu;
 }
 
-// The tables of the terms' real-order Matern cores (special.cuh MTab):
-// per term t the device pointer of its value table, f[t], and of its
-// first derivative's, d[t], null for a term without; a launch argument
+// The terms' tables: per term t of a real-order Matern core (special.cuh
+// MTab) the device pointer of its value table, f[t], and of its first
+// derivative's, d[t]; of a StationaryFracBrownian core its coefficients
+// (sfb_table_kernel's), f[t]; null for a term without.  A launch argument
 // of every kernel (only ZooSpecial reads it), read through the cache.
 struct MTabs {
     const void* f[MAXTERMS];
@@ -901,6 +1040,43 @@ inline MTabs host_tabs(const void* const* p)
         m.d[t] = p ? p[MAXTERMS + t] : nullptr;
     }
     return m;
+}
+
+// StationaryFracBrownian's coefficients for the launch that follows
+// (sfb_core; ops/_gram.py sfb_table): for each 'sfb' term t of the list,
+// SfbTerms<T>::n rows of SFB_COLS at out + t SFB_COLS SfbTerms<T>::n,
+// from the device value of alpha = 2 params[2 + 4 t + 2] (H carries a
+// gradient: no host read), by the product recurrence in float64, rounded
+// to T.  One warp, a thread per term.  It replaces no TPU kernel: the JAX
+// package evaluates the three powers at every lag (which cancel at large
+// lags), and kernel C took the recurrence at every entry, four divisions
+// a term; the table leaves each entry a Horner sum.  Its work is 2
+// SfbTerms<T>::n dependent steps of two float64 divisions in one thread:
+// latency, not bytes or operations, bounds it.
+template <typename T>
+__global__ void __launch_bounds__(32)
+sfb_table_kernel(const T* __restrict__ params, int nterms,
+                 unsigned long long codes, T* __restrict__ out)
+{
+    constexpr int J = SfbTerms<T>::n;
+    const int t = threadIdx.x;
+    if (t >= nterms || (term_code(codes, t) & 31u) != PROFILE_SFB) return;
+    const double al = 2.0 * (double)params[2 + TERMPAR * t + 2];
+    T* o = out + t * SFB_COLS * J;
+    double c = 1.0, dc = 0.0;
+    for (int j = 1; j <= J; ++j) {
+        for (int i = 2 * j - 2; i < 2 * j; ++i) {
+            const double ai = al - i, inv = i + 1;
+            const double cn = c * ai / inv;
+            dc = (dc * ai + c) / inv;
+            c = cn;
+        }
+        const double m = al - 2 * j;
+        o[SFB_COLS * (j - 1) + 0] = (T)c;
+        o[SFB_COLS * (j - 1) + 1] = (T)(c * m);
+        o[SFB_COLS * (j - 1) + 2] = (T)(c * m * (m - 1.0));
+        o[SFB_COLS * (j - 1) + 3] = (T)dc;
+    }
 }
 
 // The single ExpQuad term with w = 1: K = c g(r2) + b.

@@ -42,7 +42,8 @@ struct InitScaled {
 // (profiles.cuh, the ZooSpecial evaluator: any registered profile and
 // term sum) computed from the points X (npad x dim, row-major, global rows)
 // with the parameter vector params, eps at params[1], and the terms'
-// real-order Matern tables tb (read through the cache).  By
+// tables tb (the real-order Matern's and StationaryFracBrownian's, read
+// through the cache).  By
 // GLOBAL index, entries with a row or column >= nreal are 0 off the
 // diagonal and exactly 1 on it.
 template <typename T>

@@ -87,6 +87,9 @@ _SIGNATURES = {
     # the real-order Matérn's table builder (csrc/special.cuh, its entry
     # points in gram_special.cu and gram_special_f64.cu)
     'lsq_matern_table': ([ctypes.c_double, _I32, _P, _P], _BOTH),
+    # StationaryFracBrownian's coefficient builder (csrc/profiles.cuh, its
+    # entry points in gram_special.cu and gram_special_f64.cu)
+    'lsq_sfb_table': ([_P, _I32, _U64, _P, _P], _BOTH),
 }
 
 _state = {}

@@ -91,6 +91,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import math
 
 import torch
@@ -104,7 +105,8 @@ __all__ = ['gram', 'gram_plain', 'gram_sym', 'gram_sym_plain',
            'gram_sym_jvp', 'gram_sym_jvp_plain', 'gram_backward_jvp',
            'gram_backward_jvp_plain', 'gram_sym_backward_jvp',
            'gram_sym_backward_jvp_plain', 'Profile', 'PROFILES', 'Term',
-           'Terms', 'MAXTERMS', 'MATERNP_MAX', 'k0', 'map_scalars']
+           'Terms', 'MAXTERMS', 'MATERNP_MAX', 'k0', 'map_scalars',
+           'sfb_table', 'sfb_coeffs_plain', 'sfb_parts_plain', 'sfb_terms']
 
 # the device code's limits (csrc/profiles.cuh): terms of a sum, and the
 # largest Maternp order of its coefficient table
@@ -574,6 +576,148 @@ def _sfb_profile():
                    lambda t, k, a, b: (_sfb_parts(t, a, (3,))[3], None))
 
 
+# StationaryFracBrownian on the card (csrc/profiles.cuh sfb_core): from
+# SFB_SERIES on, t^(α−2) times Horner sums in z = t⁻² of coefficients
+# that `sfb_table` forms once per launch, SFB_COLS per j = 1 …
+# SFB_TERMS[dtype] (C(α, 2j), its multiples C(α, 2j) m and C(α, 2j) m (m
+# − 1) for g' and g'', m = α − 2j, and its α-derivative), J(t) terms an
+# entry (`sfb_terms`).  `sfb_coeffs_plain` is the table's plain version,
+# `sfb_parts_plain` that evaluation's; `_sfb_parts`, with every term at
+# every entry, stays the plain Gram's.
+SFB_COLS = 4
+# J(t)'s buckets (csrc/profiles.cuh SfbTerms, where the rule is derived):
+# the bits of 1/4, the shift to z's exponent and top two mantissa bits,
+# the buckets with a tabulated J, and the unit roundoff
+_SFB_BUCKETS = {torch.float32: (0x3e800000, 21, 112, 2.0 ** -24),
+                torch.float64: (0x3fd0000000000000, 50, 228, 2.0 ** -53)}
+
+
+def _sfb_zmax(q):
+    """The largest z of bucket q."""
+    return 0.25 * (1 - (q % 4) / 8) * 0.5 ** (q // 4)
+
+
+def _sfb_tail(kind, J, z):
+    """The bound z^J G(J, z) on the tails after J terms of the sums of
+    kind 0 (g), 1 (g, g' and ∂g/∂H) or 2 (with g''), relative to their
+    leading terms' bounds (csrc/profiles.cuh)."""
+    r = 1 / (1 - z)
+    g = r / (J + 1)
+    if kind >= 1:
+        h = sum(1 / i for i in range(1, 2 * J + 2))
+        g = max(g, 2 * r, 8 * (1 + 2 * h) / (2 * (J + 1)) * r)
+    if kind >= 2:
+        g = max(g, 2 * (2 * J + 3) * r + 4 * z * r * r)
+    return g * z ** J
+
+
+@functools.lru_cache(maxsize=None)
+def _sfb_jtable(dtype, kind):
+    """J per bucket: the fewest terms whose tail bound at the bucket's
+    largest z is at most u, SFB_TERMS[dtype] at most."""
+    _, _, nq, u = _SFB_BUCKETS[dtype]
+    out = []
+    for q in range(nq):
+        J = 1
+        while J < SFB_TERMS[dtype] and _sfb_tail(kind, J, _sfb_zmax(q)) > u:
+            J += 1
+        out.append(J)
+    return tuple(out)
+
+
+def sfb_terms(t, kind=0):
+    """J(t), the terms the device sums at each lag t ≥ SFB_SERIES of t's
+    dtype for the sums of ``kind`` (0: g, as kernels C and E; 1: with g'
+    and ∂g/∂H, as the backwards and C′; 2: with g'', C″): from the bits
+    of z = t⁻² (its exponent and top two mantissa bits), no logarithm."""
+    z0, shift, nq, _ = _SFB_BUCKETS[t.dtype]
+    ibits = torch.int32 if t.dtype == torch.float32 else torch.int64
+    z = 1 / (t * t)
+    q = ((z0 - z.view(ibits).long()) >> shift).clamp(0, nq)
+    tab = torch.tensor(_sfb_jtable(t.dtype, kind) + (1,), device=t.device)
+    return tab[q]
+
+
+def sfb_coeffs_plain(H, jmax=SFB_TERMS[torch.float64]):
+    """The coefficient table of `sfb_table` in float64 torch: rows j = 1 …
+    ``jmax`` of (C(α, 2j), C(α, 2j) m, C(α, 2j) m (m − 1), ∂C(α, 2j)/∂α),
+    α = 2H, m = α − 2j, by the product recurrence C(α, i + 1) = C(α, i)
+    (α − i)/(i + 1) in float64 (the device's arithmetic, which may fuse a
+    multiply-add)."""
+    al = 2 * float(H)
+    c, dc = 1.0, 0.0
+    rows = []
+    for j in range(1, jmax + 1):
+        for i in (2 * j - 2, 2 * j - 1):
+            ai, inv = al - i, i + 1
+            c, dc = c * ai / inv, (dc * ai + c) / inv
+        m = al - 2 * j
+        rows.append((c, c * m, c * m * (m - 1), dc))
+    return torch.tensor(rows, dtype=torch.float64)
+
+
+def sfb_parts_plain(t, a, parts=(0, 1, 2, 3)):
+    """The plain version of the device's 'sfb' core (csrc/profiles.cuh
+    sfb_core), in t's dtype: the requested ``parts`` of (g, g', g'',
+    ∂g/∂H) at H = a; below SFB_SERIES `_sfb_parts`' three powers, from
+    there t^(α−2) times Horner sums in z = t⁻² over the table
+    (`sfb_coeffs_plain` rounded to the dtype), J(t) terms (`sfb_terms` of
+    the least kind of sums that has ``parts``, as the device's
+    instantiation that computes them; an H outside (0, 1] takes every
+    term); None for a part not asked."""
+    dtype = t.dtype
+    lo = _sfb_parts(t, a, parts)
+    tab = sfb_coeffs_plain(a, SFB_TERMS[dtype]).to(dtype=dtype,
+                                                   device=t.device)
+    th = torch.clamp(t, min=SFB_SERIES)
+    z, lt = 1 / (th * th), torch.log(th)
+    J = sfb_terms(th, 2 if 2 in parts else 1 if 1 in parts or 3 in parts
+                  else 0)
+    if not 0 < float(a) <= 1:
+        J = torch.full_like(J, SFB_TERMS[dtype])
+    h = [torch.zeros_like(t) for _ in range(SFB_COLS)]
+    for j in range(SFB_TERMS[dtype], 0, -1):
+        on = j <= J
+        h = [torch.where(on, hc * z + tab[j - 1, k], hc)
+             for k, hc in enumerate(h)]
+    Pz = torch.exp((2 * a - 2) * lt)
+    hi = (lambda: Pz * h[0], lambda: Pz * h[1] * (z * th),
+          lambda: Pz * h[2] * z, lambda: 2 * Pz * (lt * h[0] + h[3]))
+    small = t < SFB_SERIES
+    return tuple(torch.where(small, lo[i], hi[i]()) if i in parts else None
+                 for i in range(4))
+
+
+def _sfb_launch(fv, nterms, codes):
+    """`sfb_table_kernel` on the folded vector ``fv`` (CUDA): the (MAXTERMS,
+    SFB_TERMS, SFB_COLS) buffer, filled for the 'sfb' terms of ``codes``."""
+    out = fv.new_empty((MAXTERMS, SFB_TERMS[fv.dtype], SFB_COLS))
+    err = getattr(_build.lib(), 'lsq_sfb_table' + _suffix(fv.dtype))(
+        _ptr(fv), nterms, codes, _ptr(out), _stream(fv.device))
+    _build.check(err, 'sfb_table')
+    sfb_table.launches += 1
+    return out
+
+
+def sfb_table(H):
+    """StationaryFracBrownian's coefficient table at H (a 0-d tensor; its
+    dtype and device): (SFB_TERMS[dtype], SFB_COLS), the rows of
+    `sfb_coeffs_plain`.  On CUDA, `sfb_table_kernel`
+    (``csrc/profiles.cuh``), the launch every kernel on an 'sfb' term
+    takes before its own (`sfb_table.launches` counts both); on the CPU
+    the plain version, rounded to the dtype."""
+    if H.device.type == 'cpu':
+        return sfb_coeffs_plain(H, SFB_TERMS[H.dtype]).to(H.dtype)
+    _suffix(H.dtype)
+    fv = torch.stack([H.new_zeros(()), H.new_zeros(()), H.new_ones(()),
+                      H.new_ones(()), H.detach().reshape(()),
+                      H.new_zeros(())])
+    return _sfb_launch(fv, 1, PROFILES['sfb'].id)[0]
+
+
+sfb_table.launches = 0
+
+
 def _matern_parts(t, a, j):
     """The j-th t-derivative of the Matérn profile of real order ν = a
     (static) in t = r²: s^j f_ν^{(j)}(s t), s = 2ν (2 at ν = 0), f_ν =
@@ -826,6 +970,26 @@ def _mtabs(st, x):
     if not any(ptrs):
         return None
     return (ctypes.c_void_p * (2 * MAXTERMS))(*ptrs)
+
+
+def _tabs(st, x, fv):
+    """`_mtabs`' pointers and, for an 'sfb' term, its coefficients in the
+    term's first slot, formed anew from the folded vector ``fv`` by one
+    launch of `sfb_table_kernel` for all the terms (the array keeps the
+    buffer until the launch that reads it is queued)."""
+    tabs = _mtabs(st, x)
+    terms = _leaves(st)
+    if not any(s.profile.name == 'sfb' for s in terms):
+        return tabs
+    nterms, codes, _ = _codes(st)
+    sfb = _sfb_launch(fv, nterms, codes)
+    if tabs is None:
+        tabs = (ctypes.c_void_p * (2 * MAXTERMS))()
+    for t, s in enumerate(terms):
+        if s.profile.name == 'sfb':
+            tabs[t] = sfb[t].data_ptr()
+    tabs.keep = sfb
+    return tabs
 
 
 def _chain(ops, vals, one, zero):
@@ -1210,7 +1374,7 @@ def _eval_cuda(st, x, y, fv, with_noise):
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
     err = getattr(_build.lib(), 'lsq_gram' + _SPECIAL_SUFFIX[ev] + suffix)(
         _ptr(x), _ptr(y), n, m, p, _ptr(fv), nterms, codes, int(with_noise),
-        ev, _ptr(out), _mtabs(st, x), _stream(x.device))
+        ev, _ptr(out), _tabs(st, x, fv), _stream(x.device))
     _build.check(err, 'gram')
     _count(gram, 'launches', st)
     return out
@@ -1230,7 +1394,7 @@ def _eval_sym_cuda(st, x, fv, with_noise):
     out = torch.empty((n, n), dtype=x.dtype, device=x.device)
     err = getattr(_build.lib(), 'lsq_gram_sym' + _SPECIAL_SUFFIX[ev] + suffix)(
         _ptr(x), n, p, _ptr(fv), nterms, codes, int(with_noise), ev,
-        _ptr(out), _mtabs(st, x), _stream(x.device))
+        _ptr(out), _tabs(st, x, fv), _stream(x.device))
     _build.check(err, 'gram_sym')
     _count(gram_sym, 'launches', st)
     return out
@@ -1290,7 +1454,7 @@ def _backward_cuda(G, st, x, y, fv, with_noise, need_xy, need_p):
     err = getattr(_build.lib(), 'lsq_gram_bwd' + _SPECIAL_SUFFIX[ev] + suffix)(
         _ptr(G), _ptr(x), _ptr(y), n, m, p, _ptr(fv), nterms, codes,
         int(with_noise), ev, int(need_xy), int(need_p), _wide(G, m),
-        _ptr(rowpart), _ptr(colpart), _ptr(scal), _mtabs(st, x),
+        _ptr(rowpart), _ptr(colpart), _ptr(scal), _tabs(st, x, fv),
         _stream(x.device))
     _build.check(err, 'gram backward')
     _count(gram, 'launches_bwd', st)
@@ -1316,7 +1480,7 @@ def _sym_backward_cuda(G, st, x, fv, with_noise, need_x, need_p):
     part = x.new_empty((nt, n, p)) if need_x else None
     scal = x.new_empty((nt * (nt + 1) // 2, _nsums(ev))) if need_p else None
     fn = getattr(_build.lib(), 'lsq_gram_sym_bwd' + _SPECIAL_SUFFIX[ev] + suffix)
-    tabs = _mtabs(st, x)
+    tabs = _tabs(st, x, fv)
     for d0 in _chunks(p, need_x):
         err = fn(_ptr(G), _ptr(x), n, p, d0, _ptr(fv), nterms, codes,
                  int(with_noise), ev, int(need_x), int(need_p and d0 == 0),
@@ -1357,7 +1521,7 @@ def _tangent_cuda(st, x, y, dx, dy, fv, dfv, with_noise):
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
     err = getattr(_build.lib(), 'lsq_gram_jvp' + _SPECIAL_SUFFIX[ev] + suffix)(
         _ptr(x), _ptr(y), _ptr(dx), _ptr(dy), n, m, p, _ptr(fv), _ptr(dfv),
-        nterms, codes, int(with_noise), ev, _ptr(out), _mtabs(st, x),
+        nterms, codes, int(with_noise), ev, _ptr(out), _tabs(st, x, fv),
         _stream(x.device))
     _build.check(err, 'gram tangent')
     _count(gram, 'launches_jvp', st)
@@ -1375,7 +1539,7 @@ def _sym_tangent_cuda(st, x, dx, fv, dfv, with_noise):
     out = torch.empty((n, n), dtype=x.dtype, device=x.device)
     err = getattr(_build.lib(), 'lsq_gram_sym_jvp' + _SPECIAL_SUFFIX[ev] + suffix)(
         _ptr(x), _ptr(dx), n, p, _ptr(fv), _ptr(dfv), nterms, codes,
-        int(with_noise), ev, _ptr(out), _mtabs(st, x), _stream(x.device))
+        int(with_noise), ev, _ptr(out), _tabs(st, x, fv), _stream(x.device))
     _build.check(err, 'gram_sym tangent')
     _count(gram_sym, 'launches_jvp', st)
     return out
@@ -1400,7 +1564,7 @@ def _bwd_tangent_cuda(G, one, x, y, dx, dy, coef, need_xy, need_s):
     colpart = x.new_empty((nbi, m, p)) if need_xy else None
     scal = x.new_empty((nbi * nbj, 3)) if need_s else None
     fn = getattr(_build.lib(), 'lsq_gram_bwd_jvp' + _SPECIAL_SUFFIX[ev] + suffix)
-    tabs = _mtabs(one.st, x)
+    tabs = _tabs(one.st, x, fv)
     for d0 in _chunks(p, need_xy):
         err = fn(_ptr(G), _ptr(x), _ptr(y), _ptr(dx), _ptr(dy), n, m, p, d0,
                  _ptr(fv), _ptr(coef), codes, ev, int(need_xy),
@@ -1427,7 +1591,7 @@ def _sym_bwd_tangent_cuda(G, one, x, dx, coef, need_x, need_s):
     part = x.new_empty((nt, n, p)) if need_x else None
     scal = x.new_empty((nt * (nt + 1) // 2, 3)) if need_s else None
     fn = getattr(_build.lib(), 'lsq_gram_sym_bwd_jvp' + _SPECIAL_SUFFIX[ev] + suffix)
-    tabs = _mtabs(one.st, x)
+    tabs = _tabs(one.st, x, fv)
     for d0 in _chunks(p, need_x):
         err = fn(_ptr(G), _ptr(x), _ptr(dx), n, p, d0, _ptr(fv), _ptr(coef),
                  codes, ev, int(need_x), int(need_s and d0 == 0),

@@ -321,7 +321,7 @@ def schur_update_gram(profile, X, A, *, post=(), eps=None, nreal=None,
     out = torch.empty((size, size), dtype=A.dtype, device=A.device)
     args = (_ptr(X), X.shape[1], _ptr(fv), nterms, codes,
             int(eps is not None), nreal, offset, _ptr(A), h, _ptr(out), size,
-            tile, _gram._mtabs(st, X))
+            tile, _gram._tabs(st, X, fv))
     lib = _build.lib()
     if counter == 'launches_dmma':
         err = lib.lsq_schur_gram_dmma_f64(*args, _stream(A.device))

@@ -253,6 +253,142 @@ def test_sfb_float32():
     assert np.all(np.abs(jax32 - truth)[-2:] >= 0.5 * truth[-2:])
 
 
+# -- the device's method: coefficients once per launch, Horner with J(t) ---------
+
+SFB_H = [0.3, 0.5, 0.75, 0.999, 1.0]
+SFB_T = np.array([2.0, 2.001, 3.0, 17.0, 300.0, 4096.0, 16383.0])
+
+
+def _sfb_scale(t, H):
+    """The value's scale |H(2H−1)| t^(2H−2) and the H-derivative's, the
+    leading term's 2 (|dc_1| + |c_1| log t) t^(2H−2), dc_1 = 2H − ½."""
+    a = 2 * H
+    p = t ** (a - 2)
+    c1 = abs(H * (2 * H - 1))
+    return c1 * p, 2 * (abs(a - 0.5) + c1 * np.log(t)) * p
+
+
+@pytest.mark.parametrize('H', SFB_H)
+def test_sfb_coeffs_plain(H):
+    """The coefficient table (sfb_table_kernel's plain version) against
+    scipy's binomial coefficients, and its α-derivative against their
+    central difference, in float64."""
+    from scipy.special import binom
+    tab = ops.sfb_coeffs_plain(H).numpy()
+    j = np.arange(1, tab.shape[0] + 1)
+    a = 2 * H
+    c = binom(a, 2 * j)
+    m = a - 2 * j
+    atol = 1e-15 * np.abs(c).max()
+    np.testing.assert_allclose(tab[:, 0], c, rtol=1e-13, atol=atol)
+    np.testing.assert_allclose(tab[:, 1], c * m, rtol=1e-13, atol=atol * 60)
+    np.testing.assert_allclose(tab[:, 2], c * m * (m - 1), rtol=1e-13,
+                               atol=atol * 3600)
+    h = 1e-6
+    dc = (binom(a + h, 2 * j) - binom(a - h, 2 * j)) / (2 * h)
+    np.testing.assert_allclose(tab[:, 3], dc, rtol=1e-7, atol=1e-9)
+
+
+@pytest.mark.parametrize('H', SFB_H)
+def test_sfb_parts_plain(H):
+    """The plain version of the device's evaluation (Horner with J(t)
+    terms) against the Gram's plain version, which sums every term by
+    the recurrence at each entry: value, g′, g″ and ∂g/∂H within (8 + (α
+    + |α − 2|) log t) eps of their scales (g′ and g″ the value's times (1
+    + |α − 2|)/t and (1 + |(α − 2)(α − 3)|)/t², their leading terms'
+    factors), float64: the two take t^α and t^(α−2) as exponentials of
+    α log t and (α − 2) log t, which carry log t's rounding."""
+    t = torch.as_tensor(SFB_T)
+    Ht = torch.tensor(H)
+    got = ops.sfb_parts_plain(t, Ht)
+    ref = _gram._sfb_parts(t, Ht, (0, 1, 2, 3))
+    sv, sh = _sfb_scale(SFB_T, H)
+    a = 2 * H
+    rel = (8 + (a + abs(a - 2)) * np.log(SFB_T)) * np.finfo(float).eps
+    s1 = sv * (1 + abs(a - 2)) / SFB_T
+    s2 = sv * (1 + abs((a - 2) * (a - 3))) / SFB_T ** 2
+    for i, scale in enumerate((sv, s1, s2, sh)):
+        err = np.abs(got[i].numpy() - ref[i].numpy())
+        assert np.all(err <= rel * scale), (i, err / scale / rel)
+
+
+@pytest.mark.parametrize('H', SFB_H)
+def test_sfb_parts_plain_jax(H):
+    """The same against the JAX core by autodiff where its three powers
+    do not cancel (t ≤ 300): the value and the t- and H-derivatives
+    within the absolute 8 eps t^2H of `test_sfb_profile` (times 4 for
+    the derivatives), float64."""
+    t = SFB_T[SFB_T <= 300]
+    Ht = torch.tensor(H)
+    g, g1, _, ga = ops.sfb_parts_plain(torch.as_tensor(t), Ht)
+    tj = jnp.asarray(t)
+    gj = _jcore(tj, H)
+    g1j = jax.vmap(jax.grad(_jcore), (0, None))(tj, H)
+    gaj = jax.vmap(jax.grad(_jcore, 1), (0, None))(tj, jnp.asarray(H))
+    scale = 8 * np.finfo(float).eps * t ** (2 * H)
+    for got, ref, rtol, atol in ((g, gj, 1e-12, scale),
+                                 (g1, g1j, 1e-11, 4 * scale),
+                                 (ga, gaj, 1e-11, 4 * scale * np.log(t))):
+        err = np.abs(got.numpy() - np.asarray(ref))
+        assert np.all(err <= atol + rtol * np.abs(np.asarray(ref))), err
+
+
+@pytest.mark.parametrize('H', SFB_H)
+def test_sfb_parts_plain_float32(H):
+    """In float32 (table rounded, the sums in float32, J(t) of float32) the
+    value and ∂g/∂H stay within 16 eps32 of their scales of the float64
+    truth, g′ within 16 eps32 of the value's over t; at H = 1/2 the
+    coefficients vanish and the value is 0 exactly."""
+    t = torch.as_tensor(SFB_T)
+    truth = _gram._sfb_parts(t, torch.tensor(H), (0, 1, 3))
+    got = ops.sfb_parts_plain(t.float(), torch.tensor(H, dtype=torch.float32),
+                              (0, 1, 3))
+    sv, sh = _sfb_scale(SFB_T, H)
+    eps32 = np.finfo(np.float32).eps
+    for i, scale in ((0, sv), (1, sv / SFB_T), (3, sh)):
+        err = np.abs(got[i].double().numpy() - truth[i].numpy())
+        assert np.all(err <= 16 * eps32 * scale), (i, err / scale / eps32)
+    if H == 0.5:
+        assert not got[0].any()
+
+
+@pytest.mark.parametrize('kind', [0, 1, 2])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('H', SFB_H)
+def test_sfb_tail_at_two(H, dtype, kind):
+    """J(t)'s tail bound at t = 2, where the series converges slowest: the
+    sums of ``kind`` (0: g; 1: with g′ and ∂g/∂H; 2: with g″) truncated
+    at J(2) terms differ from the full series (200 terms, 40 digits)
+    by at most u times the leading term's bound, |c_1| z for g, g′ and
+    g″ and (|c_1| + |dc_1|) z for ∂g/∂H; where the ceiling (14, 30)
+    stops below the bound's J, g″ by at most the bound at the
+    ceiling."""
+    import mpmath
+    mp = mpmath.mp.clone()
+    mp.dps = 40
+    J = int(ops.sfb_terms(torch.tensor([2.0], dtype=dtype), kind)[0])
+    u = np.finfo(np.float32 if dtype == torch.float32 else np.float64).eps / 2
+    a, z = 2 * mp.mpf(H), mp.mpf(1) / 4
+
+    def C(m):
+        return mp.binomial(a, m)
+
+    def dC(m):
+        return mp.diff(lambda x: mp.binomial(x, m), a)
+
+    cols = [lambda j: C(2 * j), lambda j: C(2 * j) * (a - 2 * j),
+            lambda j: C(2 * j) * (a - 2 * j) * (a - 2 * j - 1),
+            lambda j: dC(2 * j)]
+    sums = [0, 1, 3] if kind == 1 else [0, 1, 2] if kind == 2 else [0]
+    c1, dc1 = abs(C(2)), abs(dC(2))
+    for k in sums:
+        tail = abs(mp.fsum(cols[k](j) * z ** j for j in range(J + 1, 200)))
+        lead = (c1 + dc1 if k == 3 else c1) * z
+        lim = u if J < _gram.SFB_TERMS[dtype] or k != 2 \
+            else _gram._sfb_tail(2, J, 0.25)
+        assert tail <= lim * lead, (k, J, float(tail / lead / u))
+
+
 def _cases(mod, H):
     return {
         'sfb': 1.3 * mod.StationaryFracBrownian(H=H),

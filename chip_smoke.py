@@ -443,6 +443,11 @@ def build():
     from lsqfitgp_torch import ops
     info = ops.build_info()
     log(f'build: {info["seconds"]:.1f} s -> {info["path"]}')
+    # each nvcc process's wall time (all started together; an older
+    # checkout, timed in turns with this one, does not report them)
+    for name, sec in sorted(info.get('nvcc', {}).items(),
+                            key=lambda kv: -kv[1]):
+        log(f'  nvcc {name}: {sec:.1f} s')
     # ptxas reports each kernel's spills, then its registers, after the
     # line that names it (mangled, in full: the template arguments at its
     # end tell the instantiations apart)
@@ -1740,6 +1745,16 @@ def sfb_entries(name, dtype, X, nb):
     return err
 
 
+def took(fn, attr, call):
+    """The evaluator (csrc/profiles.cuh) of the launches that ``call()``
+    made on the wrapper ``fn``'s counter ``attr``, by its
+    ``by_evaluator`` tally ('ZooOne', 'Zoo', ...)."""
+    before = dict(fn.by_evaluator)
+    call()
+    return '+'.join(ev for (a, ev), c in sorted(fn.by_evaluator.items())
+                    if a == attr and c > before.get((a, ev), 0))
+
+
 def zoo_record(rec, kind, name, p, dtype, counter):
     label = str(dtype).split('.')[-1]
     suffix = ('' if p == 1 else f'/p{p}') + \
@@ -1815,7 +1830,7 @@ def kernel_zoo(dtype, gen, name, p):
     appended)."""
     import torch
     from lsqfitgp_torch.ops import (gram, gram_plain, gram_backward,
-                                    gram_backward_plain, _gram)
+                                    gram_backward_plain, gram_sym, _gram)
     u = unit_roundoff(dtype)
     isz = torch.finfo(dtype).bits // 8
     amp = zoo_amp(name, dtype)
@@ -1824,6 +1839,17 @@ def kernel_zoo(dtype, gen, name, p):
     X = record_points(name, p, N, dtype, gen)
     nb = ZOO_BLOCK.get(name, N)
     Xb = X[:nb]
+    ev_c = took(gram, 'launches', lambda: gram(desc, X, noise=noise))
+    if name not in CORE_RECORDS:
+        # E (on Zoo) writes C's bits (on ZooOne at p = 1: the same core
+        # expression, r² w rounded as Zoo rounds it)
+        K = gram(desc, X, noise=noise)
+        if not torch.equal(gram_sym(desc, X, noise=noise), K):
+            fail(f'E gram_sym {name} p={p} {dtype}: differs from kernel C '
+                 f'({ev_c})')
+        log(f'    E gram_sym {name} p={p} {dtype}: equal to kernel C '
+            f'({ev_c}) to the bit')
+        del K
     K = gram(desc, Xb, noise=noise)
     truth64 = bessel_truth(name, dtype)
     if truth64:
@@ -1870,10 +1896,13 @@ def kernel_zoo(dtype, gen, name, p):
     err_b = zoo_bwd_check(f'C gram backward {name} p={p} {dtype}', st, Xb,
                           fv, Gb, dtype, amp, truth64)
     n0 = gram.launches_bwd
-    gram_backward(G, desc, X, noise=noise)
+    ev_b = took(gram, 'launches_bwd',
+                lambda: gram_backward(G, desc, X, noise=noise))
     if gram.launches_bwd != n0 + 1:
         fail(f'C backward {name}: {gram.launches_bwd - n0} launches, '
              f'expected one')
+    log(f'    C {name} p={p} {dtype}: evaluator {ev_c}; its backward '
+        f'{ev_b}')
     ms_b, plain_b, wrap_b = gram_times(
         lambda: gram_backward(G, desc, X, noise=noise),
         lambda: gram_backward_plain(Gb, desc, Xb, noise=noise),
@@ -1885,9 +1914,10 @@ def kernel_zoo(dtype, gen, name, p):
     del G, Gb, X, Xb
     extra = {} if nb == N else dict(plain_n=nb)
     return [zoo_record(record(err, ms, plain_ms, bd, wrapper_ms=wrap,
-                              **extra), 'gram', name, p, dtype, 'launches'),
+                              evaluator=ev_c, **extra), 'gram', name, p,
+                       dtype, 'launches'),
             zoo_record(record(err_b, ms_b, plain_b, bd_b, wrapper_ms=wrap_b,
-                              **extra),
+                              evaluator=ev_b, **extra),
                        'gram_bwd', name, p, dtype, 'launches_bwd')]
 
 
@@ -2310,17 +2340,32 @@ def reset_counts():
         setattr(fn, attr, 0)
     for name in ('gram', 'gram_sym', 'schur_update_gram'):
         getattr(ops, name).by_profile.clear()
+        getattr(ops, name).by_evaluator.clear()
 
 
 def read_counts():
-    """The launch counts by key, and by key and profile ('key@profile',
-    the terms' profile names joined by '+') for C, D and E."""
+    """The launch counts by key, by key and profile ('key@profile', the
+    terms' profile names joined by '+') and by key and evaluator
+    ('key#evaluator': FixedExpQuad, ZooOne, Zoo, ZooSpecial) for C, D
+    and E."""
     from lsqfitgp_torch import ops
     counts = {key: getattr(fn, attr) for key, fn, attr in _counters()}
     for name in ('gram', 'gram_sym', 'schur_update_gram'):
-        for (attr, prof), c in getattr(ops, name).by_profile.items():
+        fn = getattr(ops, name)
+        for (attr, prof), c in fn.by_profile.items():
             counts[f'{name}{COUNTERS[attr]}@{prof}'] = c
+        for (attr, ev), c in fn.by_evaluator.items():
+            counts[f'{name}{COUNTERS[attr]}#{ev}'] = c
     return counts
+
+
+def evaluators(counts, key):
+    """The evaluators the launches of ``key`` ('gram', 'gram_bwd', ...)
+    took, with their counts ('ZooOne: 12')."""
+    took = {k.split('#')[1]: c for k, c in counts.items()
+            if k.startswith(key + '#') and c}
+    return ', '.join(f'{ev}: {c}' for ev, c in sorted(took.items())) or \
+        "none"
 
 
 def nonzero(counts):
@@ -3284,7 +3329,8 @@ def stream_phase(start, dev='cuda'):
 
 def profile_phase(fn, top=12):
     """Device time by kernel of one ``fn()`` under torch.profiler, and the
-    device's busy share of the host wall time."""
+    device's busy share of the host wall time; returns (host ms under the
+    profiler, device busy ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -3315,6 +3361,7 @@ def profile_phase(fn, top=12):
     for ms, count, name in rows[:top]:
         log(f'    {ms:10.1f} ms {100 * ms / max(busy, 1e-9):5.1f} % '
             f'x{count:<6d} {name[:90]}')
+    return wall * 1e3, busy
 
 
 def stream_check_phase(end, dev='cuda'):
@@ -4337,8 +4384,12 @@ def matern_phase(dev='cuda'):
                                         'gram_bwd@maternp'], 'the Matérn fit')
         require_counts(fit_launches, {'gram@maternp': evals,
                                       'gram_bwd@maternp': evals,
-                                      'gram': evals, 'gram_bwd': evals},
+                                      'gram': evals, 'gram_bwd': evals,
+                                      'gram#ZooOne': evals,
+                                      'gram_bwd#ZooOne': evals},
                        'the Matérn fit')
+    log(f'  evaluators: C {evaluators(fit_launches, "gram")}; its backward '
+        f'{evaluators(fit_launches, "gram_bwd")}')
     scale = float(fit.pmean['scale'])
     amp = float(fit.pmean['amp'])
     fitted = [math.log(scale), math.log(amp)]
@@ -4471,8 +4522,11 @@ def multiscale_phase(dev='cuda'):
     log(f'  dense, n = {N}: {statistics.median(times) * 1e3:.1f} ms per '
         f'value+gradient (median of 3, the first with the build of its '
         f'route); launches {nonzero(counts)}')
+    log(f'  evaluators: C {evaluators(counts, "gram")}; its backward '
+        f'{evaluators(counts, "gram_bwd")}')
     if dev == 'cuda':
-        require_counts(counts, {f'gram@{key}': 3, f'gram_bwd@{key}': 3},
+        require_counts(counts, {f'gram@{key}': 3, f'gram_bwd@{key}': 3,
+                                'gram#Zoo': 3, 'gram_bwd#Zoo': 3},
                        'the dense multiscale evaluations')
         require_launched(counts, ['schur_update_tc', 'syrk_t_full__dmma'],
                          'the dense multiscale evaluations')
@@ -4523,7 +4577,8 @@ def multiscale_phase(dev='cuda'):
         require_launched(counts, [f'schur_update_gram_tc@{key}',
                                   f'gram@{key}', 'schur_update_tc'],
                          'the streaming multiscale evaluations')
-        require_counts(counts, {f'gram_bwd@{key}': 3 + 2 * strips},
+        require_counts(counts, {f'gram_bwd@{key}': 3 + 2 * strips,
+                                'gram_bwd#Zoo': 3 + 2 * strips},
                        'the streaming multiscale evaluations')
 
     # the streaming check at n = 32768 against float64
@@ -4942,17 +4997,25 @@ def timeseries_phase(dev='cuda'):
     fit_counts = counts_since(before)
     evals = len(fit.evaltimes)
     ms = statistics.median(fit.evaltimes) * 1e3
+    q1, _, q3 = statistics.quantiles(fit.evaltimes, n=4) if evals > 1 \
+        else [fit.evaltimes[0]] * 3
     log(f'  fit: {wall:.2f} s wall, {fit.minresult.nit} BFGS iterations, '
         f'{evals} evaluations, median {ms:.1f} ms per evaluation (value + '
-        f'gradient); launches {nonzero(fit_counts)}')
+        f'gradient; quartiles {q1 * 1e3:.1f}, {q3 * 1e3:.1f}, range '
+        f'{min(fit.evaltimes) * 1e3:.1f} to {max(fit.evaltimes) * 1e3:.1f});'
+        f' launches {nonzero(fit_counts)}')
     if cuda:
         require_launched(fit_counts, ['schur_update_tc', 'syrk_t_full__dmma',
                                       f'gram@{key}', f'gram_bwd@{key}'],
                          'the dense time-series fit')
         require_counts(fit_counts, {f'gram@{key}': evals,
                                     f'gram_bwd@{key}': evals,
-                                    'gram': evals, 'gram_bwd': evals},
+                                    'gram': evals, 'gram_bwd': evals,
+                                    'gram#ZooOne': evals,
+                                    'gram_bwd#ZooOne': evals},
                        'the dense time-series fit')
+    log(f'  evaluators: C {evaluators(fit_counts, "gram")}; its backward '
+        f'{evaluators(fit_counts, "gram_bwd")}')
     fitted = [math.log(float(fit.pmean[k])) for k in TS_KEYS]
     log(f'  fitted amp, gamma, noise {[float(fit.pmean[k]) for k in TS_KEYS]}'
         f' (true {[TS_TRUE[k] for k in TS_KEYS]}); pcov '
@@ -5033,8 +5096,11 @@ def timeseries_phase(dev='cuda'):
         require_launched(counts, [f'schur_update_gram_tc@{key}',
                                   f'gram@{key}', 'schur_update_tc'],
                          'the streaming time-series fit')
-        require_counts(counts, {f'gram_bwd@{key}': strips * len(ev)},
+        require_counts(counts, {f'gram_bwd@{key}': strips * len(ev),
+                                'gram_bwd#ZooOne': strips * len(ev)},
                        'the streaming time-series fit')
+    log(f'  evaluators: C {evaluators(counts, "gram")}; its backward '
+        f'{evaluators(counts, "gram_bwd")}')
     end = [math.log(float(sfit.pmean[k])) for k in TS_KEYS]
     log(f'  end point amp, gamma, noise '
         f'{[float(sfit.pmean[k]) for k in TS_KEYS]}')
@@ -5699,13 +5765,15 @@ def evidence_phase(dev='cuda'):
 
 
 # the records `zoo_times` times: FixedExpQuad ('expquad', the main path's
-# single term), `Zoo` (closed forms), ZooSpecial (the special cores) at
-# p = 1, and the real-order Matérn at the multidim cell's p too
-ZOO_TIMES = [('expquad', 1), ('maternp2', 1), ('expon', 1), ('terms', 1),
-             ('celerite', 1), ('periodic', 1), ('sfb', 1), ('sfbpath', 1),
-             ('bessel', 1),
-             ('pink', 1), ('color', 1), ('matern', 1), ('matern07', 1),
-             ('matern', MD_P), ('matern07', MD_P)]
+# single term), every closed-form record of ZOO_RECORDS and TS_RECORDS at
+# its p (ZooOne at p = 1 for one term, Zoo for the sum and at p > 1),
+# ZooSpecial (the special cores) at p = 1, and the real-order Matérn at
+# the multidim cell's p too
+ZOO_TIMES = [('expquad', 1)] + [
+    (name, p) for name, (ps, _, _) in ZOO_RECORDS.items()
+    if name not in CORE_RECORDS for p in ps] + [
+    ('sfb', 1), ('sfbpath', 1), ('bessel', 1), ('pink', 1), ('color', 1),
+    ('matern', 1), ('matern07', 1), ('matern', MD_P), ('matern07', MD_P)]
 
 
 def zoo_times(label, names=()):
@@ -5843,6 +5911,44 @@ def hurst_evals(label, evals=9):
     print(json.dumps({'hurst_evals': label, 'ms': times}), flush=True)
 
 
+def ts_evals(label, evals=9):
+    """`--ts-evals LABEL`: the time-series path's dense float32 value +
+    gradient (`timeseries_phase`'s model and data, n = N, the default
+    gram, the noise as givencov) at the prior's mean, ``evals`` times
+    after one warm-up, host clock to a synchronize, then one more under
+    torch.profiler (its device busy time); no check, the public API only,
+    so that two checkouts can be timed in turns in one call.  Prints the
+    times in a JSON line with the checkout's ``LABEL``."""
+    import torch
+    import lsqfitgp_torch as lgp
+    torch.set_default_dtype(torch.float32)
+    t, y = ts_data(N)
+    tt, yt = torch.as_tensor(t, device='cuda'), torch.as_tensor(y,
+                                                               device='cuda')
+    lp = torch.tensor([TS_PRIOR[k][0] for k in ('log(amp)', 'log(gamma)',
+                                                'log(noise)')],
+                      device='cuda', requires_grad=True)
+
+    def step():
+        k = lp[0].exp() * lgp.Celerite(gamma=lp[1].exp(), B=TS_TRUE['B'])
+        nll = -lgp.GP(k).addx(tt, 'obs').marginal_likelihood({'obs': yt},
+                                                             lp[2].exp())
+        torch.autograd.grad(nll, lp)
+        torch.cuda.synchronize()
+
+    step()
+    times = []
+    for _ in range(evals):
+        t0 = time.perf_counter()
+        step()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f'  {label} time-series dense value + gradient, n = {N}: median '
+        f'{statistics.median(times):.2f} ms of {[round(v, 2) for v in times]}')
+    wall, busy = profile_phase(step)
+    print(json.dumps({'ts_evals': label, 'ms': times, 'profiled_ms': wall,
+                      'busy_ms': busy}), flush=True)
+
+
 def main(argv):
     sys.path.insert(0, ROOT)
     header()
@@ -5880,6 +5986,10 @@ def main(argv):
     if argv[:1] == ['--zoo-times'] and len(argv) >= 2:
         build()
         zoo_times(argv[1], argv[2:])
+        return 0
+    if argv[:1] == ['--ts-evals'] and len(argv) == 2:
+        build()
+        ts_evals(argv[1])
         return 0
     if argv == ['--deriv']:
         build()
@@ -6041,7 +6151,7 @@ def main(argv):
     keys = ['name', 'route', 'source', 'replaces', 'launches',
             'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
             'share_of_bound', 'library_ms', 'precision', 'dtype', 'library',
-            'launches_by_path', 'wrapper_ms', 'plain_n']
+            'launches_by_path', 'wrapper_ms', 'plain_n', 'evaluator']
     print(json.dumps({'kernels': [{k: r.get(k) for k in keys}
                                   for r in records]}))
     print(json.dumps({'ok': True, 'device': {

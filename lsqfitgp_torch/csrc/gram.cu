@@ -27,16 +27,27 @@
 //
 // Design.
 // - The evaluator of the profile (profiles.cuh: FixedExpQuad, the main
-//   path's single ExpQuad term, Zoo, up to MAXTERMS terms of the
-//   closed-form profiles read at run time, or ZooSpecial, of any
+//   path's single ExpQuad term; ZooOne, one term of a closed-form
+//   profile compiled into the kernel; Zoo, up to MAXTERMS terms of the
+//   closed-form profiles read at run time; or ZooSpecial, of any
 //   registered profile) and p = 1 are template parameters; the folded
 //   parameter vector (profiles.cuh) stays in device memory (no host
-//   read).  This file builds the kernels of the first two, with the
-//   entry points lsq_gram*_f32/_f64; gram_special.cu and
+//   read).  This file builds the kernels of FixedExpQuad and Zoo, with
+//   the entry points lsq_gram*_f32/_f64; gram_special.cu and
 //   gram_special_f64.cu compile it again with LSQ_GRAM_SPECIAL for
 //   ZooSpecial's, float32's and float64's apart, with the entry points
 //   lsq_gram*_zs_f32 and _zs_f64, each in an nvcc process of its own (the
-//   special cores' code takes most of the build).
+//   special cores' code takes most of the build); gram_one.cu and
+//   gram_one_f64.cu with LSQ_GRAM_ONE for ZooOne's C and C's backward
+//   (lsq_gram_zo_*, lsq_gram_bwd_zo_*), one instantiation per
+//   closed-form profile, dispatched on the term's id at launch.
+// - ZooOne inlines its core into the entry loops: no call per entry, so
+//   nothing live is saved across one and the compiler interleaves a
+//   thread's entries; its row loop in C is unrolled Tiling::UNROLL
+//   times (the 16-byte entry group always), and at p > 1 C and its
+//   backward keep Zoo (Tiling::PMANY).  E keeps Zoo: C on ZooOne forms
+//   r^2 w as Zoo does before its call (mul_rn) and evaluates the same
+//   core_eval expression, so C and E still write the same bits.
 // - A block of 256 threads covers 64 x 64 tiles.  Each thread owns 16
 //   bytes of a tile row (4 floats or 2 doubles): 16-byte stores in the
 //   forwards, 16-byte loads of G in the backwards, entry by entry at the
@@ -117,6 +128,11 @@
 #ifndef LSQ_GRAM_SPECIAL
 #define LSQ_GRAM_SPECIAL 0
 #endif
+// 32 or 64: ZooOne's kernel C and its backward of that float width
+// (gram_one.cu, gram_one_f64.cu), and nothing else
+#ifndef LSQ_GRAM_ONE
+#define LSQ_GRAM_ONE 0
+#endif
 
 namespace {
 
@@ -139,6 +155,23 @@ struct Geo {
     // a staged coordinate's row of TILE points, padded against bank
     // conflicts while staging and 16-byte aligned
     static constexpr int PITCH = TILE + V;
+};
+
+// C's tiling per evaluator: the rows of a thread's tile C unrolls (the
+// 16-byte entry group is always unrolled; ZooOne's 2 were chosen on the
+// card, PERF.md) and whether C and its backward exist for p > 1 (not
+// ZooOne's: at p > 1 its float64 build took longer than ZooSpecial's
+// and Cauchy's p = 10 backward lost to Zoo's, PERF.md)
+template <typename T, class Ev>
+struct Tiling {
+    static constexpr int UNROLL = Geo<T>::RPT;
+    static constexpr bool PMANY = true;
+};
+
+template <typename T, int ID>
+struct Tiling<T, ZooOne<T, ID>> {
+    static constexpr int UNROLL = 2;
+    static constexpr bool PMANY = false;
 };
 
 // streaming (evict-first) stores: the output is not read again here
@@ -383,7 +416,8 @@ gram_kernel(const T* __restrict__ x, const T* __restrict__ y, long long n,
         T yc[V];
 #pragma unroll
         for (int k = 0; k < V; ++k) yc[k] = c0 + k < m ? y[c0 + k] : T(0);
-#pragma unroll
+        using Tl = Tiling<T, Ev>;
+#pragma unroll (Tl::UNROLL)
         for (int a = 0; a < Gm::RPT; ++a) {
             const long long r = i0 + ty + a * Gm::TY;
             if (r >= n) break;
@@ -507,10 +541,11 @@ __device__ __forceinline__ void block_scalars(T (&v)[S], T* scal)
 }
 
 // The backwards' scalar sums: sum G, G's trace, then the evaluator's
-// parameter sums (the gradient of <G, K> with respect to params)
+// parameter sums (the gradient of <G, K> with respect to params), stored
+// in 2 + Ev::SLOTS slots (zeros past its NS sums)
 template <typename T, class Ev>
 struct ParSums {
-    static constexpr int S = 2 + Ev::NS;
+    static constexpr int S = 2 + Ev::SLOTS;
     T sg, tr, acc[Ev::NS];
 
     __device__ __forceinline__ ParSums() : sg(T(0)), tr(T(0))
@@ -526,6 +561,8 @@ struct ParSums {
         v[1] = tr;
 #pragma unroll
         for (int q = 0; q < Ev::NS; ++q) v[2 + q] = acc[q];
+#pragma unroll
+        for (int q = Ev::NS; q < Ev::SLOTS; ++q) v[2 + q] = T(0);
         block_scalars(v, scal);
     }
 };
@@ -1246,19 +1283,48 @@ struct EvTag {
     using type = E<T>;
 };
 
+#if LSQ_GRAM_ONE
+template <int ID>
+struct OneTag {
+    template <typename T>
+    using type = ZooOne<T, ID>;
+};
+
+// f(OneTag<id>{}) for the closed-form profile id; false for another id
+template <int ID = 0, class F>
+bool with_one(int id, F& f)
+{
+    if constexpr (ID >= PROFILE_SFB) {
+        return false;
+    } else {
+        // GammaExp's gamma = 2 takes Expon's instantiation: the same core
+        if constexpr (ID != PROFILE_GAMMAEXP2)
+            if (id == ID) return f(OneTag<ID>{});
+        return with_one<ID + 1>(id, f);
+    }
+}
+#endif
+
 // f(tag) for the evaluator the host chose: 0 FixedExpQuad, 1 Zoo (this
-// file), 2 ZooSpecial (with LSQ_GRAM_SPECIAL); false for another value
-// or a term count outside [1, MAXTERMS]
+// file), 2 ZooSpecial (with LSQ_GRAM_SPECIAL), 3 ZooOne of the first
+// term's profile (with LSQ_GRAM_ONE, one term); false for another value,
+// a term count outside [1, MAXTERMS] or where f refuses (returns false)
 template <class F>
-bool with_ev(int ev, int nterms, F&& f)
+bool with_ev(int ev, int nterms, unsigned long long codes, F&& f)
 {
     if (nterms < 1 || nterms > MAXTERMS) return false;
     switch (ev) {
 #if LSQ_GRAM_SPECIAL
-    case 2: f(EvTag<ZooSpecial>{}); return true;
+    case 2: return f(EvTag<ZooSpecial>{});
+#elif LSQ_GRAM_ONE
+    case 3: {
+        const int id = (int)(codes & 31u);   // term 0's profile id
+        return nterms == 1
+            && with_one(id == PROFILE_GAMMAEXP2 ? PROFILE_EXPON : id, f);
+    }
 #else
-    case 0: f(EvTag<FixedExpQuad>{}); return true;
-    case 1: f(EvTag<Zoo>{}); return true;
+    case 0: return f(EvTag<FixedExpQuad>{});
+    case 1: return f(EvTag<Zoo>{});
 #endif
     }
     return false;
@@ -1281,12 +1347,17 @@ int launch_gram(const T* x, const T* y, long long n, long long m, int p,
     const dim3 grid((unsigned)cdiv(m, TILE), (unsigned)cdiv(n, TILE));
     const auto s = (cudaStream_t)stream;
     const MTabs tb = host_tabs(tabs);
-    return launched(with_ev(evk, nterms, [&](auto tag) {
+    return launched(with_ev(evk, nterms, codes, [&](auto tag) {
         using Ev = typename decltype(tag)::template type<T>;
-        auto kern = p == 1 ? gram_kernel<T, Ev, true>
-                           : gram_kernel<T, Ev, false>;
+        auto kern = gram_kernel<T, Ev, true>;
+        if constexpr (Tiling<T, Ev>::PMANY) {
+            if (p != 1) kern = gram_kernel<T, Ev, false>;
+        } else if (p != 1) {
+            return false;
+        }
         kern<<<grid, NT, 0, s>>>(x, y, n, m, p, params, nterms, codes,
                                  with_noise, out, tb);
+        return true;
     }));
 }
 
@@ -1299,12 +1370,13 @@ int launch_gram_sym(const T* x, long long n, int p, const T* params,
     if (n == 0) return 0;
     const long long nt = cdiv(n, TILE);
     const auto s = (cudaStream_t)stream;
-    return launched(with_ev(evk, nterms, [&](auto tag) {
+    return launched(with_ev(evk, nterms, codes, [&](auto tag) {
         using Ev = typename decltype(tag)::template type<T>;
         auto kern = p == 1 ? gram_sym_kernel<T, Ev, true>
                            : gram_sym_kernel<T, Ev, false>;
         kern<<<(unsigned)(nt * (nt + 1) / 2), NT, 0, s>>>(
             x, n, p, params, nterms, codes, with_noise, out, tb);
+        return true;
     }));
 }
 
@@ -1335,17 +1407,22 @@ int launch_gram_bwd(const T* G, const T* x, const T* y, long long n,
 {
     if (!(need_xy || need_p) || p < 1) return (int)cudaErrorInvalidValue;
     if (n == 0 || m == 0) return 0;
-    const dim3 grid((unsigned)cdiv(m, TILE),
-                    (unsigned)cdiv(n, TILE * CROWS));
     const auto s = (cudaStream_t)stream;
     const MTabs tb = host_tabs(tabs);
-    return launched(with_ev(evk, nterms, [&](auto tag) {
+    return launched(with_ev(evk, nterms, codes, [&](auto tag) {
         using Ev = typename decltype(tag)::template type<T>;
-        auto kern = p == 1 ? bwd_kernel<T, Ev, true>(need_xy, need_p)
-                           : bwd_kernel<T, Ev, false>(need_xy, need_p);
+        const dim3 grid((unsigned)cdiv(m, TILE),
+                        (unsigned)cdiv(n, TILE * CROWS));
+        auto kern = bwd_kernel<T, Ev, true>(need_xy, need_p);
+        if constexpr (Tiling<T, Ev>::PMANY) {
+            if (p != 1) kern = bwd_kernel<T, Ev, false>(need_xy, need_p);
+        } else if (p != 1) {
+            return false;
+        }
         kern<<<grid, NT, 0, s>>>(G, x, y, n, m, p, params, nterms, codes,
                                  with_noise, wide, rowpart, colpart, scal,
                                  tb);
+        return true;
     }));
 }
 
@@ -1362,13 +1439,14 @@ int launch_gram_sym_bwd(const T* G, const T* x, long long n, int p, int d0,
     if (n == 0) return 0;
     const long long nt = cdiv(n, TILE);
     const auto s = (cudaStream_t)stream;
-    return launched(with_ev(evk, nterms, [&](auto tag) {
+    return launched(with_ev(evk, nterms, codes, [&](auto tag) {
         using Ev = typename decltype(tag)::template type<T>;
         auto kern = p == 1 ? sym_bwd_kernel<T, Ev, true>(need_x, need_p)
                            : sym_bwd_kernel<T, Ev, false>(need_x, need_p);
         kern<<<(unsigned)(nt * (nt + 1) / 2), NT, 0, s>>>(
             G, x, n, p, d0, params, nterms, codes, with_noise, wide, part,
             scal, tb);
+        return true;
     }));
 }
 
@@ -1383,12 +1461,13 @@ int launch_gram_jvp(const T* x, const T* y, const T* dx, const T* dy,
     if (n == 0 || m == 0) return 0;
     const dim3 grid((unsigned)cdiv(m, TILE), (unsigned)cdiv(n, TILE));
     const auto s = (cudaStream_t)stream;
-    return launched(with_ev(evk, nterms, [&](auto tag) {
+    return launched(with_ev(evk, nterms, codes, [&](auto tag) {
         using Ev = typename decltype(tag)::template type<T>;
         auto kern = p == 1 ? gram_jvp_kernel<T, Ev, true>
                            : gram_jvp_kernel<T, Ev, false>;
         kern<<<grid, NT, 0, s>>>(x, y, dx, dy, n, m, p, params, dparams,
                                  nterms, codes, with_noise, out, tb);
+        return true;
     }));
 }
 
@@ -1402,13 +1481,14 @@ int launch_gram_sym_jvp(const T* x, const T* dx, long long n, int p,
     if (n == 0) return 0;
     const long long nt = cdiv(n, TILE);
     const auto s = (cudaStream_t)stream;
-    return launched(with_ev(evk, nterms, [&](auto tag) {
+    return launched(with_ev(evk, nterms, codes, [&](auto tag) {
         using Ev = typename decltype(tag)::template type<T>;
         auto kern = p == 1 ? gram_sym_jvp_kernel<T, Ev, true>
                            : gram_sym_jvp_kernel<T, Ev, false>;
         kern<<<(unsigned)(nt * (nt + 1) / 2), NT, 0, s>>>(
             x, dx, n, p, params, dparams, nterms, codes, with_noise, out,
             tb);
+        return true;
     }));
 }
 
@@ -1445,12 +1525,13 @@ int launch_gram_bwd_jvp(const T* G, const T* x, const T* y, const T* dx,
     const dim3 grid((unsigned)cdiv(m, TILE),
                     (unsigned)cdiv(n, TILE * CROWS));
     const auto s = (cudaStream_t)stream;
-    return launched(with_ev(evk, 1, [&](auto tag) {
+    return launched(with_ev(evk, 1, codes, [&](auto tag) {
         using Ev = typename decltype(tag)::template type<T>;
         auto kern = p == 1 ? bwd_jvp_kernel<T, Ev, true>(need_xy, need_s)
                            : bwd_jvp_kernel<T, Ev, false>(need_xy, need_s);
         kern<<<grid, NT, 0, s>>>(G, x, y, dx, dy, n, m, p, d0, params, coef,
                                  codes, wide, rowpart, colpart, scal, tb);
+        return true;
     }));
 }
 
@@ -1467,13 +1548,14 @@ int launch_gram_sym_bwd_jvp(const T* G, const T* x, const T* dx, long long n,
     if (n == 0) return 0;
     const long long nt = cdiv(n, TILE);
     const auto s = (cudaStream_t)stream;
-    return launched(with_ev(evk, 1, [&](auto tag) {
+    return launched(with_ev(evk, 1, codes, [&](auto tag) {
         using Ev = typename decltype(tag)::template type<T>;
         auto kern = p == 1
             ? sym_bwd_jvp_kernel<T, Ev, true>(need_x, need_s)
             : sym_bwd_jvp_kernel<T, Ev, false>(need_x, need_s);
         kern<<<(unsigned)(nt * (nt + 1) / 2), NT, 0, s>>>(
             G, x, dx, n, p, d0, params, coef, codes, wide, part, scal, tb);
+        return true;
     }));
 }
 
@@ -1507,7 +1589,8 @@ int launch_sfb_table(const T* params, int nterms, unsigned long long codes,
 
 extern "C" {
 
-#define LSQ_GRAM(T, SUF)                                                     \
+// kernel C and its backward
+#define LSQ_GRAM_C(T, SUF)                                                   \
     int lsq_gram##SUF(const T* x, const T* y, long long n, long long m,      \
                       int p, const T* params, int nterms,                    \
                       unsigned long long codes, int with_noise, int ev,      \
@@ -1515,14 +1598,6 @@ extern "C" {
     {                                                                        \
         return launch_gram(x, y, n, m, p, params, nterms, codes, with_noise, \
                            ev, out, tabs, stream);                           \
-    }                                                                        \
-    int lsq_gram_sym##SUF(const T* x, long long n, int p, const T* params,   \
-                          int nterms, unsigned long long codes,              \
-                          int with_noise, int ev, T* out,                    \
-                          const void* const* tabs, void* stream)             \
-    {                                                                        \
-        return launch_gram_sym(x, n, p, params, nterms, codes, with_noise,   \
-                               ev, out, tabs, stream);                       \
     }                                                                        \
     int lsq_gram_bwd##SUF(const T* G, const T* x, const T* y, long long n,   \
                           long long m, int p, const T* params, int nterms,   \
@@ -1534,6 +1609,17 @@ extern "C" {
         return launch_gram_bwd(G, x, y, n, m, p, params, nterms, codes,      \
                                with_noise, ev, need_xy, need_p, wide,        \
                                rowpart, colpart, scal, tabs, stream);        \
+    }
+
+// E and the tangent kernels
+#define LSQ_GRAM_REST(T, SUF)                                                \
+    int lsq_gram_sym##SUF(const T* x, long long n, int p, const T* params,   \
+                          int nterms, unsigned long long codes,              \
+                          int with_noise, int ev, T* out,                    \
+                          const void* const* tabs, void* stream)             \
+    {                                                                        \
+        return launch_gram_sym(x, n, p, params, nterms, codes, with_noise,   \
+                               ev, out, tabs, stream);                       \
     }                                                                        \
     int lsq_gram_sym_bwd##SUF(const T* G, const T* x, long long n, int p,    \
                               int d0, const T* params, int nterms,           \
@@ -1590,6 +1676,8 @@ extern "C" {
                                        scal, tabs, stream);                  \
     }
 
+#define LSQ_GRAM(T, SUF) LSQ_GRAM_C(T, SUF) LSQ_GRAM_REST(T, SUF)
+
 #if LSQ_GRAM_SPECIAL == 32
 LSQ_GRAM(float, _zs_f32)
 int lsq_matern_table_f32(double nu, int kind, float* out, void* stream)
@@ -1612,11 +1700,17 @@ int lsq_sfb_table_f64(const double* params, int nterms,
 {
     return launch_sfb_table(params, nterms, codes, out, stream);
 }
+#elif LSQ_GRAM_ONE == 32
+LSQ_GRAM_C(float, _zo_f32)
+#elif LSQ_GRAM_ONE == 64
+LSQ_GRAM_C(double, _zo_f64)
 #else
 LSQ_GRAM(float, _f32)
 LSQ_GRAM(double, _f64)
 #endif
 
 #undef LSQ_GRAM
+#undef LSQ_GRAM_C
+#undef LSQ_GRAM_REST
 
 }  // extern "C"

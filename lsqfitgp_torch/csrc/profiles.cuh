@@ -63,13 +63,16 @@
 // kernels take 64 registers where they took 48, and their backwards
 // 28-36 % longer).
 //
-// Three evaluators take this vector.  FixedExpQuad is the single ExpQuad
-// term with w = 1 (the main path's profile), compiled as before; Zoo
-// reads a term list of closed-form profiles at run time, ZooSpecial one
-// of any profile.  Kernels C and E and their derivative kernels take the
-// evaluator as a template parameter (the host picks it; gram_special.cu
-// and gram_special_f64.cu build ZooSpecial's kernels in processes of
-// their own), kernel D's tile
+// Four evaluators take this vector.  FixedExpQuad is the single ExpQuad
+// term with w = 1 (the main path's profile), compiled as before; ZooOne
+// one term of a closed-form profile, its profile a template parameter
+// (the core inlined into the kernel); Zoo reads a term list of
+// closed-form profiles at run time, ZooSpecial one of any profile.
+// Kernels C and E and their derivative kernels take the evaluator as a
+// template parameter (the host picks it; gram_one.cu and
+// gram_one_f64.cu build ZooOne's C and C's backward, gram_special.cu
+// and gram_special_f64.cu ZooSpecial's kernels, each in an nvcc process
+// of its own), kernel D's tile
 // initializer always takes ZooSpecial, which writes the same bits as
 // FixedExpQuad for that term.
 
@@ -933,6 +936,32 @@ __device__ __forceinline__ Core<T> cores_eval(int id, int k, T t, T a, T b,
         return core_eval<T, D1, D2, DA>(id, k, t, a, b);
 }
 
+// The distance modes' argument of the core at u: t = sqrt(v), v =
+// max(u, tiny) ('abs': no derivative below tiny, as jnp.maximum's; pos
+// false there) or u + eps^2 ('posabs')
+template <typename T>
+__device__ __forceinline__ T mode_arg(int mode, T u, T& v, bool& pos)
+{
+    pos = true;
+    if (mode == MODE_ABS) {
+        v = fmax(u, Lim<T>::tiny());
+        pos = u > Lim<T>::tiny();
+    } else {
+        v = u + Lim<T>::eps() * Lim<T>::eps();
+    }
+    return dsqrt(v);
+}
+
+// The chain rule of the mode's square root: the core's t-derivatives in
+// o to u-derivatives
+template <typename T, bool D1, bool D2>
+__device__ __forceinline__ void mode_chain(Core<T>& o, T t, T v, bool pos)
+{
+    const T tu = pos ? T(0.5) / t : T(0);
+    if (D2) o.g2 = pos ? o.g2 * tu * tu - o.g1 * tu / (T(2) * v) : T(0);
+    if (D1) o.g1 = o.g1 * tu;
+}
+
 // A term at r^2 = u / w: the core at mode(u) and its derivatives in u
 // (the mode's chain rule applied): g, gu, guu, ga, gb.
 template <typename T, bool D1, bool D2, bool DA, int CORES>
@@ -942,21 +971,12 @@ __device__ __forceinline__ Core<T> term_modes(unsigned code, T u, T a, T b,
     const int id = code & 31u, mode = (code >> 5) & 3u, k = code >> 7;
     if (mode == MODE_SQUARED)
         return cores_eval<T, D1, D2, DA, CORES>(id, k, u, a, b, tf, td);
-    T v, tu;
-    bool pos = true;
-    if (mode == MODE_ABS) {
-        // sqrt(max(u, tiny)): no derivative below tiny, as jnp.maximum's
-        v = fmax(u, Lim<T>::tiny());
-        pos = u > Lim<T>::tiny();
-    } else {
-        v = u + Lim<T>::eps() * Lim<T>::eps();
-    }
-    const T t = dsqrt(v);
+    T v;
+    bool pos;
+    const T t = mode_arg(mode, u, v, pos);
     Core<T> o = cores_eval<T, D1 || D2, D2, DA, CORES>(id, k, t, a, b, tf,
                                                        td);
-    tu = pos ? T(0.5) / t : T(0);
-    if (D2) o.g2 = pos ? o.g2 * tu * tu - o.g1 * tu / (T(2) * v) : T(0);
-    if (D1) o.g1 = o.g1 * tu;
+    mode_chain<T, D1, D2>(o, t, v, pos);
     return o;
 }
 
@@ -1083,6 +1103,7 @@ sfb_table_kernel(const T* __restrict__ params, int nterms,
 template <typename T>
 struct FixedExpQuad {
     static constexpr int NS = 1;  // its parameter sums: sum G g (for c)
+    static constexpr int SLOTS = NS;  // the sums the backwards store
     using P = Profile<PROFILE_EXPQUAD>;
     T c, b;
 
@@ -1129,6 +1150,7 @@ struct FixedExpQuad {
 template <typename T, bool SPECIAL>
 struct ZooT {
     static constexpr int NS = TERMPAR * MAXTERMS;
+    static constexpr int SLOTS = NS;
     const T* __restrict__ p;
     int n;
     unsigned long long codes;
@@ -1222,6 +1244,98 @@ struct ZooT {
 
 template <typename T> using Zoo = ZooT<T, false>;
 template <typename T> using ZooSpecial = ZooT<T, true>;
+
+// the core arguments whose derivatives the closed-form profile id takes
+// (ops/_gram.py PROFILES' dargs): a for GammaExp, Cauchy2, Periodic,
+// CausalExpQuad, Wendland and Harmonic, a and b for Cauchy, Circular
+// and Celerite
+constexpr int profile_nargs(int id)
+{
+    switch (id) {
+    case PROFILE_GAMMAEXP:
+    case PROFILE_CAUCHY2:
+    case PROFILE_PERIODIC:
+    case PROFILE_CAUSALEXPQUAD:
+    case PROFILE_WENDLAND:
+    case PROFILE_HARMONIC:
+        return 1;
+    case PROFILE_CAUCHY:
+    case PROFILE_CIRCULAR:
+    case PROFILE_CELERITE:
+        return 2;
+    default:
+        return 0;
+    }
+}
+
+// u = r^2 w rounded once, never contracted into a later add, as Zoo
+// forms it before its call: C on ZooOne writes E's (Zoo's) bits
+__device__ __forceinline__ float mul_rn(float a, float b)
+{
+    return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b)
+{
+    return __dmul_rn(a, b);
+}
+
+// One term of the closed-form profile ID (below PROFILE_SFB), compiled
+// in: core_eval at a constant id, inlined into the kernel's entry loop
+// (no call, no switch over the profiles), its mode read once per launch
+// (one branch every thread takes the same way) and one evaluation of the
+// core whatever the mode.  Its parameter sums are c's, w's and those of
+// the arguments the core takes (NS of them, acc[0, NS) in the slots of
+// Zoo's first term; the backwards store SLOTS = TERMPAR of them, zeros
+// past NS); the argument derivatives only with PAR.  Kernel C and its
+// backward take it for a one-term list at p = 1 (gram_one.cu,
+// gram_one_f64.cu); E, the tangent kernels and C at p > 1 take Zoo.
+template <typename T, int ID>
+struct ZooOne {
+    static_assert(ID >= 0 && ID < PROFILE_SFB, "a closed-form profile");
+    static constexpr int NS = 2 + profile_nargs(ID);
+    static constexpr int SLOTS = TERMPAR;
+    T b0, c, w, a, b;
+    int mode, k;
+
+    __device__ __forceinline__ ZooOne(const T* __restrict__ params, int,
+                                      unsigned long long codes, const MTabs&)
+        : b0(params[0]), c(params[2]), w(params[3]), a(params[4]),
+          b(params[5]), mode((int)(codes >> 5) & 3),
+          k((int)(codes >> 7) & 511)
+    {
+    }
+    // the core at mode(r2 w) with its u-derivative (D1)
+    template <bool D1, bool DA>
+    __device__ __forceinline__ Core<T> term(T r2) const
+    {
+        const T u = mul_rn(r2, w);
+        T t = u, v = u;
+        bool pos = true;
+        if (mode != MODE_SQUARED) t = mode_arg(mode, u, v, pos);
+        Core<T> o = core_eval<T, D1, false, DA>(ID, k, t, a, b);
+        if (D1 && mode != MODE_SQUARED)
+            mode_chain<T, true, false>(o, t, v, pos);
+        return o;
+    }
+    __device__ __forceinline__ T value(T r2) const
+    {
+        return fma(c, term<false, false>(r2).g, b0);
+    }
+    // dK/dr2; with PAR, acc[0, NS) += gv dK/d(c, w, a, b)
+    template <bool PAR>
+    __device__ __forceinline__ T grad(T r2, T gv, T (&acc)[NS]) const
+    {
+        const Core<T> o = term<true, PAR && (NS > 2)>(r2);
+        const T cg = c * o.g1;
+        if (PAR) {
+            acc[0] = fma(gv, o.g, acc[0]);
+            if (r2 > T(0)) acc[1] = fma(gv, cg * r2, acc[1]);
+            if constexpr (NS > 2) acc[2] = fma(gv, c * o.ga, acc[2]);
+            if constexpr (NS > 3) acc[3] = fma(gv, c * o.gb, acc[3]);
+        }
+        return cg * w;
+    }
+};
 
 // r^2 = |x - y|^2 and its tangent dr^2 = 2 (x - y).(dx - dy), summed
 // as `sqdist` sums r^2: symmetric in the two points to the bit.

@@ -39,10 +39,12 @@ _I32 = ctypes.c_int
 _U64 = ctypes.c_ulonglong
 
 _BOTH = ('_f32', '_f64')
-# the Gram entry points of both dtypes for the closed-form evaluators
+# the Gram entry points of both dtypes for FixedExpQuad and Zoo
 # (csrc/gram.cu) and for ZooSpecial (csrc/gram_special.cu, float32;
-# gram_special_f64.cu, float64)
+# gram_special_f64.cu, float64); kernel C and its backward also for
+# ZooOne (csrc/gram_one.cu, gram_one_f64.cu)
 _GRAM = ('_f32', '_f64', '_zs_f32', '_zs_f64')
+_GRAM_C = _GRAM + ('_zo_f32', '_zo_f64')
 _F32, _F64 = ('_f32',), ('_f64',)
 
 _SCHUR = [_P, _I64, _I64, _P, _P, _I64, _P, _I64, _P, _I64, _I64]
@@ -67,11 +69,11 @@ _SIGNATURES = {
     'lsq_syrk_t': ([_P, _I64, _I64, _P, _P], _F32),
     'lsq_syrk_t_dmma': ([_P, _I64, _I64, _P, _P, _P], _F64),
     'lsq_gram': ([_P, _P, _I64, _I64, _I32, _P, _I32, _U64, _I32, _I32, _P,
-                  _P, _P], _GRAM),
+                  _P, _P], _GRAM_C),
     'lsq_gram_sym': ([_P, _I64, _I32, _P, _I32, _U64, _I32, _I32, _P, _P,
                       _P], _GRAM),
     'lsq_gram_bwd': ([_P, _P, _P, _I64, _I64, _I32, _P, _I32, _U64, _I32,
-                      _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P], _GRAM),
+                      _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P], _GRAM_C),
     'lsq_gram_sym_bwd': ([_P, _P, _I64, _I32, _I32, _P, _I32, _U64, _I32,
                           _I32, _I32, _I32, _I32, _P, _P, _P, _P], _GRAM),
     'lsq_gram_jvp': ([_P, _P, _P, _P, _I64, _I64, _I32, _P, _P, _I32, _U64,
@@ -110,15 +112,31 @@ def _sources():
 
 def _compile(srcs, out):
     """Compile each source with its own nvcc, all at once, and link the
-    objects into the shared library ``out``; returns nvcc's messages."""
+    objects into the shared library ``out``; returns nvcc's messages and
+    each process's wall time in seconds by source name."""
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, f.stem + '.o') for f in srcs]
+        # each process writes its messages to a file of its own: a pipe
+        # left unread while another process is waited for could fill
+        outs = [open(os.path.join(tmp, f.stem + '.txt'), 'w+')
+                for f in srcs]
+        t0 = time.perf_counter()
         procs = [subprocess.Popen([nvcc, *_FLAGS, '-c', str(f), '-o', o],
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for f, o in zip(srcs, objs)]
-        logs = [proc.communicate()[0] for proc in procs]
+                                  stdout=fh, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for f, o, fh in zip(srcs, objs, outs)]
+        seconds = {}
+        while len(seconds) < len(procs):
+            for f, proc in zip(srcs, procs):
+                if f.name not in seconds and proc.poll() is not None:
+                    seconds[f.name] = time.perf_counter() - t0
+            time.sleep(0.05)
+        logs = []
+        for fh in outs:
+            fh.seek(0)
+            logs.append(fh.read())
+            fh.close()
         for f, proc, text in zip(srcs, procs, logs):
             if proc.returncode != 0:
                 raise RuntimeError(
@@ -128,7 +146,7 @@ def _compile(srcs, out):
         if link.returncode != 0:
             raise RuntimeError(
                 f'nvcc link failed ({link.returncode}):\n{link.stderr}')
-    return ''.join(logs) + link.stderr
+    return ''.join(logs) + link.stderr, seconds
 
 
 def _build():
@@ -138,7 +156,7 @@ def _build():
         digest.update(f.name.encode())
         digest.update(f.read_bytes())
     path = BUILD_DIR / f'liblsqfitgp_torch-{digest.hexdigest()[:16]}.so'
-    info = {'path': str(path), 'seconds': 0.0, 'log': ''}
+    info = {'path': str(path), 'seconds': 0.0, 'log': '', 'nvcc': {}}
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
@@ -147,7 +165,7 @@ def _build():
         fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
         os.close(fd)
         try:
-            info['log'] = _compile(srcs, tmp)
+            info['log'], info['nvcc'] = _compile(srcs, tmp)
             os.replace(tmp, path)
         finally:
             if os.path.exists(tmp):
@@ -171,8 +189,9 @@ def lib():
 
 
 def build_info():
-    """``{'path', 'seconds', 'log'}`` of the build behind `lib` (seconds
-    is 0 when the library was already on disk)."""
+    """``{'path', 'seconds', 'log', 'nvcc'}`` of the build behind `lib`
+    (seconds is 0 and nvcc, each nvcc process's wall time by source, is
+    empty when the library was already on disk)."""
     lib()
     return dict(_state['info'])
 

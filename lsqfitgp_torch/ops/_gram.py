@@ -920,9 +920,15 @@ def _leaves(st):
     return [st]
 
 
-# the entry points' infix per evaluator: ZooSpecial's kernels are built
-# apart (csrc/gram_special.cu, gram_special_f64.cu)
-_SPECIAL_SUFFIX = {0: '', 1: '', 2: '_zs'}
+# the evaluators of csrc/profiles.cuh, the kernels' ``ev`` argument, by
+# name (the launch tallies' ``by_evaluator`` keys), and their entry
+# points' infix: ZooSpecial's kernels and ZooOne's (kernel C and its
+# backward only) are built apart (csrc/gram_special.cu,
+# gram_special_f64.cu; gram_one.cu, gram_one_f64.cu)
+_FIXED, _ZOO, _SPECIAL, _ONE = 0, 1, 2, 3
+EVALUATORS = {_FIXED: 'FixedExpQuad', _ZOO: 'Zoo', _SPECIAL: 'ZooSpecial',
+              _ONE: 'ZooOne'}
+_INFIX = {_FIXED: '', _ZOO: '', _SPECIAL: '_zs', _ONE: '_zo'}
 # the first id of the special-function cores, which only ZooSpecial
 # evaluates (csrc/profiles.cuh PROFILE_SFB)
 _FIRST_SPECIAL = 17
@@ -932,7 +938,9 @@ def _codes(st):
     """(term count, packed codes, evaluator) for the kernels: term t's
     code id | mode << 5 | k << 7 at bit 16 t; the evaluator 0 for a
     single unscaled ExpQuad term (FixedExpQuad), 2 for a list with a
-    special-function core (ZooSpecial), 1 otherwise (Zoo)."""
+    special-function core (ZooSpecial), 3 for one other term (ZooOne:
+    its closed-form profile compiled into kernel C and C's backward; the
+    other kernels take Zoo, `_routed`), 1 otherwise (Zoo)."""
     terms = _leaves(st)
     if not 1 <= len(terms) <= MAXTERMS:
         raise ValueError(f'the kernels take 1 to {MAXTERMS} terms, not '
@@ -949,7 +957,17 @@ def _codes(st):
     fixed = len(terms) == 1 and t0.profile.name == 'expquad' \
         and t0.mode == 'squared' and not t0.scaled
     special = any(t.profile.id >= _FIRST_SPECIAL for t in terms)
-    return len(terms), codes, 0 if fixed else 2 if special else 1
+    ev = _FIXED if fixed else _SPECIAL if special else \
+        _ONE if len(terms) == 1 else _ZOO
+    return len(terms), codes, ev
+
+
+def _routed(ev, p=1, c=False):
+    """The evaluator a kernel takes for `_codes`' ``ev``: ZooOne only in
+    kernel C and its backward (``c``) at p = 1 (csrc/gram.cu Tiling::PMANY:
+    the build makes no ZooOne kernel for p > 1); Zoo in its place
+    elsewhere."""
+    return _ZOO if ev == _ONE and not (c and p == 1) else ev
 
 
 def _mtabs(st, x):
@@ -1078,13 +1096,17 @@ def _profile_name(st):
     return '+'.join(s.profile.name for s in _leaves(st))
 
 
-def _count(fn, attr, st):
+def _count(fn, attr, st, ev=None):
     """One launch of ``fn``'s kernel: its count ``attr`` and its count for
     the profile, ``fn.by_profile[attr, name]``, go up by one, and, for a
     launch that read Matérn tables (`_mtabs`), ``fn.by_profile[attr,
-    'tables']``."""
+    'tables']``; given the evaluator ``ev``, its count too,
+    ``fn.by_evaluator[attr, EVALUATORS[ev]]``."""
     from ._mtable import tabulated
     setattr(fn, attr, getattr(fn, attr) + 1)
+    if ev is not None:
+        key = attr, EVALUATORS[ev]
+        fn.by_evaluator[key] = fn.by_evaluator.get(key, 0) + 1
     tables = any(s.order and tabulated(s.order) for s in _leaves(st))
     for name in (_profile_name(st),) + (('tables',) if tables else ()):
         key = attr, name
@@ -1350,8 +1372,8 @@ def _check_dtypes(*tensors):
 
 def _nsums(ev):
     """The scalar slots per block of the backwards: Σ G, tr G and the
-    evaluator's parameter sums (csrc/gram.cu ParSums)."""
-    return 3 if ev == 0 else 2 + _NPAR * MAXTERMS
+    evaluator's parameter sums (csrc/gram.cu ParSums: SLOTS of them)."""
+    return {_FIXED: 3, _ONE: 2 + _NPAR}.get(ev, 2 + _NPAR * MAXTERMS)
 
 
 def _gfv(scal, fv):
@@ -1370,13 +1392,14 @@ def _eval_cuda(st, x, y, fv, with_noise):
     if py != p:
         raise ValueError(f'x has {p} coordinates, y has {py}')
     nterms, codes, ev = _codes(st)
+    ev = _routed(ev, p, c=True)
     fv = fv.contiguous()
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
-    err = getattr(_build.lib(), 'lsq_gram' + _SPECIAL_SUFFIX[ev] + suffix)(
+    err = getattr(_build.lib(), 'lsq_gram' + _INFIX[ev] + suffix)(
         _ptr(x), _ptr(y), n, m, p, _ptr(fv), nterms, codes, int(with_noise),
         ev, _ptr(out), _tabs(st, x, fv), _stream(x.device))
     _build.check(err, 'gram')
-    _count(gram, 'launches', st)
+    _count(gram, 'launches', st, ev)
     return out
 
 
@@ -1390,13 +1413,14 @@ def _eval_sym_cuda(st, x, fv, with_noise):
     suffix = _check_dtypes(x, fv)
     n, p = x.shape
     nterms, codes, ev = _codes(st)
+    ev = _routed(ev)
     fv = fv.contiguous()
     out = torch.empty((n, n), dtype=x.dtype, device=x.device)
-    err = getattr(_build.lib(), 'lsq_gram_sym' + _SPECIAL_SUFFIX[ev] + suffix)(
+    err = getattr(_build.lib(), 'lsq_gram_sym' + _INFIX[ev] + suffix)(
         _ptr(x), n, p, _ptr(fv), nterms, codes, int(with_noise), ev,
         _ptr(out), _tabs(st, x, fv), _stream(x.device))
     _build.check(err, 'gram_sym')
-    _count(gram_sym, 'launches', st)
+    _count(gram_sym, 'launches', st, ev)
     return out
 
 
@@ -1443,6 +1467,7 @@ def _backward_cuda(G, st, x, y, fv, with_noise, need_xy, need_p):
     if G.shape != (n, m):
         raise ValueError(f'G has shape {tuple(G.shape)}, K {(n, m)}')
     nterms, codes, ev = _codes(st)
+    ev = _routed(ev, p, c=True)
     fv = fv.contiguous()
     nbj, nbi = _cdiv(m, _TILE), _cdiv(n, _BWD_ROWS)
     # each block's partial sums: over its columns for its rows, over its
@@ -1451,13 +1476,13 @@ def _backward_cuda(G, st, x, y, fv, with_noise, need_xy, need_p):
     colpart = x.new_empty((nbi, m, p)) if need_xy else None
     scal = x.new_empty((nbi * nbj, _nsums(ev))) if need_p else None
     # one launch for all p: G is read once
-    err = getattr(_build.lib(), 'lsq_gram_bwd' + _SPECIAL_SUFFIX[ev] + suffix)(
+    err = getattr(_build.lib(), 'lsq_gram_bwd' + _INFIX[ev] + suffix)(
         _ptr(G), _ptr(x), _ptr(y), n, m, p, _ptr(fv), nterms, codes,
         int(with_noise), ev, int(need_xy), int(need_p), _wide(G, m),
         _ptr(rowpart), _ptr(colpart), _ptr(scal), _tabs(st, x, fv),
         _stream(x.device))
     _build.check(err, 'gram backward')
-    _count(gram, 'launches_bwd', st)
+    _count(gram, 'launches_bwd', st, ev)
     gx = gy = None
     if need_xy:
         gx = 2 * rowpart.sum(0)
@@ -1473,20 +1498,21 @@ def _sym_backward_cuda(G, st, x, fv, with_noise, need_x, need_p):
     if G.shape != (n, n):
         raise ValueError(f'G has shape {tuple(G.shape)}, K {(n, n)}')
     nterms, codes, ev = _codes(st)
+    ev = _routed(ev)
     fv = fv.contiguous()
     nt = _cdiv(n, _TILE)
     # rows of tile I: one slot per other tile J (the pair (I, J) or
     # (J, I) writes it); the scalars per upper tile pair
     part = x.new_empty((nt, n, p)) if need_x else None
     scal = x.new_empty((nt * (nt + 1) // 2, _nsums(ev))) if need_p else None
-    fn = getattr(_build.lib(), 'lsq_gram_sym_bwd' + _SPECIAL_SUFFIX[ev] + suffix)
+    fn = getattr(_build.lib(), 'lsq_gram_sym_bwd' + _INFIX[ev] + suffix)
     tabs = _tabs(st, x, fv)
     for d0 in _chunks(p, need_x):
         err = fn(_ptr(G), _ptr(x), n, p, d0, _ptr(fv), nterms, codes,
                  int(with_noise), ev, int(need_x), int(need_p and d0 == 0),
                  _wide(G, n), _ptr(part), _ptr(scal), tabs, _stream(x.device))
         _build.check(err, 'gram_sym backward')
-        _count(gram_sym, 'launches_bwd', st)
+        _count(gram_sym, 'launches_bwd', st, ev)
     gx = 2 * part.sum(0) if need_x else None
     return gx, _gfv(scal, fv) if need_p else None
 
@@ -1516,15 +1542,16 @@ def _tangent_cuda(st, x, y, dx, dy, fv, dfv, with_noise):
                          f'{tuple(y.shape)}, {tuple(dx.shape)}, '
                          f'{tuple(dy.shape)}')
     nterms, codes, ev = _codes(st)
+    ev = _routed(ev)
     dx, dy = dx.contiguous(), dy.contiguous()
     fv, dfv = fv.contiguous(), dfv.contiguous()
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
-    err = getattr(_build.lib(), 'lsq_gram_jvp' + _SPECIAL_SUFFIX[ev] + suffix)(
+    err = getattr(_build.lib(), 'lsq_gram_jvp' + _INFIX[ev] + suffix)(
         _ptr(x), _ptr(y), _ptr(dx), _ptr(dy), n, m, p, _ptr(fv), _ptr(dfv),
         nterms, codes, int(with_noise), ev, _ptr(out), _tabs(st, x, fv),
         _stream(x.device))
     _build.check(err, 'gram tangent')
-    _count(gram, 'launches_jvp', st)
+    _count(gram, 'launches_jvp', st, ev)
     return out
 
 
@@ -1535,13 +1562,14 @@ def _sym_tangent_cuda(st, x, dx, fv, dfv, with_noise):
         raise ValueError(f'dx has shape {tuple(dx.shape)}, x '
                          f'{tuple(x.shape)}')
     nterms, codes, ev = _codes(st)
+    ev = _routed(ev)
     dx, fv, dfv = dx.contiguous(), fv.contiguous(), dfv.contiguous()
     out = torch.empty((n, n), dtype=x.dtype, device=x.device)
-    err = getattr(_build.lib(), 'lsq_gram_sym_jvp' + _SPECIAL_SUFFIX[ev] + suffix)(
+    err = getattr(_build.lib(), 'lsq_gram_sym_jvp' + _INFIX[ev] + suffix)(
         _ptr(x), _ptr(dx), n, p, _ptr(fv), _ptr(dfv), nterms, codes,
         int(with_noise), ev, _ptr(out), _tabs(st, x, fv), _stream(x.device))
     _build.check(err, 'gram_sym tangent')
-    _count(gram_sym, 'launches_jvp', st)
+    _count(gram_sym, 'launches_jvp', st, ev)
     return out
 
 
@@ -1557,13 +1585,14 @@ def _bwd_tangent_cuda(G, one, x, y, dx, dy, coef, need_xy, need_s):
     if G.shape != (n, m):
         raise ValueError(f'G has shape {tuple(G.shape)}, K {(n, m)}')
     _, codes, ev = _codes(one.st)
+    ev = _routed(ev)
     dx, dy, coef = dx.contiguous(), dy.contiguous(), coef.contiguous()
     fv = one.fv.contiguous()
     nbj, nbi = _cdiv(m, _TILE), _cdiv(n, _BWD_ROWS)
     rowpart = x.new_empty((nbj, n, p)) if need_xy else None
     colpart = x.new_empty((nbi, m, p)) if need_xy else None
     scal = x.new_empty((nbi * nbj, 3)) if need_s else None
-    fn = getattr(_build.lib(), 'lsq_gram_bwd_jvp' + _SPECIAL_SUFFIX[ev] + suffix)
+    fn = getattr(_build.lib(), 'lsq_gram_bwd_jvp' + _INFIX[ev] + suffix)
     tabs = _tabs(one.st, x, fv)
     for d0 in _chunks(p, need_xy):
         err = fn(_ptr(G), _ptr(x), _ptr(y), _ptr(dx), _ptr(dy), n, m, p, d0,
@@ -1571,7 +1600,7 @@ def _bwd_tangent_cuda(G, one, x, y, dx, dy, coef, need_xy, need_s):
                  int(need_s and d0 == 0), _wide(G, m), _ptr(rowpart),
                  _ptr(colpart), _ptr(scal), tabs, _stream(x.device))
         _build.check(err, 'gram backward tangent')
-        _count(gram, 'launches_bwd_jvp', one.st)
+        _count(gram, 'launches_bwd_jvp', one.st, ev)
     gx = gy = None
     if need_xy:
         gx = 2 * rowpart.sum(0)
@@ -1586,18 +1615,19 @@ def _sym_bwd_tangent_cuda(G, one, x, dx, coef, need_x, need_s):
     if G.shape != (n, n):
         raise ValueError(f'G has shape {tuple(G.shape)}, K {(n, n)}')
     _, codes, ev = _codes(one.st)
+    ev = _routed(ev)
     dx, coef, fv = dx.contiguous(), coef.contiguous(), one.fv.contiguous()
     nt = _cdiv(n, _TILE)
     part = x.new_empty((nt, n, p)) if need_x else None
     scal = x.new_empty((nt * (nt + 1) // 2, 3)) if need_s else None
-    fn = getattr(_build.lib(), 'lsq_gram_sym_bwd_jvp' + _SPECIAL_SUFFIX[ev] + suffix)
+    fn = getattr(_build.lib(), 'lsq_gram_sym_bwd_jvp' + _INFIX[ev] + suffix)
     tabs = _tabs(one.st, x, fv)
     for d0 in _chunks(p, need_x):
         err = fn(_ptr(G), _ptr(x), _ptr(dx), n, p, d0, _ptr(fv), _ptr(coef),
                  codes, ev, int(need_x), int(need_s and d0 == 0),
                  _wide(G, n), _ptr(part), _ptr(scal), tabs, _stream(x.device))
         _build.check(err, 'gram_sym backward tangent')
-        _count(gram_sym, 'launches_bwd_jvp', one.st)
+        _count(gram_sym, 'launches_bwd_jvp', one.st, ev)
     gx = 2 * part.sum(0) if need_x else None
     return gx, scal.sum(0) if need_s else None
 
@@ -1815,6 +1845,7 @@ def gram(profile, x, y=None, *, post=(), noise=None):
 gram.launches = gram.launches_bwd = 0
 gram.launches_jvp = gram.launches_bwd_jvp = 0
 gram.by_profile = {}
+gram.by_evaluator = {}
 
 
 def gram_plain(profile, x, y=None, *, post=(), noise=None):
@@ -1884,6 +1915,7 @@ def gram_sym(profile, x, *, post=(), noise=None):
 gram_sym.launches = gram_sym.launches_bwd = 0
 gram_sym.launches_jvp = gram_sym.launches_bwd_jvp = 0
 gram_sym.by_profile = {}
+gram_sym.by_evaluator = {}
 
 
 def gram_sym_plain(profile, x, *, post=(), noise=None):

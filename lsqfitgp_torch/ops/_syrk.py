@@ -331,13 +331,15 @@ def schur_update_gram(profile, X, A, *, post=(), eps=None, nreal=None,
     else:
         err = lib.lsq_schur_gram_f32(*args, _stream(A.device))
     _build.check(err, 'schur_update_gram')
-    _gram._count(schur_update_gram, counter, st)
+    # the tile initializer always takes ZooSpecial (csrc/schur_init.cuh)
+    _gram._count(schur_update_gram, counter, st, _gram._SPECIAL)
     return out
 
 
 schur_update_gram.launches = schur_update_gram.launches_tc = 0
 schur_update_gram.launches_tc1 = schur_update_gram.launches_dmma = 0
 schur_update_gram.by_profile = {}
+schur_update_gram.by_evaluator = {}
 
 
 def syrk_t_full_plain(W):

@@ -1478,3 +1478,126 @@ def test_sfb_path_lags_cuda(cuda, dtype):
     _, sh = _sfb_scales(torch.tensor(ks, dtype=torch.float64, device=cuda),
                         H, amp)
     assert bool(((got.double() - ref).abs() <= tol * sh).all())
+
+
+# -- ZooOne: one closed-form term compiled into kernel C and its backward ------
+
+# the one-term descriptions of `_zoo_descs` on the closed-form profiles
+# (ids below 'sfb'), and the scaled ExpQuad, which FixedExpQuad does not
+# take: every closed-form id, in each mode the zoo's kernels use
+ONE = sorted(name for name, d in _zoo_descs(lambda v: torch.tensor(v)).items()
+             if len(d.terms) == 1 and d.terms[0].profile.id
+             < ops.PROFILES['sfb'].id) + ['expquad-scaled']
+
+
+def _one_desc(t, name):
+    if name == 'expquad-scaled':
+        return ops.Terms((ops.Term(ops.PROFILES['expquad'], scale=t(0.7)),),
+                         (('mul', t(1.3)),))
+    return _zoo_descs(t)[name]
+
+
+def test_codes_routing():
+    """`_codes`' evaluator: FixedExpQuad for the unscaled ExpQuad, ZooOne
+    for one term of any closed-form profile (the scaled ExpQuad and the
+    ExpQuad in another mode included), Zoo for a sum, ZooSpecial for a
+    list with a special-function core (never ZooOne); `_routed` keeps
+    ZooOne for kernel C and its backward at p = 1 and gives Zoo to the
+    other kernels and to C at p > 1 (the build makes no ZooOne kernel
+    for p > 1)."""
+    from lsqfitgp_torch.ops import _gram
+    P, T, S = ops.PROFILES, ops.Term, ops.Terms
+    t = lambda v: torch.tensor(v)
+    ev = lambda d: _gram._codes(_gram._struct(d))[2]
+    assert ev(T(P['expquad'])) == _gram._FIXED
+    assert ev(S((T(P['expquad']),), (('mul', t(2.0)),))) == _gram._FIXED
+    assert ev(T(P['expquad'], scale=t(0.7))) == _gram._ONE
+    assert ev(T(P['expquad'], 'posabs')) == _gram._ONE
+    descs = _zoo_descs(t)
+    for name in ONE:
+        assert ev(_one_desc(t, name)) == _gram._ONE, name
+    for name in ('terms', 'terms3', 'ts-terms'):
+        assert ev(descs[name]) == _gram._ZOO, name
+    for name in ('sfb', 'matern0.7', 'bessel', 'pink', 'color3',
+                 'spectral-terms'):
+        assert ev(descs[name]) == _gram._SPECIAL, name
+    # every profile id from 'sfb' on goes to ZooSpecial, alone or in a sum
+    special = [p for p in P.values() if p.id >= _gram._FIRST_SPECIAL]
+    assert special
+    for prof in special:
+        args = (t(0.7),) if prof.name in ('sfb', 'pink') else \
+            (1.5,) if prof.name in ('matern', 'bessel') else ()
+        k = 3 if prof.name == 'color' else 0
+        term = T(prof, 'abs', k=k, args=args)
+        assert ev(term) == _gram._SPECIAL, prof.name
+        assert ev(S((T(P['cos'], 'abs'), term))) == _gram._SPECIAL
+    assert _gram._routed(_gram._ONE, 1, c=True) == _gram._ONE
+    assert _gram._routed(_gram._ONE, 3, c=True) == _gram._ZOO
+    assert _gram._routed(_gram._ONE) == _gram._ZOO
+    for e in (_gram._FIXED, _gram._ZOO, _gram._SPECIAL):
+        assert _gram._routed(e, 3, c=True) == _gram._routed(e) == e
+    assert _gram._nsums(_gram._ONE) == 6
+
+
+def _tallies(name):
+    return (ops.gram.by_evaluator.get(('launches', name), 0),
+            ops.gram.by_evaluator.get(('launches_bwd', name), 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n,m', [(64, 64), (301, 301), (300, 70)])
+@pytest.mark.parametrize('name', ONE)
+def test_zoo_one_cuda(cuda, gen, dtype, n, m, name):
+    """Kernel C and its fused backward on ZooOne (p = 1: the build makes
+    no ZooOne kernel for p > 1), one launch each of that evaluator,
+    against the plain version in float64 on the same inputs,
+    within `chip_smoke.py`'s bounds (`kernel_zoo`, `zoo_bwd_check`): K
+    within 32 (p + 1) u max|K|; the x and y gradients within (8 sqrt(k)
+    u + 32 (p + 1) u) times the sums of |G Wr Δ| over their k terms;
+    each slot of the folded vector's gradient within (ceil(log2(n m)) 4
+    u + 32 (p + 1) u) Σ|G ∂K/∂θ|; the backward equal to itself to the
+    bit in two calls, and E (on Zoo) equal to C to the bit."""
+    from lsqfitgp_torch.ops import _gram
+    p, u, ev = 1, torch.finfo(dtype).eps / 2, 'ZooOne'
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    x = t(gen.standard_normal((n, p)) * _spread(p))
+    y = t(gen.standard_normal((m, p)) * _spread(p))
+    x[3] = x[5]   # coincident points: the weight is zero at r² = 0
+    y[1] = x[7]
+    desc, noise = _one_desc(t, name), t(0.1)
+    c0, b0 = _tallies(ev)
+    K = ops.gram(desc, x, y, noise=noise)
+    assert _tallies(ev) == (c0 + 1, b0)
+    d64 = lambda a: a.double()
+    t64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=cuda)
+    Kp = ops.gram_plain(_one_desc(t64, name), d64(x), d64(y), noise=t64(0.1))
+    rel = 32 * (p + 1) * u
+    assert float((d64(K) - Kp).abs().max()) <= rel * float(Kp.abs().max())
+    # E on Zoo, C on ZooOne: the same bits
+    assert torch.equal(ops.gram_sym(desc, x, noise=noise),
+                       ops.gram(desc, x, noise=noise))
+    _, st, _, _, pvec = _gram._args(desc, x, None, (), noise)
+    fv = _gram._fold(st, pvec)
+    G = t(gen.standard_normal((n, m)))
+    c0, b0 = _tallies(ev)
+    got = _gram._backward(G, st, x, y, fv, True, True, True)
+    assert _tallies(ev) == (c0, b0 + 1)
+    again = _gram._backward(G, st, x, y, fv, True, True, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    G64, x64, y64, fv64 = d64(G), d64(x), d64(y), d64(fv)
+    ref = _gram._backward_plain(G64, st, x64, y64, fv64, True, True, True)
+    r2 = _gram._sqdist_plain(x64, y64)
+    evals = _gram._terms_plain(st, fv64, r2, d1=True, da=True)
+    A = G64.abs() * _gram._deriv_plain(st, x64, y64, fv64, evals, r2).abs()
+    D = (x64 - y64.T).abs()
+    tx = 2 * (A * D).sum(1, keepdim=True) * (8 * m ** 0.5 * u + rel)
+    ty = 2 * (A * D).sum(0)[:, None] * (8 * n ** 0.5 * u + rel)
+    assert bool(((d64(got[0]) - ref[0]).abs() <= tx).all())
+    assert bool(((d64(got[1]) - ref[1]).abs() <= ty).all())
+    mags = [G64.abs().sum(), G64.diagonal().abs().sum()] + [
+        G64.new_zeros(()) if mt is None else (G64.abs() * mt.abs()).sum()
+        for mt in _gram._partials(st, fv64, r2, evals)]
+    tp = (math.ceil(math.log2(n * m)) * 4 * u + rel) * torch.stack(mags)
+    assert bool(((d64(got[2]) - ref[2]).abs() <= tp + 1e-300).all()), \
+        (got[2], ref[2])

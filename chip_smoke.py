@@ -1302,14 +1302,15 @@ def kernel_gram_sym_tangent(dtype, gen):
 # -- the zoo's profiles in kernels C, D and E ------------------------------------
 
 # the zoo records' profiles: the Matérn path's, the multiscale paths' term
-# sum and three more cores of the zoo (kernel phase only), each with the
+# sum, three more cores of the zoo and a four-term sum (kernel phase
+# only), each with the
 # records' p (the isotropic cores also at the multidim cell's p) and the
 # operations per entry beside r²'s 3 p, counted from profiles.cuh (a sqrt,
 # exp or log one each): the forward's core and chain, the backward's core
 # with its derivatives, weight and parameter sums
 ZOO_RECORDS = {'maternp2': ((1, MD_P), 9, 22), 'expon': ((1,), 6, 16),
                'gammaexp': ((1, MD_P), 8, 22), 'cauchy': ((1, MD_P), 11, 30),
-               'terms': ((1, MD_P), 17, 44)}
+               'terms': ((1, MD_P), 17, 44), 'terms4': ((1,), 29, 76)}
 # the 1-D time-series cores and the rest of the 'abs'/'posabs' zoo (their
 # forward's core with the mode's square root and the chain; the
 # backward's core with its two derivatives, the chain rule, the weight
@@ -1346,6 +1347,7 @@ ZOO_BLOCK = {'matern': 2048, 'matern07': 2048, 'bessel': 4096, 'color': 4096,
 # path whose launches its float32 p = 1 records count
 ZOO_KEYS = {'maternp2': 'maternp', 'expon': 'expon', 'gammaexp': 'gammaexp',
             'cauchy': 'cauchy', 'terms': 'maternp+expquad',
+            'terms4': 'expquad+periodic+cauchy2+maternp',
             **{name: name for name in TS_RECORDS},
             'harmonic2': 'harmonic', 'harmonic04': 'harmonic',
             **{name: name for name in CORE_RECORDS}, 'matern07': 'matern',
@@ -1368,8 +1370,9 @@ def zoo_desc(name, dtype, amp=1.3):
     γ, Cauchy with dynamic α and β, the time-series path's Celerite(γ,
     B), the other cores of TS_RECORDS with dynamic arguments and those
     of CORE_RECORDS (each times ``amp``; 'sfbpath' is 'sfb' on the
-    Hurst path's points, `record_points`), and the multiscale path's
-    term sum a1 Maternp(p=2, s1) + a2 ExpQuad(s2) at MS_POINT."""
+    Hurst path's points, `record_points`), the multiscale path's term
+    sum a1 Maternp(p=2, s1) + a2 ExpQuad(s2) at MS_POINT and a four-term
+    sum of mixed modes ('terms4')."""
     import torch
     from lsqfitgp_torch import ops
     P, T, S = ops.PROFILES, ops.Term, ops.Terms
@@ -1382,6 +1385,18 @@ def zoo_desc(name, dtype, amp=1.3):
         a1, s1, a2, s2 = (math.exp(v) for v in MS_POINT)
         return S((T(P['maternp'], k=2, scale=t(s1), post=(('mul', t(a1)),)),
                   T(P['expquad'], scale=t(s2), post=(('mul', t(a2)),))))
+    if name == 'terms4':
+        # a long trend, a seasonal term of period 1, a medium-term
+        # rational quadratic (α dynamic) and a short-term Matérn-3/2: the
+        # four components of Rasmussen and Williams' Mauna Loa model
+        # (§5.4.3), its products left out, each with its amplitude
+        return S((T(P['expquad'], scale=t(20.0), post=(('mul', t(1.0)),)),
+                  T(P['periodic'], 'abs', args=(t(1.4),),
+                    scale=t(1 / (2 * math.pi)), post=(('mul', t(0.5)),)),
+                  T(P['cauchy2'], args=(t(0.8),), scale=t(3.0),
+                    post=(('mul', t(0.3)),)),
+                  T(P['maternp'], k=1, scale=t(0.5),
+                    post=(('mul', t(0.1)),))))
     term = {'maternp2': T(P['maternp'], k=2),
             'expon': T(P['expon'], 'abs'),
             'gammaexp': T(P['gammaexp'], args=(t(1.3),)),
@@ -2151,6 +2166,11 @@ def kernel_phase():
     specs += [
         ('gram_sym maternp2', kernel_zoo_sym, 'lsqfitgp_torch/csrc/gram.cu',
          'lsqfitgp_tpu/ops/_gram.py:157', [f32, f64]),
+        # E (on Zoo) against C (on ZooSum) to the bit on the multiscale sum
+        ('gram_sym terms',
+         lambda dtype, gen: kernel_zoo_sym(dtype, gen, 'terms'),
+         'lsqfitgp_torch/csrc/gram.cu', 'lsqfitgp_tpu/ops/_gram.py:157',
+         [f32, f64]),
         ('gram tangents maternp2', kernel_zoo_tangent,
          'lsqfitgp_torch/csrc/gram.cu', None, [f32, f64]),
         ('schur_update_gram/terms',
@@ -4472,6 +4492,34 @@ def ms_check(what, n, nll32, g32, x64, y64, cond):
         fail(f'{what}: gradient disagrees with the float64 reference')
 
 
+def ms_dense_data(dev):
+    """The multiscale path's dense data, float32 on ``dev``: n = N points
+    on [-50, 50], y = sin(x) plus noise of the dense slice's variance,
+    and that variance's diagonal as a matrix."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(20261016)
+    x = rng.uniform(-50, 50, N)
+    y = np.sin(x) + math.sqrt(NOISE_VAR) * rng.standard_normal(N)
+    f32 = torch.float32
+    return (torch.as_tensor(x, dtype=f32, device=dev),
+            torch.as_tensor(y, dtype=f32, device=dev),
+            NOISE_VAR * torch.eye(N, dtype=f32, device=dev))
+
+
+def ms_dense_gp(lgp, lp, xt, noise):
+    """The multiscale model's dense GP at the log parameters lp: the
+    default gram, the noise as a component of its own, 'y' their sum."""
+    gp = lgp.GP(ms_kernel(lgp, lp)).addx(xt, 'f').addcov(noise, 'e')
+    return gp.addlintransf(lambda f, e: f + e, ['f', 'e'], 'y')
+
+
+def ms_stream_gp(lgp, lp):
+    """The multiscale model plus its white noise, streaming."""
+    k = ms_kernel(lgp, lp) + NOISE_VAR * lgp.White()
+    return lgp.GP(k, solver='chol-stream', block=STREAM_BLOCK, b1=128)
+
+
 def multiscale_phase(dev='cuda'):
     """Path 2 of the zoo: the multiscale model a1 Maternp(p=2, s1) + a2
     ExpQuad(s2) at MS_POINT, float32.  Dense: one value+gradient at
@@ -4484,7 +4532,6 @@ def multiscale_phase(dev='cuda'):
     strip); then at n = 32768 the streaming NLL, gradient and posterior
     mean held to float64.  Returns the dense and streaming runs' launch
     counts."""
-    import numpy as np
     import torch
     import lsqfitgp_torch as lgp
     f32 = torch.float32
@@ -4492,16 +4539,10 @@ def multiscale_phase(dev='cuda'):
     key = 'maternp+expquad'
     lp0 = torch.tensor(MS_POINT, dtype=f32, device=dev)
     # dense
-    rng = np.random.default_rng(20261016)
-    x = rng.uniform(-50, 50, N)
-    y = np.sin(x) + math.sqrt(NOISE_VAR) * rng.standard_normal(N)
-    xt = torch.as_tensor(x, dtype=f32, device=dev)
-    yt = torch.as_tensor(y, dtype=f32, device=dev)
-    noise = NOISE_VAR * torch.eye(N, dtype=f32, device=dev)
+    xt, yt, noise = ms_dense_data(dev)
 
     def dense_gp(lp):
-        gp = lgp.GP(ms_kernel(lgp, lp)).addx(xt, 'f').addcov(noise, 'e')
-        return gp.addlintransf(lambda f, e: f + e, ['f', 'e'], 'y')
+        return ms_dense_gp(lgp, lp, xt, noise)
 
     log(f'multiscale path: a1 * Maternp(p=2, scale=s1) + a2 * '
         f'ExpQuad(scale=s2) at (log a1, log s1, log a2, log s2) = '
@@ -4526,7 +4567,7 @@ def multiscale_phase(dev='cuda'):
         f'{evaluators(counts, "gram_bwd")}')
     if dev == 'cuda':
         require_counts(counts, {f'gram@{key}': 3, f'gram_bwd@{key}': 3,
-                                'gram#Zoo': 3, 'gram_bwd#Zoo': 3},
+                                'gram#ZooSum': 3, 'gram_bwd#ZooSum': 3},
                        'the dense multiscale evaluations')
         require_launched(counts, ['schur_update_tc', 'syrk_t_full__dmma'],
                          'the dense multiscale evaluations')
@@ -4542,8 +4583,7 @@ def multiscale_phase(dev='cuda'):
 
     # streaming
     def stream_gp(lp):
-        k = ms_kernel(lgp, lp) + NOISE_VAR * lgp.White()
-        return lgp.GP(k, solver='chol-stream', block=STREAM_BLOCK, b1=128)
+        return ms_stream_gp(lgp, lp)
 
     xs_, ys_, _ = stream_data(N_STREAM)
     log(f'  streaming: n = {N_STREAM}, + {NOISE_VAR} * White(), '
@@ -4578,7 +4618,7 @@ def multiscale_phase(dev='cuda'):
                                   f'gram@{key}', 'schur_update_tc'],
                          'the streaming multiscale evaluations')
         require_counts(counts, {f'gram_bwd@{key}': 3 + 2 * strips,
-                                'gram_bwd#Zoo': 3 + 2 * strips},
+                                'gram_bwd#ZooSum': 3 + 2 * strips},
                        'the streaming multiscale evaluations')
 
     # the streaming check at n = 32768 against float64
@@ -5786,7 +5826,7 @@ def zoo_times(label, names=()):
     checkouts can be timed in turns in one call (copy this script into the
     other checkout); the times in a JSON line, the checkout's ``LABEL``
     with them.  Given ``names``, only the rows of ZOO_TIMES with those
-    names: C and its backward, and at p = 1 C′ and C″ too."""
+    names: C and its backward, and at p = 1 on one term C′ and C″ too."""
     import torch
     from lsqfitgp_torch import ops
     from lsqfitgp_torch.ops import _gram, _syrk
@@ -5813,7 +5853,9 @@ def zoo_times(label, names=()):
             log(f'  {label} {key}: C {out[key][0]:.4f} ms, backward '
                 f'{out[key][1]:.4f} ms')
             del X
-            if names and p == 1:
+            if names and p == 1 and (name == 'expquad'
+                                     or len(desc.terms) == 1):
+                # C′ and C″ take one term
                 x, dx, amp, _ = tangent_inputs(dtype, gen)
                 X1, dX, st, fv, dfv, one, coef = tangent_path_args(
                     x, dx, amp, 0.3, 0.5, 'expquad' if name == 'expquad'
@@ -5949,6 +5991,52 @@ def ts_evals(label, evals=9):
                       'busy_ms': busy}), flush=True)
 
 
+def ms_evals(label, evals=9, stream_evals=3):
+    """`--ms-evals LABEL`: the multiscale path's dense float32 value +
+    gradient (`multiscale_phase`'s model and data at MS_POINT, n = N, the
+    default gram) ``evals`` times and its streaming one (n = N_STREAM,
+    `ms_stream_gp`, checks off as a fit evaluates it) ``stream_evals``
+    times, each after one warm-up, host clock to a synchronize; no check,
+    the public API only, so that two checkouts can be timed in turns in
+    one call.  Prints the times in a JSON line with the checkout's
+    ``LABEL``."""
+    import torch
+    import lsqfitgp_torch as lgp
+    torch.set_default_dtype(torch.float32)
+    lp0 = torch.tensor(MS_POINT, device='cuda')
+    xt, yt, noise = ms_dense_data('cuda')
+    xs_, ys_, _ = stream_data(N_STREAM)
+
+    def dense():
+        lp = lp0.clone().requires_grad_()
+        nll = -ms_dense_gp(lgp, lp, xt, noise).marginal_likelihood({'y': yt})
+        torch.autograd.grad(nll, lp)
+
+    def stream():
+        lp = lp0.clone().requires_grad_()
+        with lgp.disable_checks():
+            nll = -ms_stream_gp(lgp, lp).addx(xs_, 'f').marginal_likelihood(
+                {'f': ys_})
+        torch.autograd.grad(nll, lp)
+
+    out = {}
+    for what, fn, count in (('dense', dense, evals),
+                            ('stream', stream, stream_evals)):
+        times = []
+        for i in range(count + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+        out[what] = times
+        log(f'  {label} multiscale {what} value + gradient: median '
+            f'{statistics.median(times):.2f} ms of '
+            f'{[round(v, 2) for v in times]}')
+    print(json.dumps({'ms_evals': label, 'ms': out}), flush=True)
+
+
 def main(argv):
     sys.path.insert(0, ROOT)
     header()
@@ -5991,6 +6079,10 @@ def main(argv):
         build()
         ts_evals(argv[1])
         return 0
+    if argv[:1] == ['--ms-evals'] and len(argv) == 2:
+        build()
+        ms_evals(argv[1])
+        return 0
     if argv == ['--deriv']:
         build()
         kernel_gram_p(torch.float32,
@@ -6016,7 +6108,9 @@ def main(argv):
                 for dtype in (torch.float32, torch.float64):
                     kernel_zoo(dtype, gen, name, p)
                     torch.cuda.empty_cache()
-        for fn in (kernel_zoo_sym, kernel_zoo_tangent,
+        for fn in (kernel_zoo_sym,
+                   lambda dtype, gen: kernel_zoo_sym(dtype, gen, 'terms'),
+                   kernel_zoo_tangent,
                    lambda dtype, gen: kernel_schur_gram(dtype, gen,
                                                         'terms')):
             for dtype in (torch.float32, torch.float64):

@@ -28,8 +28,9 @@
 // Design.
 // - The evaluator of the profile (profiles.cuh: FixedExpQuad, the main
 //   path's single ExpQuad term; ZooOne, one term of a closed-form
-//   profile compiled into the kernel; Zoo, up to MAXTERMS terms of the
-//   closed-form profiles read at run time; or ZooSpecial, of any
+//   profile compiled into the kernel; ZooSum, a sum of closed-form terms
+//   evaluated a group of entries at a time; Zoo, up to MAXTERMS terms of
+//   the closed-form profiles read at run time; or ZooSpecial, of any
 //   registered profile) and p = 1 are template parameters; the folded
 //   parameter vector (profiles.cuh) stays in device memory (no host
 //   read).  This file builds the kernels of FixedExpQuad and Zoo, with
@@ -38,16 +39,23 @@
 //   ZooSpecial's, float32's and float64's apart, with the entry points
 //   lsq_gram*_zs_f32 and _zs_f64, each in an nvcc process of its own (the
 //   special cores' code takes most of the build); gram_one.cu and
-//   gram_one_f64.cu with LSQ_GRAM_ONE for ZooOne's C and C's backward
-//   (lsq_gram_zo_*, lsq_gram_bwd_zo_*), one instantiation per
-//   closed-form profile, dispatched on the term's id at launch.
+//   gram_one_f64.cu with LSQ_GRAM_ONE for ZooOne's and ZooSum's C and C's
+//   backward (lsq_gram_zo_*, lsq_gram_bwd_zo_*): ZooOne's one
+//   instantiation per closed-form profile, dispatched on the term's id at
+//   launch, and ZooSum's one.
 // - ZooOne inlines its core into the entry loops: no call per entry, so
 //   nothing live is saved across one and the compiler interleaves a
 //   thread's entries; its row loop in C is unrolled Tiling::UNROLL
 //   times (the 16-byte entry group always), and at p > 1 C and its
-//   backward keep Zoo (Tiling::PMANY).  E keeps Zoo: C on ZooOne forms
-//   r^2 w as Zoo does before its call (mul_rn) and evaluates the same
-//   core_eval expression, so C and E still write the same bits.
+//   backward keep Zoo (Tiling::PMANY).  ZooSum takes the entries of
+//   Tiling::ROWS rows in C (a row's in the backward) as one group, over
+//   which it runs each term's case of one switch on the term's id, the
+//   case's core inlined: the branch on the profile is paid once per term
+//   and group; its parameter sums are in shared memory (ParSums).  The
+//   other evaluators keep their entry loops.  E keeps Zoo: C on ZooOne
+//   or ZooSum forms r^2 w as Zoo does before its call (mul_rn) and
+//   evaluates the same core_eval expression, so C and E still write the
+//   same bits.
 // - A block of 256 threads covers 64 x 64 tiles.  Each thread owns 16
 //   bytes of a tile row (4 floats or 2 doubles): 16-byte stores in the
 //   forwards, 16-byte loads of G in the backwards, entry by entry at the
@@ -159,18 +167,38 @@ struct Geo {
 
 // C's tiling per evaluator: the rows of a thread's tile C unrolls (the
 // 16-byte entry group is always unrolled; ZooOne's 2 were chosen on the
-// card, PERF.md) and whether C and its backward exist for p > 1 (not
-// ZooOne's: at p > 1 its float64 build took longer than ZooSpecial's
-// and Cauchy's p = 10 backward lost to Zoo's, PERF.md)
+// card, PERF.md), the rows whose entries C at p = 1 hands the evaluator
+// as one group (ROWS; the backward hands it a row's; 0: entry by entry,
+// value and grad), the blocks an SM C's backward is held to where not 0
+// (BWD_BLOCKS) and whether C and its backward exist for p > 1 (not
+// ZooOne's: at p > 1 its float64 build took longer than ZooSpecial's and
+// Cauchy's p = 10 backward lost to Zoo's, PERF.md; nor ZooSum's).
+// ZooSum's were chosen on the card (PERF.md): groups of 2 rows in C; in
+// float64 its backward takes the registers of its largest case, which
+// leave 2 blocks an SM, and ran 21 % faster held to 4 (64 registers, the
+// cases' spills included).  The other evaluators keep their entry loops:
+// handed groups as a loop over their entries, their backwards ran -15 to
+// +19 % off (PERF.md).
 template <typename T, class Ev>
 struct Tiling {
     static constexpr int UNROLL = Geo<T>::RPT;
+    static constexpr int ROWS = 0;
+    static constexpr int BWD_BLOCKS = 0;
     static constexpr bool PMANY = true;
 };
 
 template <typename T, int ID>
 struct Tiling<T, ZooOne<T, ID>> {
     static constexpr int UNROLL = 2;
+    static constexpr int ROWS = 0;
+    static constexpr int BWD_BLOCKS = 0;
+    static constexpr bool PMANY = false;
+};
+
+template <typename T>
+struct Tiling<T, ZooSum<T>> {
+    static constexpr int ROWS = 2;
+    static constexpr int BWD_BLOCKS = sizeof(T) == 8 ? 4 : 0;
     static constexpr bool PMANY = false;
 };
 
@@ -417,19 +445,56 @@ gram_kernel(const T* __restrict__ x, const T* __restrict__ y, long long n,
 #pragma unroll
         for (int k = 0; k < V; ++k) yc[k] = c0 + k < m ? y[c0 + k] : T(0);
         using Tl = Tiling<T, Ev>;
-#pragma unroll (Tl::UNROLL)
-        for (int a = 0; a < Gm::RPT; ++a) {
-            const long long r = i0 + ty + a * Gm::TY;
-            if (r >= n) break;
-            const T xr = x[r];
-            T v[V];
+        if constexpr (Tl::ROWS > 0) {
+            // the entries of ROWS rows as one group (ZooSum), those past
+            // the edge at the last row's and column's points, not stored
+            constexpr int R = Tl::ROWS;
+            static_assert(Gm::RPT % R == 0, "whole groups of rows");
+            T ycl[V];
 #pragma unroll
-            for (int k = 0; k < V; ++k) {
-                const long long c = c0 + k < m ? c0 + k : m - 1;
-                const T r2 = dist2<T, true>(x, y, r, c, p, xr, yc[k]);
-                v[k] = entry_value(ev, r2, diag && r == c0 + k, noise);
+            for (int k = 0; k < V; ++k)
+                ycl[k] = y[c0 + k < m ? c0 + k : m - 1];
+#pragma unroll 1
+            for (int a0 = 0; a0 < Gm::RPT; a0 += R) {
+                const long long r0 = i0 + ty + a0 * Gm::TY;
+                if (r0 >= n) break;
+                T r2[R * V], v[R * V];
+#pragma unroll
+                for (int a = 0; a < R; ++a) {
+                    const long long r = r0 + a * Gm::TY;
+                    const T xr = x[r < n ? r : n - 1];
+#pragma unroll
+                    for (int k = 0; k < V; ++k)
+                        r2[a * V + k] = dist2<T, true>(x, y, r, c0 + k, p,
+                                                       xr, ycl[k]);
+                }
+                ev.values(r2, v);
+#pragma unroll
+                for (int a = 0; a < R; ++a) {
+                    const long long r = r0 + a * Gm::TY;
+                    if (r >= n) break;
+                    // the nugget after the sum, as entry_value adds it
+#pragma unroll
+                    for (int k = 0; k < V; ++k)
+                        if (diag && r == c0 + k) v[a * V + k] += noise;
+                    store_row(out + r * m + c0, v + a * V, m - c0, wide);
+                }
             }
-            store_row(out + r * m + c0, v, m - c0, wide);
+        } else {
+#pragma unroll (Tl::UNROLL)
+            for (int a = 0; a < Gm::RPT; ++a) {
+                const long long r = i0 + ty + a * Gm::TY;
+                if (r >= n) break;
+                const T xr = x[r];
+                T v[V];
+#pragma unroll
+                for (int k = 0; k < V; ++k) {
+                    const long long c = c0 + k < m ? c0 + k : m - 1;
+                    const T r2 = dist2<T, true>(x, y, r, c, p, xr, yc[k]);
+                    v[k] = entry_value(ev, r2, diag && r == c0 + k, noise);
+                }
+                store_row(out + r * m + c0, v, m - c0, wide);
+            }
         }
     } else {
         __shared__ __align__(16) T xs[SLAB][Gm::PITCH], ys[SLAB][Gm::PITCH];
@@ -563,6 +628,33 @@ struct ParSums {
         for (int q = 0; q < Ev::NS; ++q) v[2 + q] = acc[q];
 #pragma unroll
         for (int q = Ev::NS; q < Ev::SLOTS; ++q) v[2 + q] = T(0);
+        block_scalars(v, scal);
+    }
+};
+
+// ZooSum's: its parameter sums in shared memory, a column per thread,
+// which it indexes by the run-time term (SlotSums)
+template <typename T>
+struct ParSums<T, ZooSum<T>> {
+    static constexpr int NS = ZooSum<T>::NS;
+    static constexpr int S = 2 + ZooSum<T>::SLOTS;
+    T sg, tr;
+    SlotSums<T> acc;
+
+    __device__ __forceinline__ ParSums() : sg(T(0)), tr(T(0))
+    {
+        __shared__ T sh[NS][NT];
+        acc = SlotSums<T>{&sh[0][threadIdx.x], NT};
+#pragma unroll
+        for (int q = 0; q < NS; ++q) acc[q] = T(0);
+    }
+    __device__ __forceinline__ void store(T* scal) const
+    {
+        T v[S];
+        v[0] = sg;
+        v[1] = tr;
+#pragma unroll
+        for (int q = 0; q < NS; ++q) v[2 + q] = acc[q];
         block_scalars(v, scal);
     }
 };
@@ -747,6 +839,11 @@ __device__ __forceinline__ void bwd_p1(const T* __restrict__ G,
         yc[k] = c0 + k < m ? y[c0 + k] : T(0);
         cacc[k][0] = T(0);
     }
+    // ZooSum's: past the edge the last column's points
+    T ycl[V];
+    if constexpr (Tiling<T, Ev>::ROWS > 0)
+#pragma unroll
+        for (int k = 0; k < V; ++k) ycl[k] = y[c0 + k < m ? c0 + k : m - 1];
     ParSums<T, Ev> ps;
     for (int a = 0; a < Gm::RPT * CROWS; ++a) {
         const long long r = i0 + ty + a * Gm::TY;
@@ -754,21 +851,48 @@ __device__ __forceinline__ void bwd_p1(const T* __restrict__ G,
         T gv[V], racc = T(0);
         load_row(G + (rv ? r : 0) * m + c0, gv, rv ? m - c0 : 0, wide);
         const T xr = rv ? x[r] : T(0);
+        if constexpr (Tiling<T, Ev>::ROWS > 0) {
+            // the row's entries as one group (ZooSum), those past the edge
+            // at the last row's and column's points, G's zeros there: they
+            // add nothing to its sums
+            const T xl = x[rv ? r : n - 1];
+            T r2[V], d1[V];
 #pragma unroll
-        for (int k = 0; k < V; ++k) {
-            const long long c = c0 + k;
-            if (!rv || c >= m) continue;
-            const T r2 = dist2<T, true>(x, y, r, c, 1, xr, yc[k]);
-            const T d1 = ev.template grad<PAR>(r2, gv[k], ps.acc);
-            if constexpr (PAR) {
-                ps.sg += gv[k];
-                if (diag && r == c) ps.tr += gv[k];
+            for (int k = 0; k < V; ++k)
+                r2[k] = dist2<T, true>(x, y, r, c0 + k, 1, xl, ycl[k]);
+            ev.template grads<PAR>(r2, gv, d1, ps.acc);
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+                const long long c = c0 + k;
+                if (!rv || c >= m) continue;
+                if constexpr (PAR) {
+                    ps.sg += gv[k];
+                    if (diag && r == c) ps.tr += gv[k];
+                }
+                if constexpr (XY) {
+                    const T w = r2[k] > T(0) ? gv[k] * d1[k] : T(0);
+                    const T t = w * (xl - ycl[k]);
+                    racc += t;
+                    cacc[k][0] += t;
+                }
             }
-            if constexpr (XY) {
-                const T w = r2 > T(0) ? gv[k] * d1 : T(0);
-                const T t = w * (xr - yc[k]);
-                racc += t;
-                cacc[k][0] += t;
+        } else {
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+                const long long c = c0 + k;
+                if (!rv || c >= m) continue;
+                const T r2 = dist2<T, true>(x, y, r, c, 1, xr, yc[k]);
+                const T d1 = ev.template grad<PAR>(r2, gv[k], ps.acc);
+                if constexpr (PAR) {
+                    ps.sg += gv[k];
+                    if (diag && r == c) ps.tr += gv[k];
+                }
+                if constexpr (XY) {
+                    const T w = r2 > T(0) ? gv[k] * d1 : T(0);
+                    const T t = w * (xr - yc[k]);
+                    racc += t;
+                    cacc[k][0] += t;
+                }
             }
         }
         if constexpr (XY) {
@@ -790,13 +914,12 @@ __device__ __forceinline__ void bwd_p1(const T* __restrict__ G,
 // G Wr (x_i - y_j)_d, and (when PAR) scal[by * gridDim.x + bx][0..S),
 // the block's ParSums.  One launch for all p.
 template <typename T, class Ev, bool P1, bool XY, bool PAR>
-__global__ void __launch_bounds__(NT)
-gram_bwd_kernel(const T* __restrict__ G, const T* __restrict__ x,
-                const T* __restrict__ y, long long n, long long m, int p,
-                const T* __restrict__ params, int nterms,
-                unsigned long long codes, int with_noise, int wide,
-                T* __restrict__ rowpart, T* __restrict__ colpart,
-                T* __restrict__ scal, const MTabs tb)
+__device__ __forceinline__ void gram_bwd(
+    const T* __restrict__ G, const T* __restrict__ x,
+    const T* __restrict__ y, long long n, long long m, int p,
+    const T* __restrict__ params, int nterms, unsigned long long codes,
+    int with_noise, int wide, T* __restrict__ rowpart,
+    T* __restrict__ colpart, T* __restrict__ scal, const MTabs& tb)
 {
     const Ev ev(params, nterms, codes, tb);
     if constexpr (P1)
@@ -805,6 +928,35 @@ gram_bwd_kernel(const T* __restrict__ G, const T* __restrict__ x,
     else
         bwd_slabs<T, Ev, XY, PAR>(G, x, y, n, m, p, ev, with_noise, wide,
                                   rowpart, colpart, scal);
+}
+
+template <typename T, class Ev, bool P1, bool XY, bool PAR>
+__global__ void __launch_bounds__(NT)
+gram_bwd_kernel(const T* __restrict__ G, const T* __restrict__ x,
+                const T* __restrict__ y, long long n, long long m, int p,
+                const T* __restrict__ params, int nterms,
+                unsigned long long codes, int with_noise, int wide,
+                T* __restrict__ rowpart, T* __restrict__ colpart,
+                T* __restrict__ scal, const MTabs tb)
+{
+    gram_bwd<T, Ev, P1, XY, PAR>(G, x, y, n, m, p, params, nterms, codes,
+                                 with_noise, wide, rowpart, colpart, scal,
+                                 tb);
+}
+
+// gram_bwd_kernel with at least Tiling::BWD_BLOCKS blocks an SM
+template <typename T, class Ev, bool P1, bool XY, bool PAR>
+__global__ void __launch_bounds__(NT, Tiling<T, Ev>::BWD_BLOCKS)
+bounded_gram_bwd_kernel(const T* __restrict__ G, const T* __restrict__ x,
+                        const T* __restrict__ y, long long n, long long m,
+                        int p, const T* __restrict__ params, int nterms,
+                        unsigned long long codes, int with_noise, int wide,
+                        T* __restrict__ rowpart, T* __restrict__ colpart,
+                        T* __restrict__ scal, const MTabs tb)
+{
+    gram_bwd<T, Ev, P1, XY, PAR>(G, x, y, n, m, p, params, nterms, codes,
+                                 with_noise, wide, rowpart, colpart, scal,
+                                 tb);
 }
 
 // E's backward: the mirror tile, then (reused) the column sums
@@ -1305,9 +1457,20 @@ bool with_one(int id, F& f)
 }
 #endif
 
+#if LSQ_GRAM_ONE
+// whether every term of the list is of a closed-form profile
+bool closed_terms(int nterms, unsigned long long codes)
+{
+    for (int t = 0; t < nterms; ++t)
+        if ((int)((codes >> (16 * t)) & 31u) >= PROFILE_SFB) return false;
+    return true;
+}
+#endif
+
 // f(tag) for the evaluator the host chose: 0 FixedExpQuad, 1 Zoo (this
 // file), 2 ZooSpecial (with LSQ_GRAM_SPECIAL), 3 ZooOne of the first
-// term's profile (with LSQ_GRAM_ONE, one term); false for another value,
+// term's profile (with LSQ_GRAM_ONE, one term), 4 ZooSum (with
+// LSQ_GRAM_ONE, 2 or more closed-form terms); false for another value,
 // a term count outside [1, MAXTERMS] or where f refuses (returns false)
 template <class F>
 bool with_ev(int ev, int nterms, unsigned long long codes, F&& f)
@@ -1322,6 +1485,9 @@ bool with_ev(int ev, int nterms, unsigned long long codes, F&& f)
         return nterms == 1
             && with_one(id == PROFILE_GAMMAEXP2 ? PROFILE_EXPON : id, f);
     }
+    case 4:
+        return nterms >= 2 && closed_terms(nterms, codes)
+            && f(EvTag<ZooSum>{});
 #else
     case 0: return f(EvTag<FixedExpQuad>{});
     case 1: return f(EvTag<Zoo>{});
@@ -1384,9 +1550,14 @@ int launch_gram_sym(const T* x, long long n, int p, const T* params,
 template <typename T, class Ev, bool P1>
 auto bwd_kernel(bool xy, bool par)
 {
-    return xy ? (par ? gram_bwd_kernel<T, Ev, P1, true, true>
-                     : gram_bwd_kernel<T, Ev, P1, true, false>)
-              : gram_bwd_kernel<T, Ev, P1, false, true>;
+    if constexpr (Tiling<T, Ev>::BWD_BLOCKS > 0)
+        return xy ? (par ? bounded_gram_bwd_kernel<T, Ev, P1, true, true>
+                         : bounded_gram_bwd_kernel<T, Ev, P1, true, false>)
+                  : bounded_gram_bwd_kernel<T, Ev, P1, false, true>;
+    else
+        return xy ? (par ? gram_bwd_kernel<T, Ev, P1, true, true>
+                         : gram_bwd_kernel<T, Ev, P1, true, false>)
+                  : gram_bwd_kernel<T, Ev, P1, false, true>;
 }
 
 template <typename T, class Ev, bool P1>

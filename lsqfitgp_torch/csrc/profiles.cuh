@@ -63,16 +63,19 @@
 // kernels take 64 registers where they took 48, and their backwards
 // 28-36 % longer).
 //
-// Four evaluators take this vector.  FixedExpQuad is the single ExpQuad
+// Five evaluators take this vector.  FixedExpQuad is the single ExpQuad
 // term with w = 1 (the main path's profile), compiled as before; ZooOne
 // one term of a closed-form profile, its profile a template parameter
-// (the core inlined into the kernel); Zoo reads a term list of
-// closed-form profiles at run time, ZooSpecial one of any profile.
-// Kernels C and E and their derivative kernels take the evaluator as a
-// template parameter (the host picks it; gram_one.cu and
-// gram_one_f64.cu build ZooOne's C and C's backward, gram_special.cu
-// and gram_special_f64.cu ZooSpecial's kernels, each in an nvcc process
-// of its own), kernel D's tile
+// (the core inlined into the kernel); ZooSum a sum of 2 to MAXTERMS
+// closed-form terms read at run time, a group of entries at a time, one
+// switch on each term's id with the cores inlined in its cases; Zoo
+// reads a term list of closed-form profiles at run time, a call per
+// term and entry, ZooSpecial one of any profile.  Kernels C and E and
+// their derivative kernels take the evaluator as a template parameter
+// (the host picks it; gram_one.cu and gram_one_f64.cu build ZooOne's
+// and ZooSum's C and C's backward, gram_special.cu and
+// gram_special_f64.cu ZooSpecial's kernels, each in an nvcc process of
+// its own), kernel D's tile
 // initializer always takes ZooSpecial, which writes the same bits as
 // FixedExpQuad for that term.
 
@@ -1249,7 +1252,7 @@ template <typename T> using ZooSpecial = ZooT<T, true>;
 // (ops/_gram.py PROFILES' dargs): a for GammaExp, Cauchy2, Periodic,
 // CausalExpQuad, Wendland and Harmonic, a and b for Cauchy, Circular
 // and Celerite
-constexpr int profile_nargs(int id)
+__host__ __device__ constexpr int profile_nargs(int id)
 {
     switch (id) {
     case PROFILE_GAMMAEXP:
@@ -1269,7 +1272,8 @@ constexpr int profile_nargs(int id)
 }
 
 // u = r^2 w rounded once, never contracted into a later add, as Zoo
-// forms it before its call: C on ZooOne writes E's (Zoo's) bits
+// forms it before its call: C on ZooOne and ZooSum writes E's (Zoo's)
+// bits
 __device__ __forceinline__ float mul_rn(float a, float b)
 {
     return __fmul_rn(a, b);
@@ -1279,19 +1283,33 @@ __device__ __forceinline__ double mul_rn(double a, double b)
     return __dmul_rn(a, b);
 }
 
-// One term of the closed-form profile ID (below PROFILE_SFB), compiled
-// in: core_eval at a constant id, inlined into the kernel's entry loop
-// (no call, no switch over the profiles), its mode read once per launch
-// (one branch every thread takes the same way) and one evaluation of the
-// core whatever the mode.  Its parameter sums are c's, w's and those of
-// the arguments the core takes (NS of them, acc[0, NS) in the slots of
+// The term of the closed-form profile ID (below PROFILE_SFB) at u = r^2 w
+// (mul_rn): core_eval at the constant id, inlined (no call, no switch over
+// the profiles), one evaluation of the core whatever the mode, with its
+// u-derivative (D1) and its argument derivatives (DA)
+template <typename T, int ID, bool D1, bool DA>
+__device__ __forceinline__ Core<T> closed_core(int mode, int k, T u, T a,
+                                               T b)
+{
+    static_assert(ID >= 0 && ID < PROFILE_SFB, "a closed-form profile");
+    T t = u, v = u;
+    bool pos = true;
+    if (mode != MODE_SQUARED) t = mode_arg(mode, u, v, pos);
+    Core<T> o = core_eval<T, D1, false, DA>(ID, k, t, a, b);
+    if (D1 && mode != MODE_SQUARED) mode_chain<T, true, false>(o, t, v, pos);
+    return o;
+}
+
+// One term of the closed-form profile ID, compiled in: closed_core in the
+// kernel's entry loop, its mode read once per launch (one branch every
+// thread takes the same way).  Its parameter sums are c's, w's and those
+// of the arguments the core takes (NS of them, acc[0, NS) in the slots of
 // Zoo's first term; the backwards store SLOTS = TERMPAR of them, zeros
 // past NS); the argument derivatives only with PAR.  Kernel C and its
 // backward take it for a one-term list at p = 1 (gram_one.cu,
 // gram_one_f64.cu); E, the tangent kernels and C at p > 1 take Zoo.
 template <typename T, int ID>
 struct ZooOne {
-    static_assert(ID >= 0 && ID < PROFILE_SFB, "a closed-form profile");
     static constexpr int NS = 2 + profile_nargs(ID);
     static constexpr int SLOTS = TERMPAR;
     T b0, c, w, a, b;
@@ -1308,14 +1326,7 @@ struct ZooOne {
     template <bool D1, bool DA>
     __device__ __forceinline__ Core<T> term(T r2) const
     {
-        const T u = mul_rn(r2, w);
-        T t = u, v = u;
-        bool pos = true;
-        if (mode != MODE_SQUARED) t = mode_arg(mode, u, v, pos);
-        Core<T> o = core_eval<T, D1, false, DA>(ID, k, t, a, b);
-        if (D1 && mode != MODE_SQUARED)
-            mode_chain<T, true, false>(o, t, v, pos);
-        return o;
+        return closed_core<T, ID, D1, DA>(mode, k, mul_rn(r2, w), a, b);
     }
     __device__ __forceinline__ T value(T r2) const
     {
@@ -1334,6 +1345,149 @@ struct ZooOne {
             if constexpr (NS > 3) acc[3] = fma(gv, c * o.gb, acc[3]);
         }
         return cg * w;
+    }
+};
+
+template <int ID>
+struct ProfileId {
+    static constexpr int value = ID;
+};
+
+// f(ProfileId<id>{}) for the closed-form profile id, by one switch
+// (GammaExp's gamma = 2 takes Expon's case: the same core); nothing for
+// another id
+template <class F>
+__device__ __forceinline__ void closed_switch(int id, F&& f)
+{
+    switch (id) {
+    case PROFILE_EXPQUAD: f(ProfileId<PROFILE_EXPQUAD>{}); break;
+    case PROFILE_MATERNP: f(ProfileId<PROFILE_MATERNP>{}); break;
+    case PROFILE_GAMMAEXP: f(ProfileId<PROFILE_GAMMAEXP>{}); break;
+    case PROFILE_GAMMAEXP2:
+    case PROFILE_EXPON: f(ProfileId<PROFILE_EXPON>{}); break;
+    case PROFILE_CAUCHY: f(ProfileId<PROFILE_CAUCHY>{}); break;
+    case PROFILE_CAUCHY2: f(ProfileId<PROFILE_CAUCHY2>{}); break;
+    case PROFILE_PERIODIC: f(ProfileId<PROFILE_PERIODIC>{}); break;
+    case PROFILE_HOLEEFFECT: f(ProfileId<PROFILE_HOLEEFFECT>{}); break;
+    case PROFILE_CAUSALEXPQUAD: f(ProfileId<PROFILE_CAUSALEXPQUAD>{}); break;
+    case PROFILE_LOG: f(ProfileId<PROFILE_LOG>{}); break;
+    case PROFILE_WENDLAND: f(ProfileId<PROFILE_WENDLAND>{}); break;
+    case PROFILE_CIRCULAR: f(ProfileId<PROFILE_CIRCULAR>{}); break;
+    case PROFILE_CELERITE: f(ProfileId<PROFILE_CELERITE>{}); break;
+    case PROFILE_HARMONIC: f(ProfileId<PROFILE_HARMONIC>{}); break;
+    case PROFILE_COS: f(ProfileId<PROFILE_COS>{}); break;
+    case PROFILE_SINC: f(ProfileId<PROFILE_SINC>{}); break;
+    }
+}
+
+// Parameter sums kept in memory, slot q at p[q * stride]: ZooSum's (a
+// column of shared memory per thread), which it indexes by the run-time
+// term: an array of registers so indexed would go to local memory.
+template <typename T>
+struct SlotSums {
+    T* p;
+    int stride;
+    __device__ __forceinline__ T& operator[](int q) const
+    {
+        return p[q * stride];
+    }
+};
+
+// A sum of 2 to MAXTERMS terms of the closed-form profiles, read at run
+// time as Zoo reads them, but evaluated a group of G entries at a time,
+// term by term: per term its parameters and code read once, one switch
+// on its id (every thread of the launch takes the same case), whose case
+// runs closed_core at that constant id over the G entries.  No call: the
+// switch is paid once per term and group, not per term and entry, and a
+// kernel takes the registers of its largest case.  The term loop stays
+// rolled (one copy of the cases); a term's parameter sums are summed over
+// the group in locals, then added into its slots (Zoo's: 4 t + q) in
+// shared memory (SlotSums), only those the profile takes: the sixteen
+// sums in registers, added by an unrolled compare-and-select, took the
+// float32 backward from 64 to 80 registers and spilled in float64, 1.88
+// against 1.68 ms in float32 on the multiscale sum (PERF.md).  Kernel C
+// and its backward take it at p = 1 (gram_one.cu, gram_one_f64.cu); E,
+// the tangent kernels and C at p > 1 take Zoo, whose bits C on ZooSum
+// writes: the same cores, r^2 w rounded as Zoo rounds it, v = fma(c_t,
+// g_t, v) from params[0] in term order.
+template <typename T>
+struct ZooSum {
+    static constexpr int NS = TERMPAR * MAXTERMS;
+    static constexpr int SLOTS = NS;
+    const T* __restrict__ p;
+    int n;
+    unsigned long long codes;
+
+    __device__ __forceinline__ ZooSum(const T* __restrict__ params,
+                                      int nterms, unsigned long long cd,
+                                      const MTabs&)
+        : p(params), n(nterms), codes(cd)
+    {
+    }
+    // v = K at r2 without the diagonal term
+    template <int G>
+    __device__ __forceinline__ void values(const T (&r2)[G], T (&v)[G]) const
+    {
+#pragma unroll
+        for (int e = 0; e < G; ++e) v[e] = p[0];
+#pragma unroll 1
+        for (int t = 0; t < n; ++t) {
+            const T* q = p + 2 + TERMPAR * t;
+            const T c = q[0], w = q[1], a = q[2], b = q[3];
+            const unsigned code = term_code(codes, t);
+            const int mode = (code >> 5) & 3u, k = code >> 7;
+            closed_switch(code & 31u, [&](auto id) {
+                constexpr int ID = decltype(id)::value;
+#pragma unroll
+                for (int e = 0; e < G; ++e)
+                    v[e] = fma(c, closed_core<T, ID, false, false>(
+                                      mode, k, mul_rn(r2[e], w), a, b).g,
+                               v[e]);
+            });
+        }
+    }
+    // d1 = dK/dr2; with PAR, acc[4 t + (0, 1, 2, 3)] += the sums over the
+    // group of gv dK/d(c, w, a, b)_t
+    template <bool PAR, int G>
+    __device__ __forceinline__ void grads(const T (&r2)[G], const T (&gv)[G],
+                                          T (&d1)[G],
+                                          const SlotSums<T>& acc) const
+    {
+#pragma unroll
+        for (int e = 0; e < G; ++e) d1[e] = T(0);
+#pragma unroll 1
+        for (int t = 0; t < n; ++t) {
+            const T* q = p + 2 + TERMPAR * t;
+            const T c = q[0], w = q[1], a = q[2], b = q[3];
+            const unsigned code = term_code(codes, t);
+            const int mode = (code >> 5) & 3u, k = code >> 7;
+            T s[TERMPAR] = {T(0), T(0), T(0), T(0)};
+            closed_switch(code & 31u, [&](auto id) {
+                constexpr int ID = decltype(id)::value;
+                constexpr int NA = profile_nargs(ID);
+#pragma unroll
+                for (int e = 0; e < G; ++e) {
+                    const Core<T> o =
+                        closed_core<T, ID, true, PAR && (NA > 0)>(
+                            mode, k, mul_rn(r2[e], w), a, b);
+                    const T cg = c * o.g1;
+                    d1[e] = fma(cg, w, d1[e]);
+                    if (PAR) {
+                        s[0] = fma(gv[e], o.g, s[0]);
+                        if (r2[e] > T(0)) s[1] = fma(gv[e], cg * r2[e], s[1]);
+                        if constexpr (NA > 0)
+                            s[2] = fma(gv[e], c * o.ga, s[2]);
+                        if constexpr (NA > 1)
+                            s[3] = fma(gv[e], c * o.gb, s[3]);
+                    }
+                }
+                if (PAR) {
+#pragma unroll
+                    for (int j = 0; j < 2 + NA; ++j)
+                        acc[TERMPAR * t + j] += s[j];
+                }
+            });
+        }
     }
 };
 

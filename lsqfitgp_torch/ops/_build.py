@@ -42,7 +42,7 @@ _BOTH = ('_f32', '_f64')
 # the Gram entry points of both dtypes for FixedExpQuad and Zoo
 # (csrc/gram.cu) and for ZooSpecial (csrc/gram_special.cu, float32;
 # gram_special_f64.cu, float64); kernel C and its backward also for
-# ZooOne (csrc/gram_one.cu, gram_one_f64.cu)
+# ZooOne and ZooSum (csrc/gram_one.cu, gram_one_f64.cu)
 _GRAM = ('_f32', '_f64', '_zs_f32', '_zs_f64')
 _GRAM_C = _GRAM + ('_zo_f32', '_zo_f64')
 _F32, _F64 = ('_f32',), ('_f64',)

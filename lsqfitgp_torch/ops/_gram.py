@@ -922,13 +922,13 @@ def _leaves(st):
 
 # the evaluators of csrc/profiles.cuh, the kernels' ``ev`` argument, by
 # name (the launch tallies' ``by_evaluator`` keys), and their entry
-# points' infix: ZooSpecial's kernels and ZooOne's (kernel C and its
-# backward only) are built apart (csrc/gram_special.cu,
+# points' infix: ZooSpecial's kernels and ZooOne's and ZooSum's (kernel C
+# and its backward only) are built apart (csrc/gram_special.cu,
 # gram_special_f64.cu; gram_one.cu, gram_one_f64.cu)
-_FIXED, _ZOO, _SPECIAL, _ONE = 0, 1, 2, 3
+_FIXED, _ZOO, _SPECIAL, _ONE, _SUM = 0, 1, 2, 3, 4
 EVALUATORS = {_FIXED: 'FixedExpQuad', _ZOO: 'Zoo', _SPECIAL: 'ZooSpecial',
-              _ONE: 'ZooOne'}
-_INFIX = {_FIXED: '', _ZOO: '', _SPECIAL: '_zs', _ONE: '_zo'}
+              _ONE: 'ZooOne', _SUM: 'ZooSum'}
+_INFIX = {_FIXED: '', _ZOO: '', _SPECIAL: '_zs', _ONE: '_zo', _SUM: '_zo'}
 # the first id of the special-function cores, which only ZooSpecial
 # evaluates (csrc/profiles.cuh PROFILE_SFB)
 _FIRST_SPECIAL = 17
@@ -939,8 +939,10 @@ def _codes(st):
     code id | mode << 5 | k << 7 at bit 16 t; the evaluator 0 for a
     single unscaled ExpQuad term (FixedExpQuad), 2 for a list with a
     special-function core (ZooSpecial), 3 for one other term (ZooOne:
-    its closed-form profile compiled into kernel C and C's backward; the
-    other kernels take Zoo, `_routed`), 1 otherwise (Zoo)."""
+    its closed-form profile compiled into kernel C and C's backward),
+    4 for a sum of closed-form terms (ZooSum: kernel C and C's backward
+    evaluate it a group of entries at a time); the other kernels take
+    Zoo (1) in place of ZooOne and ZooSum, `_routed`."""
     terms = _leaves(st)
     if not 1 <= len(terms) <= MAXTERMS:
         raise ValueError(f'the kernels take 1 to {MAXTERMS} terms, not '
@@ -958,16 +960,16 @@ def _codes(st):
         and t0.mode == 'squared' and not t0.scaled
     special = any(t.profile.id >= _FIRST_SPECIAL for t in terms)
     ev = _FIXED if fixed else _SPECIAL if special else \
-        _ONE if len(terms) == 1 else _ZOO
+        _ONE if len(terms) == 1 else _SUM
     return len(terms), codes, ev
 
 
 def _routed(ev, p=1, c=False):
-    """The evaluator a kernel takes for `_codes`' ``ev``: ZooOne only in
-    kernel C and its backward (``c``) at p = 1 (csrc/gram.cu Tiling::PMANY:
-    the build makes no ZooOne kernel for p > 1); Zoo in its place
-    elsewhere."""
-    return _ZOO if ev == _ONE and not (c and p == 1) else ev
+    """The evaluator a kernel takes for `_codes`' ``ev``: ZooOne and ZooSum
+    only in kernel C and its backward (``c``) at p = 1 (csrc/gram.cu
+    Tiling::PMANY: the build makes no kernel of theirs for p > 1); Zoo in
+    their place elsewhere."""
+    return _ZOO if ev in (_ONE, _SUM) and not (c and p == 1) else ev
 
 
 def _mtabs(st, x):

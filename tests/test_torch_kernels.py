@@ -1500,11 +1500,11 @@ def _one_desc(t, name):
 def test_codes_routing():
     """`_codes`' evaluator: FixedExpQuad for the unscaled ExpQuad, ZooOne
     for one term of any closed-form profile (the scaled ExpQuad and the
-    ExpQuad in another mode included), Zoo for a sum, ZooSpecial for a
-    list with a special-function core (never ZooOne); `_routed` keeps
-    ZooOne for kernel C and its backward at p = 1 and gives Zoo to the
-    other kernels and to C at p > 1 (the build makes no ZooOne kernel
-    for p > 1)."""
+    ExpQuad in another mode included), ZooSum for a sum of 2 to 4
+    closed-form terms, ZooSpecial for a list with a special-function core
+    (never ZooOne or ZooSum); `_routed` keeps ZooOne and ZooSum for kernel
+    C and its backward at p = 1 and gives Zoo to the other kernels and to
+    C at p > 1 (the build makes no ZooOne or ZooSum kernel for p > 1)."""
     from lsqfitgp_torch.ops import _gram
     P, T, S = ops.PROFILES, ops.Term, ops.Terms
     t = lambda v: torch.tensor(v)
@@ -1517,7 +1517,11 @@ def test_codes_routing():
     for name in ONE:
         assert ev(_one_desc(t, name)) == _gram._ONE, name
     for name in ('terms', 'terms3', 'ts-terms'):
-        assert ev(descs[name]) == _gram._ZOO, name
+        assert ev(descs[name]) == _gram._SUM, name
+    sums = _sum_descs(t)
+    assert {len(d.terms) for d in sums.values()} == {2, 3, 4}
+    for name, d in sums.items():
+        assert ev(d) == _gram._SUM, name
     for name in ('sfb', 'matern0.7', 'bessel', 'pink', 'color3',
                  'spectral-terms'):
         assert ev(descs[name]) == _gram._SPECIAL, name
@@ -1531,12 +1535,15 @@ def test_codes_routing():
         term = T(prof, 'abs', k=k, args=args)
         assert ev(term) == _gram._SPECIAL, prof.name
         assert ev(S((T(P['cos'], 'abs'), term))) == _gram._SPECIAL
-    assert _gram._routed(_gram._ONE, 1, c=True) == _gram._ONE
-    assert _gram._routed(_gram._ONE, 3, c=True) == _gram._ZOO
-    assert _gram._routed(_gram._ONE) == _gram._ZOO
+    for e in (_gram._ONE, _gram._SUM):
+        assert _gram._routed(e, 1, c=True) == e
+        assert _gram._routed(e, 3, c=True) == _gram._ZOO
+        assert _gram._routed(e) == _gram._ZOO
     for e in (_gram._FIXED, _gram._ZOO, _gram._SPECIAL):
         assert _gram._routed(e, 3, c=True) == _gram._routed(e) == e
     assert _gram._nsums(_gram._ONE) == 6
+    assert _gram._nsums(_gram._SUM) == _gram._nsums(_gram._ZOO) == 18
+    assert _gram._INFIX[_gram._SUM] == _gram._INFIX[_gram._ONE]
 
 
 def _tallies(name):
@@ -1544,37 +1551,33 @@ def _tallies(name):
             ops.gram.by_evaluator.get(('launches_bwd', name), 0))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-@pytest.mark.parametrize('n,m', [(64, 64), (301, 301), (300, 70)])
-@pytest.mark.parametrize('name', ONE)
-def test_zoo_one_cuda(cuda, gen, dtype, n, m, name):
-    """Kernel C and its fused backward on ZooOne (p = 1: the build makes
-    no ZooOne kernel for p > 1), one launch each of that evaluator,
-    against the plain version in float64 on the same inputs,
-    within `chip_smoke.py`'s bounds (`kernel_zoo`, `zoo_bwd_check`): K
-    within 32 (p + 1) u max|K|; the x and y gradients within (8 sqrt(k)
-    u + 32 (p + 1) u) times the sums of |G Wr Δ| over their k terms;
-    each slot of the folded vector's gradient within (ceil(log2(n m)) 4
-    u + 32 (p + 1) u) Σ|G ∂K/∂θ|; the backward equal to itself to the
-    bit in two calls, and E (on Zoo) equal to C to the bit."""
+def _zoo_cuda_check(cuda, gen, dtype, n, m, make, ev):
+    """Kernel C and its fused backward at p = 1 on the description
+    ``make(t)``, one launch each of the evaluator ``ev``, against the
+    plain version in float64 on the same inputs, within `chip_smoke.py`'s
+    bounds (`kernel_zoo`, `zoo_bwd_check`): K within 32 (p + 1) u
+    max|K|; the x and y gradients within (8 sqrt(k) u + 32 (p + 1) u)
+    times the sums of |G Wr Δ| over their k terms; each slot of the
+    folded vector's gradient within (ceil(log2(n m)) 4 u + 32 (p + 1) u)
+    Σ|G ∂K/∂θ|; the backward equal to itself to the bit in two calls,
+    and E (on Zoo) equal to C to the bit."""
     from lsqfitgp_torch.ops import _gram
-    p, u, ev = 1, torch.finfo(dtype).eps / 2, 'ZooOne'
+    p, u = 1, torch.finfo(dtype).eps / 2
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
     x = t(gen.standard_normal((n, p)) * _spread(p))
     y = t(gen.standard_normal((m, p)) * _spread(p))
     x[3] = x[5]   # coincident points: the weight is zero at r² = 0
     y[1] = x[7]
-    desc, noise = _one_desc(t, name), t(0.1)
+    desc, noise = make(t), t(0.1)
     c0, b0 = _tallies(ev)
     K = ops.gram(desc, x, y, noise=noise)
     assert _tallies(ev) == (c0 + 1, b0)
     d64 = lambda a: a.double()
     t64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=cuda)
-    Kp = ops.gram_plain(_one_desc(t64, name), d64(x), d64(y), noise=t64(0.1))
+    Kp = ops.gram_plain(make(t64), d64(x), d64(y), noise=t64(0.1))
     rel = 32 * (p + 1) * u
     assert float((d64(K) - Kp).abs().max()) <= rel * float(Kp.abs().max())
-    # E on Zoo, C on ZooOne: the same bits
+    # E on Zoo, C on ZooOne or ZooSum: the same bits
     assert torch.equal(ops.gram_sym(desc, x, noise=noise),
                        ops.gram(desc, x, noise=noise))
     _, st, _, _, pvec = _gram._args(desc, x, None, (), noise)
@@ -1601,3 +1604,72 @@ def test_zoo_one_cuda(cuda, gen, dtype, n, m, name):
     tp = (math.ceil(math.log2(n * m)) * 4 * u + rel) * torch.stack(mags)
     assert bool(((d64(got[2]) - ref[2]).abs() <= tp + 1e-300).all()), \
         (got[2], ref[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n,m', [(64, 64), (301, 301), (300, 70)])
+@pytest.mark.parametrize('name', ONE)
+def test_zoo_one_cuda(cuda, gen, dtype, n, m, name):
+    """Kernel C and its fused backward on ZooOne (p = 1: the build makes
+    no ZooOne kernel for p > 1), held as `_zoo_cuda_check` says."""
+    _zoo_cuda_check(cuda, gen, dtype, n, m, lambda t: _one_desc(t, name),
+                    'ZooOne')
+
+
+# -- ZooSum: sums of 2 to 4 closed-form terms, a group of entries at a time ---
+
+def _sum_partner(t):
+    """The other term of the 2-term sums: Cauchy, two arguments, scaled,
+    its own chain."""
+    return ops.Term(ops.PROFILES['cauchy'], args=(t(1.2), t(0.7)),
+                    scale=t(0.8), post=(('mul', t(0.6)),))
+
+
+def _sum_descs(t):
+    """The sums of closed-form terms ZooSum takes: each term of ONE first
+    and last beside `_sum_partner`, the zoo's 'terms', 'terms3' and
+    'ts-terms', and two 4-term sums of mixed modes, 'args-last' with core
+    arguments in its last term only (tests/test_torch_zoo_host.py holds
+    ZooSum's arithmetic on such sums on the host)."""
+    P, T, S = ops.PROFILES, ops.Term, ops.Terms
+    amp = (('mul', t(1.3)),)
+    out = {}
+    for name in ONE:
+        term = _one_desc(t, name).terms[0]
+        out[f'{name}+cauchy'] = S((term, _sum_partner(t)), amp)
+        out[f'cauchy+{name}'] = S((_sum_partner(t), term), amp)
+    descs = _zoo_descs(t)
+    for name in ('terms', 'terms3', 'ts-terms'):
+        out[name] = descs[name]
+    out['terms4'] = S((T(P['periodic'], 'abs', args=(t(1.4),), scale=t(1.2)),
+                       T(P['wendland'], 'posabs', k=2, args=(t(1.6),),
+                         scale=t(20.0), post=(('mul', t(0.7)),)),
+                       T(P['harmonic'], 'abs', args=(t(0.4),),
+                         scale=t(0.9)),
+                       T(P['circular'], 'posabs', args=(t(4.5), t(0.4)),
+                         scale=t(3.0), post=(('mul', t(0.3)),))))
+    out['args-last'] = S((T(P['expquad'], scale=t(2.0)),
+                          T(P['cos'], 'abs', scale=t(1.7),
+                            post=(('mul', t(0.5)),)),
+                          T(P['holeeffect'], 'posabs', scale=t(0.6)),
+                          T(P['cauchy'], args=(t(1.4), t(0.8)),
+                            scale=t(1.1), post=(('mul', t(1.2)),))),
+                         (('add', t(0.1)),))
+    return out
+
+
+SUMS = sorted(_sum_descs(lambda v: torch.tensor(v)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n,m', [(64, 64), (300, 70)])
+@pytest.mark.parametrize('name', SUMS)
+def test_zoo_sum_cuda(cuda, gen, dtype, n, m, name):
+    """Kernel C and its fused backward on ZooSum (p = 1), held as
+    `_zoo_cuda_check` says: one ZooSum launch each, the plain version's
+    bounds, the backward equal to itself to the bit, E (on Zoo) equal to
+    C to the bit."""
+    _zoo_cuda_check(cuda, gen, dtype, n, m,
+                    lambda t: _sum_descs(t)[name], 'ZooSum')

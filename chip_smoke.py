@@ -202,8 +202,10 @@ STREAM_BLOCK = 512  # the streaming solver's block
 # took 48, its line search failing at the start point), since then
 # L-BFGS-B capped at STREAM_MAXFUN evaluations (the time-series and
 # Hurst paths run streaming BFGS fits at the same n): 8 until the Hurst
-# and model-comparison paths joined the run, 4 since
-STREAM_MAXFUN = 4
+# and model-comparison paths joined the run, then 4 (10 evaluations, 77 s
+# on one H100 80GB HBM3 at 700.00 W), 2 since the build alone took 350
+# of the run's 1200 s there
+STREAM_MAXFUN = 2
 NOISE_VAR = 0.09   # 0.3**2, the data's noise
 # the rescue phase: a float32 Gram at the largest size the float32 rescue
 # takes by default (DF_MAX), smooth enough (ExpQuad of scale 2 over 4096
@@ -223,11 +225,14 @@ N_DF, N_DD, DERIV_SPAN, DERIV_ITERS = 8192, 4096, 25.0, 10
 N_MD, MD_P, MD_ITERS = 16384, 10, 10
 
 # the card's peak rates (NVIDIA's H100 SXM data sheet, at 700 W): HBM
-# bandwidth, and FP32 (outside the tensor cores), FP64 (tensor core) and
-# TF32 (tensor core, dense) operations; a 3xTF32 product costs three
-# TF32 passes, so its useful rate is the TF32 peak over 3
+# bandwidth, and FP32 and FP64 outside the tensor cores (the Gram
+# family's kernels and the SIMT kernels), FP64 on the tensor cores
+# (DMMA: kernels A, B and D in float64) and TF32 (tensor core, dense)
+# operations; a 3xTF32 product costs three TF32 passes, so its useful
+# rate is the TF32 peak over 3
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {'float32': 67e12, 'float64': 67e12, 'tf32': 495e12}
+PEAK_OPS = {'float32': 67e12, 'float64': 33.5e12, 'dmma': 67e12,
+            'tf32': 495e12}
 
 
 def fail(msg):
@@ -366,15 +371,18 @@ def unit_roundoff(dtype):
     return torch.finfo(dtype).eps / 2
 
 
-def bound(nbytes, ops, dtype, passes=0):
+def bound(nbytes, ops, dtype, passes=0, dmma=False):
     """(ms, 'bytes' | 'operations'): the least time the card could take
-    to move ``nbytes`` and do ``ops`` operations of ``dtype``, or, with
-    ``passes``, ``ops`` useful operations as that many TF32 passes."""
+    to move ``nbytes`` and do ``ops`` operations of ``dtype`` outside the
+    tensor cores, or, with ``passes``, ``ops`` useful operations as that
+    many TF32 passes; with ``dmma``, float64's on its tensor cores."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
+    label = str(dtype).split('.')[-1]
     if passes:
         t_ops = passes * ops / PEAK_OPS['tf32'] * 1e3
     else:
-        t_ops = ops / PEAK_OPS[str(dtype).split('.')[-1]] * 1e3
+        t_ops = ops / PEAK_OPS['dmma' if dmma and label == 'float64'
+                               else label] * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -391,6 +399,15 @@ PRECISIONS = [('high', 'schur_tc.cu', 3, 'launches_tc'),
               ('default', 'schur_tc.cu', 1, 'launches_tc1'),
               ('highest', 'syrk.cu', 0, 'launches')]
 FLOAT64 = [('float64', 'dmma.cu', 0, 'launches_dmma')]
+
+
+# the TF32 tensor-core kernels' designs by pass count (csrc/schur_tc.cu),
+# printed beside kernels A's and D's records
+TC_DESIGN = {3: 'schur_tc3_kernel: 128 x 128 tile, 4 stages of 32 k, each '
+                'stage\'s products added into an IEEE accumulator',
+             1: 'schur_tc1_kernel: 256 x 128 tile, 32 k a stage in 4 row '
+                'and 5 column slots, one wgmma accumulator over the '
+                'k-loop'}
 
 
 def tc_extra(passes):
@@ -520,10 +537,12 @@ def kernel_schur(dtype, gen):
         bias = float(((got - ref).diagonal() / S.diagonal()).mean())
         log(f'    mean (got - plain) / (|A||A|ᵀ) on the diagonal: '
             f'{bias:.3e}')
+        if passes in TC_DESIGN:
+            log(f'    {TC_DESIGN[passes]}')
         del got, tol
         ms = median_ms(lambda: _syrk.schur_update(B, A, precision=prec,
                                                   **args))
-        bd = bound(nbytes, flops, dtype, passes)
+        bd = bound(nbytes, flops, dtype, passes, dmma=True)
         lib = library_tf32_ms if passes == 1 else library_ms
         libname = 'torch.addmm, full square, cuBLAS ' + (
             'TF32' if passes == 1 else 'IEEE ' + str(dtype).split('.')[-1])
@@ -559,7 +578,7 @@ def kernel_syrk(dtype, gen):
     # n³/3 flops (the lower output tiles over the nonzero rows of W); W's
     # lower triangle read once, the full square written once
     isz = W.element_size()
-    bd = bound(isz * (N * N / 2 + N * N), N ** 3 / 3, dtype)
+    bd = bound(isz * (N * N / 2 + N * N), N ** 3 / 3, dtype, dmma=True)
     f64 = dtype == torch.float64
     variants = [('syrk_t_full', False)] + ([('syrk_t_full_', True)]
                                            if f64 else [])
@@ -937,6 +956,12 @@ def kernel_schur_gram(dtype, gen, zoo=None):
             .add_(S, alpha=tc_extra(passes)).add_(entry)
         errs[precision] = check_close(
             f'D schur_update_gram n={nc} {dtype} {precision}', got, ref, tol)
+        bias = float(((got.diagonal() - ref.diagonal()) / S.diagonal())
+                     .mean())
+        log(f'    mean (got - plain) / (|A||A|ᵀ) on the diagonal: '
+            f'{bias:.3e}')
+        if passes in TC_DESIGN:
+            log(f'    {TC_DESIGN[passes]}')
         del got, tol
     del ref, S
     if nc != n:
@@ -955,7 +980,7 @@ def kernel_schur_gram(dtype, gen, zoo=None):
         prec = None if precision == 'float64' else precision
         ms = median_ms(lambda: _syrk.schur_update_gram(
             prof, X, A, precision=prec, **args), reps)
-        bd = bound(nbytes, flops, dtype, passes)
+        bd = bound(nbytes, flops, dtype, passes, dmma=True)
         at = '' if nc == n else f' (plain at n = {nc})'
         log(f'  D {dtype} {precision}: kernel {ms:.3f} ms, plain '
             f'{plain_ms:.3f} ms{at}, bound {bd[0]:.3f} ms ({bd[1]}), '
@@ -1150,6 +1175,49 @@ def bwd_jvp_bounds(G, x, dx, amp, damp, u, sym):
             math.ceil(math.log2(n * n)) * 4 * u * ta)
 
 
+# FP64 instructions outside the tensor cores, each one slot of the FP64
+# pipe (a DFMA two of the peak's operations)
+FP64_SIMT = ('DFMA', 'DADD', 'DMUL', 'DSETP', 'DMNMX')
+# the 1.5 2^52 shift that rounds x / ln 2 in a float64 exponential
+# (csrc/special.cuh dexp_nonpos, as CUDA's exp), once per entry of C″
+EXP_SHIFT = '6.755399441055744'
+
+
+def sass_fp64_per_exp(*parts):
+    """FP64 SIMT instructions per float64 exponential in the SASS of the
+    built kernel whose mangled name holds every string of ``parts``
+    (cuobjdump on the library, the name from ptxas's log beside it):
+    the kernel's FP64 instructions over the number of exponentials in its
+    code, which counts the entry loop's copies however the compiler
+    unrolled it (its prologue and epilogue's few sums add to the count).
+    None where cuobjdump or the kernel is not found."""
+    import shutil
+    from lsqfitgp_torch import ops
+    path = ops.build_info()['path']
+    log = path[:-3] + '.log'
+    names = []
+    if os.path.exists(log):
+        names = [line.split("'")[1] for line in open(log)
+                 if 'Compiling entry function' in line]
+    names = [n for n in names if all(p in n for p in parts)]
+    exe = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    if not names or not os.path.exists(exe):
+        return None
+    try:
+        sass = subprocess.run([exe, '-sass', '-fun', names[0], path],
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+    except subprocess.TimeoutExpired:
+        return None
+    ops_ = [line.split()[1] if line.split()[1][0] != '@' else
+            line.split()[2] for line in sass.splitlines()
+            if line.strip().startswith('/*') and len(line.split()) > 2]
+    fp64 = sum(o.split('.')[0] in FP64_SIMT for o in ops_)
+    exps = sum(EXP_SHIFT in line and 'DFMA' in line
+               for line in sass.splitlines())
+    return fp64 / exps if exps else None
+
+
 def kernel_gram_tangent(dtype, gen):
     """Kernels C′ and C″ at the slice's point block (n = m = 16384,
     p = 1, the amp chain with the nugget): C′ (`gram_jvp`, along the
@@ -1218,10 +1286,22 @@ def kernel_gram_tangent(dtype, gen):
     wrap_b = median_ms(
         lambda: gram_backward_jvp(G, 'expquad', x, None, dx, **bkw),
         batch=GRAM_BATCH)
-    # G read once; the points, their tangents and the sums' slots
-    bd_b = bound(isz * (N * N + 4 * N), 20 * N * N, dtype)
+    # G read once; the points, their tangents and the sums' slots; in
+    # float64 the FP64 instructions an entry from the SASS, each two
+    # operations at the FP64 SIMT rate (else 20 operations an entry)
+    per_entry = None
+    if dtype == torch.float64:
+        per_entry = sass_fp64_per_exp('gram_bwd_jvp_kernelId',
+                                      '12FixedExpQuadIdEELb1ELb1ELb1')
+        log(f'    C\'\' {dtype}: FP64 instructions an entry (SASS): '
+            f'{per_entry}')
+    ops_b = 20 * N * N if per_entry is None else 2 * per_entry * N * N
+    bd_b = bound(isz * (N * N + 4 * N), ops_b, dtype)
+    bd_bytes = bound(isz * (N * N + 4 * N), 0, dtype)[0]
+    bd_ops = bound(0, ops_b, dtype)[0]
     log(f'  C\'\' {dtype}: kernel {ms_b:.3f} ms (the wrapper {wrap_b:.3f} '
-        f'ms), plain {plain_b:.3f} ms, bound {bd_b[0]:.3f} ms ({bd_b[1]})')
+        f'ms), plain {plain_b:.3f} ms, bound {bd_b[0]:.3f} ms ({bd_b[1]}; '
+        f'bytes {bd_bytes:.4f}, operations {bd_ops:.4f} ms)')
     return [tangent_record('gram_jvp', dtype,
                            record(err, ms, plain_ms, bd, wrapper_ms=wrap)),
             tangent_record('gram_bwd_jvp', dtype,
@@ -5816,6 +5896,70 @@ ZOO_TIMES = [('expquad', 1)] + [
     ('matern', 1), ('matern07', 1), ('matern', MD_P), ('matern07', MD_P)]
 
 
+def schur_times(label, out):
+    """`zoo_times`'s 'schur' row: kernel A at `kernel_schur`'s shape in
+    float32 at 'high', 'default' and 'highest' and in float64, beside
+    cuBLAS's product of the full square (TF32 and IEEE); B in float64 in
+    place at `kernel_syrk`'s; D at `kernel_schur_gram`'s at 'high' and
+    'default' (n = N_STREAM) and in float64 (n = N_CHECK); CUDA events,
+    no check and no plain version.  Adds the times to ``out``."""
+    import torch
+    from lsqfitgp_torch import ops
+    from lsqfitgp_torch.ops import _syrk
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    for dtype in (torch.float32, torch.float64):
+        label_dt = str(dtype).split('.')[-1]
+        f32 = dtype == torch.float32
+        kw = dict(device='cuda', dtype=dtype, generator=gen)
+        size = h = N // 2
+        offset = tile = 512
+        mb = offset + size
+        A = torch.randn(size, h, **kw)
+        B = torch.randn(mb, mb, **kw)
+        s = 0.5 + 1.5 * torch.rand(mb, **kw)
+        eps = torch.tensor(0.5, device='cuda', dtype=dtype)
+        args = dict(s=s, eps=eps, size=size, offset=offset, tile=tile,
+                    nreal=offset + size - 300)
+        for prec in ('high', 'default', 'highest') if f32 else (None,):
+            key = f'schur_update/{prec or label_dt}'
+            out[key] = median_ms(lambda: _syrk.schur_update(
+                B, A, precision=prec, **args))
+            log(f'  {label} {key}: {out[key]:.4f} ms')
+        Bs = (B[offset:, offset:] * s[offset:, None] * s[None, offset:]
+              ).contiguous()
+        for tf32 in (True, False) if f32 else (False,):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            key = f'addmm/{"tf32" if tf32 else label_dt}'
+            out[key] = median_ms(lambda: torch.addmm(Bs, A, A.T, alpha=-1))
+            log(f'  {label} {key}: {out[key]:.4f} ms')
+        torch.backends.cuda.matmul.allow_tf32 = False
+        del A, B, Bs, s
+        if not f32:
+            W = torch.randn(N, N, **kw).tril_()
+            Wc = W.clone()
+            key = 'syrk_t_full_/float64'
+            out[key] = median_ms(lambda: ops.syrk_t_full_(Wc),
+                                 setup=lambda: Wc.copy_(W))
+            log(f'  {label} {key}: {out[key]:.4f} ms')
+            del W, Wc
+        torch.cuda.empty_cache()
+        n = N_STREAM if f32 else N_CHECK
+        size = n // 2
+        X = (torch.rand(n, 1, **kw) - 0.5) * (400 * n / N_STREAM)
+        A = torch.randn(size, size, **kw) / math.sqrt(size)
+        amp = torch.tensor(1.3, device='cuda', dtype=dtype)
+        noise = torch.tensor(NOISE_VAR, device='cuda', dtype=dtype)
+        for prec in ('high', 'default') if f32 else (None,):
+            key = f'schur_update_gram/{prec or label_dt}'
+            out[key] = median_ms(lambda: _syrk.schur_update_gram(
+                'expquad', X, A, post=(('mul', amp),), eps=noise,
+                nreal=n - 300, size=size, offset=size, tile=512,
+                precision=prec), 3)
+            log(f'  {label} {key}: {out[key]:.3f} ms')
+        del X, A
+        torch.cuda.empty_cache()
+
+
 def zoo_times(label, names=()):
     """`--zoo-times LABEL [NAME ...]`: kernel C's and its fused backward's
     device time (`device_ms` of the named kernel, as `kernel_zoo` times
@@ -5826,12 +5970,17 @@ def zoo_times(label, names=()):
     checkouts can be timed in turns in one call (copy this script into the
     other checkout); the times in a JSON line, the checkout's ``LABEL``
     with them.  Given ``names``, only the rows of ZOO_TIMES with those
-    names: C and its backward, and at p = 1 on one term C′ and C″ too."""
+    names: C and its backward, and at p = 1 on one term C′, C″ and E″
+    too;
+    the name 'schur' (also without names) times kernels A, B and D
+    (`schur_times`)."""
     import torch
     from lsqfitgp_torch import ops
     from lsqfitgp_torch.ops import _gram, _syrk
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     out = {}
+    if not names or 'schur' in names:
+        schur_times(label, out)
     for dtype in (torch.float32, torch.float64):
         label_dt = str(dtype).split('.')[-1]
         noise = torch.tensor(NOISE_VAR, device='cuda', dtype=dtype)
@@ -5864,12 +6013,16 @@ def zoo_times(label, names=()):
                                              True)
                 bjvp = lambda: _gram._bwd_tangent(G, one, X1, X1, dX, dX,
                                                   coef, True, True)
+                sjvp = lambda: _gram._sym_bwd_tangent(G, one, X1, dX, coef,
+                                                      True, True)
                 out[key] += [device_ms(jvp, kernel_calls(jvp),
                                        'gram_jvp_kernel'),
                              device_ms(bjvp, kernel_calls(bjvp),
-                                       'gram_bwd_jvp_kernel')]
+                                       'gram_bwd_jvp_kernel'),
+                             device_ms(sjvp, kernel_calls(sjvp),
+                                       'gram_sym_bwd_jvp_kernel')]
                 log(f'  {label} {key}: C′ {out[key][2]:.4f} ms, C″ '
-                    f'{out[key][3]:.4f} ms')
+                    f'{out[key][3]:.4f} ms, E″ {out[key][4]:.4f} ms')
                 del X1, dX
             del G
             torch.cuda.empty_cache()

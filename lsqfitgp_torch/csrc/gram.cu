@@ -128,6 +128,18 @@
 //   one term, whose coefficient alpha and its tangent come in
 //   coef = [alpha, dalpha]; C' and E' the parameter vector's tangent,
 //   every parameter of every term.
+// - C'' on FixedExpQuad at p = 1 keeps a thread's row sums of a whole
+//   tile in registers and reduce-scatters them across the row's lanes
+//   once a tile (the p > 1 backward's scatter_sum), its row loop unrolled
+//   over the tile (JvpTiling); every entry (those past the edge at the
+//   last row's and column's points with G's zeros) runs one branch-free
+//   path; FixedExpQuad's float64 exponential is exp's fast path without
+//   its branch (dexp_nonpos) and its float64 kernel is held to 4 blocks
+//   an SM.
+//   In float64 its FP64 instructions (42.5 an entry in the SASS) at the
+//   FP64 SIMT rate, half the FP64 tensor cores', take a little longer
+//   than the read of G (bounds of 0.68 and 0.64 ms at 16384^2 on an H100
+//   80GB HBM3 at 700.00 W).
 
 #include "profiles.cuh"
 
@@ -135,6 +147,12 @@
 // kernels of that float width (gram_special.cu, gram_special_f64.cu)
 #ifndef LSQ_GRAM_SPECIAL
 #define LSQ_GRAM_SPECIAL 0
+#endif
+// with LSQ_GRAM_SPECIAL: 1 for ZooSpecial's tangent kernels (C', E',
+// C'', E''; gram_special_tangents.cu, gram_special_f64_tangents.cu), 0
+// for the others
+#ifndef LSQ_GRAM_TANGENTS
+#define LSQ_GRAM_TANGENTS 0
 #endif
 // 32 or 64: ZooOne's kernel C and its backward of that float width
 // (gram_one.cu, gram_one_f64.cu), and nothing else
@@ -1223,6 +1241,65 @@ __device__ __forceinline__ void tangent_weights(T gv, T r2, T dr2, T d1, T d2,
     w2 = pos ? gv * (alpha * d1) : T(0);
 }
 
+// Kernel C'''s tiling per evaluator: whether a thread's RPT rows of a
+// tile are one unrolled step whose RPT x PC row sums go across the rows'
+// lanes by one reduce-scatter (STEP; scatter_sum, each lane ending with
+// one sum: NV - 1 + log2(TX / NV) shuffles where a sum per row takes
+// NV log2(TX), float64 at p = 1 9 for 40) and whose entries past the
+// edge run the same code as the others, else a row at a time, the
+// entries past the edge skipped, and the blocks an SM it is held to
+// (BLOCKS, 1: no bound).  Both were chosen on the card for FixedExpQuad
+// at p = 1 (PERF.md; H100 80GB HBM3, 700.00 W): float64 held to 4 blocks
+// (64 registers) ran 1.38 times faster than to 2 or none (80 or 94
+// registers), 3 blocks 1.23 times.  The evaluators whose second() calls
+// a function per entry (Zoo, ZooSpecial) ran up to 1.5 times slower with
+// the unrolled step, and as much a row at a time under a bound of 1
+// (bounded_gram_bwd_jvp_kernel), and p > 1 was not timed: they keep a
+// row at a time and no bound.
+template <typename T, class Ev, bool P1>
+struct JvpTiling {
+    static constexpr bool STEP = false;
+    static constexpr int BLOCKS = 1;
+};
+
+template <typename T>
+struct JvpTiling<T, FixedExpQuad<T>, true> {
+    static constexpr bool STEP = true;
+    static constexpr int BLOCKS = sizeof(T) == 8 ? 4 : 1;
+};
+
+// One entry (r, c) of kernel C'': its terms of the scalar sums (SC) added
+// into s, and of the row and column sums (XY) into racc and cacc, from
+// G's entry gv and the points' coordinates.
+template <typename T, class Ev, bool P1, bool XY, bool SC, int PC>
+__device__ __forceinline__ void bwd_jvp_entry(
+    const Ev& ev, const T* __restrict__ x, const T* __restrict__ y,
+    const T* __restrict__ dx, const T* __restrict__ dy, long long r,
+    long long c, int p, T gv, const T (&xr)[PC], const T (&yc)[PC],
+    const T (&dxr)[PC], const T (&dyc)[PC], T alpha, T dalpha, T (&s)[3],
+    T* racc, T (&cacc)[PC])
+{
+    T dr2, d1, d2;
+    const T r2 = dist2_tangent<T, P1>(x, y, dx, dy, r, c, p, xr[0], yc[0],
+                                      dxr[0], dyc[0], dr2);
+    const T g = ev.second(r2, d1, d2);
+    if constexpr (SC) {
+        s[0] = fma(gv * d1, dr2, s[0]);
+        s[1] += gv;
+        s[2] = fma(gv, g, s[2]);
+    }
+    if constexpr (XY) {
+        T w1, w2;
+        tangent_weights(gv, r2, dr2, d1, d2, alpha, dalpha, w1, w2);
+#pragma unroll
+        for (int q = 0; q < PC; ++q) {
+            const T t = fma(w1, xr[q] - yc[q], w2 * (dxr[q] - dyc[q]));
+            racc[q] += t;
+            cacc[q] += t;
+        }
+    }
+}
+
 // Kernel C'': the tangent of C's backward at fixed G along (dx, dy,
 // dalpha), tiled as C's backward.  Writes (when XY) rowpart[bx][i][d]
 // and colpart[by][j][d], the sums over the block's columns and rows of
@@ -1230,18 +1307,17 @@ __device__ __forceinline__ void tangent_weights(T gv, T r2, T dr2, T d1, T d2,
 // scal[by * gridDim.x + bx][0..3), the block's sums of G g' dr^2 (the
 // tangent of sum G g), G and G g (the post chain's tangent needs them).
 template <typename T, class Ev, bool P1, bool XY, bool SC>
-__global__ void __launch_bounds__(NT)
-gram_bwd_jvp_kernel(const T* __restrict__ G, const T* __restrict__ x,
-                    const T* __restrict__ y, const T* __restrict__ dx,
-                    const T* __restrict__ dy, long long n, long long m, int p,
-                    int d0, const T* __restrict__ params,
-                    const T* __restrict__ coef, unsigned long long codes,
-                    int wide,
-                    T* __restrict__ rowpart, T* __restrict__ colpart,
-                    T* __restrict__ scal, const MTabs tb)
+__device__ __forceinline__ void gram_bwd_jvp(
+    const T* __restrict__ G, const T* __restrict__ x,
+    const T* __restrict__ y, const T* __restrict__ dx,
+    const T* __restrict__ dy, long long n, long long m, int p, int d0,
+    const T* __restrict__ params, const T* __restrict__ coef,
+    unsigned long long codes, int wide, T* __restrict__ rowpart,
+    T* __restrict__ colpart, T* __restrict__ scal, const MTabs& tb)
 {
     using Gm = Geo<T>;
-    constexpr int V = Gm::V, PC = P1 ? 1 : PCHUNK;
+    constexpr int V = Gm::V, PC = P1 ? 1 : PCHUNK, RPT = Gm::RPT;
+    constexpr bool STEP = JvpTiling<T, Ev, P1>::STEP;
     __shared__ T red[Gm::TY][PC][TILE];
     const int tx = threadIdx.x % Gm::TX, ty = threadIdx.x / Gm::TX;
     const long long j0 = (long long)blockIdx.x * TILE;
@@ -1250,69 +1326,132 @@ gram_bwd_jvp_kernel(const T* __restrict__ G, const T* __restrict__ x,
     const int pc = P1 ? 1 : min(PC, p - d0);
     const Ev ev(params, 1, codes, tb);
     const T alpha = coef[0], dalpha = coef[1];
+    // STEP: entries past the edge are evaluated at the last row's and
+    // column's points with G's zeros, adding nothing to the sums
+    long long ce[V];
     T yc[V][PC], dyc[V][PC], cacc[V][PC];
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-        coords<T, PC>(y, c0 + k, c0 + k < m, p, d0, pc, yc[k]);
-        coords<T, PC>(dy, c0 + k, c0 + k < m, p, d0, pc, dyc[k]);
+        ce[k] = c0 + k < m || !STEP ? c0 + k : m - 1;
+        coords<T, PC>(y, ce[k], ce[k] < m, p, d0, pc, yc[k]);
+        coords<T, PC>(dy, ce[k], ce[k] < m, p, d0, pc, dyc[k]);
 #pragma unroll
         for (int q = 0; q < PC; ++q) cacc[k][q] = T(0);
     }
-    T s1 = T(0), sg = T(0), sgk = T(0);
-    for (int a = 0; a < Gm::RPT * CROWS; ++a) {
-        const long long r = i0 + ty + a * Gm::TY;
-        const bool rv = r < n;
-        T gv[V], xr[PC], dxr[PC], racc[PC];
-        load_row(G + (rv ? r : 0) * m + c0, gv, rv ? m - c0 : 0, wide);
-        coords<T, PC>(x, r, rv, p, d0, pc, xr);
-        coords<T, PC>(dx, r, rv, p, d0, pc, dxr);
+    T sc[3] = {T(0), T(0), T(0)};
+    T* const rowblk = rowpart + (long long)blockIdx.x * n * p + d0;
+    if constexpr (STEP) {
+        constexpr int NV = RPT * PC, SPREAD = Gm::TX / NV;
+        static_assert(NV <= Gm::TX, "too many sums for a row's lanes");
+        for (int st = 0; st < CROWS; ++st) {
+            const long long s0 = i0 + st * TILE;
+            if (s0 >= n) break;
+            T racc[NV];
 #pragma unroll
-        for (int q = 0; q < PC; ++q) racc[q] = T(0);
+            for (int a = 0; a < RPT; ++a) {
+                const long long r = s0 + ty + a * Gm::TY;
+                const bool rv = r < n;
+                const long long re = rv ? r : n - 1;
+                T gv[V], xr[PC], dxr[PC];
+                load_row(G + re * m + c0, gv, rv ? m - c0 : 0, wide);
+                if constexpr (P1) {
+                    xr[0] = x[re];
+                    dxr[0] = dx[re];
+                } else {
+                    coords<T, PC>(x, re, true, p, d0, pc, xr);
+                    coords<T, PC>(dx, re, true, p, d0, pc, dxr);
+                }
 #pragma unroll
-        for (int k = 0; k < V; ++k) {
-            const long long c = c0 + k;
-            if (!rv || c >= m) continue;
-            T dr2, d1, d2;
-            const T r2 = dist2_tangent<T, P1>(x, y, dx, dy, r, c, p, xr[0],
-                                              yc[k][0], dxr[0], dyc[k][0],
-                                              dr2);
-            const T g = ev.second(r2, d1, d2);
-            if constexpr (SC) {
-                s1 = fma(gv[k] * d1, dr2, s1);
-                sg += gv[k];
-                sgk = fma(gv[k], g, sgk);
+                for (int q = 0; q < PC; ++q) racc[a * PC + q] = T(0);
+#pragma unroll
+                for (int k = 0; k < V; ++k)
+                    bwd_jvp_entry<T, Ev, P1, XY, SC, PC>(
+                        ev, x, y, dx, dy, re, ce[k], p, gv[k], xr, yc[k],
+                        dxr, dyc[k], alpha, dalpha, sc, racc + a * PC,
+                        cacc[k]);
             }
             if constexpr (XY) {
-                T w1, w2;
-                tangent_weights(gv[k], r2, dr2, d1, d2, alpha, dalpha, w1,
-                                w2);
-#pragma unroll
-                for (int q = 0; q < PC; ++q) {
-                    const T t = fma(w1, xr[q] - yc[k][q],
-                                    w2 * (dxr[q] - dyc[k][q]));
-                    racc[q] += t;
-                    cacc[k][q] += t;
-                }
+                // lane tx ends with sum idx = tx / SPREAD: row a,
+                // coordinate q
+                scatter_sum<Gm::TX / 2, NV>(racc, tx);
+                const int idx = tx / SPREAD, q = idx % PC;
+                const long long r = s0 + ty + (idx / PC) * Gm::TY;
+                if (tx % SPREAD == 0 && r < n && q < pc)
+                    rowblk[r * p + q] = racc[0];
             }
         }
-        if constexpr (XY) {
+    } else {
+        for (int a = 0; a < RPT * CROWS; ++a) {
+            const long long r = i0 + ty + a * Gm::TY;
+            const bool rv = r < n;
+            T gv[V], xr[PC], dxr[PC], racc[PC];
+            load_row(G + (rv ? r : 0) * m + c0, gv, rv ? m - c0 : 0, wide);
+            coords<T, PC>(x, r, rv, p, d0, pc, xr);
+            coords<T, PC>(dx, r, rv, p, d0, pc, dxr);
 #pragma unroll
-            for (int q = 0; q < PC; ++q) {
-                racc[q] = lane_sum<Gm::TX>(racc[q]);
-                if (tx == 0 && rv && q < pc)
-                    rowpart[((long long)blockIdx.x * n + r) * p + d0 + q] =
-                        racc[q];
+            for (int q = 0; q < PC; ++q) racc[q] = T(0);
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+                if (!rv || c0 + k >= m) continue;
+                bwd_jvp_entry<T, Ev, P1, XY, SC, PC>(
+                    ev, x, y, dx, dy, r, c0 + k, p, gv[k], xr, yc[k], dxr,
+                    dyc[k], alpha, dalpha, sc, racc, cacc[k]);
+            }
+            if constexpr (XY) {
+#pragma unroll
+                for (int q = 0; q < PC; ++q) {
+                    racc[q] = lane_sum<Gm::TX>(racc[q]);
+                    if (tx == 0 && rv && q < pc)
+                        rowblk[r * p + q] = racc[q];
+                }
             }
         }
     }
     if constexpr (XY)
         block_columns<T, PC>(cacc, red, j0, m, p, d0, pc, T(1),
                              colpart + (long long)blockIdx.y * m * p);
-    if constexpr (SC) {
-        T sc[3] = {s1, sg, sgk};
+    if constexpr (SC)
         block_scalars(sc, scal + 3 * ((long long)blockIdx.y * gridDim.x
                                       + blockIdx.x));
-    }
+}
+
+template <typename T, class Ev, bool P1, bool XY, bool SC>
+__global__ void __launch_bounds__(NT)
+gram_bwd_jvp_kernel(const T* __restrict__ G, const T* __restrict__ x,
+                    const T* __restrict__ y, const T* __restrict__ dx,
+                    const T* __restrict__ dy, long long n, long long m, int p,
+                    int d0, const T* __restrict__ params,
+                    const T* __restrict__ coef, unsigned long long codes,
+                    int wide, T* __restrict__ rowpart,
+                    T* __restrict__ colpart, T* __restrict__ scal,
+                    const MTabs tb)
+{
+    gram_bwd_jvp<T, Ev, P1, XY, SC>(G, x, y, dx, dy, n, m, p, d0, params,
+                                    coef, codes, wide, rowpart, colpart,
+                                    scal, tb);
+}
+
+// gram_bwd_jvp_kernel held to JvpTiling::BLOCKS blocks an SM, for the
+// kernels that take a bound (one of 1 made ptxas take more registers than
+// none: ZooSpecial's float64 kernel 146 registers and 1.5 times slower)
+template <typename T, class Ev, bool P1, bool XY, bool SC>
+__global__ void __launch_bounds__(NT, (JvpTiling<T, Ev, P1>::BLOCKS))
+bounded_gram_bwd_jvp_kernel(const T* __restrict__ G,
+                            const T* __restrict__ x,
+                            const T* __restrict__ y,
+                            const T* __restrict__ dx,
+                            const T* __restrict__ dy, long long n,
+                            long long m, int p, int d0,
+                            const T* __restrict__ params,
+                            const T* __restrict__ coef,
+                            unsigned long long codes, int wide,
+                            T* __restrict__ rowpart,
+                            T* __restrict__ colpart, T* __restrict__ scal,
+                            const MTabs tb)
+{
+    gram_bwd_jvp<T, Ev, P1, XY, SC>(G, x, y, dx, dy, n, m, p, d0, params,
+                                    coef, codes, wide, rowpart, colpart,
+                                    scal, tb);
 }
 
 // Kernel E'': C'' for y = x on E's backward's upper tile pairs, with
@@ -1667,9 +1806,14 @@ int launch_gram_sym_jvp(const T* x, const T* dx, long long n, int p,
 template <typename T, class Ev, bool P1>
 auto bwd_jvp_kernel(bool xy, bool sc)
 {
-    return xy ? (sc ? gram_bwd_jvp_kernel<T, Ev, P1, true, true>
-                    : gram_bwd_jvp_kernel<T, Ev, P1, true, false>)
-              : gram_bwd_jvp_kernel<T, Ev, P1, false, true>;
+    if constexpr (JvpTiling<T, Ev, P1>::BLOCKS > 1)
+        return xy ? (sc ? bounded_gram_bwd_jvp_kernel<T, Ev, P1, true, true>
+                        : bounded_gram_bwd_jvp_kernel<T, Ev, P1, true, false>)
+                  : bounded_gram_bwd_jvp_kernel<T, Ev, P1, false, true>;
+    else
+        return xy ? (sc ? gram_bwd_jvp_kernel<T, Ev, P1, true, true>
+                        : gram_bwd_jvp_kernel<T, Ev, P1, true, false>)
+                  : gram_bwd_jvp_kernel<T, Ev, P1, false, true>;
 }
 
 template <typename T, class Ev, bool P1>
@@ -1782,8 +1926,8 @@ extern "C" {
                                rowpart, colpart, scal, tabs, stream);        \
     }
 
-// E and the tangent kernels
-#define LSQ_GRAM_REST(T, SUF)                                                \
+// kernel E and its backward
+#define LSQ_GRAM_SYM(T, SUF)                                                 \
     int lsq_gram_sym##SUF(const T* x, long long n, int p, const T* params,   \
                           int nterms, unsigned long long codes,              \
                           int with_noise, int ev, T* out,                    \
@@ -1802,7 +1946,10 @@ extern "C" {
         return launch_gram_sym_bwd(G, x, n, p, d0, params, nterms, codes,    \
                                    with_noise, ev, need_x, need_p, wide,     \
                                    part, scal, tabs, stream);                \
-    }                                                                        \
+    }
+
+// the tangent kernels C', E', C'' and E''
+#define LSQ_GRAM_TAN(T, SUF)                                                 \
     int lsq_gram_jvp##SUF(const T* x, const T* y, const T* dx, const T* dy,  \
                           long long n, long long m, int p, const T* params,  \
                           const T* dparams, int nterms,                      \
@@ -1847,10 +1994,16 @@ extern "C" {
                                        scal, tabs, stream);                  \
     }
 
-#define LSQ_GRAM(T, SUF) LSQ_GRAM_C(T, SUF) LSQ_GRAM_REST(T, SUF)
+#define LSQ_GRAM(T, SUF)                                                     \
+    LSQ_GRAM_C(T, SUF) LSQ_GRAM_SYM(T, SUF) LSQ_GRAM_TAN(T, SUF)
 
-#if LSQ_GRAM_SPECIAL == 32
-LSQ_GRAM(float, _zs_f32)
+#if LSQ_GRAM_SPECIAL == 32 && LSQ_GRAM_TANGENTS
+LSQ_GRAM_TAN(float, _zs_f32)
+#elif LSQ_GRAM_SPECIAL == 64 && LSQ_GRAM_TANGENTS
+LSQ_GRAM_TAN(double, _zs_f64)
+#elif LSQ_GRAM_SPECIAL == 32
+LSQ_GRAM_C(float, _zs_f32)
+LSQ_GRAM_SYM(float, _zs_f32)
 int lsq_matern_table_f32(double nu, int kind, float* out, void* stream)
 {
     return launch_matern_table(nu, kind, out, stream);
@@ -1861,7 +2014,8 @@ int lsq_sfb_table_f32(const float* params, int nterms,
     return launch_sfb_table(params, nterms, codes, out, stream);
 }
 #elif LSQ_GRAM_SPECIAL == 64
-LSQ_GRAM(double, _zs_f64)
+LSQ_GRAM_C(double, _zs_f64)
+LSQ_GRAM_SYM(double, _zs_f64)
 int lsq_matern_table_f64(double nu, int kind, double* out, void* stream)
 {
     return launch_matern_table(nu, kind, out, stream);
@@ -1882,6 +2036,7 @@ LSQ_GRAM(double, _f64)
 
 #undef LSQ_GRAM
 #undef LSQ_GRAM_C
-#undef LSQ_GRAM_REST
+#undef LSQ_GRAM_SYM
+#undef LSQ_GRAM_TAN
 
 }  // extern "C"

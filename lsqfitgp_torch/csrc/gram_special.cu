@@ -1,6 +1,7 @@
-// Kernels C and E and their derivative kernels on the ZooSpecial
-// evaluator (profiles.cuh: term lists with the special-function cores),
-// in float32: gram.cu compiled again, its entry points lsq_gram*_zs_f32,
+// Kernels C and E and their backwards on the ZooSpecial evaluator
+// (profiles.cuh: term lists with the special-function cores), in
+// float32 (the tangent kernels in gram_special_tangents.cu): gram.cu
+// compiled again, its entry points lsq_gram*_zs_f32,
 // so that nvcc builds them in a process of its own and the closed-form
 // evaluators' kernels do not take the special cores' registers
 // (gram_special_f64.cu: the same in float64, in another process).

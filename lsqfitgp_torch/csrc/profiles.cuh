@@ -279,15 +279,6 @@ template <> struct Profile<PROFILE_EXPQUAD> {
         deriv = T(-0.5) * g;
         return g;
     }
-    // g, g' and g''(r^2) from one exponential
-    template <typename T>
-    static __device__ __forceinline__ T second(T r2, T& d1, T& d2)
-    {
-        const T g = value(r2);
-        d1 = T(-0.5) * g;
-        d2 = T(0.25) * g;
-        return g;
-    }
 };
 
 // What a core gives at its argument t: the value, its first and second
@@ -1140,10 +1131,14 @@ struct FixedExpQuad {
         if (r2 > T(0)) v = fma(c * d1, dr2, v);
         return v;
     }
-    // the term's g, dg/dr2 and d2g/dr2^2 (kernels C'' and E'')
+    // the term's g, dg/dr2 and d2g/dr2^2 (kernels C'' and E''), g by
+    // dexp_nonpos (in float64 exp without its slow path's branch)
     __device__ __forceinline__ T second(T r2, T& d1, T& d2) const
     {
-        return P::second(r2, d1, d2);
+        const T g = dexp_nonpos(T(-0.5) * r2);
+        d1 = T(-0.5) * g;
+        d2 = T(0.25) * g;
+        return g;
     }
 };
 

@@ -225,6 +225,79 @@ def test_schur_update_cuda(cuda, gen, dtype, offset, nreal, h, precision):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('size,tile,offset,nreal,h', [
+    (640, 128, 0, None, 300), (640, 128, 128, 700, 300),
+    (768, 384, 384, 1100, 100), (1024, 512, 512, 1400, 1028)])
+def test_schur_update_one_pass_tiles_cuda(cuda, gen, size, tile, offset,
+                                          nreal, h):
+    """Kernel A at 'default' (1xTF32) on its 256 x 128 tiles: a k-depth
+    over several 32-column stages and not a multiple of 32, a size that
+    is not a multiple of 256 (the last row pair half empty) and a
+    caller's tile of 128 or 384 (row pairs crossing the tile diagonal,
+    half of them stored), a nonzero offset and a ragged nreal; held to
+    the module's TF32 bound."""
+    dtype = torch.float32
+    mb = offset + size
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    A = t(gen.standard_normal((size, h)))
+    B = t(gen.standard_normal((mb, mb)))
+    s = t(gen.uniform(0.5, 2, mb))
+    kw = dict(s=s, eps=0.5, size=size, offset=offset, tile=tile,
+              nreal=nreal)
+    n0 = ops.schur_update.launches_tc1
+    got = ops.schur_update(B, A, precision='default', **kw)
+    assert ops.schur_update.launches_tc1 == n0 + 1
+    ref = _syrk.schur_update_plain(B, A, **kw)
+    keep = _syrk._tile_mask(size, tile, cuda)
+    init = _syrk.schur_update_plain(B, torch.zeros_like(A), **kw)
+    err = (got - ref).abs()[keep]
+    assert bool((err <= _tc_tol(A, init, dtype, 'default')[keep]).all()), \
+        float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('size,tile,h', [(640, 128, 300), (768, 384, 100)])
+def test_schur_update_gram_one_pass_tiles_cuda(cuda, gen, size, tile, h):
+    """Kernel D at 'default' on the 1xTF32 kernel's tiles: a size that is
+    not a multiple of 256, a caller's tile of 128 or 384, an offset, a
+    ragged nreal and a k-depth that is not a multiple of 32."""
+    dtype = torch.float32
+    offset = tile
+    npad = offset + size
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)
+    X = t(gen.standard_normal((npad, 1)) * 2)
+    A = t(gen.standard_normal((size, h)) / h ** 0.5)
+    kw = dict(post=(('mul', t(1.7)),), eps=t(0.25), nreal=npad - 70,
+              size=size, offset=offset, tile=tile)
+    n0 = ops.schur_update_gram.launches_tc1
+    got = ops.schur_update_gram('expquad', X, A, precision='default', **kw)
+    assert ops.schur_update_gram.launches_tc1 == n0 + 1
+    ref = _syrk.schur_update_gram_plain('expquad', X, A, **kw)
+    init = _syrk.schur_update_gram_plain('expquad', X, torch.zeros_like(A),
+                                         **kw)
+    keep = _syrk._tile_mask(size, tile, cuda)
+    err = (got - ref).abs()[keep]
+    assert bool((err <= _tc_tol(A, init, dtype, 'default')[keep]).all()), \
+        float(err.max())
+
+
+@pytest.mark.gpu
+def test_one_pass_diagonal_bias_cuda(cuda, gen):
+    """The 1xTF32 kernel sums a whole k-loop in the tensor cores' fp32
+    accumulator, whose sums truncate: on the diagonal of A Aᵀ, all of
+    whose products are positive, the mean relative error at h = 4096
+    stays under the one pass's rounding term (2·2⁻¹¹)."""
+    size, h = 1024, 4096
+    A = torch.as_tensor(gen.standard_normal((size, h)), dtype=torch.float32,
+                        device=cuda)
+    got = ops.schur_update(None, A, tile=size, precision='default')
+    ref = -(A.double() @ A.double().T)
+    S = (A.double().abs() @ A.double().abs().T).diagonal()
+    bias = float(((got.double() - ref).diagonal() / S).mean())
+    assert abs(bias) < 2 * 2.0 ** -11, bias
+
+
+@pytest.mark.gpu
 def test_tensor_core_kernel_raises_on_unaligned_rows(cuda):
     A = torch.zeros((256, 30), device=cuda)
     with pytest.raises(ValueError, match='16-byte aligned'):
@@ -785,6 +858,29 @@ def test_gram_backward_jvp_cuda(cuda, gen, dtype, n, m, p):
                         (res[2], ref[2])
                 else:
                     assert res[2] is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('n,m,p', [(1000, 777, 1), (513, 300, 1),
+                                   (600, 259, 3)])
+def test_gram_backward_jvp_tiles_cuda(cuda, gen, dtype, n, m, p):
+    """Kernel C″ over several blocks of 256 rows and 64 columns, n and m
+    not multiples of 256: each tile's row sums reduce-scattered across
+    the row's lanes; two calls equal to the bit, and the plain version's
+    sums within the bounds of `_bwd_jvp_tol`."""
+    t, x, y, dx, dy, post, dpost = _tangent_inputs(gen, dtype, cuda, n, m, p)
+    kw = dict(post=post, noise=t(0.1), dpost=dpost)
+    G = t(gen.standard_normal((n, m)))
+    tx, ty, tp = _bwd_jvp_tol(G, x, y, dx, dy, dtype, False)
+    ref = ops.gram_backward_jvp_plain(G, 'expquad', x, y, dx, dy, **kw)
+    got = ops.gram_backward_jvp(G, 'expquad', x, y, dx, dy, **kw)
+    again = ops.gram_backward_jvp(G, 'expquad', x, y, dx, dy, **kw)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert bool(((got[0] - ref[0]).abs() <= tx).all())
+    assert bool(((got[1] - ref[1]).abs() <= ty).all())
+    assert bool(((got[2] - ref[2]).abs() <= tp).all()), (got[2], ref[2])
 
 
 @pytest.mark.gpu

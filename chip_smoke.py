@@ -151,7 +151,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It
    n = 16384, its four candidates' evidence held to float64 (ExpQuad
    must win), then ``amp * Matern(nu=1.7, scale)`` fitted (kernel C on
    'matern') against a float64 truth from ``scipy.special.kv``;
-16. prints a JSON line of kernel records and, last, the device line.
+16. the Zeta path (config #3): ``amp * Zeta(nu=1.5)`` with its
+   'fourier' linop fitted at n = 16384 to a three-term Fourier series
+   plus noise (the broadcast Gram, kernels A and B), its Gram held to
+   −30 B₄({Δ}), NLL and gradient to float64, and the 64 predicted
+   coefficients to float64's;
+17. the AR path: ``amp * AR(slnr=[], lnc=[a + ib], norm=True)`` fitted
+   at n = 16384 to an AR(2) with one complex root pair plus noise (the
+   broadcast Gram, kernels A and B), its Gram, NLL and gradient held to
+   a float64 Toeplitz truth from Yule-Walker and the recursion;
+18. prints a JSON line of kernel records and, last, the device line.
 
 Any failed check exits non-zero before the last line.
 
@@ -179,7 +188,8 @@ and the Matérn and multiscale paths; ``--timeseries`` the time-series
 cores' records and the time-series path; ``--hurst`` the 'sfb' records
 and the Hurst path (``--hurst-evals LABEL`` only the timing of its dense
 value + gradient, for checkouts in turns); ``--evidence`` the records of
-the other four cores and the model-comparison path.
+the other four cores and the model-comparison path; ``--zeta`` and
+``--arma`` only the Zeta and the AR paths.
 """
 
 import json
@@ -5003,11 +5013,15 @@ def ts_mean64(t, y, ts, lp):
         @ torch.cholesky_solve(y[:, None], L)[:, 0]
 
 
-def ts_check(what, n, nll32, g32, truth, lp, cond, near_optimum):
+def ts_check(what, n, nll32, g32, truth, lp, cond, near_optimum,
+             amp_noise=None):
     """The port's float32 NLL and gradient in lp = (log amp, θ, log
     noise) against the float64 reference ``truth(lp)`` -> (nll,
     gradient[, the gradient's scale]) (`ts_nll64`, `hurst_nll64`), for a
-    kernel of unit variance: the NLL within 4 eps32 n (amp + noise) /
+    kernel of unit variance (``amp_noise(lp)`` gives the amplitude and
+    the noise variance of another lp: the Zeta path's (log amp, log
+    noise), the AR path's (log amp, log a, b) with its fixed noise): the
+    NLL within 4 eps32 n (amp + noise) /
     noise (the float32 path's diagonal anchor, as `check_points`); away
     from an optimum the gradient within 10 cond eps32 of its scale (its
     norm, or that of its terms' sizes); near one the optimum's shift
@@ -5025,7 +5039,8 @@ def ts_check(what, n, nll32, g32, truth, lp, cond, near_optimum):
     # theirs)
     scale = scale[0] if scale else g64.abs()
     dnll = abs(float(nll32) - nll64)
-    amp, noise = math.exp(lp[0]), math.exp(lp[2])
+    amp, noise = (amp_noise or (
+        lambda q: (math.exp(q[0]), math.exp(q[2]))))(lp)
     lim = 4 * eps32 * n * (amp + noise) / noise
     dg = g32.double() - g64
     log(f'  {what} at {[round(v, 6) for v in lp]}: cond_estimate '
@@ -5046,9 +5061,9 @@ def ts_check(what, n, nll32, g32, truth, lp, cond, near_optimum):
     H = torch.stack([
         (truth([v + h * (k == j) for j, v in enumerate(lp)])[1]
          - truth([v - h * (k == j) for j, v in enumerate(lp)])[1]) / (2 * h)
-        for k in range(3)], 1)
-    Hinv = torch.linalg.inv(0.5 * (H + H.T)
-                            + torch.eye(3, dtype=H.dtype, device=H.device))
+        for k in range(len(lp))], 1)
+    Hinv = torch.linalg.inv(0.5 * (H + H.T) + torch.eye(
+        len(lp), dtype=H.dtype, device=H.device))
     shift = (Hinv @ dg).abs() / Hinv.diagonal().sqrt()
     log(f'    optimum shift from the gradient error: {shift.tolist()} '
         f'posterior sdev (limit 0.1)')
@@ -5355,24 +5370,21 @@ def hurst_data(n, seed=HURST_SEED):
     return np.arange(n, dtype=np.float32), y.astype(np.float32)
 
 
-def hurst_nll64(y, lp, rows=4096, cov=fgn_cov64):
+def toeplitz_nll64(y, g, dgs, noise, rows=4096):
     """Independent float64 reference of the likelihood part of the
-    objective of K = amp Γ + noise I on the unit grid (Γ Toeplitz in
-    the γ of ``cov``, `fgn_cov64`), its gradient in (log amp, h, log
-    noise) and the sizes of the gradient's two terms: K by blocks of
-    rows, ``torch.linalg.cholesky``, ½ <K⁻¹ − α αᵀ, ∂K>, the Toeplitz ∂K
-    by the sums of K⁻¹'s diagonals and α's autocorrelation; no port
-    code."""
+    objective of K = T(g) + noise I on the unit grid (T(v) the symmetric
+    Toeplitz matrix of v), its gradient in parameters with ∂K = T(dg) for
+    each dg of ``dgs``, then in log noise, and the sizes of the
+    gradient's two terms: K by blocks of rows,
+    ``torch.linalg.cholesky``, ½ <K⁻¹ − α αᵀ, ∂K>, the Toeplitz ∂K by the
+    sums of K⁻¹'s diagonals and α's autocorrelation; no port code."""
     import torch
-    amp, h, noise = math.exp(lp[0]), lp[1], math.exp(lp[2])
-    H = 1 / (1 + math.exp(-h))
     n = y.shape[0]
-    g, dg = (torch.as_tensor(v, device=y.device) for v in cov(n, H))
     ar = torch.arange(n, device=y.device)
     K = y.new_empty((n, n))
     for i in range(0, n, rows):
         K[i:i + rows] = g[(ar[i:i + rows, None] - ar[None, :]).abs_()]
-    K.mul_(amp).diagonal().add_(noise)
+    K.diagonal().add_(noise)
     L = torch.linalg.cholesky(K)
     del K
     z = torch.linalg.solve_triangular(L, y[:, None], upper=False)
@@ -5391,11 +5403,20 @@ def hurst_nll64(y, lp, rows=4096, cov=fgn_cov64):
     di[1:] *= 2
     da[1:] *= 2
     # each gradient entry is ½ <K⁻¹ − α αᵀ, ∂K>: its two terms apart
-    ti = 0.5 * torch.stack([amp * (g @ di), amp * H * (1 - H) * (dg @ di),
-                            noise * tr_i])
-    ta = 0.5 * torch.stack([amp * (g @ da), amp * H * (1 - H) * (dg @ da),
-                            noise * tr_a])
+    ti = 0.5 * torch.stack([dg @ di for dg in dgs] + [noise * tr_i])
+    ta = 0.5 * torch.stack([dg @ da for dg in dgs] + [noise * tr_a])
     return nll, ti - ta, ti.abs() + ta.abs()
+
+
+def hurst_nll64(y, lp, rows=4096, cov=fgn_cov64):
+    """`toeplitz_nll64` of K = amp Γ + noise I, Γ Toeplitz in the γ of
+    ``cov`` (`fgn_cov64`), in (log amp, h, log noise)."""
+    import torch
+    amp, h, noise = math.exp(lp[0]), lp[1], math.exp(lp[2])
+    H = 1 / (1 + math.exp(-h))
+    g, dg = (torch.as_tensor(v, device=y.device) for v in cov(y.shape[0], H))
+    return toeplitz_nll64(y, amp * g, [amp * g, amp * H * (1 - H) * dg],
+                          noise, rows)
 
 
 def hurst_controls(what, y64, lp, cond):
@@ -5884,6 +5905,418 @@ def evidence_phase(dev='cuda'):
     return counts
 
 
+# -- the Zeta path (config #3) ---------------------------------------------------
+
+# examples/fourier_series.py's model at n = N: the order, the data's
+# Fourier coefficients ((order, cos or sin, value): cos 2πx + 0.5 sin 4πx
+# + 0.25 cos 6πx), its noise, the coefficients predicted (k = 1 … 64),
+# the seed, the cap of the fit and the hyperprior
+ZETA_NU, ZETA_NOISE, ZETA_COEFS = 1.5, 0.3, 64
+ZETA_TERMS = ((1, 'cos', 1.0), (2, 'sin', 0.5), (3, 'cos', 0.25))
+ZETA_SEED, ZETA_ITERS = 20261022, 10
+ZETA_PRIOR = {'log(amp)': (0., 1.), 'log(noise)': (math.log(0.09), 1.)}
+# the Gram's rows checked in blocks of this many
+ZETA_ROWS = 4096
+
+
+def zeta_data(n, seed=ZETA_SEED):
+    """The Zeta path's data: x sorted uniform on [0, 1), y the
+    ZETA_TERMS series plus ZETA_NOISE times a standard normal, float64 on
+    the host, rounded to float32."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(0, 1, n)).astype(np.float32)
+    x64 = x.astype(np.float64)
+    y = sum(v * (np.cos if f == 'cos' else np.sin)(2 * np.pi * k * x64)
+            for k, f, v in ZETA_TERMS)
+    y = y + ZETA_NOISE * rng.standard_normal(n)
+    return x, y.astype(np.float32)
+
+
+def zeta64(d):
+    """Zeta(ν = 1.5) at the differences d, in float64: s = 4, Σ_k cos(2πkd)
+    / (k⁴ ζ(4)) = −30 B₄({d}), B₄(t) = t⁴ − 2t³ + t² − 1/30 (DLMF 24.8.1);
+    no port code."""
+    t = d - d.floor()
+    return -30 * (((t - 2) * t + 1) * t * t - 1 / 30)
+
+
+def zeta_gram64(x, xs, rows=ZETA_ROWS):
+    out = x.new_empty((x.shape[0], xs.shape[0]))
+    for i in range(0, x.shape[0], rows):
+        out[i:i + rows] = zeta64(x[i:i + rows, None] - xs[None, :])
+    return out
+
+
+def zeta_nll64(x, y, lp):
+    """Independent float64 reference of the likelihood part of the
+    objective of K = amp Z + noise I (Z = `zeta_gram64`), its gradient
+    in (log amp, log noise) and the sizes of the gradient's two terms:
+    ``torch.linalg.cholesky``, ½ <K⁻¹ − α αᵀ, ∂K>; no port code."""
+    import torch
+    amp, noise = math.exp(lp[0]), math.exp(lp[1])
+    Z = zeta_gram64(x, x)
+    K = Z * amp
+    K.diagonal().add_(noise)
+    L = torch.linalg.cholesky(K)
+    del K
+    z = torch.linalg.solve_triangular(L, y[:, None], upper=False)
+    nll = 0.5 * float(z.T @ z) + float(torch.log(L.diagonal()).sum()) \
+        + 0.5 * len(x) * math.log(2 * math.pi)
+    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+    Kinv = torch.cholesky_inverse(L)
+    del L
+    ti = 0.5 * torch.stack([amp * (Kinv * Z).sum(), noise * Kinv.trace()])
+    ta = 0.5 * torch.stack([amp * (alpha @ Z @ alpha), noise * alpha @ alpha])
+    return nll, ti - ta, ti.abs() + ta.abs()
+
+
+def zeta_coefs64(x, y, ks, amp, noise):
+    """Independent float64 reference of the posterior means of the
+    Fourier coefficients ks (even k the cosine of order k/2, odd k the
+    sine of order (k+1)/2) given y at x: their cross covariance with the
+    process, amp/(order⁴ ζ(4)) times the cosine or sine of 2π order x
+    (``CrossZetaFourier``'s closed form at loc 0, scale 1), times K⁻¹ y;
+    no port code."""
+    import torch
+    K = zeta_gram64(x, x) * amp
+    K.diagonal().add_(noise)
+    L = torch.linalg.cholesky(K)
+    del K
+    alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+    order = torch.ceil(ks / 2)
+    arg = 2 * math.pi * order[:, None] * x[None, :]
+    C = torch.where((ks % 2 == 1)[:, None], torch.sin(arg), torch.cos(arg))
+    C *= (amp * 90 / math.pi ** 4 / order ** 4)[:, None]
+    return C @ alpha
+
+
+def broadcast_fit(name, prior, gpfactory, data, iters, gram_ms, cuda):
+    """``empbayes_fit`` in float32 with at most ``iters`` BFGS iterations
+    of a model whose Gram broadcasts (no fast-Gram spec): prints, on one
+    line, the median ms of a value + gradient, the evaluations, the Gram
+    block's ms, the peak memory and A's and B's launches, and requires
+    A and B launched and C and E not."""
+    import torch
+    import lsqfitgp_torch as lgp
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    before = read_counts()
+    t1 = time.perf_counter()
+    fit = lgp.empbayes_fit(prior, gpfactory, data, minkw={'maxiter': iters},
+                           raises=False)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    counts = counts_since(before)
+    evals = len(fit.evaltimes)
+    ms = statistics.median(fit.evaltimes) * 1e3
+    log(f'  {name}: {ms:.1f} ms median value + gradient, {evals} evaluations '
+        f'({fit.minresult.nit} BFGS iterations, {wall:.2f} s wall), Gram '
+        f'block {gram_ms:.2f} ms, peak {peak / 2 ** 30:.2f} GiB '
+        f'({peak / N ** 2:.2f} B/n²); A {counts["schur_update_tc"]} '
+        f'launches, B {counts["syrk_t_full__dmma"]}')
+    log(f'  fit launches {nonzero(counts)}')
+    if cuda:
+        require_launched(counts, ['schur_update_tc', 'syrk_t_full__dmma'],
+                         f'the {name} fit')
+        require_counts(counts, {'gram': 0, 'gram_bwd': 0, 'gram_sym': 0,
+                                'gram_sym_bwd': 0}, f'the {name} fit')
+    return fit
+
+
+def zeta_phase(dev='cuda'):
+    """The Zeta path (config #3, examples/fourier_series.py at n = N):
+    ``GP().defproc('f', amp * Zeta(nu=1.5)).deflinop('F', 'fourier',
+    True, 'f')``, the data (`zeta_data`) on 'f', (log amp, log noise)
+    fitted by ``empbayes_fit`` in float32 with at most ZETA_ITERS BFGS
+    iterations, the noise the data's scalar ``givencov``; then the
+    coefficients k = 1 … ZETA_COEFS on 'F' predicted.  Zeta has no
+    fast-Gram spec in either package: its Gram is the broadcast core's
+    (`special.periodic_zeta` on the n × n differences, s = 4: the
+    Hurwitz branch with its integer-s nudge in both dtypes), the factor
+    and gradient kernels A and B.  Checks: the unit Gram's rows against
+    −30 B₄({Δ}) (`zeta64`) within 64 eps32; NLL and gradient at the
+    start and at the fit against `zeta_nll64` (`ts_check`); the
+    posterior coefficient means against `zeta_coefs64` within 10 cond
+    eps32 of their size, and the data's three within 0.02 of their
+    values; A and B launched, C and E not.  Prints the median ms of a
+    value + gradient, the evaluations, the Gram block's ms, the peak
+    memory and A's and B's launches on one line.  Returns the launch
+    counts of the whole phase."""
+    import torch
+    import lsqfitgp_torch as lgp
+    f32 = torch.float32
+    cuda = dev == 'cuda'
+    torch.set_default_dtype(f32)
+    reset_counts()
+    t0 = time.perf_counter()
+    x, y = zeta_data(N)
+    xt = torch.as_tensor(x, device=dev)
+    yt = torch.as_tensor(y, device=dev)
+    x64, y64 = xt.double(), yt.double()
+    eps32 = torch.finfo(f32).eps
+    log(f'zeta path: amp * Zeta(nu={ZETA_NU}) and its \'fourier\' linop, '
+        f'n = {N} points uniform on [0, 1), y = '
+        + ' + '.join(f'{v} {f} {2 * k}πx' for k, f, v in ZETA_TERMS)
+        + f' + {ZETA_NOISE} ε, seed {ZETA_SEED}')
+
+    def gpfactory(hp):
+        return lgp.GP().defproc('f', hp['amp'] * lgp.Zeta(nu=ZETA_NU)) \
+            .deflinop('F', 'fourier', True, 'f').addx(xt, 'y', proc='f')
+
+    # the Gram: its time, and its rows against the float64 polynomial
+    kern = lgp.Zeta(nu=ZETA_NU)
+    gram = lambda a, b: kern(a[:, None], b[None, :])
+    with torch.no_grad():
+        gram_ms = median_ms(lambda: gram(xt, xt), reps=5) if cuda else \
+            float('nan')
+        err = max(float((gram(xt[i:i + ZETA_ROWS], xt).double()
+                         - zeta_gram64(x64[i:i + ZETA_ROWS], x64))
+                        .abs().max()) for i in range(0, N, ZETA_ROWS))
+    log(f'  the Gram ({N}²): {gram_ms:.2f} ms; max |port float32 − '
+        f'float64 −30 B₄| {err:.3e} (limit {64 * eps32:.3e})')
+    if not err <= 64 * eps32:
+        fail('the Zeta Gram disagrees with the float64 polynomial')
+
+    fit = broadcast_fit('zeta', ZETA_PRIOR, gpfactory,
+                        lambda hp: ({'y': yt}, hp['noise']), ZETA_ITERS,
+                        gram_ms, cuda)
+    amp, noise = float(fit.pmean['amp']), float(fit.pmean['noise'])
+    fitted = [math.log(amp), math.log(noise)]
+    log(f'  fitted amp {amp:.6g}, noise {noise:.6g}; pcov '
+        f'{fit.pcov.tolist()}')
+
+    def value_grad32(lp):
+        lp = torch.tensor(lp, dtype=f32, device=dev, requires_grad=True)
+        hp = {'amp': lp[0].exp(), 'noise': lp[1].exp()}
+        nll = -gpfactory(hp).marginal_likelihood({'y': yt}, hp['noise'])
+        g, = torch.autograd.grad(nll, lp)
+        with torch.no_grad():
+            K = gpfactory(hp).prior('y', raw=True)
+            K.diagonal().add_(hp['noise'])
+            cond = float(lgp.linalg.Chol(K).cond_estimate)
+        return nll.detach(), g, cond
+
+    start = [ZETA_PRIOR['log(amp)'][0], ZETA_PRIOR['log(noise)'][0]]
+    amp_noise = lambda q: (math.exp(q[0]), math.exp(q[1]))
+    for label, lp, near in (('start point', start, False),
+                            ('fitted point', fitted, True)):
+        nll, g, cond = value_grad32(lp)
+        ts_check(f'dense n = {N}, {label}', N, nll, g,
+                 lambda q: zeta_nll64(x64, y64, q), lp, cond, near,
+                 amp_noise=amp_noise)
+
+    ks = torch.arange(1, ZETA_COEFS + 1, device=dev)
+    mean = fit.gp().addx(ks, 'coef', proc='F').predfromdata(
+        {'y': yt}, 'coef', noise).mean
+    with torch.no_grad():
+        ref = zeta_coefs64(x64, y64, ks.double(), amp, noise)
+    dmean = float((mean.double() - ref).abs().max())
+    lim = 10 * cond * eps32 * float(ref.abs().max())
+    want = {2 * k - (f == 'sin'): v for k, f, v in ZETA_TERMS}
+    log(f'  posterior coefficients k = 1 … {ZETA_COEFS}: max |port − '
+        f'float64| {dmean:.3e} (limit {lim:.3e}); '
+        + ', '.join(f'k = {k}: {float(mean[k - 1]):.4f} (data {v})'
+                    for k, v in want.items()))
+    if not bool(torch.isfinite(mean).all()) or mean.shape != (ZETA_COEFS,):
+        fail('Zeta posterior coefficients not finite or of the wrong shape')
+    if dmean > lim:
+        fail('Zeta posterior coefficients disagree with the float64 '
+             'reference')
+    if any(abs(float(mean[k - 1]) - v) > 0.02 for k, v in want.items()):
+        fail('the Zeta fit misses the data\'s Fourier coefficients')
+    counts = read_counts()
+    log(f'  the phase: {time.perf_counter() - t0:.1f} s; launches '
+        f'{nonzero(counts)}')
+    return counts
+
+
+# -- the AR path ---------------------------------------------------------------
+
+# an AR(2) with one complex root pair, lnc = a + ib: a damped 50-step
+# cycle, at unit variance (norm=True), its amplitude, the data's seed and
+# burn-in, the cap of the fit and the hyperprior (warm: at the truth)
+ARMA_TRUE = dict(amp=1.0, a=0.05, b=2 * math.pi / 50)
+ARMA_SEED, ARMA_BURN, ARMA_ITERS = 20261023, 4096, 10
+ARMA_PRIOR = {'log(amp)': (0., 1.), 'log(a)': (math.log(ARMA_TRUE['a']), 1.),
+              'b': (ARMA_TRUE['b'], 1.)}
+
+
+def arma_phi(a, b):
+    """(φ1, φ2) of the AR(2) with the roots e^{a ± ib}: 2 e^{−a} cos b,
+    −e^{−2a}, and their derivatives in a and in b."""
+    e = math.exp(-a)
+    phi = (2 * e * math.cos(b), -e * e)
+    return phi, ((-phi[0], 2 * e * e), (-2 * e * math.sin(b), 0.0))
+
+
+def arma_acf64(n, a, b):
+    """The autocorrelation ρ_0 … ρ_{n−1} of the AR(2) at (a, b) and its
+    a- and b-derivatives, float64 on the host by Yule-Walker (ρ1 = φ1 /
+    (1 − φ2)) and the recursion ρ_k = φ1 ρ_{k−1} + φ2 ρ_{k−2}, the
+    derivatives carried through both; no port code."""
+    import numpy as np
+    (p1, p2), dphi = arma_phi(a, b)
+    out = np.zeros((3, n))
+    out[0, 0] = 1.0
+    for j, (d1, d2) in enumerate(dphi, 1):
+        out[j, 1] = (d1 * (1 - p2) + p1 * d2) / (1 - p2) ** 2
+    out[0, 1] = p1 / (1 - p2)
+    for k in range(2, n):
+        out[0, k] = p1 * out[0, k - 1] + p2 * out[0, k - 2]
+        for j, (d1, d2) in enumerate(dphi, 1):
+            out[j, k] = d1 * out[0, k - 1] + p1 * out[j, k - 1] \
+                + d2 * out[0, k - 2] + p2 * out[j, k - 2]
+    return out
+
+
+def arma_data(n, seed=ARMA_SEED):
+    """The AR path's data: t = 0 … n−1 and y = √amp x + √NOISE_VAR ε, x
+    the AR(2) at ARMA_TRUE with unit innovations, scaled to unit
+    variance, simulated in float64 on the host after ARMA_BURN steps of
+    burn-in, rounded to float32."""
+    import numpy as np
+    from scipy.signal import lfilter
+    rng = np.random.default_rng(seed)
+    (p1, p2), _ = arma_phi(ARMA_TRUE['a'], ARMA_TRUE['b'])
+    x = lfilter([1.0], [1.0, -p1, -p2],
+                rng.standard_normal(n + ARMA_BURN))[ARMA_BURN:]
+    # the stationary variance of unit innovations (Yule-Walker)
+    var = (1 - p2) / ((1 + p2) * ((1 - p2) ** 2 - p1 ** 2))
+    y = math.sqrt(ARMA_TRUE['amp'] / var) * x \
+        + math.sqrt(NOISE_VAR) * rng.standard_normal(n)
+    return np.arange(n, dtype=np.float32), y.astype(np.float32)
+
+
+def arma_nll64(y, lp):
+    """`toeplitz_nll64` of K = amp T(ρ) + NOISE_VAR I, ρ = `arma_acf64`,
+    in (log amp, log a, b); the noise's entry dropped."""
+    import torch
+    amp, a, b = math.exp(lp[0]), math.exp(lp[1]), lp[2]
+    r, ra, rb = torch.as_tensor(arma_acf64(y.shape[0], a, b),
+                                device=y.device)
+    nll, g, scale = toeplitz_nll64(y, amp * r,
+                                   [amp * r, amp * a * ra, amp * rb],
+                                   NOISE_VAR)
+    return nll, g[:3], scale[:3]
+
+
+def arma_phase(dev='cuda'):
+    """The AR path: ``amp * AR(slnr=[], lnc=[a + ib], norm=True)`` on the
+    integer times t = 0 … n−1 (n = N), an AR(2) with one complex root
+    pair, data from `arma_data`, noise NOISE_VAR as the data's scalar
+    ``givencov``, (log amp, log a, b) fitted by ``empbayes_fit`` in
+    float32 with at most ARMA_ITERS BFGS iterations from the truth.  AR
+    has no fast-Gram spec in either package: its Gram is the broadcast
+    core's (the log-root basis at the n × n lags, its graph recomputed
+    in the backward), the factor and gradient kernels A and B.  Checks:
+    the unit Gram at the start and at the fit against the float64
+    Toeplitz autocorrelation (`arma_acf64`) within 64 eps32; NLL and
+    gradient at both points against `arma_nll64` (`ts_check`); the
+    fitted a and b within 3 posterior sdev of the truth; A and B
+    launched, C and E not.  Prints the median ms of a value + gradient,
+    the evaluations, the Gram block's ms, the peak memory and A's and
+    B's launches on one line.  Returns the launch counts of the whole
+    phase."""
+    import torch
+    import lsqfitgp_torch as lgp
+    f32 = torch.float32
+    cuda = dev == 'cuda'
+    torch.set_default_dtype(f32)
+    reset_counts()
+    t0 = time.perf_counter()
+    t, y = arma_data(N)
+    tt = torch.as_tensor(t, device=dev)
+    yt = torch.as_tensor(y, device=dev)
+    y64 = yt.double()
+    eps32 = torch.finfo(f32).eps
+    log(f'arma path: amp * AR(slnr=[], lnc=[a + ib], norm=True) on t = 0 … '
+        f'{N - 1}, an AR(2) at {ARMA_TRUE} plus noise {NOISE_VAR}, seed '
+        f'{ARMA_SEED} ({time.perf_counter() - t0:.1f} s on the host)')
+
+    def kernel(hp):
+        lnc = torch.complex(hp['a'], hp['b'])[None]
+        return hp['amp'] * lgp.AR(slnr=[], lnc=lnc, norm=True)
+
+    def gpfactory(hp):
+        return lgp.GP(kernel(hp)).addx(tt, 'y')
+
+    def lp_of(pmean):
+        return [math.log(float(pmean['amp'])), math.log(float(pmean['a'])),
+                float(pmean['b'])]
+
+    def check_gram(label, lp):
+        hp = {'amp': torch.tensor(1.0, device=dev),
+              'a': torch.tensor(math.exp(lp[1]), device=dev),
+              'b': torch.tensor(lp[2], device=dev)}
+        with torch.no_grad():
+            K = lgp.GP(kernel(hp)).addx(tt, 'y').prior('y', raw=True)
+        r = torch.as_tensor(arma_acf64(N, float(hp['a']), float(hp['b']))[0],
+                            device=dev)
+        ar = torch.arange(N, device=dev)
+        err = max(float((K[i:i + ZETA_ROWS].double()
+                         - r[(ar[i:i + ZETA_ROWS, None] - ar[None, :]).abs()])
+                        .abs().max()) for i in range(0, N, ZETA_ROWS))
+        log(f'  the unit Gram at the {label}: max |port float32 − float64 '
+            f'Toeplitz ρ| {err:.3e} (limit {64 * eps32:.3e})')
+        if not err <= 64 * eps32:
+            fail(f'the AR Gram at the {label} disagrees with the float64 '
+                 f'autocorrelation')
+
+    start = [ARMA_PRIOR[k][0] for k in ('log(amp)', 'log(a)', 'b')]
+    check_gram('start point', start)
+    hp0 = {'amp': torch.tensor(1.0, device=dev),
+           'a': torch.tensor(ARMA_TRUE['a'], device=dev),
+           'b': torch.tensor(ARMA_TRUE['b'], device=dev)}
+    with torch.no_grad():
+        k0 = kernel(hp0)
+        gram_ms = median_ms(lambda: k0(tt[:, None], tt[None, :]), reps=5) \
+            if cuda else float('nan')
+
+    fit = broadcast_fit('arma', ARMA_PRIOR, gpfactory,
+                        lambda hp: ({'y': yt}, NOISE_VAR), ARMA_ITERS,
+                        gram_ms, cuda)
+    fitted = lp_of(fit.pmean)
+    log(f'  fitted amp, a, b {math.exp(fitted[0]):.6g}, '
+        f'{math.exp(fitted[1]):.6g}, {fitted[2]:.6g} (true {ARMA_TRUE}); '
+        f'pcov {fit.pcov.tolist()}')
+    check_gram('fitted point', fitted)
+
+    def value_grad32(lp):
+        lp = torch.tensor(lp, dtype=f32, device=dev, requires_grad=True)
+        hp = {'amp': lp[0].exp(), 'a': lp[1].exp(), 'b': lp[2]}
+        nll = -gpfactory(hp).marginal_likelihood({'y': yt}, NOISE_VAR)
+        g, = torch.autograd.grad(nll, lp)
+        with torch.no_grad():
+            K = gpfactory(hp).prior('y', raw=True)
+            K.diagonal().add_(NOISE_VAR)
+            cond = float(lgp.linalg.Chol(K).cond_estimate)
+        return nll.detach(), g, cond
+
+    amp_noise = lambda q: (math.exp(q[0]), NOISE_VAR)
+    sdev = None
+    for label, lp, near in (('start point', start, False),
+                            ('fitted point', fitted, True)):
+        nll, g, cond = value_grad32(lp)
+        sdev = ts_check(f'dense n = {N}, {label}', N, nll, g,
+                        lambda q: arma_nll64(y64, q), lp, cond, near,
+                        amp_noise=amp_noise)
+    dev_a = abs(fitted[1] - math.log(ARMA_TRUE['a'])) / float(sdev[1])
+    dev_b = abs(fitted[2] - ARMA_TRUE['b']) / float(sdev[2])
+    log(f'  fitted log a, b: {dev_a:.2f} and {dev_b:.2f} posterior sdev '
+        f'from the truth (limit 3)')
+    if not (dev_a <= 3 and dev_b <= 3):
+        fail('the fitted AR roots are more than 3 posterior sdev from the '
+             'truth')
+    counts = read_counts()
+    log(f'  the phase: {time.perf_counter() - t0:.1f} s; launches '
+        f'{nonzero(counts)}')
+    return counts
+
+
 # the records `zoo_times` times: FixedExpQuad ('expquad', the main path's
 # single term), every closed-form record of ZOO_RECORDS and TS_RECORDS at
 # its p (ZooOne at p = 1 for one term, Zoo for the sum and at p > 1),
@@ -6283,6 +6716,10 @@ def main(argv):
                 torch.cuda.empty_cache()
         timeseries_phase()
         return 0
+    if argv in (['--zeta'], ['--arma']):
+        build()
+        (zeta_phase if argv == ['--zeta'] else arma_phase)()
+        return 0
     if argv in (['--hurst'], ['--evidence']):
         build()
         gen = torch.Generator(device='cuda').manual_seed(SEED)
@@ -6350,6 +6787,12 @@ def main(argv):
     log(f'elapsed {time.perf_counter() - t0:.1f} s')
     torch.cuda.empty_cache()
     paths['evidence'] = evidence_phase()
+    log(f'elapsed {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    paths['zeta'] = zeta_phase()
+    log(f'elapsed {time.perf_counter() - t0:.1f} s')
+    torch.cuda.empty_cache()
+    paths['arma'] = arma_phase()
     # each kernel's launches are those of its own path's run: the dense
     # fit's, but for A, C and C's backward in float64 the float64 dense
     # evaluation's.  C's and E's counters do not tell the dtypes apart:
@@ -6368,7 +6811,8 @@ def main(argv):
     dtype_paths = {'float32': ['rescue', 'dense', 'stream', 'halfmatrix',
                                'second', 'fishvec', 'halfmatrix_hess',
                                'deriv', 'multidim', 'matern', 'multiscale',
-                               'timeseries', 'hurst', 'evidence'],
+                               'timeseries', 'hurst', 'evidence', 'zeta',
+                               'arma'],
                    'float64': ['dense64']}
     for rec in records:
         base = rec['name'].split('/')[0]

@@ -13,9 +13,10 @@ derivative observations and derived processes (``defderiv``,
 ``deftransf``, ``deflintransf``, ...); the streaming solver
 (``GP(solver='chol-stream')``), which never forms the Gram matrix; and
 ``GP(halfmatrix=True)``; the zoo of ``kernels/_basic.py``,
-``_matern.py``, ``_randomwalk.py``, ``_wendland.py``, ``_celerite.py``
-and ``_spectral.py`` with the special functions it needs
-(``special``).  Five kernels are hand-written CUDA for ``sm_90a``
+``_matern.py``, ``_randomwalk.py``, ``_wendland.py``, ``_celerite.py``,
+``_spectral.py``, ``_zeta.py`` (with its 'fourier' linop family) and
+``_arma.py``, the special functions (``special``) and the Toeplitz and
+row-sequential solvers (``linalg.toeplitz``, ``linalg.seqalg``).  Five kernels are hand-written CUDA for ``sm_90a``
 (``ops``): the Schur update of the factorization, the same with the
 Gram computed in the tile, the gradient's WᵀW, and the tiled Gram in
 full and on the upper triangle, the last three on the zoo's profiles

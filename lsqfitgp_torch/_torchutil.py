@@ -2,8 +2,9 @@
 
 Counterpart of the parts of ``lsqfitgp_tpu/_jaxutil.py`` that the port
 uses (``elementwise_grad``, ``limit_derivatives``), plus the tensor
-conversion every entry point shares and `recompute`, which drops a
-derivative block's graph once the block is formed.
+conversion every entry point shares and `recompute`, which forms a
+block (a derivative block, the AR basis) without its graph and builds
+it again in the backward.
 
 JAX's ``skipifabstract`` runs a sanity check only when the values are
 concrete, so checks vanish under ``jit``.  PyTorch has no abstract
@@ -236,24 +237,45 @@ class _OuterInputs(torch.overrides.TorchFunctionMode):
         return out
 
 
+class _Substitute(torch.overrides.TorchFunctionMode):
+    """Passes ``subs[id(t)]`` wherever a torch function gets the tensor
+    ``t``."""
+
+    def __init__(self, subs):
+        super().__init__()
+        self.subs = subs
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        args, kwargs = pytree.tree_map(
+            lambda t: self.subs.get(id(t), t) if isinstance(t, torch.Tensor)
+            else t, (args, kwargs or {}))
+        return func(*args, **kwargs)
+
+
 class _Recompute(torch.autograd.Function):
     """``value`` = ``fn()``, computed without a graph kept, as a function
     of the outer tensors ``inputs`` that ``fn`` reads: the backward
     computes ``fn()`` again with its graph and differentiates that,
-    keeping the graph only under ``create_graph`` (a second derivative)."""
+    keeping the graph only under ``create_graph`` (a second derivative).
+    In the recomputation ``fn`` reads each input through an alias of its
+    own, so that the derivative with respect to one input does not run
+    on through another that it is computed from (the outer graph counts
+    that path)."""
 
     @staticmethod
     def forward(ctx, fn, value, *inputs):
         ctx.fn = fn
+        ctx.ids = [id(t) for t in inputs]
         ctx.save_for_backward(*inputs)
         return value
 
     @staticmethod
     def backward(ctx, g):
-        inputs = ctx.saved_tensors
-        with torch.enable_grad(), _recomputing():
-            out = ctx.fn()
-        grads = torch.autograd.grad(out, inputs, g, allow_unused=True,
+        with torch.enable_grad():
+            aliases = [t.view_as(t) for t in ctx.saved_tensors]
+            with _recomputing(), _Substitute(dict(zip(ctx.ids, aliases))):
+                out = ctx.fn()
+        grads = torch.autograd.grad(out, aliases, g, allow_unused=True,
                                     create_graph=torch.is_grad_enabled())
         return (None, None) + grads
 
@@ -269,25 +291,26 @@ def _recomputing():
 
 
 def recompute(fn):
-    """``fn()``, a tensor, with its autograd graph dropped once computed
-    and built again in the backward: a derivative block's graph holds
-    many tensors of the block's size (`elementwise_grad` keeps each
-    order's), the recomputation one block's at a time.  ``fn()`` is
-    returned as it is where nothing would be saved or the graph is
+    """``fn()``, a tensor, computed without an autograd graph and built
+    again in the backward: a derivative block's graph holds many tensors
+    of the block's size (`elementwise_grad` keeps each order's), the
+    recomputation one block's at a time, and the forward none.  ``fn()``
+    is returned as it is where nothing would be saved or the graph is
     needed: without grad mode, inside a differentiation by
     `elementwise_grad` or another recomputation, under forward-mode AD
     (dual tensors, which a recomputation would drop) or a functorch
-    transform, or when the result needs no gradient."""
+    transform, or when it reads no tensor that requires grad."""
     st = _stack()
     if not torch.is_grad_enabled() or st.targets \
             or getattr(st, 'recomputing', 0) \
             or torch._C._are_functorch_transforms_active():
         return fn()
     mode = _OuterInputs()
-    with _recomputing(), mode:
+    with _recomputing(), mode, torch.no_grad():
         out = fn()
     inputs = list(mode.found.values())
-    if not out.requires_grad or not inputs \
-            or fwAD.unpack_dual(out).tangent is not None:
+    if not inputs:
         return out
-    return _Recompute.apply(fn, out.detach(), *inputs)
+    if any(fwAD.unpack_dual(t).tangent is not None for t in inputs):
+        return fn()
+    return _Recompute.apply(fn, out, *inputs)

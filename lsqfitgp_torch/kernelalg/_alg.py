@@ -12,10 +12,10 @@ specs (`_fastgram.add_specs`); every other operation drops the spec.
 from __future__ import annotations
 
 import functools
-import math
 
 import torch
 
+from ..special._exp import expm1x
 from . import _fastgram, _util
 from ._core import CrossKernel, AffineSpan
 
@@ -70,18 +70,6 @@ def rpow(tcls, self, *, base):
         return self._clone(core=lambda x, y, **kw: base
                            ** core(x, y, **kw))
     return NotImplemented
-
-
-def expm1x(x):
-    r"""e^x - 1 - x, accurately: a Taylor series for |x| < 1, else
-    ``expm1(x) - x``."""
-    nterms = 10 if x.dtype == torch.float32 else 17
-    # x²/2 · ₁F₁(1, 3, x) as a Horner polynomial in x
-    small = torch.zeros_like(x)
-    for k in range(nterms, 1, -1):
-        small = small * x + 1 / math.factorial(k)
-    small = x * x * small
-    return torch.where(x.abs() < 1, small, torch.expm1(x) - x)
 
 
 # functions with nonnegative Taylor coefficients: map PSD -> PSD
